@@ -14,15 +14,21 @@ Phases (any failure raises and exits nonzero before the last line):
    main path's shapes, with its time, the plain version's time, the bound
    (bytes over 3.35 TB/s or operations over the tensor-core peak) and one
    PyTorch library call's time where one computes the same function;
-3. a full-width, depth-cut Llama-3-8B forward (2 layers), prefill and one
-   decode step, with kernels and with the plain versions on the same
-   weights;
+3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
+   prefill and one decode step, a chunked prefill of the same prompts, and
+   an 8-step decode window replayed from a captured CUDA graph against the
+   eager loop, each with kernels against the plain versions;
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
    launch count read from that run alone;
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
-   the last line.
+5. ``bench.py``'s protocol through the port's engine and
+   ``omniserve_tpu_torch.qserve_benchmark.run_round``: static batch 128,
+   1024 prompt tokens, 512 greedy tokens, chunked prefill of 8192 tokens,
+   32-step decode windows, two rounds (the first is warmup), then a
+   traced chunked prefill and decode window;
+6. a ``{"kernels": [...]}`` line, the card line, then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Exits 2 without CUDA or without the repository's package beside this
 file.
@@ -31,6 +37,7 @@ file.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -75,6 +82,44 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+@contextlib.contextmanager
+def card_samples(label: str, period_ms: int = 500):
+    """Sample the card's SM clock, power draw and temperature every
+    ``period_ms`` with ``nvidia-smi`` while the block runs; print their
+    range and median after it (the sampler is stopped in every case)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", f"--loop-ms={period_ms}"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        yield
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    if not rows:
+        log(f"  card during {label}: no nvidia-smi samples")
+        return
+    cols = list(zip(*rows))
+    desc = []
+    for name, unit, col in zip(("SM clock", "power draw", "temperature"),
+                               ("MHz", "W", "C"), cols):
+        c = sorted(col)
+        desc.append(f"{name} {c[0]:g}-{c[-1]:g} {unit} (median "
+                    f"{c[len(c) // 2]:g})")
+    log(f"  card during {label}, {len(rows)} samples: " + ", ".join(desc))
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -129,13 +174,15 @@ def check_quant_gemms(dev, gen):
 
     rows = []
     worst = 0.0
-    for m in (8, 8192):
+    # decode at batch 8 and 128; a whole-prompt prefill of 8 x 1024 and
+    # a [128, 128] chunk of the bench's chunked prefill
+    for m in (8, 128, 8192, 16384):
         for name, k, n in LAYER_GEMMS:
             x = torch.randn((m, k), generator=gen, device=dev)
             a_i8, a_scale, a_sum = quantize_activations(x, fuse_sum=True)
             w_bytes = k // 2 * n
             # decode finds each layer's weights cold: rotate copies past L2
-            n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 16 else 1
+            n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 128 else 1
             qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
                                  dtype=torch.uint8, device=dev)
                    for _ in range(n_copies)]
@@ -150,7 +197,7 @@ def check_quant_gemms(dev, gen):
                                f"w4a8 M={m} K={k} N={n}")
             worst = max(worst, err)
             it = iter(range(10 ** 9))
-            reps = 50 if m <= 16 else 10
+            reps = 50 if m <= 128 else 10
             ms = time_ms(lambda: qm.w4a8_matmul_per_channel(
                 a_i8, qws[next(it) % n_copies], s1, sz, a_scale, a_sum),
                 reps)
@@ -180,13 +227,13 @@ def check_quant_gemms(dev, gen):
     return rows, worst
 
 
-def check_w8a8(dev, gen):
+def check_w8a8(dev, gen, m=8):
     import torch
 
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
-    m, k, n = 8, 4096, 128256
+    k, n = 4096, 128256
     x = torch.randn((m, k), generator=gen, device=dev)
     a_i8, a_scale, _ = quantize_activations(x)
     w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
@@ -251,34 +298,21 @@ def check_flash(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_decode(dev, gen):
+def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
     from omniserve_tpu_torch.ops.paged_kv import KVPool
 
-    b, hkv, n_rep, d, page, layers = 8, 8, 4, 128, 128, 2
-    lens = torch.randint(1000, 1101, (b,), generator=gen, device=dev).to(
-        torch.int32)
+    hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
+    lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
+                         device=dev).to(torch.int32)
     w = int((int(lens.max()) + page - 1) // page)
     n_pages = b * w + 1
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
     tables = perm[: b * w].view(b, w).to(torch.int32)
-    shape = (layers, n_pages, hkv, page // 2, d)
-    k_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
-                           device=dev)
-    v_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
-                           device=dev)
-    planes = torch.empty((layers, n_pages, 4, hkv, page), device=dev)
-    ks = torch.empty(planes[:, :, 0].shape, device=dev).uniform_(
-        0.1, 0.4, generator=gen)
-    kz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
-    vs = torch.empty_like(ks).uniform_(0.1, 0.4, generator=gen)
-    vz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
-    planes[:, :, 0], planes[:, :, 1] = ks, ks * (kz + 128.0)
-    planes[:, :, 2], planes[:, :, 3] = vs, vz + 128.0
-    pool_k = KVPool(k_data, v_data, planes)
-    pool_p = KVPool(k_data.clone(), v_data.clone(), planes.clone())
+    pool_k = random_kv4_pool(gen, dev, layers, n_pages, hkv, page, d)
+    pool_p = KVPool(*(x.clone() for x in pool_k))
     q = torch.randn((b, hkv * n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
     k_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(
@@ -315,6 +349,84 @@ def check_decode(dev, gen):
         f"library_ms None max_abs_err {err:.3g}; pool bytes equal")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None, max_abs_err=err)
+
+
+def random_kv4_pool(gen, dev, layers, n_pages, hkv, page, d):
+    """A kv4 pool of random codes and folded planes (scales in [0.1, 0.4],
+    integer zeros), as ``append_kv`` would leave it."""
+    import torch
+
+    from omniserve_tpu_torch.ops.paged_kv import KVPool
+
+    shape = (layers, n_pages, hkv, page // 2, d)
+    k_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                           device=dev)
+    v_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                           device=dev)
+    planes = torch.empty((layers, n_pages, 4, hkv, page), device=dev)
+    ks = torch.empty(planes[:, :, 0].shape, device=dev).uniform_(
+        0.1, 0.4, generator=gen)
+    kz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
+    vs = torch.empty_like(ks).uniform_(0.1, 0.4, generator=gen)
+    vz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
+    planes[:, :, 0], planes[:, :, 1] = ks, ks * (kz + 128.0)
+    planes[:, :, 2], planes[:, :, 3] = vs, vz + 128.0
+    return KVPool(k_data, v_data, planes)
+
+
+def check_paged_prefill(dev, gen):
+    """The bench's last chunk: 128 sequences x 128 chunk tokens after 896
+    tokens of history, Llama-3-8B heads, pages of 128 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import gather_kv_for_seq
+
+    b, tc, history, hkv, n_rep, d, page = 128, 128, 896, 8, 4, 128, 128
+    ctx_len = history + tc
+    w = ctx_len // page
+    pool = random_kv4_pool(gen, dev, 1, b * w + 1, hkv, page, d)
+    perm = torch.randperm(b * w, generator=gen, device=dev)
+    tables = perm.view(b, w).to(torch.int32)
+    q = torch.randn((b, tc, hkv * n_rep, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q_pos = (history + torch.arange(tc, device=dev, dtype=torch.int32)
+             ).repeat(b, 1).contiguous()
+    ctx = torch.full((b,), ctx_len, dtype=torch.int32, device=dev)
+    sm = d ** -0.5
+    args = (q, pool, 0, tables, q_pos, ctx)
+    got = pp.paged_prefill_attention(*args, sm_scale=sm, page_size=page)
+    want = pp.paged_prefill_attention_plain(*args, sm_scale=sm,
+                                            page_size=page)
+    err = allclose_err(got, want, 2e-2, 2e-2, "paged prefill")
+    ms = time_ms(lambda: pp.paged_prefill_attention(
+        *args, sm_scale=sm, page_size=page), 5, warmup=1)
+    plain = time_ms(lambda: pp.paged_prefill_attention_plain(
+        *args, sm_scale=sm, page_size=page), 1, warmup=0)
+    # library yardstick: SDPA over K/V dequantized BEFOREHAND (the
+    # dequantization and the gather are left out of its time)
+    k, v = gather_kv_for_seq(pool, 0, tables, page)     # [B, ctx, Hkv, D]
+    kb = k.to(torch.bfloat16).transpose(1, 2).contiguous()
+    vb = v.to(torch.bfloat16).transpose(1, 2).contiguous()
+    del k, v
+    qb = q.transpose(1, 2)
+    mask = (torch.arange(ctx_len, device=dev)[None, :]
+            <= q_pos[0][:, None])                       # [Tc, ctx]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, scale=sm, enable_gqa=True), 5, warmup=1)
+    pairs = b * sum(history + i + 1 for i in range(tc))
+    kv_bytes = b * w * hkv * (page * d + 4 * 4 * page)  # codes + 4 planes
+    n_bytes = kv_bytes + 2 * (2 * b * tc * hkv * n_rep * d) + 8 * b * tc
+    bnd, by = bound_ms(n_bytes, 4.0 * d * hkv * n_rep * pairs,
+                       BF16_FLOPS_PER_S)
+    log(f"  paged prefill B={b} Tc={tc} history={history} Hq={hkv * n_rep} "
+        f"Hkv={hkv} D={d} page={page}: kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} "
+        f"(SDPA over pre-dequantized K/V, dequantization not counted) "
+        f"max_abs_err {err:.3g}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -408,11 +520,117 @@ def check_forward(dev):
     log(f"  prefill wall (2 layers, T={sum(lens)}): kernels "
         f"{results['kernels']['t_pre'] * 1e3:.1f} ms, plain "
         f"{results['plain']['t_pre'] * 1e3:.1f} ms (first call, host clock)")
+    return spec, params, [p.tolist() for p in prompts], tables
+
+
+def check_chunked_forward(dev, spec, params, prompts, tables):
+    """The same prompts prefilled in [4, 512] chunks (the runner's geometry
+    for a 2048-token budget): the 700- and 1024-token prompts take two
+    chunks, the second attending the first through the paged pool. Kernels
+    against plain versions; returns the kernels' pool and next tokens."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
+
+    seqs = [(p, tables[i].tolist()) for i, p in enumerate(prompts)]
+    results = {}
+    for mode in ("kernels", "plain"):
+        pool = make_kv_pool(spec.num_layers, tables.numel() + 1,
+                            spec.num_kv_heads, spec.page_size, spec.head_dim,
+                            device=dev)
+        ctx = (cuda.plain_versions() if mode == "plain"
+               else contextlib.nullcontext())
+        final, n_chunks = None, 0
+        with ctx, torch.inference_mode():
+            for batch, ends in chunked_prefill_batches(seqs, 2048,
+                                                       spec.page_size, dev):
+                logits, _, _, _ = llama.llama_forward(
+                    params, pool, None, batch, spec, is_prefill=True)
+                final = logits if final is None else torch.where(
+                    ends[:, None], logits, final)
+                n_chunks += 1
+        results[mode] = (final[: len(seqs)], pool)
+    if n_chunks != 2:
+        raise AssertionError(f"chunked prefill ran {n_chunks} chunks, not 2")
+    a, b_ = results["kernels"][0], results["plain"][0]
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("chunked prefill: non-finite logits")
+    scale = float(b_.abs().max())
+    err = float((a - b_).abs().max())
+    log(f"  chunked prefill 2 layers, 2 chunks of [4, 512]: max |logit| "
+        f"{scale:.4g}, max abs diff kernels vs plain {err:.4g} "
+        f"({err / scale:.3g} of max), argmax agreement "
+        f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
+    if err > LOGITS_RTOL * scale:
+        raise AssertionError(f"chunked prefill: logits differ by {err} > "
+                             f"{LOGITS_RTOL} x {scale}")
+    return results["kernels"][1], a.argmax(-1)
+
+
+def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8):
+    """An ``n_steps`` greedy window over the prefilled pool: replays of the
+    captured decode step against the eager loop of the same step on a copy
+    of the pool. Tokens and pool bytes must be equal."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.worker.decode_window import DecodeWindow
+    from omniserve_tpu_torch.worker.model_runner import table_width
+
+    n, b_pad = len(lens), 8
+    w = table_width([[0] * tables.shape[1]])
+    bt = np.zeros((b_pad, w), np.int32)
+    bt[:n, : tables.shape[1]] = tables.numpy()
+    tokens = np.zeros(b_pad, np.int32)
+    tokens[:n] = first.cpu().numpy()
+    positions = np.zeros(b_pad, np.int32)
+    positions[:n] = lens
+    active = np.arange(b_pad) < n
+    twin = type(pool)(*(x.clone() for x in pool))
+    out = {}
+    with torch.inference_mode():
+        for mode, p in (("graph", pool), ("eager", twin)):
+            win = DecodeWindow(params, p, spec, b_pad, w, dev,
+                               use_graph=mode == "graph")
+            win.load(tokens, positions, active, bt)
+            out[mode] = win.run(n_steps)[:, :n].cpu()
+            if mode == "graph":
+                capture_s = win.capture_s
+    if not torch.equal(out["graph"], out["eager"]):
+        raise AssertionError(f"window: graph tokens {out['graph'].tolist()} "
+                             f"!= eager {out['eager'].tolist()}")
+    for name, a, b_ in zip(pool._fields, pool, twin):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"window: pool {name} differs between "
+                                 "graph and eager")
+    log(f"  window {n_steps} steps x {n} rows (b_pad {b_pad}, table width "
+        f"{w}): graph replay tokens == eager loop tokens, pools equal; "
+        f"capture {capture_s:.2f} s")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full width
 # ---------------------------------------------------------------------------
+
+
+def write_model_dir() -> str:
+    """A checkpoint-free model directory: ``config.json`` of LLAMA3_8B."""
+    model_dir = os.path.join(ROOT, "build", "chip_smoke", "llama3-8b")
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(LLAMA3_8B, f)
+    return model_dir
+
+
+def device_gib(dev, stat) -> float:
+    return stat() / 2**30 if dev.type == "cuda" else float("nan")
+
+
+ENGINE_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul", "flash_prefill",
+                  "decode_attention_append")
 
 
 def run_engine(dev):
@@ -423,14 +641,10 @@ def run_engine(dev):
     from omniserve_tpu_torch.ops import cuda
 
     n_req, prompt_len, gen_len, page = 8, 1024, 32, 128
-    model_dir = os.path.join(ROOT, "build", "chip_smoke", "llama3-8b")
-    os.makedirs(model_dir, exist_ok=True)
-    with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(LLAMA3_8B, f)
     pages_per_seq = (prompt_len + gen_len + page - 1) // page
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
-        model=model_dir, precision="w4a8kv4", load_format="dummy",
+        model=write_model_dir(), precision="w4a8kv4", load_format="dummy",
         lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
         block_size=page, max_num_seqs=n_req,
         max_num_batched_tokens=2 * n_req * prompt_len,
@@ -438,10 +652,9 @@ def run_engine(dev):
         disable_log_stats=True, seed=0,
     ))
     sync(dev)
-    mem = (torch.cuda.memory_allocated() / 2**30 if dev.type == "cuda"
-           else float("nan"))
     log(f"  engine built in {time.time() - t0:.1f} s (random weights, "
-        f"seed 0); device memory {mem:.2f} GiB")
+        f"seed 0); device memory "
+        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB")
     rng = np.random.default_rng(0)
     for i in range(n_req):
         engine.add_request(
@@ -474,7 +687,7 @@ def run_engine(dev):
             raise AssertionError(f"{rid}: {len(toks)} tokens, logprob {lp}")
         if not all(0 <= t < LLAMA3_8B["vocab_size"] for t in toks):
             raise AssertionError(f"{rid}: token out of vocab")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the engine: {missing}")
     prefill_s = step_times[0]
@@ -515,30 +728,150 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
                                            ignore_eos=True),
         )
     for window, n_steps in (("prefill", 1), ("decode", n_decode)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            for _ in range(n_steps):
-                engine.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-        by_name = {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-        busy = sum(t for t, _ in by_name.values())
-        n_kernels = sum(n for _, n in by_name.values())
-        log(f"  profile {window}: {n_steps} step(s), wall {wall_ms:.1f} ms "
-            f"(traced), device busy {busy:.1f} ms in {n_kernels} kernels "
-            f"and copies, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        for name, (t, n) in top:
-            log(f"    {t:9.3f} ms {n:6d}x  {name[:110]}")
+        trace_steps(engine, window, n_steps)
     while engine.has_unfinished_requests():
         engine.step()
+
+
+def trace_steps(engine, label, n_steps):
+    """``n_steps`` engine steps under ``torch.profiler``: prints the wall
+    time, the device's busy time (sum of kernel and copy durations on the
+    card) and idle share, and the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(t for t, _ in by_name.values())
+    n_kernels = sum(n for _, n in by_name.values())
+    log(f"  profile {label}: {n_steps} step(s), wall {wall_ms:.1f} ms "
+        f"(traced), device busy {busy:.1f} ms in {n_kernels} kernels "
+        f"and copies, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (t, n) in top:
+        log(f"    {t:9.3f} ms {n:6d}x  {name[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the bench protocol through the port's engine
+# ---------------------------------------------------------------------------
+
+BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                 "paged_prefill_attention", "decode_attention_append")
+
+
+def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
+              multi=32):
+    """``bench.py``'s engine protocol on the port: static batch 128, 1024
+    prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
+    ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
+    through ``omniserve_tpu_torch.qserve_benchmark.run_round``. Round 1 is
+    warmup (``bench.py`` discards it); the launch counts are read from the
+    last round alone. Then a fresh batch's chunked prefill step and one
+    32-step window under the profiler."""
+    import torch
+
+    from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
+    from omniserve_tpu_torch.config import ProfilingConfig
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.qserve_benchmark import run_round
+
+    blocks_per_seq = (prompt_len + gen_len + 127) // 128 + 1   # bench.py:72
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = LLMEngine.from_engine_args(EngineArgs(
+        model=write_model_dir(), precision="w4a8kv4", load_format="dummy",
+        lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
+        block_size=128, ifb_mode=False, benchmarking_mode=True,
+        disable_log_stats=True, chunk_prefill_size=8192,
+        decode_multi_step=multi, max_num_seqs=batch,
+        max_num_batched_tokens=max(262144, batch * prompt_len),
+        num_retrieval_blocks=blocks_per_seq * batch + 2, seed=0,
+    ))
+    sync(dev)
+    log(f"  engine built in {time.time() - t0:.1f} s; device memory "
+        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB")
+    runner = engine.worker.model_runner
+    n_layers = runner.spec.num_layers
+
+    # time each step and keep the round's groups to check their outputs
+    step_s, groups = [], []
+    real_step = engine.step
+
+    def timed_step():
+        if not step_s:
+            groups.extend(engine.scheduler.waiting)
+        t = time.time()
+        out = real_step()
+        step_s.append(time.time() - t)
+        return out
+
+    engine.step = timed_step
+    for r in range(rounds):
+        step_s.clear()
+        groups.clear()
+        cuda.reset_launch_counts()
+        graphs_before = runner.graphs_captured
+        sampler = (card_samples(f"round {r + 1}") if r == rounds - 1
+                   else contextlib.nullcontext())
+        with sampler:
+            toks_per_s = run_round(engine, batch, prompt_len, gen_len)
+            sync(dev)
+        launches = dict(cuda.LAUNCHES)
+        lens = [len(g.get_seqs()[0].data.output_token_ids) for g in groups]
+        if len(groups) != batch or set(lens) != {gen_len} or not all(
+                g.is_finished() for g in groups):
+            raise AssertionError(f"round {r + 1}: {len(groups)} requests, "
+                                 f"output lengths {sorted(set(lens))}")
+        vocab = LLAMA3_8B["vocab_size"]
+        if not all(0 <= t < vocab for g in groups
+                   for t in g.get_seqs()[0].data.output_token_ids):
+            raise AssertionError(f"round {r + 1}: token out of vocab")
+        log(f"  round {r + 1}{' (warmup)' if r == 0 else ''}: prefill step "
+            f"{step_s[0] * 1e3:.1f} ms ({batch * prompt_len / step_s[0]:.0f} "
+            f"prompt tok/s, {launches['paged_prefill_attention'] // n_layers} "
+            f"chunks); decode "
+            f"{toks_per_s:.1f} tok/s ({sum(step_s[1:]) * 1e3:.1f} ms for "
+            f"{len(step_s) - 1} steps, host clock); graphs captured "
+            f"{runner.graphs_captured - graphs_before}")
+    log(f"  {batch} requests x {gen_len} tokens each in every round; graphs "
+        f"held {len(runner._ms_fn_cache)}, captured {runner.graphs_captured} "
+        f"in {runner.graph_capture_s:.2f} s; peak device memory "
+        f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
+    log(f"  launches in the measured round: {json.dumps(launches)}")
+    missing = [k for k in BENCH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the bench: {missing}")
+    engine.step = real_step
+
+    # a fresh batch under the profiler: its chunked prefill step, then one
+    # window: 33 tokens = the prefill's + one 32-step window (too short to
+    # pipeline a second window behind it)
+    for i in range(batch):
+        engine.add_request(
+            f"prof{i}", profiling_config=ProfilingConfig(prompt_len,
+                                                         multi + 1),
+            sampling_params=SamplingParams(temperature=0.0))
+    trace_steps(engine, f"chunked prefill ({batch} x {prompt_len})", 1)
+    trace_steps(engine, f"decode window ({multi} steps, batch {batch})",
+                multi)
+    if engine.has_unfinished_requests():
+        raise AssertionError("profiled window left requests unfinished")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -591,13 +924,29 @@ def main() -> int:
         "w8a8_matmul": check_w8a8(dev, gen),
         "flash_prefill": check_flash(dev, gen),
         "decode_attention_append": check_decode(dev, gen),
+        "paged_prefill_attention": check_paged_prefill(dev, gen),
     }
+    # the bench's decode shapes (batch 128), logged beside the rows above
+    check_w8a8(dev, gen, m=128)
+    check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536)
     torch.cuda.empty_cache()
     log("phase 3: 2-layer full-width forward, kernels vs plain")
-    check_forward(dev)
+    spec, params, prompts, tables = check_forward(dev)
+    pool, first = check_chunked_forward(dev, spec, params, prompts, tables)
+    check_window(dev, spec, params, pool, tables, [len(p) for p in prompts],
+                 first)
+    del spec, params, pool
     torch.cuda.empty_cache()
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 5: bench protocol (batch 128, 1024 in / 512 out, chunked "
+        "prefill 8192, 32-step windows) through qserve_benchmark.run_round")
+    # the bench's kernels report its launches; the flash kernel, which the
+    # bench's chunked prefill does not run, reports phase 4's
+    bench = run_bench(dev)
+    launches.update({k: bench[k] for k in BENCH_KERNELS})
 
     meta = {
         "w4a8_matmul_per_channel": (
@@ -612,6 +961,9 @@ def main() -> int:
         "decode_attention_append": (
             "omniserve_tpu_torch/csrc/decode_attention.cu",
             "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "paged_prefill_attention": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
     }
     line = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

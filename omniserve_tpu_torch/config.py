@@ -243,8 +243,8 @@ class DeviceConfig:
 class IFBConfig:
     """In-flight (continuous) batching toggle (reference config.py:365).
 
-    ``decode_multi_step``: decode tokens per engine step. The port runs
-    one (multi-step windows are queued in ROADMAP.md)."""
+    ``decode_multi_step``: greedy decode tokens per worker call (a decode
+    window; ``worker/decode_window.py``). 1 decodes one token per step."""
 
     ifb_mode: bool = True
     decode_multi_step: int = 1

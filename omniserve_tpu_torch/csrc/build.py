@@ -31,6 +31,7 @@ SOURCES: Dict[str, List[str]] = {
     "quant_gemm.cu": ["--fmad=false"],
     "decode_attention.cu": ["--fmad=false"],
     "flash_prefill.cu": [],
+    "paged_prefill.cu": [],
 }
 COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -173,8 +173,9 @@ class EngineArgs:
                                  'without CUDA); "cpu" runs the plain '
                                  "PyTorch versions of the kernels")
         parser.add_argument("--enforce-eager", action="store_true",
-                            help="accepted for CLI parity (CUDA graphs "
-                                 "are queued in ROADMAP.md)")
+                            help="accepted for CLI parity (on a card, "
+                                 "decode windows always replay a captured "
+                                 "CUDA graph)")
         parser.add_argument("--max-context-len-to-capture", type=int,
                             default=8192,
                             help="accepted for CLI parity (CUDA-graph "

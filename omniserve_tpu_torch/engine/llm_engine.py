@@ -7,8 +7,9 @@ reference ``omniserve/engine/llm_engine.py``:
 schedule each step, reference llm_engine.py:541-561) and non-IFB (schedule
 once, static batch, :562-592) modes; decoding-simulation via
 ``DECODING_SIMULATION_LENGTH`` (:349-354); profiling requests with random
-token ids (:337-347). The port advances one decode token per step
-(multi-step decode windows are queued in ROADMAP.md).
+token ids (:337-347). With ``decode_multi_step > 1`` greedy decode runs
+in windows of that many tokens (on a card, replays of a captured CUDA
+graph), static-batch windows pipelined one ahead in benchmarking mode.
 """
 
 from __future__ import annotations
@@ -97,11 +98,6 @@ class LLMEngine:
             except Exception as e:  # dummy/benchmark models have no files
                 logger.warning("tokenizer unavailable (%s); text decode off", e)
 
-        if ifb_config.decode_multi_step > 1:
-            raise NotImplementedError(
-                "multi-step decode windows are ROADMAP.md queue 1 item 3; "
-                "the port decodes one token per step"
-            )
         self.worker = Worker(
             model_config, cache_config, scheduler_config,
             parallel_config=parallel_config, sp_attn_config=sp_attn_config,
@@ -129,6 +125,9 @@ class LLMEngine:
         # non-IFB static-batch state
         self._static_metadata: Optional[List[SequenceGroupMetadata]] = None
         self._static_outputs: Optional[SchedulerOutputs] = None
+        self._multi_step_buffer: List = []
+        self._inflight_window = None   # speculative pipelined window
+        self._ifb_window_out: Optional[SchedulerOutputs] = None
 
         self.decoding_sim_length = int(
             os.environ.get("DECODING_SIMULATION_LENGTH", "0")
@@ -243,12 +242,32 @@ class LLMEngine:
         return self._step_static()
 
     def _step_ifb(self) -> List[RequestOutput]:
+        if self._multi_step_buffer:
+            # drain a buffered IFB window (scheduling resumes when empty)
+            return self._process_model_outputs(
+                self._multi_step_buffer.pop(0), self._ifb_window_out
+            )
         metadata, sched_out = self.scheduler.schedule()
         if sched_out.is_empty():
             return [
                 RequestOutput.from_seq_group(g)
                 for g in sched_out.ignored_seq_groups
             ]
+        if self._ifb_can_multi_step(metadata, sched_out):
+            n_multi = self.ifb_config.decode_multi_step
+            for group in sched_out.scheduled_seq_groups:
+                for seq in group.get_seqs(SequenceStatus.RUNNING):
+                    self.scheduler.block_manager.reserve_slots(seq, n_multi)
+            for meta, group in zip(metadata,
+                                   sched_out.scheduled_seq_groups):
+                for seq in group.get_seqs(SequenceStatus.RUNNING):
+                    meta.block_tables[seq.seq_id] = (
+                        self.scheduler.block_manager.get_block_table(seq)
+                    )
+            outs = self.worker.execute_model_multi_step(metadata, n_multi)
+            self._multi_step_buffer = outs[1:]
+            self._ifb_window_out = sched_out
+            return self._process_model_outputs(outs[0], sched_out)
         samples = self.worker.execute_model(
             metadata,
             sched_out.blocks_to_swap_in,
@@ -260,9 +279,49 @@ class LLMEngine:
         )
         return self._process_model_outputs(samples, sched_out)
 
+    def _ifb_can_multi_step(self, metadata, sched_out) -> bool:
+        """An IFB iteration can run a whole greedy window when no
+        scheduling decision could change inside it: a pure decode batch,
+        no pending admissions/swaps, everything greedy, and pool headroom
+        for the window (mid-window finishes just discard their tail)."""
+        n_multi = self.ifb_config.decode_multi_step
+        if n_multi <= 1 or not self.worker.multi_step_capable:
+            return False
+        if any(m.is_prompt for m in metadata):
+            return False
+        if (
+            sched_out.blocks_to_swap_in or sched_out.blocks_to_swap_out
+            or sched_out.blocks_to_copy
+            or sched_out.streaming_blocks_to_swap_in
+            or sched_out.streaming_blocks_to_swap_out
+            or sched_out.streaming_blocks_to_copy
+        ):
+            return False
+        if self.scheduler.waiting or self.scheduler.swapped:
+            return False
+        groups = sched_out.scheduled_seq_groups
+        if not all(
+            g.sampling_params.temperature < 1e-5 for g in groups
+        ):
+            return False
+        if any(g.sampling_params.decoding_sim_token_ids for g in groups):
+            # inside a window the device feeds its own argmax tokens; the
+            # forced simulation tokens would only resync at boundaries
+            return False
+        seqs = [
+            seq for g in groups
+            for seq in g.get_seqs(SequenceStatus.RUNNING)
+        ]
+        return self.scheduler.block_manager.can_reserve_slots(
+            seqs, self.ifb_config.decode_multi_step
+        )
+
     def _step_static(self) -> List[RequestOutput]:
         """Non-IFB: schedule once, then reuse the static batch
-        (reference llm_engine.py:562-592), one decode token per step."""
+        (reference llm_engine.py:562-592). With
+        ``ifb_config.decode_multi_step > 1`` decode advances several tokens
+        per worker call in one window; subsequent step() calls drain the
+        buffered per-token outputs."""
         if self._static_metadata is not None:
             groups = self._static_outputs.scheduled_seq_groups
             if all(g.is_finished() for g in groups):
@@ -270,7 +329,13 @@ class LLMEngine:
                 # the next batch of requests
                 self._static_metadata = None
                 self._static_outputs = None
-            else:
+                self._multi_step_buffer.clear()
+                self._inflight_window = None
+            elif not self._multi_step_buffer:
+                # Drop finished groups ONLY between multi-step windows: the
+                # buffered SamplerOutputs are positional in the group list
+                # that produced them, so the list must stay frozen while a
+                # window drains (finished seqs are skipped when zipping).
                 live = [
                     (m, g) for m, g in zip(self._static_metadata, groups)
                     if not g.is_finished()
@@ -280,6 +345,19 @@ class LLMEngine:
                     self._static_outputs.scheduled_seq_groups = [
                         g for _, g in live
                     ]
+        if self._static_metadata is None:
+            self._multi_step_buffer.clear()   # new static batch
+            self._inflight_window = None
+        if self._multi_step_buffer:
+            # Drain step: pure host bookkeeping. Block tables are only read
+            # at the next execute-model call (the window start grows and
+            # refreshes them), so no per-drain table maintenance.
+            samples = self._multi_step_buffer.pop(0)
+            return self._process_model_outputs(
+                samples, self._static_outputs,
+                check_stop=not self.benchmarking_mode,
+            )
+        n_multi = max(1, self.ifb_config.decode_multi_step)
         copy, s_copy = {}, {}
         if self._static_metadata is None:
             self._static_metadata, self._static_outputs = (
@@ -289,11 +367,93 @@ class LLMEngine:
             for meta in self._static_metadata:
                 meta.is_prompt = False
             copy, s_copy = self._grow_static_tables()
+            groups = self._static_outputs.scheduled_seq_groups
+            running = [
+                seq for g in groups
+                for seq in g.get_seqs(SequenceStatus.RUNNING)
+            ]
+            no_sim = not any(
+                g.sampling_params.decoding_sim_token_ids for g in groups
+            )
+            if (
+                n_multi > 1
+                and self._all_greedy()
+                and no_sim
+                and self.worker.multi_step_capable
+                and self.scheduler.block_manager.can_reserve_slots(
+                    running, n_multi
+                )
+            ):
+                # Pipelined windows: if a window is already in flight
+                # (launched speculatively at the previous boundary), launch
+                # the NEXT one before fetching its tokens, so the device
+                # never idles on the host's token sync + window prep.
+                # Speculation needs unshared pages (no forks/prefix): a
+                # copy-on-write decision made from host state would be one
+                # window stale against the in-flight device writes.
+                speculate = self.benchmarking_mode and all(
+                    g.get_max_num_running_seqs() == 1
+                    and getattr(g, "prefix", None) is None
+                    for g in groups
+                ) and all(
+                    seq.get_output_len() + 2 * n_multi
+                    <= g.sampling_params.max_tokens
+                    for g in groups
+                    for seq in g.get_seqs(SequenceStatus.RUNNING)
+                )
+                horizon = n_multi * (2 if speculate else 1)
+                if speculate and not (
+                    self.scheduler.block_manager.can_reserve_slots(
+                        running, horizon
+                    )
+                ):
+                    speculate = False
+                    horizon = n_multi
+                for seq in running:
+                    self.scheduler.block_manager.reserve_slots(
+                        seq, horizon
+                    )
+                self._refresh_static_tables()
+                if copy or s_copy:
+                    # apply copy-on-writes before the window launches (no
+                    # window can be in flight here: speculation is gated
+                    # off for shared pages, the only CoW source)
+                    assert self._inflight_window is None
+                    self.worker.execute_model(
+                        [], {}, {}, copy, {}, {}, s_copy
+                    )
+                handle = self._inflight_window
+                self._inflight_window = None
+                if handle is None:
+                    handle = self.worker.start_multi_step(
+                        self._static_metadata, n_multi
+                    )
+                if speculate:
+                    # host seq state is one window behind the device here:
+                    # offset positions by the in-flight window and seed
+                    # token ids from its device output
+                    self._inflight_window = self.worker.start_multi_step(
+                        self._static_metadata, n_multi,
+                        pos_offset=n_multi,
+                        carry_tokens=self.worker.multi_step_carry(handle),
+                    )
+                outs = self.worker.finish_multi_step(handle)
+                self._multi_step_buffer = outs[1:]
+                return self._process_model_outputs(
+                    outs[0], self._static_outputs,
+                    check_stop=not self.benchmarking_mode,
+                )
         samples = self.worker.execute_model(
             self._static_metadata, {}, {}, copy, {}, {}, s_copy
         )
         return self._process_model_outputs(
             samples, self._static_outputs, check_stop=not self.benchmarking_mode
+        )
+
+    def _all_greedy(self) -> bool:
+        return all(
+            g.sampling_params.temperature < 1e-5
+            for g in self._static_outputs.scheduled_seq_groups
         )
 
     def _refresh_static_tables(self) -> None:

@@ -5,7 +5,9 @@ tree and the same per-layer op order:
 
 - fused RMSNorm -> int8 quant (+ act sums), W4A8 qkv GEMM, RoPE;
 - prefill: quantize + scatter K/V into the paged pool (``append_kv``),
-  then packed-varlen causal attention over the prompt's own K/V;
+  then packed-varlen causal attention over the prompt's own K/V; or, for a
+  chunk of a chunked prefill (``PrefillBatch.context_lens`` set), causal
+  attention over the paged pool (history + chunk);
 - decode: one call attends the pool and appends the step's K/V to it;
 - W4A8 o_proj, residual, RMSNorm -> quant, W4A8 gate_up, SwiGLU -> quant,
   W4A8 down, residual;
@@ -15,8 +17,8 @@ tree and the same per-layer op order:
 The JAX ``lax.scan`` over layers is a Python loop here. Stacked [L, ...]
 weights are indexed per layer as views. Pools are updated in place.
 Outside the slice (tensor/sequence parallelism, LServe streaming and
-sparse modes, chunked prefill, other precisions) the functions raise and
-name the ROADMAP.md item.
+sparse modes, other precisions) the functions raise and name the
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -176,6 +178,10 @@ class PrefillBatch(NamedTuple):
     segment_ids: torch.Tensor     # [T] int32, padding rows = -1
     block_tables: torch.Tensor    # [B, max_blocks] int32
     last_token_idx: torch.Tensor  # [B] int index into T
+    seq_lens: Optional[torch.Tensor] = None  # [B] int32 prompt length
+    # Chunked-prefill mode only (rectangular [B, Tc] token layout): tokens
+    # in the pool incl. this chunk, per seq. None = whole-prompt prefill.
+    context_lens: Optional[torch.Tensor] = None
 
 
 class DecodeBatch(NamedTuple):
@@ -309,10 +315,28 @@ def _layer_step(h, pool: KVPool, layer: int, lp, inv_freq, spec: LlamaSpec,
     q = apply_rope(q, batch.positions, inv_freq)
     k = apply_rope(k, batch.positions, inv_freq)
 
+    chunked = is_prefill and batch.context_lens is not None
     if is_prefill:
         pages, slots = page_io
+        # chunked prefill is page-aligned by construction: the chunk size is
+        # a page multiple and each [B, Tc] row starts at a page boundary
         append_kv(pool, layer, k, v, pages, slots, spec.page_size,
-                  spec.kv_bits, spec.kv_zeros)
+                  spec.kv_bits, spec.kv_zeros, page_aligned=chunked)
+    if chunked:
+        # attend causally over the paged pool (history + this chunk,
+        # appended above); rectangular [B, Tc] layout
+        nb = batch.block_tables.shape[0]
+        tc = t // nb
+        q4 = q.reshape(nb, tc, spec.num_q_heads, spec.head_dim)
+        seg2 = batch.segment_ids.reshape(nb, tc)
+        qpos = torch.where(seg2 >= 0, batch.positions.reshape(nb, tc), -1)
+        attn = dispatch.paged_prefill_attention(
+            q4, pool, layer, batch.block_tables, qpos.to(torch.int32),
+            batch.context_lens,
+            sm_scale=spec.sm_scale, page_size=spec.page_size,
+            kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
+        )
+    elif is_prefill:
         attn = dispatch.prefill_attention(
             q, k, v,
             segment_ids=batch.segment_ids,

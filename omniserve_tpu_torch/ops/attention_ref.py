@@ -7,8 +7,11 @@ Counterparts of ``omniserve_tpu.ops.attention_ref``:
 - ``paged_decode_attention`` (:151): single-query GQA attention over the
   paged kv4 pool, dense page lists; half of the plain version of the fused
   decode kernel (``ops/cuda/decode_attention.py``).
+- ``paged_prefill_attention`` (:391): a chunk's causal GQA attention over
+  the paged kv4 pool (history + chunk); the plain version of the paged
+  prefill kernel (``ops/cuda/paged_prefill.py``).
 
-Both compute in f32. The streaming/sparse modes of the JAX functions
+All compute in f32. The streaming/sparse modes of the JAX functions
 (sink+local bands, dual pools, page selections, LSE outputs) are queued in
 ROADMAP.md and raise here.
 """
@@ -19,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from omniserve_tpu_torch.ops.paged_kv import KVPool
+from omniserve_tpu_torch.ops.paged_kv import KVPool, gather_kv_for_seq
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -74,30 +77,6 @@ def prefill_attention(
     return out
 
 
-def gather_kv_for_seq(
-    pool: KVPool,
-    layer: int,
-    block_tables: torch.Tensor,  # [B, W] physical page ids
-    page_size: int,
-):
-    """Dequantize whole pages of each sequence: k, v [B, W*page, H, D] f32.
-
-    Plain path only: materializes every listed page."""
-    def one(data, scale, zero):
-        pages = data[layer][block_tables.long()]         # [B, W, H, rows, D]
-        lo = (pages & 0xF).float()
-        hi = (pages >> 4).float()
-        vals = torch.cat([lo, hi], dim=3)                # [B, W, H, page, D]
-        s = scale[layer][block_tables.long()]           # [B, W, H, page]
-        z = zero[layer][block_tables.long()]
-        out = (vals - z[..., None]) * s[..., None]
-        b, w, h, p, d = out.shape
-        return out.permute(0, 1, 3, 2, 4).reshape(b, w * p, h, d)
-
-    return (one(pool.k_data, pool.k_scale, pool.k_zero),
-            one(pool.v_data, pool.v_scale, pool.v_zero))
-
-
 def paged_decode_attention(
     q: torch.Tensor,             # [B, Hq, D] (post-RoPE)
     pool: KVPool,
@@ -141,3 +120,56 @@ def paged_decode_attention(
     probs = torch.where(any_valid, p / torch.clamp(l, min=1e-30), 0.0)
     out = torch.einsum("bhrs,bshd->bhrd", probs, v)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,             # [B, Tq, Hq, D] current-chunk queries
+    pool: KVPool,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, W]
+    q_positions: torch.Tensor,   # [B, Tq] absolute position (-1 = pad)
+    context_lens: torch.Tensor,  # [B] tokens in the pool incl. the chunk
+    sm_scale: float,
+    page_size: int,
+    kv_bits: int,
+    kv_zeros: bool,
+    head_is_retrieval: Optional[torch.Tensor] = None,
+    sink_size: int = 0,
+    local_size: int = 0,
+    kv_positions: Optional[torch.Tensor] = None,
+    return_lse: bool = False,
+) -> torch.Tensor:
+    """Chunked-prefill attention: queries attend CAUSALLY over the paged
+    pool (history + the current chunk, which the caller appended first).
+
+    Dense heads over a kv4 fine-grained pool, in f32 over the dequantized
+    pages, one sequence at a time, with the JAX reference's mask: key
+    position ``j`` is visible to a query at ``q_pos`` iff ``j <= q_pos``,
+    ``j < context_lens[b]`` and ``q_pos >= 0``; padding rows give zeros."""
+    if kv_positions is not None or return_lse or (
+        head_is_retrieval is not None and (sink_size or local_size)
+    ):
+        raise NotImplementedError(
+            "ring position maps and sink+local bands (LServe) and LSE "
+            "outputs (sequence parallelism) of paged prefill are queued in "
+            "ROADMAP.md queue 1 items 5 and 10"
+        )
+    b, tq, hq, d = q.shape
+    outs = []
+    for i in range(b):
+        k, v = gather_kv_for_seq(pool, layer, block_tables[i], page_size,
+                                 kv_bits, kv_zeros)    # [t_kv, Hkv, D] f32
+        n_rep = hq // k.shape[1]
+        kf, vf = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        logits = torch.einsum("qhd,khd->hqk", q[i].float(), kf) * sm_scale
+        kv_pos = torch.arange(k.shape[0], device=q.device)
+        qpos = q_positions[i].long()
+        mask = (
+            (kv_pos[None, :] <= qpos[:, None])
+            & (kv_pos[None, :] < context_lens[i])
+            & (qpos[:, None] >= 0)
+        )                                              # [Tq, t_kv]
+        logits = torch.where(mask[None], logits, -1e30)
+        p = torch.where(mask[None], torch.softmax(logits, dim=-1), 0.0)
+        outs.append(torch.einsum("hqk,khd->qhd", p, vf))
+    return torch.stack(outs).to(q.dtype)

@@ -24,6 +24,7 @@ LAUNCHES = {
     "w8a8_matmul": 0,
     "decode_attention_append": 0,
     "flash_prefill": 0,
+    "paged_prefill_attention": 0,
 }
 
 _force_plain = False

@@ -2,9 +2,11 @@
 CPU tensors.
 
 Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
-whole-prompt prefill and the dense decode step with its KV append fused
-in. Every other mode of the JAX dispatch raises ``NotImplementedError``
-naming its ROADMAP.md item.
+whole-prompt prefill, chunked prefill over the paged pool, and the dense
+decode step with its KV append fused in. Every other mode of the JAX
+dispatch raises ``NotImplementedError`` naming its ROADMAP.md item (the
+JAX dispatch's single-pass paged-prefill variant, off by default there, is
+ROADMAP.md queue 2 item 10).
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ def paged_decode_attention_fused(
         )
     if page_idxes is not None or return_lse:
         raise NotImplementedError(
-            "page selections and LSE outputs (dynamic-sparse decode, "
-            "sequence parallelism) are queued in ROADMAP.md queue 1 items "
-            "13 and 16"
+            "page selections (the LServe selector) and LSE outputs "
+            "(sequence parallelism) are queued in ROADMAP.md queue 1 items "
+            "5 and 10"
         )
     if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(
@@ -78,8 +80,30 @@ def paged_decode_attention_fused(
     return out, pool, streaming_pool
 
 
-def paged_prefill_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "chunked prefill over the paged pool (paged_prefill_attention) is "
-        "the port's next slice; see ROADMAP.md queue 1"
-    )
+def paged_prefill_attention(
+    q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
+    page_size, kv_bits, kv_zeros, head_is_retrieval=None, sink_size=0,
+    local_size=0, sel_logic=None, return_lse=False,
+):
+    """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
+    (history + the chunk, appended by the caller). Dense heads, kv4
+    fine-grained pools."""
+    if sel_logic is not None or return_lse or (
+        head_is_retrieval is not None and (sink_size or local_size)
+    ):
+        raise NotImplementedError(
+            "explicit page lists, sink+local bands (LServe) and LSE outputs "
+            "(sequence parallelism) of paged prefill are queued in "
+            "ROADMAP.md queue 1 items 5 and 10"
+        )
+    if kv_bits != 4 or not kv_zeros:
+        raise NotImplementedError(
+            "the port serves kv4 fine-grained pools; see "
+            "ROADMAP.md queue 1 item 8"
+        )
+    from omniserve_tpu_torch.ops.cuda import paged_prefill
+
+    fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
+          else paged_prefill.paged_prefill_attention_plain)
+    return fn(q.contiguous(), pool, layer, block_tables, q_positions,
+              context_lens, sm_scale=sm_scale, page_size=page_size)

@@ -141,11 +141,15 @@ def append_kv(
     page_size: int,
     kv_bits: int,
     kv_zeros: bool,
+    page_aligned: bool = False,
 ) -> KVPool:
     """Quantize T tokens and write them into one layer of a pool, in place.
 
     Tokens with ``page_ids < 0`` are dropped. Same bytes as the JAX
-    package's ``append_kv`` (every mode of it writes the same values)."""
+    package's ``append_kv`` in every mode: ``page_aligned=True`` (chunked
+    prefill: groups of ``page_size`` consecutive slots, one page per group)
+    is a promise the JAX function uses to pick a faster scatter; here one
+    write path serves every mode, so the flag changes nothing."""
     if kv_bits != 4 or not kv_zeros:
         raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} appends")
     keep = page_ids >= 0
@@ -160,3 +164,33 @@ def append_kv(
         # [T] pages x [T] slots with the head dim sliced -> [T, H] values
         sc[page_ids, i, :, slots] = vals
     return pool
+
+
+def gather_kv_for_seq(
+    pool: KVPool,
+    layer: int,
+    block_table: torch.Tensor,  # [..., W] physical page ids
+    page_size: int,
+    kv_bits: int = 4,
+    kv_zeros: bool = True,
+):
+    """Dequantize whole pages: k, v [..., W*page, H, D] f32 in token order.
+
+    ``omniserve_tpu.ops.paged_kv.gather_kv_for_seq`` for one sequence's
+    table [W]; a [B, W] table gathers B sequences at once. Plain path
+    only: it materializes every listed page."""
+    if kv_bits != 4 or not kv_zeros:
+        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} gathers")
+    idx = block_table.long()
+
+    def one(data, scale, zero):
+        pages = data[layer][idx]                      # [..., W, H, rows, D]
+        # half-split page: lo nibbles are slots [0, page/2), hi the rest
+        vals = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
+                         dim=-2)                      # [..., W, H, page, D]
+        out = (vals - zero[layer][idx][..., None]) * scale[layer][idx][..., None]
+        out = out.transpose(-3, -2)                   # [..., W, page, H, D]
+        return out.reshape(*out.shape[:-4], -1, *out.shape[-2:])
+
+    return (one(pool.k_data, pool.k_scale, pool.k_zero),
+            one(pool.v_data, pool.v_scale, pool.v_zero))

@@ -47,8 +47,11 @@ class QuantizedWeightW8(NamedTuple):
 def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` as IEEE division on every device. PyTorch multiplies a
     CUDA tensor by the reciprocal of a Python-scalar divisor, which can
-    land one ulp away from the JAX contract (and from the kernels)."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    land one ulp away from the JAX contract (and from the kernels).
+
+    The 0-d divisor is filled on the device (no host-to-device copy), so
+    the quantizers can be captured in a CUDA graph."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def pack_int4(w_u4: torch.Tensor, dim: int = 0, shards: int = 1) -> torch.Tensor:

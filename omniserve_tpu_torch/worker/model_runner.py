@@ -4,19 +4,23 @@ Single-device dense subset of ``omniserve_tpu.worker.model_runner``:
 
 - whole-prompt prefill of the scheduled prompts as one packed batch
   (PyTorch runs eagerly, so no shape buckets are needed);
+- chunked prefill in rectangular [B, Tc] chunks when the prompts exceed
+  ``chunk_prefill_size``, each chunk attending the paged pool; the same
+  path prefills only the suffix of a prompt whose shared prefix is
+  already computed;
 - one decode step over PERSISTENT BATCH SLOTS (a running sequence keeps its
   slot; inactive slots are masked), with the KV append fused into the
-  decode attention;
-- per-row sampling on the device.
+  decode attention, and per-row sampling on the device;
+- greedy multi-step decode windows (``worker/decode_window.py``): on a
+  card, one decode step captured as a CUDA graph and replayed.
 
 Everything outside the slice raises ``NotImplementedError`` naming its
-ROADMAP.md item: prompts above the chunk budget (chunked prefill), computed
-shared prefixes, multi-step decode windows, TP/PP/SP/DP, Mixtral, LServe.
+ROADMAP.md item: TP/PP/SP/DP, Mixtral, LServe.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from omniserve_tpu_torch.sequence import (
 )
 from omniserve_tpu_torch.utils.logger import init_logger
 from omniserve_tpu_torch.worker.cache_engine import CacheEngine
+from omniserve_tpu_torch.worker.decode_window import DecodeWindow
 
 logger = init_logger(__name__)
 
@@ -46,6 +51,85 @@ _DENSE_ARCHS = (
     "LlamaForCausalLM", "MistralForCausalLM", "LLaMAForCausalLM",
     "YiForCausalLM",
 )
+
+
+def next_pow2(n: int, minimum: int = 8) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def table_width(tables: Sequence[Sequence[int]]) -> int:
+    """Padded block-table width: the longest table, at least 4, rounded up
+    on a 2-bit-mantissa ladder (4, 6, 8, 10, 12, 14, 16, 20, 24, ...), so
+    padding stays under 12.5% while the widths a run meets (and the decode
+    graphs it captures) stay few."""
+    n = max([4] + [len(t) for t in tables])
+    step = max(2, 1 << max(0, (n - 1).bit_length() - 3))
+    return -(-n // step) * step
+
+
+def chunked_prefill_batches(
+    seqs: Sequence[Tuple[Sequence[int], Sequence[int]]],
+    budget: int,
+    page_size: int,
+    device,
+    starts: Optional[Sequence[int]] = None,
+) -> Iterator[Tuple[PrefillBatch, torch.Tensor]]:
+    """The chunks of a chunked prefill of ``seqs`` (token ids, block table).
+
+    Geometry of the JAX runner: ``b_pad`` = next power of two of the batch,
+    chunk length ``tc = max(page, (budget // b_pad) // page * page)``, a
+    rectangular [b_pad, tc] token layout, row i holding tokens
+    ``[starts[i] + ci*tc, ...)`` of sequence i. Yields each chunk's
+    ``PrefillBatch`` (``context_lens`` = tokens in the pool after the
+    chunk) and a device bool [b_pad] marking the rows whose prompt ends in
+    it (their ``last_token_idx`` points at the last token)."""
+    starts = [0] * len(seqs) if starts is None else starts
+    b_pad = next_pow2(len(seqs), minimum=1)
+    tc = max(page_size, (budget // b_pad) // page_size * page_size)
+    n_chunks = -(-max(len(ids) - s for (ids, _), s in zip(seqs, starts))
+                 // tc)
+    w = next_pow2(max(len(tbl) for _, tbl in seqs), minimum=4)
+    bt = np.zeros((b_pad, w), np.int32)
+    full_lens = np.zeros(b_pad, np.int32)
+    for i, (ids, tbl) in enumerate(seqs):
+        bt[i, : len(tbl)] = tbl
+        full_lens[i] = len(ids)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    bt_dev, lens_dev = dev(bt), dev(full_lens)
+    for ci in range(n_chunks):
+        tokens = np.zeros((b_pad, tc), np.int64)
+        pos = np.zeros((b_pad, tc), np.int32)
+        seg = np.full((b_pad, tc), -1, np.int32)
+        ctx = np.zeros(b_pad, np.int32)
+        last_idx = np.zeros(b_pad, np.int64)
+        ends = np.zeros(b_pad, bool)
+        for i, (ids, _) in enumerate(seqs):
+            lo = starts[i] + ci * tc
+            hi = min(len(ids), lo + tc)
+            if hi <= lo:
+                ctx[i] = len(ids)
+                continue
+            n = hi - lo
+            tokens[i, :n] = ids[lo:hi]
+            pos[i, :n] = np.arange(lo, hi)
+            seg[i, :n] = i
+            ctx[i] = hi
+            if hi == len(ids):
+                ends[i] = True
+                last_idx[i] = i * tc + n - 1
+        batch = PrefillBatch(
+            token_ids=dev(tokens.reshape(-1)), positions=dev(pos.reshape(-1)),
+            segment_ids=dev(seg.reshape(-1)), block_tables=bt_dev,
+            last_token_idx=dev(last_idx), seq_lens=lens_dev,
+            context_lens=dev(ctx),
+        )
+        yield batch, dev(ends)
 
 
 class ModelRunner:
@@ -102,12 +186,25 @@ class ModelRunner:
         self._num_slots = 0
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(model_config.seed)
+        # decode windows by (b_pad, table width); on a card each holds one
+        # captured decode step, all in one shared graph memory pool
+        self._ms_fn_cache: Dict[Tuple[int, int], DecodeWindow] = {}
+        self._graph_pool = None
+        self.graphs_captured = 0
+        self.graph_capture_s = 0.0
 
     def load_params(self, params: Dict[str, Any]) -> None:
         """Serve these weights (a port parameter tree on this device, e.g.
         from ``models.convert.params_from_numpy``) instead of the dummy
         ones."""
         self.params = params
+        self._ms_fn_cache.clear()      # captured steps read the old weights
+
+    @property
+    def multi_step_capable(self) -> bool:
+        """Whether greedy decode windows can serve this runner: the port
+        runs one device and the dense forward, so always."""
+        return True
 
     # -- slot management ---------------------------------------------------
     def _slot_for(self, seq_id: int) -> int:
@@ -162,8 +259,11 @@ class ModelRunner:
         return batch, seq_ids, len(tables)
 
     def _prepare_decode(
-        self, metadata: List[SequenceGroupMetadata]
-    ) -> Tuple[DecodeBatch, List[int], List[int]]:
+        self, metadata: List[SequenceGroupMetadata], device: bool = True
+    ):
+        """Host batch prep over ``b_pad = next_pow2(slots, 8)`` rows and the
+        ``table_width`` ladder. ``device=False`` returns the host arrays
+        (a decode window uploads them once, into its static buffers)."""
         entries = []  # (slot, token, position, table)
         seq_ids: List[int] = []
         for group in metadata:
@@ -179,16 +279,23 @@ class ModelRunner:
                     )
                 entries.append((slot, data.get_last_token_id(), pos, table))
                 seq_ids.append(seq_id)
+        b_pad = next_pow2(self._num_slots, minimum=8)
+        w = table_width([e[3] for e in entries])
         token_ids, positions, active, bt = csrc.build_decode_batch(
-            entries, b=self._num_slots, w=max(len(e[3]) for e in entries),
+            entries, b=b_pad, w=w,
         )
+        slots = [e[0] for e in entries]
+        if not device:
+            host = {"token_ids": token_ids, "positions": positions,
+                    "active": active, "bt": bt, "w": w}
+            return host, seq_ids, slots, b_pad
         batch = DecodeBatch(
             token_ids=self._tensor(token_ids.astype(np.int64)),
             positions=self._tensor(positions),
             block_tables=self._tensor(bt),
             active=self._tensor(active),
         )
-        return batch, seq_ids, [e[0] for e in entries]
+        return batch, seq_ids, slots, b_pad
 
     # -- sampling ------------------------------------------------------------
     def _sample(
@@ -215,27 +322,136 @@ class ModelRunner:
         )
         return ids.cpu().numpy(), logprobs.cpu().numpy()
 
-    # -- execution -----------------------------------------------------------
-    def _check_prefill_supported(self, metadata) -> None:
-        total = sum(
-            len(d.get_token_ids())
-            for g in metadata for d in g.seq_data.values()
+    # -- multi-step decode (greedy) ------------------------------------------
+    @torch.inference_mode()
+    def start_multi_step(
+        self,
+        metadata: List[SequenceGroupMetadata],
+        n_steps: int,
+        pos_offset: int = 0,
+        carry_tokens: Optional[torch.Tensor] = None,
+    ) -> dict:
+        """Launch an ``n_steps`` greedy decode window (async, no fetch).
+
+        ``pos_offset``/``carry_tokens`` let the engine launch the NEXT
+        window before draining the current one: host sequence state is
+        then one window behind, so positions advance by the in-flight
+        window's length and the starting token ids are the previous
+        window's DEVICE output (no host round trip on the critical path).
+        Block tables must already cover the window (the engine reserves)."""
+        host, seq_ids, slots, b_pad = self._prepare_decode(
+            metadata, device=False
         )
-        budget = getattr(self.scheduler_config, "chunk_prefill_size", 32000)
-        if total > budget:
-            raise NotImplementedError(
-                f"{total} prompt tokens exceed chunk_prefill_size {budget}: "
-                "chunked prefill (paged_prefill_attention) is the port's next "
-                "slice, ROADMAP.md queue 1"
+        use_carry = carry_tokens is not None
+        if pos_offset != (n_steps if use_carry else 0):
+            raise ValueError("pipelined windows are exactly one window ahead")
+        win = self._multi_step_fns(b_pad, host["w"])
+        win.load(host["token_ids"], host["positions"] + pos_offset,
+                 host["active"], host["bt"], carry=carry_tokens)
+        return {
+            "tokens": win.run(n_steps),   # device [n_steps, B]
+            "metadata": metadata,
+            "slots": slots,
+            "n_steps": n_steps,
+        }
+
+    def multi_step_carry(self, handle: dict) -> torch.Tensor:
+        """Device [B] token ids at the end of an in-flight window."""
+        return handle["tokens"][handle["n_steps"] - 1]
+
+    def finish_multi_step(self, handle: dict) -> List[SamplerOutput]:
+        """Fetch a window's tokens and shape them into per-step outputs."""
+        toks = handle["tokens"].cpu().numpy()  # [n_steps, B]
+        slots = handle["slots"]
+        outputs: List[SamplerOutput] = []
+        for i in range(handle["n_steps"]):
+            step_out: SamplerOutput = []
+            row = toks[i][slots]
+            k = 0
+            for group in handle["metadata"]:
+                samples = []
+                for seq_id in group.seq_data:
+                    samples.append(SequenceOutput(seq_id, int(row[k])))
+                    k += 1
+                step_out.append(SequenceGroupOutput(samples))
+            outputs.append(step_out)
+        return outputs
+
+    def execute_model_multi_step(
+        self, metadata: List[SequenceGroupMetadata], n_steps: int
+    ) -> List[SamplerOutput]:
+        """Advance ``n_steps`` greedy decode tokens in one window."""
+        return self.finish_multi_step(self.start_multi_step(metadata, n_steps))
+
+    def _multi_step_fns(self, b_pad: int, w: int) -> DecodeWindow:
+        """The window of this (batch width, table width), built (and on a
+        card captured) on first use. A new batch width drops the others'
+        graphs."""
+        key = (b_pad, w)
+        win = self._ms_fn_cache.get(key)
+        if win is None:
+            if any(k[0] != b_pad for k in self._ms_fn_cache):
+                self._ms_fn_cache.clear()
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            win = DecodeWindow(
+                self.params, self.cache_engine.retrieval_pool, self.spec,
+                b_pad, w, self.device, graph_pool=self._graph_pool,
             )
+            if win.graph is not None:
+                self.graphs_captured += 1
+                self.graph_capture_s += win.capture_s
+            self._ms_fn_cache[key] = win
+        return win
+
+    # -- chunked prefill -----------------------------------------------------
+    def _execute_chunked_prefill(self, metadata, budget: int, starts=None):
+        """Prefill in rectangular [B, Tc] chunks: each chunk appends its KV
+        to the pool, then attends causally over the pool (history + itself)
+        through the paged-prefill kernel. ``starts`` (per scheduled seq, in
+        metadata order) skips tokens whose KV a COMPUTED shared prefix
+        already holds: prefill covers only the suffix."""
+        seqs, seq_ids = [], []
+        for group in metadata:
+            for seq_id, data in group.seq_data.items():
+                seqs.append((data.get_token_ids(), group.block_tables[seq_id]))
+                seq_ids.append(seq_id)
+        final_logits = None
+        for batch, ends in chunked_prefill_batches(
+            seqs, budget, self.spec.page_size, self.device, starts=starts
+        ):
+            logits, _, _, _ = llama.llama_forward(
+                self.params, self.cache_engine.retrieval_pool, None, batch,
+                self.spec, is_prefill=True,
+            )
+            final_logits = logits if final_logits is None else torch.where(
+                ends[:, None], logits, final_logits
+            )
+        return final_logits, seq_ids, len(seqs)
+
+    @staticmethod
+    def _prefix_starts(metadata):
+        """Per-seq prefill start offsets from COMPUTED shared prefixes.
+
+        Returns None when no scheduled sequence can skip anything. A seq
+        whose whole prompt is the prefix still prefills its last token
+        (its logits seed decoding)."""
+        starts, any_skip = [], False
         for group in metadata:
             p = getattr(group, "prefix", None)
-            if p is not None and p.computed and p.allocated and not p.evicted:
-                raise NotImplementedError(
-                    "prefix reuse prefills through the chunked path; "
-                    "ROADMAP.md queue 1"
-                )
+            usable = (
+                p is not None and p.computed and p.allocated
+                and not p.evicted
+            )
+            for _, data in group.seq_data.items():
+                s = 0
+                if usable:
+                    s = min(p.length, len(data.get_token_ids()) - 1)
+                starts.append(max(0, s))
+                any_skip = any_skip or s > 0
+        return starts if any_skip else None
 
+    # -- execution -----------------------------------------------------------
     @torch.inference_mode()
     def execute_model(
         self, metadata: List[SequenceGroupMetadata]
@@ -244,15 +460,31 @@ class ModelRunner:
             return []
         pool = self.cache_engine.retrieval_pool     # updated in place
         if metadata[0].is_prompt:
-            self._check_prefill_supported(metadata)
-            batch, seq_ids, n_seqs = self._prepare_prefill(metadata)
+            total_tokens = sum(
+                len(d.get_token_ids())
+                for g in metadata for d in g.seq_data.values()
+            )
+            budget = getattr(self.scheduler_config, "chunk_prefill_size",
+                             32000)
+            starts = self._prefix_starts(metadata)
+            if starts is not None or total_tokens > budget:
+                # a computed shared prefix: suffix-only prefill through the
+                # paged (chunked) path; long prompts: chunked prefill
+                logits, seq_ids, n_seqs = self._execute_chunked_prefill(
+                    metadata, budget, starts=starts
+                )
+            else:
+                batch, seq_ids, n_seqs = self._prepare_prefill(metadata)
+                logits, _, _, _ = llama.llama_forward(
+                    self.params, pool, None, batch, self.spec,
+                    is_prefill=True,
+                )
             rows = list(range(n_seqs))
         else:
-            batch, seq_ids, rows = self._prepare_decode(metadata)
-        logits, _, _, _ = llama.llama_forward(
-            self.params, pool, None, batch, self.spec,
-            is_prefill=metadata[0].is_prompt,
-        )
+            batch, seq_ids, rows, _ = self._prepare_decode(metadata)
+            logits, _, _, _ = llama.llama_forward(
+                self.params, pool, None, batch, self.spec, is_prefill=False,
+            )
         token_ids, logprobs = self._sample(logits, metadata, rows)
 
         outputs: SamplerOutput = []

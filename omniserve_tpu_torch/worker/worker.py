@@ -45,6 +45,29 @@ class Worker:
             load_format=load_format, device=device,
         )
 
+    def execute_model_multi_step(self, seq_group_metadata_list, n_steps):
+        return self.model_runner.execute_model_multi_step(
+            seq_group_metadata_list, n_steps
+        )
+
+    def start_multi_step(self, seq_group_metadata_list, n_steps,
+                         pos_offset=0, carry_tokens=None):
+        return self.model_runner.start_multi_step(
+            seq_group_metadata_list, n_steps, pos_offset=pos_offset,
+            carry_tokens=carry_tokens,
+        )
+
+    def finish_multi_step(self, handle):
+        return self.model_runner.finish_multi_step(handle)
+
+    def multi_step_carry(self, handle):
+        return self.model_runner.multi_step_carry(handle)
+
+    @property
+    def multi_step_capable(self) -> bool:
+        return (self.model_runner is not None
+                and self.model_runner.multi_step_capable)
+
     def execute_model(
         self,
         seq_group_metadata_list: List[SequenceGroupMetadata],

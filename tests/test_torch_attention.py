@@ -7,7 +7,12 @@
 - the fused decode's plain version (append, then attend) vs
   ``paged_mqa_attention_single_pass(append=...)`` (Pallas, interpret
   mode): outputs at 5e-2 (``tests/test_decode_attention_sp.py``), pool
-  bytes exact.
+  bytes exact;
+- the paged prefill's plain version vs ``attention_ref.paged_prefill_
+  attention`` (both f32 over the same dequantized pages: 1e-5) and vs the
+  Pallas ``paged_prefill_attention`` in interpret mode (2e-2, the
+  tolerance of ``tests/test_paged_prefill.py``); the dequantized gather
+  and the page-aligned append byte for byte.
 """
 
 import jax.numpy as jnp
@@ -17,14 +22,20 @@ import torch
 
 from omniserve_tpu.ops import attention_ref as j_ref
 from omniserve_tpu.ops.paged_kv import append_kv as j_append_kv
+from omniserve_tpu.ops.paged_kv import gather_kv_for_seq as j_gather
 from omniserve_tpu.ops.paged_kv import make_kv_pool as j_make_kv_pool
 from omniserve_tpu.ops.pallas import decode_attention as j_sp
 from omniserve_tpu.ops.pallas.flash_attention import flash_prefill
+from omniserve_tpu.ops.pallas.paged_prefill import (
+    paged_prefill_attention as j_paged_prefill,
+)
 from omniserve_tpu_torch.models.convert import pool_from_numpy
 from omniserve_tpu_torch.ops import attention_ref as t_ref
 from omniserve_tpu_torch.ops import dispatch
+from omniserve_tpu_torch.ops import paged_kv as t_kv
 from omniserve_tpu_torch.ops.cuda import decode_attention as t_dec
 from omniserve_tpu_torch.ops.cuda import flash_attention as t_flash
+from omniserve_tpu_torch.ops.cuda import paged_prefill as t_pp
 
 
 def T(a):
@@ -220,3 +231,134 @@ def test_decode_dispatch_raises_outside_slice():
             q, None, None, 0, None, None, None, None, sm_scale=1.0,
             page_size=8, kv_bits=8, kv_zeros=True,
         )
+
+
+# -- paged prefill (chunked prefill attention) ---------------------------
+
+PP_B, PP_HKV, PP_NREP, PP_D, PP_PAGE = 2, 2, 2, 128, 16
+
+
+def paged_prefill_setup(history, chunk, seed=0):
+    """Pools holding ``history + chunk`` tokens per sequence (the JAX
+    test's geometry, tests/test_paged_prefill.py:16-35); q for the chunk."""
+    rng = np.random.default_rng(seed)
+    total = history + chunk
+    n_blocks = -(-total // PP_PAGE) + 1
+    pool = j_make_kv_pool(1, PP_B * n_blocks + 1, PP_HKV, PP_PAGE, PP_D,
+                          kv_bits=4, kv_zeros=True)
+    tables = np.arange(PP_B * n_blocks, dtype=np.int32).reshape(PP_B,
+                                                                n_blocks)
+    for i in range(PP_B):
+        pos = np.arange(total)
+        pool = j_append_kv(
+            pool, 0,
+            jnp.asarray(rng.normal(size=(total, PP_HKV, PP_D)), jnp.float32),
+            jnp.asarray(rng.normal(size=(total, PP_HKV, PP_D)), jnp.float32),
+            jnp.asarray(tables[i][pos // PP_PAGE]),
+            jnp.asarray(pos % PP_PAGE), PP_PAGE, 4, True,
+        )
+    q = rng.normal(size=(PP_B, chunk, PP_HKV * PP_NREP, PP_D)).astype(
+        np.float32)
+    q_pos = np.tile(history + np.arange(chunk), (PP_B, 1)).astype(np.int32)
+    ctx = np.full(PP_B, total, np.int32)
+    return pool, tables, q, q_pos, ctx
+
+
+def run_paged_prefill_three_ways(pool, tables, q, q_pos, ctx):
+    args = (0, 0.088, PP_PAGE, 4, True)
+    want = np.asarray(j_ref.paged_prefill_attention(
+        jnp.asarray(q), pool, 0, jnp.asarray(tables), jnp.asarray(q_pos),
+        jnp.asarray(ctx), *args[1:]))
+    pallas = np.asarray(j_paged_prefill(
+        jnp.asarray(q), pool, 0, jnp.asarray(tables), jnp.asarray(q_pos),
+        jnp.asarray(ctx), *args[1:], tile_q=8, interpret=True))
+    got = N(dispatch.paged_prefill_attention(
+        T(q), pool_from_numpy(pool, "cpu"), 0, T(tables), T(q_pos), T(ctx),
+        *args[1:]))
+    return got, want, pallas
+
+
+@pytest.mark.parametrize("history,chunk", [(0, 24), (40, 24)])
+def test_paged_prefill_plain(history, chunk):
+    got, want, pallas = run_paged_prefill_three_ways(
+        *paged_prefill_setup(history, chunk))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=2e-2, atol=2e-2)
+
+
+def test_paged_prefill_plain_ragged_query_padding():
+    """tests/test_paged_prefill.py:67-84: the second sequence's chunk is
+    shorter; its padding rows give zeros and poison nothing."""
+    pool, tables, q, q_pos, ctx = paged_prefill_setup(16, 16)
+    q_pos[1, 8:] = -1
+    ctx[1] = 16 + 8
+    got, want, pallas = run_paged_prefill_three_ways(pool, tables, q, q_pos,
+                                                     ctx)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[:, :8], pallas[:, :8], rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_array_equal(got[1, 8:], 0.0)
+    # the kernel wrapper's plain version is the same function
+    plain = N(t_pp.paged_prefill_attention_plain(
+        T(q), pool_from_numpy(pool, "cpu"), 0, T(tables), T(q_pos), T(ctx),
+        sm_scale=0.088, page_size=PP_PAGE))
+    np.testing.assert_array_equal(plain, got)
+
+
+def test_gather_kv_for_seq_matches_jax():
+    pool, tables, _, _, _ = paged_prefill_setup(40, 24, seed=3)
+    tpool = pool_from_numpy(pool, "cpu")
+    for i in range(PP_B):
+        jk, jv = j_gather(pool, 0, jnp.asarray(tables[i]), PP_PAGE, 4, True)
+        tk, tv = t_kv.gather_kv_for_seq(tpool, 0, T(tables[i]), PP_PAGE, 4,
+                                        True)
+        np.testing.assert_array_equal(N(tk), np.asarray(jk))
+        np.testing.assert_array_equal(N(tv), np.asarray(jv))
+    # a [B, W] table gathers the same rows
+    bk, _ = t_kv.gather_kv_for_seq(tpool, 0, T(tables), PP_PAGE)
+    np.testing.assert_array_equal(N(bk[1]), np.asarray(j_gather(
+        pool, 0, jnp.asarray(tables[1]), PP_PAGE, 4, True)[0]))
+
+
+def test_append_kv_page_aligned_bytes_match_jax():
+    """Chunked prefill's page-aligned append: two chunk rows of two pages
+    each, the second row's tail padded (page -1), into a pool that already
+    holds other sequences' history."""
+    rng = np.random.default_rng(4)
+    page, h, d = 16, 2, 32
+    jpool = build_pool(rng, page, h, d, [20, 7],
+                       np.arange(12, dtype=np.int32).reshape(2, 6), layers=1)
+    tables = np.array([[3, 4], [9, 10]], np.int32)
+    t = 2 * 2 * page
+    k = rng.standard_normal((t, h, d)).astype(np.float32)
+    v = rng.standard_normal((t, h, d)).astype(np.float32)
+    pos = np.tile(np.arange(2 * page), 2)
+    pages = np.repeat(tables, page, axis=1).reshape(-1)
+    pages[2 * page + 20:] = -1                       # padding tail of row 2
+    slots = pos % page
+    want = j_append_kv(jpool, 0, jnp.asarray(k), jnp.asarray(v),
+                       jnp.asarray(pages), jnp.asarray(slots), page, 4, True,
+                       page_aligned=True)
+    got = t_kv.append_kv(pool_from_numpy(jpool, "cpu"), 0, T(k), T(v),
+                         T(pages), T(slots), page, 4, True, page_aligned=True)
+    for name in ("k_data", "v_data", "kv_scales"):
+        np.testing.assert_array_equal(N(getattr(got, name)),
+                                      np.asarray(getattr(want, name)))
+
+
+def test_paged_prefill_dispatch_raises_outside_slice():
+    q = torch.zeros(1, 2, 2, 8)
+    kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
+    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+        dispatch.paged_prefill_attention(q, None, 0, None, None, None,
+                                         return_lse=True, **kw)
+    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+        dispatch.paged_prefill_attention(
+            q, None, 0, None, None, None, head_is_retrieval=torch.ones(2),
+            sink_size=4, local_size=4, **kw)
+    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+        t_ref.paged_prefill_attention(q, None, 0, None, None, None, 1.0, 8,
+                                      4, True, kv_positions=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.paged_prefill_attention(q, None, 0, None, None, None,
+                                         **dict(kw, kv_bits=8))

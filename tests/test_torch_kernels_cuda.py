@@ -133,3 +133,101 @@ def test_decode_attention_append_kernel(dev, n_rep):
     assert float(got[3].abs().max()) == 0.0
     for a, b_ in zip(pool, twin):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("history,chunk,n_rep,page,ragged", [
+    (0, 24, 4, 16, False),       # first chunk, tokens of one tile
+    (40, 24, 2, 16, False),      # history in earlier pages
+    (16, 16, 1, 16, True),       # second row padded (q_pos -1) halfway
+    (200, 130, 4, 128, False),   # page 128, chunk spans two pages
+    (300, 64, 8, 128, True),
+])
+def test_paged_prefill_kernel(dev, history, chunk, n_rep, page, ragged):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    b, h, d = 2, 2, 128
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 4)
+    pool = make_kv_pool(2, b * w + 1, h, page, d, device=dev)
+    # pages of the two sequences interleaved, so tables are not contiguous
+    tables = torch.arange(b * w, dtype=torch.int32).view(w, b).t()
+    tables = tables.contiguous().to(dev)
+    pos = torch.arange(total, device=dev)
+    for s in range(b):
+        append_kv(pool, 1, torch.randn((total, h, d), generator=g, device=dev),
+                  torch.randn((total, h, d), generator=g, device=dev),
+                  tables[s].long()[pos // page], pos % page, page, 4, True)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    if ragged:
+        q_pos[1, chunk // 2:] = -1
+        ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    before = cuda.LAUNCHES["paged_prefill_attention"]
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx,
+                                     sm_scale=d ** -0.5, page_size=page)
+    assert cuda.LAUNCHES["paged_prefill_attention"] == before + 1
+    want = pp.paged_prefill_attention_plain(q, pool, 1, tables, q_pos, ctx,
+                                            sm_scale=d ** -0.5,
+                                            page_size=page)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if ragged:
+        assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+def test_decode_window_graph_matches_eager(dev):
+    """Eight replays of the captured decode step give the eager loop's
+    tokens and pool bytes, from the same pool and metadata."""
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.decode_window import DecodeWindow
+
+    spec = llama.LlamaSpec(num_layers=2, hidden=512, intermediate=1024,
+                           num_q_heads=4, num_kv_heads=2, head_dim=128,
+                           vocab=1024, page_size=16, lm_head_bits=8)
+    params = llama.make_random_packed_params(spec, seed=3, device=dev)
+    lens, b_pad, w = [37, 5, 20], 8, 6
+    tables = np.zeros((b_pad, w), np.int32)
+    tables[:3] = np.arange(3 * w).reshape(3, w)
+    pool = make_kv_pool(2, 3 * w + 1, 2, 16, 128, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, spec.vocab, n) for n in lens]
+    batch = llama.PrefillBatch(
+        token_ids=torch.from_numpy(np.concatenate(prompts)).to(dev),
+        positions=torch.from_numpy(np.concatenate(
+            [np.arange(n) for n in lens]).astype(np.int32)).to(dev),
+        segment_ids=torch.from_numpy(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(lens)]).astype(
+                np.int32)).to(dev),
+        block_tables=torch.from_numpy(tables[:3]).to(dev),
+        last_token_idx=torch.tensor(np.cumsum(lens) - 1, device=dev),
+    )
+    with torch.inference_mode():
+        logits, _, _, _ = llama.llama_forward(params, pool, None, batch, spec,
+                                              is_prefill=True)
+        first = np.zeros(b_pad, np.int32)
+        first[:3] = logits.argmax(-1).cpu().numpy()
+        positions = np.zeros(b_pad, np.int32)
+        positions[:3] = lens
+        active = np.arange(b_pad) < 3
+        twin = type(pool)(*(x.clone() for x in pool))
+        toks = {}
+        for mode, p in (("graph", pool), ("eager", twin)):
+            win = DecodeWindow(params, p, spec, b_pad, w, dev,
+                               use_graph=mode == "graph")
+            assert (win.graph is not None) == (mode == "graph")
+            win.load(first, positions, active, tables)
+            before = cuda.LAUNCHES["decode_attention_append"]
+            toks[mode] = win.run(8).cpu().numpy()
+            assert (cuda.LAUNCHES["decode_attention_append"] - before
+                    == 8 * spec.num_layers)
+    np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
+    for a, b_ in zip(pool, twin):
+        assert torch.equal(a, b_)

@@ -2,7 +2,9 @@
 
 Same packed W4A8 per-channel x KV4 weights (JAX ``make_random_packed_params``
 carried over with ``params_from_numpy``), same padded prefill batch, then
-one decode step from the same tokens.
+one decode step from the same tokens; and a chunked prefill (two chunks,
+the second attending the first through the paged pool) from the same
+chunk batches.
 
 Tolerances. Run op by op (``jax.disable_jit()``), the JAX functions and
 the port execute the same integer GEMMs and the same f32 op order: logits
@@ -25,6 +27,7 @@ from omniserve_tpu.ops.paged_kv import make_kv_pool as j_make_kv_pool
 from omniserve_tpu_torch.models import llama as t_llama
 from omniserve_tpu_torch.models.convert import params_from_numpy
 from omniserve_tpu_torch.ops.paged_kv import make_kv_pool as t_make_kv_pool
+from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
 
 PAGE = 16
 LOGIT_RTOL = 1e-4          # vs the op-by-op JAX forward
@@ -141,6 +144,53 @@ def test_prefill_then_decode_matches_jax(lm_head_bits):
     assert_logits_close(t_logits.numpy()[:2], np.asarray(j_logits)[:2])
     assert_logits_close(t_logits.numpy()[:2], np.asarray(jit_logits)[:2],
                         LOGIT_RTOL_JIT)
+    assert_pools_close(tpool, jpool)
+
+
+def test_chunked_prefill_matches_jax():
+    """Two prompts prefilled in [2, 32] chunks (the runner's geometry for a
+    64-token budget): the 40-token prompt takes two chunks, the second
+    reading the first's quantized K/V back from the pool. Held against the
+    JAX chunked forward run op by op on the same chunk batches."""
+    j_spec = j_llama.LlamaSpec(**spec_kwargs(8))
+    t_spec = t_llama.LlamaSpec(**spec_kwargs(8))
+    jparams = j_llama.make_random_packed_params(j_spec, seed=6)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(7)
+    seqs = [(rng.integers(0, 128, 40).tolist(), [4, 1, 7]),
+            (rng.integers(0, 128, 23).tolist(), [2, 6])]
+    jpool = j_make_kv_pool(2, 9, 2, PAGE, 16, kv_bits=4, kv_zeros=True)
+    tpool = t_make_kv_pool(2, 9, 2, PAGE, 16, device="cpu")
+    j_final = t_final = None
+    n_chunks = 0
+    for t_batch, ends in chunked_prefill_batches(seqs, 64, PAGE, "cpu"):
+        n_chunks += 1
+        assert t_batch.token_ids.shape == (2 * 32,)
+        j_batch = j_llama.PrefillBatch(
+            token_ids=jnp.asarray(t_batch.token_ids.numpy(), jnp.int32),
+            positions=jnp.asarray(t_batch.positions.numpy()),
+            segment_ids=jnp.asarray(t_batch.segment_ids.numpy()),
+            block_tables=jnp.asarray(t_batch.block_tables.numpy()),
+            streaming_block_tables=jnp.zeros((2, 1), jnp.int32),
+            last_token_idx=jnp.asarray(t_batch.last_token_idx.numpy(),
+                                       jnp.int32),
+            seq_lens=jnp.asarray(t_batch.seq_lens.numpy()),
+            new_page_ids=jnp.full((8,), -1, jnp.int32),
+            context_lens=jnp.asarray(t_batch.context_lens.numpy()),
+        )
+        with jax.disable_jit():
+            j_logits, jpool, _, _ = j_llama.llama_forward(
+                jparams, jpool, None, j_batch, j_spec, is_prefill=True)
+        t_logits, tpool, _, _ = t_llama.llama_forward(
+            tparams, tpool, None, t_batch, t_spec, is_prefill=True)
+        m = ends.numpy()[:, None]
+        j_logits, t_logits = np.asarray(j_logits), t_logits.numpy()
+        j_final = j_logits if j_final is None else np.where(m, j_logits,
+                                                            j_final)
+        t_final = t_logits if t_final is None else np.where(m, t_logits,
+                                                            t_final)
+    assert n_chunks == 2
+    assert_logits_close(t_final, j_final)
     assert_pools_close(tpool, jpool)
 
 
