@@ -17,7 +17,10 @@ Phases (any failure raises and exits nonzero before the last line):
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
-   eager loop, each with kernels against the plain versions;
+   eager loop, each with kernels against the plain versions; then the same
+   under LServe's sparse decode (dual pools, page selector): prefill and
+   two decode steps kernels against plain, and a 10-step window (refresh
+   and reuse graphs) against the eager loop;
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
@@ -27,7 +30,13 @@ Phases (any failure raises and exits nonzero before the last line):
    1024 prompt tokens, 512 greedy tokens, chunked prefill of 8192 tokens,
    32-step decode windows, two rounds (the first is warmup), then a
    traced chunked prefill and decode window;
-6. a ``{"kernels": [...]}`` line, the card line, then
+6. ``lserve_benchmark.py``'s protocol through the port's engine and
+   ``omniserve_tpu_torch.lserve_benchmark``: batch 1, a 32,768-token
+   prompt, 128 greedy tokens, ``--sparse-decode-mode --static-sparsity
+   0.5`` at Llama-3.1-8B's published config (128K context, llama3 rope
+   scaling), a warmup and a measured round in single decode steps, then
+   the same two rounds in 16-step decode windows;
+7. a ``{"kernels": [...]}`` line, the card line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Exits 2 without CUDA or without the repository's package beside this
@@ -57,6 +66,13 @@ LLAMA3_8B = dict(
     num_key_value_heads=8, num_hidden_layers=32, vocab_size=128256,
     rope_theta=500000.0, max_position_embeddings=8192,
     rms_norm_eps=1e-5, model_type="llama",
+)
+# Llama-3.1-8B (public config.json): the same widths, a 128K context
+LLAMA31_8B = dict(
+    LLAMA3_8B, max_position_embeddings=131072,
+    rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192,
+                      rope_type="llama3"),
 )
 LAYER_GEMMS = [  # (name, K, N) of one layer's W4A8 projections
     ("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
@@ -136,6 +152,23 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_graphed_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured into one CUDA
+    graph and replayed, so the host's per-call cost (tens of microseconds
+    of wrapper checks and ctypes) does not hide a kernel of a few
+    microseconds. ``fn`` must be safe to repeat and allocate nothing that
+    outlives it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, replays, warmup=1) / reps
 
 
 def bound_ms(n_bytes: float, ops: float, peak: float):
@@ -302,7 +335,6 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
-    from omniserve_tpu_torch.ops.paged_kv import KVPool
 
     hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
     lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
@@ -312,7 +344,7 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
     tables = perm[: b * w].view(b, w).to(torch.int32)
     pool_k = random_kv4_pool(gen, dev, layers, n_pages, hkv, page, d)
-    pool_p = KVPool(*(x.clone() for x in pool_k))
+    pool_p = pool_k.clone()
     q = torch.randn((b, hkv * n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
     k_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(
@@ -427,6 +459,204 @@ def check_paged_prefill(dev, gen):
         f"max_abs_err {err:.3g}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
+
+
+def check_kv_append(dev, gen):
+    """The decode append at the LServe path's shapes: 8 rows (the padded
+    batch) and 128, 4 pool heads (retrieval, with K stats; streaming,
+    without) and 8. Pool bytes, planes and stats must equal the plain
+    version's on every page but the trash page. The row kept for the
+    kernels line is T=8, H=4 with stats."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+    from omniserve_tpu_torch.ops.paged_kv import KVPool
+
+    page, d, n_sub = 128, 128, 4
+    kept = None
+    for t, heads, with_stats in ((8, 4, True), (8, 4, False), (128, 4, True),
+                                 (128, 8, False)):
+        n_pages = 2 * t + 1
+        base = random_kv4_pool(gen, dev, 2, n_pages, heads, page, d)
+        stats = torch.randn((2, n_pages, heads, 2 * n_sub, d), generator=gen,
+                            device=dev) if with_stats else None
+        pool_k = KVPool(base.k_data, base.v_data, base.kv_scales, stats)
+        pool_p = pool_k.clone()
+        pages = torch.randperm(n_pages - 1, generator=gen, device=dev)[:t].to(
+            torch.int32)
+        pages[1::5] = -1                       # inactive rows
+        slots = torch.randint(0, page, (t,), generator=gen, device=dev).to(
+            torch.int32)
+        k = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
+        args = (1, k, v, pages, slots, page)
+        ka.append_kv_decode(pool_k, *args, update_stats=with_stats)
+        ka.append_kv_decode_plain(pool_p, *args, update_stats=with_stats)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b_ in zip(pool_k._fields, pool_k, pool_p):
+            if a is None:
+                continue
+            if not torch.equal(a[:, :-1], b_[:, :-1]):
+                n_bad = int((a[:, :-1] != b_[:, :-1]).sum())
+                raise AssertionError(
+                    f"kv append T={t} H={heads}: pool {name} differs from "
+                    f"the plain append in {n_bad} elements")
+            err = max(err, float((a[:, :-1].float() - b_[:, :-1].float())
+                                 .abs().max()))
+
+        # the same token again writes the same bytes: safe to repeat
+        def call():
+            ka.append_kv_decode(pool_k, *args, update_stats=with_stats)
+
+        ms = time_graphed_ms(call, 20)
+        call_ms = time_ms(call, 50)
+        plain = time_ms(lambda: ka.append_kv_decode_plain(
+            pool_p, *args, update_stats=with_stats), 5, warmup=1)
+        per_head = (2 * d * 2            # k, v in (bf16)
+                    + 2 * 2 * d          # K and V byte rows read + written
+                    + 16                 # four plane lanes
+                    + (2 * 2 * d * 4 if with_stats else 0))  # min/max rows RMW
+        bnd, by = bound_ms(t * heads * per_head + 8 * t,
+                           t * heads * d * 8.0, BF16_FLOPS_PER_S)
+        log(f"  kv append T={t} H={heads} stats={with_stats}: kernel_ms "
+            f"{ms:.4f} (graph replay; {call_ms:.4f} per eager wrapper call) "
+            f"plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) library_ms "
+            f"None max_abs_err {err:g}; pool bytes, planes"
+            f"{' and stats' if with_stats else ''} equal")
+        if kept is None:
+            kept = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=None, max_abs_err=err)
+    return kept
+
+
+def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
+                     page, tol=5e-2):
+    """Check + time one page-list decode call; ``n_pages_read`` = the
+    (sequence, head) pages this run's lists make the kernel read."""
+    got, want = fn(), plain_fn()
+    err = allclose_err(got, want, tol, tol, label)
+    ms = time_graphed_ms(fn, 20)
+    call_ms = time_ms(fn, 50)
+    plain = time_ms(plain_fn, 3, warmup=1)
+    n_bytes = (n_pages_read * (page * d + 4 * 4 * page)  # K+V codes, 4 planes
+               + 2 * b * heads * n_rep * d * 2)          # q in, out
+    bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * n_pages_read * page,
+                       BF16_FLOPS_PER_S)
+    log(f"  {label}: kernel_ms {ms:.4f} (graph replay; {call_ms:.4f} per "
+        f"eager wrapper call) plain_ms {plain:.4f} bound_ms {bnd:.5f} ({by}) "
+        f"library_ms None max_abs_err {err:.3g}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, max_abs_err=err)
+
+
+def check_decode_ph(dev, gen, b):
+    """Dynamic-sparse decode at the LServe path's shape: 4 retrieval heads,
+    n_rep 4, a budget of 32 pages out of a 32K-token context (257 pages, the
+    last one partly filled): the newest page first, then 31 others in no
+    order, a different list per head."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    hr, n_rep, d, page, budget = 4, 4, 128, 128, 32
+    ctx_pages = 257
+    lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
+            ).to(torch.int32)
+    pool = random_kv4_pool(gen, dev, 1, b * ctx_pages + 1, hr, page, d)
+    tables = torch.randperm(b * ctx_pages, generator=gen, device=dev).view(
+        b, ctx_pages)
+    picks = torch.stack([torch.stack([
+        torch.randperm(ctx_pages - 1, generator=gen, device=dev)[:budget - 1]
+        for _ in range(hr)]) for _ in range(b)])          # [B, Hr, 31]
+    sel_logic = torch.cat([torch.full((b, hr, 1), ctx_pages - 1, device=dev),
+                           picks], dim=2)
+    sel_phys = torch.gather(tables[:, None, :].expand(-1, hr, -1), 2,
+                            sel_logic)
+    sel_logic = sel_logic.to(torch.int32).contiguous()
+    sel_phys = sel_phys.to(torch.int32).contiguous()
+    q = torch.randn((b, hr, n_rep, d), generator=gen, device=dev).bfloat16()
+    args = (q, pool, 0, sel_phys, sel_logic, lens)
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    return _list_kernel_row(
+        f"decode per-head lists B={b} Hr={hr} n_rep={n_rep} budget {budget} "
+        f"pages of {ctx_pages}",
+        lambda: da.paged_mqa_attention_single_pass_ph(*args, **kw),
+        lambda: da.page_list_attention_plain(*args, **kw),
+        b * hr * budget, b, hr, n_rep, d, page)
+
+
+def check_decode_band(dev, gen, b):
+    """The streaming call at the LServe path's shape: 4 streaming heads, the
+    compact list of 1 sink page + 2 ring pages after the ring has wrapped
+    (32K-token contexts), band = 128 sink tokens + the last 256."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    hs, n_rep, d, page = 4, 4, 128, 128
+    lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
+            ).to(torch.int32)
+    pool = random_kv4_pool(gen, dev, 1, 3 * b + 1, hs, page, d)
+    stables = torch.randperm(3 * b, generator=gen, device=dev).view(b, 3).to(
+        torch.int32)
+    sel_phys, sel_logic, span = da.streaming_page_lists(stables, lens, 1,
+                                                        page, 256)
+    if sel_logic.shape != (b, 3) or int(sel_logic.min()) < 0:
+        raise AssertionError(f"streaming list {sel_logic.tolist()}")
+    q = torch.randn((b, hs, n_rep, d), generator=gen, device=dev).bfloat16()
+    args = (q, pool, 0, sel_phys, sel_logic, lens)
+    kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=128,
+              band_local_tokens=256, ring_span_pages=span,
+              ring_sink_tokens=page)
+    return _list_kernel_row(
+        f"decode band+ring B={b} Hs={hs} n_rep={n_rep} list 1 sink + 2 ring "
+        f"pages", lambda: da.paged_mqa_attention_single_pass(*args, **kw),
+        lambda: da.page_list_attention_plain(*args, **kw),
+        b * hs * 3, b, hs, n_rep, d, page)
+
+
+def time_selector(dev, gen):
+    """The page selector (plain PyTorch in the port, as XLA code in the JAX
+    package) at the LServe phase's shape: the padded batch of 8 rows, a
+    320-page table holding a 32K-token context, 4 retrieval heads of 8 kv
+    heads, budget 32. It gathers each sequence's stats rows and scores only
+    those. Time of one layer's refresh, and the stats bytes it reads."""
+    import torch
+
+    from omniserve_tpu_torch.ops import attention_ref
+
+    b, w, hkv, hr, n_rep, d, n_sub, budget, page = 8, 320, 8, 4, 4, 128, 4, 32, 128
+    n_pages = 264
+    stats = torch.randn((1, n_pages, hr, 2 * n_sub, d), generator=gen,
+                        device=dev)
+    tables = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    tables[0, :257] = torch.randperm(n_pages - 1, generator=gen,
+                                     device=dev)[:257].to(torch.int32)
+    lens = torch.zeros(b, dtype=torch.int32, device=dev)
+    lens[0] = 32768 + 17
+    flags = torch.arange(hkv, device=dev) < hr
+    rank = torch.cat([torch.arange(hr), torch.arange(hkv - hr)]).to(
+        torch.int32).to(dev)
+    q = torch.randn((b, hkv * n_rep, d), generator=gen, device=dev).bfloat16()
+
+    def refresh():
+        scores = attention_ref.page_selector_scores(q, stats, 0, tables,
+                                                    flags, rank)
+        return attention_ref.select_topk_pages(scores, lens, budget, page)
+
+    sel = refresh()
+    if sel.shape != (b, hkv, budget) or int(sel[0, 0, 0]) != 256 or len(
+            set(sel[0, 0].tolist())) != budget:
+        raise AssertionError(f"selector picked {sel[0, 0].tolist()}")
+    ms = time_graphed_ms(refresh, 10)
+    call_ms = time_ms(refresh, 20)
+    gathered = b * w * hr * 2 * n_sub * d * 4
+    log(f"  page selector, one layer's refresh (B={b} rows, table {w} pages, "
+        f"Hr={hr}, budget {budget}): {ms:.4f} ms on the device (graph "
+        f"replay), {call_ms:.4f} ms per eager call; gathers "
+        f"{gathered / 2**20:.1f} MiB of stats rows "
+        f"(bytes bound {gathered / HBM_BYTES_PER_S * 1e3:.4f} ms)")
 
 
 # ---------------------------------------------------------------------------
@@ -570,10 +800,12 @@ def check_chunked_forward(dev, spec, params, prompts, tables):
     return results["kernels"][1], a.argmax(-1)
 
 
-def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8):
-    """An ``n_steps`` greedy window over the prefilled pool: replays of the
-    captured decode step against the eager loop of the same step on a copy
-    of the pool. Tokens and pool bytes must be equal."""
+def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8,
+                 spool=None, stables=None):
+    """An ``n_steps`` greedy window over the prefilled pool(s): replays of
+    the captured decode step(s) against the eager loop of the same step on
+    copies of the pools. Tokens, pool bytes and, under sparse decode, K
+    stats and the page selection must be equal."""
     import numpy as np
     import torch
 
@@ -589,26 +821,170 @@ def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8):
     positions = np.zeros(b_pad, np.int32)
     positions[:n] = lens
     active = np.arange(b_pad) < n
-    twin = type(pool)(*(x.clone() for x in pool))
-    out = {}
+    sparse = spec.sparse_decode
+    st = None
+    if sparse:
+        st = np.zeros((b_pad, stables.shape[1]), np.int32)
+        st[:n] = stables.numpy()
+    twins = {"graph": (pool, spool),
+             "eager": (pool.clone(), None if spool is None else spool.clone())}
+    out, sels = {}, {}
     with torch.inference_mode():
-        for mode, p in (("graph", pool), ("eager", twin)):
-            win = DecodeWindow(params, p, spec, b_pad, w, dev,
-                               use_graph=mode == "graph")
-            win.load(tokens, positions, active, bt)
-            out[mode] = win.run(n_steps)[:, :n].cpu()
+        for mode, (rp, sp) in twins.items():
+            sel = torch.full(
+                (spec.num_layers, b_pad, spec.num_kv_heads,
+                 spec.budget_pages), -1, dtype=torch.int32,
+                device=dev) if sparse else None
+            win = DecodeWindow(params, rp, spec, b_pad, w, dev,
+                               use_graph=mode == "graph", streaming_pool=sp,
+                               page_idxes=sel)
+            win.load(tokens, positions, active, bt, st)
+            out[mode] = win.run(n_steps, refresh_first=sparse)[:, :n].cpu()
+            sels[mode] = sel
             if mode == "graph":
-                capture_s = win.capture_s
+                capture_s, n_graphs = win.capture_s, len(win.graphs)
+                refreshes = win.refreshes_in(n_steps, sparse)
     if not torch.equal(out["graph"], out["eager"]):
         raise AssertionError(f"window: graph tokens {out['graph'].tolist()} "
                              f"!= eager {out['eager'].tolist()}")
-    for name, a, b_ in zip(pool._fields, pool, twin):
-        if not torch.equal(a, b_):
-            raise AssertionError(f"window: pool {name} differs between "
-                                 "graph and eager")
+    if sparse and not torch.equal(sels["graph"][:, :n], sels["eager"][:, :n]):
+        raise AssertionError("window: page selection differs between graph "
+                             "and eager")
+    for a_pool, b_pool in zip(twins["graph"], twins["eager"]):
+        if a_pool is None:
+            continue
+        for name, a, b_ in zip(a_pool._fields, a_pool, b_pool):
+            # all but the trash page, which takes the inactive rows' writes
+            if a is not None and not torch.equal(a[:, :-1], b_[:, :-1]):
+                raise AssertionError(f"window: pool {name} differs between "
+                                     "graph and eager")
     log(f"  window {n_steps} steps x {n} rows (b_pad {b_pad}, table width "
-        f"{w}): graph replay tokens == eager loop tokens, pools equal; "
-        f"capture {capture_s:.2f} s")
+        f"{w}): graph replay tokens == eager loop tokens, pools equal"
+        f"{f', selections equal, {refreshes} refresh steps' if sparse else ''}"
+        f"; {n_graphs} graph(s) captured in {capture_s:.2f} s")
+
+
+def check_sparse_forward(dev):
+    """LServe's decode side at full width, 2 layers: 4 of the 8 kv heads
+    keep their history in the retrieval pool (K stats, a budget of 4 pages
+    so the selector drops pages of the 9-page prompt), 4 live in the
+    streaming ring (1 sink + 2 ring pages, wrapped by every prompt). A
+    whole-prompt prefill into both pools and two decode steps (a refresh
+    step, a reuse step), kernels against plain versions; then a 10-step
+    window against the eager loop."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    g = LLAMA3_8B
+    hkv = g["num_key_value_heads"]
+    spec = llama.LlamaSpec(
+        num_layers=2, hidden=g["hidden_size"],
+        intermediate=g["intermediate_size"],
+        num_q_heads=g["num_attention_heads"], num_kv_heads=hkv, head_dim=128,
+        vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
+        lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=2,
+        dec_sink_tokens=128, dec_local_tokens=256, sub_chunks=4,
+        budget_pages=4, selector_interval=4,
+    )
+    flags = np.zeros((2, hkv), bool)
+    flags[:, : hkv // 2] = True
+    params = llama.make_random_packed_params(spec, seed=1, device=dev,
+                                             retrieval_flags=flags)
+    lens = [700, 1150, 1024]
+    n = len(lens)
+    rng = torch.Generator(device="cpu").manual_seed(2)
+    prompts = [torch.randint(0, spec.vocab, (m,), generator=rng) for m in lens]
+    w = max((m + 16 + 127) // 128 for m in lens)
+    tables = torch.arange(n * w, dtype=torch.int32).view(n, w)
+    stables = torch.arange(n * 3, dtype=torch.int32).view(n, 3)
+    pre = llama.PrefillBatch(
+        token_ids=torch.cat(prompts).to(dev),
+        positions=torch.cat([torch.arange(m, dtype=torch.int32)
+                             for m in lens]).to(dev),
+        segment_ids=torch.cat([torch.full((m,), i, dtype=torch.int32)
+                               for i, m in enumerate(lens)]).to(dev),
+        block_tables=tables.to(dev),
+        last_token_idx=(torch.tensor(lens).cumsum(0) - 1).to(dev),
+        seq_lens=torch.tensor(lens, dtype=torch.int32).to(dev),
+        streaming_block_tables=stables.to(dev),
+        new_page_ids=tables.reshape(-1).to(dev),
+    )
+    runs = {}
+    for mode in ("kernels", "plain"):
+        rp = make_kv_pool(2, n * w + 1, hkv // 2, 128, 128, with_stats=True,
+                          device=dev)
+        sp = make_kv_pool(2, n * 3 + 1, hkv // 2, 128, 128, device=dev)
+        ctx = (cuda.plain_versions() if mode == "plain"
+               else contextlib.nullcontext())
+        with ctx, torch.inference_mode():
+            lp, _, _, _ = llama.llama_forward(params, rp, sp, pre, spec,
+                                              is_prefill=True)
+        runs[mode] = dict(prefill=lp, pools=(rp, sp))
+    nxt = runs["plain"]["prefill"].argmax(-1)
+    positions = torch.tensor(lens, dtype=torch.int32).to(dev)
+    for step, refresh in enumerate((True, False)):
+        for mode in ("kernels", "plain"):
+            rp, sp = runs[mode]["pools"]
+            sel = runs[mode].get("sel")
+            if sel is None:
+                sel = torch.full((2, n, hkv, spec.budget_pages), -1,
+                                 dtype=torch.int32, device=dev)
+            dec = llama.DecodeBatch(
+                token_ids=nxt, positions=positions + step,
+                block_tables=tables.to(dev),
+                active=torch.ones(n, dtype=torch.bool, device=dev),
+                streaming_block_tables=stables.to(dev),
+                new_page_ids=torch.full((1,), -1, dtype=torch.int32,
+                                        device=dev),
+                refresh_selection=refresh, cached_page_idxes=sel,
+            )
+            ctx = (cuda.plain_versions() if mode == "plain"
+                   else contextlib.nullcontext())
+            before = dict(cuda.LAUNCHES)
+            with ctx, torch.inference_mode():
+                ld, _, _, new_sel = llama.llama_forward(
+                    params, rp, sp, dec, spec, is_prefill=False)
+            runs[mode]["sel"] = new_sel
+            runs[mode][f"decode{step}"] = ld
+            if mode == "kernels":
+                ticks = {k: cuda.LAUNCHES[k] - before[k]
+                         for k in LSERVE_KERNELS}
+                if ticks != {k: n * spec.num_layers
+                             for k, n in LSERVE_LAUNCHES_PER_LAYER.items()}:
+                    raise AssertionError(f"sparse decode step launched "
+                                         f"{ticks}")
+        nxt = runs["plain"][f"decode{step}"].argmax(-1)
+    for step in ("prefill", "decode0", "decode1"):
+        a, b_ = runs["kernels"][step], runs["plain"][step]
+        if not bool(torch.isfinite(a).all()) or a.shape != (n, spec.vocab):
+            raise AssertionError(f"sparse forward {step}: bad logits")
+        scale = float(b_.abs().max())
+        err = float((a - b_).abs().max())
+        log(f"  sparse forward 2 layers {step}: max |logit| {scale:.4g}, max "
+            f"abs diff kernels vs plain {err:.4g} ({err / scale:.3g} of "
+            f"max), argmax agreement "
+            f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
+        if err > LOGITS_RTOL * scale:
+            raise AssertionError(f"sparse forward {step}: logits differ by "
+                                 f"{err} > {LOGITS_RTOL} x {scale}")
+    ks, ps = runs["kernels"]["sel"], runs["plain"]["sel"]
+    same = float((ks.sort(-1).values == ps.sort(-1).values).float().mean())
+    used = int((ks[:, 1, 0] >= 0).sum(-1).min())
+    log(f"  selections [L, B, Hkv, budget] {tuple(ks.shape)}: kernels' and "
+        f"plain runs' picks agree on {same:.3f} of entries (their K stats "
+        f"come from pools that differ in a few codes); the 9-page prompt "
+        f"keeps {used} pages per retrieval head")
+    if used != spec.budget_pages or same < 0.9:
+        raise AssertionError("sparse forward: selection did not fill its "
+                             "budget or strays from the plain run's")
+    rp, sp = runs["kernels"]["pools"]
+    first = runs["kernels"]["decode1"].argmax(-1)
+    check_window(dev, spec, params, rp, tables, [m + 2 for m in lens], first,
+                 n_steps=10, spool=sp, stables=stables)
 
 
 # ---------------------------------------------------------------------------
@@ -616,12 +992,13 @@ def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8):
 # ---------------------------------------------------------------------------
 
 
-def write_model_dir() -> str:
-    """A checkpoint-free model directory: ``config.json`` of LLAMA3_8B."""
-    model_dir = os.path.join(ROOT, "build", "chip_smoke", "llama3-8b")
+def write_model_dir(name: str = "llama3-8b", config=None) -> str:
+    """A checkpoint-free model directory: ``config.json`` of LLAMA3_8B (or
+    of ``config``)."""
+    model_dir = os.path.join(ROOT, "build", "chip_smoke", name)
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(LLAMA3_8B, f)
+        json.dump(LLAMA3_8B if config is None else config, f)
     return model_dir
 
 
@@ -733,6 +1110,12 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
         engine.step()
 
 
+# the __global__ functions of omniserve_tpu_torch/csrc/*.cu
+PORT_KERNEL_FUNCTIONS = ("quant_gemm_kernel", "flash_prefill_kernel",
+                         "paged_prefill_kernel", "decode_attn_append_kernel",
+                         "decode_attn_list_kernel", "kv_append_kernel")
+
+
 def trace_steps(engine, label, n_steps):
     """``n_steps`` engine steps under ``torch.profiler``: prints the wall
     time, the device's busy time (sum of kernel and copy durations on the
@@ -760,8 +1143,11 @@ def trace_steps(engine, label, n_steps):
     log(f"  profile {label}: {n_steps} step(s), wall {wall_ms:.1f} ms "
         f"(traced), device busy {busy:.1f} ms in {n_kernels} kernels "
         f"and copies, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (t, n) in top:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the eight heaviest, and every kernel of the port below them
+    shown = ranked[:8] + [kv for kv in ranked[8:]
+                          if any(k in kv[0] for k in PORT_KERNEL_FUNCTIONS)]
+    for name, (t, n) in shown:
         log(f"    {t:9.3f} ms {n:6d}x  {name[:110]}")
 
 
@@ -875,6 +1261,146 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the LServe benchmark protocol through the port's engine
+# ---------------------------------------------------------------------------
+
+# launches of one sparse decode step, per layer: an append into each pool,
+# the retrieval heads' page lists, the streaming heads' band
+LSERVE_LAUNCHES_PER_LAYER = {"kv_append_decode": 2, "decode_attention_ph": 1,
+                             "decode_attention_band": 1}
+LSERVE_KERNELS = tuple(LSERVE_LAUNCHES_PER_LAYER)
+# every round of the protocol must go through these
+LSERVE_ROUND_KERNELS = LSERVE_KERNELS + ("flash_prefill",)
+
+
+def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
+    """``lserve_benchmark.py``'s protocol on the port: batch 1, a
+    ``prompt_len``-token prompt, ``gen_len`` greedy tokens, sparse decode
+    with half of the kv heads streaming (defaults: 128 sink + 256 local
+    tokens, a 4096-token page budget, selector refresh every 4 steps), each
+    round through ``lserve_benchmark.process_requests_split_stage``. A
+    warmup and a measured round in single decode steps (the script's
+    defaults), then the same in ``multi``-step decode windows. The launch
+    counts are read from the measured single-step round alone."""
+    import argparse
+
+    import torch
+
+    from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
+    from omniserve_tpu_torch import lserve_benchmark as lb
+    from omniserve_tpu_torch.config import ProfilingConfig
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.worker.cache_engine import pool_bytes
+
+    batch = 1
+    sizing = argparse.Namespace(max_num_seqs=batch, max_num_batched_tokens=0,
+                                num_retrieval_blocks=None, block_size=128)
+    lb.size_pool(sizing, batch, prompt_len, gen_len)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = LLMEngine.from_engine_args(EngineArgs(
+        model=write_model_dir("llama3.1-8b", LLAMA31_8B),
+        precision="w4a8kv4", load_format="dummy", tokenizer_mode="skip",
+        device=str(dev), block_size=sizing.block_size,
+        sparse_decode_mode=True, static_sparsity=0.5,
+        max_num_seqs=sizing.max_num_seqs,
+        max_num_batched_tokens=sizing.max_num_batched_tokens,
+        num_retrieval_blocks=sizing.num_retrieval_blocks,
+        disable_log_stats=True, seed=0,
+    ))
+    sync(dev)
+    runner = engine.worker.model_runner
+    spec, ce = runner.spec, runner.cache_engine
+    mib = 1 << 20
+    rb, sb = pool_bytes(ce.retrieval_pool), pool_bytes(ce.streaming_pool)
+    log(f"  engine built in {time.time() - t0:.1f} s; device memory "
+        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB")
+    log(f"  retrieval pool {ce.retrieval_pool.num_pages} pages x "
+        f"{ce.retrieval_pool.num_heads} heads: "
+        f"{sum(rb.values()) / mib:.1f} MiB, of which K stats "
+        f"{rb['k_stats'] / mib:.1f} MiB "
+        f"({rb['k_stats'] / ce.retrieval_pool.num_pages / mib:.3f} MiB per "
+        f"page); streaming pool {ce.streaming_pool.num_pages} pages x "
+        f"{ce.streaming_pool.num_heads} heads: {sum(sb.values()) / mib:.1f} "
+        f"MiB; budget {spec.budget_pages} pages, ring {spec.sink_blocks}+"
+        f"{spec.local_blocks} pages, refresh every {spec.selector_interval}")
+    if (spec.rope_llama3 is None or not spec.sparse_decode
+            or 2 * ce.retrieval_pool.num_heads != spec.num_kv_heads):
+        raise AssertionError("LServe phase: engine is not the sparse-decode "
+                             "Llama-3.1-8B configuration")
+
+    groups = []
+    add_request = engine.add_request
+
+    def recording_add(*args, **kw):
+        add_request(*args, **kw)
+        groups.append(engine.scheduler.waiting[-1])
+
+    engine.add_request = recording_add
+    result = {}
+    for mode, steps_per_call in (("single steps", 1), ("windows", multi)):
+        engine.ifb_config.decode_multi_step = steps_per_call
+        for r in ("warmup", "measured"):
+            groups.clear()
+            cuda.reset_launch_counts()
+            refreshes_before = runner.selector_refreshes
+            graphs_before = runner.graphs_captured
+            t_prefill, t_decode, steps = lb.process_requests_split_stage(
+                engine, batch, prompt_len, gen_len)
+            launches = dict(cuda.LAUNCHES)
+            # a request that ends inside a window leaves the window's tail
+            # buffered; drain it (host bookkeeping only) before the next round
+            while engine._multi_step_buffer:
+                engine.step()
+            prefill_tps, decode_tps = lb.check_round(
+                engine, batch, prompt_len, gen_len, t_prefill, t_decode,
+                steps)
+            outs = [g.get_seqs()[0].data.output_token_ids for g in groups]
+            if (len(groups) != batch
+                    or any(len(o) != gen_len for o in outs)
+                    or not all(g.is_finished() for g in groups)):
+                raise AssertionError(
+                    f"LServe {mode} {r}: {len(groups)} requests, output "
+                    f"lengths {[len(o) for o in outs]}")
+            if not all(0 <= t < LLAMA3_8B["vocab_size"]
+                       for o in outs for t in o):
+                raise AssertionError(f"LServe {mode} {r}: token out of vocab")
+            missing = [k for k in LSERVE_ROUND_KERNELS if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"LServe {mode} {r}: kernels not "
+                                     f"launched: {missing}")
+            refreshes = runner.selector_refreshes - refreshes_before
+            log(f"  {mode}, {r}: prefill {prompt_len} tokens "
+                f"{t_prefill:.3f} s ({prefill_tps:.0f} tok/s); decode "
+                f"{steps} steps {t_decode:.3f} s = {decode_tps:.2f} tok/s "
+                f"({t_decode / steps * 1e3:.2f} ms per token, host clock); "
+                f"selector refreshes {refreshes}; graphs captured "
+                f"{runner.graphs_captured - graphs_before}; launches "
+                f"{json.dumps({k: launches[k] for k in LSERVE_KERNELS})}")
+            if mode == "single steps" and r == "measured":
+                result = launches
+    engine.add_request = add_request
+    log(f"  peak device memory "
+        f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB; "
+        f"launches in the measured single-step round: {json.dumps(result)}")
+
+    # where the time goes: the traced prefill step of a fresh request, then
+    # 4 traced single decode steps (one of them refreshes the selection)
+    engine.ifb_config.decode_multi_step = 1
+    engine.add_request(
+        "prof", profiling_config=ProfilingConfig(prompt_len, 6),
+        sampling_params=SamplingParams(temperature=0.0, max_tokens=6,
+                                       ignore_eos=True))
+    trace_steps(engine, f"whole-prompt prefill, {prompt_len} tokens", 1)
+    trace_steps(engine, f"sparse decode after {prompt_len} tokens, single "
+                "steps", 4)
+    while engine.has_unfinished_requests():
+        engine.step()
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -925,10 +1451,17 @@ def main() -> int:
         "flash_prefill": check_flash(dev, gen),
         "decode_attention_append": check_decode(dev, gen),
         "paged_prefill_attention": check_paged_prefill(dev, gen),
+        "kv_append_decode": check_kv_append(dev, gen),
+        "decode_attention_ph": check_decode_ph(dev, gen, b=1),
+        "decode_attention_band": check_decode_band(dev, gen, b=1),
     }
     # the bench's decode shapes (batch 128), logged beside the rows above
     check_w8a8(dev, gen, m=128)
     check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536)
+    # the page-list kernels at a batch of 8 long contexts
+    check_decode_ph(dev, gen, b=8)
+    check_decode_band(dev, gen, b=8)
+    time_selector(dev, gen)
     torch.cuda.empty_cache()
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables = check_forward(dev)
@@ -936,6 +1469,8 @@ def main() -> int:
     check_window(dev, spec, params, pool, tables, [len(p) for p in prompts],
                  first)
     del spec, params, pool
+    torch.cuda.empty_cache()
+    check_sparse_forward(dev)
     torch.cuda.empty_cache()
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
@@ -947,6 +1482,12 @@ def main() -> int:
     # bench's chunked prefill does not run, reports phase 4's
     bench = run_bench(dev)
     launches.update({k: bench[k] for k in BENCH_KERNELS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 6: LServe benchmark protocol (batch 1, 32768 in / 128 out, "
+        "sparse decode, static sparsity 0.5) through lserve_benchmark")
+    lserve = run_lserve(dev)
+    launches.update({k: lserve[k] for k in LSERVE_KERNELS})
 
     meta = {
         "w4a8_matmul_per_channel": (
@@ -964,6 +1505,15 @@ def main() -> int:
         "paged_prefill_attention": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        "kv_append_decode": (
+            "omniserve_tpu_torch/csrc/kv_append.cu",
+            "omniserve_tpu/ops/pallas/kv_append.py:156"),
+        "decode_attention_ph": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:1119"),
+        "decode_attention_band": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620"),
     }
     line = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

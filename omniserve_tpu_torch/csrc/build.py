@@ -4,7 +4,8 @@ Each ``*.cu`` source in this directory is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds). Libraries land in ``_build/``
 next to the sources (listed in ``.gitignore``), keyed by a hash of the
-source and flags so an edited source rebuilds. ``build_all()`` starts one
+source, the shared ``*.cuh`` headers and the flags, so an edited source
+rebuilds. ``build_all()`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -24,12 +25,13 @@ from typing import Dict, List, Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 
-# source -> extra nvcc flags. The decode and GEMM files must reproduce the
-# plain versions' f32 op order exactly (quant codes, epilogues), so they
-# forbid FMA contraction.
+# source -> extra nvcc flags. The decode, append and GEMM files must
+# reproduce the plain versions' f32 op order exactly (quant codes,
+# epilogues), so they forbid FMA contraction.
 SOURCES: Dict[str, List[str]] = {
     "quant_gemm.cu": ["--fmad=false"],
     "decode_attention.cu": ["--fmad=false"],
+    "kv_append.cu": ["--fmad=false"],
     "flash_prefill.cu": [],
     "paged_prefill.cu": [],
 }
@@ -55,8 +57,10 @@ def _nvcc() -> str:
 def _target(src: str) -> str:
     flags = COMMON_FLAGS + SOURCES[src]
     h = hashlib.sha256()
-    with open(os.path.join(_DIR, src), "rb") as f:
-        h.update(f.read())
+    headers = sorted(n for n in os.listdir(_DIR) if n.endswith(".cuh"))
+    for name in [src, *headers]:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

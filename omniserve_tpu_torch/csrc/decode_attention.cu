@@ -1,11 +1,19 @@
-// Paged kv4 decode attention with the step's KV append fused in, for
-// Hopper (sm_90a).
+// Paged kv4 decode attention for Hopper (sm_90a): three entry points over
+// one page walk.
 //
-// Replaces the TPU kernel omniserve_tpu/ops/pallas/decode_attention.py:
-//   paged_mqa_attention_single_pass (:620, kernel _sp_kernel :112) in its
-//   append= mode over a dense, contiguous page list.
+// Replace the TPU kernels of omniserve_tpu/ops/pallas/decode_attention.py:
+//   1. paged_mqa_attention_single_pass (:620, kernel _sp_kernel :112) in its
+//      append= mode over a dense, contiguous page list
+//      (launch_decode_attention_append);
+//   2. paged_mqa_attention_single_pass_ph (:1119, kernel _sp_kernel_ph :850):
+//      dynamic-sparse decode over per-(sequence, kv head) page lists
+//      (launch_decode_attention_ph);
+//   3. paged_mqa_attention_single_pass in its plain mode with the streaming
+//      band over a ring pool: one page list per sequence, shared by the
+//      heads (launch_decode_attention_band).
+// Entries 2 and 3 are one kernel (decode_attn_list_kernel), see below.
 //
-// Contract (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
+// Contract of entry 1 (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
 // paged_decode_attention_fused_plain = append_kv, then
 // attention_ref.paged_decode_attention on the updated pool):
 //   - context_lens INCLUDE the new token; a row with length 0 is inactive:
@@ -31,63 +39,11 @@
 // block. Compiled with --fmad=false so the quantization codes and planes
 // are bit-identical to the plain append.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "kv4_common.cuh"
 
 namespace {
 
-constexpr int D = 128;         // head dim (one thread per lane)
-constexpr int NT = D;          // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int MAX_PAGE = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum / max / min over NT threads (all threads get the result).
-__device__ float block_reduce(float v, int op, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (op == 0) v = warp_sum(v);
-  else if (op == 1) v = warp_max(v);
-  else v = -warp_max(-v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARP; ++w)
-    r = op == 0 ? r + red[w] : (op == 1 ? fmaxf(r, red[w]) : fminf(r, red[w]));
-  return r;
-}
-
-struct TokQuant {
-  float code, dq, scale, zero;
-};
-
-// Fine-grained kv4 quantization of one lane of a [D] vector, exactly the
-// plain version's op order (ops/quantization.kv_quantize_fine_grained).
-__device__ TokQuant quant_kv4(float x, float* red) {
-  const float mx = block_reduce(x, 1, red);
-  const float mn = block_reduce(x, 2, red);
-  const float rng = fmaxf(mx - mn, 1e-8f);
-  TokQuant t;
-  t.scale = rng / 15.0f;
-  t.zero = (-15.0f * mn) / rng;
-  t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), 15.0f);
-  t.dq = (t.code - t.zero) * t.scale;
-  return t;
-}
+using namespace kv4;
 
 template <int NREP>
 __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
@@ -255,6 +211,187 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
   }
 }
 
+// Decode attention over explicit page lists (entries 2 and 3).
+//
+// Contract (plain version: attention_ref.paged_decode_attention with
+// page_idxes, and with a streaming pool; the wrappers in
+// omniserve_tpu_torch/ops/cuda/decode_attention.py build the lists):
+//   - entry i of a list names a physical page sel_phys and the logical page
+//     sel_logic it holds (-1 = dead entry, skipped); lists are in no order.
+//     head_stride = entries per head for per-head lists, 0 for one list per
+//     sequence shared by every head of the pool.
+//   - the token in slot t of the page sits at position sel_logic*page + t.
+//     BAND with band_sink >= 0 and ring_span > 0: the page being written (logical page
+//     (len-1)/page) still holds, past its write head, tokens of one ring
+//     wrap earlier: those slots are relabelled pos - ring_span*page and are
+//     live only at or above ring_sink_tok.
+//   - a token is attended iff pos < len (and, relabelled, pos >= the ring's
+//     first position), and under BAND only if pos < band_sink or
+//     pos >= max(0, len - band_local).
+//   - a row with len <= 0, or no live token, outputs zeros.
+// The pool is only read. Bounded by device-memory bytes, as entry 1: each
+// listed page costs its K/V nibbles and four plane rows. Same design: one
+// block per (pool head, sequence), one thread per token for the scores,
+// one warp per query row for the online softmax, one thread per head-dim
+// lane for P.V; garbage in dead slots (never-written planes) is masked
+// before it meets a product.
+template <int NREP, bool BAND>
+__global__ void __launch_bounds__(NT) decode_attn_list_kernel(
+    const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
+    const uint8_t* __restrict__ k_data,       // layer: [P, H, page/2, D]
+    const uint8_t* __restrict__ v_data,
+    const float* __restrict__ planes,         // layer: [P, 4, H, page]
+    const int* __restrict__ sel_phys,         // [B, (H,) Tp]
+    const int* __restrict__ sel_logic,        // [B, (H,) Tp]
+    const int* __restrict__ lengths,          // [B]
+    __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
+    int H, int page, int Tp, int head_stride, float sm_scale, int band_sink,
+    int band_local, int ring_span, int ring_sink_tok) {
+  constexpr int n_rep = NREP;
+  __shared__ float q_s[NREP][D];
+  __shared__ float score[NREP][MAX_PAGE];
+  __shared__ float ks[MAX_PAGE], kc[MAX_PAGE], vs[MAX_PAGE], vz[MAX_PAGE];
+  __shared__ unsigned char live[MAX_PAGE];
+  __shared__ float qsum[NREP], m_s[NREP], l_s[NREP];
+  __shared__ float alpha_s[NREP], c_s[NREP];
+  __shared__ float red[NWARP];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = lengths[b];
+  const size_t row_base = ((size_t)b * H + h) * n_rep;
+  if (len <= 0) {
+    for (int r = 0; r < n_rep; ++r)
+      out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
+    return;
+  }
+  const int half = page / 2;
+  const int cur_page = (len - 1) / page, cur_slot = (len - 1) % page;
+  const int win_start = max(0, len - band_local);
+
+  for (int r = 0; r < n_rep; ++r)
+    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
+  __syncthreads();
+  for (int r = 0; r < n_rep; ++r) {
+    const float s = block_reduce(q_s[r][tid], 0, red);
+    if (tid == 0) qsum[r] = s;
+  }
+  float acc[NREP];
+  for (int r = 0; r < n_rep; ++r) acc[r] = 0.0f;
+  if (tid < n_rep) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
+  }
+  __syncthreads();
+
+  const size_t list_off = (size_t)b * (head_stride ? (size_t)H * head_stride
+                                                    : (size_t)Tp) +
+                          (size_t)h * head_stride;
+  for (int i = 0; i < Tp; ++i) {
+    const int logic = sel_logic[list_off + i];
+    if (logic < 0) continue;                       // block-uniform
+    const int first = logic * page;
+    const bool ring_cur =
+        BAND && band_sink >= 0 && ring_span > 0 && logic == cur_page;
+    if (first >= len && !ring_cur) continue;       // nothing live here
+    const int phys = sel_phys[list_off + i];
+    const uint8_t* krows = k_data + ((size_t)phys * H + h) * half * D;
+    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * half * D;
+    const float* pl = planes + (size_t)phys * 4 * H * page + (size_t)h * page;
+    for (int t = tid; t < page; t += NT) {
+      int pos = first + t, floor_pos = 0;
+      if (ring_cur && t > cur_slot) {
+        pos -= ring_span * page;
+        floor_pos = ring_sink_tok;
+      }
+      bool ok = pos < len && pos >= floor_pos;
+      if (BAND && band_sink >= 0) ok = ok && (pos < band_sink || pos >= win_start);
+      live[t] = ok;
+      const float s0 = pl[t];
+      ks[t] = s0;
+      kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;     // k_scale * k_zero
+      vs[t] = pl[(size_t)2 * H * page + t];
+      vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;       // v_zero
+    }
+    __syncthreads();
+    // scores: one thread per token, dots over the packed K nibbles
+    for (int t = tid; t < page; t += NT) {
+      if (live[t]) {
+        const int shift = t >= half ? 4 : 0;
+        const uint4* kr =
+            reinterpret_cast<const uint4*>(krows + (size_t)(t % half) * D);
+        float dot[NREP];
+        for (int r = 0; r < n_rep; ++r) dot[r] = 0.0f;
+#pragma unroll 2
+        for (int c = 0; c < D / 16; ++c) {
+          const uint4 w4 = kr[c];
+          const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int wi = 0; wi < 4; ++wi) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float code = (float)((words[wi] >> (8 * e + shift)) & 0xF);
+              const int d = c * 16 + wi * 4 + e;
+              for (int r = 0; r < n_rep; ++r) dot[r] += q_s[r][d] * code;
+            }
+          }
+        }
+        for (int r = 0; r < n_rep; ++r)
+          score[r][t] = sm_scale * (ks[t] * dot[r] - kc[t] * qsum[r]);
+      }
+    }
+    __syncthreads();
+    // online softmax, one warp per query row
+    for (int r = warp; r < n_rep; r += NWARP) {
+      float mx = -INFINITY;
+      for (int t = lane; t < page; t += 32)
+        if (live[t]) mx = fmaxf(mx, score[r][t]);
+      mx = warp_max(mx);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      // m_new stays -inf only while no live token has been met
+      const float alpha = m_new == -INFINITY ? 1.0f : expf(m_old - m_new);
+      float lsum = 0.0f, csum = 0.0f;
+      for (int t = lane; t < page; t += 32) {
+        float pr = 0.0f, w = 0.0f;
+        if (live[t]) {
+          pr = expf(score[r][t] - m_new);
+          w = pr * vs[t];
+          csum += w * vz[t];
+        }
+        score[r][t] = w;
+        lsum += pr;
+      }
+      lsum = warp_sum(lsum);
+      csum = warp_sum(csum);
+      if (lane == 0) {
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + lsum;
+        alpha_s[r] = alpha;
+        c_s[r] = csum;
+      }
+    }
+    __syncthreads();
+    // P.V: one thread per head-dim lane; rows t and t + page/2 share a byte
+    // (dead slots carry weight 0, and a nibble is always a finite code)
+    for (int r = 0; r < n_rep; ++r) acc[r] = acc[r] * alpha_s[r] - c_s[r];
+    for (int row = 0; row < half; ++row) {
+      const uint32_t byte = vrows[(size_t)row * D + tid];
+      const float lo = (float)(byte & 0xF);
+      const float hi = (float)(byte >> 4);
+      for (int r = 0; r < n_rep; ++r)
+        acc[r] += score[r][row] * lo + score[r][row + half] * hi;
+    }
+    __syncthreads();
+  }
+
+  for (int r = 0; r < n_rep; ++r) {
+    const float l = l_s[r];
+    out[(row_base + r) * D + tid] =
+        __float2bfloat16(l > 0.0f ? acc[r] / l : 0.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -285,6 +422,63 @@ int launch_decode_attention_append(
   }
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+static int launch_list(bool band, const void* q, const void* k_data,
+                       const void* v_data, const void* planes,
+                       const void* sel_phys, const void* sel_logic,
+                       const void* lengths, void* out, int B, int H,
+                       int n_rep, int page, int Tp, int head_stride,
+                       float sm_scale, int band_sink, int band_local,
+                       int ring_span, int ring_sink_tok, void* stream) {
+  dim3 grid(H, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_LIST(R, BAND)                                               \
+  decode_attn_list_kernel<R, BAND><<<grid, NT, 0, s>>>(                    \
+      static_cast<const __nv_bfloat16*>(q),                                \
+      static_cast<const uint8_t*>(k_data),                                 \
+      static_cast<const uint8_t*>(v_data),                                 \
+      static_cast<const float*>(planes),                                   \
+      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic), \
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),  \
+      H, page, Tp, head_stride, sm_scale, band_sink, band_local,           \
+      ring_span, ring_sink_tok)
+#define LAUNCH_REP(R)                \
+  if (band) LAUNCH_LIST(R, true);    \
+  else LAUNCH_LIST(R, false)
+  switch (n_rep) {
+    case 1: LAUNCH_REP(1); break;
+    case 2: LAUNCH_REP(2); break;
+    case 4: LAUNCH_REP(4); break;
+    case 8: LAUNCH_REP(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH_REP
+#undef LAUNCH_LIST
+  return (int)cudaGetLastError();
+}
+
+// Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp].
+int launch_decode_attention_ph(
+    const void* q, const void* k_data, const void* v_data,
+    const void* planes, const void* sel_phys, const void* sel_logic,
+    const void* lengths, void* out, int B, int H, int n_rep, int page,
+    int Tp, float sm_scale, void* stream) {
+  return launch_list(false, q, k_data, v_data, planes, sel_phys, sel_logic,
+                     lengths, out, B, H, n_rep, page, Tp, Tp, sm_scale, -1,
+                     0, 0, 0, stream);
+}
+
+// Plain mode with the streaming band: one page list [B, Tp] per sequence.
+int launch_decode_attention_band(
+    const void* q, const void* k_data, const void* v_data,
+    const void* planes, const void* sel_phys, const void* sel_logic,
+    const void* lengths, void* out, int B, int H, int n_rep, int page,
+    int Tp, float sm_scale, int band_sink, int band_local, int ring_span,
+    int ring_sink_tok, void* stream) {
+  return launch_list(true, q, k_data, v_data, planes, sel_phys, sel_logic,
+                     lengths, out, B, H, n_rep, page, Tp, 0, sm_scale,
+                     band_sink, band_local, ring_span, ring_sink_tok, stream);
 }
 
 }  // extern "C"

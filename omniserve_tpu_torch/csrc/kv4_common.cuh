@@ -1,0 +1,70 @@
+// Device code shared by the kv4 kernels (decode_attention.cu, kv_append.cu):
+// block reductions over one 128-thread block (one thread per head-dim lane)
+// and the fine-grained kv4 quantizer of one [D] vector.
+//
+// The quantizer follows the plain version's f32 op order
+// (ops/quantization.kv_quantize_fine_grained); sources that include this
+// header are compiled with --fmad=false so codes, scales and zeros come out
+// bit-identical to it.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace kv4 {
+
+constexpr int D = 128;         // head dim (one thread per lane)
+constexpr int NT = D;          // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int MAX_PAGE = 256;  // tokens per page the kernels stage
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide sum / max / min over NT threads (all threads get the result).
+__device__ inline float block_reduce(float v, int op, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (op == 0) v = warp_sum(v);
+  else if (op == 1) v = warp_max(v);
+  else v = -warp_max(-v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < NWARP; ++w)
+    r = op == 0 ? r + red[w] : (op == 1 ? fmaxf(r, red[w]) : fminf(r, red[w]));
+  return r;
+}
+
+struct TokQuant {
+  float code, dq, scale, zero;
+};
+
+// Fine-grained kv4 quantization of one lane of a [D] vector, exactly the
+// plain version's op order (ops/quantization.kv_quantize_fine_grained).
+__device__ inline TokQuant quant_kv4(float x, float* red) {
+  const float mx = block_reduce(x, 1, red);
+  const float mn = block_reduce(x, 2, red);
+  const float rng = fmaxf(mx - mn, 1e-8f);
+  TokQuant t;
+  t.scale = rng / 15.0f;
+  t.zero = (-15.0f * mn) / rng;
+  t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), 15.0f);
+  t.dq = (t.code - t.zero) * t.scale;
+  return t;
+}
+
+}  // namespace kv4

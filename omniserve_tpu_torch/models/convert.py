@@ -51,9 +51,12 @@ def params_from_numpy(tree: Any, device) -> Any:
 
 
 def pool_from_numpy(pool: Any, device) -> KVPool:
-    """A JAX ``KVPool`` (numpy leaves, read by field name) -> port pool."""
+    """A JAX ``KVPool`` (numpy leaves, read by field name) -> port pool;
+    a retrieval pool with its K stats, or a streaming pool."""
+    stats = getattr(pool, "k_stats", None)
     return KVPool(
         k_data=tensor_from_numpy(pool.k_data, device),
         v_data=tensor_from_numpy(pool.v_data, device),
         kv_scales=tensor_from_numpy(pool.kv_scales, device),
+        k_stats=None if stats is None else tensor_from_numpy(stats, device),
     )

@@ -1,14 +1,19 @@
 """Llama family, quantized (W4A8 per-channel x KV4), in PyTorch.
 
-Dense subset of ``omniserve_tpu.models.llama`` with the same parameter
-tree and the same per-layer op order:
+Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
+dynamic-sparse decode) with the same parameter tree and the same per-layer
+op order:
 
 - fused RMSNorm -> int8 quant (+ act sums), W4A8 qkv GEMM, RoPE;
 - prefill: quantize + scatter K/V into the paged pool (``append_kv``),
   then packed-varlen causal attention over the prompt's own K/V; or, for a
   chunk of a chunked prefill (``PrefillBatch.context_lens`` set), causal
   attention over the paged pool (history + chunk);
-- decode: one call attends the pool and appends the step's K/V to it;
+- decode: one call attends the pool and appends the step's K/V to it; or,
+  under sparse decode, per layer: the page selector (on a refresh step),
+  the split append into the retrieval pool (with K min/max stats) and the
+  streaming ring pool, then attention over the selected pages (retrieval
+  heads) and the sink + local band (streaming heads);
 - W4A8 o_proj, residual, RMSNorm -> quant, W4A8 gate_up, SwiGLU -> quant,
   W4A8 down, residual;
 - final RMSNorm and the lm_head (bf16, or W8A8) on each sequence's last
@@ -16,9 +21,8 @@ tree and the same per-layer op order:
 
 The JAX ``lax.scan`` over layers is a Python loop here. Stacked [L, ...]
 weights are indexed per layer as views. Pools are updated in place.
-Outside the slice (tensor/sequence parallelism, LServe streaming and
-sparse modes, other precisions) the functions raise and name the
-ROADMAP.md item.
+Outside the slice (tensor/sequence parallelism, LServe sparse prefill,
+other precisions) the functions raise and name the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,16 +30,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from omniserve_tpu_torch.ops import dispatch
+from omniserve_tpu_torch.ops import attention_ref, dispatch
 from omniserve_tpu_torch.ops.activation import silu_and_mul_quant
 from omniserve_tpu_torch.ops.matmul import (
     w4a8_matmul_per_channel,
     w8a8_matmul,
 )
 from omniserve_tpu_torch.ops.norms import rms_norm, rms_norm_quant
-from omniserve_tpu_torch.ops.paged_kv import KVPool, append_kv
+from omniserve_tpu_torch.ops.cuda.decode_attention import pool_head_sources
+from omniserve_tpu_torch.ops.paged_kv import (
+    KVPool,
+    append_kv,
+    reset_page_stats_all_layers,
+    update_k_stats,
+)
 from omniserve_tpu_torch.ops.quantization import (
     QuantizedWeightPerChannel,
     ieee_div,
@@ -48,8 +59,8 @@ from omniserve_tpu_torch.ops.rope import apply_rope, rope_freqs
 class LlamaSpec:
     """Static model + quantization + attention geometry.
 
-    The dense subset of the JAX ``LlamaSpec``'s fields; ``check_supported``
-    refuses the values the port does not serve yet."""
+    The JAX ``LlamaSpec``'s fields minus the parallelism axes;
+    ``check_supported`` refuses the values the port does not serve yet."""
 
     num_layers: int
     hidden: int
@@ -68,8 +79,21 @@ class LlamaSpec:
     kv_zeros: bool = True
     group_size: int = -1
     page_size: int = 64
+    # LServe decode sparsity. sink_blocks/local_blocks are the RING geometry
+    # (physical streaming capacity); dec_*_tokens are the decode attention
+    # band (-1 = the whole ring).
     sparse_decode: bool = False
+    sink_blocks: int = 2
+    local_blocks: int = 4
+    dec_sink_tokens: int = -1
+    dec_local_tokens: int = -1
+    sub_chunks: int = 4
+    budget_pages: int = 64
+    selector_interval: int = 4
+    # LServe prefill sparsity
     sparse_prefill: bool = False
+    ctx_sink: int = 128
+    ctx_local: int = 8192
     lm_head_bits: int = 16
     attn_bias: bool = False
 
@@ -93,6 +117,10 @@ class LlamaSpec:
     def sm_scale(self) -> float:
         return self.head_dim ** -0.5
 
+    @property
+    def with_stats(self) -> bool:
+        return self.sparse_decode
+
     def check_supported(self) -> None:
         """Raise for configurations the port does not serve yet."""
         if (self.weight_bits, self.act_bits, self.group_size) != (4, 8, -1):
@@ -106,9 +134,10 @@ class LlamaSpec:
                 "the port serves fine-grained kv4 pools; kv8, "
                 "kv16 and per-tensor KV are ROADMAP.md queue 1 item 8"
             )
-        if self.sparse_decode or self.sparse_prefill:
+        if self.sparse_prefill:
             raise NotImplementedError(
-                "LServe sparse prefill/decode is ROADMAP.md queue 1 item 5"
+                "LServe sparse prefill (--sparse-context-mode) is "
+                "ROADMAP.md queue 1 item 5b"
             )
         if self.attn_bias:
             raise NotImplementedError(
@@ -119,9 +148,22 @@ class LlamaSpec:
     def from_model_config(cls, model_config, sp_attn_config=None,
                           tp_size: int = 1,
                           page_size: int = 64) -> "LlamaSpec":
+        kwargs: Dict[str, Any] = {}
         if sp_attn_config is not None:
-            raise NotImplementedError(
-                "LServe sparse attention is ROADMAP.md queue 1 item 5"
+            dec = sp_attn_config.dec
+            ctx = sp_attn_config.ctx
+            kwargs.update(
+                sparse_decode=dec.sparse_decode_mode,
+                sink_blocks=dec.sink_blocks,
+                local_blocks=dec.ring_local_blocks,
+                dec_sink_tokens=dec.dec_sink_size,
+                dec_local_tokens=dec.dec_local_size,
+                sub_chunks=dec.sub_chunk_per_block,
+                budget_pages=dec.budget_pages,
+                selector_interval=dec.selector_update_interval,
+                sparse_prefill=ctx.sparse_context_mode,
+                ctx_sink=ctx.ctx_sink_size,
+                ctx_local=ctx.ctx_local_size,
             )
         if tp_size != 1:
             raise NotImplementedError(
@@ -169,6 +211,7 @@ class LlamaSpec:
                 bool(getattr(hf, "attention_bias", False))
                 or getattr(hf, "model_type", "") == "qwen2"
             ),
+            **kwargs,
         )
 
 
@@ -182,6 +225,10 @@ class PrefillBatch(NamedTuple):
     # Chunked-prefill mode only (rectangular [B, Tc] token layout): tokens
     # in the pool incl. this chunk, per seq. None = whole-prompt prefill.
     context_lens: Optional[torch.Tensor] = None
+    # LServe: [B, sink+ring blocks] int32 pages of the streaming pool, and
+    # the pages whose K stats this step resets ([Npg] int32, -1 padded)
+    streaming_block_tables: Optional[torch.Tensor] = None
+    new_page_ids: Optional[torch.Tensor] = None
 
 
 class DecodeBatch(NamedTuple):
@@ -189,6 +236,13 @@ class DecodeBatch(NamedTuple):
     positions: torch.Tensor       # [B] int32 (index of this token)
     block_tables: torch.Tensor    # [B, max_blocks] int32
     active: torch.Tensor          # [B] bool
+    streaming_block_tables: Optional[torch.Tensor] = None
+    new_page_ids: Optional[torch.Tensor] = None   # [Npg] int32, -1 padded
+    # Sparse decode: recompute the page selection this step (a host bool:
+    # eager code branches on it, and a captured step is captured per value),
+    # else reuse the cached one, [L, B, Hkv, budget] int32 (-1 pad)
+    refresh_selection: bool = False
+    cached_page_idxes: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +275,37 @@ def _quantize_lm_head(w_bf16: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def make_attn_meta(
+    spec: LlamaSpec,
+    retrieval_flags: Optional[np.ndarray] = None,
+    head_rank: Optional[np.ndarray] = None,
+    device="cuda:0",
+) -> Dict[str, torch.Tensor]:
+    """Per-(layer, kv head) pool routing: ``retrieval_flags`` [L, Hkv] bool
+    and ``head_rank`` [L, Hkv] int32, a head's row in its own pool
+    (retrieval heads numbered in head order, streaming heads likewise)."""
+    L, H = spec.num_layers, spec.num_kv_heads
+    if retrieval_flags is None:
+        retrieval_flags = np.ones((L, H), bool)
+    retrieval_flags = np.asarray(retrieval_flags, bool)
+    if retrieval_flags.shape != (L, H):
+        raise ValueError(f"retrieval_flags must be [{L}, {H}]")
+    if head_rank is None:
+        head_rank = np.where(
+            retrieval_flags, np.cumsum(retrieval_flags, axis=1) - 1,
+            np.cumsum(~retrieval_flags, axis=1) - 1,
+        )
+    return {
+        "retrieval_flags": torch.from_numpy(retrieval_flags).to(device),
+        "head_rank": torch.from_numpy(
+            np.asarray(head_rank, np.int32)).to(device),
+    }
+
+
 def make_random_packed_params(
     spec: LlamaSpec, seed: int = 0, device="cuda:0",
+    retrieval_flags: Optional[np.ndarray] = None,
+    head_rank: Optional[np.ndarray] = None,
 ) -> Dict[str, Any]:
     """Random packed params drawn on ``device`` from a seeded
     ``torch.Generator`` (the numbers differ from the JAX package's draw;
@@ -249,6 +332,7 @@ def make_random_packed_params(
         "final_ln": torch.ones((D,), dtype=torch.float32, device=device),
         "lm_head": normal(D, spec.vocab),
         "layers": layers,
+        "attn_meta": make_attn_meta(spec, retrieval_flags, head_rank, device),
     }
     if spec.lm_head_bits == 8:
         params["lm_head"], params["lm_head_scale"] = _quantize_lm_head(
@@ -281,15 +365,106 @@ def _split_qkv(qkv, spec: LlamaSpec, t: int):
     return q, k, v
 
 
+def _ring_slot(blk: torch.Tensor, sink_b: int, local_b: int) -> torch.Tensor:
+    return torch.where(blk < sink_b, blk, sink_b + (blk - sink_b) % local_b)
+
+
 def _prefill_page_ids(batch: PrefillBatch, spec: LlamaSpec):
-    """Token -> (physical page or -1 for padding, slot)."""
+    """Token -> (retrieval page or -1 for padding, slot, streaming page or
+    -1, slot); the streaming pair is None without streaming tables."""
     seg = torch.clamp(batch.segment_ids, min=0).long()
     blk = (batch.positions // spec.page_size).long()
     slot = batch.positions % spec.page_size
     n_blocks = batch.block_tables.shape[1]
-    pages = batch.block_tables[seg, torch.clamp(blk, max=n_blocks - 1)]
-    pages = torch.where(batch.segment_ids < 0, -1, pages)
-    return pages, slot
+    pages_r = batch.block_tables[seg, torch.clamp(blk, max=n_blocks - 1)]
+    invalid = batch.segment_ids < 0
+    pages_r = torch.where(invalid, -1, pages_r)
+    st = batch.streaming_block_tables
+    if st is None:
+        return pages_r, slot, None, None
+    # streaming: ring mapping; tokens that are not in the sink and older
+    # than the local window are never read again (and would be overwritten
+    # within this same prefill), so their write is dropped. The horizon is
+    # the running context of a chunk, the prompt length of a whole prompt.
+    ring = _ring_slot(blk, spec.sink_blocks, spec.local_blocks)
+    pages_s = st[seg, torch.clamp(ring, max=st.shape[1] - 1)]
+    horizon = (batch.context_lens if batch.context_lens is not None
+               else batch.seq_lens)[seg]
+    sink_tok = spec.sink_blocks * spec.page_size
+    local_tok = spec.local_blocks * spec.page_size
+    dead = (batch.positions >= sink_tok) & (
+        batch.positions < horizon - local_tok)
+    pages_s = torch.where(invalid | dead, -1, pages_s)
+    return pages_r, slot, pages_s, slot
+
+
+def _decode_page_ids(batch: DecodeBatch, spec: LlamaSpec):
+    """Row -> (retrieval page or -1 if inactive, slot, streaming page, slot)
+    of the step's new token."""
+    bi = torch.arange(batch.token_ids.shape[0], device=batch.positions.device)
+    blk = (batch.positions // spec.page_size).long()
+    slot = batch.positions % spec.page_size
+    n_blocks = batch.block_tables.shape[1]
+    pages_r = batch.block_tables[bi, torch.clamp(blk, max=n_blocks - 1)]
+    pages_r = torch.where(batch.active, pages_r, -1)
+    st = batch.streaming_block_tables
+    if st is None:
+        return pages_r, slot, None, None
+    ring = _ring_slot(blk, spec.sink_blocks, spec.local_blocks)
+    pages_s = st[bi, torch.clamp(ring, max=st.shape[1] - 1)]
+    pages_s = torch.where(batch.active, pages_s, -1)
+    return pages_r, slot, pages_s, slot
+
+
+def _write_kv(pools, layer: int, k, v, page_io, meta_l, spec: LlamaSpec,
+              update_stats: bool, unique_pages: bool = False,
+              page_aligned: bool = False):
+    """Quantize + write K/V into both pools for one layer, each kv head
+    routed to its pool row; in place."""
+    retrieval_pool, streaming_pool = pools
+    pages_r, slots_r, pages_s, slots_s = page_io
+    flags, rank = meta_l["retrieval_flags"], meta_l["head_rank"]
+    args = (spec.page_size, spec.kv_bits, spec.kv_zeros)
+    # pool row r <- the kv head h with flags[h] and rank[h] == r
+    src_r = pool_head_sources(rank, flags, retrieval_pool.num_heads, True)
+    k_r, v_r = k[:, src_r], v[:, src_r]
+    if unique_pages:
+        dispatch.append_kv_decode(
+            retrieval_pool, layer, k_r, v_r, pages_r, slots_r, *args,
+            update_stats=update_stats, sub_chunks=spec.sub_chunks,
+        )
+    else:
+        append_kv(retrieval_pool, layer, k_r, v_r, pages_r, slots_r, *args,
+                  page_aligned=page_aligned)
+        if update_stats:
+            update_k_stats(retrieval_pool, layer, k_r, pages_r, slots_r,
+                           spec.page_size, spec.sub_chunks)
+    if streaming_pool is not None:
+        src_s = pool_head_sources(rank, flags, streaming_pool.num_heads,
+                                  False)
+        if unique_pages:
+            dispatch.append_kv_decode(
+                streaming_pool, layer, k[:, src_s], v[:, src_s], pages_s,
+                slots_s, *args,
+            )
+        else:
+            append_kv(streaming_pool, layer, k[:, src_s], v[:, src_s],
+                      pages_s, slots_s, *args, page_aligned=page_aligned)
+
+
+def _run_selector(q, retrieval_pool: KVPool, layer: int, batch: DecodeBatch,
+                  meta_l, spec: LlamaSpec) -> torch.Tensor:
+    """This layer's dynamic page selection [B, Hkv, budget] from its
+    current queries. Runs BEFORE the step's append: the stats do not hold
+    the new token yet, and the newest page is force-included."""
+    context_lens = torch.where(batch.active, batch.positions + 1, 0)
+    scores = attention_ref.page_selector_scores(
+        q, retrieval_pool.k_stats, layer, batch.block_tables,
+        meta_l["retrieval_flags"], meta_l["head_rank"],
+    )
+    return attention_ref.select_topk_pages(
+        scores, context_lens, spec.budget_pages, spec.page_size
+    )
 
 
 def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
@@ -303,10 +478,13 @@ def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
     return h + d_out.to(h.dtype)
 
 
-def _layer_step(h, pool: KVPool, layer: int, lp, inv_freq, spec: LlamaSpec,
-                is_prefill: bool, batch, page_io):
-    """One transformer layer. h: [T, D] bf16 residual stream."""
+def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
+                spec: LlamaSpec, is_prefill: bool, batch, page_io):
+    """One transformer layer. h: [T, D] bf16 residual stream; ``pools`` =
+    (retrieval pool, streaming pool or None), updated in place. Returns
+    (h, this layer's page selection or None)."""
     t = h.shape[0]
+    pool, streaming_pool = pools
     x_q, x_scale, x_sum = rms_norm_quant(
         h, lp["attn_ln"][layer], spec.rms_eps, fuse_sum=True
     )
@@ -315,14 +493,34 @@ def _layer_step(h, pool: KVPool, layer: int, lp, inv_freq, spec: LlamaSpec,
     q = apply_rope(q, batch.positions, inv_freq)
     k = apply_rope(k, batch.positions, inv_freq)
 
+    use_sparse = (not is_prefill) and spec.sparse_decode
+    page_idxes_l = None
+    if use_sparse:
+        # refresh the selection from this layer's current q every
+        # selector_interval steps, else reuse the cached one
+        page_idxes_l = (
+            _run_selector(q, pool, layer, batch, meta_l, spec)
+            if batch.refresh_selection else batch.cached_page_idxes[layer]
+        )
+
     chunked = is_prefill and batch.context_lens is not None
-    if is_prefill:
-        pages, slots = page_io
+    if spec.sparse_decode:
+        # pool rows are routed per head; decode appends stay split from the
+        # attention (they also merge the K min/max stats)
+        _write_kv(pools, layer, k, v, page_io, meta_l, spec,
+                  update_stats=True, unique_pages=not is_prefill,
+                  page_aligned=chunked)
+    elif is_prefill:
         # chunked prefill is page-aligned by construction: the chunk size is
         # a page multiple and each [B, Tc] row starts at a page boundary
-        append_kv(pool, layer, k, v, pages, slots, spec.page_size,
+        append_kv(pool, layer, k, v, page_io[0], page_io[1], spec.page_size,
                   spec.kv_bits, spec.kv_zeros, page_aligned=chunked)
     if chunked:
+        if streaming_pool is not None:
+            raise NotImplementedError(
+                "chunked prefill over dual pools (_dual_pool_chunk_attn) is "
+                "LServe's prefill side; see ROADMAP.md queue 1 item 5b"
+            )
         # attend causally over the paged pool (history + this chunk,
         # appended above); rectangular [B, Tc] layout
         nb = batch.block_tables.shape[0]
@@ -348,16 +546,35 @@ def _layer_step(h, pool: KVPool, layer: int, lp, inv_freq, spec: LlamaSpec,
         context_lens = torch.where(
             batch.active, batch.positions + 1, 0
         ).to(torch.int32)
-        attn, pool, _ = dispatch.paged_decode_attention_fused(
-            q, pool, None, layer, batch.block_tables, context_lens, k, v,
-            sm_scale=spec.sm_scale, page_size=spec.page_size,
-            kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
-        )
+        if use_sparse:
+            streaming = streaming_pool is not None
+            attn = dispatch.paged_decode_attention(
+                q, pool, layer, batch.block_tables, context_lens,
+                spec.sm_scale, spec.page_size, spec.kv_bits, spec.kv_zeros,
+                streaming_pool=streaming_pool,
+                streaming_block_tables=batch.streaming_block_tables,
+                head_is_retrieval=(
+                    meta_l["retrieval_flags"] if streaming else None),
+                head_rank=meta_l["head_rank"] if streaming else None,
+                sink_blocks=spec.sink_blocks,
+                local_blocks=spec.local_blocks,
+                page_idxes=page_idxes_l,
+                dec_sink_tokens=(None if spec.dec_sink_tokens < 0
+                                 else spec.dec_sink_tokens),
+                dec_local_tokens=(None if spec.dec_local_tokens < 0
+                                  else spec.dec_local_tokens),
+            )
+        else:
+            attn, _, _ = dispatch.paged_decode_attention_fused(
+                q, pool, None, layer, batch.block_tables, context_lens, k, v,
+                sm_scale=spec.sm_scale, page_size=spec.page_size,
+                kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
+            )
     attn = attn.reshape(t, spec.q_size)
     a_q, a_scale, a_sum = quantize_activations(attn, fuse_sum=True)
     o_out = _apply_linear(lp["o"], a_q, a_scale, a_sum, layer)
     h = h + o_out.to(h.dtype)
-    return _dense_mlp(h, lp, spec, layer)
+    return _dense_mlp(h, lp, spec, layer), page_idxes_l
 
 
 def llama_forward(
@@ -367,26 +584,46 @@ def llama_forward(
     batch,
     spec: LlamaSpec,
     is_prefill: bool,
-) -> Tuple[torch.Tensor, KVPool, Optional[KVPool], None]:
-    """Returns (last-token logits [B, V] f32, pool, None, None).
+) -> Tuple[torch.Tensor, KVPool, Optional[KVPool], Optional[torch.Tensor]]:
+    """Returns (last-token logits [B, V] f32, pools..., new_page_idxes).
 
-    Same signature and results as the JAX ``llama_forward`` for the dense
-    subset; the pool is updated in place."""
-    if streaming_pool is not None:
+    Same signature and results as the JAX ``llama_forward`` for the subset
+    the port serves; the pools are updated in place. ``new_page_idxes``
+    ([L, B, Hkv, budget] int32) is the page selection of a sparse decode
+    step: freshly computed when ``batch.refresh_selection``, else the
+    cached tensor itself; None otherwise."""
+    if streaming_pool is not None and not spec.sparse_decode:
         raise NotImplementedError(
-            "streaming (ring) pools are the LServe path; see ROADMAP.md "
-            "queue 1 item 5"
+            "a streaming (ring) pool under dense decode "
+            "(--sparse-context-mode alone) is LServe's prefill side; see "
+            "ROADMAP.md queue 1 item 5b"
         )
     h = params["embed"][batch.token_ids.long()].to(torch.bfloat16)
-    page_io = _prefill_page_ids(batch, spec) if is_prefill else None
+    if spec.with_stats:
+        reset_page_stats_all_layers(retrieval_pool, batch.new_page_ids)
+    page_io = (_prefill_page_ids(batch, spec) if is_prefill
+               else _decode_page_ids(batch, spec))
     inv_freq = rope_freqs(
         spec.head_dim, spec.rope_base, spec.rope_scaling,
         llama3_cfg=spec.rope_llama3, device=h.device,
     )
     layers_p = params["layers"]
+    meta = params["attn_meta"] if spec.sparse_decode else None
+    pools = (retrieval_pool, streaming_pool)
+    selections = []
     for layer in range(spec.num_layers):
-        h = _layer_step(h, retrieval_pool, layer, layers_p, inv_freq, spec,
-                        is_prefill, batch, page_io)
+        meta_l = None if meta is None else {
+            "retrieval_flags": meta["retrieval_flags"][layer],
+            "head_rank": meta["head_rank"][layer],
+        }
+        h, page_idxes_l = _layer_step(h, pools, layer, layers_p, meta_l,
+                                      inv_freq, spec, is_prefill, batch,
+                                      page_io)
+        selections.append(page_idxes_l)
+    new_page_idxes = None
+    if (not is_prefill) and spec.sparse_decode:
+        new_page_idxes = (torch.stack(selections) if batch.refresh_selection
+                          else batch.cached_page_idxes)
 
     h = rms_norm(h, params["final_ln"], spec.rms_eps)
     h_last = h[batch.last_token_idx.long()] if is_prefill else h
@@ -402,4 +639,4 @@ def llama_forward(
         logits = (h_last.to(torch.bfloat16) @ params["lm_head"]).float()
     else:
         logits = h_last.to(torch.bfloat16).float() @ params["lm_head"].float()
-    return logits, retrieval_pool, None, None
+    return logits, retrieval_pool, streaming_pool, new_page_idxes

@@ -5,15 +5,18 @@ Counterparts of ``omniserve_tpu.ops.attention_ref``:
 - ``prefill_attention`` (:54): packed-varlen causal attention, dense heads;
   the plain version of the flash prefill kernel.
 - ``paged_decode_attention`` (:151): single-query GQA attention over the
-  paged kv4 pool, dense page lists; half of the plain version of the fused
-  decode kernel (``ops/cuda/decode_attention.py``).
+  paged kv4 pools: dense page lists, per-head page selections, and the
+  streaming ring pool's sink+local band; the plain version of the three
+  decode kernels (``ops/cuda/decode_attention.py``).
+- ``page_selector_scores`` (:281), ``select_topk_pages`` (:335): the
+  query-aware page selector of dynamic-sparse decode.
 - ``paged_prefill_attention`` (:391): a chunk's causal GQA attention over
   the paged kv4 pool (history + chunk); the plain version of the paged
   prefill kernel (``ops/cuda/paged_prefill.py``).
 
-All compute in f32. The streaming/sparse modes of the JAX functions
-(sink+local bands, dual pools, page selections, LSE outputs) are queued in
-ROADMAP.md and raise here.
+All compute in f32. The sparse-prefill modes of the JAX functions
+(sink+local bands and ring position maps at prefill) and LSE outputs are
+queued in ROADMAP.md and raise here.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ def prefill_attention(
     stays bounded on long packed prompts."""
     if head_is_retrieval is not None and (sink_size or local_size):
         raise NotImplementedError(
-            "streaming-head (sink+local) prefill is the LServe path; see "
-            "ROADMAP.md queue 1 item 5"
+            "streaming-head (sink+local) prefill is LServe's prefill side "
+            "(--sparse-context-mode); see ROADMAP.md queue 1 item 5b"
         )
     t, hq, _ = q.shape
     n_rep = hq // k.shape[1]
@@ -77,9 +80,27 @@ def prefill_attention(
     return out
 
 
+def _sdpa(q, k, v, valid, sm_scale: float, n_rep: int) -> torch.Tensor:
+    """q [B, Hq, D]; k, v [B, S, Hkv, D] f32; valid [B, Hkv, S] bool.
+    Rows with no valid key give zeros. Returns [B, Hq, D] f32."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, hkv, n_rep, d)
+    scores = torch.einsum("bhrd,bshd->bhrs", qf, k) * sm_scale
+    mask = valid[:, :, None, :]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    any_valid = mask.any(dim=-1, keepdim=True)
+    m = torch.where(any_valid, scores.amax(dim=-1, keepdim=True), 0.0)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    probs = torch.where(any_valid, p / torch.clamp(l, min=1e-30), 0.0)
+    out = torch.einsum("bhrs,bshd->bhrd", probs, v)
+    return out.reshape(b, hq, d)
+
+
 def paged_decode_attention(
     q: torch.Tensor,             # [B, Hq, D] (post-RoPE)
-    pool: KVPool,
+    pool: KVPool,                # retrieval pool
     layer: int,
     block_tables: torch.Tensor,  # [B, max_blocks] int
     context_lens: torch.Tensor,  # [B] int, tokens cached incl. current
@@ -88,16 +109,30 @@ def paged_decode_attention(
     kv_bits: int,
     kv_zeros: bool,
     streaming_pool: Optional[KVPool] = None,
-    page_idxes: Optional[torch.Tensor] = None,
+    streaming_block_tables: Optional[torch.Tensor] = None,  # [B, s+l blocks]
+    head_is_retrieval: Optional[torch.Tensor] = None,  # [Hkv] bool
+    head_rank: Optional[torch.Tensor] = None,          # [Hkv] rank in pool
+    sink_blocks: int = 0,
+    local_blocks: int = 0,
+    page_idxes: Optional[torch.Tensor] = None,  # [B, Hkv, n_sel], -1 pad
+    dec_sink_tokens: Optional[int] = None,
+    dec_local_tokens: Optional[int] = None,
     return_lse: bool = False,
 ) -> torch.Tensor:
-    """Single-query GQA attention over each sequence's first
-    ``context_lens`` cached tokens (dense page lists)."""
-    if streaming_pool is not None or page_idxes is not None or return_lse:
+    """Single-query GQA attention with dual pools and dynamic sparsity.
+
+    Head routing: kv head h uses the retrieval pool at row ``head_rank[h]``
+    if ``head_is_retrieval[h]`` else the streaming ring pool at row
+    ``head_rank[h]``. ``page_idxes`` (if given) restricts each retrieval
+    head to the selected logical pages; the selector includes the newest
+    page. Streaming heads attend the decode band only: positions below
+    ``dec_sink_tokens`` or within the last ``dec_local_tokens`` (defaults:
+    the whole ring), each ring slot holding the newest token mapped to it.
+    """
+    if return_lse:
         raise NotImplementedError(
-            "streaming pools, page selections and LSE outputs are the "
-            "LServe / sequence-parallel paths; see ROADMAP.md queue 1 "
-            "items 5 and 10"
+            "LSE outputs are the sequence-parallel path; see ROADMAP.md "
+            "queue 1 item 10"
         )
     if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(
@@ -105,21 +140,137 @@ def paged_decode_attention(
             "ROADMAP.md queue 1 item 8"
         )
     b, hq, d = q.shape
-    k, v = gather_kv_for_seq(pool, layer, block_tables, page_size)
-    s_max, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    if head_is_retrieval is None:
+        hkv = pool.num_heads
+        head_is_retrieval = torch.ones(hkv, dtype=torch.bool, device=dev)
+        head_rank = torch.arange(hkv, device=dev)
+    else:
+        hkv = head_is_retrieval.shape[0]
     n_rep = hq // hkv
+    lens = context_lens.long()
+
+    # -- retrieval pool (all kv heads; streaming heads overwritten below) --
+    k_all, v_all = gather_kv_for_seq(pool, layer, block_tables, page_size)
+    tok = torch.arange(k_all.shape[1], device=dev)
+    valid_r = (tok[None, :] < lens[:, None])[:, None, :].expand(b, hkv, -1)
+    if page_idxes is not None:
+        sel = torch.where(page_idxes < 0, -2, page_idxes).long()
+        selected = ((tok // page_size)[None, None, :, None]
+                    == sel[:, :, None, :]).any(-1)
+        valid_r = valid_r & selected
+    ranks_r = torch.clamp(head_rank.long(), 0, pool.num_heads - 1)
+    out_r = _sdpa(q, k_all[:, :, ranks_r], v_all[:, :, ranks_r], valid_r,
+                  sm_scale, n_rep)
+    if streaming_pool is None:
+        return out_r.to(q.dtype)
+
+    # -- streaming ring pool --
+    sk_all, sv_all = gather_kv_for_seq(streaming_pool, layer,
+                                       streaming_block_tables, page_size)
+    n_ring_blocks = max(1, streaming_block_tables.shape[1] - sink_blocks)
+    sink_tok = sink_blocks * page_size
+    local_tok = n_ring_blocks * page_size          # ring capacity (tokens)
+    band_sink = sink_tok if dec_sink_tokens is None else dec_sink_tokens
+    band_local = local_tok if dec_local_tokens is None else dec_local_tokens
+    stok = torch.arange((sink_blocks + n_ring_blocks) * page_size,
+                        device=dev)
+    r = stok - sink_tok
+    ln = lens[:, None]
+    # newest token each ring slot holds: the largest t < L with
+    # (t - sink_tok) mod local_tok == r
+    n_written = ln - sink_tok
+    latest = torch.where(
+        n_written > r,
+        sink_tok + r + torch.div(n_written - 1 - r, local_tok,
+                                 rounding_mode="floor") * local_tok,
+        -1,
+    )
+    slot_token = torch.where((stok < sink_tok)[None, :], stok[None, :],
+                             latest)
+    s_valid = (slot_token >= 0) & (slot_token < ln) & (
+        (slot_token < band_sink) | (slot_token >= ln - band_local)
+    )
+    valid_s = s_valid[:, None, :].expand(b, hkv, -1)
+    ranks_s = torch.clamp(head_rank.long(), 0, streaming_pool.num_heads - 1)
+    out_s = _sdpa(q, sk_all[:, :, ranks_s], sv_all[:, :, ranks_s], valid_s,
+                  sm_scale, n_rep)
+    retr_q = head_is_retrieval.repeat_interleave(n_rep)   # [Hq]
+    return torch.where(retr_q[None, :, None], out_r, out_s).to(q.dtype)
+
+
+def page_selector_scores(
+    q: torch.Tensor,            # [B, Hq, D] current queries (post-RoPE)
+    k_stats: torch.Tensor,      # [L, P, Hr, n_sub*2, D] pool stats
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    head_is_retrieval: torch.Tensor,  # [Hkv]
+    head_rank: torch.Tensor,          # [Hkv]
+) -> torch.Tensor:
+    """Upper-bound score per (batch, kv head, logical page).
+
+    score(page) = max over sub-chunks of max over the head's GQA queries of
+    ``sum_d max(q_d*kmin_d, q_d*kmax_d)``; streaming heads get -inf. The
+    JAX function scores the whole pool slab and gathers the scores (a
+    row gather is slow on a TPU); here each sequence's stats rows are
+    gathered first and only those are scored: same numbers, work
+    proportional to the table width. Returns [B, Hkv, max_blocks] f32."""
+    b, hq, d = q.shape
+    hkv = head_is_retrieval.shape[0]
+    n_rep = hq // hkv
+    n_pages, hr = k_stats.shape[1], k_stats.shape[2]
+    rows = k_stats[layer][torch.clamp(block_tables.long(), 0, n_pages - 1)]
+    kmin, kmax = rows[:, :, :, 0::2], rows[:, :, :, 1::2]  # [B, W, Hr, S, D]
     qf = q.float().reshape(b, hkv, n_rep, d)
-    scores = torch.einsum("bhrd,bshd->bhrs", qf, k) * sm_scale
-    tok = torch.arange(s_max, device=q.device)
-    mask = (tok[None, :] < context_lens[:, None])[:, None, None, :]
-    scores = scores.masked_fill(~mask, float("-inf"))
-    any_valid = mask.any(dim=-1, keepdim=True)
-    m = torch.where(any_valid, scores.amax(dim=-1, keepdim=True), 0.0)
-    p = torch.where(mask, torch.exp(scores - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    probs = torch.where(any_valid, p / torch.clamp(l, min=1e-30), 0.0)
-    out = torch.einsum("bhrs,bshd->bhrd", probs, v)
-    return out.reshape(b, hq, d).to(q.dtype)
+    # the kv head feeding pool row r (rank is a bijection on retrieval heads)
+    match = (head_rank[None, :] == torch.arange(hr, device=q.device)[:, None]
+             ) & head_is_retrieval[None, :]
+    q_r = qf[:, match.int().argmax(dim=1)]                 # [B, Hr, n_rep, D]
+    ub = torch.einsum("bhrd,bwhsd->bwhrs", torch.clamp(q_r, min=0.0), kmax) \
+        + torch.einsum("bhrd,bwhsd->bwhrs", torch.clamp(q_r, max=0.0), kmin)
+    pool_scores = ub.amax(dim=(3, 4))                      # [B, W, Hr]
+    sel = pool_scores[:, :, torch.clamp(head_rank.long(), 0, hr - 1)]
+    scores = torch.where(head_is_retrieval[None, None, :], sel,
+                         float("-inf"))
+    return scores.transpose(1, 2)                          # [B, Hkv, W]
+
+
+def select_topk_pages(
+    scores: torch.Tensor,        # [B, Hkv, max_blocks]
+    context_lens: torch.Tensor,  # [B]
+    budget_pages: int,
+    page_size: int,
+) -> torch.Tensor:
+    """Top-(budget-1) pages by score plus, always, the newest page (slot
+    0). If the history fits in the budget, all pages are selected. Exact
+    ``torch.topk`` (the JAX function uses ``approx_max_k``: same page set
+    on the CPU, another order). Returns logical page indices, -1 padded,
+    [B, Hkv, budget_pages] int32."""
+    b, hkv, max_blocks = scores.shape
+    dev = scores.device
+    n_pages = torch.div(context_lens.long() + page_size - 1, page_size,
+                        rounding_mode="floor")             # [B]
+    newest = n_pages - 1
+    page_ids = torch.arange(max_blocks, device=dev)
+    in_range = page_ids[None, :] < n_pages[:, None]        # [B, max_blocks]
+    scored = torch.where(
+        in_range[:, None, :]
+        & (page_ids[None, None, :] != newest[:, None, None]),
+        scores, float("-inf"),
+    )
+    k = min(budget_pages - 1, max_blocks)
+    top_scores, top_idx = torch.topk(scored, k, dim=-1)
+    top_idx = torch.where(top_scores > float("-inf"), top_idx, -1)
+    sel = torch.cat([newest[:, None, None].expand(b, hkv, 1), top_idx],
+                    dim=2)
+    all_sel = torch.where(in_range, page_ids[None, :], -1)[:, None, :] \
+        .expand(b, hkv, max_blocks)[:, :, :budget_pages]
+    pad = budget_pages - sel.shape[2]
+    sel = torch.nn.functional.pad(sel, (0, pad), value=-1)
+    all_sel = torch.nn.functional.pad(
+        all_sel, (0, budget_pages - all_sel.shape[2]), value=-1)
+    fits = n_pages <= budget_pages                         # [B]
+    return torch.where(fits[:, None, None], all_sel, sel).to(torch.int32)
 
 
 def paged_prefill_attention(
@@ -150,9 +301,9 @@ def paged_prefill_attention(
         head_is_retrieval is not None and (sink_size or local_size)
     ):
         raise NotImplementedError(
-            "ring position maps and sink+local bands (LServe) and LSE "
-            "outputs (sequence parallelism) of paged prefill are queued in "
-            "ROADMAP.md queue 1 items 5 and 10"
+            "ring position maps and sink+local bands (LServe's prefill "
+            "side) and LSE outputs (sequence parallelism) of paged prefill "
+            "are queued in ROADMAP.md queue 1 items 5b and 10"
         )
     b, tq, hq, d = q.shape
     outs = []

@@ -23,6 +23,9 @@ LAUNCHES = {
     "w4a8_matmul_per_channel": 0,
     "w8a8_matmul": 0,
     "decode_attention_append": 0,
+    "decode_attention_ph": 0,
+    "decode_attention_band": 0,
+    "kv_append_decode": 0,
     "flash_prefill": 0,
     "paged_prefill_attention": 0,
 }

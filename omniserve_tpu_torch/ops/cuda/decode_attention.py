@@ -1,20 +1,35 @@
-"""Paged kv4 decode attention with the fused KV append
-(``csrc/decode_attention.cu``).
+"""Paged kv4 decode attention (``csrc/decode_attention.cu``): the fused
+KV append over a dense page list, dynamic-sparse decode over per-head page
+lists, and the streaming band over a ring pool.
 
-Replaces ``omniserve_tpu/ops/pallas/decode_attention.py:
-paged_mqa_attention_single_pass`` (:620) in its ``append=`` mode over a
-dense, contiguous page list. Its plain version,
-``paged_decode_attention_fused_plain``, is the JAX package's split path
-(``omniserve_tpu/ops/dispatch.py:86-118``): ``append_kv`` of the new token,
-then ``attention_ref.paged_decode_attention`` over the updated pool. What
-bounds the kernel and how it is laid out is in the CUDA source's header.
+Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
-Both update the pool IN PLACE.
+- ``paged_mqa_attention_single_pass`` (:620) in its ``append=`` mode over
+  a dense, contiguous page list: ``paged_decode_attention_fused``. Its
+  plain version, ``paged_decode_attention_fused_plain``, is the JAX
+  package's split path (``omniserve_tpu/ops/dispatch.py:86-118``):
+  ``append_kv`` of the new token, then
+  ``attention_ref.paged_decode_attention`` over the updated pool. Both
+  update the pool IN PLACE.
+- ``paged_mqa_attention_single_pass_ph`` (:1119), per-(sequence, kv head)
+  page lists from the selector: ``paged_mqa_attention_single_pass_ph``.
+- ``paged_mqa_attention_single_pass`` in its plain mode with the streaming
+  decode band and the ring relabel: ``paged_mqa_attention_single_pass``.
+
+``paged_decode_attention`` composes the last two as
+``omniserve_tpu/ops/pallas/paged_attention.py:paged_decode_attention``
+(:535) does: route q heads to pool rows, build the page lists, run the
+retrieval and the streaming call, merge by head. The two list kernels
+share one plain version, ``page_list_attention_plain``, which follows the
+list contract; ``attention_ref.paged_decode_attention`` is the plain
+version of the whole composition. What bounds the kernels and how they are
+laid out is in the CUDA source's header.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -37,6 +52,14 @@ def _lib():
             [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
         )
         lib.launch_decode_attention_append.restype = _I
+        lib.launch_decode_attention_ph.argtypes = (
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
+        )
+        lib.launch_decode_attention_ph.restype = _I
+        lib.launch_decode_attention_band.argtypes = (
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P]
+        )
+        lib.launch_decode_attention_band.restype = _I
         lib._typed = True
     return lib
 
@@ -115,3 +138,303 @@ def paged_decode_attention_fused(
     cuda.raise_on_error(err, "decode_attention_append")
     cuda.LAUNCHES["decode_attention_append"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Decode over explicit page lists: per-head selections and the ring band
+# ---------------------------------------------------------------------------
+
+
+def _check_list_call(q4, pool: KVPool, sel_phys, sel_logic, lengths,
+                     page_size: int, list_shape) -> None:
+    b, hp, n_rep, d = q4.shape
+    if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
+        raise ValueError(
+            f"decode kernel needs head_dim {HEAD_DIM}, n_rep in {N_REPS} "
+            f"and one q group per pool head; got q {tuple(q4.shape)} for "
+            f"{pool.num_heads} pool heads"
+        )
+    if (pool.k_data.shape[3] * 2 != page_size or page_size > MAX_PAGE
+            or pool.kv_scales is None):
+        raise ValueError("decode kernel serves kv4 fine-grained pools with "
+                         f"pages of at most {MAX_PAGE} tokens")
+    cuda.check(q4, "q", torch.bfloat16)
+    cuda.check(pool.k_data, "k_data", torch.uint8)
+    cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
+    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+    cuda.check(sel_phys, "sel_phys", torch.int32, list_shape)
+    cuda.check(sel_logic, "sel_logic", torch.int32, list_shape)
+    cuda.check(lengths, "lengths", torch.int32, (b,))
+
+
+def paged_mqa_attention_single_pass_ph(
+    q: torch.Tensor,          # [B, Hr, n_rep, D] bf16
+    pool: KVPool,
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Hr, Tp] int32 physical page ids
+    sel_logic: torch.Tensor,  # [B, Hr, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+) -> torch.Tensor:
+    """Kernel: dynamic-sparse decode over per-(sequence, head) page lists
+    (in no order; all dead gives zeros). Returns [B, Hr, n_rep, D] bf16."""
+    b, hp, n_rep, _ = q.shape
+    tp = sel_logic.shape[-1]
+    _check_list_call(q, pool, sel_phys, sel_logic, lengths, page_size,
+                     (b, hp, tp))
+    out = torch.empty_like(q)
+    err = _lib().launch_decode_attention_ph(
+        q.data_ptr(), pool.k_data[layer].data_ptr(),
+        pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
+        sel_phys.data_ptr(), sel_logic.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, hp, n_rep, page_size, tp, float(sm_scale),
+        cuda.stream_handle(),
+    )
+    cuda.raise_on_error(err, "decode_attention_ph")
+    cuda.LAUNCHES["decode_attention_ph"] += 1
+    return out
+
+
+def paged_mqa_attention_single_pass(
+    q: torch.Tensor,          # [B, Hp, n_rep, D] bf16
+    pool: KVPool,
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
+    sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+    band_sink_tokens: int = -1,
+    band_local_tokens: int = 0,
+    ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
+) -> torch.Tensor:
+    """Kernel: decode over one page list per sequence, in its plain mode
+    (no append). ``band_sink_tokens >= 0`` turns the streaming band on:
+    only positions ``< band_sink_tokens`` or ``>= length -
+    band_local_tokens`` are attended; ``ring_span_pages > 0`` relabels the
+    slots past the write head of the page being written (they hold tokens
+    one ring wrap older). Returns [B, Hp, n_rep, D] bf16."""
+    b, hp, n_rep, _ = q.shape
+    tp = sel_logic.shape[-1]
+    _check_list_call(q, pool, sel_phys, sel_logic, lengths, page_size,
+                     (b, tp))
+    out = torch.empty_like(q)
+    err = _lib().launch_decode_attention_band(
+        q.data_ptr(), pool.k_data[layer].data_ptr(),
+        pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
+        sel_phys.data_ptr(), sel_logic.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, hp, n_rep, page_size, tp, float(sm_scale),
+        int(band_sink_tokens), int(band_local_tokens), int(ring_span_pages),
+        int(ring_sink_tokens), cuda.stream_handle(),
+    )
+    cuda.raise_on_error(err, "decode_attention_band")
+    cuda.LAUNCHES["decode_attention_band"] += 1
+    return out
+
+
+def page_list_attention_plain(
+    q, pool: KVPool, layer: int, sel_phys, sel_logic, lengths, *,
+    sm_scale: float, page_size: int, band_sink_tokens: int = -1,
+    band_local_tokens: int = 0, ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
+) -> torch.Tensor:
+    """Plain version of both list kernels: lists [B, Hp, Tp] (per head) or
+    [B, Tp] (shared by the heads). Gathers and dequantizes the listed
+    pages, gives every slot the position the list contract gives it, and
+    runs a masked softmax in f32."""
+    b, hp, n_rep, d = q.shape
+    if sel_logic.dim() == 2:
+        sel_phys = sel_phys[:, None, :].expand(b, hp, -1)
+        sel_logic = sel_logic[:, None, :].expand(b, hp, -1)
+    dev = q.device
+    logic = sel_logic.long()
+    phys = torch.where(logic >= 0, sel_phys.long(), 0)
+    heads = torch.arange(hp, device=dev)[None, :, None]
+    planes = pool.kv_scales[layer][phys, :, heads]     # [B, Hp, Tp, 4, page]
+
+    def values(data, scale, zero):
+        pages = data[layer][phys, heads]               # [B, Hp, Tp, rows, D]
+        codes = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
+                          dim=-2)                      # [B, Hp, Tp, page, D]
+        return (codes - zero[..., None]) * scale[..., None]
+
+    k_scale = planes[..., 0, :]
+    k = values(pool.k_data, k_scale,
+               planes[..., 1, :] / torch.clamp(k_scale, min=1e-20) - 128.0)
+    v = values(pool.v_data, planes[..., 2, :], planes[..., 3, :] - 128.0)
+
+    ln = lengths.long()[:, None, None, None]
+    slot = torch.arange(page_size, device=dev)
+    pos = logic[..., None] * page_size + slot          # [B, Hp, Tp, page]
+    floor = torch.zeros_like(pos)
+    if band_sink_tokens >= 0 and ring_span_pages > 0:
+        cur = torch.div(ln - 1, page_size, rounding_mode="floor")
+        stale = (logic[..., None] == cur) & (
+            slot > torch.remainder(ln - 1, page_size))
+        pos = torch.where(stale, pos - ring_span_pages * page_size, pos)
+        floor = torch.where(stale, ring_sink_tokens, 0)
+    valid = (logic[..., None] >= 0) & (pos < ln) & (pos >= floor)
+    if band_sink_tokens >= 0:
+        win = torch.clamp(ln - band_local_tokens, min=0)
+        valid = valid & ((pos < band_sink_tokens) | (pos >= win))
+
+    scores = torch.einsum("bhrd,bhtsd->bhrts", q.float(), k) * sm_scale
+    mask = valid[:, :, None].expand_as(scores).flatten(3)
+    scores = scores.flatten(3).masked_fill(~mask, float("-inf"))
+    any_valid = mask.any(dim=-1, keepdim=True)
+    m = torch.where(any_valid, scores.amax(dim=-1, keepdim=True), 0.0)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    probs = torch.where(
+        any_valid, p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30),
+        0.0)
+    # never-written slots may hold non-finite planes: zero them before the
+    # product (a zero weight would not silence a NaN)
+    v = torch.where(valid[..., None], v, 0.0).flatten(2, 3)
+    return torch.einsum("bhrs,bhsd->bhrd", probs, v).to(q.dtype)
+
+
+def pool_head_sources(head_rank, flags, n_pool_heads: int,
+                      want_retrieval: bool) -> torch.Tensor:
+    """For each pool row r: the kv head that maps to it (inverse of rank);
+    rows no head maps to repeat head 0 (never read back)."""
+    rows = torch.arange(n_pool_heads, device=flags.device)
+    sel = flags if want_retrieval else ~flags
+    match = (head_rank[None, :] == rows[:, None]) & sel[None, :]
+    return match.int().argmax(dim=1)
+
+
+def selected_page_lists(page_idxes, block_tables, src_r):
+    """Selector output [B, Hkv, n_sel] (logical pages, -1 pad) -> the
+    retrieval pool's per-row lists (sel_phys, sel_logic) [B, Hr, n_sel]."""
+    sel_logic = page_idxes[:, src_r].to(torch.int32)
+    safe = torch.clamp(sel_logic.long(), 0, block_tables.shape[1] - 1)
+    bsel = torch.gather(
+        block_tables[:, None, :].expand(-1, sel_logic.shape[1], -1), 2, safe)
+    sel_phys = torch.where(sel_logic >= 0, bsel, 0).to(torch.int32)
+    return sel_phys.contiguous(), sel_logic.contiguous()
+
+
+def dense_page_lists(block_tables, context_lens, page_size: int):
+    """(sel_phys, sel_logic) [B, W] of a dense history: list position ==
+    logical page, pages past the context dead."""
+    n_pages = torch.div(context_lens.long() + page_size - 1, page_size,
+                        rounding_mode="floor")
+    tile = torch.arange(block_tables.shape[1], device=block_tables.device)
+    sel_logic = torch.where(tile[None, :] < n_pages[:, None], tile[None, :],
+                            -1)
+    sel_phys = torch.where(sel_logic >= 0, block_tables, 0)
+    return (sel_phys.to(torch.int32).contiguous(),
+            sel_logic.to(torch.int32).contiguous())
+
+
+def streaming_page_lists(streaming_block_tables, context_lens,
+                         sink_blocks: int, page_size: int,
+                         dec_local_tokens: int):
+    """The COMPACT list of the streaming call: the sink blocks, then the
+    newest ring blocks that intersect the decode band, each resolved to the
+    LOGICAL block its ring slot holds (so positions are true token
+    positions). Returns (sel_phys, sel_logic) [B, sink + n] int32 and the
+    ring span in pages."""
+    st = streaming_block_tables
+    n_slots = st.shape[1]
+    ring_local = max(1, n_slots - sink_blocks)
+    dec_local_b = min(ring_local, -(-int(dec_local_tokens) // page_size) + 1)
+    sink_eff = min(sink_blocks, n_slots)
+    lens = context_lens.long()[:, None]
+    dev = st.device
+    cb = torch.clamp(torch.div(lens - 1, page_size, rounding_mode="floor"),
+                     min=0)                              # [B, 1]
+    blk = cb - torch.arange(dec_local_b, device=dev)[None, :]
+    ring_slot = sink_blocks + torch.remainder(blk - sink_blocks, ring_local)
+    ok_ring = (blk >= sink_blocks) & (lens > 0)
+    logic_ring = torch.where(ok_ring, blk, -1)
+    phys_ring = torch.gather(st.long(), 1,
+                             torch.clamp(ring_slot, 0, n_slots - 1))
+    sink_ids = torch.arange(sink_eff, device=dev)[None, :]
+    logic_sink = torch.where((sink_ids <= cb) & (lens > 0), sink_ids, -1)
+    sel_logic = torch.cat([logic_sink, logic_ring], dim=1)
+    sel_phys = torch.cat([st[:, :sink_eff].long(), phys_ring], dim=1)
+    sel_phys = torch.where(sel_logic >= 0, sel_phys, 0)
+    return (sel_phys.to(torch.int32).contiguous(),
+            sel_logic.to(torch.int32).contiguous(), ring_local)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # [B, Hq, D]
+    pool: KVPool,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    context_lens: torch.Tensor,  # [B] int32
+    sm_scale: float,
+    page_size: int,
+    streaming_pool: Optional[KVPool] = None,
+    streaming_block_tables: Optional[torch.Tensor] = None,
+    head_is_retrieval: Optional[torch.Tensor] = None,
+    head_rank: Optional[torch.Tensor] = None,
+    sink_blocks: int = 0,
+    local_blocks: int = 0,
+    page_idxes: Optional[torch.Tensor] = None,
+    dec_sink_tokens: Optional[int] = None,
+    dec_local_tokens: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention (no append) over the dual pools through the list
+    kernels; same results as ``attention_ref.paged_decode_attention``.
+
+    Retrieval heads attend their selected pages (``page_idxes``) or, without
+    a selection, their dense history; streaming heads attend the sink +
+    local band of the ring pool. CUDA tensors go to the kernels, CPU
+    tensors to ``page_list_attention_plain``."""
+    b, hq, d = q.shape
+    on_card = q.is_cuda
+    lengths = context_lens.to(torch.int32)
+    pure_dense = head_is_retrieval is None
+    hkv = pool.num_heads if pure_dense else head_is_retrieval.shape[0]
+    n_rep = hq // hkv
+    q_g = q.reshape(b, hkv, n_rep, d)
+
+    hr = pool.num_heads
+    if pure_dense:
+        src_r = torch.arange(hr, device=q.device)
+        q_r = q_g
+    else:
+        src_r = pool_head_sources(head_rank, head_is_retrieval, hr, True)
+        q_r = q_g[:, src_r].contiguous()
+    kw = dict(sm_scale=sm_scale, page_size=page_size)
+    if page_idxes is not None:
+        lists = selected_page_lists(page_idxes, block_tables, src_r)
+        fn = (paged_mqa_attention_single_pass_ph if on_card
+              else page_list_attention_plain)
+    else:
+        lists = dense_page_lists(block_tables, context_lens, page_size)
+        fn = (paged_mqa_attention_single_pass if on_card
+              else page_list_attention_plain)
+    out_r = fn(q_r, pool, layer, *lists, lengths, **kw)
+    if pure_dense:
+        return out_r.reshape(b, hq, d)
+    out = out_r[:, torch.clamp(head_rank.long(), 0, hr - 1)]
+    if streaming_pool is None:
+        return out.reshape(b, hq, d)
+
+    hs = streaming_pool.num_heads
+    src_s = pool_head_sources(head_rank, head_is_retrieval, hs, False)
+    if dec_sink_tokens is None:
+        dec_sink_tokens = sink_blocks * page_size
+    if dec_local_tokens is None:
+        dec_local_tokens = local_blocks * page_size
+    sel_phys_s, sel_logic_s, ring_local = streaming_page_lists(
+        streaming_block_tables, context_lens, sink_blocks, page_size,
+        dec_local_tokens)
+    fn = (paged_mqa_attention_single_pass if on_card
+          else page_list_attention_plain)
+    out_s = fn(
+        q_g[:, src_s].contiguous(), streaming_pool, layer, sel_phys_s,
+        sel_logic_s, lengths, band_sink_tokens=int(dec_sink_tokens),
+        band_local_tokens=int(dec_local_tokens), ring_span_pages=ring_local,
+        ring_sink_tokens=sink_blocks * page_size, **kw)
+    out_s = out_s[:, torch.clamp(head_rank.long(), 0, hs - 1)]
+    out = torch.where(head_is_retrieval[None, :, None, None], out, out_s)
+    return out.reshape(b, hq, d)

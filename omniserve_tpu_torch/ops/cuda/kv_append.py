@@ -1,0 +1,105 @@
+"""Decode-step KV append with the optional K min/max page stats
+(``csrc/kv_append.cu``).
+
+Replaces ``omniserve_tpu/ops/pallas/kv_append.py:append_kv_decode`` (:156).
+Its plain version, ``append_kv_decode_plain``, is the JAX package's scatter
+path (``omniserve_tpu/ops/dispatch.py:136-146``): ``append_kv`` with
+``unique_pages=True``, then ``update_k_stats``. What bounds the kernel and
+how it is laid out is in the CUDA source's header.
+
+Both update the pool IN PLACE. The plain version drops inactive tokens
+(page id < 0); the kernel writes them to the trash page (the pool's top
+page, which no sequence owns).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from omniserve_tpu_torch.csrc import build
+from omniserve_tpu_torch.ops import cuda
+from omniserve_tpu_torch.ops.paged_kv import KVPool, append_kv, update_k_stats
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SRC = "kv_append.cu"
+HEAD_DIM = 128
+MAX_PAGE = 256
+
+
+def _lib():
+    lib = build.lib(_SRC)
+    if not getattr(lib, "_typed", False):
+        lib.launch_kv_append_decode.argtypes = (
+            [_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P]
+        )
+        lib.launch_kv_append_decode.restype = _I
+        lib._typed = True
+    return lib
+
+
+def append_kv_decode_plain(
+    pool: KVPool, layer: int, k, v, page_ids, slots, page_size: int,
+    update_stats: bool = False, sub_chunks: int = 4,
+) -> KVPool:
+    """Plain version: scatter append, then the stats merge."""
+    append_kv(pool, layer, k, v, page_ids, slots, page_size, kv_bits=4,
+              kv_zeros=True, unique_pages=True)
+    if update_stats and pool.k_stats is not None:
+        update_k_stats(pool, layer, k, page_ids, slots, page_size,
+                       sub_chunks)
+    return pool
+
+
+def append_kv_decode(
+    pool: KVPool,
+    layer: int,
+    k: torch.Tensor,         # [T, H, D] bf16 or f32
+    v: torch.Tensor,         # [T, H, D]
+    page_ids: torch.Tensor,  # [T] int32 (-1 = inactive)
+    slots: torch.Tensor,     # [T] int32
+    page_size: int,
+    update_stats: bool = False,
+    sub_chunks: int = 4,
+) -> KVPool:
+    """Kernel: quantize one token per sequence and write it into its page
+    (nibbles, plane lanes and, with ``update_stats``, the K min/max rows).
+    Tokens must target distinct pages."""
+    t, h, d = k.shape
+    _, num_pages, hp, rows, _ = pool.k_data.shape
+    if d != HEAD_DIM or h != hp:
+        raise ValueError(
+            f"append kernel needs head_dim {HEAD_DIM} and one K/V row per "
+            f"pool head; got head_dim {d}, {h} rows for {hp} pool heads"
+        )
+    if rows * 2 != page_size or page_size > MAX_PAGE or pool.kv_scales is None:
+        raise ValueError("append kernel serves kv4 fine-grained pools with "
+                         f"pages of at most {MAX_PAGE} tokens")
+    if k.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"k must be bf16 or f32, got {k.dtype}")
+    cuda.check(k, "k", k.dtype)
+    cuda.check(v, "v", k.dtype, (t, h, d))
+    cuda.check(page_ids, "page_ids", torch.int32, (t,))
+    cuda.check(slots, "slots", torch.int32, (t,))
+    cuda.check(pool.k_data, "k_data", torch.uint8)
+    cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
+    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+    stats_ptr = None
+    if update_stats and pool.k_stats is not None:
+        cuda.check(pool.k_stats, "k_stats", torch.float32,
+                   (pool.k_data.shape[0], num_pages, h, 2 * sub_chunks, d))
+        if page_size % sub_chunks:
+            raise ValueError("page size must divide into sub_chunks")
+        stats_ptr = pool.k_stats[layer].data_ptr()
+    err = _lib().launch_kv_append_decode(
+        k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32),
+        page_ids.data_ptr(), slots.data_ptr(),
+        pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(),
+        pool.kv_scales[layer].data_ptr(), stats_ptr, t, h, num_pages,
+        page_size, sub_chunks, cuda.stream_handle(),
+    )
+    cuda.raise_on_error(err, "kv_append_decode")
+    cuda.LAUNCHES["kv_append_decode"] += 1
+    return pool

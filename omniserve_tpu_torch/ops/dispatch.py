@@ -2,14 +2,18 @@
 CPU tensors.
 
 Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
-whole-prompt prefill, chunked prefill over the paged pool, and the dense
-decode step with its KV append fused in. Every other mode of the JAX
-dispatch raises ``NotImplementedError`` naming its ROADMAP.md item (the
-JAX dispatch's single-pass paged-prefill variant, off by default there, is
-ROADMAP.md queue 2 item 10).
+whole-prompt prefill, chunked prefill over the paged pool, the dense
+decode step with its KV append fused in, and the split decode step of
+dynamic-sparse decode (``append_kv_decode``, then
+``paged_decode_attention`` over the retrieval and streaming pools). Every
+other mode of the JAX dispatch raises ``NotImplementedError`` naming its
+ROADMAP.md item (the JAX dispatch's single-pass paged-prefill variant, off
+by default there, is ROADMAP.md queue 2 item 10).
 """
 
 from __future__ import annotations
+
+import torch
 
 from omniserve_tpu_torch.ops import attention_ref, cuda
 
@@ -20,8 +24,8 @@ def prefill_attention(q, k, v, segment_ids, positions, sm_scale,
     """Packed-varlen causal attention [T, Hq, D] (dense heads)."""
     if head_is_retrieval is not None and (sink_size or local_size):
         raise NotImplementedError(
-            "streaming-head (sink+local) prefill is the LServe path; see "
-            "ROADMAP.md queue 1 item 5"
+            "streaming-head (sink+local) prefill is LServe's prefill side "
+            "(--sparse-context-mode); see ROADMAP.md queue 1 item 5b"
         )
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import flash_attention
@@ -50,14 +54,16 @@ def paged_decode_attention_fused(
     pool is updated in place."""
     if streaming_pool is not None:
         raise NotImplementedError(
-            "streaming (ring) pools are the LServe path; see ROADMAP.md "
-            "queue 1 item 5"
+            "the fused append with a streaming (ring) pool serves dense "
+            "decode over dual pools (--sparse-context-mode alone); see "
+            "ROADMAP.md queue 1 item 5b. Sparse decode appends through "
+            "append_kv_decode"
         )
     if page_idxes is not None or return_lse:
         raise NotImplementedError(
-            "page selections (the LServe selector) and LSE outputs "
-            "(sequence parallelism) are queued in ROADMAP.md queue 1 items "
-            "5 and 10"
+            "the fused append takes no page selection (sparse decode runs "
+            "append_kv_decode, then paged_decode_attention), and LSE outputs "
+            "are sequence parallelism, ROADMAP.md queue 1 item 10"
         )
     if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(
@@ -80,6 +86,68 @@ def paged_decode_attention_fused(
     return out, pool, streaming_pool
 
 
+def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
+                     kv_bits, kv_zeros, update_stats=False, sub_chunks=4):
+    """Decode-step KV append (+ optional K min/max stats), in place. Tokens
+    must target distinct pages (the decode invariant); page id -1 marks an
+    inactive token."""
+    if kv_bits != 4 or not kv_zeros:
+        raise NotImplementedError(
+            "the port serves kv4 fine-grained pools; see "
+            "ROADMAP.md queue 1 item 8"
+        )
+    from omniserve_tpu_torch.ops.cuda import kv_append
+
+    if cuda.use_kernel(k):
+        return kv_append.append_kv_decode(
+            pool, layer, k.contiguous(), v.contiguous(),
+            page_ids.to(torch.int32), slots.to(torch.int32), page_size,
+            update_stats=update_stats, sub_chunks=sub_chunks,
+        )
+    return kv_append.append_kv_decode_plain(
+        pool, layer, k, v, page_ids, slots, page_size,
+        update_stats=update_stats, sub_chunks=sub_chunks,
+    )
+
+
+def paged_decode_attention(
+    q, pool, layer, block_tables, context_lens, sm_scale, page_size,
+    kv_bits, kv_zeros, streaming_pool=None, streaming_block_tables=None,
+    head_is_retrieval=None, head_rank=None, sink_blocks=0, local_blocks=0,
+    page_idxes=None, dec_sink_tokens=None, dec_local_tokens=None,
+):
+    """Decode attention WITHOUT the append, over the retrieval pool (dense
+    history or the selector's ``page_idxes``) and, for streaming heads, the
+    ring pool's sink + local band. On a card: the page-list kernels. On the
+    CPU: ``attention_ref.paged_decode_attention``."""
+    if kv_bits != 4 or not kv_zeros:
+        raise NotImplementedError(
+            "the port serves kv4 fine-grained pools; see "
+            "ROADMAP.md queue 1 item 8"
+        )
+    if cuda.use_kernel(q):
+        from omniserve_tpu_torch.ops.cuda import decode_attention
+
+        return decode_attention.paged_decode_attention(
+            q.contiguous(), pool, layer, block_tables, context_lens,
+            sm_scale, page_size, streaming_pool=streaming_pool,
+            streaming_block_tables=streaming_block_tables,
+            head_is_retrieval=head_is_retrieval, head_rank=head_rank,
+            sink_blocks=sink_blocks, local_blocks=local_blocks,
+            page_idxes=page_idxes, dec_sink_tokens=dec_sink_tokens,
+            dec_local_tokens=dec_local_tokens,
+        )
+    return attention_ref.paged_decode_attention(
+        q, pool, layer, block_tables, context_lens, sm_scale, page_size,
+        kv_bits, kv_zeros, streaming_pool=streaming_pool,
+        streaming_block_tables=streaming_block_tables,
+        head_is_retrieval=head_is_retrieval, head_rank=head_rank,
+        sink_blocks=sink_blocks, local_blocks=local_blocks,
+        page_idxes=page_idxes, dec_sink_tokens=dec_sink_tokens,
+        dec_local_tokens=dec_local_tokens,
+    )
+
+
 def paged_prefill_attention(
     q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
     page_size, kv_bits, kv_zeros, head_is_retrieval=None, sink_size=0,
@@ -92,9 +160,9 @@ def paged_prefill_attention(
         head_is_retrieval is not None and (sink_size or local_size)
     ):
         raise NotImplementedError(
-            "explicit page lists, sink+local bands (LServe) and LSE outputs "
-            "(sequence parallelism) of paged prefill are queued in "
-            "ROADMAP.md queue 1 items 5 and 10"
+            "explicit page lists and sink+local bands (LServe's prefill "
+            "side) and LSE outputs (sequence parallelism) of paged prefill "
+            "are queued in ROADMAP.md queue 1 items 5b and 10"
         )
     if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(

@@ -8,6 +8,8 @@ so pools compare byte for byte with the JAX package's:
   iff ``t >= page/2`` (``kv4_slot_to_row_nibble``).
 - fine-grained scale planes: [L, P, 4, H, page] float32, stored folded
   (see ``KVPool``).
+- K min/max sub-chunk stats (retrieval pool under sparse decode):
+  [L, P, H, 2*n_sub, D] float32, row 2s = sub-chunk s min, row 2s+1 = max.
 
 One page id indexes every layer's pool (leading layer axis). The top page
 is a trash page the block manager never hands out.
@@ -42,6 +44,21 @@ class KVPool(NamedTuple):
     k_data: torch.Tensor
     v_data: torch.Tensor
     kv_scales: Optional[torch.Tensor]
+    # [L, P, H, n_sub*2, D] f32: row 2i = sub-chunk i min, 2i+1 = max
+    k_stats: Optional[torch.Tensor] = None
+
+    def clone(self) -> "KVPool":
+        """A deep copy (checks run a kernel and its plain version on twin
+        pools)."""
+        return KVPool(*(None if t is None else t.clone() for t in self))
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_data.shape[1]
+
+    @property
+    def num_heads(self) -> int:
+        return self.k_data.shape[2]
 
     def _plane(self, i):
         return None if self.kv_scales is None else self.kv_scales[:, :, i]
@@ -82,12 +99,15 @@ def make_kv_pool(
     head_dim: int,
     kv_bits: int = 4,
     kv_zeros: bool = True,
+    with_stats: bool = False,
+    sub_chunks: int = 4,
     device="cuda:0",
 ) -> KVPool:
     """Zeroed kv4 fine-grained pool on ``device``.
 
     ``num_pages`` includes the top TRASH page (the block manager reserves
-    it, as in the JAX package)."""
+    it, as in the JAX package). ``with_stats`` adds the K min/max
+    sub-chunk stats the page selector scores."""
     if kv_bits != 4 or not kv_zeros:
         raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} pools")
     if page_size % 2:
@@ -100,7 +120,63 @@ def make_kv_pool(
         kv_scales=torch.zeros(
             (L, P, 4, H, page_size), dtype=torch.float32, device=device
         ),
+        k_stats=torch.zeros(
+            (L, P, H, sub_chunks * 2, D), dtype=torch.float32, device=device
+        ) if with_stats else None,
     )
+
+
+def ring_logical_blocks(
+    context_lens: torch.Tensor,   # [B] tokens
+    n_slots: int,
+    sink_blocks: int,
+    local_blocks: int,
+    page_size: int,
+) -> torch.Tensor:
+    """Logical block id currently held by each streaming-ring slot.
+
+    The ring maps logical block b -> slot ``sink + (b - sink) % local``;
+    this inverts it: slot s holds the LARGEST logical block <= the current
+    block that maps to s, or -1 if the slot has not been written yet.
+    Returns [B, n_slots] int32."""
+    lens = context_lens.long()
+    cb = torch.div(lens[:, None] - 1, page_size, rounding_mode="floor")
+    slots = torch.arange(n_slots, device=lens.device)[None, :]
+    sink_logic = torch.where(slots <= cb, slots, -1)
+    raw = cb - torch.remainder(cb - slots, max(local_blocks, 1))
+    ring_logic = torch.where((cb >= sink_blocks) & (raw >= sink_blocks),
+                             raw, -1)
+    out = torch.where(slots < sink_blocks, sink_logic, ring_logic)
+    return torch.where(lens[:, None] > 0, out, -1).to(torch.int32)
+
+
+def ring_token_positions(
+    context_lens: torch.Tensor,   # [B] tokens
+    n_slots: int,
+    sink_blocks: int,
+    local_blocks: int,
+    page_size: int,
+) -> torch.Tensor:
+    """Token position held by every row of the streaming ring, or -1.
+
+    Token-granular inverse of the ring mapping: the current ring page's
+    rows past the write head still hold last-wrap tokens. Returns
+    [B, n_slots*page_size] int32 (slot-major row order)."""
+    logic = ring_logical_blocks(
+        context_lens, n_slots, sink_blocks, local_blocks, page_size
+    ).long()[:, :, None]                                   # [B, S, 1]
+    off = torch.arange(page_size, device=logic.device)[None, None, :]
+    pos = logic * page_size + off                          # [B, S, page]
+    lens = context_lens.long()[:, None, None]
+    cb = torch.div(lens - 1, page_size, rounding_mode="floor")
+    stale = (logic == cb) & (off > torch.remainder(lens - 1, page_size))
+    pos = torch.where(stale, pos - local_blocks * page_size, pos)
+    sink_tok = sink_blocks * page_size
+    ok = (logic >= 0) & (pos < lens) & torch.where(
+        stale, pos >= sink_tok, pos >= 0
+    )
+    pos = torch.where(ok, pos, -1)
+    return pos.reshape(pos.shape[0], n_slots * page_size).to(torch.int32)
 
 
 def kv4_slot_to_row_nibble(slot, page_size: int):
@@ -141,15 +217,17 @@ def append_kv(
     page_size: int,
     kv_bits: int,
     kv_zeros: bool,
+    unique_pages: bool = False,
     page_aligned: bool = False,
 ) -> KVPool:
     """Quantize T tokens and write them into one layer of a pool, in place.
 
     Tokens with ``page_ids < 0`` are dropped. Same bytes as the JAX
-    package's ``append_kv`` in every mode: ``page_aligned=True`` (chunked
+    package's ``append_kv`` in every mode: ``unique_pages=True`` (decode:
+    every token targets a distinct page) and ``page_aligned=True`` (chunked
     prefill: groups of ``page_size`` consecutive slots, one page per group)
-    is a promise the JAX function uses to pick a faster scatter; here one
-    write path serves every mode, so the flag changes nothing."""
+    are promises the JAX function uses to pick a faster scatter; here one
+    write path serves every mode, so the flags change nothing."""
     if kv_bits != 4 or not kv_zeros:
         raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} appends")
     keep = page_ids >= 0
@@ -163,6 +241,70 @@ def append_kv(
     for i, vals in enumerate(planes):
         # [T] pages x [T] slots with the head dim sliced -> [T, H] values
         sc[page_ids, i, :, slots] = vals
+    return pool
+
+
+def update_k_stats(
+    pool: KVPool,
+    layer: int,
+    k: torch.Tensor,         # [T, H, D] post-RoPE keys
+    page_ids: torch.Tensor,  # [T] (-1 = skip)
+    slots: torch.Tensor,     # [T]
+    page_size: int,
+    sub_chunks: int,
+) -> KVPool:
+    """Merge T keys into the per-sub-chunk K min/max stats, in place: a
+    scatter-min / scatter-max over (page, head, sub-chunk) cells."""
+    if pool.k_stats is None:
+        return pool
+    keep = page_ids >= 0
+    pages, sub = page_ids[keep].long(), slots[keep].long() // (
+        page_size // sub_chunks)
+    kf = k[keep].to(pool.k_stats.dtype)                   # [t, H, D]
+    _, p, h, s2, d = pool.k_stats.shape
+    heads = torch.arange(h, device=kf.device)
+    rows = ((pages[:, None] * h + heads[None, :]) * s2
+            + 2 * sub[:, None]).reshape(-1)               # [t*H] min rows
+    flat = pool.k_stats[layer].view(p * h * s2, d)
+    idx = rows[:, None].expand(-1, d)
+    kf = kf.reshape(-1, d)
+    flat.scatter_reduce_(0, idx, kf, "amin", include_self=True)
+    flat.scatter_reduce_(0, idx + 1, kf, "amax", include_self=True)
+    return pool
+
+
+def _reset_stats_rows(stats: torch.Tensor, page_ids: torch.Tensor) -> None:
+    """stats [..., P, H, 2S, D] (a view): pages' rows to (+inf, -inf).
+
+    Ids < 0 go to the trash page (the top page, which no sequence owns), so
+    the op has no data-dependent shape and can sit in a captured decode
+    step."""
+    pages = torch.where(page_ids < 0, stats.shape[-4] - 1, page_ids).long()
+    # the fill value as a device tensor: a Python scalar would be copied
+    # from the host, which a graph capture refuses
+    inf = torch.full((), float("inf"), dtype=stats.dtype, device=stats.device)
+    stats[..., pages, :, 0::2, :] = inf
+    stats[..., pages, :, 1::2, :] = -inf
+
+
+def reset_page_stats(pool: KVPool, layer: int,
+                     page_ids: torch.Tensor) -> KVPool:
+    """Re-initialize one layer's stats of freshly allocated pages
+    (+inf/-inf), in place; ids < 0 land on the trash page."""
+    if pool.k_stats is not None:
+        _reset_stats_rows(pool.k_stats[layer], page_ids)
+    return pool
+
+
+def reset_page_stats_all_layers(pool: KVPool,
+                                page_ids: torch.Tensor) -> KVPool:
+    """Reset the given pages' stats across every layer at once.
+
+    Called at the start of a step with the pages the scheduler newly
+    allocated: pages are recycled dirty, and stale min/max would corrupt
+    the selector's upper bounds."""
+    if pool.k_stats is not None:
+        _reset_stats_rows(pool.k_stats, page_ids)
     return pool
 
 

@@ -1,28 +1,41 @@
-"""KV cache engine: owns the device KV pool and its page copy/swap ops.
+"""KV cache engine: owns the device KV pools and their page copy/swap ops.
 
-Counterpart of ``omniserve_tpu.worker.cache_engine`` for the dense path:
-one kv4 fine-grained pool of torch tensors on the engine's device (the
-streaming ring pool of LServe is ROADMAP.md queue 1 item 5). Page ops
-update the pool in place.
+Counterpart of ``omniserve_tpu.worker.cache_engine``: the retrieval pool
+(with K min/max stats under sparse decode) and, when LServe splits the kv
+heads, the streaming ring pool, as kv4 fine-grained pools of torch tensors
+on the engine's device. Page ops update the pools in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
+from omniserve_tpu_torch.attn_config import SpAttnConfig
 from omniserve_tpu_torch.config import CacheConfig, ModelConfig
-from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+from omniserve_tpu_torch.ops.paged_kv import KVPool, make_kv_pool
 from omniserve_tpu_torch.utils.logger import init_logger
 
 logger = init_logger(__name__)
 
-_FIELDS = ("k_data", "v_data", "kv_scales")
+_FIELDS = ("k_data", "v_data", "kv_scales", "k_stats")
+
+
+def _fields(pool: KVPool):
+    return [(n, getattr(pool, n)) for n in _FIELDS
+            if getattr(pool, n) is not None]
+
+
+def pool_bytes(pool: Optional[KVPool]) -> Dict[str, int]:
+    """Bytes of each tensor of a pool (empty for no pool)."""
+    if pool is None:
+        return {}
+    return {n: t.numel() * t.element_size() for n, t in _fields(pool)}
 
 
 class CacheEngine:
-    """Allocates and manipulates the KV pool for one worker."""
+    """Allocates and manipulates the dual KV pools for one worker."""
 
     def __init__(
         self,
@@ -31,70 +44,98 @@ class CacheEngine:
         num_layers: int,
         num_kv_heads: int,
         head_dim: int,
+        sp_attn_config: Optional[SpAttnConfig] = None,
         device="cuda:0",
     ) -> None:
         self.cache_config = cache_config
         self.device = torch.device(device)
+        sparse_decode = bool(
+            sp_attn_config and sp_attn_config.dec.sparse_decode_mode
+        )
+        enable_streaming = bool(
+            sp_attn_config and sp_attn_config.enable_streaming
+        )
+        # Pool head width = the largest per-layer pool population (a
+        # per-layer rank table maps kv heads onto pool rows).
+        if enable_streaming:
+            n_retrieval_heads = sp_attn_config.max_retrieval_heads()
+            n_streaming_heads = max(1, sp_attn_config.max_streaming_heads())
+        else:
+            n_retrieval_heads = num_kv_heads
+            n_streaming_heads = 0
+        common = dict(
+            num_layers=num_layers, page_size=cache_config.page_size,
+            head_dim=head_dim, kv_bits=model_config.kv_cache_bits,
+            kv_zeros=model_config.kv_zeros, device=self.device,
+        )
         self.retrieval_pool = make_kv_pool(
-            num_layers=num_layers,
             num_pages=cache_config.num_retrieval_device_blocks,
-            num_heads=num_kv_heads,
-            page_size=cache_config.page_size,
-            head_dim=head_dim,
-            kv_bits=model_config.kv_cache_bits,
-            kv_zeros=model_config.kv_zeros,
-            device=self.device,
+            num_heads=n_retrieval_heads,
+            with_stats=sparse_decode,
+            sub_chunks=(sp_attn_config.dec.sub_chunk_per_block
+                        if sp_attn_config else 4),
+            **common,
         )
-        # host swap storage: cpu page id -> {field: tensor [L, ...]}
-        self._cpu_pages: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.streaming_pool: Optional[KVPool] = None
+        if enable_streaming and cache_config.num_streaming_device_blocks > 0:
+            self.streaming_pool = make_kv_pool(
+                num_pages=cache_config.num_streaming_device_blocks,
+                num_heads=n_streaming_heads, **common,
+            )
+        # host swap storage per pool: cpu page id -> {field: tensor [L, ...]}
+        self._cpu_pages: Dict[bool, Dict[int, Dict[str, torch.Tensor]]] = {
+            False: {}, True: {},
+        }
+        mib = 1 << 20
+        r_bytes = pool_bytes(self.retrieval_pool)
+        s_bytes = pool_bytes(self.streaming_pool)
         logger.info(
-            "KV pool: %d pages x %d heads on %s",
-            cache_config.num_retrieval_device_blocks, num_kv_heads,
-            self.device,
+            "KV pools on %s: retrieval %d pages x %d heads, %.1f MiB "
+            "(K stats %.1f MiB); streaming %s",
+            self.device, cache_config.num_retrieval_device_blocks,
+            n_retrieval_heads, sum(r_bytes.values()) / mib,
+            r_bytes.get("k_stats", 0) / mib,
+            (f"{cache_config.num_streaming_device_blocks} pages x "
+             f"{n_streaming_heads} heads, {sum(s_bytes.values()) / mib:.1f} "
+             "MiB" if self.streaming_pool is not None else "off"),
         )
+
+    def _pool(self, streaming: bool) -> KVPool:
+        pool = self.streaming_pool if streaming else self.retrieval_pool
+        if pool is None:
+            raise ValueError("page op on the streaming pool, but this "
+                             "engine has none")
+        return pool
 
     def copy_pages(self, mapping: Dict[int, List[int]], streaming: bool
                    ) -> None:
         """Copy whole pages src -> dst across all layers (copy-on-write)."""
         if not mapping:
             return
-        self._dense_only(streaming)
         src = [s for s, ds in mapping.items() for _ in ds]
         dst = [d for ds in mapping.values() for d in ds]
         src_t = torch.tensor(src, device=self.device)
         dst_t = torch.tensor(dst, device=self.device)
-        for name in _FIELDS:
-            arr = getattr(self.retrieval_pool, name)
+        for _, arr in _fields(self._pool(streaming)):
             arr[:, dst_t] = arr[:, src_t]
 
     def swap_out(self, mapping: Dict[int, int], streaming: bool) -> None:
         """Device pages -> host (mapping: device page id -> cpu page id)."""
         if not mapping:
             return
-        self._dense_only(streaming)
+        pool = self._pool(streaming)
         for dev_id, cpu_id in mapping.items():
-            self._cpu_pages[cpu_id] = {
-                name: getattr(self.retrieval_pool, name)[:, dev_id].to(
-                    "cpu", copy=True)
-                for name in _FIELDS
+            self._cpu_pages[streaming][cpu_id] = {
+                name: arr[:, dev_id].to("cpu", copy=True)
+                for name, arr in _fields(pool)
             }
 
     def swap_in(self, mapping: Dict[int, int], streaming: bool) -> None:
         """Host pages -> device (mapping: cpu page id -> device page id)."""
         if not mapping:
             return
-        self._dense_only(streaming)
+        pool = self._pool(streaming)
         for cpu_id, dev_id in mapping.items():
-            snap = self._cpu_pages.pop(cpu_id)
-            for name in _FIELDS:
-                getattr(self.retrieval_pool, name)[:, dev_id] = snap[name].to(
-                    self.device
-                )
-
-    @staticmethod
-    def _dense_only(streaming: bool) -> None:
-        if streaming:
-            raise NotImplementedError(
-                "streaming pools are the LServe path; see ROADMAP.md queue 1 "
-                "item 5"
-            )
+            snap = self._cpu_pages[streaming].pop(cpu_id)
+            for name, arr in _fields(pool):
+                arr[:, dev_id] = snap[name].to(self.device)

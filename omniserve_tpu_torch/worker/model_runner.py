@@ -1,6 +1,6 @@
 """Model runner: scheduler metadata -> device batches -> forward -> samples.
 
-Single-device dense subset of ``omniserve_tpu.worker.model_runner``:
+Single-device subset of ``omniserve_tpu.worker.model_runner``:
 
 - whole-prompt prefill of the scheduled prompts as one packed batch
   (PyTorch runs eagerly, so no shape buckets are needed);
@@ -12,10 +12,13 @@ Single-device dense subset of ``omniserve_tpu.worker.model_runner``:
   slot; inactive slots are masked), with the KV append fused into the
   decode attention, and per-row sampling on the device;
 - greedy multi-step decode windows (``worker/decode_window.py``): on a
-  card, one decode step captured as a CUDA graph and replayed.
+  card, one decode step captured as a CUDA graph and replayed;
+- LServe's decode side (``--sparse-decode-mode``): streaming block tables,
+  the pages whose K stats a step resets, and the cached page selection
+  with its refresh rule, in single steps and inside windows.
 
 Everything outside the slice raises ``NotImplementedError`` naming its
-ROADMAP.md item: TP/PP/SP/DP, Mixtral, LServe.
+ROADMAP.md item: TP/PP/SP/DP, Mixtral, LServe's sparse prefill.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ def chunked_prefill_batches(
     page_size: int,
     device,
     starts: Optional[Sequence[int]] = None,
+    with_stats: bool = False,
 ) -> Iterator[Tuple[PrefillBatch, torch.Tensor]]:
     """The chunks of a chunked prefill of ``seqs`` (token ids, block table).
 
@@ -85,7 +89,9 @@ def chunked_prefill_batches(
     ``[starts[i] + ci*tc, ...)`` of sequence i. Yields each chunk's
     ``PrefillBatch`` (``context_lens`` = tokens in the pool after the
     chunk) and a device bool [b_pad] marking the rows whose prompt ends in
-    it (their ``last_token_idx`` points at the last token)."""
+    it (their ``last_token_idx`` points at the last token). ``with_stats``
+    adds ``new_page_ids``: the pages a chunk writes, whose K stats the
+    forward resets first."""
     starts = [0] * len(seqs) if starts is None else starts
     b_pad = next_pow2(len(seqs), minimum=1)
     tc = max(page_size, (budget // b_pad) // page_size * page_size)
@@ -109,7 +115,8 @@ def chunked_prefill_batches(
         ctx = np.zeros(b_pad, np.int32)
         last_idx = np.zeros(b_pad, np.int64)
         ends = np.zeros(b_pad, bool)
-        for i, (ids, _) in enumerate(seqs):
+        new_pages: List[int] = []
+        for i, (ids, tbl) in enumerate(seqs):
             lo = starts[i] + ci * tc
             hi = min(len(ids), lo + tc)
             if hi <= lo:
@@ -123,11 +130,14 @@ def chunked_prefill_batches(
             if hi == len(ids):
                 ends[i] = True
                 last_idx[i] = i * tc + n - 1
+            new_pages.extend(tbl[lo // page_size: (hi - 1) // page_size + 1])
         batch = PrefillBatch(
             token_ids=dev(tokens.reshape(-1)), positions=dev(pos.reshape(-1)),
             segment_ids=dev(seg.reshape(-1)), block_tables=bt_dev,
             last_token_idx=dev(last_idx), seq_lens=lens_dev,
             context_lens=dev(ctx),
+            new_page_ids=(dev(np.asarray(new_pages, np.int32))
+                          if with_stats else None),
         )
         yield batch, dev(ends)
 
@@ -170,20 +180,31 @@ class ModelRunner:
                 "queue 1 item 7; serve load_format='dummy' or pass weights "
                 "with load_params()"
             )
+        retrieval_flags = head_rank = None
+        if sp_attn_config is not None and sp_attn_config.enable_streaming:
+            retrieval_flags = sp_attn_config.retrieval_head_flags
+            head_rank = sp_attn_config.head_rank_table
         self.params: Dict[str, Any] = llama.make_random_packed_params(
-            self.spec, seed=model_config.seed, device=self.device
+            self.spec, seed=model_config.seed, device=self.device,
+            retrieval_flags=retrieval_flags, head_rank=head_rank,
         )
         self.cache_engine = CacheEngine(
             model_config, cache_config,
             num_layers=self.spec.num_layers,
             num_kv_heads=self.spec.num_kv_heads,
             head_dim=self.spec.head_dim,
+            sp_attn_config=sp_attn_config,
             device=self.device,
         )
         # persistent decode slots
         self._slots: Dict[int, int] = {}
         self._free_slots: List[int] = []
         self._num_slots = 0
+        # sparse decode: the page selection [L, b_pad, Hkv, budget] lives in
+        # one device buffer that single steps and windows update in place
+        self._cached_page_idxes: Optional[torch.Tensor] = None
+        self._decode_steps = 0
+        self.selector_refreshes = 0
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(model_config.seed)
         # decode windows by (b_pad, table width); on a card each holds one
@@ -203,19 +224,21 @@ class ModelRunner:
     @property
     def multi_step_capable(self) -> bool:
         """Whether greedy decode windows can serve this runner: the port
-        runs one device and the dense forward, so always."""
+        runs one device, and both the dense and the sparse decode step
+        capture as CUDA graphs, so always."""
         return True
 
     # -- slot management ---------------------------------------------------
-    def _slot_for(self, seq_id: int) -> int:
+    def _slot_for(self, seq_id: int) -> Tuple[int, bool]:
+        """(slot, whether the sequence is new to the decode batch)."""
         if seq_id in self._slots:
-            return self._slots[seq_id]
+            return self._slots[seq_id], False
         if not self._free_slots:
             self._free_slots.append(self._num_slots)
             self._num_slots += 1
         slot = self._free_slots.pop(0)
         self._slots[seq_id] = slot
-        return slot
+        return slot, True
 
     def free_seq(self, seq_id: int) -> None:
         slot = self._slots.pop(seq_id, None)
@@ -233,8 +256,11 @@ class ModelRunner:
         positions: List[int] = []
         segments: List[int] = []
         tables: List[List[int]] = []
+        stables: List[List[int]] = []
         last_idx: List[int] = []
+        seq_lens: List[int] = []
         seq_ids: List[int] = []
+        new_pages: List[int] = []
         for group in metadata:
             for seq_id, data in group.seq_data.items():
                 ids = data.get_token_ids()
@@ -243,18 +269,38 @@ class ModelRunner:
                 positions.extend(range(len(ids)))
                 segments.extend([seg] * len(ids))
                 tables.append(group.block_tables[seq_id])
+                stables.append(group.streaming_block_tables.get(seq_id, [0]))
                 last_idx.append(len(tokens) - 1)
+                seq_lens.append(len(ids))
                 seq_ids.append(seq_id)
+                # as in the JAX runner, the ids of BOTH tables reset K stats
+                # of the retrieval pool (the streaming pool keeps none)
+                new_pages.extend(group.block_tables[seq_id])
+                new_pages.extend(
+                    group.streaming_block_tables.get(seq_id, []))
         w = max(len(t) for t in tables)
         bt = np.zeros((len(tables), w), np.int32)
         for i, tbl in enumerate(tables):
             bt[i, : len(tbl)] = tbl
+        sparse = {}
+        if self.spec.sparse_decode:
+            sw = max(self.spec.sink_blocks + self.spec.local_blocks,
+                     max(len(s) for s in stables))
+            st = np.zeros((len(tables), sw), np.int32)
+            for i, tbl in enumerate(stables):
+                st[i, : len(tbl)] = tbl
+            sparse = dict(
+                streaming_block_tables=self._tensor(st),
+                new_page_ids=self._tensor(np.asarray(new_pages, np.int32)),
+            )
         batch = PrefillBatch(
             token_ids=self._tensor(np.asarray(tokens, np.int64)),
             positions=self._tensor(np.asarray(positions, np.int32)),
             segment_ids=self._tensor(np.asarray(segments, np.int32)),
             block_tables=self._tensor(bt),
             last_token_idx=self._tensor(np.asarray(last_idx, np.int64)),
+            seq_lens=self._tensor(np.asarray(seq_lens, np.int32)),
+            **sparse,
         )
         return batch, seq_ids, len(tables)
 
@@ -264,11 +310,15 @@ class ModelRunner:
         """Host batch prep over ``b_pad = next_pow2(slots, 8)`` rows and the
         ``table_width`` ladder. ``device=False`` returns the host arrays
         (a decode window uploads them once, into its static buffers)."""
-        entries = []  # (slot, token, position, table)
+        entries = []  # (slot, token, position, table, streaming table)
         seq_ids: List[int] = []
+        any_new_slot = False
+        new_pages: List[int] = []
+        page = self.spec.page_size
         for group in metadata:
             for seq_id, data in group.seq_data.items():
-                slot = self._slot_for(seq_id)
+                slot, is_new = self._slot_for(seq_id)
+                any_new_slot |= is_new
                 pos = data.get_len() - 1
                 table = group.block_tables[seq_id]
                 if pos // self.spec.page_size >= len(table):
@@ -277,23 +327,56 @@ class ModelRunner:
                         f"sequence {seq_id}: block table of {len(table)} "
                         f"pages does not hold position {pos}"
                     )
-                entries.append((slot, data.get_last_token_id(), pos, table))
+                if pos % page == 0:
+                    # a page is fresh if this token starts it
+                    new_pages.append(table[pos // page])
+                entries.append((
+                    slot, data.get_last_token_id(), pos, table,
+                    group.streaming_block_tables.get(seq_id, [0]),
+                ))
                 seq_ids.append(seq_id)
         b_pad = next_pow2(self._num_slots, minimum=8)
         w = table_width([e[3] for e in entries])
-        token_ids, positions, active, bt = csrc.build_decode_batch(
-            entries, b=b_pad, w=w,
+        sparse = self.spec.sparse_decode
+        sw = self.spec.sink_blocks + self.spec.local_blocks if sparse else 1
+        token_ids, positions, active, bt, st = csrc.build_decode_batch(
+            entries, b=b_pad, w=w, sw=sw,
         )
         slots = [e[0] for e in entries]
+        refresh = False
+        if sparse:
+            # selection cache: refresh on the interval or a batch change
+            refresh = (
+                any_new_slot
+                or self._decode_steps % max(1, self.spec.selector_interval)
+                == 0
+            )
+            self._decode_steps += 1
+            cache = self._cached_page_idxes
+            if cache is None or cache.shape[1] != b_pad:
+                self._cached_page_idxes = torch.full(
+                    (self.spec.num_layers, b_pad, self.spec.num_kv_heads,
+                     self.spec.budget_pages), -1, dtype=torch.int32,
+                    device=self.device,
+                )
+                self._ms_fn_cache.clear()   # windows hold the old buffer
+                refresh = True
         if not device:
             host = {"token_ids": token_ids, "positions": positions,
-                    "active": active, "bt": bt, "w": w}
+                    "active": active, "bt": bt, "st": st, "w": w,
+                    "refresh": refresh}
             return host, seq_ids, slots, b_pad
+        npg = np.full(max(1, len(new_pages)), -1, np.int32)
+        npg[: len(new_pages)] = new_pages
         batch = DecodeBatch(
             token_ids=self._tensor(token_ids.astype(np.int64)),
             positions=self._tensor(positions),
             block_tables=self._tensor(bt),
             active=self._tensor(active),
+            streaming_block_tables=self._tensor(st) if sparse else None,
+            new_page_ids=self._tensor(npg) if sparse else None,
+            refresh_selection=refresh,
+            cached_page_idxes=self._cached_page_idxes,
         )
         return batch, seq_ids, slots, b_pad
 
@@ -347,9 +430,15 @@ class ModelRunner:
             raise ValueError("pipelined windows are exactly one window ahead")
         win = self._multi_step_fns(b_pad, host["w"])
         win.load(host["token_ids"], host["positions"] + pos_offset,
-                 host["active"], host["bt"], carry=carry_tokens)
+                 host["active"], host["bt"], host["st"], carry=carry_tokens)
+        tokens = win.run(n_steps, refresh_first=host["refresh"])
+        if self.spec.sparse_decode:
+            # _prepare_decode already counted the window's first step
+            self._decode_steps += n_steps - 1
+            self.selector_refreshes += win.refreshes_in(
+                n_steps, host["refresh"])
         return {
-            "tokens": win.run(n_steps),   # device [n_steps, B]
+            "tokens": tokens,             # device [n_steps, B]
             "metadata": metadata,
             "slots": slots,
             "n_steps": n_steps,
@@ -394,13 +483,15 @@ class ModelRunner:
                 self._ms_fn_cache.clear()
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
+            ce = self.cache_engine
             win = DecodeWindow(
-                self.params, self.cache_engine.retrieval_pool, self.spec,
+                self.params, ce.retrieval_pool, self.spec,
                 b_pad, w, self.device, graph_pool=self._graph_pool,
+                streaming_pool=ce.streaming_pool,
+                page_idxes=self._cached_page_idxes,
             )
-            if win.graph is not None:
-                self.graphs_captured += 1
-                self.graph_capture_s += win.capture_s
+            self.graphs_captured += len(win.graphs)
+            self.graph_capture_s += win.capture_s
             self._ms_fn_cache[key] = win
         return win
 
@@ -418,11 +509,13 @@ class ModelRunner:
                 seq_ids.append(seq_id)
         final_logits = None
         for batch, ends in chunked_prefill_batches(
-            seqs, budget, self.spec.page_size, self.device, starts=starts
+            seqs, budget, self.spec.page_size, self.device, starts=starts,
+            with_stats=self.spec.with_stats,
         ):
             logits, _, _, _ = llama.llama_forward(
-                self.params, self.cache_engine.retrieval_pool, None, batch,
-                self.spec, is_prefill=True,
+                self.params, self.cache_engine.retrieval_pool,
+                self.cache_engine.streaming_pool, batch, self.spec,
+                is_prefill=True,
             )
             final_logits = logits if final_logits is None else torch.where(
                 ends[:, None], logits, final_logits
@@ -458,7 +551,8 @@ class ModelRunner:
     ) -> SamplerOutput:
         if not metadata:
             return []
-        pool = self.cache_engine.retrieval_pool     # updated in place
+        ce = self.cache_engine                      # pools updated in place
+        pool, spool = ce.retrieval_pool, ce.streaming_pool
         if metadata[0].is_prompt:
             total_tokens = sum(
                 len(d.get_token_ids())
@@ -466,8 +560,20 @@ class ModelRunner:
             )
             budget = getattr(self.scheduler_config, "chunk_prefill_size",
                              32000)
+            # A streaming ring must hold the ctx-local window plus a chunk
+            # for chunked prefill to read it back; the ring of sparse decode
+            # alone (sink + decode-local blocks) is too small, so those
+            # prompts take the whole-prompt path whatever their length.
+            ring_ok = spool is None or (
+                self.spec.local_blocks * self.spec.page_size
+                >= self.spec.ctx_local + self.spec.page_size
+            )
             starts = self._prefix_starts(metadata)
-            if starts is not None or total_tokens > budget:
+            if spool is not None:
+                # a ring's sink/local window is per-sequence state that
+                # skipped prefix tokens would never populate
+                starts = None
+            if starts is not None or (total_tokens > budget and ring_ok):
                 # a computed shared prefix: suffix-only prefill through the
                 # paged (chunked) path; long prompts: chunked prefill
                 logits, seq_ids, n_seqs = self._execute_chunked_prefill(
@@ -476,15 +582,18 @@ class ModelRunner:
             else:
                 batch, seq_ids, n_seqs = self._prepare_prefill(metadata)
                 logits, _, _, _ = llama.llama_forward(
-                    self.params, pool, None, batch, self.spec,
+                    self.params, pool, spool, batch, self.spec,
                     is_prefill=True,
                 )
             rows = list(range(n_seqs))
         else:
             batch, seq_ids, rows, _ = self._prepare_decode(metadata)
-            logits, _, _, _ = llama.llama_forward(
-                self.params, pool, None, batch, self.spec, is_prefill=False,
+            logits, _, _, new_sel = llama.llama_forward(
+                self.params, pool, spool, batch, self.spec, is_prefill=False,
             )
+            if batch.refresh_selection:
+                self._cached_page_idxes.copy_(new_sel)
+                self.selector_refreshes += 1
         token_ids, logprobs = self._sample(logits, metadata, rows)
 
         outputs: SamplerOutput = []

@@ -349,14 +349,14 @@ def test_append_kv_page_aligned_bytes_match_jax():
 def test_paged_prefill_dispatch_raises_outside_slice():
     q = torch.zeros(1, 2, 2, 8)
     kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
-    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+    with pytest.raises(NotImplementedError, match="items 5b and 10"):
         dispatch.paged_prefill_attention(q, None, 0, None, None, None,
                                          return_lse=True, **kw)
-    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+    with pytest.raises(NotImplementedError, match="items 5b and 10"):
         dispatch.paged_prefill_attention(
             q, None, 0, None, None, None, head_is_retrieval=torch.ones(2),
             sink_size=4, local_size=4, **kw)
-    with pytest.raises(NotImplementedError, match="items 5 and 10"):
+    with pytest.raises(NotImplementedError, match="items 5b and 10"):
         t_ref.paged_prefill_attention(q, None, 0, None, None, None, 1.0, 8,
                                       4, True, kv_positions=torch.zeros(1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

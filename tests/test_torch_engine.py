@@ -101,12 +101,15 @@ def test_greedy_tokens_match_jax_engine(tiny_model_dir):
 
 
 def test_engine_raises_outside_slice(tiny_model_dir):
-    """Chunked prefill, prefix reuse and multi-step windows serve (see
-    tests/test_torch_engine_windows.py); kv8, LServe and tensor
-    parallelism stay outside the port and raise naming their ROADMAP
-    item."""
+    """Chunked prefill, prefix reuse, multi-step windows and LServe's
+    decode side serve (see tests/test_torch_engine_windows.py and
+    tests/test_torch_lserve_engine.py); kv8, LServe's sparse prefill and
+    tensor parallelism stay outside the port and raise naming their
+    ROADMAP item."""
     for extra in (dict(precision="w4a8kv8"),
-                  dict(sparse_decode_mode=True),
+                  dict(sparse_context_mode=True),
+                  dict(sparse_decode_mode=True, sparse_context_mode=True,
+                       static_sparsity=0.5),
                   dict(tensor_parallel_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMEngine.from_engine_args(EngineArgs(
@@ -133,6 +136,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import omniserve_tpu_torch.ops.cuda.decode_attention\n"
         "import omniserve_tpu_torch.ops.cuda.flash_attention\n"
         "import omniserve_tpu_torch.ops.cuda.paged_prefill\n"
+        "import omniserve_tpu_torch.ops.cuda.kv_append\n"
+        "import omniserve_tpu_torch.lserve_benchmark\n"
         "import omniserve_tpu_torch.worker.decode_window\n"
         "import omniserve_tpu_torch.worker.model_runner\n"
         "import omniserve_tpu_torch.qserve_benchmark\n"
@@ -150,27 +155,45 @@ def test_cache_engine_copy_and_swap_pages():
     from omniserve_tpu_torch.config import CacheConfig, ModelConfig
     from omniserve_tpu_torch.worker.cache_engine import CacheEngine
 
+    from omniserve_tpu_torch.attn_config import sparse_attn_init
+
     mc = ModelConfig("unused", precision="w4a8kv4",
                      hf_config=type("H", (), {})())
     ce = CacheEngine(mc, CacheConfig(page_size=16,
                                      num_retrieval_device_blocks=6),
                      num_layers=2, num_kv_heads=2, head_dim=8, device="cpu")
-    pool = ce.retrieval_pool
-    g = torch.Generator().manual_seed(0)
-    for t in pool:
-        t.copy_(torch.randint(0, 200, t.shape, generator=g).to(t.dtype))
-    before = [t.clone() for t in pool]
-    ce.copy_pages({1: [3, 4]}, streaming=False)
-    for t in pool:
-        assert torch.equal(t[:, 3], t[:, 1]) and torch.equal(t[:, 4], t[:, 1])
-    ce.swap_out({2: 0}, streaming=False)
-    for t in pool:
-        t[:, 2] = 0
-    ce.swap_in({0: 5}, streaming=False)
-    for t, b in zip(pool, before):
-        assert torch.equal(t[:, 5], b[:, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert ce.streaming_pool is None and ce.retrieval_pool.k_stats is None
+    with pytest.raises(ValueError, match="streaming"):
         ce.copy_pages({1: [2]}, streaming=True)
+
+    # LServe's dual pools: the retrieval pool carries K stats, and page ops
+    # reach either pool
+    sp = sparse_attn_init(sparse_decode_mode=True, static_sparsity=0.5,
+                          page_size=16, num_layers=2, num_kv_heads=2)
+    dual = CacheEngine(
+        mc, CacheConfig(page_size=16, num_retrieval_device_blocks=6,
+                        num_streaming_device_blocks=6),
+        num_layers=2, num_kv_heads=2, head_dim=8, sp_attn_config=sp,
+        device="cpu")
+    assert dual.retrieval_pool.num_heads == dual.streaming_pool.num_heads == 1
+    assert tuple(dual.retrieval_pool.k_stats.shape) == (2, 6, 1, 8, 8)
+    g = torch.Generator().manual_seed(0)
+    for engine, streaming in ((ce, False), (dual, False), (dual, True)):
+        pool = [t for t in engine._pool(streaming) if t is not None]
+        assert len(pool) == (4 if engine is dual and not streaming else 3)
+        for t in pool:
+            t.copy_(torch.randint(0, 200, t.shape, generator=g).to(t.dtype))
+        before = [t.clone() for t in pool]
+        engine.copy_pages({1: [3, 4]}, streaming=streaming)
+        for t in pool:
+            assert torch.equal(t[:, 3], t[:, 1])
+            assert torch.equal(t[:, 4], t[:, 1])
+        engine.swap_out({2: 0}, streaming=streaming)
+        for t in pool:
+            t[:, 2] = 0
+        engine.swap_in({0: 5}, streaming=streaming)
+        for t, b in zip(pool, before):
+            assert torch.equal(t[:, 5], b[:, 2])
 
 
 def test_chip_smoke_refuses_without_cuda():

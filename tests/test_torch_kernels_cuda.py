@@ -25,6 +25,16 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+def assert_pools_equal(a, b, skip_trash=False):
+    """Same bytes, planes and stats; ``skip_trash`` leaves out the top page,
+    which absorbs the kernels' writes for inactive rows."""
+    end = -1 if skip_trash else None
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x[:, :end], y[:, :end])
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (8, 512, 256),
                                    (40, 1024, 384), (300, 256, 68)])
 def test_w4a8_per_channel_kernel(dev, m, k, n):
@@ -119,7 +129,7 @@ def test_decode_attention_append_kernel(dev, n_rep):
         append_kv(pool, 1, torch.randn((n, h, d), generator=g, device=dev),
                   torch.randn((n, h, d), generator=g, device=dev),
                   tables[s].to(dev)[pos // page], pos % page, page, 4, True)
-    twin = type(pool)(*(x.clone() for x in pool))
+    twin = pool.clone()
     q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
     kn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
     vn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
@@ -131,8 +141,7 @@ def test_decode_attention_append_kernel(dev, n_rep):
     torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
                                atol=5e-2)
     assert float(got[3].abs().max()) == 0.0
-    for a, b_ in zip(pool, twin):
-        assert torch.equal(a, b_)
+    assert_pools_equal(pool, twin)
 
 
 @pytest.mark.parametrize("history,chunk,n_rep,page,ragged", [
@@ -217,17 +226,240 @@ def test_decode_window_graph_matches_eager(dev):
         positions = np.zeros(b_pad, np.int32)
         positions[:3] = lens
         active = np.arange(b_pad) < 3
-        twin = type(pool)(*(x.clone() for x in pool))
+        twin = pool.clone()
         toks = {}
         for mode, p in (("graph", pool), ("eager", twin)):
             win = DecodeWindow(params, p, spec, b_pad, w, dev,
                                use_graph=mode == "graph")
-            assert (win.graph is not None) == (mode == "graph")
+            assert bool(win.graphs) == (mode == "graph")
             win.load(first, positions, active, tables)
             before = cuda.LAUNCHES["decode_attention_append"]
             toks[mode] = win.run(8).cpu().numpy()
             assert (cuda.LAUNCHES["decode_attention_append"] - before
                     == 8 * spec.num_layers)
     np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
-    for a, b_ in zip(pool, twin):
-        assert torch.equal(a, b_)
+    assert_pools_equal(pool, twin)
+
+
+@pytest.mark.parametrize("heads,with_stats,dtype", [
+    (4, True, torch.bfloat16), (4, False, torch.bfloat16),
+    (8, False, torch.float32), (1, True, torch.float32)])
+def test_kv_append_decode_kernel(dev, heads, with_stats, dtype):
+    """Three appends on the same pages (low nibble, high nibble, another
+    sub-chunk), two tokens inactive: bytes, planes and stats equal the
+    plain version's on every page but the trash page."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    page, d, t = 128, 128, 8
+    g = _gen(dev, 5)
+    pool = make_kv_pool(2, 13, heads, page, d, with_stats=with_stats,
+                        device=dev)
+    for x in pool:
+        if x is not None:      # recycled pages are dirty
+            x.copy_(torch.randint(0, 200, x.shape, generator=g,
+                                  device=dev).to(x.dtype))
+    twin = pool.clone()
+    pages = torch.tensor([4, 9, -1, 0, 7, -1, 2, 10], dtype=torch.int32,
+                         device=dev)
+    for step, slot0 in enumerate((5, 64, 127)):
+        slots = ((slot0 + torch.arange(t) * 17) % page).to(torch.int32).to(dev)
+        k = torch.randn((t, heads, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((t, heads, d), generator=g, device=dev).to(dtype)
+        before = cuda.LAUNCHES["kv_append_decode"]
+        ka.append_kv_decode(pool, step % 2, k, v, pages, slots, page,
+                            update_stats=with_stats)
+        assert cuda.LAUNCHES["kv_append_decode"] == before + 1
+        ka.append_kv_decode_plain(twin, step % 2, k, v, pages, slots, page,
+                                  update_stats=with_stats)
+    torch.cuda.synchronize()
+    assert_pools_equal(pool, twin, skip_trash=True)
+
+
+def _filled_pool(dev, g, n_pages, heads, page=128, d=128):
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    pool = make_kv_pool(2, n_pages + 1, heads, page, d, device=dev)
+    n = n_pages * page
+    pos = torch.arange(n, device=dev)
+    append_kv(pool, 1, torch.randn((n, heads, d), generator=g, device=dev),
+              torch.randn((n, heads, d), generator=g, device=dev),
+              pos // page, pos % page, page, 4, True)
+    return pool
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_decode_attention_ph_kernel(dev, n_rep):
+    """Per-head lists in no order with dead entries, a context that ends
+    inside a listed page, an all-dead row and an inactive row."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    page, h, d, n_pages = 128, 2, 128, 12
+    g = _gen(dev, 6)
+    pool = _filled_pool(dev, g, n_pages, h)
+    lens = torch.tensor([5 * page + 9, 3 * page, 700, 0], dtype=torch.int32)
+    sel_logic = torch.tensor([
+        [[5, 0, 3, -1, 1], [5, 4, -1, 2, 0]],
+        [[2, 1, 0, -1, -1], [2, -1, 0, -1, -1]],
+        [[-1, -1, -1, -1, -1], [5, 1, 3, 0, 4]],
+        [[0, 1, -1, -1, -1], [0, -1, -1, -1, -1]],
+    ], dtype=torch.int32)
+    # logical page p of row r lives in physical page (p + 2 r) % n_pages
+    sel_phys = torch.where(
+        sel_logic >= 0,
+        (sel_logic + 2 * torch.arange(4)[:, None, None]) % n_pages, 0,
+    ).to(torch.int32)
+    q = torch.randn((4, h, n_rep, d), generator=g, device=dev).bfloat16()
+    args = (q, pool, 1, sel_phys.to(dev), sel_logic.to(dev), lens.to(dev))
+    before = cuda.LAUNCHES["decode_attention_ph"]
+    got = da.paged_mqa_attention_single_pass_ph(*args, sm_scale=d ** -0.5,
+                                                page_size=page)
+    assert cuda.LAUNCHES["decode_attention_ph"] == before + 1
+    want = da.page_list_attention_plain(*args, sm_scale=d ** -0.5,
+                                        page_size=page)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[2, 0].abs().max()) == 0.0      # all-dead list
+    assert float(got[3].abs().max()) == 0.0         # inactive row
+    assert float(got[2, 1].abs().max()) > 0.0
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("band", [(128, 256), (64, 100), (-1, 0)])
+def test_decode_attention_band_kernel(dev, band):
+    """One list per sequence over a ring pool of 1 sink + 2 ring pages:
+    wrapped mid page, wrapped on a page boundary, inside the sink page,
+    inactive. Held against the list contract's plain version, and the whole
+    dual-pool composition against ``attention_ref``."""
+    from omniserve_tpu_torch.ops import attention_ref, cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    page, h, d = 128, 2, 128
+    g = _gen(dev, 7)
+    lens = torch.tensor([5 * page + 37, 4 * page, 90, 0], dtype=torch.int32,
+                        device=dev)
+    b = len(lens)
+    # garbage everywhere first (never-written lanes), then the live tokens
+    spool = _filled_pool(dev, g, 3 * b, h)
+    spool.kv_scales[:, 7:9].fill_(float("nan"))          # unlisted pages
+    spool.kv_scales[:, 6, :, :, 90:] = float("nan")      # past row 2's end
+    stables = torch.arange(3 * b, dtype=torch.int32, device=dev).view(b, 3)
+    sel_phys, sel_logic, span = da.streaming_page_lists(
+        stables, lens, 1, page, 256)
+    q = torch.randn((b, h, 4, d), generator=g, device=dev).bfloat16()
+    kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=band[0],
+              band_local_tokens=band[1], ring_span_pages=span,
+              ring_sink_tokens=page)
+    before = cuda.LAUNCHES["decode_attention_band"]
+    got = da.paged_mqa_attention_single_pass(q, spool, 1, sel_phys,
+                                             sel_logic, lens, **kw)
+    assert cuda.LAUNCHES["decode_attention_band"] == before + 1
+    want = da.page_list_attention_plain(q, spool, 1, sel_phys, sel_logic,
+                                        lens, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[3].abs().max()) == 0.0
+    assert torch.isfinite(got.float()).all()
+    if band[0] < 0:
+        return
+    # the composition: 2 retrieval + 2 streaming heads, selected pages
+    rpool = _filled_pool(dev, g, 6 * b, h)
+    tables = torch.arange(6 * b, dtype=torch.int32, device=dev).view(b, 6)
+    flags = torch.tensor([True, False, False, True], device=dev)
+    rank = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    page_idxes = torch.tensor([[5, 0, 2], [3, 1, -1], [0, -1, -1],
+                               [-1, -1, -1]], dtype=torch.int32, device=dev)
+    page_idxes = page_idxes[:, None, :].repeat(1, 4, 1)
+    q2 = torch.randn((b, 16, d), generator=g, device=dev).bfloat16()
+    spool.kv_scales.nan_to_num_(nan=1.0)   # attention_ref reads whole pages
+    kw2 = dict(streaming_pool=spool, streaming_block_tables=stables,
+               head_is_retrieval=flags, head_rank=rank, sink_blocks=1,
+               local_blocks=2, page_idxes=page_idxes,
+               dec_sink_tokens=band[0], dec_local_tokens=band[1])
+    got2 = da.paged_decode_attention(q2, rpool, 1, tables, lens,
+                                     d ** -0.5, page, **kw2)
+    want2 = attention_ref.paged_decode_attention(
+        q2, rpool, 1, tables, lens, d ** -0.5, page, 4, True, **kw2)
+    torch.testing.assert_close(got2.float(), want2.float(), rtol=5e-2,
+                               atol=5e-2)
+
+
+def test_sparse_decode_window_graphs_match_eager(dev):
+    """Ten window steps under sparse decode (refresh steps and reuse steps,
+    a page boundary): the two replayed graphs give the eager loop's tokens,
+    pool bytes, K stats and selection."""
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.decode_window import DecodeWindow
+
+    page = 128
+    spec = llama.LlamaSpec(
+        num_layers=2, hidden=512, intermediate=1024, num_q_heads=8,
+        num_kv_heads=4, head_dim=128, vocab=1024, page_size=page,
+        lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=2,
+        dec_sink_tokens=128, dec_local_tokens=256, budget_pages=3,
+        selector_interval=4)
+    flags = np.array([[True, True, False, False]] * 2)
+    params = llama.make_random_packed_params(spec, seed=3, device=dev,
+                                             retrieval_flags=flags)
+    lens, b_pad, w = [5 * page - 4, 70, 2 * page + 1], 8, 6
+    tables = np.zeros((b_pad, w), np.int32)
+    tables[:3] = np.arange(3 * w).reshape(3, w)
+    stables = np.zeros((b_pad, 3), np.int32)
+    stables[:3] = np.arange(9).reshape(3, 3)
+    rpool = make_kv_pool(2, 3 * w + 1, 2, page, 128, with_stats=True,
+                         device=dev)
+    spool = make_kv_pool(2, 10, 2, page, 128, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, spec.vocab, n) for n in lens]
+
+    def dev_i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    batch = llama.PrefillBatch(
+        token_ids=torch.from_numpy(np.concatenate(prompts)).to(dev),
+        positions=dev_i32(np.concatenate([np.arange(n) for n in lens])),
+        segment_ids=dev_i32(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(lens)])),
+        block_tables=dev_i32(tables[:3]),
+        last_token_idx=torch.tensor(np.cumsum(lens) - 1, device=dev),
+        seq_lens=dev_i32(lens), streaming_block_tables=dev_i32(stables[:3]),
+        new_page_ids=dev_i32(tables[:3].reshape(-1)),
+    )
+    with torch.inference_mode():
+        logits, _, _, _ = llama.llama_forward(params, rpool, spool, batch,
+                                              spec, is_prefill=True)
+        first = np.zeros(b_pad, np.int32)
+        first[:3] = logits.argmax(-1).cpu().numpy()
+        positions = np.zeros(b_pad, np.int32)
+        positions[:3] = lens
+        active = np.arange(b_pad) < 3
+        toks, sels = {}, {}
+        pools = {"graph": (rpool, spool),
+                 "eager": (rpool.clone(), spool.clone())}
+        for mode, (rp, sp) in pools.items():
+            sel = torch.full((2, b_pad, 4, 3), -1, dtype=torch.int32,
+                             device=dev)
+            win = DecodeWindow(params, rp, spec, b_pad, w, dev,
+                               use_graph=mode == "graph", streaming_pool=sp,
+                               page_idxes=sel)
+            assert len(win.graphs) == (2 if mode == "graph" else 0)
+            assert int(sel.max()) == -1            # capture left it alone
+            win.load(first, positions, active, tables, stables)
+            before = dict(cuda.LAUNCHES)
+            toks[mode] = win.run(10, refresh_first=True).cpu().numpy()
+            assert win.refreshes_in(10, True) == 3
+            for name, per_step in (("kv_append_decode", 2),
+                                   ("decode_attention_ph", 1),
+                                   ("decode_attention_band", 1)):
+                assert (cuda.LAUNCHES[name] - before[name]
+                        == 10 * spec.num_layers * per_step), name
+            sels[mode] = sel.cpu().numpy()
+    np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
+    np.testing.assert_array_equal(sels["graph"][:, :3], sels["eager"][:, :3])
+    assert (sels["graph"][:, 0, :2] >= 0).all()    # seq 0: budget used up
+    for a, b_ in zip(pools["graph"], pools["eager"]):
+        assert_pools_equal(a, b_, skip_trash=True)

@@ -1,0 +1,188 @@
+"""The port's sparse-decode forward against the JAX package's (CPU).
+
+LServe's decode side (``sparse_decode``, half of the kv heads streaming):
+a whole-prompt prefill into both pools, then six decode steps that cross a
+page boundary onto a recycled (dirty) page and two selector refreshes. The
+JAX forward runs op by op (``jax.disable_jit()``), where it and the port
+execute the same integer GEMMs and the same f32 op order: logits agree to
+1e-4 of their scale, pool bytes, planes and K stats are equal, and the page
+selections are equal as sets (``approx_max_k`` orders its picks its own
+way).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from omniserve_tpu.models import llama as j_llama
+from omniserve_tpu.ops.paged_kv import make_kv_pool as j_make_kv_pool
+from omniserve_tpu_torch.models import llama as t_llama
+from omniserve_tpu_torch.models.convert import params_from_numpy, pool_from_numpy
+
+PAGE = 16
+LOGIT_RTOL = 1e-4
+N_LAYERS, HKV, BUDGET, INTERVAL = 2, 2, 3, 4
+FLAGS = np.array([[True, False]] * N_LAYERS)
+
+
+def spec_kwargs():
+    return dict(
+        num_layers=N_LAYERS, hidden=64, intermediate=128, num_q_heads=4,
+        num_kv_heads=HKV, head_dim=16, vocab=128, page_size=PAGE,
+        rope_base=500000.0, weight_bits=4, act_bits=8, kv_bits=4,
+        kv_zeros=True, lm_head_bits=8, sparse_decode=True, sink_blocks=1,
+        local_blocks=2, dec_sink_tokens=PAGE, dec_local_tokens=2 * PAGE,
+        sub_chunks=4, budget_pages=BUDGET, selector_interval=INTERVAL,
+    )
+
+
+class _NumpyPool:
+    def __init__(self, jpool):
+        for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+            a = getattr(jpool, name)
+            setattr(self, name, None if a is None else np.array(a))
+
+
+def assert_pools_equal(tpool, jpool, what):
+    """Every page but the trash page (the top one): the JAX scatters drop a
+    -1 page id, the port sends its stats reset to the trash page."""
+    for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+        want = getattr(jpool, name)
+        if want is None:
+            assert getattr(tpool, name) is None
+            continue
+        np.testing.assert_array_equal(
+            getattr(tpool, name).numpy()[:, :-1], np.asarray(want)[:, :-1],
+            err_msg=f"{what}: {name}")
+
+
+def assert_logits_close(got, want):
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_RTOL * scale)
+
+
+def test_sparse_prefill_then_decode_matches_jax():
+    j_spec = j_llama.LlamaSpec(**spec_kwargs())
+    t_spec = t_llama.LlamaSpec(**spec_kwargs())
+    t_spec.check_supported()
+    jparams = j_llama.make_random_packed_params(
+        j_spec, seed=11, retrieval_flags=FLAGS)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert tparams["attn_meta"]["retrieval_flags"].dtype == torch.bool
+    tmeta = t_llama.make_attn_meta(t_spec, FLAGS, device="cpu")
+    for key in ("retrieval_flags", "head_rank"):
+        np.testing.assert_array_equal(tmeta[key].numpy(),
+                                      np.asarray(jparams["attn_meta"][key]))
+
+    rng = np.random.default_rng(12)
+    # seq 0: 5 pages less 3 tokens (longer than sink + ring = 3 pages; its
+    # 4th decode token starts page 5); seq 1: inside the second page
+    lens = [5 * PAGE - 3, PAGE + 9]
+    tables = np.array([[4, 1, 7, 9, 3, 6], [2, 8, 0, 0, 0, 0]], np.int32)
+    stables = np.array([[3, 0, 5], [1, 4, 2]], np.int32)
+    tokens = np.concatenate([rng.integers(0, 128, n) for n in lens]).astype(
+        np.int32)
+    pos = np.concatenate([np.arange(n) for n in lens]).astype(np.int32)
+    seg = np.concatenate([np.full(n, i) for i, n in enumerate(lens)]).astype(
+        np.int32)
+    last = (np.cumsum(lens) - 1).astype(np.int32)
+    # as the runner does: every page of both tables resets the K stats
+    new_pages = np.array([4, 1, 7, 9, 3, 3, 0, 5, 2, 8, 1, 4, 2], np.int32)
+
+    # dirty pools (recycled pages): random bytes, planes and stats
+    jr = j_make_kv_pool(N_LAYERS, 11, 1, PAGE, 16, with_stats=True)
+    js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, 16)
+    jr = jr._replace(
+        k_data=jnp.asarray(rng.integers(0, 256, jr.k_data.shape,
+                                        dtype=np.uint8)),
+        kv_scales=jnp.asarray(rng.uniform(0.1, 1, jr.kv_scales.shape)
+                              .astype(np.float32)),
+        k_stats=jnp.asarray(rng.normal(size=jr.k_stats.shape)
+                            .astype(np.float32) * 50))
+    tr = pool_from_numpy(_NumpyPool(jr), "cpu")
+    ts = pool_from_numpy(_NumpyPool(js), "cpu")
+    assert tr.k_stats is not None and ts.k_stats is None
+
+    j_batch = j_llama.PrefillBatch(
+        token_ids=jnp.asarray(tokens), positions=jnp.asarray(pos),
+        segment_ids=jnp.asarray(seg), block_tables=jnp.asarray(tables),
+        streaming_block_tables=jnp.asarray(stables),
+        last_token_idx=jnp.asarray(last), seq_lens=jnp.asarray(lens,
+                                                               jnp.int32),
+        new_page_ids=jnp.asarray(new_pages),
+    )
+    t_batch = t_llama.PrefillBatch(
+        token_ids=torch.from_numpy(tokens), positions=torch.from_numpy(pos),
+        segment_ids=torch.from_numpy(seg),
+        block_tables=torch.from_numpy(tables),
+        last_token_idx=torch.from_numpy(last),
+        seq_lens=torch.tensor(lens, dtype=torch.int32),
+        streaming_block_tables=torch.from_numpy(stables),
+        new_page_ids=torch.from_numpy(new_pages),
+    )
+    with jax.disable_jit():
+        j_logits, jr, js, _ = j_llama.llama_forward(
+            jparams, jr, js, j_batch, j_spec, is_prefill=True)
+    t_logits, _, _, sel = t_llama.llama_forward(
+        tparams, tr, ts, t_batch, t_spec, is_prefill=True)
+    assert sel is None
+    assert_logits_close(t_logits.numpy(), np.asarray(j_logits))
+    assert_pools_equal(tr, jr, "prefill retrieval")
+    assert_pools_equal(ts, js, "prefill streaming")
+
+    # six decode steps, rows (seq 0, seq 1, inactive)
+    nxt = np.append(np.asarray(j_logits).argmax(-1), 0).astype(np.int32)
+    dpos = np.array(lens + [0], np.int32)
+    active = np.array([True, True, False])
+    dtables = np.concatenate([tables, np.zeros((1, 6), np.int32)])
+    dstables = np.concatenate([stables, np.zeros((1, 3), np.int32)])
+    j_cache = jnp.full((N_LAYERS, 3, HKV, BUDGET), -1, jnp.int32)
+    t_cache = torch.full((N_LAYERS, 3, HKV, BUDGET), -1, dtype=torch.int32)
+    crossed = refreshed = 0
+    for step in range(6):
+        refresh = step % INTERVAL == 0
+        fresh = [int(dtables[i, dpos[i] // PAGE]) for i in range(2)
+                 if dpos[i] % PAGE == 0]
+        crossed += len(fresh)
+        refreshed += refresh
+        npg = np.array(fresh + [-1] * (8 - len(fresh)), np.int32)
+        j_dec = j_llama.DecodeBatch(
+            token_ids=jnp.asarray(nxt), positions=jnp.asarray(dpos),
+            block_tables=jnp.asarray(dtables),
+            streaming_block_tables=jnp.asarray(dstables),
+            active=jnp.asarray(active), new_page_ids=jnp.asarray(npg),
+            refresh_selection=jnp.asarray(refresh),
+            cached_page_idxes=j_cache,
+        )
+        t_dec = t_llama.DecodeBatch(
+            token_ids=torch.from_numpy(nxt.copy()),
+            positions=torch.from_numpy(dpos.copy()),
+            block_tables=torch.from_numpy(dtables),
+            active=torch.from_numpy(active),
+            streaming_block_tables=torch.from_numpy(dstables),
+            new_page_ids=torch.from_numpy(npg),
+            refresh_selection=refresh, cached_page_idxes=t_cache,
+        )
+        with jax.disable_jit():
+            j_logits, jr, js, j_cache = j_llama.llama_forward(
+                jparams, jr, js, j_dec, j_spec, is_prefill=False)
+        t_logits, _, _, t_cache = t_llama.llama_forward(
+            tparams, tr, ts, t_dec, t_spec, is_prefill=False)
+        assert_logits_close(t_logits.numpy()[:2], np.asarray(j_logits)[:2])
+        assert_pools_equal(tr, jr, f"decode step {step} retrieval")
+        assert_pools_equal(ts, js, f"decode step {step} streaming")
+        jsel, tsel = np.asarray(j_cache), t_cache.numpy()
+        assert tsel.shape == jsel.shape
+        for idx in np.ndindex(jsel.shape[:3]):
+            assert set(tsel[idx]) == set(jsel[idx]), (step, idx)
+        # seq 0 has 5-6 pages against a budget of 3: pages are dropped, and
+        # the retrieval head's first pick is the newest page
+        newest = dpos[0] // PAGE
+        if refresh:
+            assert tsel[0, 0, 0, 0] == newest
+            assert len(set(tsel[0, 0, 0])) == BUDGET
+        nxt = np.append(np.asarray(j_logits)[:2].argmax(-1), 0).astype(
+            np.int32)
+        dpos = dpos + np.array([1, 1, 0], np.int32)
+    assert crossed == 1 and refreshed == 2
