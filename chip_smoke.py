@@ -13,14 +13,18 @@ Phases (any failure raises and exits nonzero before the last line):
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time, the bound
    (bytes over 3.35 TB/s or operations over the tensor-core peak) and one
-   PyTorch library call's time where one computes the same function;
+   PyTorch library call's time where one computes the same function; the
+   band mode of flash prefill at 16K tokens and the ring mode of paged
+   prefill at phase 7's first chunk and on a wrapped ring;
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
    eager loop, each with kernels against the plain versions; then the same
    under LServe's sparse decode (dual pools, page selector): prefill and
    two decode steps kernels against plain, and a 10-step window (refresh
-   and reuse graphs) against the eager loop;
+   and reuse graphs) against the eager loop; then under both sparse modes,
+   whole-prompt (flash band) and chunked (ring) prefill, kernels against
+   plain;
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
@@ -36,7 +40,12 @@ Phases (any failure raises and exits nonzero before the last line):
    0.5`` at Llama-3.1-8B's published config (128K context, llama3 rope
    scaling), a warmup and a measured round in single decode steps, then
    the same two rounds in 16-step decode windows;
-7. a ``{"kernels": [...]}`` line, the card line, then
+7. the same protocol with ``--sparse-context-mode --sparse-decode-mode
+   --static-sparsity 0.5`` (LServe's prefill side) in 16-step windows: a
+   32,768-token prompt (two chunks over the ring) and a 16,384-token
+   prompt (whole-prompt band), a warmup and a measured round each, then
+   one traced prefill step of each;
+8. a ``{"kernels": [...]}`` line, the card line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Exits 2 without CUDA or without the repository's package beside this
@@ -58,6 +67,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+BAND_ROW_RTOL = 1e-2             # flash band: per-row error over row norm
 
 # Llama-3-8B geometry (public model card), as scripts/make_bench_config.py
 LLAMA3_8B = dict(
@@ -192,6 +202,16 @@ def allclose_err(got, want, atol: float, rtol: float, what: str) -> float:
             f"{rtol} (max abs err {float(diff.max()):.3g})"
         )
     return float(diff.max())
+
+
+def row_rel_err(got, want) -> float:
+    """Largest ||got - want|| / ||want|| over the rows of the last dim."""
+    import torch
+
+    got, want = got.float(), want.float()
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)
+    return float((num / den).max())
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +477,182 @@ def check_paged_prefill(dev, gen):
         f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} "
         f"(SDPA over pre-dequantized K/V, dequantization not counted) "
         f"max_abs_err {err:.3g}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+
+
+def band_pairs(q_pos, kv_pos, sink: int, local: int, chunk: int = 2048):
+    """(query, key) pairs a streaming head attends: the data's own count,
+    for the operations bound. q_pos [Tq], kv_pos [S] (-1 = no token)."""
+    import torch
+
+    n = 0
+    for i0 in range(0, q_pos.shape[0], chunk):
+        qp = q_pos[i0:i0 + chunk, None].long()
+        kp = kv_pos[None, :].long()
+        ok = (kp >= 0) & (kp <= qp) & ((kp < sink) | (qp - kp < local))
+        n += int(ok.sum())
+    return n
+
+
+def check_flash_band(dev, gen):
+    """Whole-prompt prefill of LServe's sparse-context mode at the phase-7
+    (b) shape: one 16,384-token prompt, 32/8 heads, 4 of the 8 kv heads
+    streaming with 128 sink + 8,192 local tokens. The dense kernel is timed
+    at the same shape to show what the band's tile skip saves; the library
+    yardstick is one ``scaled_dot_product_attention`` call with the same
+    boolean mask (K/V heads expanded beforehand, not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    t, hq, hkv, d, sink, local = 16384, 32, 8, 128, 128, 8192
+    n_rep = hq // hkv
+    q = torch.randn((t, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    seg = torch.zeros(t, dtype=torch.int32, device=dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)
+    flags = (torch.arange(hkv, device=dev) < hkv // 2).repeat_interleave(
+        n_rep)                                     # kv heads 4-7 stream
+    sm = d ** -0.5
+    band = dict(head_is_retrieval=flags, sink_size=sink, local_size=local)
+    got = fa.flash_prefill(q, k, v, seg, pos, sm, **band)
+    want = fa.prefill_attention_plain(q, k, v, seg, pos, sm, **band)
+    err = allclose_err(got, want, 2e-2, 2e-2, "flash prefill band")
+    # a row that averages ~8K random values is ~0.011 per element, about
+    # the elementwise bound itself: each (token, head) row is also held to
+    # its own norm. bf16 rounding of the output alone is ~2e-3 of it; a
+    # streaming row that lost its 128 sinks moves by ~sqrt(128 / 8320) =
+    # 0.12, and the plain version without sinks shows that this check sees it
+    rel = row_rel_err(got, want)
+    del got
+    if rel > BAND_ROW_RTOL:
+        raise AssertionError(f"flash prefill band: a row differs by {rel:.3g}"
+                             f" of its norm > {BAND_ROW_RTOL}")
+    no_sink = fa.prefill_attention_plain(q, k, v, seg, pos, sm,
+                                         head_is_retrieval=flags,
+                                         sink_size=0, local_size=local)
+    miss = row_rel_err(no_sink, want)
+    del no_sink, want
+    if miss <= BAND_ROW_RTOL:
+        raise AssertionError(f"flash prefill band: dropping the sinks moves "
+                             f"a row by only {miss:.3g} of its norm")
+    ms = time_ms(lambda: fa.flash_prefill(q, k, v, seg, pos, sm, **band), 3,
+                 warmup=1)
+    dense_ms = time_ms(lambda: fa.flash_prefill(q, k, v, seg, pos, sm), 3,
+                       warmup=1)
+    plain = time_ms(lambda: fa.prefill_attention_plain(q, k, v, seg, pos, sm,
+                                                       **band), 1, warmup=0)
+    lib = None
+    try:
+        i = torch.arange(t, device=dev)
+        causal = i[None, :] <= i[:, None]
+        in_band = (i[None, :] < sink) | (i[:, None] - i[None, :] < local)
+        mask = torch.where(flags[:, None, None], causal[None],
+                           (causal & in_band)[None])[None]   # [1, Hq, T, T]
+        del causal, in_band
+        qb = q.transpose(0, 1)[None]
+        kb = k.repeat_interleave(n_rep, dim=1).transpose(0, 1)[None]
+        vb = v.repeat_interleave(n_rep, dim=1).transpose(0, 1)[None]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=sm), 2, warmup=1)
+        del mask, qb, kb, vb
+    except RuntimeError as e:
+        log(f"  SDPA with a [1, {hq}, {t}, {t}] mask: "
+            f"{str(e).splitlines()[0]}")
+    torch.cuda.empty_cache()
+    n_stream = int((~flags).sum())
+    pairs = ((hq - n_stream) * t * (t + 1) / 2
+             + n_stream * band_pairs(pos, pos, sink, local))
+    n_bytes = 2 * (2 * t * hq * d + 2 * t * hkv * d) + 8 * t
+    bnd, by = bound_ms(n_bytes, 4.0 * d * pairs, BF16_FLOPS_PER_S)
+    log(f"  flash prefill band T={t} Hq={hq} Hkv={hkv} ({hkv // 2} kv heads "
+        f"streaming, sink {sink}, local {local}): kernel_ms {ms:.4f} (dense "
+        f"kernel at the same shape {dense_ms:.4f}) plain_ms {plain:.4f} "
+        f"bound_ms {bnd:.4f} ({by}) library_ms "
+        f"{lib if lib is None else f'{lib:.4f}'} (SDPA with the boolean "
+        f"mask) max_abs_err {err:.3g}, largest row error {rel:.3g} of the "
+        f"row's norm (limit {BAND_ROW_RTOL}; the plain version without "
+        f"sinks: {miss:.3g})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+
+
+def check_paged_ring(dev, gen, context, tc, n_ring, label):
+    """The streaming heads' call of a chunked sparse prefill: B=1, a chunk
+    of ``tc`` queries ending at ``context`` over a 1 + ``n_ring`` slot ring
+    (4 streaming kv heads, n_rep 4, pages of 128 tokens, 128 sink + 8,192
+    local tokens), slots resolved by ``ring_logical_blocks``. The library
+    yardstick is ``scaled_dot_product_attention`` over K/V dequantized and
+    expanded BEFOREHAND with the boolean band mask (neither counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import (
+        gather_kv_for_seq,
+        ring_logical_blocks,
+    )
+
+    hs, n_rep, d, page, sink, local = 4, 4, 128, 128, 128, 8192
+    n_slots = 1 + n_ring
+    pool = random_kv4_pool(gen, dev, 1, n_slots + 1, hs, page, d)
+    table = torch.randperm(n_slots, generator=gen, device=dev).view(
+        1, n_slots).to(torch.int32)
+    ctx = torch.tensor([context], dtype=torch.int32, device=dev)
+    q_pos = (context - tc + torch.arange(tc, dtype=torch.int32,
+                                         device=dev))[None]
+    q = torch.randn((1, tc, hs * n_rep, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    sel = ring_logical_blocks(ctx, n_slots, 1, n_ring, page)
+    kw = dict(sm_scale=d ** -0.5, page_size=page,
+              head_is_retrieval=torch.zeros(hs * n_rep, dtype=torch.bool,
+                                            device=dev),
+              sink_size=sink, local_size=local, sel_logic=sel,
+              ring_span_pages=n_ring, ring_sink_tokens=page)
+    args = (q, pool, 0, table, q_pos, ctx)
+    got = pp.paged_prefill_attention(*args, **kw)
+    want = pp.paged_prefill_attention_plain(*args, **kw)
+    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill ring {label}")
+    del got, want
+    ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 3,
+                 warmup=1)
+    plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
+                    warmup=0)
+    kv_pos = pp.kv_positions_of(sel, ctx, page, n_ring, page)[0]
+    stale = int(((kv_pos >= 0) & (kv_pos // page != sel[0].repeat_interleave(
+        page))).sum())
+    lib = None
+    try:
+        k, v = gather_kv_for_seq(pool, 0, table, page)   # [1, S, Hs, D]
+        kb = k.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
+            .transpose(1, 2).contiguous()
+        vb = v.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
+            .transpose(1, 2).contiguous()
+        del k, v
+        qp, kp = q_pos[0, :, None].long(), kv_pos[None, :].long()
+        mask = (kp >= 0) & (kp <= qp) & ((kp < sink) | (qp - kp < local))
+        qb = q.transpose(1, 2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=d ** -0.5), 3, warmup=1)
+        del kb, vb, mask
+    except RuntimeError as e:
+        log(f"  SDPA over the ring: {str(e).splitlines()[0]}")
+    torch.cuda.empty_cache()
+    pairs = band_pairs(q_pos[0], kv_pos, sink, local)
+    live_slots = int((sel >= 0).sum())
+    n_bytes = (live_slots * hs * (page * d + 4 * 4 * page)   # codes + planes
+               + 2 * (2 * tc * hs * n_rep * d) + 4 * tc)
+    bnd, by = bound_ms(n_bytes, 4.0 * d * hs * n_rep * pairs,
+                       BF16_FLOPS_PER_S)
+    log(f"  paged prefill ring ({label}) context {context} Tc={tc} ring 1+"
+        f"{n_ring} slots ({live_slots} live, {stale} relabelled stale rows) "
+        f"Hs={hs} n_rep={n_rep}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+        f"bound_ms {bnd:.4f} ({by}) library_ms "
+        f"{lib if lib is None else f'{lib:.4f}'} (SDPA over pre-dequantized "
+        f"K/V with the band mask) max_abs_err {err:.3g}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -987,6 +1183,114 @@ def check_sparse_forward(dev):
                  n_steps=10, spool=sp, stables=stables)
 
 
+def check_sparse_prefill_forward(dev):
+    """LServe's prefill side at full width, 2 layers, both sparse modes: 4
+    of the 8 kv heads stream with a ctx band of 128 sink + 256 local tokens
+    over a 1 + 4 page ring (a 256-token chunk beside the local window).
+    The same three prompts (700, 1150, 1024 tokens) prefill whole (flash
+    band) and in [4, 256] chunks (retrieval heads dense over the paged
+    history, streaming heads through the ring, which the longer prompts
+    wrap), each with kernels against plain versions; the chunked run must
+    launch the ring mode once per layer and chunk."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
+
+    g = LLAMA3_8B
+    hkv = g["num_key_value_heads"]
+    spec = llama.LlamaSpec(
+        num_layers=2, hidden=g["hidden_size"],
+        intermediate=g["intermediate_size"],
+        num_q_heads=g["num_attention_heads"], num_kv_heads=hkv, head_dim=128,
+        vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
+        lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=4,
+        dec_sink_tokens=128, dec_local_tokens=256, sub_chunks=4,
+        budget_pages=4, sparse_prefill=True, ctx_sink=128, ctx_local=256,
+    )
+    flags = np.zeros((2, hkv), bool)
+    flags[:, ::2] = True
+    params = llama.make_random_packed_params(spec, seed=3, device=dev,
+                                             retrieval_flags=flags)
+    lens = [700, 1150, 1024]
+    n = len(lens)
+    rng = torch.Generator(device="cpu").manual_seed(4)
+    prompts = [torch.randint(0, spec.vocab, (m,), generator=rng) for m in lens]
+    w = max((m + 127) // 128 for m in lens)
+    tables = torch.arange(n * w, dtype=torch.int32).view(n, w)
+    stables = torch.arange(n * 5, dtype=torch.int32).view(n, 5)
+    whole = llama.PrefillBatch(
+        token_ids=torch.cat(prompts).to(dev),
+        positions=torch.cat([torch.arange(m, dtype=torch.int32)
+                             for m in lens]).to(dev),
+        segment_ids=torch.cat([torch.full((m,), i, dtype=torch.int32)
+                               for i, m in enumerate(lens)]).to(dev),
+        block_tables=tables.to(dev),
+        last_token_idx=(torch.tensor(lens).cumsum(0) - 1).to(dev),
+        seq_lens=torch.tensor(lens, dtype=torch.int32).to(dev),
+        streaming_block_tables=stables.to(dev),
+        new_page_ids=tables.reshape(-1).to(dev),
+    )
+    seqs = [(p.tolist(), tables[i].tolist()) for i, p in enumerate(prompts)]
+    out = {}
+    for path in ("whole", "chunked"):
+        for mode in ("kernels", "plain"):
+            rp = make_kv_pool(2, n * w + 1, hkv // 2, 128, 128,
+                              with_stats=True, device=dev)
+            sp = make_kv_pool(2, n * 5 + 1, hkv // 2, 128, 128, device=dev)
+            ctx = (cuda.plain_versions() if mode == "plain"
+                   else contextlib.nullcontext())
+            cuda.reset_launch_counts()
+            with ctx, torch.inference_mode():
+                if path == "whole":
+                    logits = llama.llama_forward(params, rp, sp, whole, spec,
+                                                 is_prefill=True)[0]
+                    n_chunks = 1
+                else:
+                    logits, n_chunks = None, 0
+                    for batch, ends in chunked_prefill_batches(
+                            seqs, 2048, 128, dev, with_stats=True,
+                            streaming_tables=stables.tolist(),
+                            ring=(1, 4, 256)):
+                        lg = llama.llama_forward(params, rp, sp, batch, spec,
+                                                 is_prefill=True)[0]
+                        logits = lg if logits is None else torch.where(
+                            ends[:, None], lg, logits)
+                        n_chunks += 1
+                    logits = logits[:n]
+            out[(path, mode)] = logits
+            if mode == "kernels":
+                want = ({"flash_prefill_band": 2} if path == "whole" else
+                        {"paged_prefill_ring": 2 * n_chunks,
+                         "paged_prefill_attention": 2 * n_chunks})
+                got = {k: cuda.LAUNCHES[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"sparse prefill {path}: launches "
+                                         f"{got}, expected {want}")
+        a, b_ = out[(path, "kernels")], out[(path, "plain")]
+        if not bool(torch.isfinite(a).all()) or a.shape != (n, spec.vocab):
+            raise AssertionError(f"sparse prefill {path}: bad logits")
+        scale = float(b_.abs().max())
+        err = float((a - b_).abs().max())
+        log(f"  sparse prefill 2 layers, {path} ({n_chunks} chunk(s)): max "
+            f"|logit| {scale:.4g}, max abs diff kernels vs plain {err:.4g} "
+            f"({err / scale:.3g} of max), argmax agreement "
+            f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
+        if err > LOGITS_RTOL * scale:
+            raise AssertionError(f"sparse prefill {path}: logits differ by "
+                                 f"{err} > {LOGITS_RTOL} x {scale}")
+    if n_chunks != 5:
+        raise AssertionError(f"chunked sparse prefill ran {n_chunks} chunks")
+    a, b_ = out[("chunked", "plain")], out[("whole", "plain")]
+    log(f"  sparse prefill plain versions, chunked vs whole prompt: max abs "
+        f"diff {float((a - b_).abs().max()):.4g} of max |logit| "
+        f"{float(b_.abs().max()):.4g} (the chunks read earlier chunks' K/V "
+        f"back through the 4-bit pool)")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full width
 # ---------------------------------------------------------------------------
@@ -1401,6 +1705,169 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: LServe's prefill side through the port's lserve_benchmark
+# ---------------------------------------------------------------------------
+
+# launches of one prefill, per layer: the chunked path runs the retrieval
+# heads' dense call and the streaming heads' ring call per chunk; the
+# whole-prompt path one band-mode flash call
+LSERVE_PREFILL_KERNELS = ("paged_prefill_attention", "paged_prefill_ring",
+                          "flash_prefill_band")
+
+
+def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
+                       short_gen=32, chunk=32000, multi=16):
+    """``lserve_benchmark.py``'s protocol with the reference's LServe flags
+    (``--sparse-context-mode --sparse-decode-mode --static-sparsity 0.5``,
+    ctx band 128 + 8,192 tokens, ``chunk_prefill_size`` 32000) at
+    Llama-3.1-8B's config, decode in ``multi``-step windows, each round
+    through ``lserve_benchmark.process_requests_split_stage``: (a) batch 1,
+    32,768 prompt tokens, 128 greedy tokens, which prefill in two chunks
+    over the 1 + 314 page ring; (b) a 16,384-token prompt, 32 tokens, which
+    takes the whole-prompt band path. A warmup and a measured round each,
+    then one traced prefill step of each. Returns the measured rounds'
+    launches of the two new modes."""
+    import argparse
+
+    import torch
+
+    from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
+    from omniserve_tpu_torch import lserve_benchmark as lb
+    from omniserve_tpu_torch.config import ProfilingConfig
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.worker.cache_engine import pool_bytes
+
+    batch = 1
+    n_chunks = -(-long_len // chunk)
+    sizing = argparse.Namespace(max_num_seqs=batch, max_num_batched_tokens=0,
+                                num_retrieval_blocks=None, block_size=128)
+    lb.size_pool(sizing, batch, long_len, long_gen)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = LLMEngine.from_engine_args(EngineArgs(
+        model=write_model_dir("llama3.1-8b", LLAMA31_8B),
+        precision="w4a8kv4", load_format="dummy", tokenizer_mode="skip",
+        device=str(dev), block_size=sizing.block_size,
+        sparse_context_mode=True, sparse_decode_mode=True,
+        static_sparsity=0.5, chunk_prefill_size=chunk,
+        max_num_seqs=sizing.max_num_seqs,
+        max_num_batched_tokens=sizing.max_num_batched_tokens,
+        num_retrieval_blocks=sizing.num_retrieval_blocks,
+        disable_log_stats=True, seed=0,
+    ))
+    sync(dev)
+    runner = engine.worker.model_runner
+    spec, ce = runner.spec, runner.cache_engine
+    n_layers = spec.num_layers
+    mib = 1 << 20
+    sb = pool_bytes(ce.streaming_pool)
+    log(f"  engine built in {time.time() - t0:.1f} s; device memory "
+        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB; "
+        f"streaming pool {ce.streaming_pool.num_pages} pages x "
+        f"{ce.streaming_pool.num_heads} heads: {sum(sb.values()) / mib:.1f} "
+        f"MiB; ring {spec.sink_blocks}+{spec.local_blocks} pages; ctx band "
+        f"{spec.ctx_sink}+{spec.ctx_local} tokens; retrieval pool "
+        f"{ce.retrieval_pool.num_pages} pages")
+    ring_tok = spec.local_blocks * spec.page_size
+    if not (spec.sparse_prefill and spec.sparse_decode
+            and spec.rope_llama3 is not None
+            and ring_tok >= spec.ctx_local + min(chunk, long_len)):
+        raise AssertionError("LServe prefill phase: engine is not the "
+                             "sparse-context + sparse-decode Llama-3.1-8B "
+                             "configuration with a ring that holds the "
+                             "ctx-local window and a chunk")
+    engine.ifb_config.decode_multi_step = multi
+    groups = []
+    add_request = engine.add_request
+
+    def recording_add(*args, **kw):
+        add_request(*args, **kw)
+        groups.append(engine.scheduler.waiting[-1])
+
+    engine.add_request = recording_add
+    result = {}
+    cases = (("a", long_len, long_gen,
+              {"paged_prefill_attention": n_chunks * n_layers,
+               "paged_prefill_ring": n_chunks * n_layers,
+               "flash_prefill_band": 0}),
+             ("b", short_len, short_gen,
+              {"paged_prefill_attention": 0, "paged_prefill_ring": 0,
+               "flash_prefill_band": n_layers}))
+    for case, prompt_len, gen_len, want in cases:
+        for r in ("warmup", "measured"):
+            groups.clear()
+            graphs_before = runner.graphs_captured
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            # the prefill step's launches alone, then the whole round's
+            cuda.reset_launch_counts()
+            real_step, seen = engine.step, {}
+
+            def first_step():
+                out = real_step()
+                if not seen:
+                    seen.update(cuda.LAUNCHES)
+                return out
+
+            engine.step = first_step
+            t_prefill, t_decode, steps = lb.process_requests_split_stage(
+                engine, batch, prompt_len, gen_len)
+            engine.step = real_step
+            launches = dict(cuda.LAUNCHES)
+            while engine._multi_step_buffer:
+                engine.step()
+            prefill_tps, decode_tps = lb.check_round(
+                engine, batch, prompt_len, gen_len, t_prefill, t_decode,
+                steps)
+            outs = [g.get_seqs()[0].data.output_token_ids for g in groups]
+            if (len(groups) != batch
+                    or any(len(o) != gen_len for o in outs)
+                    or not all(g.is_finished() for g in groups)
+                    or not all(0 <= t < LLAMA3_8B["vocab_size"]
+                               for o in outs for t in o)):
+                raise AssertionError(
+                    f"LServe prefill ({case}) {r}: {len(groups)} requests, "
+                    f"output lengths {[len(o) for o in outs]}")
+            pre = {k: seen[k] for k in LSERVE_PREFILL_KERNELS}
+            if pre != want:
+                raise AssertionError(f"LServe prefill ({case}) {r}: prefill "
+                                     f"launched {pre}, expected {want}")
+            chunks = pre["paged_prefill_ring"] // n_layers
+            log(f"  ({case}) {r}: prefill {prompt_len} tokens "
+                f"{t_prefill:.3f} s ({prefill_tps:.0f} tok/s, "
+                f"{max(chunks, 1)} chunk(s) per prefill"
+                f"{'' if chunks else ', whole prompt'}); decode {steps} "
+                f"steps {t_decode:.3f} s = {decode_tps:.2f} tok/s "
+                f"({t_decode / max(gen_len - 1, 1) * 1e3:.2f} ms per token, "
+                f"host clock); "
+                f"graphs captured {runner.graphs_captured - graphs_before}; "
+                f"prefill launches {json.dumps(pre)}; round launches of the "
+                f"decode kernels "
+                f"{json.dumps({k: launches[k] for k in LSERVE_KERNELS})}; "
+                f"peak device memory "
+                f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
+            if r == "measured":
+                for k in LSERVE_PREFILL_KERNELS:
+                    result[k] = result.get(k, 0) + launches[k]
+    engine.add_request = add_request
+    log(f"  launches in the two measured rounds: {json.dumps(result)}")
+
+    # where a prefill's time goes: one traced prefill step of each path
+    engine.ifb_config.decode_multi_step = 1
+    for case, prompt_len in (("a", long_len), ("b", short_len)):
+        engine.add_request(
+            f"prof-{case}", profiling_config=ProfilingConfig(prompt_len, 2),
+            sampling_params=SamplingParams(temperature=0.0, max_tokens=2,
+                                           ignore_eos=True))
+        trace_steps(engine, f"({case}) sparse prefill, {prompt_len} tokens",
+                    1)
+        while engine.has_unfinished_requests():
+            engine.step()
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1454,7 +1921,13 @@ def main() -> int:
         "kv_append_decode": check_kv_append(dev, gen),
         "decode_attention_ph": check_decode_ph(dev, gen, b=1),
         "decode_attention_band": check_decode_band(dev, gen, b=1),
+        "flash_prefill_band": check_flash_band(dev, gen),
+        "paged_prefill_ring": check_paged_ring(dev, gen, 32000, 32000, 314,
+                                               "phase 7's first chunk"),
     }
+    # a wrapped ring whose newest page holds stale rows (the 315-slot ring
+    # of phase 7 never wraps at 32K)
+    check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped")
     # the bench's decode shapes (batch 128), logged beside the rows above
     check_w8a8(dev, gen, m=128)
     check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536)
@@ -1472,6 +1945,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_sparse_forward(dev)
     torch.cuda.empty_cache()
+    check_sparse_prefill_forward(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
     gc.collect()
@@ -1488,6 +1964,14 @@ def main() -> int:
         "sparse decode, static sparsity 0.5) through lserve_benchmark")
     lserve = run_lserve(dev)
     launches.update({k: lserve[k] for k in LSERVE_KERNELS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 7: LServe prefill side (--sparse-context-mode "
+        "--sparse-decode-mode, static sparsity 0.5; 32768 in / 128 out "
+        "chunked, 16384 in / 32 out whole prompt) through lserve_benchmark")
+    prefill = run_lserve_prefill(dev)
+    launches.update({k: prefill[k] for k in ("flash_prefill_band",
+                                             "paged_prefill_ring")})
 
     meta = {
         "w4a8_matmul_per_channel": (
@@ -1514,7 +1998,16 @@ def main() -> int:
         "decode_attention_band": (
             "omniserve_tpu_torch/csrc/decode_attention.cu",
             "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "flash_prefill_band": (
+            "omniserve_tpu_torch/csrc/flash_prefill.cu",
+            "omniserve_tpu/ops/pallas/flash_attention.py:150"),
+        "paged_prefill_ring": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
     }
+    idle = [name for name in meta if launches[name] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the path: {idle}")
     line = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}

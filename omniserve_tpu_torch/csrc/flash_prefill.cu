@@ -2,21 +2,27 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel omniserve_tpu/ops/pallas/flash_attention.py:
-//   flash_prefill (:150, kernel _flash_kernel :35), dense heads.
+//   flash_prefill (:150, kernel _flash_kernel :35), dense heads and the
+//   LServe sink + local band of streaming heads.
 //
 // Contract (plain version: omniserve_tpu_torch/ops/attention_ref.py
 // prefill_attention):
 //   q [T, Hq, D], k/v [T, Hkv, D] bf16, segment_ids/positions [T] int32.
 //   Query i attends key j iff seg[i] == seg[j] >= 0 and pos[i] >= pos[j];
-//   q head h reads kv head h / (Hq / Hkv). Rows with no valid key give 0.
-//   Any T: the ragged tail tile is masked (the TPU kernel's
-//   t % block == 0 requirement does not carry over).
+//   q head h reads kv head hk = h / (Hq / Hkv). With flags [Hkv] int32
+//   (null = every head dense), a head with flags[hk] == 0 streams: it also
+//   needs pos[j] < sink_size or pos[i] - pos[j] < local_size. Rows with no
+//   valid key give 0. Any T: the ragged tail tile is masked (the TPU
+//   kernel's t % block == 0 requirement does not carry over).
 //
 // What bounds it: operations (4 * D flops per attended (query, key) pair
 // against a few bytes per token). Design: one block per (64-query tile,
 // q head); it walks the 64-key tiles and skips every tile that cannot
 // hold a (same segment, causal) pair, so packed sequences cost their own
-// causal triangles only. Scores and P.V run on the f32 FMA pipes from
+// causal triangles only. A streaming head also skips every key tile that
+// holds no sink key and lies wholly below the q tile's local band (the TPU
+// kernel's stream_dead skip, tested per key): at 32K tokens with an 8K
+// band that is most tiles. Scores and P.V run on the f32 FMA pipes from
 // shared-memory tiles (a thread owns a 4 x 4 score patch and a 4 x 8
 // output patch); the softmax is online, one warp per 8 query rows. A
 // tensor-core (mma/wgmma) version is later work.
@@ -64,8 +70,9 @@ __device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src,
 __global__ void __launch_bounds__(NT) flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int T,
-    int Hq, int Hkv, float sm_scale) {
+    const int* __restrict__ pos, const int* __restrict__ flags,
+    __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int sink_size,
+    int local_size, float sm_scale) {
   extern __shared__ __align__(16) float smem[];
   float* qS = smem;                 // [BQ][DS]
   float* kS = qS + BQ * DS;         // [BKV][DS]
@@ -78,12 +85,13 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
   int* qpos = qseg + BQ;
   int* kseg = qpos + BQ;
   int* kpos = kseg + BKV;
-  __shared__ int qsum[3];           // q tile: seg min, seg max, pos max
+  __shared__ int qsum[4];   // q tile: seg min, seg max, pos max, pos min
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ty = tid / 16, tx = tid % 16;
   const int i0 = blockIdx.x * BQ, h = blockIdx.y;
   const int hk = h / (Hq / Hkv);
+  const bool dense = flags == nullptr || flags[hk] != 0;
 
   load_tile(qS, q + (size_t)h * D, i0, T, Hq * D);
   if (tid < BQ) {
@@ -95,16 +103,18 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    int smin = 0x7fffffff, smax = -1, pmax = -1;
+    int smin = 0x7fffffff, smax = -1, pmax = -1, pmin = 0x7fffffff;
     for (int r = 0; r < BQ; ++r)
       if (qseg[r] >= 0) {
         smin = min(smin, qseg[r]);
         smax = max(smax, qseg[r]);
         pmax = max(pmax, qpos[r]);
+        pmin = min(pmin, qpos[r]);
       }
     qsum[0] = smin;
     qsum[1] = smax;
     qsum[2] = pmax;
+    qsum[3] = pmin;
   }
   __syncthreads();
 
@@ -124,9 +134,13 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
       const int pj = j < T ? pos[j] : 0;
       kseg[tid] = sj;
       kpos[tid] = pj;
-      live = sj >= 0 && sj >= qsum[0] && sj <= qsum[1] && pj <= qsum[2];
+      // a streaming head needs key j only as a sink or inside the band of
+      // the tile's earliest query (conservative across packed segments)
+      live = sj >= 0 && sj >= qsum[0] && sj <= qsum[1] && pj <= qsum[2] &&
+             (dense || pj < sink_size || pj + local_size > qsum[3]);
     }
-    // skip tiles with no (same segment, causal) pair; uniform per block
+    // skip tiles with no (same segment, causal, in band) pair; uniform per
+    // block
     if (!__syncthreads_or(live)) continue;
 
     load_tile(kS, k + (size_t)hk * D, j0, T, Hkv * D);
@@ -162,7 +176,9 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int jc = tx + 16 * c;
-        const bool ok = si >= 0 && kseg[jc] == si && kpos[jc] <= pi;
+        const int pj = kpos[jc];
+        const bool ok = si >= 0 && kseg[jc] == si && pj <= pi &&
+                        (dense || pj < sink_size || pi - pj < local_size);
         S[ir * SS + jc] = ok ? s[r][c] * sm_scale : -INFINITY;
       }
     }
@@ -241,9 +257,11 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
+// flags: [Hkv] int32 (1 dense, 0 streaming) or null for all dense.
 int launch_flash_prefill(const void* q, const void* k, const void* v,
                          const void* segment_ids, const void* positions,
-                         void* out, int T, int Hq, int Hkv, float sm_scale,
+                         const void* flags, void* out, int T, int Hq, int Hkv,
+                         int sink_size, int local_size, float sm_scale,
                          void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -256,7 +274,8 @@ int launch_flash_prefill(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const int*>(segment_ids), static_cast<const int*>(positions),
-      static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, sm_scale);
+      static_cast<const int*>(flags), static_cast<__nv_bfloat16*>(out), T, Hq,
+      Hkv, sink_size, local_size, sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 // Chunked-prefill attention over the paged kv4 pool, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel omniserve_tpu/ops/pallas/paged_prefill.py:
-//   paged_prefill_attention (:268, kernel _prefill_kernel :39), dense heads
-//   over a kv4 fine-grained pool.
+//   paged_prefill_attention (:268, kernel _prefill_kernel :39) over a kv4
+//   fine-grained pool: dense heads over a block table, and the explicit
+//   page-list mode with the streaming ring's relabel and the per-head
+//   sink + local band (LServe's chunked prefill over the ring pool).
 //
 // Contract (plain version: omniserve_tpu_torch/ops/attention_ref.py
 // paged_prefill_attention):
@@ -12,17 +14,28 @@
 //   k_scale*(k_zero+128), v_scale, v_zero+128); block_tables [B, W] int32;
 //   q_positions [B, Tc] int32 (-1 = padding); context_lens [B] int32
 //   (history + chunk: the caller appends the chunk first).
-//   Query (b, i) of q head hq attends pool token j of kv head hq / n_rep
-//   iff q_pos >= 0, j <= q_pos and j < context_lens[b]; a row with no
-//   visible key gives 0. Out [B, Tc, Hq, D] bf16.
+//   Row r of table slot s holds position kp = logic * page + r, where
+//   logic = s (dense table) or sel_logic[b, s] (a page list, -1 dead).
+//   With ring_span > 0 the newest page's rows past the write head (logic
+//   == (ctx-1) / page, r > (ctx-1) % page) hold tokens one ring wrap
+//   older: kp -= ring_span * page, and they live only at kp >=
+//   ring_sink_tok. Query (b, i) of q head hq attends row kp of kv head
+//   hk = hq / n_rep iff q_pos >= 0, 0 <= kp <= q_pos, kp < context_lens[b]
+//   and, for a streaming head (flags[hk] == 0; flags null = all dense),
+//   kp < sink_size or q_pos - kp < local_size. A row with no visible key
+//   gives 0. Out [B, Tc, Hq, D] bf16.
 //
 // What bounds it: operations (4 * D flops per visible (query, key) pair
 // and q head, against D + 16 bytes per cached token and kv head).
 // Design: one block of 4 warps per (tile of 64 query rows, kv head,
 // sequence). A row is a (token, GQA rep) pair, so the n_rep q heads of one
 // kv head share every K/V tile. The block reads the pages IN PLACE through
-// the block table (no gather copy) and walks 64-token K/V tiles only up to
-// its causal frontier min(context_len, max q_pos + 1). Each tile is
+// the block table (no gather copy) and walks 64-token K/V tiles: over a
+// dense table only up to its causal frontier min(context_len, max q_pos +
+// 1); over a page list (not in position order) every slot, skipping each
+// tile whose positions all fall outside the q tile's causal band before
+// it loads a byte of it (the LServe prefill gain: a streaming head of a
+// 32K chunk reads the sink and ~8K band of its ring). Each tile is
 // dequantized with the folded planes into f16 shared memory (K token-major,
 // V transposed), and each warp runs its 16 rows on the tensor cores with
 // mma.sync m16n8k16 (f16 inputs, f32 accumulation): S = Q K^T, an online
@@ -46,7 +59,8 @@ constexpr int VS = BKV + 8;     // f16 row stride of the transposed v tile
 
 constexpr size_t SMEM_BYTES =
     sizeof(__half) * (BQ * QS + BKV * QS + D * VS) +
-    sizeof(float) * 4 * BKV + sizeof(int) * (BQ + 3 * BKV);
+    sizeof(float) * 4 * BKV + sizeof(int) * (BQ + 4 * BKV);
+constexpr int NO_POS = 0x7fffffff;  // a tile row that holds no token
 
 __device__ __forceinline__ uint32_t pack_h2(float lo, float hi) {
   const __half2 h = __floats2half2_rn(lo, hi);   // lo in the low 16 bits
@@ -67,12 +81,18 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// SPARSE = a page list and/or per-head flags; the dense instantiation is
+// the plain block-table walk, so the bench's chunked prefill pays nothing
+// for the ring mode.
+template <bool SPARSE>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
     const uint8_t* __restrict__ v_data, const float* __restrict__ planes,
     const int* __restrict__ block_tables, const int* __restrict__ q_positions,
-    const int* __restrict__ context_lens, __nv_bfloat16* __restrict__ out,
-    int Tc, int H, int n_rep, int page, int W, float sm_scale) {
+    const int* __restrict__ context_lens, const int* __restrict__ sel_logic,
+    const int* __restrict__ flags, __nv_bfloat16* __restrict__ out, int Tc,
+    int H, int n_rep, int page, int W, int sink_size, int local_size,
+    int ring_span, int ring_sink_tok, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __half* Qs = reinterpret_cast<__half*>(smem_raw);   // [BQ][QS]
   __half* Ks = Qs + BQ * QS;                           // [BKV][QS]
@@ -85,7 +105,8 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   int* t_phys = qpos + BQ;      // [BKV] physical page, -1 = no token
   int* t_row = t_phys + BKV;    // [BKV] byte row within the page
   int* t_shift = t_row + BKV;   // [BKV] 0 (low nibble) or 4 (high)
-  __shared__ int frontier;
+  int* t_pos = t_shift + BKV;   // [BKV] position, NO_POS = no token
+  __shared__ int frontier, q_lo, q_hi;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;   // mma fragment row / column pair
@@ -94,6 +115,10 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   const int Hq = H * n_rep;
   const int half = page / 2;
   const int ctx = context_lens[b];
+  const bool dense = !SPARSE || flags == nullptr || flags[h] != 0;
+  const bool listed = SPARSE && sel_logic != nullptr;
+  // the ring's write head: rows of page cb past it are one wrap older
+  const int cb = (ctx - 1) / page, last_row = (ctx - 1) % page;
 
   // query row r: token t0 + r / n_rep, q head h * n_rep + r % n_rep
   for (int i = tid; i < BQ * (D / 8); i += NT) {
@@ -120,13 +145,21 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    int pmax = -1;
-    for (int r = 0; r < BQ; ++r) pmax = max(pmax, qpos[r]);
-    // keys at or past the frontier are visible to no row of this tile
-    frontier = min(min(ctx, pmax + 1), W * page);
+    int pmax = -1, pmin = NO_POS;
+    for (int r = 0; r < BQ; ++r)
+      if (qpos[r] >= 0) {
+        pmax = max(pmax, qpos[r]);
+        pmin = min(pmin, qpos[r]);
+      }
+    // over a dense table, keys at or past the frontier are visible to no
+    // row of this tile; a page list is walked whole
+    frontier = pmax < 0 ? 0
+                        : (listed ? W * page : min(min(ctx, pmax + 1), W * page));
+    q_lo = pmin;
+    q_hi = pmax;
   }
   __syncthreads();
-  const int kv_end = frontier;
+  const int kv_end = frontier, qlo = q_lo, qhi = q_hi;
 
   // this warp's 16 query rows as mma A fragments, kept in registers
   const int r0 = warp * 16;
@@ -150,14 +183,43 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
 
   for (int j0 = 0; j0 < kv_end; j0 += BKV) {
     __syncthreads();   // every warp is done with the previous tile
-    // where each token of this K/V tile lives, and its folded planes
-    if (tid < BKV) {
+    if constexpr (SPARSE) {
+      // the position each row of this K/V tile holds, and whether any
+      // query row of the tile can see it (conservative over its rows)
+      bool need = false;
+      if (tid < BKV) {
+        const int j = j0 + tid;
+        int phys = -1, kp = NO_POS;
+        if (j < kv_end) {
+          const int s = j / page, r = j % page;
+          const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
+          int p = logic * page + r, lo = 0;
+          if (ring_span > 0 && logic == cb && r > last_row) {
+            p -= ring_span * page;
+            lo = ring_sink_tok;
+          }
+          if (logic >= 0 && p < ctx && p >= lo) {
+            kp = p;
+            phys = block_tables[(size_t)b * W + s];
+          }
+        }
+        need = kp <= qhi &&
+               (dense || kp < sink_size || kp + local_size > qlo);
+        t_phys[tid] = need ? phys : -1;
+        t_pos[tid] = kp;
+      }
+      if (!__syncthreads_or(need)) continue;   // uniform per block
+    } else if (tid < BKV) {
       const int j = j0 + tid;
-      int phys = -1, row = 0, shift = 0;
+      t_phys[tid] = j < kv_end ? block_tables[(size_t)b * W + j / page] : -1;
+    }
+    // where each needed token lives, and its folded planes
+    if (tid < BKV) {
+      const int phys = t_phys[tid];
+      int row = 0, shift = 0;
       float ks = 0.0f, kc = 0.0f, vs = 0.0f, vz = 0.0f;
-      if (j < kv_end) {
-        phys = block_tables[(size_t)b * W + j / page];
-        const int slot = j % page;
+      if (phys >= 0) {
+        const int slot = (j0 + tid) % page;
         row = slot % half;
         shift = slot >= half ? 4 : 0;
         const float* pl = planes + (size_t)phys * 4 * H * page +
@@ -167,7 +229,6 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
         vs = pl[(size_t)2 * H * page];
         vz = pl[(size_t)3 * H * page] - 128.0f;           // v_zero
       }
-      t_phys[tid] = phys;
       t_row[tid] = row;
       t_shift[tid] = shift;
       t_ks[tid] = ks;
@@ -246,11 +307,21 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     for (int nt = 0; nt < BKV / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int j = j0 + nt * 8 + 2 * t4 + e;   // kv_end <= ctx
-        s[nt][e] = (qp0 >= 0 && j <= qp0 && j < kv_end)
-                       ? s[nt][e] * sm_scale : -INFINITY;
-        s[nt][2 + e] = (qp1 >= 0 && j <= qp1 && j < kv_end)
-                           ? s[nt][2 + e] * sm_scale : -INFINITY;
+        bool ok0, ok1;
+        if constexpr (SPARSE) {
+          // NO_POS fails kp <= qp; the band test runs only on real keys
+          const int kp = t_pos[nt * 8 + 2 * t4 + e];
+          ok0 = qp0 >= 0 && kp <= qp0 &&
+                (dense || kp < sink_size || qp0 - kp < local_size);
+          ok1 = qp1 >= 0 && kp <= qp1 &&
+                (dense || kp < sink_size || qp1 - kp < local_size);
+        } else {
+          const int j = j0 + nt * 8 + 2 * t4 + e;   // kv_end <= ctx
+          ok0 = qp0 >= 0 && j <= qp0 && j < kv_end;
+          ok1 = qp1 >= 0 && j <= qp1 && j < kv_end;
+        }
+        s[nt][e] = ok0 ? s[nt][e] * sm_scale : -INFINITY;
+        s[nt][2 + e] = ok1 ? s[nt][2 + e] * sm_scale : -INFINITY;
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -331,28 +402,37 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
+// sel_logic: [B, W] int32 logical page per table slot (-1 dead), or null
+// for a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for
+// all dense; ring_span > 0 (pages) relabels the ring's stale rows.
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
                          const void* block_tables, const void* q_positions,
-                         const void* context_lens, void* out, int B, int Tc,
-                         int H, int n_rep, int page, int W, float sm_scale,
-                         void* stream) {
-  if (n_rep <= 0 || BQ % n_rep || page <= 0 || page % 2 || W <= 0)
+                         const void* context_lens, const void* sel_logic,
+                         const void* flags, void* out, int B, int Tc, int H,
+                         int n_rep, int page, int W, int sink_size,
+                         int local_size, int ring_span, int ring_sink_tok,
+                         float sm_scale, void* stream) {
+  if (n_rep <= 0 || BQ % n_rep || page <= 0 || page % 2 || W <= 0 ||
+      (ring_span > 0 && sel_logic == nullptr))
     return (int)cudaErrorInvalidValue;
+  auto kernel = (sel_logic != nullptr || flags != nullptr)
+                    ? paged_prefill_kernel<true>
+                    : paged_prefill_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int tok_per_tile = BQ / n_rep;
   dim3 grid((Tc + tok_per_tile - 1) / tok_per_tile, H, B);
-  paged_prefill_kernel<<<grid, NT, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const uint8_t*>(k_data), static_cast<const uint8_t*>(v_data),
       static_cast<const float*>(planes), static_cast<const int*>(block_tables),
       static_cast<const int*>(q_positions),
-      static_cast<const int*>(context_lens), static_cast<__nv_bfloat16*>(out),
-      Tc, H, n_rep, page, W, sm_scale);
+      static_cast<const int*>(context_lens),
+      static_cast<const int*>(sel_logic), static_cast<const int*>(flags),
+      static_cast<__nv_bfloat16*>(out), Tc, H, n_rep, page, W, sink_size,
+      local_size, ring_span, ring_sink_tok, sm_scale);
   return (int)cudaGetLastError();
 }
 

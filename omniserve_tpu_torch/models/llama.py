@@ -1,14 +1,18 @@
 """Llama family, quantized (W4A8 per-channel x KV4), in PyTorch.
 
 Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
-dynamic-sparse decode) with the same parameter tree and the same per-layer
-op order:
+sparse prefill and dynamic-sparse decode) with the same parameter tree and
+the same per-layer op order:
 
 - fused RMSNorm -> int8 quant (+ act sums), W4A8 qkv GEMM, RoPE;
-- prefill: quantize + scatter K/V into the paged pool (``append_kv``),
-  then packed-varlen causal attention over the prompt's own K/V; or, for a
-  chunk of a chunked prefill (``PrefillBatch.context_lens`` set), causal
-  attention over the paged pool (history + chunk);
+- prefill: quantize + scatter K/V into the paged pool(s), then
+  packed-varlen causal attention over the prompt's own K/V (under
+  ``sparse_prefill`` streaming heads keep the ctx sink + local band); or,
+  for a chunk of a chunked prefill (``PrefillBatch.context_lens`` set),
+  causal attention over the paged pool (history + chunk), with LServe's
+  head routing when a streaming pool exists (``_dual_pool_chunk_attn``:
+  retrieval heads dense over the retrieval pool, streaming heads their band
+  over the ring);
 - decode: one call attends the pool and appends the step's K/V to it; or,
   under sparse decode, per layer: the page selector (on a refresh step),
   the split append into the retrieval pool (with K min/max stats) and the
@@ -21,8 +25,8 @@ op order:
 
 The JAX ``lax.scan`` over layers is a Python loop here. Stacked [L, ...]
 weights are indexed per layer as views. Pools are updated in place.
-Outside the slice (tensor/sequence parallelism, LServe sparse prefill,
-other precisions) the functions raise and name the ROADMAP.md item.
+Outside the slice (tensor/sequence parallelism, other precisions) the
+functions raise and name the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from omniserve_tpu_torch.ops.paged_kv import (
     KVPool,
     append_kv,
     reset_page_stats_all_layers,
+    ring_logical_blocks,
     update_k_stats,
 )
 from omniserve_tpu_torch.ops.quantization import (
@@ -133,11 +138,6 @@ class LlamaSpec:
             raise NotImplementedError(
                 "the port serves fine-grained kv4 pools; kv8, "
                 "kv16 and per-tensor KV are ROADMAP.md queue 1 item 8"
-            )
-        if self.sparse_prefill:
-            raise NotImplementedError(
-                "LServe sparse prefill (--sparse-context-mode) is "
-                "ROADMAP.md queue 1 item 5b"
             )
         if self.attn_bias:
             raise NotImplementedError(
@@ -479,10 +479,11 @@ def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
 
 
 def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
-                spec: LlamaSpec, is_prefill: bool, batch, page_io):
+                spec: LlamaSpec, is_prefill: bool, batch, page_io, ring=None):
     """One transformer layer. h: [T, D] bf16 residual stream; ``pools`` =
-    (retrieval pool, streaming pool or None), updated in place. Returns
-    (h, this layer's page selection or None)."""
+    (retrieval pool, streaming pool or None), updated in place; ``ring`` is
+    the chunk's ``_ring_lists``. Returns (h, this layer's page selection or
+    None)."""
     t = h.shape[0]
     pool, streaming_pool = pools
     x_q, x_scale, x_sum = rms_norm_quant(
@@ -516,30 +517,35 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
         append_kv(pool, layer, k, v, page_io[0], page_io[1], spec.page_size,
                   spec.kv_bits, spec.kv_zeros, page_aligned=chunked)
     if chunked:
-        if streaming_pool is not None:
-            raise NotImplementedError(
-                "chunked prefill over dual pools (_dual_pool_chunk_attn) is "
-                "LServe's prefill side; see ROADMAP.md queue 1 item 5b"
-            )
         # attend causally over the paged pool (history + this chunk,
         # appended above); rectangular [B, Tc] layout
         nb = batch.block_tables.shape[0]
         tc = t // nb
         q4 = q.reshape(nb, tc, spec.num_q_heads, spec.head_dim)
         seg2 = batch.segment_ids.reshape(nb, tc)
-        qpos = torch.where(seg2 >= 0, batch.positions.reshape(nb, tc), -1)
-        attn = dispatch.paged_prefill_attention(
-            q4, pool, layer, batch.block_tables, qpos.to(torch.int32),
-            batch.context_lens,
-            sm_scale=spec.sm_scale, page_size=spec.page_size,
-            kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
-        )
+        qpos = torch.where(seg2 >= 0, batch.positions.reshape(nb, tc),
+                           -1).to(torch.int32)
+        if streaming_pool is None:
+            attn = dispatch.paged_prefill_attention(
+                q4, pool, layer, batch.block_tables, qpos,
+                batch.context_lens,
+                sm_scale=spec.sm_scale, page_size=spec.page_size,
+                kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
+            )
+        else:
+            attn = _dual_pool_chunk_attn(q4, pool, streaming_pool, layer,
+                                         batch, qpos, meta_l, spec, ring)
     elif is_prefill:
         attn = dispatch.prefill_attention(
             q, k, v,
             segment_ids=batch.segment_ids,
             positions=batch.positions,
             sm_scale=spec.sm_scale,
+            head_is_retrieval=(
+                meta_l["retrieval_flags"].repeat_interleave(spec.n_rep)
+                if spec.sparse_prefill else None),
+            sink_size=spec.ctx_sink,
+            local_size=spec.ctx_local,
             valid=batch.segment_ids >= 0,
         )
     else:
@@ -577,6 +583,67 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
     return _dense_mlp(h, lp, spec, layer), page_idxes_l
 
 
+def _ring_lists(batch: PrefillBatch, spec: LlamaSpec, n_heads: int):
+    """What the streaming heads' paged-prefill call takes besides q, the
+    same in every layer of a chunk: the logical block each ring slot holds,
+    the ring's span and sink, and per-q-head flags that all stream."""
+    n_slots = batch.streaming_block_tables.shape[1]
+    ring_local = max(1, n_slots - spec.sink_blocks)
+    return dict(
+        sel_logic=ring_logical_blocks(batch.context_lens, n_slots,
+                                      spec.sink_blocks, ring_local,
+                                      spec.page_size),
+        ring_span_pages=ring_local,
+        ring_sink_tokens=spec.sink_blocks * spec.page_size,
+        head_is_retrieval=torch.zeros(
+            n_heads * spec.n_rep, dtype=torch.bool,
+            device=batch.context_lens.device),
+    )
+
+
+def _dual_pool_chunk_attn(q4, rpool: KVPool, spool: KVPool, layer: int,
+                          batch: PrefillBatch, qpos, meta_l, spec: LlamaSpec,
+                          ring=None):
+    """Chunked-prefill attention with LServe's head routing: retrieval
+    heads attend their whole paged history (dense causal), streaming heads
+    their ctx sink + local band out of the ring pool, whose slots resolve to
+    logical blocks (the ring holds the ctx-local window plus one chunk:
+    ``DecAttnConfig.ring_local_blocks``). ``ring`` is the chunk's
+    ``_ring_lists``, built here when not given. q4 [B, Tc, Hq, D] -> the
+    same."""
+    nb, tc = q4.shape[:2]
+    hkv, n_rep, d = spec.num_kv_heads, spec.n_rep, spec.head_dim
+    flags, rank = meta_l["retrieval_flags"], meta_l["head_rank"]
+    ctx = batch.context_lens
+    q_g = q4.reshape(nb, tc, hkv, n_rep, d)
+
+    hr = rpool.num_heads
+    src_r = pool_head_sources(rank, flags, hr, True)
+    out_r = dispatch.paged_prefill_attention(
+        q_g[:, :, src_r].reshape(nb, tc, hr * n_rep, d), rpool, layer,
+        batch.block_tables, qpos, ctx,
+        sm_scale=spec.sm_scale, page_size=spec.page_size,
+        kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
+    ).reshape(nb, tc, hr, n_rep, d)
+
+    hs = spool.num_heads
+    src_s = pool_head_sources(rank, flags, hs, False)
+    if ring is None:
+        ring = _ring_lists(batch, spec, hs)
+    out_s = dispatch.paged_prefill_attention(
+        q_g[:, :, src_s].reshape(nb, tc, hs * n_rep, d), spool, layer,
+        batch.streaming_block_tables, qpos, ctx,
+        sm_scale=spec.sm_scale, page_size=spec.page_size,
+        kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
+        sink_size=spec.ctx_sink, local_size=spec.ctx_local, **ring,
+    ).reshape(nb, tc, hs, n_rep, d)
+
+    full_r = out_r[:, :, torch.clamp(rank.long(), 0, hr - 1)]
+    full_s = out_s[:, :, torch.clamp(rank.long(), 0, hs - 1)]
+    out = torch.where(flags[None, None, :, None, None], full_r, full_s)
+    return out.reshape(nb, tc, hkv * n_rep, d)
+
+
 def llama_forward(
     params: Dict[str, Any],
     retrieval_pool: KVPool,
@@ -594,9 +661,9 @@ def llama_forward(
     cached tensor itself; None otherwise."""
     if streaming_pool is not None and not spec.sparse_decode:
         raise NotImplementedError(
-            "a streaming (ring) pool under dense decode "
-            "(--sparse-context-mode alone) is LServe's prefill side; see "
-            "ROADMAP.md queue 1 item 5b"
+            "a streaming (ring) pool under dense decode needs the fused "
+            "append over a ring, ROADMAP.md queue 2 item 2; the engine "
+            "builds a streaming pool only under --sparse-decode-mode"
         )
     h = params["embed"][batch.token_ids.long()].to(torch.bfloat16)
     if spec.with_stats:
@@ -608,8 +675,12 @@ def llama_forward(
         llama3_cfg=spec.rope_llama3, device=h.device,
     )
     layers_p = params["layers"]
-    meta = params["attn_meta"] if spec.sparse_decode else None
+    meta = (params["attn_meta"]
+            if spec.sparse_decode or spec.sparse_prefill else None)
     pools = (retrieval_pool, streaming_pool)
+    ring = (_ring_lists(batch, spec, streaming_pool.num_heads)
+            if is_prefill and streaming_pool is not None
+            and batch.context_lens is not None else None)
     selections = []
     for layer in range(spec.num_layers):
         meta_l = None if meta is None else {
@@ -618,7 +689,7 @@ def llama_forward(
         }
         h, page_idxes_l = _layer_step(h, pools, layer, layers_p, meta_l,
                                       inv_freq, spec, is_prefill, batch,
-                                      page_io)
+                                      page_io, ring)
         selections.append(page_idxes_l)
     new_page_idxes = None
     if (not is_prefill) and spec.sparse_decode:

@@ -2,8 +2,9 @@
 
 Counterparts of ``omniserve_tpu.ops.attention_ref``:
 
-- ``prefill_attention`` (:54): packed-varlen causal attention, dense heads;
-  the plain version of the flash prefill kernel.
+- ``prefill_attention`` (:54): packed-varlen causal attention, dense heads
+  and streaming heads (sink + local band); the plain version of the flash
+  prefill kernel.
 - ``paged_decode_attention`` (:151): single-query GQA attention over the
   paged kv4 pools: dense page lists, per-head page selections, and the
   streaming ring pool's sink+local band; the plain version of the three
@@ -11,12 +12,12 @@ Counterparts of ``omniserve_tpu.ops.attention_ref``:
 - ``page_selector_scores`` (:281), ``select_topk_pages`` (:335): the
   query-aware page selector of dynamic-sparse decode.
 - ``paged_prefill_attention`` (:391): a chunk's causal GQA attention over
-  the paged kv4 pool (history + chunk); the plain version of the paged
-  prefill kernel (``ops/cuda/paged_prefill.py``).
+  the paged kv4 pool (history + chunk), with per-head sink + local bands
+  and an explicit per-row position map (the streaming ring); the plain
+  version of the paged prefill kernel (``ops/cuda/paged_prefill.py``).
 
-All compute in f32. The sparse-prefill modes of the JAX functions
-(sink+local bands and ring position maps at prefill) and LSE outputs are
-queued in ROADMAP.md and raise here.
+All compute in f32. LSE outputs (sequence parallelism) are queued in
+ROADMAP.md and raise here.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def prefill_attention(
     segment_ids: torch.Tensor,  # [T] int, seq id per packed token (-1 pad)
     positions: torch.Tensor,    # [T] int, position within its sequence
     sm_scale: float,
-    head_is_retrieval: Optional[torch.Tensor] = None,
+    head_is_retrieval: Optional[torch.Tensor] = None,  # [Hq] bool
     sink_size: int = 0,
     local_size: int = 0,
     valid: Optional[torch.Tensor] = None,  # [T] bool, False = padding
@@ -49,14 +50,12 @@ def prefill_attention(
     """Causal self-attention over packed sequences.
 
     Query i attends key j iff both are valid, in the same segment, and
-    ``pos_i >= pos_j``; rows with no valid key give zeros. Queries are
+    ``pos_i >= pos_j``; rows with no valid key give zeros. Streaming heads
+    (``head_is_retrieval == False``, when a band is given) also need
+    ``pos_j < sink_size or pos_i - pos_j < local_size``. Queries are
     processed ``q_chunk`` rows at a time so the [Hq, rows, T] score block
     stays bounded on long packed prompts."""
-    if head_is_retrieval is not None and (sink_size or local_size):
-        raise NotImplementedError(
-            "streaming-head (sink+local) prefill is LServe's prefill side "
-            "(--sparse-context-mode); see ROADMAP.md queue 1 item 5b"
-        )
+    band = head_is_retrieval is not None and bool(sink_size or local_size)
     t, hq, _ = q.shape
     n_rep = hq // k.shape[1]
     kf = _repeat_kv(k, n_rep).float()
@@ -72,10 +71,15 @@ def prefill_attention(
             (segment_ids[i0:i1, None] == segment_ids[None, :])
             & (positions[i0:i1, None] >= positions[None, :])
             & valid[None, :] & valid[i0:i1, None]
-        )
-        scores = scores.masked_fill(~mask[None], float("-inf"))
+        )[None]                                        # [1, rows, T]
+        if band:
+            in_band = (positions[None, :] < sink_size) | (
+                positions[i0:i1, None] - positions[None, :] < local_size)
+            mask = torch.where(head_is_retrieval[:, None, None], mask,
+                               mask & in_band[None])   # [Hq, rows, T]
+        scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        probs = torch.where(mask.any(dim=-1)[None, :, None], probs, 0.0)
+        probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
         out[i0:i1] = torch.einsum("hts,shd->thd", probs, vf).to(q.dtype)
     return out
 
@@ -287,40 +291,53 @@ def paged_prefill_attention(
     head_is_retrieval: Optional[torch.Tensor] = None,
     sink_size: int = 0,
     local_size: int = 0,
-    kv_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,  # [B, W*page], -1 dead
     return_lse: bool = False,
+    q_chunk: int = 1024,
 ) -> torch.Tensor:
     """Chunked-prefill attention: queries attend CAUSALLY over the paged
     pool (history + the current chunk, which the caller appended first).
 
-    Dense heads over a kv4 fine-grained pool, in f32 over the dequantized
-    pages, one sequence at a time, with the JAX reference's mask: key
-    position ``j`` is visible to a query at ``q_pos`` iff ``j <= q_pos``,
-    ``j < context_lens[b]`` and ``q_pos >= 0``; padding rows give zeros."""
-    if kv_positions is not None or return_lse or (
-        head_is_retrieval is not None and (sink_size or local_size)
-    ):
+    A kv4 fine-grained pool, in f32 over the dequantized pages, one
+    sequence and ``q_chunk`` queries at a time, with the JAX reference's
+    mask: pool row ``r`` holds position ``kv_pos = kv_positions[b, r]``
+    (default ``r``; -1 = no token) and is visible to a query at ``q_pos``
+    iff ``0 <= kv_pos <= q_pos``, ``kv_pos < context_lens[b]`` and
+    ``q_pos >= 0``. Streaming heads (``head_is_retrieval`` [Hq] False, when
+    a band is given) also need ``kv_pos < sink_size or q_pos - kv_pos <
+    local_size``. Rows with nothing visible give zeros."""
+    if return_lse:
         raise NotImplementedError(
-            "ring position maps and sink+local bands (LServe's prefill "
-            "side) and LSE outputs (sequence parallelism) of paged prefill "
-            "are queued in ROADMAP.md queue 1 items 5b and 10"
+            "LSE outputs of paged prefill are the sequence-parallel path; "
+            "see ROADMAP.md queue 1 item 10"
         )
+    band = head_is_retrieval is not None and bool(sink_size or local_size)
     b, tq, hq, d = q.shape
-    outs = []
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     for i in range(b):
         k, v = gather_kv_for_seq(pool, layer, block_tables[i], page_size,
                                  kv_bits, kv_zeros)    # [t_kv, Hkv, D] f32
         n_rep = hq // k.shape[1]
         kf, vf = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-        logits = torch.einsum("qhd,khd->hqk", q[i].float(), kf) * sm_scale
-        kv_pos = torch.arange(k.shape[0], device=q.device)
-        qpos = q_positions[i].long()
-        mask = (
-            (kv_pos[None, :] <= qpos[:, None])
-            & (kv_pos[None, :] < context_lens[i])
-            & (qpos[:, None] >= 0)
-        )                                              # [Tq, t_kv]
-        logits = torch.where(mask[None], logits, -1e30)
-        p = torch.where(mask[None], torch.softmax(logits, dim=-1), 0.0)
-        outs.append(torch.einsum("hqk,khd->qhd", p, vf))
-    return torch.stack(outs).to(q.dtype)
+        kv_pos = (torch.arange(k.shape[0], device=q.device)
+                  if kv_positions is None else kv_positions[i].long())
+        for i0 in range(0, tq, q_chunk):
+            i1 = min(tq, i0 + q_chunk)
+            qpos = q_positions[i, i0:i1].long()
+            logits = torch.einsum("qhd,khd->hqk", q[i, i0:i1].float(),
+                                  kf) * sm_scale
+            mask = (
+                (kv_pos[None, :] <= qpos[:, None])
+                & (kv_pos[None, :] >= 0)
+                & (kv_pos[None, :] < context_lens[i])
+                & (qpos[:, None] >= 0)
+            )[None]                                    # [1, rows, t_kv]
+            if band:
+                in_band = (kv_pos[None, :] < sink_size) | (
+                    qpos[:, None] - kv_pos[None, :] < local_size)
+                mask = torch.where(head_is_retrieval[:, None, None], mask,
+                                   mask & in_band[None])
+            logits = torch.where(mask, logits, -1e30)
+            p = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+            out[i, i0:i1] = torch.einsum("hqk,khd->qhd", p, vf)
+    return out.to(q.dtype)

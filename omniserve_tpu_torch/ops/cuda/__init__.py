@@ -27,7 +27,9 @@ LAUNCHES = {
     "decode_attention_band": 0,
     "kv_append_decode": 0,
     "flash_prefill": 0,
+    "flash_prefill_band": 0,
     "paged_prefill_attention": 0,
+    "paged_prefill_ring": 0,
 }
 
 _force_plain = False

@@ -2,22 +2,27 @@
 (``csrc/paged_prefill.cu``).
 
 Replaces ``omniserve_tpu/ops/pallas/paged_prefill.py:paged_prefill_attention``
-(:268, kernel ``_prefill_kernel`` :39) for dense heads over a kv4
-fine-grained pool. The plain version it is held against is
-``ops/attention_ref.paged_prefill_attention`` (``paged_prefill_attention_plain``
-below). What bounds the kernel and how it is laid out is in the CUDA
-source's header.
+(:268, kernel ``_prefill_kernel`` :39) over a kv4 fine-grained pool: dense
+heads over a block table (launches counted as ``paged_prefill_attention``),
+and the explicit page-list mode, with the streaming ring's relabel and the
+per-head sink + local band, that LServe's chunked prefill runs over the ring
+pool (counted as ``paged_prefill_ring``). The plain version it is held
+against is ``paged_prefill_attention_plain`` below: the list turned into a
+per-row position map as ``omniserve_tpu/ops/dispatch.py:214-242`` does, then
+``ops/attention_ref.paged_prefill_attention``. What bounds the kernel and how
+it is laid out is in the CUDA source's header.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from omniserve_tpu_torch.csrc import build
 from omniserve_tpu_torch.ops import attention_ref, cuda
-from omniserve_tpu_torch.ops.paged_kv import KVPool
+from omniserve_tpu_torch.ops.paged_kv import KVPool, ring_token_positions
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,20 +35,50 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_paged_prefill.argtypes = (
-            [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
+            [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P]
         )
         lib.launch_paged_prefill.restype = _I
         lib._typed = True
     return lib
 
 
-def paged_prefill_attention_plain(q, pool: KVPool, layer: int, block_tables,
-                                  q_positions, context_lens, *,
-                                  sm_scale: float, page_size: int):
-    """Plain version: ``attention_ref.paged_prefill_attention``."""
+def kv_positions_of(sel_logic, context_lens, page_size: int,
+                    ring_span_pages: int = 0, ring_sink_tokens: int = 0):
+    """Per-row position map [B, S*page] of an explicit page list
+    ``sel_logic`` [B, S] (slot s holds logical page ``sel_logic[b, s]``,
+    -1 dead), as the JAX dispatch builds it for its plain version: a ring
+    source through ``ring_token_positions`` (the newest page's stale rows
+    relabelled one ring span back), another list directly."""
+    n_slots = sel_logic.shape[1]
+    if ring_span_pages:
+        return ring_token_positions(context_lens, n_slots,
+                                    ring_sink_tokens // page_size,
+                                    ring_span_pages, page_size)
+    off = torch.arange(page_size, device=sel_logic.device)[None, None, :]
+    logic = sel_logic.long()[:, :, None]
+    pos = torch.where(logic >= 0, logic * page_size + off, -1)
+    return pos.reshape(sel_logic.shape[0], n_slots * page_size).to(
+        torch.int32)
+
+
+def paged_prefill_attention_plain(
+    q, pool: KVPool, layer: int, block_tables, q_positions, context_lens, *,
+    sm_scale: float, page_size: int, head_is_retrieval=None,
+    sink_size: int = 0, local_size: int = 0,
+    sel_logic: Optional[torch.Tensor] = None, ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
+):
+    """Plain version: ``attention_ref.paged_prefill_attention``, with an
+    explicit page list turned into its position map first."""
+    kv_positions = None
+    if sel_logic is not None:
+        kv_positions = kv_positions_of(sel_logic, context_lens, page_size,
+                                       ring_span_pages, ring_sink_tokens)
     return attention_ref.paged_prefill_attention(
         q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
         page_size, kv_bits=4, kv_zeros=True,
+        head_is_retrieval=head_is_retrieval, sink_size=sink_size,
+        local_size=local_size, kv_positions=kv_positions,
     )
 
 
@@ -57,9 +92,19 @@ def paged_prefill_attention(
     *,
     sm_scale: float,
     page_size: int,
+    head_is_retrieval: Optional[torch.Tensor] = None,   # [Hq] bool
+    sink_size: int = 0,
+    local_size: int = 0,
+    sel_logic: Optional[torch.Tensor] = None,           # [B, W] int32
+    ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
 ) -> torch.Tensor:
     """Kernel: causal GQA attention of the chunk over the pool, reading the
-    pages in place. Returns [B, Tc, Hq, D] bf16."""
+    pages in place. Without ``sel_logic`` the table is the dense history
+    (slot = logical page); with it, slot s holds logical page
+    ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
+    newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
+    keep the sink + local band. Returns [B, Tc, Hq, D] bf16."""
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -79,6 +124,21 @@ def paged_prefill_attention(
     cuda.check(context_lens, "context_lens", torch.int32, (b,))
     if block_tables.shape[0] != b:
         raise ValueError("block_tables rows != batch")
+    w = block_tables.shape[1]
+    sel_ptr = flags_ptr = None
+    if sel_logic is not None:
+        cuda.check(sel_logic, "sel_logic", torch.int32, (b, w))
+        sel_ptr = sel_logic.data_ptr()
+    elif ring_span_pages:
+        raise ValueError("ring_span_pages needs sel_logic")
+    if head_is_retrieval is not None and (sink_size or local_size):
+        if tuple(head_is_retrieval.shape) != (hq,):
+            raise ValueError(f"head_is_retrieval must be [{hq}] (per q "
+                             f"head), got {tuple(head_is_retrieval.shape)}")
+        # per-q-head -> per-kv-head, as the Pallas wrapper does
+        flags = head_is_retrieval[::n_rep].to(torch.int32).contiguous()
+        cuda.check(flags, "head_is_retrieval", torch.int32, (hkv,))
+        flags_ptr = flags.data_ptr()
     out = torch.empty_like(q)
     if b == 0 or tc == 0:
         return out
@@ -86,10 +146,13 @@ def paged_prefill_attention(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
         block_tables.data_ptr(), q_positions.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), b, tc, hkv, n_rep,
-        page_size, block_tables.shape[1], float(sm_scale),
+        context_lens.data_ptr(), sel_ptr, flags_ptr, out.data_ptr(),
+        b, tc, hkv, n_rep, page_size, w, int(sink_size), int(local_size),
+        int(ring_span_pages), int(ring_sink_tokens), float(sm_scale),
         cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "paged_prefill_attention")
-    cuda.LAUNCHES["paged_prefill_attention"] += 1
+    name = "paged_prefill_ring" if sel_logic is not None else \
+        "paged_prefill_attention"
+    cuda.LAUNCHES[name] += 1
     return out

@@ -2,13 +2,15 @@
 CPU tensors.
 
 Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
-whole-prompt prefill, chunked prefill over the paged pool, the dense
-decode step with its KV append fused in, and the split decode step of
-dynamic-sparse decode (``append_kv_decode``, then
-``paged_decode_attention`` over the retrieval and streaming pools). Every
-other mode of the JAX dispatch raises ``NotImplementedError`` naming its
-ROADMAP.md item (the JAX dispatch's single-pass paged-prefill variant, off
-by default there, is ROADMAP.md queue 2 item 10).
+whole-prompt prefill and chunked prefill over the paged pool (dense heads,
+and LServe's streaming heads with their sink + local band, over the ring
+pool's page list in chunked prefill), the dense decode step with its KV
+append fused in, and the split decode step of dynamic-sparse decode
+(``append_kv_decode``, then ``paged_decode_attention`` over the retrieval
+and streaming pools). Every other mode of the JAX dispatch raises
+``NotImplementedError`` naming its ROADMAP.md item (the JAX dispatch's
+single-pass paged-prefill variant, off by default there, is ROADMAP.md
+queue 2 item 10).
 """
 
 from __future__ import annotations
@@ -21,12 +23,12 @@ from omniserve_tpu_torch.ops import attention_ref, cuda
 def prefill_attention(q, k, v, segment_ids, positions, sm_scale,
                       head_is_retrieval=None, sink_size=0, local_size=0,
                       valid=None):
-    """Packed-varlen causal attention [T, Hq, D] (dense heads)."""
-    if head_is_retrieval is not None and (sink_size or local_size):
-        raise NotImplementedError(
-            "streaming-head (sink+local) prefill is LServe's prefill side "
-            "(--sparse-context-mode); see ROADMAP.md queue 1 item 5b"
-        )
+    """Packed-varlen causal attention [T, Hq, D]; streaming heads
+    (``head_is_retrieval`` [Hq] False) keep the sink + local band."""
+    if head_is_retrieval is not None and \
+            tuple(head_is_retrieval.shape) != (q.shape[1],):
+        raise ValueError(f"head_is_retrieval must be [{q.shape[1]}] (per q "
+                         f"head), got {tuple(head_is_retrieval.shape)}")
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import flash_attention
 
@@ -34,10 +36,13 @@ def prefill_attention(q, k, v, segment_ids, positions, sm_scale,
             segment_ids = segment_ids.masked_fill(~valid, -1)
         return flash_attention.flash_prefill(
             q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-            positions, sm_scale,
+            positions, sm_scale, head_is_retrieval=head_is_retrieval,
+            sink_size=sink_size, local_size=local_size,
         )
     return attention_ref.prefill_attention(
-        q, k, v, segment_ids, positions, sm_scale, valid=valid
+        q, k, v, segment_ids, positions, sm_scale,
+        head_is_retrieval=head_is_retrieval, sink_size=sink_size,
+        local_size=local_size, valid=valid,
     )
 
 
@@ -54,10 +59,10 @@ def paged_decode_attention_fused(
     pool is updated in place."""
     if streaming_pool is not None:
         raise NotImplementedError(
-            "the fused append with a streaming (ring) pool serves dense "
-            "decode over dual pools (--sparse-context-mode alone); see "
-            "ROADMAP.md queue 1 item 5b. Sparse decode appends through "
-            "append_kv_decode"
+            "the fused append over a streaming (ring) pool is ROADMAP.md "
+            "queue 2 item 2; the engine never reaches it: it builds a "
+            "streaming pool only under --sparse-decode-mode, whose steps "
+            "append through append_kv_decode"
         )
     if page_idxes is not None or return_lse:
         raise NotImplementedError(
@@ -151,18 +156,23 @@ def paged_decode_attention(
 def paged_prefill_attention(
     q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
     page_size, kv_bits, kv_zeros, head_is_retrieval=None, sink_size=0,
-    local_size=0, sel_logic=None, return_lse=False,
+    local_size=0, sel_logic=None, ring_span_pages=0, ring_sink_tokens=0,
+    return_lse=False,
 ):
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
-    (history + the chunk, appended by the caller). Dense heads, kv4
-    fine-grained pools."""
-    if sel_logic is not None or return_lse or (
-        head_is_retrieval is not None and (sink_size or local_size)
-    ):
+    (history + the chunk, appended by the caller), kv4 fine-grained pools.
+
+    ``sel_logic`` [B, W] names the logical page each table slot holds (-1
+    dead); with ``ring_span_pages`` the source is the streaming ring, whose
+    newest page's stale rows are relabelled one ring span back (valid from
+    ``ring_sink_tokens``). Streaming heads (``head_is_retrieval`` [Hq]
+    False) keep the sink + local band. On a card: the kernel reads them as
+    they are. On the CPU: the plain version, which turns the list into a
+    per-row position map as the JAX dispatch does."""
+    if return_lse:
         raise NotImplementedError(
-            "explicit page lists and sink+local bands (LServe's prefill "
-            "side) and LSE outputs (sequence parallelism) of paged prefill "
-            "are queued in ROADMAP.md queue 1 items 5b and 10"
+            "LSE outputs of paged prefill are the sequence-parallel path; "
+            "see ROADMAP.md queue 1 item 10"
         )
     if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(
@@ -174,4 +184,8 @@ def paged_prefill_attention(
     fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
           else paged_prefill.paged_prefill_attention_plain)
     return fn(q.contiguous(), pool, layer, block_tables, q_positions,
-              context_lens, sm_scale=sm_scale, page_size=page_size)
+              context_lens, sm_scale=sm_scale, page_size=page_size,
+              head_is_retrieval=head_is_retrieval, sink_size=sink_size,
+              local_size=local_size, sel_logic=sel_logic,
+              ring_span_pages=ring_span_pages,
+              ring_sink_tokens=ring_sink_tokens)

@@ -15,10 +15,13 @@ Single-device subset of ``omniserve_tpu.worker.model_runner``:
   card, one decode step captured as a CUDA graph and replayed;
 - LServe's decode side (``--sparse-decode-mode``): streaming block tables,
   the pages whose K stats a step resets, and the cached page selection
-  with its refresh rule, in single steps and inside windows.
+  with its refresh rule, in single steps and inside windows;
+- LServe's prefill side (``--sparse-context-mode``): under both modes a
+  long prompt prefills in chunks clamped to what the widened ring holds
+  beside the ctx-local window, each chunk carrying its streaming table.
 
 Everything outside the slice raises ``NotImplementedError`` naming its
-ROADMAP.md item: TP/PP/SP/DP, Mixtral, LServe's sparse prefill.
+ROADMAP.md item: TP/PP/SP/DP, Mixtral.
 """
 
 from __future__ import annotations
@@ -80,6 +83,8 @@ def chunked_prefill_batches(
     device,
     starts: Optional[Sequence[int]] = None,
     with_stats: bool = False,
+    streaming_tables: Optional[Sequence[Sequence[int]]] = None,
+    ring: Optional[Tuple[int, int, int]] = None,
 ) -> Iterator[Tuple[PrefillBatch, torch.Tensor]]:
     """The chunks of a chunked prefill of ``seqs`` (token ids, block table).
 
@@ -91,10 +96,22 @@ def chunked_prefill_batches(
     chunk) and a device bool [b_pad] marking the rows whose prompt ends in
     it (their ``last_token_idx`` points at the last token). ``with_stats``
     adds ``new_page_ids``: the pages a chunk writes, whose K stats the
-    forward resets first."""
+    forward resets first. ``ring`` = (sink blocks, ring blocks, ctx-local
+    tokens) of a streaming pool: the chunk is clamped so the ring holds
+    the ctx-local window plus one chunk, and each batch carries the
+    sequences' ``streaming_tables`` as a [b_pad, sink + ring] table."""
     starts = [0] * len(seqs) if starts is None else starts
     b_pad = next_pow2(len(seqs), minimum=1)
     tc = max(page_size, (budget // b_pad) // page_size * page_size)
+    st = None
+    if ring is not None:
+        sink_blocks, local_blocks, ctx_local = ring
+        tc = min(tc, max(page_size, (local_blocks * page_size - ctx_local)
+                         // page_size * page_size))
+        sw = max(1, sink_blocks + local_blocks)
+        st = np.zeros((b_pad, sw), np.int32)
+        for i, stbl in enumerate(streaming_tables):
+            st[i, : min(len(stbl), sw)] = stbl[:sw]
     n_chunks = -(-max(len(ids) - s for (ids, _), s in zip(seqs, starts))
                  // tc)
     w = next_pow2(max(len(tbl) for _, tbl in seqs), minimum=4)
@@ -108,6 +125,7 @@ def chunked_prefill_batches(
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     bt_dev, lens_dev = dev(bt), dev(full_lens)
+    st_dev = None if st is None else dev(st)
     for ci in range(n_chunks):
         tokens = np.zeros((b_pad, tc), np.int64)
         pos = np.zeros((b_pad, tc), np.int32)
@@ -136,6 +154,7 @@ def chunked_prefill_batches(
             segment_ids=dev(seg.reshape(-1)), block_tables=bt_dev,
             last_token_idx=dev(last_idx), seq_lens=lens_dev,
             context_lens=dev(ctx),
+            streaming_block_tables=st_dev,
             new_page_ids=(dev(np.asarray(new_pages, np.int32))
                           if with_stats else None),
         )
@@ -501,16 +520,23 @@ class ModelRunner:
         to the pool, then attends causally over the pool (history + itself)
         through the paged-prefill kernel. ``starts`` (per scheduled seq, in
         metadata order) skips tokens whose KV a COMPUTED shared prefix
-        already holds: prefill covers only the suffix."""
-        seqs, seq_ids = [], []
+        already holds: prefill covers only the suffix. With a streaming
+        pool the chunks also write the ring and attend through it."""
+        seqs, seq_ids, stables = [], [], []
         for group in metadata:
             for seq_id, data in group.seq_data.items():
                 seqs.append((data.get_token_ids(), group.block_tables[seq_id]))
+                stables.append(group.streaming_block_tables.get(seq_id, []))
                 seq_ids.append(seq_id)
+        ring = None
+        if self.cache_engine.streaming_pool is not None:
+            ring = (self.spec.sink_blocks, self.spec.local_blocks,
+                    self.spec.ctx_local)
         final_logits = None
         for batch, ends in chunked_prefill_batches(
             seqs, budget, self.spec.page_size, self.device, starts=starts,
-            with_stats=self.spec.with_stats,
+            with_stats=self.spec.with_stats, streaming_tables=stables,
+            ring=ring,
         ):
             logits, _, _, _ = llama.llama_forward(
                 self.params, self.cache_engine.retrieval_pool,

@@ -87,12 +87,19 @@ def test_flash_prefill_plain(lens, hq, hkv):
 
 
 def test_prefill_dispatch_raises_outside_slice():
+    """The sink + local band serves (``tests/test_torch_lserve_prefill.py``);
+    flags that are not one per q head are refused."""
     x = torch.zeros(4, 2, 8)
     seg = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="per q head"):
         dispatch.prefill_attention(x, x, x, seg, seg, 1.0,
-                                   head_is_retrieval=torch.ones(2, dtype=bool),
+                                   head_is_retrieval=torch.ones(3, dtype=bool),
                                    sink_size=4, local_size=4)
+    out = dispatch.prefill_attention(
+        x, x, x, seg, torch.arange(4, dtype=torch.int32), 1.0,
+        head_is_retrieval=torch.ones(2, dtype=bool), sink_size=4,
+        local_size=4)
+    assert out.shape == x.shape
 
 
 def build_pool(rng, page, h, d, lengths, tables, layers=2):
@@ -347,18 +354,21 @@ def test_append_kv_page_aligned_bytes_match_jax():
 
 
 def test_paged_prefill_dispatch_raises_outside_slice():
+    """Bands and page lists serve (``tests/test_torch_lserve_prefill.py``);
+    LSE outputs (sequence parallelism) and kv8 raise."""
     q = torch.zeros(1, 2, 2, 8)
     kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
-    with pytest.raises(NotImplementedError, match="items 5b and 10"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         dispatch.paged_prefill_attention(q, None, 0, None, None, None,
                                          return_lse=True, **kw)
-    with pytest.raises(NotImplementedError, match="items 5b and 10"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         dispatch.paged_prefill_attention(
             q, None, 0, None, None, None, head_is_retrieval=torch.ones(2),
-            sink_size=4, local_size=4, **kw)
-    with pytest.raises(NotImplementedError, match="items 5b and 10"):
+            sink_size=4, local_size=4, return_lse=True, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
         t_ref.paged_prefill_attention(q, None, 0, None, None, None, 1.0, 8,
-                                      4, True, kv_positions=torch.zeros(1))
+                                      4, True, kv_positions=torch.zeros(1),
+                                      return_lse=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.paged_prefill_attention(q, None, 0, None, None, None,
                                          **dict(kw, kv_bits=8))

@@ -102,14 +102,12 @@ def test_greedy_tokens_match_jax_engine(tiny_model_dir):
 
 def test_engine_raises_outside_slice(tiny_model_dir):
     """Chunked prefill, prefix reuse, multi-step windows and LServe's
-    decode side serve (see tests/test_torch_engine_windows.py and
-    tests/test_torch_lserve_engine.py); kv8, LServe's sparse prefill and
+    decode and prefill sides serve (see tests/test_torch_engine_windows.py
+    and tests/test_torch_lserve_{engine,prefill}.py); kv8, W8A8 weights and
     tensor parallelism stay outside the port and raise naming their
     ROADMAP item."""
     for extra in (dict(precision="w4a8kv8"),
-                  dict(sparse_context_mode=True),
-                  dict(sparse_decode_mode=True, sparse_context_mode=True,
-                       static_sparsity=0.5),
+                  dict(precision="w8a8kv4"),
                   dict(tensor_parallel_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMEngine.from_engine_args(EngineArgs(

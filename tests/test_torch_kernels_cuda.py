@@ -109,6 +109,173 @@ def test_flash_prefill_kernel(dev, lens, hq, hkv):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("lens,hq,hkv,flags_kv,sink,local", [
+    ([700], 8, 2, [1, 0], 64, 256),            # band tiles skipped
+    ([300, 450, 9], 4, 4, [0, 1, 0, 0], 16, 100),   # packed, ragged tail
+    ([1000], 8, 8, [0] * 8, 0, 128),           # no sinks
+])
+def test_flash_prefill_band_kernel(dev, lens, hq, hkv, flags_kv, sink, local):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    t, d = sum(lens) + 5, 128
+    g = _gen(dev, 12)
+    q = torch.randn((t, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    seg = torch.full((t,), -1, dtype=torch.int32)
+    pos = torch.zeros(t, dtype=torch.int32)
+    o = 0
+    for i, n in enumerate(lens):
+        seg[o:o + n] = i
+        pos[o:o + n] = torch.arange(n)
+        o += n
+    seg, pos = seg.to(dev), pos.to(dev)
+    flags = torch.tensor(flags_kv, dtype=torch.bool,
+                         device=dev).repeat_interleave(hq // hkv)
+    band = dict(head_is_retrieval=flags, sink_size=sink, local_size=local)
+    before = cuda.LAUNCHES["flash_prefill_band"]
+    got = fa.flash_prefill(q, k, v, seg, pos, d ** -0.5, **band)
+    assert cuda.LAUNCHES["flash_prefill_band"] == before + 1
+    want = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5, **band)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    dense = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5)
+    assert not torch.allclose(got[:, ~flags].float(),
+                              dense[:, ~flags].float(), atol=2e-2)
+
+
+def test_flash_prefill_band_all_retrieval_is_dense(dev):
+    """Band arguments whose flags are all 1 run, and count as, the dense
+    kernel: ``flash_prefill_band`` counts only calls where a head streams."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    t, hq, hkv, d = 600, 8, 2, 128
+    g = _gen(dev, 14)
+    q = torch.randn((t, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    seg = torch.zeros(t, dtype=torch.int32, device=dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)
+    flags = torch.ones(hq, dtype=torch.bool, device=dev)
+    before = dict(cuda.LAUNCHES)
+    got = fa.flash_prefill(q, k, v, seg, pos, d ** -0.5,
+                           head_is_retrieval=flags, sink_size=16,
+                           local_size=64)
+    assert cuda.LAUNCHES["flash_prefill_band"] == before["flash_prefill_band"]
+    assert cuda.LAUNCHES["flash_prefill"] == before["flash_prefill"] + 1
+    want = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _ring_pool(dev, g, lens, h, page, sink_b, local_b, d=128):
+    """A streaming ring pool (one layer of two) holding ``lens[s]`` tokens of
+    each sequence, written page by page through the ring mapping as the
+    engine writes it (later wraps overwrite earlier pages)."""
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    n_slots = sink_b + local_b
+    b = len(lens)
+    pool = make_kv_pool(2, b * n_slots + 1, h, page, d, device=dev)
+    # the sequences' slots interleaved, so tables are not contiguous
+    tables = torch.arange(b * n_slots, dtype=torch.int32).view(n_slots, b)
+    tables = tables.t().contiguous().to(dev)
+    for s, n in enumerate(lens):
+        for p0 in range(0, n, page):
+            pos = torch.arange(p0, min(n, p0 + page), device=dev)
+            blk = p0 // page
+            slot = blk if blk < sink_b else sink_b + (blk - sink_b) % local_b
+            append_kv(pool, 1,
+                      torch.randn((len(pos), h, d), generator=g, device=dev),
+                      torch.randn((len(pos), h, d), generator=g, device=dev),
+                      tables[s, slot].long().expand(len(pos)), pos % page,
+                      page, 4, True)
+    return pool, tables
+
+
+@pytest.mark.parametrize("lens,chunk,page,sink_b,local_b,n_rep,band,flags", [
+    # the wrapped ring of chip_smoke: 1 + 80 pages, context 20,000 (not a
+    # page multiple: stale rows past the write head), a 2,048-token chunk
+    ([20000], 2048, 128, 1, 80, 4, (128, 8192), [0, 0]),
+    # two sequences wrapped several times, one padded halfway; mixed heads
+    ([300, 229], 40, 16, 1, 6, 2, (16, 48), [1, 0]),
+    # a ring that has not wrapped: never-written rows stay dead
+    ([100, 70], 24, 16, 2, 8, 8, (16, 32), [0, 0]),
+])
+def test_paged_prefill_ring_kernel(dev, lens, chunk, page, sink_b, local_b,
+                                   n_rep, band, flags):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
+
+    b, h, d = len(lens), 2, 128
+    n_slots = sink_b + local_b
+    g = _gen(dev, 13)
+    pool, tables = _ring_pool(dev, g, lens, h, page, sink_b, local_b)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    ctx = torch.tensor(lens, dtype=torch.int32)
+    q_pos = torch.stack([n - chunk + torch.arange(chunk, dtype=torch.int32)
+                         for n in lens])
+    if b > 1:     # the second row's prompt ends halfway through the chunk
+        q_pos[1] = lens[1] - chunk // 2 + torch.arange(chunk,
+                                                        dtype=torch.int32)
+        q_pos[1, chunk // 2:] = -1
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    sel = ring_logical_blocks(ctx, n_slots, sink_b, local_b, page)
+    kw = dict(sm_scale=d ** -0.5, page_size=page,
+              head_is_retrieval=torch.tensor(flags, dtype=torch.bool,
+                                             device=dev).repeat_interleave(
+                                                 n_rep),
+              sink_size=band[0], local_size=band[1], sel_logic=sel,
+              ring_span_pages=local_b, ring_sink_tokens=sink_b * page)
+    before = cuda.LAUNCHES["paged_prefill_ring"]
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES["paged_prefill_ring"] == before + 1
+    want = pp.paged_prefill_attention_plain(q, pool, 1, tables, q_pos, ctx,
+                                            **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if b > 1:
+        assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+def test_paged_prefill_page_list_kernel(dev):
+    """An explicit page list without a ring (slots in any order, dead
+    slots), mixed heads, over a dense pool."""
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    page, h, d, n_rep, w = 16, 2, 128, 4, 6
+    g = _gen(dev, 14)
+    pool = make_kv_pool(2, 13, h, page, d, device=dev)
+    pos = torch.arange(6 * page, device=dev)
+    tables = torch.tensor([[3, 9, 0, 5, 11, 7], [1, 4, 10, 2, 8, 6]],
+                          dtype=torch.int32, device=dev)
+    for s in range(2):
+        append_kv(pool, 1, torch.randn((6 * page, h, d), generator=g,
+                                       device=dev),
+                  torch.randn((6 * page, h, d), generator=g, device=dev),
+                  tables[s].long()[pos // page], pos % page, page, 4, True)
+    sel = torch.tensor([[0, 3, 1, -1, 4, 2], [5, -1, 0, 1, -1, 2]],
+                       dtype=torch.int32, device=dev)
+    ctx = torch.tensor([80, 95], dtype=torch.int32, device=dev)
+    q_pos = torch.stack([torch.arange(48, 80), torch.arange(63, 95)]).to(
+        device=dev, dtype=torch.int32)
+    q = torch.randn((2, 32, h * n_rep, d), generator=g, device=dev).bfloat16()
+    kw = dict(sm_scale=d ** -0.5, page_size=page, sel_logic=sel,
+              head_is_retrieval=torch.tensor([True] * n_rep + [False] * n_rep,
+                                             device=dev),
+              sink_size=8, local_size=20)
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    want = pp.paged_prefill_attention_plain(q, pool, 1, tables, q_pos, ctx,
+                                            **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 @pytest.mark.parametrize("n_rep", [1, 4])
 def test_decode_attention_append_kernel(dev, n_rep):
     from omniserve_tpu_torch.ops.cuda import decode_attention as da

@@ -176,11 +176,23 @@ def test_sparse_decode_windows_match_jax(tiny_model_dir, monkeypatch, mode):
         assert serve(single, SamplingParams, reqs) == got
 
 
-def test_sparse_prefill_still_raises(tiny_model_dir):
-    with pytest.raises(NotImplementedError, match="5b"):
-        LLMEngine.from_engine_args(EngineArgs(
-            device="cpu", **engine_kwargs(tiny_model_dir,
-                                          sparse_context_mode=True)))
+def test_sparse_prefill_builds_and_serves(tiny_model_dir):
+    """The same engine arguments with ``sparse_context_mode`` added build
+    the LServe configuration and serve (the tokens against the JAX engine's
+    are in ``tests/test_torch_lserve_prefill.py``): a 90-token prompt over
+    a 64-token chunk budget prefills in chunks, the ring widened to hold
+    ctx-local + one chunk."""
+    engine = LLMEngine.from_engine_args(EngineArgs(
+        device="cpu", **engine_kwargs(
+            tiny_model_dir, sparse_context_mode=True, ctx_sink_size=PAGE,
+            ctx_local_size=2 * PAGE, chunk_prefill_size=4 * PAGE)))
+    runner = engine.worker.model_runner
+    assert runner.spec.sparse_prefill and runner.spec.sparse_decode
+    assert runner.cache_engine.streaming_pool is not None
+    assert runner.spec.local_blocks == 6          # (32 + 64) / 16
+    got = serve(engine, SamplingParams, requests(6, (90, 20), 4))
+    assert [len(t) for t in got.values()] == [4, 4]
+    assert all(0 <= t < 256 for t in sum(got.values(), []))
 
 
 def test_sparse_decode_without_streaming_heads_chunked_prefill(
