@@ -55,6 +55,7 @@ file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -220,6 +221,9 @@ def row_rel_err(got, want) -> float:
 
 
 def check_quant_gemms(dev, gen):
+    """The per-channel body's four GEMM shapes at M = 8, 128, 8192, 16384,
+    kernel against plain within 1e-5; returns the rows and the largest
+    error."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
@@ -278,6 +282,115 @@ def check_quant_gemms(dev, gen):
                 f"max_abs_err {err:.3g}")
             del qws, w_i8
     return rows, worst
+
+
+def check_per_group_gemms(dev, gen, group_size=128):
+    """The g128 body's four GEMM shapes at M = 8, 128 (decode), 8192 and
+    16384 (prefill): kernel equal to its plain version (max error 0), with
+    s2 drawn over the derived quantizer's whole range [1, 17] and zeros over
+    the whole int8 range (the wrap included), then once at the edge: every
+    code 15, every s2 17."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    rows = []
+    gs = group_size
+    for m in (8, 128, 8192, 16384):
+        for name, k, n in LAYER_GEMMS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            a_i8, a_scale, _ = quantize_activations(x)
+            w_bytes = k // 2 * n + 2 * (k // gs) * n
+            n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 128 else 1
+            qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
+                                 dtype=torch.uint8, device=dev)
+                   for _ in range(n_copies)]
+            s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006,
+                                                     generator=gen)
+            s2 = torch.randint(1, 18, (k // gs, n), generator=gen,
+                               dtype=torch.int8, device=dev)
+            s2z = torch.randint(-128, 128, (k // gs, n), generator=gen,
+                                dtype=torch.int8, device=dev)
+            kw = dict(group_size=gs)
+            got = qm.w4a8_matmul_per_group(a_i8, qws[0], s1, s2, s2z,
+                                           a_scale, out_dtype=torch.float32,
+                                           **kw)
+            want = qm.w4a8_matmul_per_group_plain(
+                a_i8, qws[0], s1, s2, s2z, a_scale, out_dtype=torch.float32,
+                **kw)
+            err = allclose_err(got, want, 0.0, 0.0,
+                               f"w4a8 g{gs} M={m} K={k} N={n}")
+            del got, want
+            it = iter(range(10 ** 9))
+            reps = 50 if m <= 128 else 10
+            ms = time_ms(lambda: qm.w4a8_matmul_per_group(
+                a_i8, qws[next(it) % n_copies], s1, s2, s2z, a_scale, **kw),
+                reps)
+            plain = time_ms(lambda: qm.w4a8_matmul_per_group_plain(
+                a_i8, qws[0], s1, s2, s2z, a_scale, **kw), 3, warmup=1)
+            # yardstick: int8 weights dequantized BEFOREHAND (progressive
+            # dequant not counted), one torch._int_mm and the epilogue
+            lib = None
+            w_u4 = torch.cat([qws[0] & 0xF, qws[0] >> 4]).to(torch.int32)
+            w_i8 = (w_u4.view(k // gs, gs, n) * s2.int()[:, None]
+                    + s2z.int()[:, None])
+            w_i8 = (((w_i8 + 128) & 0xFF) - 128).to(torch.int8).view(k, n)
+            del w_u4
+            try:
+                def lib_call():
+                    p = torch._int_mm(a_i8, w_i8)
+                    return (p.float() * s1[None] * a_scale[:, None]).to(
+                        torch.bfloat16)
+                lib = time_ms(lib_call, reps)
+            except RuntimeError as e:
+                log(f"  torch._int_mm unavailable at M={m}: "
+                    f"{str(e).splitlines()[0]}")
+            n_bytes = m * k + w_bytes + 4 * n + 4 * m + 2 * m * n
+            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+            rows.append(dict(m=m, name=name, k=k, n=n, ms=ms, plain_ms=plain,
+                             bound_ms=bnd, bound_by=by, library_ms=lib,
+                             max_abs_err=err))
+            log(f"  w4a8 g{gs} {name:7s} M={m:5d} K={k:5d} N={n:5d}: "
+                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+                f"{bnd:.4f} ({by}) library_ms "
+                f"{lib if lib is None else f'{lib:.4f}'} max_abs_err {err:g}")
+            del qws, w_i8
+    # the edge: u4 = 15, s2 = 17 (255 before the zero), wrapping zeros
+    m, k, n = 128, 4096, 6144
+    a_i8, a_scale, _ = quantize_activations(
+        torch.randn((m, k), generator=gen, device=dev))
+    qw = torch.full((k // 2, n), 0xFF, dtype=torch.uint8, device=dev)
+    s1 = torch.full((n,), 0.004, device=dev)
+    s2 = torch.full((k // gs, n), 17, dtype=torch.int8, device=dev)
+    zeros = torch.tensor([-128, -8, 0, 100, 127], dtype=torch.int8,
+                         device=dev)
+    s2z = zeros[torch.randint(0, 5, s2.shape, generator=gen, device=dev)]
+    args = (a_i8, qw, s1, s2, s2z, a_scale)
+    err = allclose_err(
+        qm.w4a8_matmul_per_group(*args, group_size=gs,
+                                 out_dtype=torch.float32),
+        qm.w4a8_matmul_per_group_plain(*args, group_size=gs,
+                                       out_dtype=torch.float32),
+        0.0, 0.0, "w4a8 per-group s2 = 17 edge")
+    log(f"  w4a8 g{gs} s2 = 17, codes 15, zeros in {zeros.tolist()} "
+        f"(M={m} K={k} N={n}): max_abs_err {err:g}")
+    return rows
+
+
+def layer_row(rows, m):
+    """The kernels-line entry of a GEMM: one layer's four GEMMs at M."""
+    pre = [r for r in rows if r["m"] == m]
+    lib = [r["library_ms"] for r in pre]
+    return dict(
+        ms=sum(r["ms"] for r in pre),
+        plain_ms=sum(r["plain_ms"] for r in pre),
+        bound_ms=sum(r["bound_ms"] for r in pre),
+        bound_by="operations" if all(
+            r["bound_by"] == "operations" for r in pre) else "bytes",
+        library_ms=None if None in lib else sum(lib),
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+    )
 
 
 def check_w8a8(dev, gen, m=8):
@@ -351,7 +464,7 @@ def check_flash(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
+def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4):
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -363,7 +476,7 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
     n_pages = b * w + 1
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
     tables = perm[: b * w].view(b, w).to(torch.int32)
-    pool_k = random_kv4_pool(gen, dev, layers, n_pages, hkv, page, d)
+    pool_k = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits)
     pool_p = pool_k.clone()
     q = torch.randn((b, hkv * n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -372,30 +485,34 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
     v_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
     layer, sm = 1, d ** -0.5
-    kw = dict(sm_scale=sm, page_size=page)
+    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits)
     got = da.paged_decode_attention_fused(q, pool_k, layer, tables, lens,
                                           k_new, v_new, **kw)
     want = da.paged_decode_attention_fused_plain(q, pool_p, layer, tables,
                                                  lens, k_new, v_new, **kw)
-    err = allclose_err(got, want, 5e-2, 5e-2, "decode attention")
+    err = allclose_err(got, want, 5e-2, 5e-2,
+                       f"decode attention kv{kv_bits}")
     for name in ("k_data", "v_data", "kv_scales"):
         if not torch.equal(getattr(pool_k, name), getattr(pool_p, name)):
             n_bad = int((getattr(pool_k, name) != getattr(pool_p, name)).sum())
-            raise AssertionError(f"decode append: pool {name} differs from "
-                                 f"the plain append in {n_bad} elements")
+            raise AssertionError(f"decode append kv{kv_bits}: pool {name} "
+                                 f"differs from the plain append in {n_bad} "
+                                 "elements")
     # re-appending the same token writes the same bytes: safe to repeat
     ms = time_ms(lambda: da.paged_decode_attention_fused(
         q, pool_k, layer, tables, lens, k_new, v_new, **kw), 50)
     plain = time_ms(lambda: da.paged_decode_attention_fused_plain(
         q, pool_p, layer, tables, lens, k_new, v_new, **kw), 5, warmup=1)
     n_tok = float(lens.sum())
-    n_bytes = (hkv * (n_tok - b) * (d + 16)     # K+V nibbles + 4 f32 planes
+    tok_bytes = d * kv_bits // 4 + 16           # K+V codes + 4 f32 planes
+    n_bytes = (hkv * (n_tok - b) * tok_bytes
                + 2 * b * hkv * n_rep * d * 2    # q in, out
                + 2 * b * hkv * d * 2            # new k, v
-               + b * hkv * (d + 16))            # the appended token
+               + b * hkv * tok_bytes)           # the appended token
     bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * hkv * n_tok,
                        BF16_FLOPS_PER_S)
-    log(f"  decode attention+append B={b} Hkv={hkv} n_rep={n_rep} D={d} "
+    log(f"  decode attention+append kv{kv_bits} B={b} Hkv={hkv} "
+        f"n_rep={n_rep} D={d} "
         f"page={page} lens {int(lens.min())}-{int(lens.max())}: kernel_ms "
         f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
         f"library_ms None max_abs_err {err:.3g}; pool bytes equal")
@@ -403,32 +520,37 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100):
                 library_ms=None, max_abs_err=err)
 
 
-def random_kv4_pool(gen, dev, layers, n_pages, hkv, page, d):
-    """A kv4 pool of random codes and folded planes (scales in [0.1, 0.4],
-    integer zeros), as ``append_kv`` would leave it."""
+def random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits):
+    """A kv4 or kv8 pool of random codes and folded planes (scales in
+    [0.1, 0.4] / 2**(kv_bits - 4), integer zeros within the levels), as
+    ``append_kv`` would leave it."""
     import torch
 
     from omniserve_tpu_torch.ops.paged_kv import KVPool
 
-    shape = (layers, n_pages, hkv, page // 2, d)
+    levels = 2 ** kv_bits
+    rows = page // 2 if kv_bits == 4 else page
+    shape = (layers, n_pages, hkv, rows, d)
     k_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
                            device=dev)
     v_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
                            device=dev)
     planes = torch.empty((layers, n_pages, 4, hkv, page), device=dev)
+    lo, hi = 0.1 * 16 / levels, 0.4 * 16 / levels
     ks = torch.empty(planes[:, :, 0].shape, device=dev).uniform_(
-        0.1, 0.4, generator=gen)
-    kz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
-    vs = torch.empty_like(ks).uniform_(0.1, 0.4, generator=gen)
-    vz = torch.randint(0, 16, ks.shape, generator=gen, device=dev).float()
+        lo, hi, generator=gen)
+    kz = torch.randint(0, levels, ks.shape, generator=gen, device=dev).float()
+    vs = torch.empty_like(ks).uniform_(lo, hi, generator=gen)
+    vz = torch.randint(0, levels, ks.shape, generator=gen, device=dev).float()
     planes[:, :, 0], planes[:, :, 1] = ks, ks * (kz + 128.0)
     planes[:, :, 2], planes[:, :, 3] = vs, vz + 128.0
     return KVPool(k_data, v_data, planes)
 
 
-def check_paged_prefill(dev, gen):
+def check_paged_prefill(dev, gen, kv_bits=4):
     """The bench's last chunk: 128 sequences x 128 chunk tokens after 896
-    tokens of history, Llama-3-8B heads, pages of 128 tokens."""
+    tokens of history, Llama-3-8B heads, pages of 128 tokens; a kv4 or kv8
+    pool."""
     import torch
     import torch.nn.functional as F
 
@@ -438,7 +560,7 @@ def check_paged_prefill(dev, gen):
     b, tc, history, hkv, n_rep, d, page = 128, 128, 896, 8, 4, 128, 128
     ctx_len = history + tc
     w = ctx_len // page
-    pool = random_kv4_pool(gen, dev, 1, b * w + 1, hkv, page, d)
+    pool = random_kv_pool(gen, dev, 1, b * w + 1, hkv, page, d, kv_bits)
     perm = torch.randperm(b * w, generator=gen, device=dev)
     tables = perm.view(b, w).to(torch.int32)
     q = torch.randn((b, tc, hkv * n_rep, d), generator=gen, device=dev).to(
@@ -448,17 +570,17 @@ def check_paged_prefill(dev, gen):
     ctx = torch.full((b,), ctx_len, dtype=torch.int32, device=dev)
     sm = d ** -0.5
     args = (q, pool, 0, tables, q_pos, ctx)
-    got = pp.paged_prefill_attention(*args, sm_scale=sm, page_size=page)
-    want = pp.paged_prefill_attention_plain(*args, sm_scale=sm,
-                                            page_size=page)
-    err = allclose_err(got, want, 2e-2, 2e-2, "paged prefill")
-    ms = time_ms(lambda: pp.paged_prefill_attention(
-        *args, sm_scale=sm, page_size=page), 5, warmup=1)
-    plain = time_ms(lambda: pp.paged_prefill_attention_plain(
-        *args, sm_scale=sm, page_size=page), 1, warmup=0)
+    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits)
+    got = pp.paged_prefill_attention(*args, **kw)
+    want = pp.paged_prefill_attention_plain(*args, **kw)
+    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill kv{kv_bits}")
+    ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 5,
+                 warmup=1)
+    plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
+                    warmup=0)
     # library yardstick: SDPA over K/V dequantized BEFOREHAND (the
     # dequantization and the gather are left out of its time)
-    k, v = gather_kv_for_seq(pool, 0, tables, page)     # [B, ctx, Hkv, D]
+    k, v = gather_kv_for_seq(pool, 0, tables, page, kv_bits)  # [B, T, H, D]
     kb = k.to(torch.bfloat16).transpose(1, 2).contiguous()
     vb = v.to(torch.bfloat16).transpose(1, 2).contiguous()
     del k, v
@@ -468,11 +590,12 @@ def check_paged_prefill(dev, gen):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask, scale=sm, enable_gqa=True), 5, warmup=1)
     pairs = b * sum(history + i + 1 for i in range(tc))
-    kv_bytes = b * w * hkv * (page * d + 4 * 4 * page)  # codes + 4 planes
+    kv_bytes = b * w * hkv * (page * d * kv_bits // 4 + 4 * 4 * page)
     n_bytes = kv_bytes + 2 * (2 * b * tc * hkv * n_rep * d) + 8 * b * tc
     bnd, by = bound_ms(n_bytes, 4.0 * d * hkv * n_rep * pairs,
                        BF16_FLOPS_PER_S)
-    log(f"  paged prefill B={b} Tc={tc} history={history} Hq={hkv * n_rep} "
+    log(f"  paged prefill kv{kv_bits} B={b} Tc={tc} history={history} "
+        f"Hq={hkv * n_rep} "
         f"Hkv={hkv} D={d} page={page}: kernel_ms {ms:.4f} plain_ms "
         f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} "
         f"(SDPA over pre-dequantized K/V, dequantization not counted) "
@@ -598,7 +721,7 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label):
 
     hs, n_rep, d, page, sink, local = 4, 4, 128, 128, 128, 8192
     n_slots = 1 + n_ring
-    pool = random_kv4_pool(gen, dev, 1, n_slots + 1, hs, page, d)
+    pool = random_kv_pool(gen, dev, 1, n_slots + 1, hs, page, d, 4)
     table = torch.randperm(n_slots, generator=gen, device=dev).view(
         1, n_slots).to(torch.int32)
     ctx = torch.tensor([context], dtype=torch.int32, device=dev)
@@ -673,7 +796,7 @@ def check_kv_append(dev, gen):
     for t, heads, with_stats in ((8, 4, True), (8, 4, False), (128, 4, True),
                                  (128, 8, False)):
         n_pages = 2 * t + 1
-        base = random_kv4_pool(gen, dev, 2, n_pages, heads, page, d)
+        base = random_kv_pool(gen, dev, 2, n_pages, heads, page, d, 4)
         stats = torch.randn((2, n_pages, heads, 2 * n_sub, d), generator=gen,
                             device=dev) if with_stats else None
         pool_k = KVPool(base.k_data, base.v_data, base.kv_scales, stats)
@@ -759,7 +882,7 @@ def check_decode_ph(dev, gen, b):
     ctx_pages = 257
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
-    pool = random_kv4_pool(gen, dev, 1, b * ctx_pages + 1, hr, page, d)
+    pool = random_kv_pool(gen, dev, 1, b * ctx_pages + 1, hr, page, d, 4)
     tables = torch.randperm(b * ctx_pages, generator=gen, device=dev).view(
         b, ctx_pages)
     picks = torch.stack([torch.stack([
@@ -793,7 +916,7 @@ def check_decode_band(dev, gen, b):
     hs, n_rep, d, page = 4, 4, 128, 128
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
-    pool = random_kv4_pool(gen, dev, 1, 3 * b + 1, hs, page, d)
+    pool = random_kv_pool(gen, dev, 1, 3 * b + 1, hs, page, d, 4)
     stables = torch.randperm(3 * b, generator=gen, device=dev).view(b, 3).to(
         torch.int32)
     sel_phys, sel_logic, span = da.streaming_page_lists(stables, lens, 1,
@@ -860,23 +983,148 @@ def time_selector(dev, gen):
 # ---------------------------------------------------------------------------
 
 LOGITS_RTOL = 5e-2   # of max |logit|; reason printed with the result
+# The logits' own sensitivity ("floor"): the plain forward again, with a
+# random ATTN_ULP_RATE share of every attention output moved by one bf16
+# ulp, about the share of flash prefill's bf16 outputs that differ from
+# its plain version's on these forwards' layer-0 inputs (each precision
+# forward measures and prints that share). A random W4A8 body moves its
+# logits by well under 1% of their scale under it, a random W8A8 body
+# (uniform int8 codes, the JAX package's draw) by a few %; the precision
+# forwards hold kernels against plain within max(LOGITS_RTOL,
+# FLOOR_FACTOR x floor) of max |logit|.
+ATTN_ULP_RATE = 4e-4
+FLOOR_FACTOR = 3.0
 
 
-def check_forward(dev):
+def _mode_ctx(mode):
+    """kernels: the card's kernels; plain: the plain versions; floor: the
+    plain versions with one-ulp nudges on every attention output."""
+    stack = contextlib.ExitStack()
+    if mode != "kernels":
+        from omniserve_tpu_torch.ops import cuda
+
+        stack.enter_context(cuda.plain_versions())
+    if mode == "floor":
+        stack.enter_context(nudged_attention())
+    return stack
+
+
+@contextlib.contextmanager
+def nudged_attention(rate=ATTN_ULP_RATE, seed=7):
+    """Within the block, every attention entry point of the dispatch moves a
+    random ``rate`` share of its bf16 output by one ulp."""
+    import torch
+
+    from omniserve_tpu_torch.ops import dispatch
+
+    gens = {}
+
+    def nudge(out):
+        gen = gens.setdefault(out.device, torch.Generator(
+            device=out.device).manual_seed(seed))
+        bits = out.contiguous().view(torch.int16)
+        hit = torch.rand(bits.shape, generator=gen, device=out.device) < rate
+        up = torch.rand(bits.shape, generator=gen, device=out.device) < 0.5
+        step = torch.where(up, 1, -1).to(torch.int16)
+        return torch.where(hit, bits + step, bits).view(torch.bfloat16)
+
+    names = ("prefill_attention", "paged_prefill_attention",
+             "paged_decode_attention_fused")
+    saved = {n: getattr(dispatch, n) for n in names}
+
+    def wrap(real):
+        def f(*a, **k):
+            out = real(*a, **k)
+            if isinstance(out, tuple):
+                return (nudge(out[0]),) + tuple(out[1:])
+            return nudge(out)
+        return f
+
+    for n in names:
+        setattr(dispatch, n, wrap(saved[n]))
+    try:
+        yield
+    finally:
+        for n, real in saved.items():
+            setattr(dispatch, n, real)
+
+
+def flash_flip_share(spec, params, batch) -> float:
+    """Share of flash prefill's bf16 outputs that differ from its plain
+    version's, on the layer-0 inputs of this forward."""
     import torch
 
     from omniserve_tpu_torch.models import llama
-    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops import dispatch
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    seen = []
+    real = dispatch.prefill_attention
+
+    def record(q, k, v, segment_ids, positions, sm_scale, **kw):
+        if not seen:
+            seen.append((q, k, v, segment_ids, positions, sm_scale))
+        return real(q, k, v, segment_ids, positions, sm_scale, **kw)
+
+    dispatch.prefill_attention = record
+    try:
+        one = dataclasses.replace(spec, num_layers=1)
+        with torch.inference_mode():
+            pool = make_kv_pool(1, batch.block_tables.numel() + 1,
+                                spec.num_kv_heads, spec.page_size,
+                                spec.head_dim, kv_bits=spec.kv_bits,
+                                device=batch.token_ids.device)
+            llama.llama_forward(params, pool, None, batch, one,
+                                is_prefill=True)
+    finally:
+        dispatch.prefill_attention = real
+    q, k, v, seg, pos, sm = seen[0]
+    with torch.inference_mode():
+        got = fa.flash_prefill(q.contiguous(), k.contiguous(),
+                               v.contiguous(), seg, pos, sm)
+        want = fa.prefill_attention_plain(q, k, v, seg, pos, sm)
+    return float((got != want).float().mean())
+
+
+def logits_bound(results, step, scale, with_floor):
+    """(relative bound, floor or None) for one compared output."""
+    if not with_floor:
+        return LOGITS_RTOL, None
+    floor = float((results["floor"][step] - results["plain"][step]).abs()
+                  .max()) / scale
+    return max(LOGITS_RTOL, FLOOR_FACTOR * floor), floor
+
+
+# precision label -> (weight bits, act bits, group size, kv bits)
+PRECISIONS = {
+    "w4a8kv4": (4, 8, -1, 4), "w4a8kv4-g128": (4, 8, 128, 4),
+    "w4a8kv8": (4, 8, -1, 8), "w8a8kv8": (8, 8, -1, 8),
+    "w16a16kv8": (16, 16, -1, 8),
+}
+
+
+def spec_label(spec) -> str:
+    g = f"-g{spec.group_size}" if spec.group_size > 0 else ""
+    return f"w{spec.weight_bits}a{spec.act_bits}kv{spec.kv_bits}{g}"
+
+
+def check_forward(dev, precision="w4a8kv4", with_floor=False):
+    import torch
+
+    from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
 
     g = LLAMA3_8B
+    wb, ab, gs, kv = PRECISIONS[precision]
     spec = llama.LlamaSpec(
         num_layers=2, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"],
         num_kv_heads=g["num_key_value_heads"], head_dim=128,
         vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
-        lm_head_bits=8,
+        lm_head_bits=8, weight_bits=wb, act_bits=ab, group_size=gs,
+        kv_bits=kv,
     )
     params = llama.make_random_packed_params(spec, seed=1, device=dev)
     lens = [700, 333, 1024]
@@ -894,17 +1142,23 @@ def check_forward(dev):
         last_token_idx=last.to(dev),
     )
     results = {}
-    for mode in ("kernels", "plain"):
+    modes = ("kernels", "plain") + (("floor",) if with_floor else ())
+    for mode in modes:
         pool = make_kv_pool(spec.num_layers, len(lens) * w + 1,
-                            spec.num_kv_heads, 128, 128, device=dev)
-        ctx = cuda.plain_versions() if mode == "plain" else contextlib.nullcontext()
-        with ctx, torch.inference_mode():
+                            spec.num_kv_heads, 128, 128, kv_bits=kv,
+                            device=dev)
+        with _mode_ctx(mode), torch.inference_mode():
             t0 = time.time()
             lp, pool, _, _ = llama.llama_forward(params, pool, None, pre,
                                                  spec, is_prefill=True)
             sync(dev)
             t_pre = time.time() - t0
             results[mode] = dict(prefill=lp, pool=pool, t_pre=t_pre)
+    if with_floor:
+        share = flash_flip_share(spec, params, pre)
+        log(f"  forward {precision}: flash prefill's bf16 outputs differ "
+            f"from the plain version's in {share:.3g} of layer 0's "
+            f"elements (floor nudge rate {ATTN_ULP_RATE:g})")
     # one decode step from the same next tokens
     nxt = results["plain"]["prefill"].argmax(-1)
     dec = llama.DecodeBatch(
@@ -912,9 +1166,8 @@ def check_forward(dev):
         block_tables=tables.to(dev),
         active=torch.ones(len(lens), dtype=torch.bool, device=dev),
     )
-    for mode in ("kernels", "plain"):
-        ctx = cuda.plain_versions() if mode == "plain" else contextlib.nullcontext()
-        with ctx, torch.inference_mode():
+    for mode in modes:
+        with _mode_ctx(mode), torch.inference_mode():
             ld, _, _, _ = llama.llama_forward(params, results[mode]["pool"],
                                               None, dec, spec,
                                               is_prefill=False)
@@ -923,19 +1176,26 @@ def check_forward(dev):
         a, b_ = results["kernels"][step], results["plain"][step]
         if not bool(torch.isfinite(a).all()) or a.shape != (len(lens),
                                                             spec.vocab):
-            raise AssertionError(f"forward {step}: bad logits {a.shape}")
+            raise AssertionError(f"forward {precision} {step}: bad logits "
+                                 f"{a.shape}")
         scale = float(b_.abs().max())
         err = float((a - b_).abs().max())
         agree = float((a.argmax(-1) == b_.argmax(-1)).float().mean())
-        log(f"  forward 2 layers {step}: max |logit| {scale:.4g}, max abs "
+        by_results = {m: {step: results[m][step]} for m in modes}
+        rtol, floor = logits_bound(by_results, step, scale, with_floor)
+        log(f"  forward {precision} 2 layers {step}: max |logit| "
+            f"{scale:.4g}, max abs "
             f"diff kernels vs plain {err:.4g} ({err / scale:.3g} of max), "
-            f"argmax agreement {agree:.2f}")
-        if err > LOGITS_RTOL * scale:
-            raise AssertionError(f"forward {step}: logits differ by {err} > "
-                                 f"{LOGITS_RTOL} x {scale}")
+            f"argmax agreement {agree:.2f}"
+            + ("" if floor is None else
+               f"; floor {floor:.3g} of max, bound {rtol:.3g}"))
+        if err > rtol * scale:
+            raise AssertionError(f"forward {precision} {step}: logits differ "
+                                 f"by {err} > "
+                                 f"{rtol} x {scale}")
     kp, pp = results["kernels"]["pool"], results["plain"]["pool"]
     diff = float((kp.k_data != pp.k_data).float().mean())
-    log(f"  forward pools: fraction of K code bytes that differ "
+    log(f"  forward {precision} pools: fraction of K code bytes that differ "
         f"{diff:.3g} (layer 0 identical: "
         f"{bool(torch.equal(kp.k_data[0], pp.k_data[0]))})")
     log(f"  logits tolerance: {LOGITS_RTOL} x max|logit| -- the two runs "
@@ -943,13 +1203,14 @@ def check_forward(dev):
         "order (bf16 outputs can differ by one ulp), and the next int8 "
         "activation quantization turns such a ulp into a code step of "
         "1/127 of the row max on a few elements")
-    log(f"  prefill wall (2 layers, T={sum(lens)}): kernels "
+    log(f"  {precision} prefill wall (2 layers, T={sum(lens)}): kernels "
         f"{results['kernels']['t_pre'] * 1e3:.1f} ms, plain "
         f"{results['plain']['t_pre'] * 1e3:.1f} ms (first call, host clock)")
     return spec, params, [p.tolist() for p in prompts], tables
 
 
-def check_chunked_forward(dev, spec, params, prompts, tables):
+def check_chunked_forward(dev, spec, params, prompts, tables,
+                          with_floor=False):
     """The same prompts prefilled in [4, 512] chunks (the runner's geometry
     for a 2048-token budget): the 700- and 1024-token prompts take two
     chunks, the second attending the first through the paged pool. Kernels
@@ -957,20 +1218,18 @@ def check_chunked_forward(dev, spec, params, prompts, tables):
     import torch
 
     from omniserve_tpu_torch.models import llama
-    from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
     from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
 
     seqs = [(p, tables[i].tolist()) for i, p in enumerate(prompts)]
     results = {}
-    for mode in ("kernels", "plain"):
+    modes = ("kernels", "plain") + (("floor",) if with_floor else ())
+    for mode in modes:
         pool = make_kv_pool(spec.num_layers, tables.numel() + 1,
                             spec.num_kv_heads, spec.page_size, spec.head_dim,
-                            device=dev)
-        ctx = (cuda.plain_versions() if mode == "plain"
-               else contextlib.nullcontext())
+                            kv_bits=spec.kv_bits, device=dev)
         final, n_chunks = None, 0
-        with ctx, torch.inference_mode():
+        with _mode_ctx(mode), torch.inference_mode():
             for batch, ends in chunked_prefill_batches(seqs, 2048,
                                                        spec.page_size, dev):
                 logits, _, _, _ = llama.llama_forward(
@@ -986,13 +1245,19 @@ def check_chunked_forward(dev, spec, params, prompts, tables):
         raise AssertionError("chunked prefill: non-finite logits")
     scale = float(b_.abs().max())
     err = float((a - b_).abs().max())
-    log(f"  chunked prefill 2 layers, 2 chunks of [4, 512]: max |logit| "
+    rtol, floor = logits_bound({m: {0: results[m][0]} for m in modes}, 0,
+                               scale, with_floor)
+    log(f"  chunked prefill {spec_label(spec)} 2 layers, 2 chunks of "
+        f"[4, 512]: max |logit| "
         f"{scale:.4g}, max abs diff kernels vs plain {err:.4g} "
         f"({err / scale:.3g} of max), argmax agreement "
-        f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
-    if err > LOGITS_RTOL * scale:
-        raise AssertionError(f"chunked prefill: logits differ by {err} > "
-                             f"{LOGITS_RTOL} x {scale}")
+        f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}"
+        + ("" if floor is None else
+           f"; floor {floor:.3g} of max, bound {rtol:.3g}"))
+    if err > rtol * scale:
+        raise AssertionError(f"chunked prefill {spec_label(spec)}: logits "
+                             f"differ by {err} > "
+                             f"{rtol} x {scale}")
     return results["kernels"][1], a.argmax(-1)
 
 
@@ -1291,6 +1556,42 @@ def check_sparse_prefill_forward(dev):
         f"back through the 4-bit pool)")
 
 
+def check_precision_forwards(dev):
+    """The precision matrix at full width, depth 2: whole-prompt prefill,
+    a decode step and a chunked prefill, kernels against plain, for each of
+    w4a8kv4-g128, w4a8kv8, w8a8kv8 and w16a16kv8; an 8-step graph window
+    against the eager loop for the g128 and kv8 bodies. Each run must
+    launch its body's GEMM and its pool's attention kernels."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+
+    want = {
+        "w4a8kv4-g128": ("w4a8_matmul_per_group", "paged_prefill_attention",
+                         "decode_attention_append"),
+        "w4a8kv8": ("w4a8_matmul_per_channel", "paged_prefill_kv8",
+                    "decode_attention_append_kv8"),
+        "w8a8kv8": ("w8a8_matmul", "paged_prefill_kv8",
+                    "decode_attention_append_kv8"),
+        "w16a16kv8": ("paged_prefill_kv8", "decode_attention_append_kv8"),
+    }
+    for precision, kernels in want.items():
+        cuda.reset_launch_counts()
+        spec, params, prompts, tables = check_forward(dev, precision,
+                                                      with_floor=True)
+        pool, first = check_chunked_forward(dev, spec, params, prompts,
+                                            tables, with_floor=True)
+        if precision in ("w4a8kv4-g128", "w4a8kv8"):
+            check_window(dev, spec, params, pool, tables,
+                         [len(p) for p in prompts], first)
+        idle = [k for k in kernels if cuda.LAUNCHES[k] <= 0]
+        if idle:
+            raise AssertionError(f"{precision} forwards launched no {idle}")
+        del spec, params, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full width
 # ---------------------------------------------------------------------------
@@ -1464,14 +1765,17 @@ BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
 
 
 def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
-              multi=32):
+              multi=32, precision="w4a8kv4", group_size=-1,
+              kernels=BENCH_KERNELS, trace=True):
     """``bench.py``'s engine protocol on the port: static batch 128, 1024
     prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
     ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
-    through ``omniserve_tpu_torch.qserve_benchmark.run_round``. Round 1 is
-    warmup (``bench.py`` discards it); the launch counts are read from the
-    last round alone. Then a fresh batch's chunked prefill step and one
-    32-step window under the profiler."""
+    through ``omniserve_tpu_torch.qserve_benchmark.run_round``, at
+    ``precision`` (and ``group_size``). Round 1 is warmup (``bench.py``
+    discards it); the launch counts are read from the last round alone, and
+    each of ``kernels`` must have launched in it. Then, with ``trace``, a
+    fresh batch's chunked prefill step and one 32-step window under the
+    profiler."""
     import torch
 
     from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
@@ -1484,7 +1788,8 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
-        model=write_model_dir(), precision="w4a8kv4", load_format="dummy",
+        model=write_model_dir(), precision=precision, group_size=group_size,
+        load_format="dummy",
         lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
         block_size=128, ifb_mode=False, benchmarking_mode=True,
         disable_log_stats=True, chunk_prefill_size=8192,
@@ -1493,8 +1798,13 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         num_retrieval_blocks=blocks_per_seq * batch + 2, seed=0,
     ))
     sync(dev)
-    log(f"  engine built in {time.time() - t0:.1f} s; device memory "
-        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB")
+    pool = engine.worker.model_runner.cache_engine.retrieval_pool
+    pool_gib = sum(t.numel() * t.element_size() for t in pool
+                   if t is not None) / 2**30
+    log(f"  engine built in {time.time() - t0:.1f} s ({precision}"
+        f"{f' g{group_size}' if group_size > 0 else ''}); device memory "
+        f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB, KV pool "
+        f"{pool_gib:.2f} GiB")
     runner = engine.worker.model_runner
     n_layers = runner.spec.num_layers
 
@@ -1531,10 +1841,11 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         if not all(0 <= t < vocab for g in groups
                    for t in g.get_seqs()[0].data.output_token_ids):
             raise AssertionError(f"round {r + 1}: token out of vocab")
+        n_chunks = (launches["paged_prefill_attention"]
+                    + launches["paged_prefill_kv8"]) // n_layers
         log(f"  round {r + 1}{' (warmup)' if r == 0 else ''}: prefill step "
             f"{step_s[0] * 1e3:.1f} ms ({batch * prompt_len / step_s[0]:.0f} "
-            f"prompt tok/s, {launches['paged_prefill_attention'] // n_layers} "
-            f"chunks); decode "
+            f"prompt tok/s, {n_chunks} chunks); decode "
             f"{toks_per_s:.1f} tok/s ({sum(step_s[1:]) * 1e3:.1f} ms for "
             f"{len(step_s) - 1} steps, host clock); graphs captured "
             f"{runner.graphs_captured - graphs_before}")
@@ -1543,10 +1854,12 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         f"in {runner.graph_capture_s:.2f} s; peak device memory "
         f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
     log(f"  launches in the measured round: {json.dumps(launches)}")
-    missing = [k for k in BENCH_KERNELS if launches[k] <= 0]
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the bench: {missing}")
     engine.step = real_step
+    if not trace:
+        return launches
 
     # a fresh batch under the profiler: its chunked prefill step, then one
     # window: 33 tokens = the prefill's + one 32-step window (too short to
@@ -1868,6 +2181,33 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the bench protocol across the precision matrix
+# ---------------------------------------------------------------------------
+
+G128_KERNELS = ("w4a8_matmul_per_group", "w8a8_matmul",
+                "paged_prefill_attention", "decode_attention_append")
+KV8_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul", "paged_prefill_kv8",
+               "decode_attention_append_kv8")
+
+
+def run_bench_precisions(dev):
+    """Phase 5's protocol (``run_bench``) at ``--precision w4a8kv4
+    --group-size 128`` (a warmup and a measured round, then a traced
+    prefill step and window), then at ``w4a8kv8`` per-channel (a warmup and
+    a measured round). Returns each run's launches."""
+    import torch
+
+    log("  (a) w4a8kv4 g128")
+    g128 = run_bench(dev, group_size=128, kernels=G128_KERNELS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) w4a8kv8")
+    kv8 = run_bench(dev, precision="w4a8kv8", kernels=KV8_KERNELS,
+                    trace=False)
+    return g128, kv8
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1898,26 +2238,32 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
+    phase_s = {}
+    t_phase = time.time()
+
+    def phase_done(name):
+        nonlocal t_phase
+        phase_s[name] = time.time() - t_phase
+        log(f"  [{name} wall {phase_s[name]:.1f} s]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = time.time()
+
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
-    gemm_rows, gemm_err = check_quant_gemms(dev, gen)
-    # the W4A8 entry of the kernels line: one prefill layer (M = 8192)
-    pre = [r for r in gemm_rows if r["m"] == 8192]
-    lib = [r["library_ms"] for r in pre]
+    gemm_rows, _ = check_quant_gemms(dev, gen)
+    group_rows = check_per_group_gemms(dev, gen)
     kernels = {
-        "w4a8_matmul_per_channel": dict(
-            ms=sum(r["ms"] for r in pre),
-            plain_ms=sum(r["plain_ms"] for r in pre),
-            bound_ms=sum(r["bound_ms"] for r in pre),
-            bound_by="operations" if all(
-                r["bound_by"] == "operations" for r in pre) else "bytes",
-            library_ms=None if None in lib else sum(lib),
-            max_abs_err=gemm_err,
-        ),
+        # the GEMM entries: one prefill layer (M = 8192); the error is the
+        # largest over all sixteen shape / M pairs
+        "w4a8_matmul_per_channel": layer_row(gemm_rows, 8192),
+        "w4a8_matmul_per_group": layer_row(group_rows, 8192),
         "w8a8_matmul": check_w8a8(dev, gen),
         "flash_prefill": check_flash(dev, gen),
         "decode_attention_append": check_decode(dev, gen),
+        "decode_attention_append_kv8": check_decode(dev, gen, kv_bits=8),
         "paged_prefill_attention": check_paged_prefill(dev, gen),
+        "paged_prefill_kv8": check_paged_prefill(dev, gen, kv_bits=8),
         "kv_append_decode": check_kv_append(dev, gen),
         "decode_attention_ph": check_decode_ph(dev, gen, b=1),
         "decode_attention_band": check_decode_band(dev, gen, b=1),
@@ -1930,12 +2276,14 @@ def main() -> int:
     check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped")
     # the bench's decode shapes (batch 128), logged beside the rows above
     check_w8a8(dev, gen, m=128)
-    check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536)
+    for kv_bits in (4, 8):
+        check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536,
+                     kv_bits=kv_bits)
     # the page-list kernels at a batch of 8 long contexts
     check_decode_ph(dev, gen, b=8)
     check_decode_band(dev, gen, b=8)
     time_selector(dev, gen)
-    torch.cuda.empty_cache()
+    phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables = check_forward(dev)
     pool, first = check_chunked_forward(dev, spec, params, prompts, tables)
@@ -1943,40 +2291,49 @@ def main() -> int:
                  first)
     del spec, params, pool
     torch.cuda.empty_cache()
+    check_precision_forwards(dev)
     check_sparse_forward(dev)
     torch.cuda.empty_cache()
     check_sparse_prefill_forward(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_done("phase 3")
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_done("phase 4")
     log("phase 5: bench protocol (batch 128, 1024 in / 512 out, chunked "
         "prefill 8192, 32-step windows) through qserve_benchmark.run_round")
     # the bench's kernels report its launches; the flash kernel, which the
     # bench's chunked prefill does not run, reports phase 4's
     bench = run_bench(dev)
     launches.update({k: bench[k] for k in BENCH_KERNELS})
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_done("phase 5")
     log("phase 6: LServe benchmark protocol (batch 1, 32768 in / 128 out, "
         "sparse decode, static sparsity 0.5) through lserve_benchmark")
     lserve = run_lserve(dev)
     launches.update({k: lserve[k] for k in LSERVE_KERNELS})
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_done("phase 6")
     log("phase 7: LServe prefill side (--sparse-context-mode "
         "--sparse-decode-mode, static sparsity 0.5; 32768 in / 128 out "
         "chunked, 16384 in / 32 out whole prompt) through lserve_benchmark")
     prefill = run_lserve_prefill(dev)
     launches.update({k: prefill[k] for k in ("flash_prefill_band",
                                              "paged_prefill_ring")})
+    phase_done("phase 7")
+    log("phase 8: bench protocol across the precision matrix (w4a8kv4 "
+        "g128, then w4a8kv8) through qserve_benchmark.run_round")
+    g128, kv8 = run_bench_precisions(dev)
+    launches["w4a8_matmul_per_group"] = g128["w4a8_matmul_per_group"]
+    launches.update({k: kv8[k] for k in ("decode_attention_append_kv8",
+                                         "paged_prefill_kv8")})
+    phase_done("phase 8")
+    log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
         "w4a8_matmul_per_channel": (
             "omniserve_tpu_torch/csrc/quant_gemm.cu",
             "omniserve_tpu/ops/pallas/quant_matmul.py:151"),
+        "w4a8_matmul_per_group": (
+            "omniserve_tpu_torch/csrc/quant_gemm.cu",
+            "omniserve_tpu/ops/pallas/quant_matmul.py:281"),
         "w8a8_matmul": (
             "omniserve_tpu_torch/csrc/quant_gemm.cu",
             "omniserve_tpu/ops/pallas/quant_matmul.py:406"),
@@ -1986,7 +2343,13 @@ def main() -> int:
         "decode_attention_append": (
             "omniserve_tpu_torch/csrc/decode_attention.cu",
             "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "decode_attention_append_kv8": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620"),
         "paged_prefill_attention": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        "paged_prefill_kv8": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
         "kv_append_decode": (

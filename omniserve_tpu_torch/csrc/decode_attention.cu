@@ -1,9 +1,9 @@
-// Paged kv4 decode attention for Hopper (sm_90a): three entry points over
-// one page walk.
+// Paged decode attention for Hopper (sm_90a): three entry points over one
+// page walk.
 //
 // Replace the TPU kernels of omniserve_tpu/ops/pallas/decode_attention.py:
 //   1. paged_mqa_attention_single_pass (:620, kernel _sp_kernel :112) in its
-//      append= mode over a dense, contiguous page list
+//      append= mode over a dense, contiguous page list, kv4 or kv8 pools
 //      (launch_decode_attention_append);
 //   2. paged_mqa_attention_single_pass_ph (:1119, kernel _sp_kernel_ph :850):
 //      dynamic-sparse decode over per-(sequence, kv head) page lists
@@ -20,16 +20,20 @@
 //     it writes nothing and outputs zeros.
 //   - the new token goes to logical page (len-1) // page, slot
 //     (len-1) % page; it is quantized from its bf16 value (fine-grained
-//     kv4: scale = max(max-min, 1e-8)/15, zero = -15*min/range,
-//     code = rint(x/scale + zero) in [0, 15]), attended through its
-//     dequantized value, and written into the pool: its nibble merged into
-//     the byte it shares with slot s +- page/2, its four folded plane lanes
-//     set (k_scale, k_scale*(k_zero+128), v_scale, v_zero+128).
-//   - pool layout: k/v [P, H, page/2, D] uint8 (half-split: token t at row
-//     t % (page/2), high nibble iff t >= page/2); planes [P, 4, H, page] f32.
+//     over L = 15 levels for kv4, 255 for kv8: scale = max(max-min,
+//     1e-8)/L, zero = -L*min/range, code = rint(x/scale + zero) in [0, L]),
+//     attended through its dequantized value, and written into the pool:
+//     kv4 merges its nibble into the byte it shares with slot s +- page/2,
+//     kv8 writes one byte per value at row s; its four folded plane lanes
+//     are set (k_scale, k_scale*(k_zero+128), v_scale, v_zero+128) for both.
+//   - pool layout: kv4 k/v [P, H, page/2, D] uint8 (half-split: token t at
+//     row t % (page/2), high nibble iff t >= page/2); kv8 k/v [P, H, page,
+//     D] uint8 (token t at row t, codes without bias: value = (code - zero)
+//     * scale); planes [P, 4, H, page] f32.
 //
 // What bounds it: device-memory bytes (each cached token costs D bytes of
-// K+V nibbles and 16 bytes of planes; the math is a few FMAs per byte).
+// K+V nibbles, 2*D bytes under kv8, and 16 bytes of planes; the math is a
+// few FMAs per byte).
 // Design: one block per (kv head, sequence) walks that sequence's pages;
 // one thread per token computes the n_rep query dots straight from the
 // packed nibbles (rank-1 zero-point term from the folded planes), one warp
@@ -39,18 +43,19 @@
 // block. Compiled with --fmad=false so the quantization codes and planes
 // are bit-identical to the plain append.
 
-#include "kv4_common.cuh"
+#include "kv_common.cuh"
 
 namespace {
 
-using namespace kv4;
+using namespace kv;
 
-template <int NREP>
+// KV_BITS = 4 (half-split nibble pages) or 8 (one byte per value).
+template <int NREP, int KV_BITS>
 __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
     const __nv_bfloat16* __restrict__ k_new,  // [B, H, D]
     const __nv_bfloat16* __restrict__ v_new,  // [B, H, D]
-    uint8_t* __restrict__ k_data,             // layer: [P, H, page/2, D]
+    uint8_t* __restrict__ k_data,             // layer: [P, H, rows, D]
     uint8_t* __restrict__ v_data,
     float* __restrict__ planes,               // layer: [P, 4, H, page]
     const int* __restrict__ block_tables,     // [B, W]
@@ -74,7 +79,10 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
       out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
     return;
   }
+  constexpr bool KV8 = KV_BITS == 8;
+  constexpr int LEVELS = KV8 ? 255 : 15;
   const int half = page / 2;
+  const int rows = KV8 ? page : half;   // byte rows per page and head
 
   for (int r = 0; r < n_rep; ++r)
     q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
@@ -86,8 +94,8 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
 
   // the new token: quantize, attend through its dequantized value
   const size_t kv_off = ((size_t)b * H + h) * D + tid;
-  const TokQuant kq = quant_kv4(__bfloat162float(k_new[kv_off]), red);
-  const TokQuant vq = quant_kv4(__bfloat162float(v_new[kv_off]), red);
+  const TokQuant kq = quant_kv<LEVELS>(__bfloat162float(k_new[kv_off]), red);
+  const TokQuant vq = quant_kv<LEVELS>(__bfloat162float(v_new[kv_off]), red);
   float acc[NREP];
   for (int r = 0; r < n_rep; ++r) {
     const float s = block_reduce(q_s[r][tid] * kq.dq, 0, red) * sm_scale;
@@ -105,8 +113,8 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
   for (int p = 0; p < n_pages; ++p) {
     const int phys = block_tables[(size_t)b * W + p];
     const int ntok = min(page, n_old - p * page);
-    const uint8_t* krows = k_data + ((size_t)phys * H + h) * half * D;
-    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * half * D;
+    const uint8_t* krows = k_data + ((size_t)phys * H + h) * rows * D;
+    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * rows * D;
     const float* pl = planes + (size_t)phys * 4 * H * page + (size_t)h * page;
     for (int t = tid; t < page; t += NT) {
       const float s0 = pl[t];
@@ -116,12 +124,13 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
       vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;       // v_zero
     }
     __syncthreads();
-    // scores: one thread per token, dots over the packed K nibbles
+    // scores: one thread per token, dots over the K codes
     for (int t = tid; t < page; t += NT) {
       if (t < ntok) {
-        const int shift = t >= half ? 4 : 0;
-        const uint4* kr =
-            reinterpret_cast<const uint4*>(krows + (size_t)(t % half) * D);
+        const int shift = (!KV8 && t >= half) ? 4 : 0;
+        const uint32_t mask = KV8 ? 0xFFu : 0xFu;
+        const uint4* kr = reinterpret_cast<const uint4*>(
+            krows + (size_t)(KV8 ? t : t % half) * D);
         float dot[NREP];
         for (int r = 0; r < n_rep; ++r) dot[r] = 0.0f;
 #pragma unroll 2
@@ -132,7 +141,8 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
           for (int wi = 0; wi < 4; ++wi) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float code = (float)((words[wi] >> (8 * e + shift)) & 0xF);
+              const float code =
+                  (float)((words[wi] >> (8 * e + shift)) & mask);
               const int d = c * 16 + wi * 4 + e;
               for (int r = 0; r < n_rep; ++r) dot[r] += q_s[r][d] * code;
             }
@@ -169,17 +179,25 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
       }
     }
     __syncthreads();
-    // P.V: one thread per head-dim lane; rows t and t + page/2 share a byte
+    // P.V: one thread per head-dim lane; kv4 rows t and t + page/2 share a
+    // byte, kv8 rows hold one token each
     for (int r = 0; r < n_rep; ++r) acc[r] = acc[r] * alpha_s[r] - c_s[r];
-    const int nrow = min(half, ntok);
-    for (int row = 0; row < nrow; ++row) {
-      const uint32_t byte = vrows[(size_t)row * D + tid];
-      const float lo = (float)(byte & 0xF);
-      const float hi = (float)(byte >> 4);
-      const bool has_hi = row + half < ntok;
-      for (int r = 0; r < n_rep; ++r) {
-        acc[r] += score[r][row] * lo;
-        if (has_hi) acc[r] += score[r][row + half] * hi;
+    if constexpr (KV8) {
+      for (int row = 0; row < ntok; ++row) {
+        const float code = (float)vrows[(size_t)row * D + tid];
+        for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * code;
+      }
+    } else {
+      const int nrow = min(half, ntok);
+      for (int row = 0; row < nrow; ++row) {
+        const uint32_t byte = vrows[(size_t)row * D + tid];
+        const float lo = (float)(byte & 0xF);
+        const float hi = (float)(byte >> 4);
+        const bool has_hi = row + half < ntok;
+        for (int r = 0; r < n_rep; ++r) {
+          acc[r] += score[r][row] * lo;
+          if (has_hi) acc[r] += score[r][row + half] * hi;
+        }
       }
     }
     __syncthreads();
@@ -192,15 +210,21 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
   const int pos = len - 1;
   const int phys = block_tables[(size_t)b * W + pos / page];
   const int slot = pos % page;
-  const int row = slot % half;
-  const bool is_hi = slot >= half;
-  const size_t byte_off = (((size_t)phys * H + h) * half + row) * D + tid;
   const uint32_t kc_new = (uint32_t)kq.code, vc_new = (uint32_t)vq.code;
-  const uint32_t kb = k_data[byte_off], vb = v_data[byte_off];
-  k_data[byte_off] = (uint8_t)(is_hi ? ((kb & 0x0F) | (kc_new << 4))
-                                     : ((kb & 0xF0) | kc_new));
-  v_data[byte_off] = (uint8_t)(is_hi ? ((vb & 0x0F) | (vc_new << 4))
-                                     : ((vb & 0xF0) | vc_new));
+  if constexpr (KV8) {
+    const size_t byte_off = (((size_t)phys * H + h) * page + slot) * D + tid;
+    k_data[byte_off] = (uint8_t)kc_new;
+    v_data[byte_off] = (uint8_t)vc_new;
+  } else {
+    const int row = slot % half;
+    const bool is_hi = slot >= half;
+    const size_t byte_off = (((size_t)phys * H + h) * half + row) * D + tid;
+    const uint32_t kb = k_data[byte_off], vb = v_data[byte_off];
+    k_data[byte_off] = (uint8_t)(is_hi ? ((kb & 0x0F) | (kc_new << 4))
+                                       : ((kb & 0xF0) | kc_new));
+    v_data[byte_off] = (uint8_t)(is_hi ? ((vb & 0x0F) | (vc_new << 4))
+                                       : ((vb & 0xF0) | vc_new));
+  }
   if (tid < 4) {
     float val;
     if (tid == 0) val = kq.scale;
@@ -397,15 +421,17 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
+// kv_bits: 4 (half-split nibble pages) or 8 (one byte per value).
 int launch_decode_attention_append(
     const void* q, const void* k_new, const void* v_new, void* k_data,
     void* v_data, void* planes, const void* block_tables,
     const void* context_lens, void* out, int B, int H, int n_rep, int page,
-    int W, float sm_scale, void* stream) {
+    int W, float sm_scale, int kv_bits, void* stream) {
+  if (kv_bits != 4 && kv_bits != 8) return (int)cudaErrorInvalidValue;
   dim3 grid(H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(R)                                                          \
-  decode_attn_append_kernel<R><<<grid, NT, 0, s>>>(                        \
+#define LAUNCH_BITS(R, BITS)                                               \
+  decode_attn_append_kernel<R, BITS><<<grid, NT, 0, s>>>(                  \
       static_cast<const __nv_bfloat16*>(q),                                \
       static_cast<const __nv_bfloat16*>(k_new),                            \
       static_cast<const __nv_bfloat16*>(v_new),                            \
@@ -413,6 +439,9 @@ int launch_decode_attention_append(
       static_cast<float*>(planes), static_cast<const int*>(block_tables),  \
       static_cast<const int*>(context_lens),                               \
       static_cast<__nv_bfloat16*>(out), H, page, W, sm_scale)
+#define LAUNCH(R)                      \
+  if (kv_bits == 8) LAUNCH_BITS(R, 8); \
+  else LAUNCH_BITS(R, 4)
   switch (n_rep) {
     case 1: LAUNCH(1); break;
     case 2: LAUNCH(2); break;
@@ -421,6 +450,7 @@ int launch_decode_attention_append(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH
+#undef LAUNCH_BITS
   return (int)cudaGetLastError();
 }
 

@@ -25,14 +25,14 @@
 // token (D bytes of K and V read-modify-written, 16 bytes of planes, 2*D
 // floats of stats). Design: one block per token, one thread per head-dim
 // lane, a loop over the pool's heads; the quantizer is the one the fused
-// decode kernel uses (kv4_common.cuh). Compiled with --fmad=false so pool
+// decode kernel uses (kv_common.cuh). Compiled with --fmad=false so pool
 // bytes, planes and stats equal the plain version's exactly.
 
-#include "kv4_common.cuh"
+#include "kv_common.cuh"
 
 namespace {
 
-using namespace kv4;
+using namespace kv;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -62,8 +62,8 @@ __global__ void __launch_bounds__(NT) kv_append_kernel(
   for (int h = 0; h < H; ++h) {
     const size_t in_off = ((size_t)t * H + h) * D + tid;
     const float kx = to_f32(k[in_off]);
-    const TokQuant kq = quant_kv4(kx, red);
-    const TokQuant vq = quant_kv4(to_f32(v[in_off]), red);
+    const TokQuant kq = quant_kv<15>(kx, red);
+    const TokQuant vq = quant_kv<15>(to_f32(v[in_off]), red);
     const size_t byte_off = (((size_t)pg * H + h) * half + row) * D + tid;
     const uint32_t kc = (uint32_t)kq.code, vc = (uint32_t)vq.code;
     const uint32_t kb = k_data[byte_off], vb = v_data[byte_off];

@@ -1,6 +1,7 @@
-// Device code shared by the kv4 kernels (decode_attention.cu, kv_append.cu):
-// block reductions over one 128-thread block (one thread per head-dim lane)
-// and the fine-grained kv4 quantizer of one [D] vector.
+// Device code shared by the paged-KV kernels (decode_attention.cu,
+// kv_append.cu): block reductions over one 128-thread block (one thread per
+// head-dim lane) and the fine-grained quantizer of one [D] vector over 15
+// levels (kv4) or 255 (kv8).
 //
 // The quantizer follows the plain version's f32 op order
 // (ops/quantization.kv_quantize_fine_grained); sources that include this
@@ -14,7 +15,7 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace kv4 {
+namespace kv {
 
 constexpr int D = 128;         // head dim (one thread per lane)
 constexpr int NT = D;          // threads per block
@@ -53,18 +54,21 @@ struct TokQuant {
   float code, dq, scale, zero;
 };
 
-// Fine-grained kv4 quantization of one lane of a [D] vector, exactly the
-// plain version's op order (ops/quantization.kv_quantize_fine_grained).
-__device__ inline TokQuant quant_kv4(float x, float* red) {
+// Fine-grained quantization of one lane of a [D] vector over LEVELS = 15
+// (kv4) or 255 (kv8) levels, exactly the plain version's op order
+// (ops/quantization.kv_quantize_fine_grained).
+template <int LEVELS>
+__device__ inline TokQuant quant_kv(float x, float* red) {
+  constexpr float L = (float)LEVELS;
   const float mx = block_reduce(x, 1, red);
   const float mn = block_reduce(x, 2, red);
   const float rng = fmaxf(mx - mn, 1e-8f);
   TokQuant t;
-  t.scale = rng / 15.0f;
-  t.zero = (-15.0f * mn) / rng;
-  t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), 15.0f);
+  t.scale = rng / L;
+  t.zero = (-L * mn) / rng;
+  t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), L);
   t.dq = (t.code - t.zero) * t.scale;
   return t;
 }
 
-}  // namespace kv4
+}  // namespace kv

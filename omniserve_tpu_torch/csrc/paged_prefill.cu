@@ -1,17 +1,21 @@
-// Chunked-prefill attention over the paged kv4 pool, for Hopper (sm_90a).
+// Chunked-prefill attention over the paged kv4 / kv8 pool, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel omniserve_tpu/ops/pallas/paged_prefill.py:
-//   paged_prefill_attention (:268, kernel _prefill_kernel :39) over a kv4
-//   fine-grained pool: dense heads over a block table, and the explicit
-//   page-list mode with the streaming ring's relabel and the per-head
-//   sink + local band (LServe's chunked prefill over the ring pool).
+//   paged_prefill_attention (:268, kernel _prefill_kernel :39) over a
+//   fine-grained pool: dense heads over a block table (kv4 or kv8 pages),
+//   and, over kv4 pages, the explicit page-list mode with the streaming
+//   ring's relabel and the per-head sink + local band (LServe's chunked
+//   prefill over the ring pool).
 //
 // Contract (plain version: omniserve_tpu_torch/ops/attention_ref.py
 // paged_prefill_attention):
-//   q [B, Tc, Hq, D] bf16; one layer of the pool: k/v [P, H, page/2, D]
+//   q [B, Tc, Hq, D] bf16; one layer of the pool: kv4 k/v [P, H, page/2, D]
 //   uint8 in the half-split layout (slot s at row s % (page/2), high nibble
-//   iff s >= page/2) and planes [P, 4, H, page] f32, folded (k_scale,
-//   k_scale*(k_zero+128), v_scale, v_zero+128); block_tables [B, W] int32;
+//   iff s >= page/2), or kv8 k/v [P, H, page, D] uint8 (slot s at row s,
+//   one byte per value), and planes [P, 4, H, page] f32, folded (k_scale,
+//   k_scale*(k_zero+128), v_scale, v_zero+128): either width dequantizes
+//   as (code - zero) * scale; block_tables [B, W] int32;
 //   q_positions [B, Tc] int32 (-1 = padding); context_lens [B] int32
 //   (history + chunk: the caller appends the chunk first).
 //   Row r of table slot s holds position kp = logic * page + r, where
@@ -26,7 +30,8 @@
 //   gives 0. Out [B, Tc, Hq, D] bf16.
 //
 // What bounds it: operations (4 * D flops per visible (query, key) pair
-// and q head, against D + 16 bytes per cached token and kv head).
+// and q head, against D + 16 bytes per cached token and kv head, 2 * D +
+// 16 under kv8).
 // Design: one block of 4 warps per (tile of 64 query rows, kv head,
 // sequence). A row is a (token, GQA rep) pair, so the n_rep q heads of one
 // kv head share every K/V tile. The block reads the pages IN PLACE through
@@ -83,8 +88,9 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
 
 // SPARSE = a page list and/or per-head flags; the dense instantiation is
 // the plain block-table walk, so the bench's chunked prefill pays nothing
-// for the ring mode.
-template <bool SPARSE>
+// for the ring mode. KV8 = one byte per value (dense only); the kv4
+// instantiations compile exactly the code they had without it.
+template <bool SPARSE, bool KV8>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
     const uint8_t* __restrict__ v_data, const float* __restrict__ planes,
@@ -114,6 +120,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   const int t0 = blockIdx.x * (BQ / n_rep);   // first query token of the tile
   const int Hq = H * n_rep;
   const int half = page / 2;
+  const int rows = KV8 ? page : half;   // byte rows per page and head
   const int ctx = context_lens[b];
   const bool dense = !SPARSE || flags == nullptr || flags[h] != 0;
   const bool listed = SPARSE && sel_logic != nullptr;
@@ -220,8 +227,8 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       float ks = 0.0f, kc = 0.0f, vs = 0.0f, vz = 0.0f;
       if (phys >= 0) {
         const int slot = (j0 + tid) % page;
-        row = slot % half;
-        shift = slot >= half ? 4 : 0;
+        row = KV8 ? slot : slot % half;
+        shift = (!KV8 && slot >= half) ? 4 : 0;
         const float* pl = planes + (size_t)phys * 4 * H * page +
                           (size_t)h * page + slot;
         ks = pl[0];
@@ -244,16 +251,17 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       const int phys = t_phys[r];
       if (phys >= 0) {
         const uint4 kw = *reinterpret_cast<const uint4*>(
-            k_data + (((size_t)phys * H + h) * half + t_row[r]) * D + c);
+            k_data + (((size_t)phys * H + h) * rows + t_row[r]) * D + c);
         const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
         const int sh = t_shift[r];
         const float ks = t_ks[r], kc = t_kc[r];
+        constexpr uint32_t mask = KV8 ? 0xFFu : 0xFu;
 #pragma unroll
         for (int wi = 0; wi < 4; ++wi) {
 #pragma unroll
           for (int e = 0; e < 4; e += 2) {
-            const float a = (float)((words[wi] >> (8 * e + sh)) & 0xFu);
-            const float a2 = (float)((words[wi] >> (8 * e + 8 + sh)) & 0xFu);
+            const float a = (float)((words[wi] >> (8 * e + sh)) & mask);
+            const float a2 = (float)((words[wi] >> (8 * e + 8 + sh)) & mask);
             w[wi * 2 + e / 2] = pack_h2(a * ks - kc, a2 * ks - kc);
           }
         }
@@ -270,15 +278,16 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       __half* dv = Vt + c * VS + r;
       if (phys >= 0) {
         const uint4 vw = *reinterpret_cast<const uint4*>(
-            v_data + (((size_t)phys * H + h) * half + t_row[r]) * D + c);
+            v_data + (((size_t)phys * H + h) * rows + t_row[r]) * D + c);
         const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
         const int sh = t_shift[r];
         const float vs = t_vs[r], vz = t_vz[r];
+        constexpr uint32_t mask = KV8 ? 0xFFu : 0xFu;
 #pragma unroll
         for (int wi = 0; wi < 4; ++wi) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float vq = (float)((words[wi] >> (8 * e + sh)) & 0xFu);
+            const float vq = (float)((words[wi] >> (8 * e + sh)) & mask);
             dv[(wi * 4 + e) * VS] = __float2half_rn((vq - vz) * vs);
           }
         }
@@ -404,7 +413,8 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = launched).
 // sel_logic: [B, W] int32 logical page per table slot (-1 dead), or null
 // for a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for
-// all dense; ring_span > 0 (pages) relabels the ring's stale rows.
+// all dense; ring_span > 0 (pages) relabels the ring's stale rows;
+// kv_bits 4 or 8 (8 only without a page list or flags).
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
                          const void* block_tables, const void* q_positions,
@@ -412,13 +422,15 @@ int launch_paged_prefill(const void* q, const void* k_data,
                          const void* flags, void* out, int B, int Tc, int H,
                          int n_rep, int page, int W, int sink_size,
                          int local_size, int ring_span, int ring_sink_tok,
-                         float sm_scale, void* stream) {
+                         float sm_scale, int kv_bits, void* stream) {
+  const bool sparse = sel_logic != nullptr || flags != nullptr;
   if (n_rep <= 0 || BQ % n_rep || page <= 0 || page % 2 || W <= 0 ||
-      (ring_span > 0 && sel_logic == nullptr))
+      (ring_span > 0 && sel_logic == nullptr) ||
+      (kv_bits != 4 && kv_bits != 8) || (kv_bits == 8 && sparse))
     return (int)cudaErrorInvalidValue;
-  auto kernel = (sel_logic != nullptr || flags != nullptr)
-                    ? paged_prefill_kernel<true>
-                    : paged_prefill_kernel<false>;
+  auto kernel = sparse ? paged_prefill_kernel<true, false>
+                       : (kv_bits == 8 ? paged_prefill_kernel<false, true>
+                                       : paged_prefill_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;

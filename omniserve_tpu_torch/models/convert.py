@@ -4,7 +4,9 @@
 ``jax.tree.map(np.asarray, params)`` and returns the port's tree with the
 same keys. Weight containers (``NamedTuple``s of the JAX package) are read
 through ``_asdict()`` and rebuilt as the port's container of the same name,
-so this module imports nothing of the JAX package.
+so this module imports nothing of the JAX package. Plain arrays (the
+stacked bf16 [L, K, N] weights of a W16A16 body, norms, embeddings) carry
+across as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from omniserve_tpu_torch.ops.paged_kv import KVPool
 
 _CONTAINERS = {
     "QuantizedWeightPerChannel": quantization.QuantizedWeightPerChannel,
+    "QuantizedWeightPerGroup": quantization.QuantizedWeightPerGroup,
     "QuantizedWeightW8": quantization.QuantizedWeightW8,
 }
 
@@ -52,7 +55,7 @@ def params_from_numpy(tree: Any, device) -> Any:
 
 def pool_from_numpy(pool: Any, device) -> KVPool:
     """A JAX ``KVPool`` (numpy leaves, read by field name) -> port pool;
-    a retrieval pool with its K stats, or a streaming pool."""
+    kv4 or kv8, a retrieval pool with its K stats, or a streaming pool."""
     stats = getattr(pool, "k_stats", None)
     return KVPool(
         k_data=tensor_from_numpy(pool.k_data, device),

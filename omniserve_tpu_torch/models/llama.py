@@ -1,10 +1,13 @@
-"""Llama family, quantized (W4A8 per-channel x KV4), in PyTorch.
+"""Llama family, quantized (QServe's precision matrix), in PyTorch.
 
 Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
 sparse prefill and dynamic-sparse decode) with the same parameter tree and
-the same per-layer op order:
+the same per-layer op order. Bodies: W4A8 with per-channel or per-group
+(g128) weights, W8A8, W16A16 (bf16 activations, no quantization); pools:
+fine-grained kv4 or kv8 (kv8 on the dense path only). Per layer:
 
-- fused RMSNorm -> int8 quant (+ act sums), W4A8 qkv GEMM, RoPE;
+- fused RMSNorm -> int8 quant (+ act sums for per-channel W4), the qkv
+  GEMM, RoPE;
 - prefill: quantize + scatter K/V into the paged pool(s), then
   packed-varlen causal attention over the prompt's own K/V (under
   ``sparse_prefill`` streaming heads keep the ctx sink + local band); or,
@@ -18,8 +21,8 @@ the same per-layer op order:
   the split append into the retrieval pool (with K min/max stats) and the
   streaming ring pool, then attention over the selected pages (retrieval
   heads) and the sink + local band (streaming heads);
-- W4A8 o_proj, residual, RMSNorm -> quant, W4A8 gate_up, SwiGLU -> quant,
-  W4A8 down, residual;
+- o_proj, residual, RMSNorm -> quant, gate_up, SwiGLU -> quant, down,
+  residual (W16A16: no quantization, bf16 products);
 - final RMSNorm and the lm_head (bf16, or W8A8) on each sequence's last
   token at prefill.
 
@@ -38,9 +41,11 @@ import numpy as np
 import torch
 
 from omniserve_tpu_torch.ops import attention_ref, dispatch
-from omniserve_tpu_torch.ops.activation import silu_and_mul_quant
+from omniserve_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_quant
 from omniserve_tpu_torch.ops.matmul import (
+    bf16_matmul,
     w4a8_matmul_per_channel,
+    w4a8_matmul_per_group,
     w8a8_matmul,
 )
 from omniserve_tpu_torch.ops.norms import rms_norm, rms_norm_quant
@@ -54,6 +59,8 @@ from omniserve_tpu_torch.ops.paged_kv import (
 )
 from omniserve_tpu_torch.ops.quantization import (
     QuantizedWeightPerChannel,
+    QuantizedWeightPerGroup,
+    QuantizedWeightW8,
     ieee_div,
     quantize_activations,
 )
@@ -126,22 +133,44 @@ class LlamaSpec:
     def with_stats(self) -> bool:
         return self.sparse_decode
 
+    @property
+    def quantized_acts(self) -> bool:
+        return self.act_bits == 8
+
+    @property
+    def needs_act_sums(self) -> bool:
+        """Only the per-channel W4 epilogue cancels its zero point with
+        the activation sums."""
+        return self.weight_bits == 4 and self.group_size == -1
+
     def check_supported(self) -> None:
         """Raise for configurations the port does not serve yet."""
-        if (self.weight_bits, self.act_bits, self.group_size) != (4, 8, -1):
+        if (self.weight_bits, self.act_bits) not in ((4, 8), (8, 8),
+                                                     (16, 16)):
             raise NotImplementedError(
-                "the port serves W4A8 per-channel weights; "
-                "per-group, W8A8 and W16A16 bodies are ROADMAP.md queue 1 "
-                "item 8"
+                f"W{self.weight_bits}A{self.act_bits} bodies are outside "
+                "the precision matrix (W4A8 per-channel or per-group, W8A8, "
+                "W16A16)"
             )
-        if self.kv_bits != 4 or not self.kv_zeros:
+        if self.kv_bits not in (4, 8):
             raise NotImplementedError(
-                "the port serves fine-grained kv4 pools; kv8, "
-                "kv16 and per-tensor KV are ROADMAP.md queue 1 item 8"
+                f"kv{self.kv_bits} pools are ROADMAP.md queue 1 item 8b (the "
+                "port serves kv4 and kv8)"
+            )
+        if not self.kv_zeros:
+            raise NotImplementedError(
+                "per-tensor KV (kv_quant_granularity='per_tensor') is "
+                "ROADMAP.md queue 1 item 8b (the port serves fine-grained "
+                "pools)"
+            )
+        if self.kv_bits == 8 and (self.sparse_decode or self.sparse_prefill):
+            raise NotImplementedError(
+                "kv8 under --sparse-decode-mode / --sparse-context-mode is "
+                "ROADMAP.md queue 1 item 8b (LServe serves kv4 pools)"
             )
         if self.attn_bias:
             raise NotImplementedError(
-                "the QKV bias (Qwen2) is ROADMAP.md queue 1 item 8"
+                "the QKV bias (Qwen2) is ROADMAP.md queue 1 item 8b"
             )
 
     @classmethod
@@ -250,21 +279,46 @@ class DecodeBatch(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _random_packed_stack(gen, n_layers, n_out, k_in, device):
-    """Random PACKED W4 per-channel weights for ``n_layers`` layers.
+def _random_packed_stack(gen, spec: LlamaSpec, n_layers, n_out, k_in,
+                         device):
+    """Random PACKED weights of ``spec``'s body for ``n_layers`` layers.
 
-    The 'dummy' load format needs plausible magnitudes only: codes are
-    uniform bytes, scales in [0.003, 0.006], zero point 8 (dequantized std
-    about 0.02), as the JAX package draws them."""
-    qweight = torch.randint(
-        0, 256, (n_layers, k_in // 2, n_out), generator=gen,
-        dtype=torch.uint8, device=device,
-    )
-    s1 = torch.empty((n_layers, n_out), dtype=torch.float32, device=device)
-    s1.uniform_(0.003, 0.006, generator=gen)
-    return QuantizedWeightPerChannel(
-        qweight=qweight, s1_scales=s1, s1_szeros=8.0 * s1
-    )
+    The 'dummy' load format needs plausible magnitudes only, drawn as the
+    JAX package draws them: W4 codes are uniform bytes with s1 in [0.003,
+    0.006] and zero point 8 (per group: integer s2 in [1, 3], ``s2_zero =
+    -8 * s2``), dequantized std about 0.02; W8 codes uniform int8 with
+    scales in [0.0003, 0.0006], std about 0.033; bf16 weights ``0.02 *
+    N(0, 1)``."""
+    L = n_layers
+
+    def uniform(lo, hi):
+        t = torch.empty((L, n_out), dtype=torch.float32, device=device)
+        return t.uniform_(lo, hi, generator=gen)
+
+    if spec.weight_bits == 4:
+        qweight = torch.randint(
+            0, 256, (L, k_in // 2, n_out), generator=gen,
+            dtype=torch.uint8, device=device,
+        )
+        s1 = uniform(0.003, 0.006)
+        if spec.group_size == -1:
+            return QuantizedWeightPerChannel(
+                qweight=qweight, s1_scales=s1, s1_szeros=8.0 * s1
+            )
+        s2 = torch.randint(1, 4, (L, k_in // spec.group_size, n_out),
+                           generator=gen, dtype=torch.int8, device=device)
+        return QuantizedWeightPerGroup(
+            qweight=qweight, s1_scales=s1, s2_scales=s2, s2_zeros=-8 * s2,
+        )
+    if spec.weight_bits == 8:
+        qweight = torch.randint(
+            -128, 128, (L, k_in, n_out), generator=gen, dtype=torch.int8,
+            device=device,
+        )
+        return QuantizedWeightW8(qweight=qweight,
+                                 scales=uniform(0.0003, 0.0006))
+    w = torch.empty((L, k_in, n_out), dtype=torch.bfloat16, device=device)
+    return w.normal_(generator=gen) * 0.02
 
 
 def _quantize_lm_head(w_bf16: torch.Tensor):
@@ -317,10 +371,10 @@ def make_random_packed_params(
     layers = {
         "attn_ln": torch.ones((L, D), dtype=torch.float32, device=device),
         "mlp_ln": torch.ones((L, D), dtype=torch.float32, device=device),
-        "qkv": _random_packed_stack(gen, L, spec.qkv_out, D, device),
-        "o": _random_packed_stack(gen, L, D, spec.q_size, device),
-        "gate_up": _random_packed_stack(gen, L, 2 * I, D, device),
-        "down": _random_packed_stack(gen, L, D, I, device),
+        "qkv": _random_packed_stack(gen, spec, L, spec.qkv_out, D, device),
+        "o": _random_packed_stack(gen, spec, L, D, spec.q_size, device),
+        "gate_up": _random_packed_stack(gen, spec, L, 2 * I, D, device),
+        "down": _random_packed_stack(gen, spec, L, D, I, device),
     }
 
     def normal(*shape):
@@ -346,12 +400,39 @@ def make_random_packed_params(
 # ---------------------------------------------------------------------------
 
 
-def _apply_linear(weight: QuantizedWeightPerChannel, x_q, x_scale, x_sum,
+def _apply_linear(weight, spec: LlamaSpec, x_q, x_scale, x_sum,
                   layer: int):
-    return w4a8_matmul_per_channel(
-        x_q, weight.qweight, weight.s1_scales, weight.s1_szeros, x_scale,
-        x_sum, layer=layer,
-    )
+    """The body's linear on int8 activations (or bf16 under W16A16) for
+    one layer of STACKED weights."""
+    if spec.weight_bits == 4 and spec.group_size == -1:
+        return w4a8_matmul_per_channel(
+            x_q, weight.qweight, weight.s1_scales, weight.s1_szeros, x_scale,
+            x_sum, layer=layer,
+        )
+    if spec.weight_bits == 4:
+        return w4a8_matmul_per_group(
+            x_q, weight.qweight, weight.s1_scales, weight.s2_scales,
+            weight.s2_zeros, x_scale, group_size=spec.group_size,
+            layer=layer,
+        )
+    if spec.weight_bits == 8:
+        return w8a8_matmul(x_q, weight.qweight, weight.scales, x_scale,
+                           layer=layer)
+    return bf16_matmul(x_q, weight, layer=layer)
+
+
+def _norm_quant(x, ln_w, spec: LlamaSpec):
+    """RMSNorm (+ per-token quant when activations are int8)."""
+    if spec.quantized_acts:
+        return rms_norm_quant(x, ln_w, spec.rms_eps,
+                              fuse_sum=spec.needs_act_sums)
+    return rms_norm(x, ln_w, spec.rms_eps), None, None
+
+
+def _act_quant(x, spec: LlamaSpec):
+    if spec.quantized_acts:
+        return quantize_activations(x, fuse_sum=spec.needs_act_sums)
+    return x.to(torch.bfloat16), None, None
 
 
 def _split_qkv(qkv, spec: LlamaSpec, t: int):
@@ -469,12 +550,15 @@ def _run_selector(q, retrieval_pool: KVPool, layer: int, batch: DecodeBatch,
 
 def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
     """The Llama SwiGLU MLP (pre-norm, quantized, residual)."""
-    x_q, x_scale, x_sum = rms_norm_quant(
-        h, lp["mlp_ln"][layer], spec.rms_eps, fuse_sum=True
-    )
-    gate_up = _apply_linear(lp["gate_up"], x_q, x_scale, x_sum, layer)
-    g_q, g_scale, g_sum = silu_and_mul_quant(gate_up, fuse_sum=True)
-    d_out = _apply_linear(lp["down"], g_q, g_scale, g_sum, layer)
+    x_q, x_scale, x_sum = _norm_quant(h, lp["mlp_ln"][layer], spec)
+    gate_up = _apply_linear(lp["gate_up"], spec, x_q, x_scale, x_sum, layer)
+    if spec.quantized_acts:
+        g_q, g_scale, g_sum = silu_and_mul_quant(
+            gate_up, fuse_sum=spec.needs_act_sums)
+    else:
+        g_q, g_scale, g_sum = (
+            silu_and_mul(gate_up).to(torch.bfloat16), None, None)
+    d_out = _apply_linear(lp["down"], spec, g_q, g_scale, g_sum, layer)
     return h + d_out.to(h.dtype)
 
 
@@ -486,10 +570,8 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
     None)."""
     t = h.shape[0]
     pool, streaming_pool = pools
-    x_q, x_scale, x_sum = rms_norm_quant(
-        h, lp["attn_ln"][layer], spec.rms_eps, fuse_sum=True
-    )
-    qkv = _apply_linear(lp["qkv"], x_q, x_scale, x_sum, layer)
+    x_q, x_scale, x_sum = _norm_quant(h, lp["attn_ln"][layer], spec)
+    qkv = _apply_linear(lp["qkv"], spec, x_q, x_scale, x_sum, layer)
     q, k, v = _split_qkv(qkv, spec, t)
     q = apply_rope(q, batch.positions, inv_freq)
     k = apply_rope(k, batch.positions, inv_freq)
@@ -577,8 +659,8 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
                 kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros,
             )
     attn = attn.reshape(t, spec.q_size)
-    a_q, a_scale, a_sum = quantize_activations(attn, fuse_sum=True)
-    o_out = _apply_linear(lp["o"], a_q, a_scale, a_sum, layer)
+    a_q, a_scale, a_sum = _act_quant(attn, spec)
+    o_out = _apply_linear(lp["o"], spec, a_q, a_scale, a_sum, layer)
     h = h + o_out.to(h.dtype)
     return _dense_mlp(h, lp, spec, layer), page_idxes_l
 

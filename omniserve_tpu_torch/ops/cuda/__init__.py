@@ -21,8 +21,10 @@ import torch
 
 LAUNCHES = {
     "w4a8_matmul_per_channel": 0,
+    "w4a8_matmul_per_group": 0,
     "w8a8_matmul": 0,
     "decode_attention_append": 0,
+    "decode_attention_append_kv8": 0,
     "decode_attention_ph": 0,
     "decode_attention_band": 0,
     "kv_append_decode": 0,
@@ -30,6 +32,7 @@ LAUNCHES = {
     "flash_prefill_band": 0,
     "paged_prefill_attention": 0,
     "paged_prefill_ring": 0,
+    "paged_prefill_kv8": 0,
 }
 
 _force_plain = False

@@ -1,6 +1,6 @@
-"""Paged kv4 decode attention (``csrc/decode_attention.cu``): the fused
-KV append over a dense page list, dynamic-sparse decode over per-head page
-lists, and the streaming band over a ring pool.
+"""Paged decode attention (``csrc/decode_attention.cu``): the fused KV
+append over a dense page list (kv4 or kv8 pools), dynamic-sparse decode
+over per-head page lists, and the streaming band over a ring pool (kv4).
 
 Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
@@ -49,7 +49,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_decode_attention_append.argtypes = (
-            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
+            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]
         )
         lib.launch_decode_attention_append.restype = _I
         lib.launch_decode_attention_ph.argtypes = (
@@ -78,17 +78,17 @@ def append_targets(block_tables, context_lens, page_size):
 
 def paged_decode_attention_fused_plain(
     q, pool: KVPool, layer: int, block_tables, context_lens, k_new, v_new,
-    *, sm_scale: float, page_size: int,
+    *, sm_scale: float, page_size: int, kv_bits: int = 4,
 ):
     """Plain version: append the new token, then attend the updated pool.
 
     q [B, Hq, D]; k_new/v_new [B, Hkv, D]. Returns [B, Hq, D]."""
     pages, slots = append_targets(block_tables, context_lens, page_size)
     append_kv(pool, layer, k_new, v_new, pages, slots, page_size,
-              kv_bits=4, kv_zeros=True)
+              kv_bits=kv_bits, kv_zeros=True)
     return attention_ref.paged_decode_attention(
         q, pool, layer, block_tables, context_lens, sm_scale, page_size,
-        kv_bits=4, kv_zeros=True,
+        kv_bits=kv_bits, kv_zeros=True,
     )
 
 
@@ -103,9 +103,12 @@ def paged_decode_attention_fused(
     *,
     sm_scale: float,
     page_size: int,
+    kv_bits: int = 4,
 ) -> torch.Tensor:
     """Kernel: attention over the pool plus the new token, whose K/V it
-    quantizes and writes into the pool. Returns [B, Hq, D] bf16."""
+    quantizes and writes into the pool (kv4 or kv8). Returns [B, Hq, D]
+    bf16. Launches count as ``decode_attention_append`` (kv4) or
+    ``decode_attention_append_kv8``."""
     b, hq, d = q.shape
     _, num_pages, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -114,9 +117,12 @@ def paged_decode_attention_fused(
             f"decode kernel needs head_dim {HEAD_DIM} and n_rep in "
             f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
-    if rows * 2 != page_size or page_size > MAX_PAGE or pool.kv_scales is None:
-        raise ValueError("decode kernel serves kv4 fine-grained pools with "
-                         f"pages of at most {MAX_PAGE} tokens")
+    want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
+    if rows != want_rows or page_size > MAX_PAGE or pool.kv_scales is None:
+        raise ValueError("decode kernel serves kv4 and kv8 fine-grained "
+                         f"pools with pages of at most {MAX_PAGE} tokens; "
+                         f"got kv{kv_bits}, {rows} rows of a {page_size}-"
+                         "token page")
     cuda.check(q, "q", torch.bfloat16)
     cuda.check(k_new, "k_new", torch.bfloat16, (b, hkv, d))
     cuda.check(v_new, "v_new", torch.bfloat16, (b, hkv, d))
@@ -133,10 +139,13 @@ def paged_decode_attention_fused(
         pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(),
         pool.kv_scales[layer].data_ptr(), block_tables.data_ptr(),
         context_lens.data_ptr(), out.data_ptr(), b, hkv, n_rep, page_size,
-        block_tables.shape[1], float(sm_scale), cuda.stream_handle(),
+        block_tables.shape[1], float(sm_scale), kv_bits,
+        cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "decode_attention_append")
-    cuda.LAUNCHES["decode_attention_append"] += 1
+    name = ("decode_attention_append_kv8" if kv_bits == 8
+            else "decode_attention_append")
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
     return out
 
 

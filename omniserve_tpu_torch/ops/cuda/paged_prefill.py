@@ -1,12 +1,13 @@
-"""Chunked-prefill attention over the paged kv4 pool
+"""Chunked-prefill attention over the paged kv4 / kv8 pool
 (``csrc/paged_prefill.cu``).
 
 Replaces ``omniserve_tpu/ops/pallas/paged_prefill.py:paged_prefill_attention``
-(:268, kernel ``_prefill_kernel`` :39) over a kv4 fine-grained pool: dense
-heads over a block table (launches counted as ``paged_prefill_attention``),
-and the explicit page-list mode, with the streaming ring's relabel and the
-per-head sink + local band, that LServe's chunked prefill runs over the ring
-pool (counted as ``paged_prefill_ring``). The plain version it is held
+(:268, kernel ``_prefill_kernel`` :39) over a fine-grained pool: dense
+heads over a block table (launches counted as ``paged_prefill_attention``
+over kv4 pages, ``paged_prefill_kv8`` over kv8 pages), and, over kv4
+pages, the explicit page-list mode, with the streaming ring's relabel and
+the per-head sink + local band, that LServe's chunked prefill runs over the
+ring pool (counted as ``paged_prefill_ring``). The plain version it is held
 against is ``paged_prefill_attention_plain`` below: the list turned into a
 per-row position map as ``omniserve_tpu/ops/dispatch.py:214-242`` does, then
 ``ops/attention_ref.paged_prefill_attention``. What bounds the kernel and how
@@ -35,7 +36,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_paged_prefill.argtypes = (
-            [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P]
+            [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
         )
         lib.launch_paged_prefill.restype = _I
         lib._typed = True
@@ -66,7 +67,7 @@ def paged_prefill_attention_plain(
     sm_scale: float, page_size: int, head_is_retrieval=None,
     sink_size: int = 0, local_size: int = 0,
     sel_logic: Optional[torch.Tensor] = None, ring_span_pages: int = 0,
-    ring_sink_tokens: int = 0,
+    ring_sink_tokens: int = 0, kv_bits: int = 4,
 ):
     """Plain version: ``attention_ref.paged_prefill_attention``, with an
     explicit page list turned into its position map first."""
@@ -76,7 +77,7 @@ def paged_prefill_attention_plain(
                                        ring_span_pages, ring_sink_tokens)
     return attention_ref.paged_prefill_attention(
         q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
-        page_size, kv_bits=4, kv_zeros=True,
+        page_size, kv_bits=kv_bits, kv_zeros=True,
         head_is_retrieval=head_is_retrieval, sink_size=sink_size,
         local_size=local_size, kv_positions=kv_positions,
     )
@@ -98,13 +99,15 @@ def paged_prefill_attention(
     sel_logic: Optional[torch.Tensor] = None,           # [B, W] int32
     ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
+    kv_bits: int = 4,
 ) -> torch.Tensor:
     """Kernel: causal GQA attention of the chunk over the pool, reading the
     pages in place. Without ``sel_logic`` the table is the dense history
     (slot = logical page); with it, slot s holds logical page
     ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
     newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
-    keep the sink + local band. Returns [B, Tc, Hq, D] bf16."""
+    keep the sink + local band. kv8 pages (one byte per value) take the
+    dense table only. Returns [B, Tc, Hq, D] bf16."""
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -113,8 +116,11 @@ def paged_prefill_attention(
             f"paged prefill kernel needs head_dim {HEAD_DIM} and n_rep in "
             f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
-    if rows * 2 != page_size or pool.kv_scales is None:
-        raise ValueError("paged prefill kernel serves kv4 fine-grained pools")
+    want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
+    if rows != want_rows or pool.kv_scales is None:
+        raise ValueError("paged prefill kernel serves kv4 and kv8 "
+                         f"fine-grained pools; got kv{kv_bits}, {rows} rows "
+                         f"of a {page_size}-token page")
     cuda.check(q, "q", torch.bfloat16)
     cuda.check(pool.k_data, "k_data", torch.uint8)
     cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
@@ -131,7 +137,11 @@ def paged_prefill_attention(
         sel_ptr = sel_logic.data_ptr()
     elif ring_span_pages:
         raise ValueError("ring_span_pages needs sel_logic")
-    if head_is_retrieval is not None and (sink_size or local_size):
+    band = head_is_retrieval is not None and bool(sink_size or local_size)
+    if kv_bits == 8 and (sel_logic is not None or band):
+        raise ValueError("paged prefill kernel takes kv8 pages over a dense "
+                         "table only (no page list, no band)")
+    if band:
         if tuple(head_is_retrieval.shape) != (hq,):
             raise ValueError(f"head_is_retrieval must be [{hq}] (per q "
                              f"head), got {tuple(head_is_retrieval.shape)}")
@@ -149,10 +159,11 @@ def paged_prefill_attention(
         context_lens.data_ptr(), sel_ptr, flags_ptr, out.data_ptr(),
         b, tc, hkv, n_rep, page_size, w, int(sink_size), int(local_size),
         int(ring_span_pages), int(ring_sink_tokens), float(sm_scale),
-        cuda.stream_handle(),
+        kv_bits, cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "paged_prefill_attention")
-    name = "paged_prefill_ring" if sel_logic is not None else \
-        "paged_prefill_attention"
+    name = ("paged_prefill_ring" if sel_logic is not None
+            else "paged_prefill_kv8" if kv_bits == 8
+            else "paged_prefill_attention")
+    cuda.raise_on_error(err, name)
     cuda.LAUNCHES[name] += 1
     return out

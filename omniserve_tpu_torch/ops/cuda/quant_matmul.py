@@ -1,7 +1,9 @@
-"""W4A8 per-channel and W8A8 GEMM kernels (``csrc/quant_gemm.cu``).
+"""W4A8 per-channel, W4A8 per-group and W8A8 GEMM kernels
+(``csrc/quant_gemm.cu``).
 
 Replace ``omniserve_tpu/ops/pallas/quant_matmul.py``:
-``w4a8_matmul_per_channel`` (:151) and ``w8a8_matmul`` (:406). The plain
+``w4a8_matmul_per_channel`` (:151), ``w4a8_matmul_per_group`` (:281) and
+``w8a8_matmul`` (:406). The plain
 versions they are held against are ``ops/matmul.py``'s ``*_ref``
 (re-exported here as ``*_plain``). What bounds them and how the kernel is
 laid out is in the CUDA source's header.
@@ -17,11 +19,13 @@ from omniserve_tpu_torch.csrc import build
 from omniserve_tpu_torch.ops import cuda
 from omniserve_tpu_torch.ops.matmul import (
     w4a8_matmul_per_channel_ref as w4a8_matmul_per_channel_plain,
+    w4a8_matmul_per_group_ref as w4a8_matmul_per_group_plain,
     w8a8_matmul_ref as w8a8_matmul_plain,
 )
 
 __all__ = [
     "w4a8_matmul_per_channel", "w4a8_matmul_per_channel_plain",
+    "w4a8_matmul_per_group", "w4a8_matmul_per_group_plain",
     "w8a8_matmul", "w8a8_matmul_plain",
 ]
 
@@ -35,6 +39,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.launch_w4a8_per_channel.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.launch_w4a8_per_channel.restype = _I
+        lib.launch_w4a8_per_group.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+        lib.launch_w4a8_per_group.restype = _I
         lib.launch_w8a8.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         lib.launch_w8a8.restype = _I
         lib._typed = True
@@ -75,6 +81,36 @@ def w4a8_matmul_per_channel(a_i8, qweight, s1_scales, s1_szeros, a_scale,
     )
     cuda.raise_on_error(err, "w4a8_matmul_per_channel")
     cuda.LAUNCHES["w4a8_matmul_per_channel"] += 1
+    return out
+
+
+def w4a8_matmul_per_group(a_i8, qweight, s1_scales, s2_scales, s2_zeros,
+                          a_scale, group_size=128, out_dtype=torch.bfloat16):
+    """[M, K] int8 x half-split packed [K/2, N] uint4 with per-group int8
+    scales and zeros [K/group, N] -> [M, N]. Needs group_size % 32 == 0 and
+    (K/2) % group_size == 0 (the plain version takes any group size); s2
+    must lie in [0, 17], as the derived quantizer gives it."""
+    k2, n = qweight.shape
+    m, k = _check_common(a_i8, a_scale, s1_scales, k2, n, out_dtype)
+    if k != 2 * k2:
+        raise ValueError(f"a_i8 K {k} != 2 * qweight rows {k2}")
+    if group_size <= 0 or group_size % 32 or k2 % group_size:
+        raise ValueError(
+            f"per-group GEMM kernel needs group_size % 32 == 0 and K/2 "
+            f"({k2}) % group_size == 0, got group_size {group_size}"
+        )
+    cuda.check(qweight, "qweight", torch.uint8)
+    cuda.check(s2_scales, "s2_scales", torch.int8, (k // group_size, n))
+    cuda.check(s2_zeros, "s2_zeros", torch.int8, (k // group_size, n))
+    out = torch.empty((m, n), dtype=out_dtype, device=a_i8.device)
+    err = _lib().launch_w4a8_per_group(
+        a_i8.data_ptr(), qweight.data_ptr(), s1_scales.data_ptr(),
+        s2_scales.data_ptr(), s2_zeros.data_ptr(), a_scale.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.float32), m, n, k, group_size,
+        cuda.stream_handle(),
+    )
+    cuda.raise_on_error(err, "w4a8_matmul_per_group")
+    cuda.LAUNCHES["w4a8_matmul_per_group"] += 1
     return out
 
 

@@ -2,12 +2,13 @@
 CPU tensors.
 
 Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
-whole-prompt prefill and chunked prefill over the paged pool (dense heads,
-and LServe's streaming heads with their sink + local band, over the ring
-pool's page list in chunked prefill), the dense decode step with its KV
-append fused in, and the split decode step of dynamic-sparse decode
-(``append_kv_decode``, then ``paged_decode_attention`` over the retrieval
-and streaming pools). Every other mode of the JAX dispatch raises
+whole-prompt prefill and chunked prefill over the paged pool (dense heads
+over kv4 or kv8 pools, and LServe's streaming heads with their sink +
+local band, over the ring pool's page list in chunked prefill, kv4), the
+dense decode step with its KV append fused in (kv4 or kv8), and the split
+decode step of dynamic-sparse decode (``append_kv_decode``, then
+``paged_decode_attention`` over the retrieval and streaming pools, kv4).
+Every other mode of the JAX dispatch raises
 ``NotImplementedError`` naming its ROADMAP.md item (the JAX dispatch's
 single-pass paged-prefill variant, off by default there, is ROADMAP.md
 queue 2 item 10).
@@ -18,6 +19,20 @@ from __future__ import annotations
 import torch
 
 from omniserve_tpu_torch.ops import attention_ref, cuda
+
+
+def _check_kv(kv_bits: int, kv_zeros: bool, served) -> None:
+    """Raise for pools this entry point does not serve: kv16 and
+    per-tensor KV anywhere, kv8 under LServe's modes (sparse decode's split
+    append and attention, the page-list and band modes of paged prefill):
+    ROADMAP.md queue 1 item 8b."""
+    if kv_bits not in served or not kv_zeros:
+        names = "/".join(f"kv{b}" for b in served)
+        raise NotImplementedError(
+            f"kv{kv_bits} (kv_zeros={kv_zeros}) pools at this entry point "
+            f"are outside the port, which serves {names} fine-grained pools "
+            "here; see ROADMAP.md queue 1 item 8b"
+        )
 
 
 def prefill_attention(q, k, v, segment_ids, positions, sm_scale,
@@ -70,23 +85,19 @@ def paged_decode_attention_fused(
             "append_kv_decode, then paged_decode_attention), and LSE outputs "
             "are sequence parallelism, ROADMAP.md queue 1 item 10"
         )
-    if kv_bits != 4 or not kv_zeros:
-        raise NotImplementedError(
-            "the port serves kv4 fine-grained pools; see "
-            "ROADMAP.md queue 1 item 8"
-        )
+    _check_kv(kv_bits, kv_zeros, (4, 8))
     from omniserve_tpu_torch.ops.cuda import decode_attention
 
     if cuda.use_kernel(q):
         out = decode_attention.paged_decode_attention_fused(
             q.contiguous(), pool, layer, block_tables, context_lens,
             k_new.contiguous(), v_new.contiguous(),
-            sm_scale=sm_scale, page_size=page_size,
+            sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
         )
     else:
         out = decode_attention.paged_decode_attention_fused_plain(
             q, pool, layer, block_tables, context_lens, k_new, v_new,
-            sm_scale=sm_scale, page_size=page_size,
+            sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
         )
     return out, pool, streaming_pool
 
@@ -95,12 +106,8 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
                      kv_bits, kv_zeros, update_stats=False, sub_chunks=4):
     """Decode-step KV append (+ optional K min/max stats), in place. Tokens
     must target distinct pages (the decode invariant); page id -1 marks an
-    inactive token."""
-    if kv_bits != 4 or not kv_zeros:
-        raise NotImplementedError(
-            "the port serves kv4 fine-grained pools; see "
-            "ROADMAP.md queue 1 item 8"
-        )
+    inactive token. kv4 pools: only sparse decode appends apart."""
+    _check_kv(kv_bits, kv_zeros, (4,))
     from omniserve_tpu_torch.ops.cuda import kv_append
 
     if cuda.use_kernel(k):
@@ -124,12 +131,9 @@ def paged_decode_attention(
     """Decode attention WITHOUT the append, over the retrieval pool (dense
     history or the selector's ``page_idxes``) and, for streaming heads, the
     ring pool's sink + local band. On a card: the page-list kernels. On the
-    CPU: ``attention_ref.paged_decode_attention``."""
-    if kv_bits != 4 or not kv_zeros:
-        raise NotImplementedError(
-            "the port serves kv4 fine-grained pools; see "
-            "ROADMAP.md queue 1 item 8"
-        )
+    CPU: ``attention_ref.paged_decode_attention``. kv4 pools: only sparse
+    decode attends apart from the append."""
+    _check_kv(kv_bits, kv_zeros, (4,))
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import decode_attention
 
@@ -160,7 +164,8 @@ def paged_prefill_attention(
     return_lse=False,
 ):
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
-    (history + the chunk, appended by the caller), kv4 fine-grained pools.
+    (history + the chunk, appended by the caller), kv4 or kv8 fine-grained
+    pools; a page list or a band only over kv4 (LServe).
 
     ``sel_logic`` [B, W] names the logical page each table slot holds (-1
     dead); with ``ring_span_pages`` the source is the streaming ring, whose
@@ -174,11 +179,9 @@ def paged_prefill_attention(
             "LSE outputs of paged prefill are the sequence-parallel path; "
             "see ROADMAP.md queue 1 item 10"
         )
-    if kv_bits != 4 or not kv_zeros:
-        raise NotImplementedError(
-            "the port serves kv4 fine-grained pools; see "
-            "ROADMAP.md queue 1 item 8"
-        )
+    listed = sel_logic is not None or (
+        head_is_retrieval is not None and bool(sink_size or local_size))
+    _check_kv(kv_bits, kv_zeros, (4,) if listed else (4, 8))
     from omniserve_tpu_torch.ops.cuda import paged_prefill
 
     fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
@@ -188,4 +191,4 @@ def paged_prefill_attention(
               head_is_retrieval=head_is_retrieval, sink_size=sink_size,
               local_size=local_size, sel_logic=sel_logic,
               ring_span_pages=ring_span_pages,
-              ring_sink_tokens=ring_sink_tokens)
+              ring_sink_tokens=ring_sink_tokens, kv_bits=kv_bits)

@@ -1,4 +1,5 @@
-"""Quantized matmuls: W4A8 per-channel and W8A8.
+"""Quantized matmuls: W4A8 per-channel, W4A8 per-group and W8A8, and the
+bf16 product of a W16A16 body.
 
 The ``*_ref`` functions are the semantic contracts of
 ``omniserve_tpu.ops.matmul`` (:77-134) in PyTorch, with exact int32
@@ -10,6 +11,10 @@ Epilogue contracts:
 
 - per-channel: out[m,n] = psum[m,n] * s1[n] * a_scale[m]
                           - s1_szero[n] * a_sum[m]
+- per-group:   w_i8 = wrap_int8(w_u4 * s2[g, n] + s2_zero[g, n]) per
+               group g of K (an int16 product in the JAX package, wrapped
+               to int8 as ``astype(int8)`` does);
+               out = psum * s1[n] * a_scale[m]
 - w8a8:        out = psum * w_scale[n] * a_scale[m]
 
 Stacked [L, ...] weights are indexed by layer as views (``qweight[layer]``
@@ -53,6 +58,30 @@ def w4a8_matmul_per_channel_ref(
     return out.to(out_dtype)
 
 
+def w4a8_matmul_per_group_ref(
+    a_i8: torch.Tensor,       # [M, K] int8
+    qweight: torch.Tensor,    # [K/2, N] uint8 (half-split packed uint4)
+    s1_scales: torch.Tensor,  # [N] f32
+    s2_scales: torch.Tensor,  # [K/group, N] int8
+    s2_zeros: torch.Tensor,   # [K/group, N] int8
+    a_scale: torch.Tensor,    # [M] f32
+    group_size: int = 128,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    k2, n = qweight.shape
+    k = 2 * k2
+    n_groups = k // group_size
+    w_u4 = torch.cat([qweight & 0xF, qweight >> 4]).to(torch.int32)
+    w = (w_u4.reshape(n_groups, group_size, n)
+         * s2_scales.to(torch.int32)[:, None, :]
+         + s2_zeros.to(torch.int32)[:, None, :])
+    # two's-complement wrap to int8, as JAX's int16 -> int8 astype
+    w_i8 = (((w + 128) & 0xFF) - 128).to(torch.int8).reshape(k, n)
+    psum = _int8_matmul(a_i8, w_i8)
+    out = psum.float() * s1_scales[None, :] * a_scale[:, None]
+    return out.to(out_dtype)
+
+
 def w8a8_matmul_ref(
     a_i8: torch.Tensor,      # [M, K] int8
     qweight: torch.Tensor,   # [K, N] int8
@@ -85,6 +114,44 @@ def w4a8_matmul_per_channel(
         a_i8, qweight, s1_scales, s1_szeros, a_scale, a_sum,
         out_dtype=out_dtype,
     )
+
+
+def w4a8_matmul_per_group(
+    a_i8, qweight, s1_scales, s2_scales, s2_zeros, a_scale, group_size=128,
+    out_dtype=torch.bfloat16, layer=None,
+):
+    """``layer`` selects a layer of STACKED [L, ...] weights (a view)."""
+    if layer is not None:
+        qweight, s1_scales, s2_scales, s2_zeros = (
+            qweight[layer], s1_scales[layer], s2_scales[layer],
+            s2_zeros[layer],
+        )
+    if cuda.use_kernel(a_i8):
+        from omniserve_tpu_torch.ops.cuda import quant_matmul
+
+        return quant_matmul.w4a8_matmul_per_group(
+            a_i8, qweight, s1_scales, s2_scales, s2_zeros, a_scale,
+            group_size=group_size, out_dtype=out_dtype,
+        )
+    return w4a8_matmul_per_group_ref(
+        a_i8, qweight, s1_scales, s2_scales, s2_zeros, a_scale,
+        group_size=group_size, out_dtype=out_dtype,
+    )
+
+
+def bf16_matmul(x: torch.Tensor, weight: torch.Tensor,
+                layer=None) -> torch.Tensor:
+    """The W16A16 body's product: [M, K] x [K, N] bf16 with f32
+    accumulation, rounded to bf16. The JAX package leaves it to XLA
+    (``jnp.dot``, no Pallas kernel), so it stays a plain product here:
+    ``torch.matmul`` on a card, an f32 product on the CPU (whose bf16
+    matmul rounds differently)."""
+    if layer is not None:
+        weight = weight[layer]
+    x = x.to(torch.bfloat16)
+    if x.is_cuda:
+        return x @ weight
+    return (x.float() @ weight.float()).to(torch.bfloat16)
 
 
 def w8a8_matmul(a_i8, qweight, w_scales, a_scale, out_dtype=torch.bfloat16,

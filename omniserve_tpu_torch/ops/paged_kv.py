@@ -6,6 +6,9 @@ so pools compare byte for byte with the JAX package's:
 - kv4 (packed): data [L, P, H, page/2, D] uint8 in the HALF-SPLIT layout:
   token t of a page lives at byte row ``t % (page/2)``, in the high nibble
   iff ``t >= page/2`` (``kv4_slot_to_row_nibble``).
+- kv8: data [L, P, H, page, D] uint8, one byte per value, token t of a
+  page at row t. Codes carry no bias: the value is ``(code - zero) *
+  scale``, as for kv4.
 - fine-grained scale planes: [L, P, 4, H, page] float32, stored folded
   (see ``KVPool``).
 - K min/max sub-chunk stats (retrieval pool under sparse decode):
@@ -86,9 +89,15 @@ class KVPool(NamedTuple):
 
 def _unsupported(what: str):
     return NotImplementedError(
-        f"{what} is outside what the port serves (kv4 fine-grained "
-        "pools); see ROADMAP.md queue 1 item 8"
+        f"{what} is outside what the port serves (kv4 and kv8 "
+        "fine-grained pools); kv16 and per-tensor KV are ROADMAP.md queue 1 "
+        "item 8b"
     )
+
+
+def _check_kv(kv_bits: int, kv_zeros: bool, what: str) -> None:
+    if kv_bits not in (4, 8) or not kv_zeros:
+        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} {what}")
 
 
 def make_kv_pool(
@@ -103,17 +112,17 @@ def make_kv_pool(
     sub_chunks: int = 4,
     device="cuda:0",
 ) -> KVPool:
-    """Zeroed kv4 fine-grained pool on ``device``.
+    """Zeroed kv4 or kv8 fine-grained pool on ``device``.
 
     ``num_pages`` includes the top TRASH page (the block manager reserves
     it, as in the JAX package). ``with_stats`` adds the K min/max
     sub-chunk stats the page selector scores."""
-    if kv_bits != 4 or not kv_zeros:
-        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} pools")
-    if page_size % 2:
+    _check_kv(kv_bits, kv_zeros, "pools")
+    if kv_bits == 4 and page_size % 2:
         raise ValueError(f"kv4 pages need an even page size, got {page_size}")
     L, P, H, D = num_layers, num_pages, num_heads, head_dim
-    shape = (L, P, H, page_size // 2, D)
+    rows = page_size // 2 if kv_bits == 4 else page_size
+    shape = (L, P, H, rows, D)
     return KVPool(
         k_data=torch.zeros(shape, dtype=torch.uint8, device=device),
         v_data=torch.zeros(shape, dtype=torch.uint8, device=device),
@@ -227,15 +236,21 @@ def append_kv(
     every token targets a distinct page) and ``page_aligned=True`` (chunked
     prefill: groups of ``page_size`` consecutive slots, one page per group)
     are promises the JAX function uses to pick a faster scatter; here one
-    write path serves every mode, so the flags change nothing."""
-    if kv_bits != 4 or not kv_zeros:
-        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} appends")
+    write path serves every mode, so the flags change nothing. kv8 writes
+    one byte per value at row ``slot``."""
+    _check_kv(kv_bits, kv_zeros, "appends")
     keep = page_ids >= 0
     page_ids, slots = page_ids[keep].long(), slots[keep].long()
     qk, k_scale, k_zero = kv_quantize_fine_grained(k[keep], kv_bits)
     qv, v_scale, v_zero = kv_quantize_fine_grained(v[keep], kv_bits)
-    _scatter_nibbles(pool.k_data[layer], qk, page_ids, slots, page_size)
-    _scatter_nibbles(pool.v_data[layer], qv, page_ids, slots, page_size)
+    if kv_bits == 4:
+        _scatter_nibbles(pool.k_data[layer], qk, page_ids, slots, page_size)
+        _scatter_nibbles(pool.v_data[layer], qv, page_ids, slots, page_size)
+    else:
+        heads = torch.arange(pool.num_heads, device=qk.device)
+        idx = (page_ids[:, None], heads[None, :], slots[:, None])
+        pool.k_data[layer][idx] = qk
+        pool.v_data[layer][idx] = qv
     planes = (k_scale, k_scale * (k_zero + 128.0), v_scale, v_zero + 128.0)
     sc = pool.kv_scales[layer]                     # [P, 4, H, page]
     for i, vals in enumerate(planes):
@@ -321,15 +336,17 @@ def gather_kv_for_seq(
     ``omniserve_tpu.ops.paged_kv.gather_kv_for_seq`` for one sequence's
     table [W]; a [B, W] table gathers B sequences at once. Plain path
     only: it materializes every listed page."""
-    if kv_bits != 4 or not kv_zeros:
-        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} gathers")
+    _check_kv(kv_bits, kv_zeros, "gathers")
     idx = block_table.long()
 
     def one(data, scale, zero):
         pages = data[layer][idx]                      # [..., W, H, rows, D]
-        # half-split page: lo nibbles are slots [0, page/2), hi the rest
-        vals = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
-                         dim=-2)                      # [..., W, H, page, D]
+        if kv_bits == 8:
+            vals = pages.float()                      # row = slot
+        else:
+            # half-split page: lo nibbles are slots [0, page/2), hi the rest
+            vals = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
+                             dim=-2)                  # [..., W, H, page, D]
         out = (vals - zero[layer][idx][..., None]) * scale[layer][idx][..., None]
         out = out.transpose(-3, -2)                   # [..., W, page, H, D]
         return out.reshape(*out.shape[:-4], -1, *out.shape[-2:])

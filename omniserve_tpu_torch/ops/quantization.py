@@ -6,6 +6,11 @@ reference's QServe formats); integer results are bit-identical to it:
 - W4 per-channel: ``w_u4 = round(W / s1) + zp`` in [0, 15]; stored scale
   ``s1`` and scaled zero ``s1_szero = zp * s1``. GEMM epilogue:
   ``out = psum * s1 * a_scale - s1_szero * a_sum``.
+- W4 per-group (progressive): stage 1 int8 per channel, ``w_i8 =
+  round(W / s1)``; stage 2 uint4 per group of ``group_size`` input
+  channels with int8 scale and zero, ``w_i8 ~= w_u4 * s2 + s2_zero``
+  (int16 product, wrapped to int8). GEMM epilogue: ``out = psum * s1 *
+  a_scale``.
 - W8 per-channel symmetric: ``w_i8 = round(W / s1)``.
 - A8 per-token symmetric: ``a_i8 = round(x * 127 / amax)``.
 - KV fine-grained (per-token-per-head asymmetric):
@@ -37,6 +42,15 @@ class QuantizedWeightPerChannel(NamedTuple):
     qweight: torch.Tensor    # [(L,) K/2, N] uint8, half-split packed
     s1_scales: torch.Tensor  # [(L,) N] float32
     s1_szeros: torch.Tensor  # [(L,) N] float32 (= zero_point * s1)
+
+
+class QuantizedWeightPerGroup(NamedTuple):
+    """W4 per-group: packed uint4 + int8 second-level scale/zero per group."""
+
+    qweight: torch.Tensor    # [(L,) K/2, N] uint8, half-split packed
+    s1_scales: torch.Tensor  # [(L,) N] float32
+    s2_scales: torch.Tensor  # [(L,) K/group, N] int8
+    s2_zeros: torch.Tensor   # [(L,) K/group, N] int8 (= -zp * s2)
 
 
 class QuantizedWeightW8(NamedTuple):
@@ -102,6 +116,65 @@ def quantize_weight_per_channel(
         s1_scales=s1_scales.float(),
         s1_szeros=(zeros * s1_scales).float(),
     )
+
+
+def quantize_weight_per_group(
+    w: torch.Tensor,
+    group_size: int = 128,
+    s1_scales: Optional[torch.Tensor] = None,
+    s2_scales: Optional[torch.Tensor] = None,
+    zeros: Optional[torch.Tensor] = None,
+    k_shards: int = 1,
+) -> QuantizedWeightPerGroup:
+    """Progressive W4 quantization of fp weight [N(out), K(in)].
+
+    Stage 1: int8 per channel; stage 2: uint4 per group of ``group_size``
+    input channels with integer int8 scales. Params not given are derived:
+    stage-1 symmetric amax over 119 (stage-2 headroom), stage-2 asymmetric
+    min/max of the int8 values. The integer zero point is capped at
+    ``floor(127 / s2)`` so the stored ``-zeros * s2`` cannot wrap int8."""
+    w = w.float()
+    n_out, k_in = w.shape
+    assert k_in % group_size == 0
+    n_groups = k_in // group_size
+    if s1_scales is None:
+        s1_scales = torch.clamp(ieee_div(w.abs().amax(dim=1), 119.0),
+                                min=EPS)
+    w_i8 = torch.clamp(torch.round(w / s1_scales[:, None]), -128, 127)
+    wg = w_i8.reshape(n_out, n_groups, group_size)
+    if s2_scales is None:
+        g_max = wg.amax(dim=2)
+        g_min = wg.amin(dim=2)
+        s2_scales = torch.ceil(torch.clamp(
+            ieee_div(g_max - g_min, INT4_LEVELS), min=1.0))
+        zeros = torch.clamp(torch.round(-g_min / s2_scales), 0, INT4_LEVELS)
+        cap = torch.floor(torch.full_like(s2_scales, 127.0) / s2_scales)
+        zeros = torch.minimum(zeros, cap)
+    assert zeros is not None and s2_scales is not None
+    s2_scales, zeros = s2_scales.float(), zeros.float()
+    w_u4 = torch.round(wg / s2_scales[..., None]) + zeros[..., None]
+    w_u4 = torch.clamp(w_u4, 0, INT4_LEVELS).to(torch.uint8)
+    w_u4 = w_u4.reshape(n_out, k_in)
+    qweight = pack_int4(w_u4.t(), dim=0, shards=k_shards)
+    # layout [K/group, N]: the kernel indexes groups along the K axis
+    return QuantizedWeightPerGroup(
+        qweight=qweight.contiguous(),
+        s1_scales=s1_scales.float(),
+        s2_scales=s2_scales.t().to(torch.int8).contiguous(),
+        s2_zeros=(-zeros * s2_scales).t().to(torch.int8).contiguous(),
+    )
+
+
+def dequantize_per_group(q: QuantizedWeightPerGroup,
+                         group_size: int) -> torch.Tensor:
+    """Reconstruct fp weight [K, N] from the per-group quantized form."""
+    w_u4 = unpack_int4(q.qweight, dim=0).to(torch.int32)
+    k_in, n_out = w_u4.shape
+    n_groups = q.s2_scales.shape[0]
+    w_u4 = w_u4.reshape(n_groups, group_size, n_out)
+    w_i8 = (w_u4 * q.s2_scales.to(torch.int32)[:, None, :]
+            + q.s2_zeros.to(torch.int32)[:, None, :])
+    return w_i8.reshape(k_in, n_out).float() * q.s1_scales[None, :]
 
 
 def quantize_weight_w8(

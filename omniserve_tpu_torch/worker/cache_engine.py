@@ -2,8 +2,12 @@
 
 Counterpart of ``omniserve_tpu.worker.cache_engine``: the retrieval pool
 (with K min/max stats under sparse decode) and, when LServe splits the kv
-heads, the streaming ring pool, as kv4 fine-grained pools of torch tensors
-on the engine's device. Page ops update the pools in place.
+heads, the streaming ring pool, as kv4 or kv8 fine-grained pools of torch
+tensors on the engine's device. Pools hold a page COUNT (the engine's
+``num_*_device_blocks``), as in the JAX package; their bytes follow from
+the KV width (``pool_bytes``): a 128-token page of one layer and kv head
+holds 16 KiB of K+V codes at kv4, 32 KiB at kv8 (head dim 128), plus 2 KiB
+of f32 planes. Page ops update the pools in place.
 """
 
 from __future__ import annotations
@@ -90,9 +94,10 @@ class CacheEngine:
         r_bytes = pool_bytes(self.retrieval_pool)
         s_bytes = pool_bytes(self.streaming_pool)
         logger.info(
-            "KV pools on %s: retrieval %d pages x %d heads, %.1f MiB "
+            "kv%d KV pools on %s: retrieval %d pages x %d heads, %.1f MiB "
             "(K stats %.1f MiB); streaming %s",
-            self.device, cache_config.num_retrieval_device_blocks,
+            model_config.kv_cache_bits, self.device,
+            cache_config.num_retrieval_device_blocks,
             n_retrieval_heads, sum(r_bytes.values()) / mib,
             r_bytes.get("k_stats", 0) / mib,
             (f"{cache_config.num_streaming_device_blocks} pages x "

@@ -101,13 +101,17 @@ def test_greedy_tokens_match_jax_engine(tiny_model_dir):
 
 
 def test_engine_raises_outside_slice(tiny_model_dir):
-    """Chunked prefill, prefix reuse, multi-step windows and LServe's
-    decode and prefill sides serve (see tests/test_torch_engine_windows.py
-    and tests/test_torch_lserve_{engine,prefill}.py); kv8, W8A8 weights and
-    tensor parallelism stay outside the port and raise naming their
-    ROADMAP item."""
-    for extra in (dict(precision="w4a8kv8"),
-                  dict(precision="w8a8kv4"),
+    """Chunked prefill, prefix reuse, multi-step windows, LServe's decode
+    and prefill sides and the precision matrix serve (see
+    tests/test_torch_engine_windows.py, tests/test_torch_lserve_{engine,
+    prefill}.py and tests/test_torch_precision_engine.py); per-tensor KV,
+    kv16, kv8 under LServe's modes and tensor parallelism stay outside the
+    port and raise naming their ROADMAP item."""
+    for extra in (dict(precision="w8a8kv8",
+                       kv_quant_granularity="per_tensor"),
+                  dict(precision="w16a16kv16"),
+                  dict(precision="w4a8kv8", sparse_decode_mode=True,
+                       static_sparsity=0.5),
                   dict(tensor_parallel_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMEngine.from_engine_args(EngineArgs(

@@ -630,3 +630,222 @@ def test_sparse_decode_window_graphs_match_eager(dev):
     assert (sels["graph"][:, 0, :2] >= 0).all()    # seq 0: budget used up
     for a, b_ in zip(pools["graph"], pools["eager"]):
         assert_pools_equal(a, b_, skip_trash=True)
+
+
+# -- the precision matrix: per-group GEMM, kv8 pools -----------------------
+
+
+def _per_group_weights(g, k, n, group_size, s2_max=17, layers=3):
+    qw = torch.randint(0, 256, (layers, k // 2, n), generator=g,
+                       dtype=torch.uint8, device=g.device)
+    s1 = torch.empty((layers, n), device=g.device).uniform_(0.003, 0.006,
+                                                            generator=g)
+    s2 = torch.randint(1, s2_max + 1, (layers, k // group_size, n),
+                       generator=g, dtype=torch.int8, device=g.device)
+    s2z = torch.randint(-128, 128, s2.shape, generator=g, dtype=torch.int8,
+                        device=g.device)
+    return qw, s1, s2, s2z
+
+
+@pytest.mark.parametrize("m,k,n,group_size", [
+    (1, 256, 128, 32), (8, 512, 256, 128), (40, 1024, 384, 64),
+    (300, 256, 68, 128), (130, 2048, 256, 128),
+])
+def test_w4a8_per_group_kernel(dev, m, k, n, group_size):
+    """Exact against the plain version, with s2 up to 17 and zeros over the
+    whole int8 range: the wrapped reconstruction included."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    g = _gen(dev, 7)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    qw, s1, s2, s2z = _per_group_weights(g, k, n, group_size)
+    args = (a, qw[1], s1[1], s2[1], s2z[1], s)
+    before = cuda.LAUNCHES["w4a8_matmul_per_group"]
+    got = qm.w4a8_matmul_per_group(*args, group_size=group_size,
+                                   out_dtype=torch.float32)
+    assert cuda.LAUNCHES["w4a8_matmul_per_group"] == before + 1
+    want = qm.w4a8_matmul_per_group_plain(*args, group_size=group_size,
+                                          out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got16 = qm.w4a8_matmul_per_group(*args, group_size=group_size)
+    torch.testing.assert_close(got16, want.bfloat16(), rtol=0, atol=0)
+
+
+def test_w4a8_per_group_kernel_s2_17_edge(dev):
+    """Every code 15 and every s2 17 (255 before the zero): zeros that wrap
+    the int8 reconstruction both ways."""
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    m, k, n, gs = 16, 512, 128, 32
+    g = _gen(dev, 8)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    qw = torch.full((k // 2, n), 0xFF, dtype=torch.uint8, device=dev)
+    s1 = torch.full((n,), 0.004, device=dev)
+    s2 = torch.full((k // gs, n), 17, dtype=torch.int8, device=dev)
+    zeros = torch.tensor([-128, -8, 0, 100, 127], dtype=torch.int8,
+                         device=dev)
+    s2z = zeros[torch.randint(0, 5, s2.shape, generator=g, device=dev)]
+    for mm in (m, 200):
+        aa, ss = (a, s) if mm == m else quantize_activations(
+            torch.randn((mm, k), generator=g, device=dev))[:2]
+        got = qm.w4a8_matmul_per_group(aa, qw, s1, s2, s2z, ss,
+                                       group_size=gs, out_dtype=torch.float32)
+        want = qm.w4a8_matmul_per_group_plain(aa, qw, s1, s2, s2z, ss,
+                                              group_size=gs,
+                                              out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_w4a8_per_group_kernel_refuses_bad_groups(dev):
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+
+    m, k, n = 4, 512, 128
+    a = torch.zeros((m, k), dtype=torch.int8, device=dev)
+    qw = torch.zeros((k // 2, n), dtype=torch.uint8, device=dev)
+    f, r = torch.ones(n, device=dev), torch.ones(m, device=dev)
+    for gs in (16, 96):            # not a multiple of 32; not dividing K/2
+        s2 = torch.ones((k // gs, n), dtype=torch.int8, device=dev)
+        with pytest.raises(ValueError, match="group_size"):
+            qm.w4a8_matmul_per_group(a, qw, f, s2, s2, r, group_size=gs)
+
+
+def _kv8_pool(dev, g, layers, n_pages, h, page, d, lens, tables):
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    pool = make_kv_pool(layers, n_pages, h, page, d, kv_bits=8, device=dev)
+    for s, n in enumerate(lens):
+        if n <= 0:
+            continue
+        pos = torch.arange(n, device=dev)
+        append_kv(pool, layers - 1,
+                  torch.randn((n, h, d), generator=g, device=dev),
+                  torch.randn((n, h, d), generator=g, device=dev),
+                  tables[s].to(dev).long()[pos // page], pos % page, page,
+                  8, True)
+    return pool
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_decode_attention_append_kv8_kernel(dev, n_rep):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    page, h, d, w = 128, 2, 128, 4
+    lens = torch.tensor([2 * page + 17, page, 1, 0], dtype=torch.int32)
+    b = len(lens)
+    tables = torch.arange(b * w, dtype=torch.int32).view(b, w)
+    tables[3] = 0
+    g = _gen(dev, 9)
+    pool = _kv8_pool(dev, g, 2, b * w + 1, h, page, d,
+                     [int(n) - 1 for n in lens], tables)
+    twin = pool.clone()
+    q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
+    kn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    vn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    args = (tables.to(dev), lens.to(dev), kn, vn)
+    before = cuda.LAUNCHES["decode_attention_append_kv8"]
+    got = da.paged_decode_attention_fused(q, pool, 1, *args, sm_scale=0.1,
+                                          page_size=page, kv_bits=8)
+    assert cuda.LAUNCHES["decode_attention_append_kv8"] == before + 1
+    want = da.paged_decode_attention_fused_plain(
+        q, twin, 1, *args, sm_scale=0.1, page_size=page, kv_bits=8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[3].abs().max()) == 0.0
+    assert_pools_equal(pool, twin)
+
+
+@pytest.mark.parametrize("history,chunk,n_rep,page,ragged", [
+    (0, 24, 4, 16, False),
+    (40, 24, 2, 16, True),
+    (200, 130, 4, 128, False),
+    (300, 64, 8, 128, True),
+])
+def test_paged_prefill_kv8_kernel(dev, history, chunk, n_rep, page, ragged):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    b, h, d = 2, 2, 128
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 10)
+    tables = torch.arange(b * w, dtype=torch.int32).view(w, b).t()
+    tables = tables.contiguous().to(dev)
+    pool = _kv8_pool(dev, g, 2, b * w + 1, h, page, d, [total] * b, tables)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    if ragged:
+        q_pos[1, chunk // 2:] = -1
+        ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=8)
+    before = dict(cuda.LAUNCHES)
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES["paged_prefill_kv8"] == \
+        before["paged_prefill_kv8"] + 1
+    assert cuda.LAUNCHES["paged_prefill_attention"] == \
+        before["paged_prefill_attention"]
+    want = pp.paged_prefill_attention_plain(q, pool, 1, tables, q_pos, ctx,
+                                            **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if ragged:
+        assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bits", [(4, 8, 128, 8), (8, 8, -1, 8),
+                                  (16, 16, -1, 4)])
+def test_decode_window_graph_matches_eager_precisions(dev, bits):
+    """A captured decode step under per-group, W8A8 and W16A16 bodies and
+    kv8 pools replays the eager loop's tokens and pool bytes."""
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.decode_window import DecodeWindow
+
+    wb, ab, gs, kv = bits
+    spec = llama.LlamaSpec(num_layers=2, hidden=512, intermediate=1024,
+                           num_q_heads=4, num_kv_heads=2, head_dim=128,
+                           vocab=1024, page_size=16, lm_head_bits=8,
+                           weight_bits=wb, act_bits=ab, group_size=gs,
+                           kv_bits=kv)
+    params = llama.make_random_packed_params(spec, seed=3, device=dev)
+    lens, b_pad, w = [37, 5, 20], 8, 6
+    tables = np.zeros((b_pad, w), np.int32)
+    tables[:3] = np.arange(3 * w).reshape(3, w)
+    pool = make_kv_pool(2, 3 * w + 1, 2, 16, 128, kv_bits=kv, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, spec.vocab, n) for n in lens]
+    batch = llama.PrefillBatch(
+        token_ids=torch.from_numpy(np.concatenate(prompts)).to(dev),
+        positions=torch.from_numpy(np.concatenate(
+            [np.arange(n) for n in lens]).astype(np.int32)).to(dev),
+        segment_ids=torch.from_numpy(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(lens)]).astype(
+                np.int32)).to(dev),
+        block_tables=torch.from_numpy(tables[:3]).to(dev),
+        last_token_idx=torch.tensor(np.cumsum(lens) - 1, device=dev),
+    )
+    with torch.inference_mode():
+        logits, _, _, _ = llama.llama_forward(params, pool, None, batch, spec,
+                                              is_prefill=True)
+        first = np.zeros(b_pad, np.int32)
+        first[:3] = logits.argmax(-1).cpu().numpy()
+        positions = np.zeros(b_pad, np.int32)
+        positions[:3] = lens
+        active = np.arange(b_pad) < 3
+        twin = pool.clone()
+        toks = {}
+        for mode, p in (("graph", pool), ("eager", twin)):
+            win = DecodeWindow(params, p, spec, b_pad, w, dev,
+                               use_graph=mode == "graph")
+            win.load(first, positions, active, tables)
+            toks[mode] = win.run(6).cpu().numpy()
+    np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
+    assert_pools_equal(pool, twin, skip_trash=True)

@@ -208,7 +208,17 @@ def test_random_packed_params_shapes():
     assert tuple(params["lm_head_scale"].shape) == (spec.vocab,)
 
 
-def test_forward_raises_outside_slice():
-    spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), kv_bits=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("extra", [
+    dict(weight_bits=8, kv_bits=8, kv_zeros=False),    # w8a8kv8 per-tensor
+    dict(weight_bits=16, act_bits=16, kv_bits=16),     # w16a16kv16
+    dict(kv_bits=8, sparse_decode=True),
+    dict(kv_bits=8, sparse_prefill=True),
+    dict(attn_bias=True),
+])
+def test_forward_raises_outside_slice(extra):
+    """The precision matrix serves (``tests/test_torch_precision.py``);
+    kv16, per-tensor KV, kv8 under LServe's modes and the QKV bias raise
+    naming ROADMAP.md queue 1 item 8b."""
+    spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), **extra))
+    with pytest.raises(NotImplementedError, match="item 8b"):
         spec.check_supported()
