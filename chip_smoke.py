@@ -15,7 +15,9 @@ Phases (any failure raises and exits nonzero before the last line):
    (bytes over 3.35 TB/s or operations over the tensor-core peak) and one
    PyTorch library call's time where one computes the same function; the
    band mode of flash prefill at 16K tokens and the ring mode of paged
-   prefill at phase 7's first chunk and on a wrapped ring;
+   prefill at phase 7's first chunk and on a wrapped ring; the kv16 and
+   per-tensor modes (the kv16 decode and append, the per-tensor fused
+   decode, kv16 and per-tensor paged prefill);
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
@@ -24,7 +26,8 @@ Phases (any failure raises and exits nonzero before the last line):
    two decode steps kernels against plain, and a 10-step window (refresh
    and reuse graphs) against the eager loop; then under both sparse modes,
    whole-prompt (flash band) and chunked (ring) prefill, kernels against
-   plain;
+   plain; the same forwards across the precision matrix (kv16 and
+   per-tensor KV with calibrated scales included);
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
@@ -45,8 +48,14 @@ Phases (any failure raises and exits nonzero before the last line):
    32,768-token prompt (two chunks over the ring) and a 16,384-token
    prompt (whole-prompt band), a warmup and a measured round each, then
    one traced prefill step of each;
-8. a ``{"kernels": [...]}`` line, the card line, then
-   ``{"ok": true, "device": ...}`` as the last line.
+8. phase 5's protocol at ``--precision w4a8kv4 --group-size 128`` (a
+   warmup and a measured round, then a traced prefill step and window)
+   and at ``w4a8kv8`` (one round);
+9. phase 5's protocol at ``--precision w16a16kv16`` (a warmup and a
+   measured round) and at ``w8a8kv8 --kv-quant-granularity per_tensor``
+   (one round), each then a traced prefill step and window;
+then a ``{"kernels": [...]}`` line, the card line, and
+``{"ok": true, "device": ...}`` as the last line.
 
 Exits 2 without CUDA or without the repository's package beside this
 file.
@@ -69,6 +78,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 BAND_ROW_RTOL = 1e-2             # flash band: per-row error over row norm
+# kv16 and per-tensor attention modes against their plain versions: the
+# per-element gate (kv16 ~10x the error these checks read on the card) and
+# the per-row one, which a length off by one on these inputs fails by ~10x
+KV16_TOL = 5e-3
+ATTN_ROW_RTOL = 1e-2
 
 # Llama-3-8B geometry (public model card), as scripts/make_bench_config.py
 LLAMA3_8B = dict(
@@ -213,6 +227,32 @@ def row_rel_err(got, want) -> float:
     num = torch.linalg.vector_norm(got - want, dim=-1)
     den = torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)
     return float((num / den).max())
+
+
+def hold(got, want, atol, rtol, row_rtol, what, planted=()):
+    """``allclose_err``, then every row's error within ``row_rtol`` of its
+    norm. Each of ``planted`` ((label, the plain version's output with a
+    fault planted in its inputs)) must fail the same gate: proof that the
+    gate sees such a fault on these inputs. Returns (max abs err, largest
+    row error)."""
+    import torch
+
+    err = allclose_err(got, want, atol, rtol, what)
+    row = row_rel_err(got, want)
+    if row > row_rtol:
+        raise AssertionError(f"{what}: a row's error is {row:.3g} of its "
+                             f"norm (limit {row_rtol})")
+    for label, bad in planted:
+        diff = (bad.float() - want.float()).abs()
+        n_out = int((diff > atol + rtol * want.float().abs()).sum())
+        bad_row = row_rel_err(bad, want)
+        if n_out == 0 and bad_row <= row_rtol:
+            raise AssertionError(f"{what}: the gate passes the plain version "
+                                 f"with {label}")
+        log(f"    {what}: planted {label} refused ({n_out} elements beyond "
+            f"atol {atol} rtol {rtol}; largest row error {bad_row:.3g}, "
+            f"limit {row_rtol})")
+    return err, row
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +467,54 @@ def check_w8a8(dev, gen, m=8):
                 library_ms=lib, max_abs_err=err)
 
 
+def check_w8a8_body_gemms(dev, gen):
+    """The W8A8 body's four GEMM shapes (row 3's kernel, as phase 9 (b)
+    runs it) at the bench's decode M=128 (weights rotated past L2, as a
+    layer finds them) and chunk M=8192, against plain within 1e-5; logs
+    each GEMM and the layer's sum."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    for m in (128, 8192):
+        tot = dict(ms=0.0, plain=0.0, bound=0.0, lib=0.0)
+        for name, k, n in LAYER_GEMMS:
+            a_i8, a_scale, _ = quantize_activations(
+                torch.randn((m, k), generator=gen, device=dev))
+            n_copies = max(1, math.ceil(120e6 / (k * n))) if m <= 128 else 1
+            ws = [torch.randint(-127, 128, (k, n), generator=gen,
+                                dtype=torch.int8, device=dev)
+                  for _ in range(n_copies)]
+            sc = torch.empty(n, device=dev).uniform_(0.0003, 0.0006,
+                                                     generator=gen)
+            got = qm.w8a8_matmul(a_i8, ws[0], sc, a_scale,
+                                 out_dtype=torch.float32)
+            want = qm.w8a8_matmul_plain(a_i8, ws[0], sc, a_scale,
+                                        out_dtype=torch.float32)
+            allclose_err(got, want, 1e-5, 1e-5, f"w8a8 M={m} K={k} N={n}")
+            it = iter(range(10 ** 9))
+            reps = 50 if m <= 128 else 10
+            ms = time_ms(lambda: qm.w8a8_matmul(
+                a_i8, ws[next(it) % n_copies], sc, a_scale), reps)
+            plain = time_ms(lambda: qm.w8a8_matmul_plain(
+                a_i8, ws[0], sc, a_scale), 3, warmup=1)
+            lib = time_ms(lambda: (torch._int_mm(a_i8, ws[0]).float()
+                                   * sc[None] * a_scale[:, None]).to(
+                                       torch.bfloat16), reps)
+            n_bytes = m * k + k * n + 4 * n + 4 * m + 2 * m * n
+            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+            for key, val in (("ms", ms), ("plain", plain), ("bound", bnd),
+                             ("lib", lib)):
+                tot[key] += val
+            log(f"  w8a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: kernel_ms "
+                f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
+                f"library_ms {lib:.4f} (torch._int_mm + epilogue)")
+        log(f"  w8a8 body layer (4 GEMMs) M={m}: kernel_ms {tot['ms']:.4f} "
+            f"plain_ms {tot['plain']:.4f} bound_ms {tot['bound']:.4f} "
+            f"library_ms {tot['lib']:.4f}")
+
+
 def check_flash(dev, gen):
     import torch
     import torch.nn.functional as F
@@ -464,7 +552,11 @@ def check_flash(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4):
+def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
+                 per_tensor=False):
+    """The fused decode (row 4's append mode) over a dense list: kv4 or kv8
+    pages, fine-grained or (``per_tensor``) per-tensor with scales
+    calibrated on this run's new K/V, so the codes span their range."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -476,58 +568,152 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4):
     n_pages = b * w + 1
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
     tables = perm[: b * w].view(b, w).to(torch.int32)
-    pool_k = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits)
-    pool_p = pool_k.clone()
     q = torch.randn((b, hkv * n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
     k_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
     v_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
+    pt = (calibrated_pt_scales(layers, kv_bits, k_new, v_new)
+          if per_tensor else None)
+    pool_k = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits,
+                            pt_scales=pt)
+    pool_p = pool_k.clone()
     layer, sm = 1, d ** -0.5
     kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits)
+    label = f"kv{kv_bits}{' per-tensor' if per_tensor else ''}"
+    planted = ()
+    if per_tensor:    # the plain version one token short, on a fresh copy
+        planted = (("lengths one short",
+                    da.paged_decode_attention_fused_plain(
+                        q, pool_k.clone(), layer, tables, lens - 1, k_new,
+                        v_new, kv_zeros=False, **kw)),)
     got = da.paged_decode_attention_fused(q, pool_k, layer, tables, lens,
                                           k_new, v_new, **kw)
-    want = da.paged_decode_attention_fused_plain(q, pool_p, layer, tables,
-                                                 lens, k_new, v_new, **kw)
-    err = allclose_err(got, want, 5e-2, 5e-2,
-                       f"decode attention kv{kv_bits}")
-    for name in ("k_data", "v_data", "kv_scales"):
-        if not torch.equal(getattr(pool_k, name), getattr(pool_p, name)):
-            n_bad = int((getattr(pool_k, name) != getattr(pool_p, name)).sum())
-            raise AssertionError(f"decode append kv{kv_bits}: pool {name} "
-                                 f"differs from the plain append in {n_bad} "
-                                 "elements")
+    want = da.paged_decode_attention_fused_plain(
+        q, pool_p, layer, tables, lens, k_new, v_new,
+        kv_zeros=not per_tensor, **kw)
+    what = f"decode attention {label} B={b}"
+    if per_tensor:
+        err, row = hold(got, want, 5e-2, 5e-2, ATTN_ROW_RTOL, what, planted)
+    else:
+        err, row = allclose_err(got, want, 5e-2, 5e-2, what), None
+    pools_equal(pool_k, pool_p, f"decode append {label}")
+    if per_tensor:     # the appended token's codes span their range
+        from omniserve_tpu_torch.ops.quantization import (
+            kv_quantize_per_tensor,
+        )
+
+        codes = kv_quantize_per_tensor(k_new, pt[0][layer], kv_bits)
+        span = int(codes.max()) - int(codes.min())
+        if span < 3 * 2 ** kv_bits // 4:
+            raise AssertionError(f"per-tensor decode check: the new K codes "
+                                 f"span {span} levels only")
     # re-appending the same token writes the same bytes: safe to repeat
     ms = time_ms(lambda: da.paged_decode_attention_fused(
         q, pool_k, layer, tables, lens, k_new, v_new, **kw), 50)
     plain = time_ms(lambda: da.paged_decode_attention_fused_plain(
-        q, pool_p, layer, tables, lens, k_new, v_new, **kw), 5, warmup=1)
+        q, pool_p, layer, tables, lens, k_new, v_new,
+        kv_zeros=not per_tensor, **kw), 5, warmup=1)
     n_tok = float(lens.sum())
-    tok_bytes = d * kv_bits // 4 + 16           # K+V codes + 4 f32 planes
+    # K+V codes (+ 4 f32 planes when fine-grained)
+    tok_bytes = d * kv_bits // 4 + (0 if per_tensor else 16)
     n_bytes = (hkv * (n_tok - b) * tok_bytes
                + 2 * b * hkv * n_rep * d * 2    # q in, out
                + 2 * b * hkv * d * 2            # new k, v
                + b * hkv * tok_bytes)           # the appended token
     bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * hkv * n_tok,
                        BF16_FLOPS_PER_S)
-    log(f"  decode attention+append kv{kv_bits} B={b} Hkv={hkv} "
+    log(f"  decode attention+append {label} B={b} Hkv={hkv} "
         f"n_rep={n_rep} D={d} "
         f"page={page} lens {int(lens.min())}-{int(lens.max())}: kernel_ms "
         f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
-        f"library_ms None max_abs_err {err:.3g}; pool bytes equal")
+        f"library_ms None (the function also writes the pool) max_abs_err "
+        f"{err:.3g}" + ("" if row is None else
+                        f" (row error {row:.3g} of its norm)")
+        + "; pool bytes equal")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None, max_abs_err=err)
 
 
-def random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits):
-    """A kv4 or kv8 pool of random codes and folded planes (scales in
-    [0.1, 0.4] / 2**(kv_bits - 4), integer zeros within the levels), as
-    ``append_kv`` would leave it."""
+def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
+    """Row 6's kv16 mode: decode over the dense list of a bf16 pool, the
+    split path's attention half (its append is ``kv_append_decode_kv16``).
+    The library yardstick is SDPA over K/V gathered BEFOREHAND into [B, H,
+    Tmax, D] bf16 with a length mask (the gather is not in its time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
+    lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
+                         device=dev).to(torch.int32)
+    w = int((int(lens.max()) + page - 1) // page)
+    n_pages = b * w + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    tables = perm[: b * w].view(b, w).to(torch.int32)
+    pool = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, 16)
+    q = torch.randn((b, hkv, n_rep, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    layer, sm = 1, d ** -0.5
+    lists = da.dense_page_lists(tables, lens, page)
+
+    def fn():
+        return da.paged_mqa_attention_kv16(q, pool, layer, *lists, lens,
+                                           sm_scale=sm, page_size=page)
+
+    def plain_fn(n=lens):
+        return da.page_list_attention_plain(
+            q, pool, layer, *da.dense_page_lists(tables, n, page), n,
+            sm_scale=sm, page_size=page)
+
+    err, row = hold(fn(), plain_fn(), KV16_TOL, KV16_TOL, ATTN_ROW_RTOL,
+                    f"kv16 decode B={b}", planted=(
+                        ("lengths one short", plain_fn(lens - 1)),
+                        ("the partial last page dropped",
+                         plain_fn(lens // page * page))))
+    ms = time_graphed_ms(fn, 20)
+    call_ms = time_ms(fn, 50)
+    plain = time_ms(plain_fn, 3, warmup=1)
+    k, v, valid = da.page_list_kv(pool, layer, *lists, lens, hkv,
+                                  page_size=page)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    mask = valid[:, :, None, :]
+    del k, v
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kb, vb, attn_mask=mask, scale=sm), 20)
+    n_tok = float(lens.sum())
+    n_bytes = (hkv * n_tok * d * 2 * 2               # bf16 K and V
+               + 2 * b * hkv * n_rep * d * 2         # q in, out
+               + 2 * b * w * 4 + 4 * b)              # lists, lengths
+    bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * hkv * n_tok,
+                       BF16_FLOPS_PER_S)
+    log(f"  kv16 decode (row 6) B={b} Hkv={hkv} n_rep={n_rep} D={d} "
+        f"page={page} lens {int(lens.min())}-{int(lens.max())} "
+        f"({n_bytes / 1e6:.1f} MB): kernel_ms {ms:.4f} (graph replay; "
+        f"{call_ms:.4f} per eager wrapper call) plain_ms {plain:.4f} "
+        f"bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} (SDPA over K/V "
+        f"gathered beforehand, gather not counted) max_abs_err {err:.3g} "
+        f"(row error {row:.3g} of its norm)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+
+
+def random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits,
+                   pt_scales=None):
+    """A pool as ``append_kv`` would leave it: kv16 pages of N(0, 1) bf16
+    values; kv4 or kv8 pages of random codes, either with folded planes
+    (scales in [0.1, 0.4] / 2**(kv_bits - 4), integer zeros within the
+    levels) or, given ``pt_scales`` ((k [L], v [L])), per-tensor."""
     import torch
 
     from omniserve_tpu_torch.ops.paged_kv import KVPool
 
+    if kv_bits == 16:
+        shape = (layers, n_pages, hkv, page, d)
+        return KVPool(*(torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2)), None)
     levels = 2 ** kv_bits
     rows = page // 2 if kv_bits == 4 else page
     shape = (layers, n_pages, hkv, rows, d)
@@ -535,6 +721,9 @@ def random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits):
                            device=dev)
     v_data = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
                            device=dev)
+    if pt_scales is not None:
+        return KVPool(k_data, v_data, None, k_scale_per_tensor=pt_scales[0],
+                      v_scale_per_tensor=pt_scales[1])
     planes = torch.empty((layers, n_pages, 4, hkv, page), device=dev)
     lo, hi = 0.1 * 16 / levels, 0.4 * 16 / levels
     ks = torch.empty(planes[:, :, 0].shape, device=dev).uniform_(
@@ -547,20 +736,56 @@ def random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits):
     return KVPool(k_data, v_data, planes)
 
 
-def check_paged_prefill(dev, gen, kv_bits=4):
+def calibrated_pt_scales(layers, kv_bits, k, v):
+    """Per-layer per-tensor scales max |x| / qmax of ``k`` and ``v``, so
+    the codes of these values span their whole range."""
+    import torch
+
+    qmax = 7 if kv_bits == 4 else 127
+    return tuple(torch.full((layers,), float(x.float().abs().max()) / qmax,
+                            device=x.device) for x in (k, v))
+
+
+def pools_equal(got, want, what, skip_trash=False) -> float:
+    """Raise unless every field of two pools holds the same values (but the
+    trash page, with ``skip_trash``); returns the largest difference (0)."""
+    import torch
+
+    err = 0.0
+    for name, a, b_ in zip(got._fields, got, want):
+        if a is None:
+            continue
+        if skip_trash and a.dim() > 1:
+            a, b_ = a[:, :-1], b_[:, :-1]
+        if not torch.equal(a, b_):
+            raise AssertionError(f"{what}: pool {name} differs from the plain "
+                                 f"version's in {int((a != b_).sum())} "
+                                 "elements")
+        err = max(err, float((a.float() - b_.float()).abs().max()))
+    return err
+
+
+def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
     """The bench's last chunk: 128 sequences x 128 chunk tokens after 896
     tokens of history, Llama-3-8B heads, pages of 128 tokens; a kv4 or kv8
-    pool."""
+    pool, fine-grained or (``per_tensor``, random codes over their whole
+    range, scales 3.5 / qmax) per-tensor, or a kv16 pool."""
     import torch
     import torch.nn.functional as F
 
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
     from omniserve_tpu_torch.ops.paged_kv import gather_kv_for_seq
 
-    b, tc, history, hkv, n_rep, d, page = 128, 128, 896, 8, 4, 128, 128
+    tc, history, hkv, n_rep, d, page = 128, 896, 8, 4, 128, 128
     ctx_len = history + tc
     w = ctx_len // page
-    pool = random_kv_pool(gen, dev, 1, b * w + 1, hkv, page, d, kv_bits)
+    pt = None
+    if per_tensor:
+        qmax = 7 if kv_bits == 4 else 127
+        pt = (torch.full((1,), 3.5 / qmax, device=dev),
+              torch.full((1,), 3.0 / qmax, device=dev))
+    pool = random_kv_pool(gen, dev, 1, b * w + 1, hkv, page, d, kv_bits,
+                          pt_scales=pt)
     perm = torch.randperm(b * w, generator=gen, device=dev)
     tables = perm.view(b, w).to(torch.int32)
     q = torch.randn((b, tc, hkv * n_rep, d), generator=gen, device=dev).to(
@@ -569,18 +794,31 @@ def check_paged_prefill(dev, gen, kv_bits=4):
              ).repeat(b, 1).contiguous()
     ctx = torch.full((b,), ctx_len, dtype=torch.int32, device=dev)
     sm = d ** -0.5
+    label = f"kv{kv_bits}{' per-tensor' if per_tensor else ''}"
     args = (q, pool, 0, tables, q_pos, ctx)
-    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits)
+    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits,
+              kv_zeros=not per_tensor)
     got = pp.paged_prefill_attention(*args, **kw)
     want = pp.paged_prefill_attention_plain(*args, **kw)
-    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill kv{kv_bits}")
+    what, row = f"paged prefill {label}", None
+    if kv_bits == 16 or per_tensor:
+        tol = KV16_TOL if kv_bits == 16 else 2e-2
+        err, row = hold(got, want, tol, tol, ATTN_ROW_RTOL, what, planted=(
+            ("contexts one short", pp.paged_prefill_attention_plain(
+                q, pool, 0, tables, q_pos, ctx - 1, **kw)),
+            ("the causal frontier one short",
+             pp.paged_prefill_attention_plain(q, pool, 0, tables, q_pos - 1,
+                                              ctx, **kw))))
+    else:
+        err = allclose_err(got, want, 2e-2, 2e-2, what)
     ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 5,
                  warmup=1)
     plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
                     warmup=0)
     # library yardstick: SDPA over K/V dequantized BEFOREHAND (the
     # dequantization and the gather are left out of its time)
-    k, v = gather_kv_for_seq(pool, 0, tables, page, kv_bits)  # [B, T, H, D]
+    k, v = gather_kv_for_seq(pool, 0, tables, page, kv_bits,
+                             not per_tensor)            # [B, T, H, D]
     kb = k.to(torch.bfloat16).transpose(1, 2).contiguous()
     vb = v.to(torch.bfloat16).transpose(1, 2).contiguous()
     del k, v
@@ -590,16 +828,18 @@ def check_paged_prefill(dev, gen, kv_bits=4):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask, scale=sm, enable_gqa=True), 5, warmup=1)
     pairs = b * sum(history + i + 1 for i in range(tc))
-    kv_bytes = b * w * hkv * (page * d * kv_bits // 4 + 4 * 4 * page)
+    planes = 0 if per_tensor or kv_bits == 16 else 4 * 4 * page
+    kv_bytes = b * w * hkv * (page * d * kv_bits // 4 + planes)
     n_bytes = kv_bytes + 2 * (2 * b * tc * hkv * n_rep * d) + 8 * b * tc
     bnd, by = bound_ms(n_bytes, 4.0 * d * hkv * n_rep * pairs,
                        BF16_FLOPS_PER_S)
-    log(f"  paged prefill kv{kv_bits} B={b} Tc={tc} history={history} "
+    log(f"  paged prefill {label} B={b} Tc={tc} history={history} "
         f"Hq={hkv * n_rep} "
         f"Hkv={hkv} D={d} page={page}: kernel_ms {ms:.4f} plain_ms "
         f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} "
         f"(SDPA over pre-dequantized K/V, dequantization not counted) "
-        f"max_abs_err {err:.3g}")
+        f"max_abs_err {err:.3g}" + ("" if row is None else
+                                    f" (row error {row:.3g} of its norm)"))
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -849,24 +1089,97 @@ def check_kv_append(dev, gen):
     return kept
 
 
+def check_kv_append_kv16(dev, gen):
+    """Row 10's kv16 mode, the append half of the kv16 split decode, at the
+    bench's decode shape (128 rows, all 8 kv heads into the dense pool) and
+    at 8 rows: pool bytes equal the plain version's on every page but the
+    trash page. No library call computes it (it writes the pool). The row
+    kept for the kernels line is T=128."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    page, d, heads = 128, 128, 8
+    kept = None
+    for t in (128, 8):
+        n_pages = 2 * t + 1
+        pool_k = random_kv_pool(gen, dev, 2, n_pages, heads, page, d, 16)
+        pool_p = pool_k.clone()
+        pages = torch.randperm(n_pages - 1, generator=gen, device=dev)[:t].to(
+            torch.int32)
+        pages[1::5] = -1                       # inactive rows
+        slots = torch.randint(0, page, (t,), generator=gen, device=dev).to(
+            torch.int32)
+        k = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
+        args = (1, k, v, pages, slots, page)
+        ka.append_kv_decode(pool_k, *args)
+        ka.append_kv_decode_plain(pool_p, *args, kv_bits=16)
+        torch.cuda.synchronize()
+        err = pools_equal(pool_k, pool_p, f"kv16 append T={t}",
+                          skip_trash=True)
+
+        def call():
+            ka.append_kv_decode(pool_k, *args)
+
+        ms = time_graphed_ms(call, 20)
+        call_ms = time_ms(call, 50)
+        plain = time_ms(lambda: ka.append_kv_decode_plain(
+            pool_p, *args, kv_bits=16), 5, warmup=1)
+        bnd, by = bound_ms(t * heads * 2 * d * 2 * 2 + 8 * t, 0.0,
+                           BF16_FLOPS_PER_S)
+        log(f"  kv16 append (row 10) T={t} H={heads}: kernel_ms {ms:.4f} "
+            f"(graph replay; {call_ms:.4f} per eager wrapper call) plain_ms "
+            f"{plain:.4f} bound_ms {bnd:.6f} ({by}) library_ms None (it "
+            f"writes the pool) max_abs_err {err:g}; pool bytes equal")
+        if kept is None:
+            kept = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=None, max_abs_err=err)
+    return kept
+
+
 def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
-                     page, tol=5e-2):
+                     page, tol=5e-2, library=None):
     """Check + time one page-list decode call; ``n_pages_read`` = the
-    (sequence, head) pages this run's lists make the kernel read."""
+    (sequence, head) pages this run's lists make the kernel read.
+    ``library`` = (q, k, v, valid) for the SDPA yardstick over the listed
+    pages dequantized beforehand (not counted)."""
+    import torch.nn.functional as F
+
     got, want = fn(), plain_fn()
     err = allclose_err(got, want, tol, tol, label)
     ms = time_graphed_ms(fn, 20)
     call_ms = time_ms(fn, 50)
     plain = time_ms(plain_fn, 3, warmup=1)
+    lib = None
+    if library is not None:
+        q, k, v, valid = library
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[:, :, None, :], scale=d ** -0.5), 20)
     n_bytes = (n_pages_read * (page * d + 4 * 4 * page)  # K+V codes, 4 planes
                + 2 * b * heads * n_rep * d * 2)          # q in, out
     bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * n_pages_read * page,
                        BF16_FLOPS_PER_S)
     log(f"  {label}: kernel_ms {ms:.4f} (graph replay; {call_ms:.4f} per "
         f"eager wrapper call) plain_ms {plain:.4f} bound_ms {bnd:.5f} ({by}) "
-        f"library_ms None max_abs_err {err:.3g}")
+        f"library_ms {lib if lib is None else f'{lib:.4f}'} (SDPA over the "
+        f"listed pages dequantized beforehand, not counted) max_abs_err "
+        f"{err:.3g}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=None, max_abs_err=err)
+                library_ms=lib, max_abs_err=err)
+
+
+def list_library_inputs(q, pool, layer, sel_phys, sel_logic, lengths, page,
+                        **list_kw):
+    """(q, k, v, valid) of the SDPA yardstick: the listed pages dequantized
+    to bf16 BEFOREHAND, each slot live as the list contract says."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    k, v, valid = da.page_list_kv(pool, layer, sel_phys, sel_logic, lengths,
+                                  q.shape[1], page_size=page, **list_kw)
+    return q, k.to(torch.bfloat16), v.to(torch.bfloat16), valid
 
 
 def check_decode_ph(dev, gen, b):
@@ -902,7 +1215,9 @@ def check_decode_ph(dev, gen, b):
         f"pages of {ctx_pages}",
         lambda: da.paged_mqa_attention_single_pass_ph(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hr * budget, b, hr, n_rep, d, page)
+        b * hr * budget, b, hr, n_rep, d, page,
+        library=list_library_inputs(q, pool, 0, sel_phys, sel_logic, lens,
+                                    page))
 
 
 def check_decode_band(dev, gen, b):
@@ -932,7 +1247,11 @@ def check_decode_band(dev, gen, b):
         f"decode band+ring B={b} Hs={hs} n_rep={n_rep} list 1 sink + 2 ring "
         f"pages", lambda: da.paged_mqa_attention_single_pass(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hs * 3, b, hs, n_rep, d, page)
+        b * hs * 3, b, hs, n_rep, d, page,
+        library=list_library_inputs(
+            q, pool, 0, sel_phys, sel_logic, lens, page,
+            **{k: v for k, v in kw.items() if k != "sm_scale"
+               and k != "page_size"}))
 
 
 def time_selector(dev, gen):
@@ -1000,7 +1319,7 @@ def _mode_ctx(mode):
     """kernels: the card's kernels; plain: the plain versions; floor: the
     plain versions with one-ulp nudges on every attention output."""
     stack = contextlib.ExitStack()
-    if mode != "kernels":
+    if mode in ("plain", "floor"):
         from omniserve_tpu_torch.ops import cuda
 
         stack.enter_context(cuda.plain_versions())
@@ -1010,9 +1329,13 @@ def _mode_ctx(mode):
 
 
 @contextlib.contextmanager
-def nudged_attention(rate=ATTN_ULP_RATE, seed=7):
-    """Within the block, every attention entry point of the dispatch moves a
-    random ``rate`` share of its bf16 output by one ulp."""
+def nudged_attention(rate=ATTN_ULP_RATE, seed=7, names=(
+        "prefill_attention", "paged_prefill_attention",
+        "paged_decode_attention_fused")):
+    """Within the block, each attention entry point of the dispatch named in
+    ``names`` moves a random ``rate`` share of its nonzero finite bf16
+    outputs by one ulp (up or down in magnitude: a zero, the padding rows'
+    output, stays zero, and no nudge reaches an inf or a NaN)."""
     import torch
 
     from omniserve_tpu_torch.ops import dispatch
@@ -1026,10 +1349,10 @@ def nudged_attention(rate=ATTN_ULP_RATE, seed=7):
         hit = torch.rand(bits.shape, generator=gen, device=out.device) < rate
         up = torch.rand(bits.shape, generator=gen, device=out.device) < 0.5
         step = torch.where(up, 1, -1).to(torch.int16)
+        mag = bits & 0x7FFF      # sign-magnitude: +-1 moves the magnitude
+        hit &= (mag > 0) & (mag < 0x7F7F)
         return torch.where(hit, bits + step, bits).view(torch.bfloat16)
 
-    names = ("prefill_attention", "paged_prefill_attention",
-             "paged_decode_attention_fused")
     saved = {n: getattr(dispatch, n) for n in names}
 
     def wrap(real):
@@ -1074,6 +1397,7 @@ def flash_flip_share(spec, params, batch) -> float:
             pool = make_kv_pool(1, batch.block_tables.numel() + 1,
                                 spec.num_kv_heads, spec.page_size,
                                 spec.head_dim, kv_bits=spec.kv_bits,
+                                kv_zeros=spec.kv_zeros,
                                 device=batch.token_ids.device)
             llama.llama_forward(params, pool, None, batch, one,
                                 is_prefill=True)
@@ -1096,37 +1420,83 @@ def logits_bound(results, step, scale, with_floor):
     return max(LOGITS_RTOL, FLOOR_FACTOR * floor), floor
 
 
-# precision label -> (weight bits, act bits, group size, kv bits)
+# precision label -> (weight bits, act bits, group size, kv bits, kv_zeros)
 PRECISIONS = {
-    "w4a8kv4": (4, 8, -1, 4), "w4a8kv4-g128": (4, 8, 128, 4),
-    "w4a8kv8": (4, 8, -1, 8), "w8a8kv8": (8, 8, -1, 8),
-    "w16a16kv8": (16, 16, -1, 8),
+    "w4a8kv4": (4, 8, -1, 4, True), "w4a8kv4-g128": (4, 8, 128, 4, True),
+    "w4a8kv8": (4, 8, -1, 8, True), "w8a8kv8": (8, 8, -1, 8, True),
+    "w16a16kv8": (16, 16, -1, 8, True), "w16a16kv16": (16, 16, -1, 16, True),
+    "w8a8kv8-pt": (8, 8, -1, 8, False),
 }
 
 
 def spec_label(spec) -> str:
     g = f"-g{spec.group_size}" if spec.group_size > 0 else ""
-    return f"w{spec.weight_bits}a{spec.act_bits}kv{spec.kv_bits}{g}"
+    pt = "" if spec.kv_zeros or spec.kv_bits == 16 else "-pt"
+    return f"w{spec.weight_bits}a{spec.act_bits}kv{spec.kv_bits}{g}{pt}"
 
 
-def check_forward(dev, precision="w4a8kv4", with_floor=False):
+def forward_pool(spec, n_pages, dev, kv_scales=None):
+    """The retrieval pool a ``CacheEngine`` builds for ``spec``, per-tensor
+    scales loaded through ``CacheEngine.load_kv_scales``, the route a
+    checkpoint's take (``ModelRunner.load_params(kv_scales=)``)."""
+    from types import SimpleNamespace
+
+    from omniserve_tpu_torch.worker.cache_engine import CacheEngine
+
+    engine = CacheEngine(
+        SimpleNamespace(kv_cache_bits=spec.kv_bits, kv_zeros=spec.kv_zeros),
+        SimpleNamespace(page_size=spec.page_size,
+                        num_retrieval_device_blocks=n_pages,
+                        num_streaming_device_blocks=0),
+        num_layers=spec.num_layers, num_kv_heads=spec.num_kv_heads,
+        head_dim=spec.head_dim, device=dev)
+    if kv_scales is not None:
+        engine.load_kv_scales(kv_scales)
+    return engine.retrieval_pool
+
+
+def calibrate_kv_scales(spec, params, batch, n_pages, dev):
+    """Per-layer per-tensor K and V scales, max |x| / qmax of the K and V a
+    prefill of ``batch`` writes (read from a kv16 twin of the pool): the
+    calibration a checkpoint's scales come from."""
     import torch
 
     from omniserve_tpu_torch.models import llama
-    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    twin = dataclasses.replace(spec, kv_bits=16, kv_zeros=True)
+    pool = forward_pool(twin, n_pages, dev)
+    with torch.inference_mode():
+        llama.llama_forward(params, pool, None, batch, twin, is_prefill=True)
+    qmax = 7 if spec.kv_bits == 4 else 127
+    return tuple(x.flatten(1).float().abs().amax(dim=1) / qmax
+                 for x in (pool.k_data, pool.v_data))
+
+
+def precision_spec(precision, num_layers=2):
+    """Llama-3-8B's widths at ``num_layers`` layers and one precision of
+    ``PRECISIONS`` (a w8a8 lm_head)."""
+    from omniserve_tpu_torch.models import llama
 
     g = LLAMA3_8B
-    wb, ab, gs, kv = PRECISIONS[precision]
-    spec = llama.LlamaSpec(
-        num_layers=2, hidden=g["hidden_size"],
+    wb, ab, gs, kv, zeros = PRECISIONS[precision]
+    return llama.LlamaSpec(
+        num_layers=num_layers, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"],
         num_kv_heads=g["num_key_value_heads"], head_dim=128,
         vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
         lm_head_bits=8, weight_bits=wb, act_bits=ab, group_size=gs,
-        kv_bits=kv,
+        kv_bits=kv, kv_zeros=zeros,
     )
-    params = llama.make_random_packed_params(spec, seed=1, device=dev)
+
+
+def forward_batch(spec, dev):
+    """Phase 3's prompts (700, 333 and 1024 tokens from a seed) as one
+    whole-prompt prefill batch: (prompts, tables, batch, pages needed)."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+
     lens = [700, 333, 1024]
     rng = torch.Generator(device="cpu").manual_seed(2)
     prompts = [torch.randint(0, spec.vocab, (n,), generator=rng) for n in lens]
@@ -1141,12 +1511,49 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
         segment_ids=seg.to(dev), block_tables=tables.to(dev),
         last_token_idx=last.to(dev),
     )
+    return prompts, tables, pre, len(lens) * w + 1
+
+
+def next_decode_batch(logits, prompts, tables, dev):
+    """One decode step of every prompt from the next tokens ``logits``
+    pick."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+
+    return llama.DecodeBatch(
+        token_ids=logits.argmax(-1),
+        positions=torch.tensor([len(p) for p in prompts],
+                               dtype=torch.int32).to(dev),
+        block_tables=tables.to(dev),
+        active=torch.ones(len(prompts), dtype=torch.bool, device=dev),
+    )
+
+
+def check_forward(dev, precision="w4a8kv4", with_floor=False):
+    """Whole-prompt prefill and one decode step of a 2-layer full-width
+    forward, kernels against plain (``with_floor``: the gate of a body
+    whose logits move under one-ulp attention nudges). Returns (spec,
+    params, prompts, tables, kv_scales)."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+
+    spec = precision_spec(precision)
+    params = llama.make_random_packed_params(spec, seed=1, device=dev)
+    prompts, tables, pre, n_pages = forward_batch(spec, dev)
+    lens = [len(p) for p in prompts]
+    kv, zeros = spec.kv_bits, spec.kv_zeros
+    kv_scales = None
+    if kv < 16 and not zeros:
+        kv_scales = calibrate_kv_scales(spec, params, pre, n_pages, dev)
+        log(f"  forward {precision}: calibrated K scales "
+            f"{[round(float(x), 6) for x in kv_scales[0]]}, V scales "
+            f"{[round(float(x), 6) for x in kv_scales[1]]}")
     results = {}
     modes = ("kernels", "plain") + (("floor",) if with_floor else ())
     for mode in modes:
-        pool = make_kv_pool(spec.num_layers, len(lens) * w + 1,
-                            spec.num_kv_heads, 128, 128, kv_bits=kv,
-                            device=dev)
+        pool = forward_pool(spec, n_pages, dev, kv_scales)
         with _mode_ctx(mode), torch.inference_mode():
             t0 = time.time()
             lp, pool, _, _ = llama.llama_forward(params, pool, None, pre,
@@ -1160,12 +1567,8 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
             f"from the plain version's in {share:.3g} of layer 0's "
             f"elements (floor nudge rate {ATTN_ULP_RATE:g})")
     # one decode step from the same next tokens
-    nxt = results["plain"]["prefill"].argmax(-1)
-    dec = llama.DecodeBatch(
-        token_ids=nxt, positions=torch.tensor(lens, dtype=torch.int32).to(dev),
-        block_tables=tables.to(dev),
-        active=torch.ones(len(lens), dtype=torch.bool, device=dev),
-    )
+    dec = next_decode_batch(results["plain"]["prefill"], prompts, tables,
+                            dev)
     for mode in modes:
         with _mode_ctx(mode), torch.inference_mode():
             ld, _, _, _ = llama.llama_forward(params, results[mode]["pool"],
@@ -1206,11 +1609,11 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
     log(f"  {precision} prefill wall (2 layers, T={sum(lens)}): kernels "
         f"{results['kernels']['t_pre'] * 1e3:.1f} ms, plain "
         f"{results['plain']['t_pre'] * 1e3:.1f} ms (first call, host clock)")
-    return spec, params, [p.tolist() for p in prompts], tables
+    return spec, params, [p.tolist() for p in prompts], tables, kv_scales
 
 
 def check_chunked_forward(dev, spec, params, prompts, tables,
-                          with_floor=False):
+                          with_floor=False, kv_scales=None):
     """The same prompts prefilled in [4, 512] chunks (the runner's geometry
     for a 2048-token budget): the 700- and 1024-token prompts take two
     chunks, the second attending the first through the paged pool. Kernels
@@ -1218,16 +1621,13 @@ def check_chunked_forward(dev, spec, params, prompts, tables,
     import torch
 
     from omniserve_tpu_torch.models import llama
-    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
     from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
 
     seqs = [(p, tables[i].tolist()) for i, p in enumerate(prompts)]
     results = {}
     modes = ("kernels", "plain") + (("floor",) if with_floor else ())
     for mode in modes:
-        pool = make_kv_pool(spec.num_layers, tables.numel() + 1,
-                            spec.num_kv_heads, spec.page_size, spec.head_dim,
-                            kv_bits=spec.kv_bits, device=dev)
+        pool = forward_pool(spec, tables.numel() + 1, dev, kv_scales)
         final, n_chunks = None, 0
         with _mode_ctx(mode), torch.inference_mode():
             for batch, ends in chunked_prefill_batches(seqs, 2048,
@@ -1312,13 +1712,10 @@ def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8,
         raise AssertionError("window: page selection differs between graph "
                              "and eager")
     for a_pool, b_pool in zip(twins["graph"], twins["eager"]):
-        if a_pool is None:
-            continue
-        for name, a, b_ in zip(a_pool._fields, a_pool, b_pool):
+        if a_pool is not None:
             # all but the trash page, which takes the inactive rows' writes
-            if a is not None and not torch.equal(a[:, :-1], b_[:, :-1]):
-                raise AssertionError(f"window: pool {name} differs between "
-                                     "graph and eager")
+            pools_equal(a_pool, b_pool, "window (graph against eager)",
+                        skip_trash=True)
     log(f"  window {n_steps} steps x {n} rows (b_pad {b_pad}, table width "
         f"{w}): graph replay tokens == eager loop tokens, pools equal"
         f"{f', selections equal, {refreshes} refresh steps' if sparse else ''}"
@@ -1559,9 +1956,11 @@ def check_sparse_prefill_forward(dev):
 def check_precision_forwards(dev):
     """The precision matrix at full width, depth 2: whole-prompt prefill,
     a decode step and a chunked prefill, kernels against plain, for each of
-    w4a8kv4-g128, w4a8kv8, w8a8kv8 and w16a16kv8; an 8-step graph window
-    against the eager loop for the g128 and kv8 bodies. Each run must
-    launch its body's GEMM and its pool's attention kernels."""
+    w4a8kv4-g128, w4a8kv8, w8a8kv8, w16a16kv8, w16a16kv16 and w8a8kv8
+    per-tensor (calibrated scales through ``CacheEngine.load_kv_scales``);
+    an 8-step graph window against the eager loop for the g128, kv8, kv16
+    and per-tensor pools. Each run must launch its body's GEMM and its
+    pool's attention kernels."""
     import torch
 
     from omniserve_tpu_torch.ops import cuda
@@ -1574,14 +1973,20 @@ def check_precision_forwards(dev):
         "w8a8kv8": ("w8a8_matmul", "paged_prefill_kv8",
                     "decode_attention_append_kv8"),
         "w16a16kv8": ("paged_prefill_kv8", "decode_attention_append_kv8"),
+        "w16a16kv16": ("paged_prefill_kv16", "kv_append_decode_kv16",
+                       "paged_mqa_attention_kv16"),
+        "w8a8kv8-pt": ("w8a8_matmul", "paged_prefill_pt",
+                       "decode_attention_append_pt"),
     }
+    windowed = ("w4a8kv4-g128", "w4a8kv8", "w16a16kv16", "w8a8kv8-pt")
     for precision, kernels in want.items():
         cuda.reset_launch_counts()
-        spec, params, prompts, tables = check_forward(dev, precision,
-                                                      with_floor=True)
+        spec, params, prompts, tables, kv_scales = check_forward(
+            dev, precision, with_floor=True)
         pool, first = check_chunked_forward(dev, spec, params, prompts,
-                                            tables, with_floor=True)
-        if precision in ("w4a8kv4-g128", "w4a8kv8"):
+                                            tables, with_floor=True,
+                                            kv_scales=kv_scales)
+        if precision in windowed:
             check_window(dev, spec, params, pool, tables,
                          [len(p) for p in prompts], first)
         idle = [k for k in kernels if cuda.LAUNCHES[k] <= 0]
@@ -1766,14 +2171,15 @@ BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
 
 def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
               multi=32, precision="w4a8kv4", group_size=-1,
-              kernels=BENCH_KERNELS, trace=True):
+              kernels=BENCH_KERNELS, trace=True, granularity="fine_grained"):
     """``bench.py``'s engine protocol on the port: static batch 128, 1024
     prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
     ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
     through ``omniserve_tpu_torch.qserve_benchmark.run_round``, at
-    ``precision`` (and ``group_size``). Round 1 is warmup (``bench.py``
-    discards it); the launch counts are read from the last round alone, and
-    each of ``kernels`` must have launched in it. Then, with ``trace``, a
+    ``precision`` (and ``group_size``, ``granularity`` of the KV). With two
+    rounds or more round 1 is warmup (``bench.py`` discards it); the launch
+    counts are read from the last round alone, and each of ``kernels`` must
+    have launched in it. Then, with ``trace``, a
     fresh batch's chunked prefill step and one 32-step window under the
     profiler."""
     import torch
@@ -1789,7 +2195,7 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
         model=write_model_dir(), precision=precision, group_size=group_size,
-        load_format="dummy",
+        kv_quant_granularity=granularity, load_format="dummy",
         lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
         block_size=128, ifb_mode=False, benchmarking_mode=True,
         disable_log_stats=True, chunk_prefill_size=8192,
@@ -1802,7 +2208,9 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     pool_gib = sum(t.numel() * t.element_size() for t in pool
                    if t is not None) / 2**30
     log(f"  engine built in {time.time() - t0:.1f} s ({precision}"
-        f"{f' g{group_size}' if group_size > 0 else ''}); device memory "
+        f"{f' g{group_size}' if group_size > 0 else ''}"
+        f"{' per-tensor' if granularity == 'per_tensor' else ''}); device "
+        "memory "
         f"{device_gib(dev, torch.cuda.memory_allocated):.2f} GiB, KV pool "
         f"{pool_gib:.2f} GiB")
     runner = engine.worker.model_runner
@@ -1841,14 +2249,17 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         if not all(0 <= t < vocab for g in groups
                    for t in g.get_seqs()[0].data.output_token_ids):
             raise AssertionError(f"round {r + 1}: token out of vocab")
-        n_chunks = (launches["paged_prefill_attention"]
-                    + launches["paged_prefill_kv8"]) // n_layers
-        log(f"  round {r + 1}{' (warmup)' if r == 0 else ''}: prefill step "
+        n_chunks = sum(launches[k] for k in (
+            "paged_prefill_attention", "paged_prefill_kv8",
+            "paged_prefill_kv16", "paged_prefill_pt")) // n_layers
+        warm = rounds > 1 and r == 0
+        log(f"  round {r + 1}{' (warmup)' if warm else ''}: prefill step "
             f"{step_s[0] * 1e3:.1f} ms ({batch * prompt_len / step_s[0]:.0f} "
             f"prompt tok/s, {n_chunks} chunks); decode "
             f"{toks_per_s:.1f} tok/s ({sum(step_s[1:]) * 1e3:.1f} ms for "
             f"{len(step_s) - 1} steps, host clock); graphs captured "
-            f"{runner.graphs_captured - graphs_before}")
+            f"{runner.graphs_captured - graphs_before}; launches "
+            + ", ".join(f"{k} {launches[k]}" for k in kernels))
     log(f"  {batch} requests x {gen_len} tokens each in every round; graphs "
         f"held {len(runner._ms_fn_cache)}, captured {runner.graphs_captured} "
         f"in {runner.graph_capture_s:.2f} s; peak device memory "
@@ -2193,8 +2604,8 @@ KV8_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul", "paged_prefill_kv8",
 def run_bench_precisions(dev):
     """Phase 5's protocol (``run_bench``) at ``--precision w4a8kv4
     --group-size 128`` (a warmup and a measured round, then a traced
-    prefill step and window), then at ``w4a8kv8`` per-channel (a warmup and
-    a measured round). Returns each run's launches."""
+    prefill step and window), then at ``w4a8kv8`` per-channel (one measured
+    round). Returns each run's launches."""
     import torch
 
     log("  (a) w4a8kv4 g128")
@@ -2202,9 +2613,36 @@ def run_bench_precisions(dev):
     gc.collect()
     torch.cuda.empty_cache()
     log("  (b) w4a8kv8")
-    kv8 = run_bench(dev, precision="w4a8kv8", kernels=KV8_KERNELS,
+    kv8 = run_bench(dev, rounds=1, precision="w4a8kv8", kernels=KV8_KERNELS,
                     trace=False)
     return g128, kv8
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the bench protocol at the kv16 and per-tensor KV modes
+# ---------------------------------------------------------------------------
+
+KV16_KERNELS = ("w8a8_matmul", "paged_prefill_kv16", "kv_append_decode_kv16",
+                "paged_mqa_attention_kv16")
+PT_KERNELS = ("w8a8_matmul", "paged_prefill_pt", "decode_attention_append_pt")
+
+
+def run_bench_kv_modes(dev):
+    """Phase 9: phase 5's protocol (``run_bench``) at ``--precision
+    w16a16kv16`` (a warmup and a measured round, then a traced prefill step
+    and window), then at ``w8a8kv8 --kv-quant-granularity per_tensor``
+    (one measured round, then a traced prefill step and window). Returns
+    each run's launches."""
+    import torch
+
+    log("  (a) w16a16kv16")
+    kv16 = run_bench(dev, precision="w16a16kv16", kernels=KV16_KERNELS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) w8a8kv8 per-tensor")
+    pt = run_bench(dev, rounds=1, precision="w8a8kv8", kernels=PT_KERNELS,
+                   granularity="per_tensor")
+    return kv16, pt
 
 
 # ---------------------------------------------------------------------------
@@ -2262,9 +2700,16 @@ def main() -> int:
         "flash_prefill": check_flash(dev, gen),
         "decode_attention_append": check_decode(dev, gen),
         "decode_attention_append_kv8": check_decode(dev, gen, kv_bits=8),
+        "decode_attention_append_pt": check_decode(dev, gen, kv_bits=8,
+                                                   per_tensor=True),
+        "paged_mqa_attention_kv16": check_decode_kv16(dev, gen),
         "paged_prefill_attention": check_paged_prefill(dev, gen),
         "paged_prefill_kv8": check_paged_prefill(dev, gen, kv_bits=8),
+        "paged_prefill_kv16": check_paged_prefill(dev, gen, kv_bits=16),
+        "paged_prefill_pt": check_paged_prefill(dev, gen, kv_bits=8,
+                                                per_tensor=True),
         "kv_append_decode": check_kv_append(dev, gen),
+        "kv_append_decode_kv16": check_kv_append_kv16(dev, gen),
         "decode_attention_ph": check_decode_ph(dev, gen, b=1),
         "decode_attention_band": check_decode_band(dev, gen, b=1),
         "flash_prefill_band": check_flash_band(dev, gen),
@@ -2276,16 +2721,22 @@ def main() -> int:
     check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped")
     # the bench's decode shapes (batch 128), logged beside the rows above
     check_w8a8(dev, gen, m=128)
+    check_w8a8_body_gemms(dev, gen)
     for kv_bits in (4, 8):
         check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536,
                      kv_bits=kv_bits)
+    check_decode(dev, gen, kv_bits=4, per_tensor=True)
+    for kv_bits in (4, 8):
+        check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536,
+                     kv_bits=kv_bits, per_tensor=True)
+    check_decode_kv16(dev, gen, b=128, lens_from=1045, lens_to=1536)
     # the page-list kernels at a batch of 8 long contexts
     check_decode_ph(dev, gen, b=8)
     check_decode_band(dev, gen, b=8)
     time_selector(dev, gen)
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
-    spec, params, prompts, tables = check_forward(dev)
+    spec, params, prompts, tables, _ = check_forward(dev)
     pool, first = check_chunked_forward(dev, spec, params, prompts, tables)
     check_window(dev, spec, params, pool, tables, [len(p) for p in prompts],
                  first)
@@ -2325,6 +2776,16 @@ def main() -> int:
     launches.update({k: kv8[k] for k in ("decode_attention_append_kv8",
                                          "paged_prefill_kv8")})
     phase_done("phase 8")
+    log("phase 9: bench protocol at the kv16 and per-tensor KV modes "
+        "(w16a16kv16, then w8a8kv8 --kv-quant-granularity per_tensor) "
+        "through qserve_benchmark.run_round")
+    kv16, pt = run_bench_kv_modes(dev)
+    launches.update({k: kv16[k] for k in ("paged_prefill_kv16",
+                                          "kv_append_decode_kv16",
+                                          "paged_mqa_attention_kv16")})
+    launches.update({k: pt[k] for k in ("paged_prefill_pt",
+                                        "decode_attention_append_pt")})
+    phase_done("phase 9")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -2365,6 +2826,21 @@ def main() -> int:
             "omniserve_tpu_torch/csrc/flash_prefill.cu",
             "omniserve_tpu/ops/pallas/flash_attention.py:150"),
         "paged_prefill_ring": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        "paged_mqa_attention_kv16": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/paged_attention.py:255"),
+        "kv_append_decode_kv16": (
+            "omniserve_tpu_torch/csrc/kv_append.cu",
+            "omniserve_tpu/ops/pallas/kv_append.py:156"),
+        "decode_attention_append_pt": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "paged_prefill_kv16": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        "paged_prefill_pt": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
     }

@@ -10,8 +10,14 @@
 //      (launch_decode_attention_ph);
 //   3. paged_mqa_attention_single_pass in its plain mode with the streaming
 //      band over a ring pool: one page list per sequence, shared by the
-//      heads (launch_decode_attention_band).
-// Entries 2 and 3 are one kernel (decode_attn_list_kernel), see below.
+//      heads (launch_decode_attention_band);
+// and of omniserve_tpu/ops/pallas/paged_attention.py:
+//   4. paged_mqa_attention (:255, kernel _mqa_kernel :58), the two-stage
+//      decode, over a kv16 (bf16) pool: one page list per sequence, read in
+//      place, with no gather stage (launch_decode_attention_kv16).
+// Entries 2 and 3 are one kernel (decode_attn_list_kernel), see below;
+// entry 4 is a kernel of its own (decode_attn_kv16_kernel) so the kv4
+// instantiations keep their code.
 //
 // Contract of entry 1 (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
 // paged_decode_attention_fused_plain = append_kv, then
@@ -30,6 +36,13 @@
 //     row t % (page/2), high nibble iff t >= page/2); kv8 k/v [P, H, page,
 //     D] uint8 (token t at row t, codes without bias: value = (code - zero)
 //     * scale); planes [P, 4, H, page] f32.
+//   - per-tensor mode (PT, kv_zeros=False): no planes; the layer's K and V
+//     scales kpt, vpt are device scalars (read inside the kernel, so a
+//     captured step never reads them on the host). The new token is coded
+//     clip(rint(x / pt), -qmax-1, qmax) + qmax+1 (qmax 7 or 127) and every
+//     code is read as (code - bias) * pt, bias = qmax+1: the per-token
+//     staging below takes scale = pt and zero = bias, so the score and P.V
+//     loops are the fine-grained ones.
 //
 // What bounds it: device-memory bytes (each cached token costs D bytes of
 // K+V nibbles, 2*D bytes under kv8, and 16 bytes of planes; the math is a
@@ -49,8 +62,9 @@ namespace {
 
 using namespace kv;
 
-// KV_BITS = 4 (half-split nibble pages) or 8 (one byte per value).
-template <int NREP, int KV_BITS>
+// KV_BITS = 4 (half-split nibble pages) or 8 (one byte per value); PT =
+// per-tensor codes (planes null, kpt / vpt the layer's scales).
+template <int NREP, int KV_BITS, bool PT>
 __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
     const __nv_bfloat16* __restrict__ k_new,  // [B, H, D]
@@ -58,6 +72,8 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
     uint8_t* __restrict__ k_data,             // layer: [P, H, rows, D]
     uint8_t* __restrict__ v_data,
     float* __restrict__ planes,               // layer: [P, 4, H, page]
+    const float* __restrict__ kpt,            // PT: the layer's K scale
+    const float* __restrict__ vpt,            // PT: the layer's V scale
     const int* __restrict__ block_tables,     // [B, W]
     const int* __restrict__ context_lens,     // [B]
     __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
@@ -81,6 +97,9 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
   }
   constexpr bool KV8 = KV_BITS == 8;
   constexpr int LEVELS = KV8 ? 255 : 15;
+  constexpr int QMAX = KV8 ? 127 : 7;          // per-tensor code range
+  constexpr float BIAS = (float)(QMAX + 1);
+  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
   const int half = page / 2;
   const int rows = KV8 ? page : half;   // byte rows per page and head
 
@@ -94,8 +113,10 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
 
   // the new token: quantize, attend through its dequantized value
   const size_t kv_off = ((size_t)b * H + h) * D + tid;
-  const TokQuant kq = quant_kv<LEVELS>(__bfloat162float(k_new[kv_off]), red);
-  const TokQuant vq = quant_kv<LEVELS>(__bfloat162float(v_new[kv_off]), red);
+  const float kx = __bfloat162float(k_new[kv_off]);
+  const float vx = __bfloat162float(v_new[kv_off]);
+  const TokQuant kq = PT ? quant_pt<QMAX>(kx, k_pt) : quant_kv<LEVELS>(kx, red);
+  const TokQuant vq = PT ? quant_pt<QMAX>(vx, v_pt) : quant_kv<LEVELS>(vx, red);
   float acc[NREP];
   for (int r = 0; r < n_rep; ++r) {
     const float s = block_reduce(q_s[r][tid] * kq.dq, 0, red) * sm_scale;
@@ -115,13 +136,21 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
     const int ntok = min(page, n_old - p * page);
     const uint8_t* krows = k_data + ((size_t)phys * H + h) * rows * D;
     const uint8_t* vrows = v_data + ((size_t)phys * H + h) * rows * D;
-    const float* pl = planes + (size_t)phys * 4 * H * page + (size_t)h * page;
     for (int t = tid; t < page; t += NT) {
-      const float s0 = pl[t];
-      ks[t] = s0;
-      kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;     // k_scale * k_zero
-      vs[t] = pl[(size_t)2 * H * page + t];
-      vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;       // v_zero
+      if constexpr (PT) {
+        ks[t] = k_pt;
+        kc[t] = BIAS * k_pt;
+        vs[t] = v_pt;
+        vz[t] = BIAS;
+      } else {
+        const float* pl =
+            planes + (size_t)phys * 4 * H * page + (size_t)h * page;
+        const float s0 = pl[t];
+        ks[t] = s0;
+        kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;   // k_scale * k_zero
+        vs[t] = pl[(size_t)2 * H * page + t];
+        vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;     // v_zero
+      }
     }
     __syncthreads();
     // scores: one thread per token, dots over the K codes
@@ -225,7 +254,7 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
     v_data[byte_off] = (uint8_t)(is_hi ? ((vb & 0x0F) | (vc_new << 4))
                                        : ((vb & 0xF0) | vc_new));
   }
-  if (tid < 4) {
+  if (!PT && tid < 4) {
     float val;
     if (tid == 0) val = kq.scale;
     else if (tid == 1) val = kq.scale * (kq.zero + 128.0f);
@@ -416,32 +445,166 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
   }
 }
 
+// Decode attention over one page list per sequence of a kv16 pool
+// (entry 4).
+//
+// Contract (plain version: attention_ref.paged_decode_attention over a
+// kv16 pool; the wrapper passes the dense list of the block table):
+//   - pool layer k/v [P, H, page, D] bf16, token t of a page at row t, the
+//     values as they are;
+//   - entry i of the list names a physical page sel_phys and the logical
+//     page sel_logic it holds (-1 = dead, skipped); the token in slot t sits
+//     at position sel_logic*page + t and is attended iff pos < len;
+//   - out = softmax(q.k * sm_scale) . v over those tokens, in f32; a row
+//     with len <= 0, or no live token, outputs zeros.
+// What bounds it: device-memory bytes (4*D bytes of K+V per cached token
+// and kv head, the n_rep dots are 2*n_rep*D flops against them).
+// Design: one block per (kv head, sequence) walks the list. Scores: one
+// warp per token, each lane reads 4 consecutive bf16 of the K row (a warp
+// reads the 256-byte row in one coalesced sweep) and the n_rep dots are
+// warp sums; one warp per query row runs the online softmax over the
+// page; P.V: one thread per head-dim lane walks the page's V rows (each
+// row one coalesced 256-byte read by the block).
+template <int NREP>
+__global__ void __launch_bounds__(NT) decode_attn_kv16_kernel(
+    const __nv_bfloat16* __restrict__ q,       // [B, H, n_rep, D]
+    const __nv_bfloat16* __restrict__ k_data,  // layer: [P, H, page, D]
+    const __nv_bfloat16* __restrict__ v_data,
+    const int* __restrict__ sel_phys,          // [B, Tp]
+    const int* __restrict__ sel_logic,         // [B, Tp]
+    const int* __restrict__ lengths,           // [B]
+    __nv_bfloat16* __restrict__ out,           // [B, H, n_rep, D]
+    int H, int page, int Tp, float sm_scale) {
+  constexpr int n_rep = NREP;
+  __shared__ float q_s[NREP][D];
+  __shared__ float score[NREP][MAX_PAGE];
+  __shared__ float m_s[NREP], l_s[NREP], alpha_s[NREP];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = lengths[b];
+  const size_t row_base = ((size_t)b * H + h) * n_rep;
+  if (len <= 0) {
+    for (int r = 0; r < n_rep; ++r)
+      out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
+    return;
+  }
+  for (int r = 0; r < n_rep; ++r)
+    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
+  if (tid < n_rep) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
+  }
+  float acc[NREP];
+  for (int r = 0; r < n_rep; ++r) acc[r] = 0.0f;
+  __syncthreads();
+
+  const size_t list_off = (size_t)b * Tp;
+  for (int i = 0; i < Tp; ++i) {
+    const int logic = sel_logic[list_off + i];
+    if (logic < 0) continue;                       // block-uniform
+    const int first = logic * page;
+    if (first >= len) continue;
+    const int ntok = min(page, len - first);
+    const int phys = sel_phys[list_off + i];
+    const __nv_bfloat16* krows = k_data + ((size_t)phys * H + h) * page * D;
+    const __nv_bfloat16* vrows = v_data + ((size_t)phys * H + h) * page * D;
+    // scores: one warp per token, 4 lanes of the head dim per thread
+    for (int t = warp; t < ntok; t += NWARP) {
+      const uint2 raw =
+          *reinterpret_cast<const uint2*>(krows + (size_t)t * D + lane * 4);
+      const float2 k01 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 k23 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        const float* qr = &q_s[r][lane * 4];
+        float dot = qr[0] * k01.x + qr[1] * k01.y + qr[2] * k23.x +
+                    qr[3] * k23.y;
+        dot = warp_sum(dot);
+        if (lane == 0) score[r][t] = dot * sm_scale;
+      }
+    }
+    __syncthreads();
+    // online softmax, one warp per query row (ntok >= 1: m_new is finite)
+    for (int r = warp; r < n_rep; r += NWARP) {
+      float mx = -INFINITY;
+      for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, score[r][t]);
+      mx = warp_max(mx);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float alpha = expf(m_old - m_new);
+      float lsum = 0.0f;
+      for (int t = lane; t < ntok; t += 32) {
+        const float pr = expf(score[r][t] - m_new);
+        score[r][t] = pr;
+        lsum += pr;
+      }
+      lsum = warp_sum(lsum);
+      if (lane == 0) {
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + lsum;
+        alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+    // P.V: one thread per head-dim lane
+    for (int r = 0; r < n_rep; ++r) acc[r] *= alpha_s[r];
+#pragma unroll 4
+    for (int row = 0; row < ntok; ++row) {
+      const float v = __bfloat162float(vrows[(size_t)row * D + tid]);
+      for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * v;
+    }
+    __syncthreads();
+  }
+
+  for (int r = 0; r < n_rep; ++r) {
+    const float l = l_s[r];
+    out[(row_base + r) * D + tid] =
+        __float2bfloat16(l > 0.0f ? acc[r] / l : 0.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
 // kv_bits: 4 (half-split nibble pages) or 8 (one byte per value).
+// Per-tensor codes when k_pt / v_pt (device addresses of the layer's
+// scales) are given; planes are then not read and may be null.
 int launch_decode_attention_append(
     const void* q, const void* k_new, const void* v_new, void* k_data,
     void* v_data, void* planes, const void* block_tables,
     const void* context_lens, void* out, int B, int H, int n_rep, int page,
-    int W, float sm_scale, int kv_bits, void* stream) {
-  if (kv_bits != 4 && kv_bits != 8) return (int)cudaErrorInvalidValue;
+    int W, float sm_scale, int kv_bits, const void* k_pt, const void* v_pt,
+    void* stream) {
+  const bool pt = k_pt != nullptr;
+  if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
+      (!pt && planes == nullptr))
+    return (int)cudaErrorInvalidValue;
   dim3 grid(H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_BITS(R, BITS)                                               \
-  decode_attn_append_kernel<R, BITS><<<grid, NT, 0, s>>>(                  \
+#define LAUNCH_BITS(R, BITS, PT)                                           \
+  decode_attn_append_kernel<R, BITS, PT><<<grid, NT, 0, s>>>(              \
       static_cast<const __nv_bfloat16*>(q),                                \
       static_cast<const __nv_bfloat16*>(k_new),                            \
       static_cast<const __nv_bfloat16*>(v_new),                            \
       static_cast<uint8_t*>(k_data), static_cast<uint8_t*>(v_data),        \
-      static_cast<float*>(planes), static_cast<const int*>(block_tables),  \
+      static_cast<float*>(planes), static_cast<const float*>(k_pt),        \
+      static_cast<const float*>(v_pt),                                     \
+      static_cast<const int*>(block_tables),                               \
       static_cast<const int*>(context_lens),                               \
       static_cast<__nv_bfloat16*>(out), H, page, W, sm_scale)
-#define LAUNCH(R)                      \
-  if (kv_bits == 8) LAUNCH_BITS(R, 8); \
-  else LAUNCH_BITS(R, 4)
+#define LAUNCH(R)                                     \
+  if (pt) {                                           \
+    if (kv_bits == 8) LAUNCH_BITS(R, 8, true);        \
+    else LAUNCH_BITS(R, 4, true);                     \
+  } else {                                            \
+    if (kv_bits == 8) LAUNCH_BITS(R, 8, false);       \
+    else LAUNCH_BITS(R, 4, false);                    \
+  }
   switch (n_rep) {
     case 1: LAUNCH(1); break;
     case 2: LAUNCH(2); break;
@@ -509,6 +672,35 @@ int launch_decode_attention_band(
   return launch_list(true, q, k_data, v_data, planes, sel_phys, sel_logic,
                      lengths, out, B, H, n_rep, page, Tp, 0, sm_scale,
                      band_sink, band_local, ring_span, ring_sink_tok, stream);
+}
+
+// Two-stage decode's kv16 mode: one page list [B, Tp] per sequence over a
+// bf16 pool, read in place.
+int launch_decode_attention_kv16(
+    const void* q, const void* k_data, const void* v_data,
+    const void* sel_phys, const void* sel_logic, const void* lengths,
+    void* out, int B, int H, int n_rep, int page, int Tp, float sm_scale,
+    void* stream) {
+  if (page <= 0 || page > MAX_PAGE) return (int)cudaErrorInvalidValue;
+  dim3 grid(H, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_KV16(R)                                                     \
+  decode_attn_kv16_kernel<R><<<grid, NT, 0, s>>>(                          \
+      static_cast<const __nv_bfloat16*>(q),                                \
+      static_cast<const __nv_bfloat16*>(k_data),                           \
+      static_cast<const __nv_bfloat16*>(v_data),                           \
+      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic), \
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),  \
+      H, page, Tp, sm_scale)
+  switch (n_rep) {
+    case 1: LAUNCH_KV16(1); break;
+    case 2: LAUNCH_KV16(2); break;
+    case 4: LAUNCH_KV16(4); break;
+    case 8: LAUNCH_KV16(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH_KV16
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 // Device code shared by the paged-KV kernels (decode_attention.cu,
 // kv_append.cu): block reductions over one 128-thread block (one thread per
-// head-dim lane) and the fine-grained quantizer of one [D] vector over 15
-// levels (kv4) or 255 (kv8).
+// head-dim lane), the fine-grained quantizer of one [D] vector over 15
+// levels (kv4) or 255 (kv8), and the per-tensor quantizer of one value by
+// a calibrated scale (codes biased by 8 or 128).
 //
-// The quantizer follows the plain version's f32 op order
-// (ops/quantization.kv_quantize_fine_grained); sources that include this
-// header are compiled with --fmad=false so codes, scales and zeros come out
-// bit-identical to it.
+// The quantizers follow the plain versions' f32 op order
+// (ops/quantization.kv_quantize_fine_grained, kv_quantize_per_tensor);
+// sources that include this header are compiled with --fmad=false so
+// codes, scales and zeros come out bit-identical to them.
 
 #pragma once
 
@@ -68,6 +69,23 @@ __device__ inline TokQuant quant_kv(float x, float* red) {
   t.zero = (-L * mn) / rng;
   t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), L);
   t.dq = (t.code - t.zero) * t.scale;
+  return t;
+}
+
+// Per-tensor quantization of one value with the layer's calibrated scale
+// pt (QMAX = 7 for kv4, 127 for kv8): code = clip(rint(x / pt), -QMAX-1,
+// QMAX) + QMAX+1, an IEEE division and round-half-even as
+// ops/quantization.kv_quantize_per_tensor; dq = (code - bias) * pt, the
+// value the pool holds. scale / zero carry pt and the bias.
+template <int QMAX>
+__device__ __forceinline__ TokQuant quant_pt(float x, float pt) {
+  constexpr float bias = (float)(QMAX + 1);
+  const float q = fminf(fmaxf(rintf(x / pt), -bias), (float)QMAX);
+  TokQuant t;
+  t.code = q + bias;
+  t.dq = q * pt;
+  t.scale = pt;
+  t.zero = bias;
   return t;
 }
 

@@ -264,6 +264,11 @@ class LLMEngine:
                     meta.block_tables[seq.seq_id] = (
                         self.scheduler.block_manager.get_block_table(seq)
                     )
+                    if self.scheduler.block_manager.streaming is not None:
+                        meta.streaming_block_tables[seq.seq_id] = (
+                            self.scheduler.block_manager
+                            .get_streaming_block_table(seq)
+                        )
             outs = self.worker.execute_model_multi_step(metadata, n_multi)
             self._multi_step_buffer = outs[1:]
             self._ifb_window_out = sched_out

@@ -55,11 +55,18 @@ def params_from_numpy(tree: Any, device) -> Any:
 
 def pool_from_numpy(pool: Any, device) -> KVPool:
     """A JAX ``KVPool`` (numpy leaves, read by field name) -> port pool;
-    kv4 or kv8, a retrieval pool with its K stats, or a streaming pool."""
-    stats = getattr(pool, "k_stats", None)
+    kv4, kv8 (fine-grained or per-tensor) or kv16, a retrieval pool with
+    its K stats, or a streaming pool."""
+
+    def field(name):
+        a = getattr(pool, name, None)
+        return None if a is None else tensor_from_numpy(a, device)
+
     return KVPool(
-        k_data=tensor_from_numpy(pool.k_data, device),
-        v_data=tensor_from_numpy(pool.v_data, device),
-        kv_scales=tensor_from_numpy(pool.kv_scales, device),
-        k_stats=None if stats is None else tensor_from_numpy(stats, device),
+        k_data=field("k_data"),
+        v_data=field("v_data"),
+        kv_scales=field("kv_scales"),
+        k_stats=field("k_stats"),
+        k_scale_per_tensor=field("k_scale_per_tensor"),
+        v_scale_per_tensor=field("v_scale_per_tensor"),
     )

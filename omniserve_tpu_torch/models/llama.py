@@ -4,7 +4,9 @@ Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
 sparse prefill and dynamic-sparse decode) with the same parameter tree and
 the same per-layer op order. Bodies: W4A8 with per-channel or per-group
 (g128) weights, W8A8, W16A16 (bf16 activations, no quantization); pools:
-fine-grained kv4 or kv8 (kv8 on the dense path only). Per layer:
+fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16 (all but
+fine-grained kv4 on the dense path only; the per-tensor scales ride in the
+pool, where the attention calls read them). Per layer:
 
 - fused RMSNorm -> int8 quant (+ act sums for per-channel W4), the qkv
   GEMM, RoPE;
@@ -152,21 +154,19 @@ class LlamaSpec:
                 "the precision matrix (W4A8 per-channel or per-group, W8A8, "
                 "W16A16)"
             )
-        if self.kv_bits not in (4, 8):
+        if self.kv_bits not in (4, 8, 16):
             raise NotImplementedError(
-                f"kv{self.kv_bits} pools are ROADMAP.md queue 1 item 8b (the "
-                "port serves kv4 and kv8)"
+                f"kv{self.kv_bits} pools are outside the precision matrix "
+                "(kv4, kv8, kv16)"
             )
-        if not self.kv_zeros:
+        if (self.sparse_decode or self.sparse_prefill) and (
+                self.kv_bits != 4 or not self.kv_zeros):
             raise NotImplementedError(
-                "per-tensor KV (kv_quant_granularity='per_tensor') is "
-                "ROADMAP.md queue 1 item 8b (the port serves fine-grained "
+                f"kv{self.kv_bits} "
+                f"{'fine-grained' if self.kv_zeros else 'per-tensor'} pools "
+                "under --sparse-decode-mode / --sparse-context-mode are "
+                "ROADMAP.md queue 1 item 8b (LServe serves fine-grained kv4 "
                 "pools)"
-            )
-        if self.kv_bits == 8 and (self.sparse_decode or self.sparse_prefill):
-            raise NotImplementedError(
-                "kv8 under --sparse-decode-mode / --sparse-context-mode is "
-                "ROADMAP.md queue 1 item 8b (LServe serves kv4 pools)"
             )
         if self.attn_bias:
             raise NotImplementedError(

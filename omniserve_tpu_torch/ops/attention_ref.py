@@ -6,13 +6,14 @@ Counterparts of ``omniserve_tpu.ops.attention_ref``:
   and streaming heads (sink + local band); the plain version of the flash
   prefill kernel.
 - ``paged_decode_attention`` (:151): single-query GQA attention over the
-  paged kv4 / kv8 pools: dense page lists, per-head page selections, and the
-  streaming ring pool's sink+local band; the plain version of the three
-  decode kernels (``ops/cuda/decode_attention.py``).
+  paged pools (kv4 / kv8, fine-grained or per-tensor, and kv16): dense page
+  lists, per-head page selections, and the streaming ring pool's
+  sink+local band; the plain version of the decode kernels
+  (``ops/cuda/decode_attention.py``).
 - ``page_selector_scores`` (:281), ``select_topk_pages`` (:335): the
   query-aware page selector of dynamic-sparse decode.
 - ``paged_prefill_attention`` (:391): a chunk's causal GQA attention over
-  the paged kv4 / kv8 pool (history + chunk), with per-head sink + local
+  the paged pool (history + chunk), with per-head sink + local
   bands and an explicit per-row position map (the streaming ring); the plain
   version of the paged prefill kernel (``ops/cuda/paged_prefill.py``).
 
@@ -138,11 +139,6 @@ def paged_decode_attention(
             "LSE outputs are the sequence-parallel path; see ROADMAP.md "
             "queue 1 item 10"
         )
-    if kv_bits not in (4, 8) or not kv_zeros:
-        raise NotImplementedError(
-            "the port serves kv4 and kv8 fine-grained pools; kv16 and "
-            "per-tensor KV are ROADMAP.md queue 1 item 8b"
-        )
     b, hq, d = q.shape
     dev = q.device
     if head_is_retrieval is None:
@@ -156,7 +152,7 @@ def paged_decode_attention(
 
     # -- retrieval pool (all kv heads; streaming heads overwritten below) --
     k_all, v_all = gather_kv_for_seq(pool, layer, block_tables, page_size,
-                                     kv_bits)
+                                     kv_bits, kv_zeros)
     tok = torch.arange(k_all.shape[1], device=dev)
     valid_r = (tok[None, :] < lens[:, None])[:, None, :].expand(b, hkv, -1)
     if page_idxes is not None:
@@ -173,7 +169,7 @@ def paged_decode_attention(
     # -- streaming ring pool --
     sk_all, sv_all = gather_kv_for_seq(streaming_pool, layer,
                                        streaming_block_tables, page_size,
-                                       kv_bits)
+                                       kv_bits, kv_zeros)
     n_ring_blocks = max(1, streaming_block_tables.shape[1] - sink_blocks)
     sink_tok = sink_blocks * page_size
     local_tok = n_ring_blocks * page_size          # ring capacity (tokens)
@@ -300,7 +296,7 @@ def paged_prefill_attention(
     """Chunked-prefill attention: queries attend CAUSALLY over the paged
     pool (history + the current chunk, which the caller appended first).
 
-    A kv4 or kv8 fine-grained pool, in f32 over the dequantized pages, one
+    Any pool width and granularity, in f32 over the dequantized pages, one
     sequence and ``q_chunk`` queries at a time, with the JAX reference's
     mask: pool row ``r`` holds position ``kv_pos = kv_positions[b, r]``
     (default ``r``; -1 = no token) and is visible to a query at ``q_pos``

@@ -1,6 +1,7 @@
 """Paged decode attention (``csrc/decode_attention.cu``): the fused KV
-append over a dense page list (kv4 or kv8 pools), dynamic-sparse decode
-over per-head page lists, and the streaming band over a ring pool (kv4).
+append over a dense page list (kv4 or kv8 pools, fine-grained or
+per-tensor), dynamic-sparse decode over per-head page lists, the streaming
+band over a ring pool (kv4), and the dense decode over a kv16 pool.
 
 Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
@@ -16,12 +17,18 @@ Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 - ``paged_mqa_attention_single_pass`` in its plain mode with the streaming
   decode band and the ring relabel: ``paged_mqa_attention_single_pass``.
 
+And of ``omniserve_tpu/ops/pallas/paged_attention.py``:
+
+- ``paged_mqa_attention`` (:255), the two-stage decode the JAX package
+  runs over kv16 pools, as one kernel that reads the listed bf16 pages in
+  place (no gather stage): ``paged_mqa_attention_kv16``.
+
 ``paged_decode_attention`` composes the last two as
 ``omniserve_tpu/ops/pallas/paged_attention.py:paged_decode_attention``
 (:535) does: route q heads to pool rows, build the page lists, run the
-retrieval and the streaming call, merge by head. The two list kernels
-share one plain version, ``page_list_attention_plain``, which follows the
-list contract; ``attention_ref.paged_decode_attention`` is the plain
+retrieval and the streaming call, merge by head. The list kernels share
+one plain version, ``page_list_attention_plain``, which follows the list
+contract; ``attention_ref.paged_decode_attention`` is the plain
 version of the whole composition. What bounds the kernels and how they are
 laid out is in the CUDA source's header.
 """
@@ -49,7 +56,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_decode_attention_append.argtypes = (
-            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]
+            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 3
         )
         lib.launch_decode_attention_append.restype = _I
         lib.launch_decode_attention_ph.argtypes = (
@@ -60,6 +67,10 @@ def _lib():
             [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P]
         )
         lib.launch_decode_attention_band.restype = _I
+        lib.launch_decode_attention_kv16.argtypes = (
+            [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
+        )
+        lib.launch_decode_attention_kv16.restype = _I
         lib._typed = True
     return lib
 
@@ -79,16 +90,18 @@ def append_targets(block_tables, context_lens, page_size):
 def paged_decode_attention_fused_plain(
     q, pool: KVPool, layer: int, block_tables, context_lens, k_new, v_new,
     *, sm_scale: float, page_size: int, kv_bits: int = 4,
+    kv_zeros: bool = True,
 ):
-    """Plain version: append the new token, then attend the updated pool.
+    """Plain version: append the new token, then attend the updated pool
+    (any width and granularity).
 
     q [B, Hq, D]; k_new/v_new [B, Hkv, D]. Returns [B, Hq, D]."""
     pages, slots = append_targets(block_tables, context_lens, page_size)
     append_kv(pool, layer, k_new, v_new, pages, slots, page_size,
-              kv_bits=kv_bits, kv_zeros=True)
+              kv_bits=kv_bits, kv_zeros=kv_zeros)
     return attention_ref.paged_decode_attention(
         q, pool, layer, block_tables, context_lens, sm_scale, page_size,
-        kv_bits=kv_bits, kv_zeros=True,
+        kv_bits=kv_bits, kv_zeros=kv_zeros,
     )
 
 
@@ -106,9 +119,10 @@ def paged_decode_attention_fused(
     kv_bits: int = 4,
 ) -> torch.Tensor:
     """Kernel: attention over the pool plus the new token, whose K/V it
-    quantizes and writes into the pool (kv4 or kv8). Returns [B, Hq, D]
-    bf16. Launches count as ``decode_attention_append`` (kv4) or
-    ``decode_attention_append_kv8``."""
+    quantizes and writes into the pool (kv4 or kv8; per-tensor codes when
+    the pool carries per-tensor scales, read on the device). Returns [B,
+    Hq, D] bf16. Launches count as ``decode_attention_append`` (kv4),
+    ``decode_attention_append_kv8`` or ``decode_attention_append_pt``."""
     b, hq, d = q.shape
     _, num_pages, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -118,17 +132,31 @@ def paged_decode_attention_fused(
             f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
     want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
-    if rows != want_rows or page_size > MAX_PAGE or pool.kv_scales is None:
-        raise ValueError("decode kernel serves kv4 and kv8 fine-grained "
-                         f"pools with pages of at most {MAX_PAGE} tokens; "
-                         f"got kv{kv_bits}, {rows} rows of a {page_size}-"
-                         "token page")
+    pt = pool.k_scale_per_tensor is not None
+    if (rows != want_rows or page_size > MAX_PAGE
+            or (pool.kv_scales is None) == (not pt)):
+        raise ValueError("decode kernel serves kv4 and kv8 pools, fine-"
+                         "grained or per-tensor, with pages of at most "
+                         f"{MAX_PAGE} tokens; got kv{kv_bits}, {rows} rows "
+                         f"of a {page_size}-token page")
     cuda.check(q, "q", torch.bfloat16)
     cuda.check(k_new, "k_new", torch.bfloat16, (b, hkv, d))
     cuda.check(v_new, "v_new", torch.bfloat16, (b, hkv, d))
     cuda.check(pool.k_data, "k_data", torch.uint8)
     cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
-    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+    planes_ptr = k_pt = v_pt = None
+    if pt:
+        num_layers = pool.k_data.shape[0]
+        cuda.check(pool.k_scale_per_tensor, "k_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        cuda.check(pool.v_scale_per_tensor, "v_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        # device addresses of this layer's scales: never read on the host
+        k_pt = pool.k_scale_per_tensor[layer].data_ptr()
+        v_pt = pool.v_scale_per_tensor[layer].data_ptr()
+    else:
+        cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+        planes_ptr = pool.kv_scales[layer].data_ptr()
     cuda.check(block_tables, "block_tables", torch.int32)
     cuda.check(context_lens, "context_lens", torch.int32, (b,))
     if block_tables.shape[0] != b:
@@ -137,12 +165,13 @@ def paged_decode_attention_fused(
     err = _lib().launch_decode_attention_append(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(),
-        pool.kv_scales[layer].data_ptr(), block_tables.data_ptr(),
+        planes_ptr, block_tables.data_ptr(),
         context_lens.data_ptr(), out.data_ptr(), b, hkv, n_rep, page_size,
-        block_tables.shape[1], float(sm_scale), kv_bits,
+        block_tables.shape[1], float(sm_scale), kv_bits, k_pt, v_pt,
         cuda.stream_handle(),
     )
-    name = ("decode_attention_append_kv8" if kv_bits == 8
+    name = ("decode_attention_append_pt" if pt
+            else "decode_attention_append_kv8" if kv_bits == 8
             else "decode_attention_append")
     cuda.raise_on_error(err, name)
     cuda.LAUNCHES[name] += 1
@@ -245,36 +274,87 @@ def paged_mqa_attention_single_pass(
     return out
 
 
-def page_list_attention_plain(
-    q, pool: KVPool, layer: int, sel_phys, sel_logic, lengths, *,
-    sm_scale: float, page_size: int, band_sink_tokens: int = -1,
+def paged_mqa_attention_kv16(
+    q: torch.Tensor,          # [B, H, n_rep, D] bf16
+    pool: KVPool,             # kv16: k/v [L, P, H, page, D] bf16
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
+    sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+) -> torch.Tensor:
+    """Kernel: decode over one page list per sequence of a kv16 pool, the
+    pages read in place. Returns [B, H, n_rep, D] bf16. Launches count as
+    ``paged_mqa_attention_kv16``."""
+    b, hp, n_rep, d = q.shape
+    tp = sel_logic.shape[-1]
+    if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
+        raise ValueError(
+            f"decode kernel needs head_dim {HEAD_DIM}, n_rep in {N_REPS} "
+            f"and one q group per pool head; got q {tuple(q.shape)} for "
+            f"{pool.num_heads} pool heads"
+        )
+    if pool.k_data.shape[3] != page_size or page_size > MAX_PAGE:
+        raise ValueError("kv16 decode kernel needs pages of at most "
+                         f"{MAX_PAGE} tokens, one row each; got "
+                         f"{pool.k_data.shape[3]} rows of a {page_size}-"
+                         "token page")
+    cuda.check(q, "q", torch.bfloat16)
+    cuda.check(pool.k_data, "k_data", torch.bfloat16)
+    cuda.check(pool.v_data, "v_data", torch.bfloat16, pool.k_data.shape)
+    cuda.check(sel_phys, "sel_phys", torch.int32, (b, tp))
+    cuda.check(sel_logic, "sel_logic", torch.int32, (b, tp))
+    cuda.check(lengths, "lengths", torch.int32, (b,))
+    out = torch.empty_like(q)
+    err = _lib().launch_decode_attention_kv16(
+        q.data_ptr(), pool.k_data[layer].data_ptr(),
+        pool.v_data[layer].data_ptr(), sel_phys.data_ptr(),
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
+        n_rep, page_size, tp, float(sm_scale), cuda.stream_handle(),
+    )
+    cuda.raise_on_error(err, "paged_mqa_attention_kv16")
+    cuda.LAUNCHES["paged_mqa_attention_kv16"] += 1
+    return out
+
+
+def page_list_kv(
+    pool: KVPool, layer: int, sel_phys, sel_logic, lengths, n_heads: int,
+    *, page_size: int, band_sink_tokens: int = -1,
     band_local_tokens: int = 0, ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
-) -> torch.Tensor:
-    """Plain version of both list kernels: lists [B, Hp, Tp] (per head) or
-    [B, Tp] (shared by the heads). Gathers and dequantizes the listed
-    pages, gives every slot the position the list contract gives it, and
-    runs a masked softmax in f32."""
-    b, hp, n_rep, d = q.shape
+):
+    """The listed pages of a fine-grained kv4 or a kv16 pool, dequantized:
+    (k, v) [B, Hp, Tp*page, D] f32 and ``valid`` [B, Hp, Tp*page], each
+    slot live as the list contract says (position below the length, the
+    ring relabel, the band). Lists are [B, Hp, Tp] (per head) or [B, Tp]
+    (shared by the ``n_heads`` heads)."""
+    b = lengths.shape[0]
     if sel_logic.dim() == 2:
-        sel_phys = sel_phys[:, None, :].expand(b, hp, -1)
-        sel_logic = sel_logic[:, None, :].expand(b, hp, -1)
-    dev = q.device
+        sel_phys = sel_phys[:, None, :].expand(b, n_heads, -1)
+        sel_logic = sel_logic[:, None, :].expand(b, n_heads, -1)
+    dev = sel_logic.device
     logic = sel_logic.long()
     phys = torch.where(logic >= 0, sel_phys.long(), 0)
-    heads = torch.arange(hp, device=dev)[None, :, None]
-    planes = pool.kv_scales[layer][phys, :, heads]     # [B, Hp, Tp, 4, page]
+    heads = torch.arange(n_heads, device=dev)[None, :, None]
+    if pool.k_data.dtype == torch.bfloat16:            # kv16: values as is
+        k = pool.k_data[layer][phys, heads].float()    # [B, Hp, Tp, page, D]
+        v = pool.v_data[layer][phys, heads].float()
+    else:
+        planes = pool.kv_scales[layer][phys, :, heads]  # [B, Hp, Tp, 4, pg]
 
-    def values(data, scale, zero):
-        pages = data[layer][phys, heads]               # [B, Hp, Tp, rows, D]
-        codes = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
-                          dim=-2)                      # [B, Hp, Tp, page, D]
-        return (codes - zero[..., None]) * scale[..., None]
+        def values(data, scale, zero):
+            pages = data[layer][phys, heads]           # [B, Hp, Tp, rows, D]
+            codes = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
+                              dim=-2)                  # [B, Hp, Tp, page, D]
+            return (codes - zero[..., None]) * scale[..., None]
 
-    k_scale = planes[..., 0, :]
-    k = values(pool.k_data, k_scale,
-               planes[..., 1, :] / torch.clamp(k_scale, min=1e-20) - 128.0)
-    v = values(pool.v_data, planes[..., 2, :], planes[..., 3, :] - 128.0)
+        k_scale = planes[..., 0, :]
+        k = values(pool.k_data, k_scale,
+                   planes[..., 1, :] / torch.clamp(k_scale, min=1e-20)
+                   - 128.0)
+        v = values(pool.v_data, planes[..., 2, :], planes[..., 3, :] - 128.0)
 
     ln = lengths.long()[:, None, None, None]
     slot = torch.arange(page_size, device=dev)
@@ -290,10 +370,21 @@ def page_list_attention_plain(
     if band_sink_tokens >= 0:
         win = torch.clamp(ln - band_local_tokens, min=0)
         valid = valid & ((pos < band_sink_tokens) | (pos >= win))
+    return k.flatten(2, 3), v.flatten(2, 3), valid.flatten(2)
 
-    scores = torch.einsum("bhrd,bhtsd->bhrts", q.float(), k) * sm_scale
-    mask = valid[:, :, None].expand_as(scores).flatten(3)
-    scores = scores.flatten(3).masked_fill(~mask, float("-inf"))
+
+def page_list_attention_plain(
+    q, pool: KVPool, layer: int, sel_phys, sel_logic, lengths, *,
+    sm_scale: float, page_size: int, **list_kw,
+) -> torch.Tensor:
+    """Plain version of the list kernels (q [B, Hp, n_rep, D]; the lists
+    and ``list_kw`` as ``page_list_kv`` takes them): gathers and
+    dequantizes the listed pages and runs a masked softmax in f32."""
+    k, v, valid = page_list_kv(pool, layer, sel_phys, sel_logic, lengths,
+                               q.shape[1], page_size=page_size, **list_kw)
+    scores = torch.einsum("bhrd,bhsd->bhrs", q.float(), k) * sm_scale
+    mask = valid[:, :, None].expand_as(scores)
+    scores = scores.masked_fill(~mask, float("-inf"))
     any_valid = mask.any(dim=-1, keepdim=True)
     m = torch.where(any_valid, scores.amax(dim=-1, keepdim=True), 0.0)
     p = torch.where(mask, torch.exp(scores - m), 0.0)
@@ -302,7 +393,7 @@ def page_list_attention_plain(
         0.0)
     # never-written slots may hold non-finite planes: zero them before the
     # product (a zero weight would not silence a NaN)
-    v = torch.where(valid[..., None], v, 0.0).flatten(2, 3)
+    v = torch.where(valid[..., None], v, 0.0)
     return torch.einsum("bhrs,bhsd->bhrd", probs, v).to(q.dtype)
 
 
@@ -419,8 +510,10 @@ def paged_decode_attention(
               else page_list_attention_plain)
     else:
         lists = dense_page_lists(block_tables, context_lens, page_size)
-        fn = (paged_mqa_attention_single_pass if on_card
-              else page_list_attention_plain)
+        kernel = (paged_mqa_attention_kv16
+                  if pool.k_data.dtype == torch.bfloat16
+                  else paged_mqa_attention_single_pass)
+        fn = kernel if on_card else page_list_attention_plain
     out_r = fn(q_r, pool, layer, *lists, lengths, **kw)
     if pure_dense:
         return out_r.reshape(b, hq, d)

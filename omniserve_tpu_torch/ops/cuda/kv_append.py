@@ -1,7 +1,9 @@
 """Decode-step KV append with the optional K min/max page stats
 (``csrc/kv_append.cu``).
 
-Replaces ``omniserve_tpu/ops/pallas/kv_append.py:append_kv_decode`` (:156).
+Replaces ``omniserve_tpu/ops/pallas/kv_append.py:append_kv_decode`` (:156)
+in its fine-grained kv4 mode (launches counted as ``kv_append_decode``) and
+its kv16 mode, the bf16 rows stored as they are (``kv_append_decode_kv16``).
 Its plain version, ``append_kv_decode_plain``, is the JAX package's scatter
 path (``omniserve_tpu/ops/dispatch.py:136-146``): ``append_kv`` with
 ``unique_pages=True``, then ``update_k_stats``. What bounds the kernel and
@@ -33,7 +35,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_kv_append_decode.argtypes = (
-            [_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P]
+            [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P]
         )
         lib.launch_kv_append_decode.restype = _I
         lib._typed = True
@@ -42,10 +44,10 @@ def _lib():
 
 def append_kv_decode_plain(
     pool: KVPool, layer: int, k, v, page_ids, slots, page_size: int,
-    update_stats: bool = False, sub_chunks: int = 4,
+    update_stats: bool = False, sub_chunks: int = 4, kv_bits: int = 4,
 ) -> KVPool:
     """Plain version: scatter append, then the stats merge."""
-    append_kv(pool, layer, k, v, page_ids, slots, page_size, kv_bits=4,
+    append_kv(pool, layer, k, v, page_ids, slots, page_size, kv_bits=kv_bits,
               kv_zeros=True, unique_pages=True)
     if update_stats and pool.k_stats is not None:
         update_k_stats(pool, layer, k, page_ids, slots, page_size,
@@ -64,28 +66,34 @@ def append_kv_decode(
     update_stats: bool = False,
     sub_chunks: int = 4,
 ) -> KVPool:
-    """Kernel: quantize one token per sequence and write it into its page
-    (nibbles, plane lanes and, with ``update_stats``, the K min/max rows).
-    Tokens must target distinct pages."""
+    """Kernel: write one token per sequence into its page: kv4 quantized
+    (nibbles, plane lanes), kv16 as bf16 rows; with ``update_stats``, also
+    the K min/max rows. Tokens must target distinct pages."""
     t, h, d = k.shape
     _, num_pages, hp, rows, _ = pool.k_data.shape
+    kv16 = pool.k_data.dtype == torch.bfloat16
     if d != HEAD_DIM or h != hp:
         raise ValueError(
             f"append kernel needs head_dim {HEAD_DIM} and one K/V row per "
             f"pool head; got head_dim {d}, {h} rows for {hp} pool heads"
         )
-    if rows * 2 != page_size or page_size > MAX_PAGE or pool.kv_scales is None:
-        raise ValueError("append kernel serves kv4 fine-grained pools with "
-                         f"pages of at most {MAX_PAGE} tokens")
+    if (rows * (1 if kv16 else 2) != page_size or page_size > MAX_PAGE
+            or (pool.kv_scales is None) != kv16):
+        raise ValueError("append kernel serves kv4 fine-grained and kv16 "
+                         f"pools with pages of at most {MAX_PAGE} tokens")
     if k.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"k must be bf16 or f32, got {k.dtype}")
     cuda.check(k, "k", k.dtype)
     cuda.check(v, "v", k.dtype, (t, h, d))
     cuda.check(page_ids, "page_ids", torch.int32, (t,))
     cuda.check(slots, "slots", torch.int32, (t,))
-    cuda.check(pool.k_data, "k_data", torch.uint8)
-    cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
-    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+    data_dtype = torch.bfloat16 if kv16 else torch.uint8
+    cuda.check(pool.k_data, "k_data", data_dtype)
+    cuda.check(pool.v_data, "v_data", data_dtype, pool.k_data.shape)
+    planes_ptr = None
+    if not kv16:
+        cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+        planes_ptr = pool.kv_scales[layer].data_ptr()
     stats_ptr = None
     if update_stats and pool.k_stats is not None:
         cuda.check(pool.k_stats, "k_stats", torch.float32,
@@ -97,9 +105,10 @@ def append_kv_decode(
         k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32),
         page_ids.data_ptr(), slots.data_ptr(),
         pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(),
-        pool.kv_scales[layer].data_ptr(), stats_ptr, t, h, num_pages,
-        page_size, sub_chunks, cuda.stream_handle(),
+        planes_ptr, stats_ptr, t, h, num_pages, page_size, sub_chunks,
+        16 if kv16 else 4, cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "kv_append_decode")
-    cuda.LAUNCHES["kv_append_decode"] += 1
+    name = "kv_append_decode_kv16" if kv16 else "kv_append_decode"
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
     return pool

@@ -1,10 +1,11 @@
-"""Chunked-prefill attention over the paged kv4 / kv8 pool
-(``csrc/paged_prefill.cu``).
+"""Chunked-prefill attention over the paged pool (``csrc/paged_prefill.cu``).
 
 Replaces ``omniserve_tpu/ops/pallas/paged_prefill.py:paged_prefill_attention``
-(:268, kernel ``_prefill_kernel`` :39) over a fine-grained pool: dense
-heads over a block table (launches counted as ``paged_prefill_attention``
-over kv4 pages, ``paged_prefill_kv8`` over kv8 pages), and, over kv4
+(:268, kernel ``_prefill_kernel`` :39): dense heads over a block table
+(launches counted as ``paged_prefill_attention`` over fine-grained kv4
+pages, ``paged_prefill_kv8`` over fine-grained kv8 pages,
+``paged_prefill_pt`` over per-tensor kv4 or kv8 pages and
+``paged_prefill_kv16`` over bf16 pages), and, over fine-grained kv4
 pages, the explicit page-list mode, with the streaming ring's relabel and
 the per-head sink + local band, that LServe's chunked prefill runs over the
 ring pool (counted as ``paged_prefill_ring``). The plain version it is held
@@ -36,7 +37,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_paged_prefill.argtypes = (
-            [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
+            [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P]
         )
         lib.launch_paged_prefill.restype = _I
         lib._typed = True
@@ -67,7 +68,7 @@ def paged_prefill_attention_plain(
     sm_scale: float, page_size: int, head_is_retrieval=None,
     sink_size: int = 0, local_size: int = 0,
     sel_logic: Optional[torch.Tensor] = None, ring_span_pages: int = 0,
-    ring_sink_tokens: int = 0, kv_bits: int = 4,
+    ring_sink_tokens: int = 0, kv_bits: int = 4, kv_zeros: bool = True,
 ):
     """Plain version: ``attention_ref.paged_prefill_attention``, with an
     explicit page list turned into its position map first."""
@@ -77,7 +78,7 @@ def paged_prefill_attention_plain(
                                        ring_span_pages, ring_sink_tokens)
     return attention_ref.paged_prefill_attention(
         q, pool, layer, block_tables, q_positions, context_lens, sm_scale,
-        page_size, kv_bits=kv_bits, kv_zeros=True,
+        page_size, kv_bits=kv_bits, kv_zeros=kv_zeros,
         head_is_retrieval=head_is_retrieval, sink_size=sink_size,
         local_size=local_size, kv_positions=kv_positions,
     )
@@ -100,14 +101,16 @@ def paged_prefill_attention(
     ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
     kv_bits: int = 4,
+    kv_zeros: bool = True,
 ) -> torch.Tensor:
     """Kernel: causal GQA attention of the chunk over the pool, reading the
     pages in place. Without ``sel_logic`` the table is the dense history
     (slot = logical page); with it, slot s holds logical page
     ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
     newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
-    keep the sink + local band. kv8 pages (one byte per value) take the
-    dense table only. Returns [B, Tc, Hq, D] bf16."""
+    keep the sink + local band. kv8, per-tensor (``kv_zeros=False``, the
+    pool's scales read on the device) and kv16 pages take the dense table
+    only. Returns [B, Tc, Hq, D] bf16."""
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -116,15 +119,31 @@ def paged_prefill_attention(
             f"paged prefill kernel needs head_dim {HEAD_DIM} and n_rep in "
             f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
-    want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
-    if rows != want_rows or pool.kv_scales is None:
-        raise ValueError("paged prefill kernel serves kv4 and kv8 "
-                         f"fine-grained pools; got kv{kv_bits}, {rows} rows "
-                         f"of a {page_size}-token page")
+    want_rows = {4: page_size // 2, 8: page_size, 16: page_size}.get(kv_bits)
+    fine = kv_bits < 16 and kv_zeros
+    pt = kv_bits < 16 and not kv_zeros
+    if (rows != want_rows or (pool.kv_scales is None) == fine
+            or (pool.k_scale_per_tensor is None) == pt):
+        raise ValueError("paged prefill kernel serves kv4 / kv8 pools, fine-"
+                         f"grained or per-tensor, and kv16 pools; got "
+                         f"kv{kv_bits} (kv_zeros={kv_zeros}), {rows} rows of "
+                         f"a {page_size}-token page")
     cuda.check(q, "q", torch.bfloat16)
-    cuda.check(pool.k_data, "k_data", torch.uint8)
-    cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
-    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+    data_dtype = torch.bfloat16 if kv_bits == 16 else torch.uint8
+    cuda.check(pool.k_data, "k_data", data_dtype)
+    cuda.check(pool.v_data, "v_data", data_dtype, pool.k_data.shape)
+    planes_ptr = k_pt = v_pt = None
+    if fine:
+        cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+        planes_ptr = pool.kv_scales[layer].data_ptr()
+    if pt:
+        num_layers = pool.k_data.shape[0]
+        cuda.check(pool.k_scale_per_tensor, "k_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        cuda.check(pool.v_scale_per_tensor, "v_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        k_pt = pool.k_scale_per_tensor[layer].data_ptr()
+        v_pt = pool.v_scale_per_tensor[layer].data_ptr()
     cuda.check(block_tables, "block_tables", torch.int32)
     cuda.check(q_positions, "q_positions", torch.int32, (b, tc))
     cuda.check(context_lens, "context_lens", torch.int32, (b,))
@@ -138,9 +157,10 @@ def paged_prefill_attention(
     elif ring_span_pages:
         raise ValueError("ring_span_pages needs sel_logic")
     band = head_is_retrieval is not None and bool(sink_size or local_size)
-    if kv_bits == 8 and (sel_logic is not None or band):
-        raise ValueError("paged prefill kernel takes kv8 pages over a dense "
-                         "table only (no page list, no band)")
+    if (kv_bits != 4 or pt) and (sel_logic is not None or band):
+        raise ValueError("paged prefill kernel takes kv8, kv16 and per-"
+                         "tensor pages over a dense table only (no page "
+                         "list, no band)")
     if band:
         if tuple(head_is_retrieval.shape) != (hq,):
             raise ValueError(f"head_is_retrieval must be [{hq}] (per q "
@@ -154,7 +174,7 @@ def paged_prefill_attention(
         return out
     err = _lib().launch_paged_prefill(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
-        pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
+        pool.v_data[layer].data_ptr(), planes_ptr, k_pt, v_pt,
         block_tables.data_ptr(), q_positions.data_ptr(),
         context_lens.data_ptr(), sel_ptr, flags_ptr, out.data_ptr(),
         b, tc, hkv, n_rep, page_size, w, int(sink_size), int(local_size),
@@ -162,6 +182,8 @@ def paged_prefill_attention(
         kv_bits, cuda.stream_handle(),
     )
     name = ("paged_prefill_ring" if sel_logic is not None
+            else "paged_prefill_pt" if pt
+            else "paged_prefill_kv16" if kv_bits == 16
             else "paged_prefill_kv8" if kv_bits == 8
             else "paged_prefill_attention")
     cuda.raise_on_error(err, name)

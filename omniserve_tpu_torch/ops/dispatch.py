@@ -3,11 +3,14 @@ CPU tensors.
 
 Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
 whole-prompt prefill and chunked prefill over the paged pool (dense heads
-over kv4 or kv8 pools, and LServe's streaming heads with their sink +
-local band, over the ring pool's page list in chunked prefill, kv4), the
-dense decode step with its KV append fused in (kv4 or kv8), and the split
-decode step of dynamic-sparse decode (``append_kv_decode``, then
-``paged_decode_attention`` over the retrieval and streaming pools, kv4).
+over kv4 / kv8 pools, fine-grained or per-tensor, and kv16 pools; LServe's
+streaming heads with their sink + local band, over the ring pool's page
+list in chunked prefill, fine-grained kv4), the dense decode step with its
+KV append fused in (kv4 / kv8, fine-grained or per-tensor) or, over a kv16
+pool, split as the JAX dispatch splits it (``append_kv_decode``, then
+``paged_decode_attention``), and the split decode step of dynamic-sparse
+decode (the same two calls over the retrieval and streaming pools,
+fine-grained kv4).
 Every other mode of the JAX dispatch raises
 ``NotImplementedError`` naming its ROADMAP.md item (the JAX dispatch's
 single-pass paged-prefill variant, off by default there, is ROADMAP.md
@@ -21,17 +24,15 @@ import torch
 from omniserve_tpu_torch.ops import attention_ref, cuda
 
 
-def _check_kv(kv_bits: int, kv_zeros: bool, served) -> None:
-    """Raise for pools this entry point does not serve: kv16 and
-    per-tensor KV anywhere, kv8 under LServe's modes (sparse decode's split
-    append and attention, the page-list and band modes of paged prefill):
-    ROADMAP.md queue 1 item 8b."""
-    if kv_bits not in served or not kv_zeros:
-        names = "/".join(f"kv{b}" for b in served)
+def _check_lserve_kv(kv_bits: int, kv_zeros: bool) -> None:
+    """Raise for pools LServe's modes (sparse decode's split append and
+    attention, the page-list and band modes of paged prefill) do not serve:
+    anything but fine-grained kv4 (ROADMAP.md queue 1 item 8b)."""
+    if kv_bits != 4 or not kv_zeros:
         raise NotImplementedError(
-            f"kv{kv_bits} (kv_zeros={kv_zeros}) pools at this entry point "
-            f"are outside the port, which serves {names} fine-grained pools "
-            "here; see ROADMAP.md queue 1 item 8b"
+            f"kv{kv_bits} (kv_zeros={kv_zeros}) pools under LServe's sparse "
+            "modes are outside the port, which serves fine-grained kv4 "
+            "pools there; see ROADMAP.md queue 1 item 8b"
         )
 
 
@@ -69,9 +70,12 @@ def paged_decode_attention_fused(
     """Decode attention WITH the step's KV append, one call.
 
     ``context_lens`` INCLUDE the new token. On a card: one kernel that
-    attends and writes the new token into the pool. On the CPU: the split
-    path (append, then attend). Returns (out, pool, streaming_pool); the
-    pool is updated in place."""
+    attends and writes the new token into the pool (kv4 / kv8, fine-grained
+    or per-tensor); over a kv16 pool the JAX dispatch's split path, which
+    a kv16 pool takes on the TPU too: ``append_kv_decode``, then
+    ``paged_decode_attention`` over the dense list (two kernels). On the
+    CPU: the split path. Returns (out, pool, streaming_pool); the pool is
+    updated in place."""
     if streaming_pool is not None:
         raise NotImplementedError(
             "the fused append over a streaming (ring) pool is ROADMAP.md "
@@ -85,18 +89,26 @@ def paged_decode_attention_fused(
             "append_kv_decode, then paged_decode_attention), and LSE outputs "
             "are sequence parallelism, ROADMAP.md queue 1 item 10"
         )
-    _check_kv(kv_bits, kv_zeros, (4, 8))
     from omniserve_tpu_torch.ops.cuda import decode_attention
 
-    if cuda.use_kernel(q):
+    if not cuda.use_kernel(q):
+        out = decode_attention.paged_decode_attention_fused_plain(
+            q, pool, layer, block_tables, context_lens, k_new, v_new,
+            sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
+            kv_zeros=kv_zeros,
+        )
+    elif kv_bits == 16:
+        pages, slots = decode_attention.append_targets(
+            block_tables, context_lens, page_size)
+        append_kv_decode(pool, layer, k_new, v_new, pages, slots, page_size,
+                         kv_bits, kv_zeros)
+        out = paged_decode_attention(
+            q, pool, layer, block_tables, context_lens, sm_scale, page_size,
+            kv_bits, kv_zeros)
+    else:
         out = decode_attention.paged_decode_attention_fused(
             q.contiguous(), pool, layer, block_tables, context_lens,
             k_new.contiguous(), v_new.contiguous(),
-            sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
-        )
-    else:
-        out = decode_attention.paged_decode_attention_fused_plain(
-            q, pool, layer, block_tables, context_lens, k_new, v_new,
             sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
         )
     return out, pool, streaming_pool
@@ -106,8 +118,10 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
                      kv_bits, kv_zeros, update_stats=False, sub_chunks=4):
     """Decode-step KV append (+ optional K min/max stats), in place. Tokens
     must target distinct pages (the decode invariant); page id -1 marks an
-    inactive token. kv4 pools: only sparse decode appends apart."""
-    _check_kv(kv_bits, kv_zeros, (4,))
+    inactive token. Fine-grained kv4 pools (sparse decode appends apart)
+    and kv16 pools (the dense decode's split path)."""
+    if kv_bits != 16:
+        _check_lserve_kv(kv_bits, kv_zeros)
     from omniserve_tpu_torch.ops.cuda import kv_append
 
     if cuda.use_kernel(k):
@@ -118,7 +132,7 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
         )
     return kv_append.append_kv_decode_plain(
         pool, layer, k, v, page_ids, slots, page_size,
-        update_stats=update_stats, sub_chunks=sub_chunks,
+        update_stats=update_stats, sub_chunks=sub_chunks, kv_bits=kv_bits,
     )
 
 
@@ -131,9 +145,11 @@ def paged_decode_attention(
     """Decode attention WITHOUT the append, over the retrieval pool (dense
     history or the selector's ``page_idxes``) and, for streaming heads, the
     ring pool's sink + local band. On a card: the page-list kernels. On the
-    CPU: ``attention_ref.paged_decode_attention``. kv4 pools: only sparse
-    decode attends apart from the append."""
-    _check_kv(kv_bits, kv_zeros, (4,))
+    CPU: ``attention_ref.paged_decode_attention``. Fine-grained kv4 pools
+    (sparse decode attends apart from the append) and, over a dense
+    history, kv16 pools (the dense decode's split path)."""
+    if kv_bits != 16 or page_idxes is not None or streaming_pool is not None:
+        _check_lserve_kv(kv_bits, kv_zeros)
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import decode_attention
 
@@ -164,8 +180,9 @@ def paged_prefill_attention(
     return_lse=False,
 ):
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
-    (history + the chunk, appended by the caller), kv4 or kv8 fine-grained
-    pools; a page list or a band only over kv4 (LServe).
+    (history + the chunk, appended by the caller): kv4 / kv8 pools, fine-
+    grained or per-tensor, and kv16 pools; a page list or a band only over
+    fine-grained kv4 (LServe).
 
     ``sel_logic`` [B, W] names the logical page each table slot holds (-1
     dead); with ``ring_span_pages`` the source is the streaming ring, whose
@@ -181,7 +198,8 @@ def paged_prefill_attention(
         )
     listed = sel_logic is not None or (
         head_is_retrieval is not None and bool(sink_size or local_size))
-    _check_kv(kv_bits, kv_zeros, (4,) if listed else (4, 8))
+    if listed:
+        _check_lserve_kv(kv_bits, kv_zeros)
     from omniserve_tpu_torch.ops.cuda import paged_prefill
 
     fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
@@ -191,4 +209,5 @@ def paged_prefill_attention(
               head_is_retrieval=head_is_retrieval, sink_size=sink_size,
               local_size=local_size, sel_logic=sel_logic,
               ring_span_pages=ring_span_pages,
-              ring_sink_tokens=ring_sink_tokens, kv_bits=kv_bits)
+              ring_sink_tokens=ring_sink_tokens, kv_bits=kv_bits,
+              kv_zeros=kv_zeros)

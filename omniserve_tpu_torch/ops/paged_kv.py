@@ -7,10 +7,16 @@ so pools compare byte for byte with the JAX package's:
   token t of a page lives at byte row ``t % (page/2)``, in the high nibble
   iff ``t >= page/2`` (``kv4_slot_to_row_nibble``).
 - kv8: data [L, P, H, page, D] uint8, one byte per value, token t of a
-  page at row t. Codes carry no bias: the value is ``(code - zero) *
-  scale``, as for kv4.
+  page at row t. Fine-grained codes carry no bias: the value is ``(code -
+  zero) * scale``, as for kv4.
+- kv16: data [L, P, H, page, D] bfloat16, the values as they are (no
+  scales).
 - fine-grained scale planes: [L, P, 4, H, page] float32, stored folded
   (see ``KVPool``).
+- per-tensor KV (``kv_zeros=False``, kv4 or kv8): no planes; one
+  calibrated scale per layer for K and one for V ([L] float32, kept beside
+  the data), codes biased by 8 (kv4) or 128 (kv8): the value is ``(code -
+  bias) * scale``.
 - K min/max sub-chunk stats (retrieval pool under sparse decode):
   [L, P, H, 2*n_sub, D] float32, row 2s = sub-chunk s min, row 2s+1 = max.
 
@@ -29,7 +35,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from omniserve_tpu_torch.ops.quantization import kv_quantize_fine_grained
+from omniserve_tpu_torch.ops.quantization import (
+    kv_quantize_fine_grained,
+    kv_quantize_per_tensor,
+)
 
 
 class KVPool(NamedTuple):
@@ -49,6 +58,9 @@ class KVPool(NamedTuple):
     kv_scales: Optional[torch.Tensor]
     # [L, P, H, n_sub*2, D] f32: row 2i = sub-chunk i min, 2i+1 = max
     k_stats: Optional[torch.Tensor] = None
+    # per-tensor calibrated scales [L] f32 (None in fine-grained / kv16)
+    k_scale_per_tensor: Optional[torch.Tensor] = None
+    v_scale_per_tensor: Optional[torch.Tensor] = None
 
     def clone(self) -> "KVPool":
         """A deep copy (checks run a kernel and its plain version on twin
@@ -87,17 +99,9 @@ class KVPool(NamedTuple):
         return None if p3 is None else p3 - 128.0
 
 
-def _unsupported(what: str):
-    return NotImplementedError(
-        f"{what} is outside what the port serves (kv4 and kv8 "
-        "fine-grained pools); kv16 and per-tensor KV are ROADMAP.md queue 1 "
-        "item 8b"
-    )
-
-
-def _check_kv(kv_bits: int, kv_zeros: bool, what: str) -> None:
-    if kv_bits not in (4, 8) or not kv_zeros:
-        raise _unsupported(f"kv{kv_bits} / kv_zeros={kv_zeros} {what}")
+def _check_bits(kv_bits: int) -> None:
+    if kv_bits not in (4, 8, 16):
+        raise ValueError(f"kv_bits must be 4/8/16, got {kv_bits}")
 
 
 def make_kv_pool(
@@ -112,26 +116,38 @@ def make_kv_pool(
     sub_chunks: int = 4,
     device="cuda:0",
 ) -> KVPool:
-    """Zeroed kv4 or kv8 fine-grained pool on ``device``.
+    """Zeroed kv4, kv8 or kv16 pool on ``device``: fine-grained planes
+    (kv4/kv8 with ``kv_zeros``), per-tensor scales (kv4/kv8 without; unit
+    scales, as the JAX package has under dummy weights, until
+    ``CacheEngine.load_kv_scales`` writes calibrated ones), or neither
+    (kv16).
 
     ``num_pages`` includes the top TRASH page (the block manager reserves
     it, as in the JAX package). ``with_stats`` adds the K min/max
     sub-chunk stats the page selector scores."""
-    _check_kv(kv_bits, kv_zeros, "pools")
+    _check_bits(kv_bits)
     if kv_bits == 4 and page_size % 2:
         raise ValueError(f"kv4 pages need an even page size, got {page_size}")
     L, P, H, D = num_layers, num_pages, num_heads, head_dim
     rows = page_size // 2 if kv_bits == 4 else page_size
     shape = (L, P, H, rows, D)
+    dtype = torch.bfloat16 if kv_bits == 16 else torch.uint8
+    fine = kv_bits < 16 and kv_zeros
+    per_tensor = kv_bits < 16 and not kv_zeros
+
     return KVPool(
-        k_data=torch.zeros(shape, dtype=torch.uint8, device=device),
-        v_data=torch.zeros(shape, dtype=torch.uint8, device=device),
+        k_data=torch.zeros(shape, dtype=dtype, device=device),
+        v_data=torch.zeros(shape, dtype=dtype, device=device),
         kv_scales=torch.zeros(
             (L, P, 4, H, page_size), dtype=torch.float32, device=device
-        ),
+        ) if fine else None,
         k_stats=torch.zeros(
             (L, P, H, sub_chunks * 2, D), dtype=torch.float32, device=device
         ) if with_stats else None,
+        k_scale_per_tensor=torch.ones(
+            (L,), dtype=torch.float32, device=device) if per_tensor else None,
+        v_scale_per_tensor=torch.ones(
+            (L,), dtype=torch.float32, device=device) if per_tensor else None,
     )
 
 
@@ -216,6 +232,15 @@ def _scatter_nibbles(
         data[idx] = (cur & keep) | (qq << shift)
 
 
+def _quantize_kv(x, kv_bits: int, kv_zeros: bool, pt_scale):
+    """[..., D] -> (stored values, scale, zero) per kv-quant mode."""
+    if kv_bits == 16:
+        return x.to(torch.bfloat16), None, None
+    if kv_zeros:
+        return kv_quantize_fine_grained(x, kv_bits)
+    return kv_quantize_per_tensor(x, pt_scale, kv_bits), None, None
+
+
 def append_kv(
     pool: KVPool,
     layer: int,
@@ -236,13 +261,18 @@ def append_kv(
     every token targets a distinct page) and ``page_aligned=True`` (chunked
     prefill: groups of ``page_size`` consecutive slots, one page per group)
     are promises the JAX function uses to pick a faster scatter; here one
-    write path serves every mode, so the flags change nothing. kv8 writes
-    one byte per value at row ``slot``."""
-    _check_kv(kv_bits, kv_zeros, "appends")
+    write path serves every mode, so the flags change nothing. kv8 and kv16
+    write one row per token at row ``slot``; per-tensor pools quantize with
+    the layer's scales and write no planes."""
+    _check_bits(kv_bits)
     keep = page_ids >= 0
     page_ids, slots = page_ids[keep].long(), slots[keep].long()
-    qk, k_scale, k_zero = kv_quantize_fine_grained(k[keep], kv_bits)
-    qv, v_scale, v_zero = kv_quantize_fine_grained(v[keep], kv_bits)
+    pt_k = pt_v = None
+    if pool.k_scale_per_tensor is not None:
+        pt_k = pool.k_scale_per_tensor[layer]
+        pt_v = pool.v_scale_per_tensor[layer]
+    qk, k_scale, k_zero = _quantize_kv(k[keep], kv_bits, kv_zeros, pt_k)
+    qv, v_scale, v_zero = _quantize_kv(v[keep], kv_bits, kv_zeros, pt_v)
     if kv_bits == 4:
         _scatter_nibbles(pool.k_data[layer], qk, page_ids, slots, page_size)
         _scatter_nibbles(pool.v_data[layer], qv, page_ids, slots, page_size)
@@ -251,6 +281,8 @@ def append_kv(
         idx = (page_ids[:, None], heads[None, :], slots[:, None])
         pool.k_data[layer][idx] = qk
         pool.v_data[layer][idx] = qv
+    if k_scale is None:
+        return pool
     planes = (k_scale, k_scale * (k_zero + 128.0), v_scale, v_zero + 128.0)
     sc = pool.kv_scales[layer]                     # [P, 4, H, page]
     for i, vals in enumerate(planes):
@@ -336,20 +368,29 @@ def gather_kv_for_seq(
     ``omniserve_tpu.ops.paged_kv.gather_kv_for_seq`` for one sequence's
     table [W]; a [B, W] table gathers B sequences at once. Plain path
     only: it materializes every listed page."""
-    _check_kv(kv_bits, kv_zeros, "gathers")
+    _check_bits(kv_bits)
     idx = block_table.long()
+    bias = 8.0 if kv_bits == 4 else 128.0
 
-    def one(data, scale, zero):
+    def one(data, scale, zero, pt):
         pages = data[layer][idx]                      # [..., W, H, rows, D]
-        if kv_bits == 8:
-            vals = pages.float()                      # row = slot
-        else:
+        if kv_bits == 4:
             # half-split page: lo nibbles are slots [0, page/2), hi the rest
             vals = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
                              dim=-2)                  # [..., W, H, page, D]
-        out = (vals - zero[layer][idx][..., None]) * scale[layer][idx][..., None]
+        else:
+            vals = pages.float()                      # row = slot
+        if kv_bits == 16:
+            out = vals
+        elif kv_zeros:
+            out = ((vals - zero[layer][idx][..., None])
+                   * scale[layer][idx][..., None])
+        else:
+            out = (vals - bias) * pt[layer]
         out = out.transpose(-3, -2)                   # [..., W, page, H, D]
         return out.reshape(*out.shape[:-4], -1, *out.shape[-2:])
 
-    return (one(pool.k_data, pool.k_scale, pool.k_zero),
-            one(pool.v_data, pool.v_scale, pool.v_zero))
+    return (one(pool.k_data, pool.k_scale, pool.k_zero,
+                pool.k_scale_per_tensor),
+            one(pool.v_data, pool.v_scale, pool.v_zero,
+                pool.v_scale_per_tensor))

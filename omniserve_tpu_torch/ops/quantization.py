@@ -16,6 +16,9 @@ reference's QServe formats); integer results are bit-identical to it:
 - KV fine-grained (per-token-per-head asymmetric):
   ``scale = (max - min) / L``, ``zero = -L * min / (max - min)``,
   ``q = round(x / scale + zero)`` in [0, L], L = 15 (kv4) / 255 (kv8).
+- KV per-tensor (symmetric, one calibrated scale per layer and K or V):
+  ``q = clip(round(x / scale), -qmax-1, qmax) + qmax+1``, qmax = 7 (kv4) /
+  127 (kv8): the stored code carries a bias of 8 / 128.
 
 Rounding is round-half-even everywhere: ``torch.round`` rounds half to
 even, like ``jnp.rint``.
@@ -233,3 +236,13 @@ def kv_quantize_fine_grained(
     q = torch.round(x.float() / scale[..., None] + zero[..., None])
     q = torch.clamp(q, 0, levels).to(torch.uint8)
     return q, scale, zero
+
+
+def kv_quantize_per_tensor(x: torch.Tensor, scale: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    """Symmetric per-tensor quant with a calibrated 0-d scale tensor (IEEE
+    division on every device), stored biased to unsigned: ``q + 2^(b-1)``.
+    """
+    qmax = 7 if bits == 4 else 127
+    q = torch.clamp(torch.round(x.float() / scale.float()), -qmax - 1, qmax)
+    return (q + (qmax + 1)).to(torch.uint8)

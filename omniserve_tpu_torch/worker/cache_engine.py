@@ -2,17 +2,20 @@
 
 Counterpart of ``omniserve_tpu.worker.cache_engine``: the retrieval pool
 (with K min/max stats under sparse decode) and, when LServe splits the kv
-heads, the streaming ring pool, as kv4 or kv8 fine-grained pools of torch
-tensors on the engine's device. Pools hold a page COUNT (the engine's
-``num_*_device_blocks``), as in the JAX package; their bytes follow from
-the KV width (``pool_bytes``): a 128-token page of one layer and kv head
-holds 16 KiB of K+V codes at kv4, 32 KiB at kv8 (head dim 128), plus 2 KiB
-of f32 planes. Page ops update the pools in place.
+heads, the streaming ring pool, as kv4 or kv8 pools (fine-grained or
+per-tensor) or kv16 pools of torch tensors on the engine's device. Pools
+hold a page COUNT (the engine's ``num_*_device_blocks``), as in the JAX
+package; their bytes follow from the KV width (``pool_bytes``): a 128-token
+page of one layer and kv head holds 16 KiB of K+V codes at kv4, 32 KiB at
+kv8 and 64 KiB of bf16 values at kv16 (head dim 128), plus 2 KiB of f32
+planes when fine-grained. Per-tensor pools start with unit scales, as
+under dummy weights; ``load_kv_scales`` loads a checkpoint's calibrated
+ones. Page ops update the pools in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,6 +107,17 @@ class CacheEngine:
              f"{n_streaming_heads} heads, {sum(s_bytes.values()) / mib:.1f} "
              "MiB" if self.streaming_pool is not None else "off"),
         )
+
+    def load_kv_scales(self, kv_scales: Tuple[torch.Tensor, torch.Tensor]
+                       ) -> None:
+        """Calibrated per-tensor K and V scales ([L] each) into every
+        per-tensor pool, in place."""
+        k_pt, v_pt = kv_scales
+        for pool in (self.retrieval_pool, self.streaming_pool):
+            if pool is None or pool.k_scale_per_tensor is None:
+                continue
+            pool.k_scale_per_tensor.copy_(torch.as_tensor(k_pt))
+            pool.v_scale_per_tensor.copy_(torch.as_tensor(v_pt))
 
     def _pool(self, streaming: bool) -> KVPool:
         pool = self.streaming_pool if streaming else self.retrieval_pool

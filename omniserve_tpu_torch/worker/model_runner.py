@@ -233,11 +233,15 @@ class ModelRunner:
         self.graphs_captured = 0
         self.graph_capture_s = 0.0
 
-    def load_params(self, params: Dict[str, Any]) -> None:
+    def load_params(self, params: Dict[str, Any], kv_scales=None) -> None:
         """Serve these weights (a port parameter tree on this device, e.g.
         from ``models.convert.params_from_numpy``) instead of the dummy
-        ones."""
+        ones, and with them a checkpoint's calibrated per-tensor KV scales
+        (``(k [L], v [L])``; kept unit without), as the JAX runner hands
+        its loader's scales to the cache engine."""
         self.params = params
+        if kv_scales is not None:
+            self.cache_engine.load_kv_scales(kv_scales)
         self._ms_fn_cache.clear()      # captured steps read the old weights
 
     @property

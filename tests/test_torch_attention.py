@@ -227,26 +227,32 @@ def test_append_targets():
 
 
 def test_decode_dispatch_raises_outside_slice():
-    """The fused append serves kv4 and kv8 fine-grained pools; a streaming
-    pool, kv16 and per-tensor KV raise naming their ROADMAP item, and so
-    does kv8 at the split entry points only sparse decode reaches."""
+    """The fused append serves kv4 and kv8 pools, fine-grained or
+    per-tensor, and kv16 pools through the split path
+    (``tests/test_torch_kv16_pertensor.py``); a streaming pool raises
+    naming its ROADMAP item at any width, and kv16, per-tensor KV and kv8
+    raise at what only sparse decode reaches: a page selection or a
+    streaming pool at the split attention, a non-kv16 split append."""
     q = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.paged_decode_attention_fused(
-            q, None, object(), 0, None, None, None, None, sm_scale=1.0,
-            page_size=8, kv_bits=4, kv_zeros=True,
-        )
-    for kv_bits, kv_zeros in ((16, True), (8, False), (4, False)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
+    for kv_bits, kv_zeros in ((4, True), (16, True), (8, False), (4, False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             dispatch.paged_decode_attention_fused(
-                q, None, None, 0, None, None, None, None, sm_scale=1.0,
+                q, None, object(), 0, None, None, None, None, sm_scale=1.0,
                 page_size=8, kv_bits=kv_bits, kv_zeros=kv_zeros,
             )
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        dispatch.append_kv_decode(None, 0, q, q, None, None, 8, 8, True)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        dispatch.paged_decode_attention(q, None, 0, None, None, 1.0, 8, 8,
-                                        True)
+    for kv_bits, kv_zeros in ((16, True), (8, True), (8, False), (4, False)):
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            dispatch.paged_decode_attention(
+                q, None, 0, None, None, 1.0, 8, kv_bits, kv_zeros,
+                page_idxes=torch.zeros(1, 1, 1))
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            dispatch.paged_decode_attention(
+                q, None, 0, None, None, 1.0, 8, kv_bits, kv_zeros,
+                streaming_pool=object())
+    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False)):
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            dispatch.append_kv_decode(None, 0, q, q, None, None, 8, kv_bits,
+                                      kv_zeros)
 
 
 # -- paged prefill (chunked prefill attention) ---------------------------
@@ -364,9 +370,10 @@ def test_append_kv_page_aligned_bytes_match_jax():
 
 def test_paged_prefill_dispatch_raises_outside_slice():
     """Bands and page lists serve (``tests/test_torch_lserve_prefill.py``),
-    and kv8 pages over a dense table (``tests/test_torch_precision.py``);
-    LSE outputs (sequence parallelism), kv16, per-tensor KV and kv8 under a
-    page list or band raise."""
+    and kv8, kv16 and per-tensor pages over a dense table
+    (``tests/test_torch_precision.py``, ``tests/test_torch_kv16_pertensor.
+    py``); LSE outputs (sequence parallelism), and kv16, per-tensor KV and
+    kv8 under a page list or band raise."""
     q = torch.zeros(1, 2, 2, 8)
     kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
     with pytest.raises(NotImplementedError, match="item 10"):
@@ -380,7 +387,9 @@ def test_paged_prefill_dispatch_raises_outside_slice():
         t_ref.paged_prefill_attention(q, None, 0, None, None, None, 1.0, 8,
                                       4, True, kv_positions=torch.zeros(1),
                                       return_lse=True)
-    for bad in (dict(kv_bits=16), dict(kv_zeros=False),
+    for bad in (dict(kv_bits=16, sel_logic=torch.zeros(1, 1)),
+                dict(kv_zeros=False, head_is_retrieval=torch.ones(2),
+                     sink_size=4, local_size=4),
                 dict(kv_bits=8, sel_logic=torch.zeros(1, 1)),
                 dict(kv_bits=8, head_is_retrieval=torch.ones(2),
                      sink_size=4, local_size=4)):

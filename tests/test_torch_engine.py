@@ -104,12 +104,14 @@ def test_engine_raises_outside_slice(tiny_model_dir):
     """Chunked prefill, prefix reuse, multi-step windows, LServe's decode
     and prefill sides and the precision matrix serve (see
     tests/test_torch_engine_windows.py, tests/test_torch_lserve_{engine,
-    prefill}.py and tests/test_torch_precision_engine.py); per-tensor KV,
-    kv16, kv8 under LServe's modes and tensor parallelism stay outside the
-    port and raise naming their ROADMAP item."""
+    prefill}.py, tests/test_torch_precision_engine.py and
+    tests/test_torch_kv16_engine.py); per-tensor KV, kv16 and kv8 under
+    LServe's modes and tensor parallelism stay outside the port and raise
+    naming their ROADMAP item."""
     for extra in (dict(precision="w8a8kv8",
-                       kv_quant_granularity="per_tensor"),
-                  dict(precision="w16a16kv16"),
+                       kv_quant_granularity="per_tensor",
+                       sparse_decode_mode=True, static_sparsity=0.5),
+                  dict(precision="w16a16kv16", sparse_context_mode=True),
                   dict(precision="w4a8kv8", sparse_decode_mode=True,
                        static_sparsity=0.5),
                   dict(tensor_parallel_size=2)):

@@ -31,7 +31,11 @@ def assert_pools_equal(a, b, skip_trash=False):
     end = -1 if skip_trash else None
     for x, y in zip(a, b):
         assert (x is None) == (y is None)
-        if x is not None:
+        if x is None:
+            continue
+        if x.dim() == 1:          # per-tensor scales [L]
+            assert torch.equal(x, y)
+        else:
             assert torch.equal(x[:, :end], y[:, :end])
 
 
@@ -800,26 +804,33 @@ def test_paged_prefill_kv8_kernel(dev, history, chunk, n_rep, page, ragged):
         assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("bits", [(4, 8, 128, 8), (8, 8, -1, 8),
-                                  (16, 16, -1, 4)])
+@pytest.mark.parametrize("bits", [(4, 8, 128, 8, True), (8, 8, -1, 8, True),
+                                  (16, 16, -1, 4, True),
+                                  (16, 16, -1, 16, True),
+                                  (8, 8, -1, 8, False)])
 def test_decode_window_graph_matches_eager_precisions(dev, bits):
     """A captured decode step under per-group, W8A8 and W16A16 bodies and
-    kv8 pools replays the eager loop's tokens and pool bytes."""
+    kv8, kv16 (the split append + list decode) and per-tensor pools replays
+    the eager loop's tokens and pool bytes."""
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
     from omniserve_tpu_torch.worker.decode_window import DecodeWindow
 
-    wb, ab, gs, kv = bits
+    wb, ab, gs, kv, zeros = bits
     spec = llama.LlamaSpec(num_layers=2, hidden=512, intermediate=1024,
                            num_q_heads=4, num_kv_heads=2, head_dim=128,
                            vocab=1024, page_size=16, lm_head_bits=8,
                            weight_bits=wb, act_bits=ab, group_size=gs,
-                           kv_bits=kv)
+                           kv_bits=kv, kv_zeros=zeros)
     params = llama.make_random_packed_params(spec, seed=3, device=dev)
     lens, b_pad, w = [37, 5, 20], 8, 6
     tables = np.zeros((b_pad, w), np.int32)
     tables[:3] = np.arange(3 * w).reshape(3, w)
-    pool = make_kv_pool(2, 3 * w + 1, 2, 16, 128, kv_bits=kv, device=dev)
+    pool = make_kv_pool(2, 3 * w + 1, 2, 16, 128, kv_bits=kv, kv_zeros=zeros,
+                        device=dev)
+    if not zeros:
+        pool.k_scale_per_tensor.copy_(torch.tensor([0.02, 0.03]))
+        pool.v_scale_per_tensor.copy_(torch.tensor([0.025, 0.02]))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, spec.vocab, n) for n in lens]
     batch = llama.PrefillBatch(
@@ -849,3 +860,204 @@ def test_decode_window_graph_matches_eager_precisions(dev, bits):
             toks[mode] = win.run(6).cpu().numpy()
     np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
     assert_pools_equal(pool, twin, skip_trash=True)
+
+
+# -- kv16 and per-tensor KV ----------------------------------------------------
+
+
+def _mode_pool(dev, g, mode, layers, n_pages, h, page, d, lens, tables):
+    """A kv16 or per-tensor (kv4 / kv8, scales max |x| / qmax of N(0, 1))
+    pool holding ``lens[s]`` random tokens of sequence s in its last
+    layer."""
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    kv_bits, zeros = {"kv16": (16, True), "pt4": (4, False),
+                      "pt8": (8, False)}[mode]
+    qmax = 7 if kv_bits == 4 else 127
+    pool = make_kv_pool(
+        layers, n_pages, h, page, d, kv_bits=kv_bits, kv_zeros=zeros,
+        device=dev)
+    if not zeros:
+        pool.k_scale_per_tensor.copy_(torch.linspace(3.0, 3.6, layers) / qmax)
+        pool.v_scale_per_tensor.copy_(torch.linspace(3.4, 3.2, layers) / qmax)
+    for s, n in enumerate(lens):
+        if n <= 0:
+            continue
+        pos = torch.arange(n, device=dev)
+        append_kv(pool, layers - 1,
+                  torch.randn((n, h, d), generator=g, device=dev),
+                  torch.randn((n, h, d), generator=g, device=dev),
+                  tables[s].to(dev).long()[pos // page], pos % page, page,
+                  kv_bits, zeros)
+    return pool, kv_bits, zeros
+
+
+@pytest.mark.parametrize("n_rep,page", [(1, 128), (4, 128), (8, 16)])
+def test_paged_mqa_attention_kv16_kernel(dev, n_rep, page):
+    """Row 6's kv16 mode over the dense list against its plain version and
+    against ``attention_ref.paged_decode_attention``; a row of length 0
+    gives zeros."""
+    from omniserve_tpu_torch.ops import attention_ref, cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    h, d, w = 2, 128, 20 if page == 16 else 4
+    lens = torch.tensor([2 * page + 17, page, 1, 0], dtype=torch.int32)
+    b = len(lens)
+    tables = torch.randperm(b * w, generator=torch.Generator().manual_seed(
+        1)).view(b, w).to(torch.int32)
+    g = _gen(dev, 11)
+    pool, _, _ = _mode_pool(dev, g, "kv16", 2, b * w + 1, h, page, d,
+                            lens.tolist(), tables)
+    q = torch.randn((b, h, n_rep, d), generator=g, device=dev).bfloat16()
+    lists = da.dense_page_lists(tables.to(dev), lens.to(dev), page)
+    kw = dict(sm_scale=0.1, page_size=page)
+    before = cuda.LAUNCHES["paged_mqa_attention_kv16"]
+    got = da.paged_mqa_attention_kv16(q, pool, 1, *lists, lens.to(dev), **kw)
+    assert cuda.LAUNCHES["paged_mqa_attention_kv16"] == before + 1
+    want = da.page_list_attention_plain(q, pool, 1, *lists, lens.to(dev),
+                                        **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    ref = attention_ref.paged_decode_attention(
+        q.reshape(b, h * n_rep, d), pool, 1, tables.to(dev), lens.to(dev),
+        0.1, page, 16, True)
+    torch.testing.assert_close(got.reshape(b, h * n_rep, d).float(),
+                               ref.float(), rtol=5e-2, atol=5e-2)
+    assert float(got[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_append_decode_kv16_kernel(dev, dtype):
+    """kv16 appends (two tokens inactive): pool bytes equal the plain
+    version's on every page but the trash page."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    page, d, t, heads = 128, 128, 8, 4
+    g = _gen(dev, 12)
+    pool = make_kv_pool(2, 13, heads, page, d, kv_bits=16, device=dev)
+    for x in (pool.k_data, pool.v_data):      # recycled pages are dirty
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+    twin = pool.clone()
+    pages = torch.tensor([4, 9, -1, 0, 7, -1, 2, 10], dtype=torch.int32,
+                         device=dev)
+    for step, slot0 in enumerate((5, 64, 127)):
+        slots = ((slot0 + torch.arange(t) * 17) % page).to(torch.int32).to(dev)
+        k = torch.randn((t, heads, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((t, heads, d), generator=g, device=dev).to(dtype)
+        before = dict(cuda.LAUNCHES)
+        ka.append_kv_decode(pool, step % 2, k, v, pages, slots, page)
+        assert cuda.LAUNCHES["kv_append_decode_kv16"] == \
+            before["kv_append_decode_kv16"] + 1
+        assert cuda.LAUNCHES["kv_append_decode"] == before["kv_append_decode"]
+        ka.append_kv_decode_plain(twin, step % 2, k, v, pages, slots, page,
+                                  kv_bits=16)
+    torch.cuda.synchronize()
+    assert_pools_equal(pool, twin, skip_trash=True)
+
+
+@pytest.mark.parametrize("mode,n_rep", [("pt4", 1), ("pt4", 4), ("pt8", 4)])
+def test_decode_attention_append_pt_kernel(dev, mode, n_rep):
+    """The per-tensor fused decode against its plain version: outputs within
+    5e-2, pool bytes equal (the codes of the appended token included)."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    page, h, d, w = 128, 2, 128, 4
+    lens = torch.tensor([2 * page + 17, page, 1, 0], dtype=torch.int32)
+    b = len(lens)
+    tables = torch.arange(b * w, dtype=torch.int32).view(b, w)
+    tables[3] = 0
+    g = _gen(dev, 13)
+    pool, kv_bits, _ = _mode_pool(dev, g, mode, 2, b * w + 1, h, page, d,
+                                  [int(n) - 1 for n in lens], tables)
+    twin = pool.clone()
+    q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
+    kn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    vn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    args = (tables.to(dev), lens.to(dev), kn, vn)
+    before = cuda.LAUNCHES["decode_attention_append_pt"]
+    got = da.paged_decode_attention_fused(q, pool, 1, *args, sm_scale=0.1,
+                                          page_size=page, kv_bits=kv_bits)
+    assert cuda.LAUNCHES["decode_attention_append_pt"] == before + 1
+    want = da.paged_decode_attention_fused_plain(
+        q, twin, 1, *args, sm_scale=0.1, page_size=page, kv_bits=kv_bits,
+        kv_zeros=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[3].abs().max()) == 0.0
+    assert_pools_equal(pool, twin)
+
+
+@pytest.mark.parametrize("mode", ["kv16", "pt4", "pt8"])
+@pytest.mark.parametrize("history,chunk,n_rep,page,ragged", [
+    (40, 24, 2, 16, True),
+    (300, 64, 8, 128, True),
+])
+def test_paged_prefill_kv16_pt_kernel(dev, mode, history, chunk, n_rep, page,
+                                      ragged):
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    b, h, d = 2, 2, 128
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 14)
+    tables = torch.arange(b * w, dtype=torch.int32).view(w, b).t()
+    tables = tables.contiguous().to(dev)
+    pool, kv_bits, zeros = _mode_pool(dev, g, mode, 2, b * w + 1, h, page, d,
+                                      [total] * b, tables)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    if ragged:
+        q_pos[1, chunk // 2:] = -1
+        ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=zeros)
+    name = "paged_prefill_kv16" if mode == "kv16" else "paged_prefill_pt"
+    before = cuda.LAUNCHES[name]
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = pp.paged_prefill_attention_plain(q, pool, 1, tables, q_pos, ctx,
+                                            **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if ragged:
+        assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+def test_kv16_values_beyond_f16_range(dev):
+    """kv16 pages hold bf16 values f16 cannot: paged prefill and the list
+    decode keep them (a V value of 1e5 at position 19 reaches every row
+    that sees it)."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    page, h, d, b = 16, 1, 128, 1
+    g = _gen(dev, 15)
+    tables = torch.arange(3, dtype=torch.int32).view(1, 3).to(dev)
+    pool, _, _ = _mode_pool(dev, g, "kv16", 1, 4, h, page, d, [40], tables)
+    pool.v_data[0, 1, 0, 3] = 1e5             # position 19's value
+    q = torch.randn((b, 8, h, d), generator=g, device=dev).bfloat16()
+    q_pos = (32 + torch.arange(8, dtype=torch.int32)).view(1, 8).to(dev)
+    ctx = torch.tensor([40], dtype=torch.int32, device=dev)
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=16)
+    got = pp.paged_prefill_attention(q, pool, 0, tables, q_pos, ctx, **kw)
+    want = pp.paged_prefill_attention_plain(q, pool, 0, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    lists = da.dense_page_lists(tables, ctx, page)
+    qd = q[:, 0].reshape(1, h, 1, d)
+    got_d = da.paged_mqa_attention_kv16(qd, pool, 0, *lists, ctx,
+                                        sm_scale=0.1, page_size=page)
+    want_d = da.page_list_attention_plain(qd, pool, 0, *lists, ctx,
+                                          sm_scale=0.1, page_size=page)
+    assert bool(torch.isfinite(got_d).all())
+    torch.testing.assert_close(got_d.float(), want_d.float(), rtol=5e-2,
+                               atol=5e-2)

@@ -209,16 +209,20 @@ def test_random_packed_params_shapes():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(weight_bits=8, kv_bits=8, kv_zeros=False),    # w8a8kv8 per-tensor
-    dict(weight_bits=16, act_bits=16, kv_bits=16),     # w16a16kv16
+    # w8a8kv8 per-tensor, w16a16kv16 under LServe's modes
+    dict(weight_bits=8, kv_bits=8, kv_zeros=False, sparse_decode=True),
+    dict(weight_bits=16, act_bits=16, kv_bits=16, sparse_prefill=True),
+    dict(kv_bits=16, sparse_decode=True),
+    dict(kv_zeros=False, sparse_prefill=True),
     dict(kv_bits=8, sparse_decode=True),
     dict(kv_bits=8, sparse_prefill=True),
     dict(attn_bias=True),
 ])
 def test_forward_raises_outside_slice(extra):
-    """The precision matrix serves (``tests/test_torch_precision.py``);
-    kv16, per-tensor KV, kv8 under LServe's modes and the QKV bias raise
-    naming ROADMAP.md queue 1 item 8b."""
+    """The precision matrix serves, kv16 and per-tensor KV included
+    (``tests/test_torch_precision.py``, ``tests/test_torch_kv16_pertensor.
+    py``); kv16, per-tensor KV and kv8 under LServe's modes and the QKV
+    bias raise naming ROADMAP.md queue 1 item 8b."""
     spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), **extra))
     with pytest.raises(NotImplementedError, match="item 8b"):
         spec.check_supported()

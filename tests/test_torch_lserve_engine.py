@@ -227,3 +227,18 @@ def test_sparse_decode_without_streaming_heads_chunked_prefill(
     assert serve(teng, SamplingParams, reqs) == want
     assert chunks and all(chunks)
     assert runner.selector_refreshes >= 2
+
+
+def test_sparse_decode_ifb_windows_match_jax(tiny_model_dir, monkeypatch):
+    """IFB 4-step windows while each ring is still filling: prompts of 7,
+    20 and 9 tokens (below sink + ring), fourteen tokens each, so windows
+    cross page boundaries and reserve new streaming pages. Each window must
+    see its sequences' refreshed streaming tables, as the JAX engine's
+    do."""
+    reqs = requests(3, (7, 20, 9), 14)
+    want, got, rec, runner = jax_and_port(
+        tiny_model_dir, monkeypatch, reqs, decode_multi_step=4)
+    assert got == want
+    assert [len(t) for t in got.values()] == [14, 14, 14]
+    assert runner._ms_fn_cache                   # windows served decode
+    rec.check()
