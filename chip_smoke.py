@@ -54,6 +54,16 @@ Phases (any failure raises and exits nonzero before the last line):
 9. phase 5's protocol at ``--precision w16a16kv16`` (a warmup and a
    measured round) and at ``w8a8kv8 --kv-quant-granularity per_tensor``
    (one round), each then a traced prefill step and window;
+10. the JAX dispatch's two switches on (``OMNISERVE_PREFILL_SINGLE_PASS=1``,
+    ``OMNISERVE_EMBED_DMA=1``, restored after): (a) the single-pass
+    prefill kernel (row 8) against its plain version and timed beside row
+    7 on the same inputs, at the bench's last chunk (fine-grained kv4, kv8
+    and per-tensor kv8), the last 8,192 tokens of a 32K context (dense and
+    with the band), phase 7's ring chunk and a wrapped ring; the row
+    gather (row 11) at B=8 and 128 over the 128,256 x 4,096 table; (b)
+    phase 5's protocol, then the 2-layer chunked forwards at w4a8kv8 and
+    w8a8kv8 per-tensor; (c) phase 7 (a)'s LServe command; each beside
+    the switch-off figures of the same run;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -66,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -765,20 +776,20 @@ def pools_equal(got, want, what, skip_trash=False) -> float:
     return err
 
 
-def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
-    """The bench's last chunk: 128 sequences x 128 chunk tokens after 896
-    tokens of history, Llama-3-8B heads, pages of 128 tokens; a kv4 or kv8
-    pool, fine-grained or (``per_tensor``, random codes over their whole
-    range, scales 3.5 / qmax) per-tensor, or a kv16 pool."""
+def dense_chunk_inputs(dev, gen, kv_bits=4, per_tensor=False, b=128,
+                       history=896, tc=128, page=128):
+    """Chunked prefill's last chunk over a dense table: ``b`` sequences x
+    ``tc`` chunk tokens after ``history`` tokens, Llama-3-8B heads, pages
+    of ``page`` tokens, the tables a permutation of the pool's pages; a
+    kv4 or kv8 pool, fine-grained or (``per_tensor``, random codes over
+    their whole range, scales 3.5 / qmax) per-tensor, or a kv16 pool.
+    Returns (args, kw, label, bytes and (query, key) pairs the function
+    needs)."""
     import torch
-    import torch.nn.functional as F
 
-    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
-    from omniserve_tpu_torch.ops.paged_kv import gather_kv_for_seq
-
-    tc, history, hkv, n_rep, d, page = 128, 896, 8, 4, 128, 128
+    hkv, n_rep, d = 8, 4, 128
     ctx_len = history + tc
-    w = ctx_len // page
+    w = -(-ctx_len // page)
     pt = None
     if per_tensor:
         qmax = 7 if kv_bits == 4 else 127
@@ -793,11 +804,58 @@ def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
     q_pos = (history + torch.arange(tc, device=dev, dtype=torch.int32)
              ).repeat(b, 1).contiguous()
     ctx = torch.full((b,), ctx_len, dtype=torch.int32, device=dev)
-    sm = d ** -0.5
     label = f"kv{kv_bits}{' per-tensor' if per_tensor else ''}"
-    args = (q, pool, 0, tables, q_pos, ctx)
-    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits,
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
               kv_zeros=not per_tensor)
+    pairs = b * (tc * history + tc * (tc + 1) // 2)
+    planes = 0 if per_tensor or kv_bits == 16 else 4 * 4   # a token
+    kv_bytes = b * ctx_len * hkv * (d * kv_bits // 4 + planes)
+    n_bytes = kv_bytes + 2 * (2 * b * tc * hkv * n_rep * d) + 8 * b * tc
+    return (q, pool, 0, tables, q_pos, ctx), kw, label, n_bytes, pairs
+
+
+def dense_sdpa_ms(args, kw, head_mask=None, reps=5):
+    """Library yardstick of a dense-table chunk: SDPA over K/V dequantized
+    BEFOREHAND (the dequantization and the gather are left out of its
+    time), with the causal mask of the first sequence's positions (every
+    sequence's) and, given ``head_mask`` ([Hq, Tc, ctx] -> bool), that
+    per-head mask on top. None if it does not fit."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.paged_kv import gather_kv_for_seq
+
+    q, pool, layer, tables, q_pos, ctx = args
+    ctx_len = int(ctx[0])
+    try:
+        k, v = gather_kv_for_seq(pool, layer, tables, kw["page_size"],
+                                 kw["kv_bits"], kw["kv_zeros"])  # [B,T,H,D]
+        # the table's pages may run past the context: keys up to it only
+        kb = k[:, :ctx_len].to(torch.bfloat16).transpose(1, 2).contiguous()
+        vb = v[:, :ctx_len].to(torch.bfloat16).transpose(1, 2).contiguous()
+        del k, v
+        qb = q.transpose(1, 2)
+        mask = (torch.arange(ctx_len, device=q.device)[None, :]
+                <= q_pos[0][:, None])                      # [Tc, ctx]
+        if head_mask is not None:
+            mask = (mask[None] & head_mask(mask.shape))[None]
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=kw["sm_scale"],
+            enable_gqa=True), reps, warmup=1)
+    except RuntimeError as e:
+        log(f"  SDPA over the dense chunk: {str(e).splitlines()[0]}")
+        return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
+    """The bench's last chunk (``dense_chunk_inputs``) through row 7."""
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    args, kw, label, n_bytes, pairs = dense_chunk_inputs(
+        dev, gen, kv_bits, per_tensor, b)
+    q, pool, _, tables, q_pos, ctx = args
     got = pp.paged_prefill_attention(*args, **kw)
     want = pp.paged_prefill_attention_plain(*args, **kw)
     what, row = f"paged prefill {label}", None
@@ -815,28 +873,14 @@ def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
                  warmup=1)
     plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
                     warmup=0)
-    # library yardstick: SDPA over K/V dequantized BEFOREHAND (the
-    # dequantization and the gather are left out of its time)
-    k, v = gather_kv_for_seq(pool, 0, tables, page, kv_bits,
-                             not per_tensor)            # [B, T, H, D]
-    kb = k.to(torch.bfloat16).transpose(1, 2).contiguous()
-    vb = v.to(torch.bfloat16).transpose(1, 2).contiguous()
-    del k, v
-    qb = q.transpose(1, 2)
-    mask = (torch.arange(ctx_len, device=dev)[None, :]
-            <= q_pos[0][:, None])                       # [Tc, ctx]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=mask, scale=sm, enable_gqa=True), 5, warmup=1)
-    pairs = b * sum(history + i + 1 for i in range(tc))
-    planes = 0 if per_tensor or kv_bits == 16 else 4 * 4 * page
-    kv_bytes = b * w * hkv * (page * d * kv_bits // 4 + planes)
-    n_bytes = kv_bytes + 2 * (2 * b * tc * hkv * n_rep * d) + 8 * b * tc
-    bnd, by = bound_ms(n_bytes, 4.0 * d * hkv * n_rep * pairs,
-                       BF16_FLOPS_PER_S)
-    log(f"  paged prefill {label} B={b} Tc={tc} history={history} "
-        f"Hq={hkv * n_rep} "
-        f"Hkv={hkv} D={d} page={page}: kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} "
+    lib = dense_sdpa_ms(args, kw)
+    hq, d = q.shape[2], q.shape[3]
+    bnd, by = bound_ms(n_bytes, 4.0 * d * hq * pairs, BF16_FLOPS_PER_S)
+    log(f"  paged prefill {label} B={b} Tc={q.shape[1]} history="
+        f"{int(q_pos[0, 0])} Hq={hq} Hkv={pool.num_heads} D={d} page="
+        f"{kw['page_size']}: kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms "
+        f"{lib if lib is None else f'{lib:.4f}'} "
         f"(SDPA over pre-dequantized K/V, dequantization not counted) "
         f"max_abs_err {err:.3g}" + ("" if row is None else
                                     f" (row error {row:.3g} of its norm)"))
@@ -943,21 +987,17 @@ def check_flash_band(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_paged_ring(dev, gen, context, tc, n_ring, label):
+def ring_chunk_inputs(dev, gen, context, tc, n_ring):
     """The streaming heads' call of a chunked sparse prefill: B=1, a chunk
     of ``tc`` queries ending at ``context`` over a 1 + ``n_ring`` slot ring
     (4 streaming kv heads, n_rep 4, pages of 128 tokens, 128 sink + 8,192
-    local tokens), slots resolved by ``ring_logical_blocks``. The library
-    yardstick is ``scaled_dot_product_attention`` over K/V dequantized and
-    expanded BEFOREHAND with the boolean band mask (neither counted)."""
+    local tokens, fine-grained kv4), slots resolved by
+    ``ring_logical_blocks``. Returns (args, kw, bytes and (query, key)
+    pairs the function needs, a note on the ring)."""
     import torch
-    import torch.nn.functional as F
 
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
-    from omniserve_tpu_torch.ops.paged_kv import (
-        gather_kv_for_seq,
-        ring_logical_blocks,
-    )
+    from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
 
     hs, n_rep, d, page, sink, local = 4, 4, 128, 128, 128, 8192
     n_slots = 1 + n_ring
@@ -975,21 +1015,36 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label):
                                             device=dev),
               sink_size=sink, local_size=local, sel_logic=sel,
               ring_span_pages=n_ring, ring_sink_tokens=page)
-    args = (q, pool, 0, table, q_pos, ctx)
-    got = pp.paged_prefill_attention(*args, **kw)
-    want = pp.paged_prefill_attention_plain(*args, **kw)
-    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill ring {label}")
-    del got, want
-    ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 3,
-                 warmup=1)
-    plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
-                    warmup=0)
     kv_pos = pp.kv_positions_of(sel, ctx, page, n_ring, page)[0]
     stale = int(((kv_pos >= 0) & (kv_pos // page != sel[0].repeat_interleave(
         page))).sum())
-    lib = None
+    pairs = band_pairs(q_pos[0], kv_pos, sink, local)
+    live_slots = int((sel >= 0).sum())
+    n_bytes = (live_slots * hs * (page * d + 4 * 4 * page)   # codes + planes
+               + 2 * (2 * tc * hs * n_rep * d) + 4 * tc)
+    note = (f"context {context} Tc={tc} ring 1+{n_ring} slots ({live_slots} "
+            f"live, {stale} relabelled stale rows) Hs={hs} n_rep={n_rep}")
+    return (q, pool, 0, table, q_pos, ctx), kw, n_bytes, pairs, note
+
+
+def ring_sdpa_ms(args, kw, reps=3):
+    """Library yardstick of a ring chunk: ``scaled_dot_product_attention``
+    over K/V dequantized and expanded BEFOREHAND with the boolean band mask
+    (neither counted); None if it does not fit."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import gather_kv_for_seq
+
+    q, pool, layer, table, q_pos, ctx = args
+    page, sel = kw["page_size"], kw["sel_logic"]
+    n_rep = q.shape[2] // pool.num_heads
+    sink, local = kw["sink_size"], kw["local_size"]
+    kv_pos = pp.kv_positions_of(sel, ctx, page, kw["ring_span_pages"],
+                                kw["ring_sink_tokens"])[0]
     try:
-        k, v = gather_kv_for_seq(pool, 0, table, page)   # [1, S, Hs, D]
+        k, v = gather_kv_for_seq(pool, layer, table, page)   # [1, S, Hs, D]
         kb = k.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
             .transpose(1, 2).contiguous()
         vb = v.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
@@ -998,21 +1053,36 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label):
         qp, kp = q_pos[0, :, None].long(), kv_pos[None, :].long()
         mask = (kp >= 0) & (kp <= qp) & ((kp < sink) | (qp - kp < local))
         qb = q.transpose(1, 2)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, attn_mask=mask, scale=d ** -0.5), 3, warmup=1)
-        del kb, vb, mask
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=kw["sm_scale"]), reps,
+            warmup=1)
     except RuntimeError as e:
         log(f"  SDPA over the ring: {str(e).splitlines()[0]}")
-    torch.cuda.empty_cache()
-    pairs = band_pairs(q_pos[0], kv_pos, sink, local)
-    live_slots = int((sel >= 0).sum())
-    n_bytes = (live_slots * hs * (page * d + 4 * 4 * page)   # codes + planes
-               + 2 * (2 * tc * hs * n_rep * d) + 4 * tc)
-    bnd, by = bound_ms(n_bytes, 4.0 * d * hs * n_rep * pairs,
+        return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def check_paged_ring(dev, gen, context, tc, n_ring, label):
+    """The ring chunk of ``ring_chunk_inputs`` through row 7."""
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    args, kw, n_bytes, pairs, note = ring_chunk_inputs(dev, gen, context, tc,
+                                                       n_ring)
+    q = args[0]
+    got = pp.paged_prefill_attention(*args, **kw)
+    want = pp.paged_prefill_attention_plain(*args, **kw)
+    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill ring {label}")
+    del got, want
+    ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 3,
+                 warmup=1)
+    plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
+                    warmup=0)
+    lib = ring_sdpa_ms(args, kw)
+    bnd, by = bound_ms(n_bytes, 4.0 * q.shape[3] * q.shape[2] * pairs,
                        BF16_FLOPS_PER_S)
-    log(f"  paged prefill ring ({label}) context {context} Tc={tc} ring 1+"
-        f"{n_ring} slots ({live_slots} live, {stale} relabelled stale rows) "
-        f"Hs={hs} n_rep={n_rep}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+    log(f"  paged prefill ring ({label}) {note}: kernel_ms {ms:.4f} "
+        f"plain_ms {plain:.4f} "
         f"bound_ms {bnd:.4f} ({by}) library_ms "
         f"{lib if lib is None else f'{lib:.4f}'} (SDPA over pre-dequantized "
         f"K/V with the band mask) max_abs_err {err:.3g}")
@@ -2171,7 +2241,8 @@ BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
 
 def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
               multi=32, precision="w4a8kv4", group_size=-1,
-              kernels=BENCH_KERNELS, trace=True, granularity="fine_grained"):
+              kernels=BENCH_KERNELS, trace=True, granularity="fine_grained",
+              stats=None):
     """``bench.py``'s engine protocol on the port: static batch 128, 1024
     prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
     ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
@@ -2181,7 +2252,8 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     counts are read from the last round alone, and each of ``kernels`` must
     have launched in it. Then, with ``trace``, a
     fresh batch's chunked prefill step and one 32-step window under the
-    profiler."""
+    profiler. ``stats`` (a dict) receives the last round's prefill step
+    ms, decode tok/s, graphs captured and the peak device memory."""
     import torch
 
     from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
@@ -2251,7 +2323,9 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
             raise AssertionError(f"round {r + 1}: token out of vocab")
         n_chunks = sum(launches[k] for k in (
             "paged_prefill_attention", "paged_prefill_kv8",
-            "paged_prefill_kv16", "paged_prefill_pt")) // n_layers
+            "paged_prefill_kv16", "paged_prefill_pt",
+            "paged_prefill_single_pass", "paged_prefill_single_pass_kv8",
+            "paged_prefill_single_pass_pt")) // n_layers
         warm = rounds > 1 and r == 0
         log(f"  round {r + 1}{' (warmup)' if warm else ''}: prefill step "
             f"{step_s[0] * 1e3:.1f} ms ({batch * prompt_len / step_s[0]:.0f} "
@@ -2260,6 +2334,11 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
             f"{len(step_s) - 1} steps, host clock); graphs captured "
             f"{runner.graphs_captured - graphs_before}; launches "
             + ", ".join(f"{k} {launches[k]}" for k in kernels))
+        if stats is not None:
+            stats.update(prefill_ms=step_s[0] * 1e3, decode_tps=toks_per_s,
+                         graphs=runner.graphs_captured - graphs_before)
+    if stats is not None:
+        stats["peak_gib"] = device_gib(dev, torch.cuda.max_memory_allocated)
     log(f"  {batch} requests x {gen_len} tokens each in every round; graphs "
         f"held {len(runner._ms_fn_cache)}, captured {runner.graphs_captured} "
         f"in {runner.graph_capture_s:.2f} s; peak device memory "
@@ -2432,15 +2511,9 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
 # phase 7: LServe's prefill side through the port's lserve_benchmark
 # ---------------------------------------------------------------------------
 
-# launches of one prefill, per layer: the chunked path runs the retrieval
-# heads' dense call and the streaming heads' ring call per chunk; the
-# whole-prompt path one band-mode flash call
-LSERVE_PREFILL_KERNELS = ("paged_prefill_attention", "paged_prefill_ring",
-                          "flash_prefill_band")
-
-
 def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
-                       short_gen=32, chunk=32000, multi=16):
+                       short_gen=32, chunk=32000, multi=16,
+                       single_pass=False, stats=None):
     """``lserve_benchmark.py``'s protocol with the reference's LServe flags
     (``--sparse-context-mode --sparse-decode-mode --static-sparsity 0.5``,
     ctx band 128 + 8,192 tokens, ``chunk_prefill_size`` 32000) at
@@ -2449,8 +2522,11 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     32,768 prompt tokens, 128 greedy tokens, which prefill in two chunks
     over the 1 + 314 page ring; (b) a 16,384-token prompt, 32 tokens, which
     takes the whole-prompt band path. A warmup and a measured round each,
-    then one traced prefill step of each. Returns the measured rounds'
-    launches of the two new modes."""
+    then one traced prefill step of each. With ``single_pass`` (phase 10
+    (c), the switch on): (a) alone, untraced, its prefill on row 8 over
+    both pools. ``stats`` (a dict) receives (a)'s measured prefill seconds
+    and decode tok/s. Returns the measured rounds' launches of the
+    prefill kernels."""
     import argparse
 
     import torch
@@ -2511,13 +2587,22 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
 
     engine.add_request = recording_add
     result = {}
+    # launches of one prefill: the chunked path runs the retrieval heads'
+    # dense call and the streaming heads' ring call per chunk and layer; the
+    # whole-prompt path one band-mode flash call per layer
+    per_pool = n_chunks * n_layers
     cases = (("a", long_len, long_gen,
-              {"paged_prefill_attention": n_chunks * n_layers,
-               "paged_prefill_ring": n_chunks * n_layers,
-               "flash_prefill_band": 0}),
+              {"paged_prefill_attention": per_pool,
+               "paged_prefill_ring": per_pool, "flash_prefill_band": 0}),
              ("b", short_len, short_gen,
               {"paged_prefill_attention": 0, "paged_prefill_ring": 0,
                "flash_prefill_band": n_layers}))
+    if single_pass:
+        cases = (("a", long_len, long_gen,
+                  {"paged_prefill_attention": 0, "paged_prefill_ring": 0,
+                   "flash_prefill_band": 0,
+                   "paged_prefill_single_pass": per_pool,
+                   "paged_prefill_single_pass_list": per_pool}),)
     for case, prompt_len, gen_len, want in cases:
         for r in ("warmup", "measured"):
             groups.clear()
@@ -2553,11 +2638,13 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                 raise AssertionError(
                     f"LServe prefill ({case}) {r}: {len(groups)} requests, "
                     f"output lengths {[len(o) for o in outs]}")
-            pre = {k: seen[k] for k in LSERVE_PREFILL_KERNELS}
+            pre = {k: seen[k] for k in want}
             if pre != want:
                 raise AssertionError(f"LServe prefill ({case}) {r}: prefill "
                                      f"launched {pre}, expected {want}")
-            chunks = pre["paged_prefill_ring"] // n_layers
+            chunks = max(pre["paged_prefill_ring"],
+                         pre.get("paged_prefill_single_pass_list", 0)
+                         ) // n_layers
             log(f"  ({case}) {r}: prefill {prompt_len} tokens "
                 f"{t_prefill:.3f} s ({prefill_tps:.0f} tok/s, "
                 f"{max(chunks, 1)} chunk(s) per prefill"
@@ -2572,10 +2659,14 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                 f"peak device memory "
                 f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
             if r == "measured":
-                for k in LSERVE_PREFILL_KERNELS:
+                for k in want:
                     result[k] = result.get(k, 0) + launches[k]
+                if case == "a" and stats is not None:
+                    stats.update(prefill_s=t_prefill, decode_tps=decode_tps)
     engine.add_request = add_request
-    log(f"  launches in the two measured rounds: {json.dumps(result)}")
+    log(f"  launches in the measured rounds: {json.dumps(result)}")
+    if single_pass:
+        return result
 
     # where a prefill's time goes: one traced prefill step of each path
     engine.ifb_config.decode_multi_step = 1
@@ -2643,6 +2734,301 @@ def run_bench_kv_modes(dev):
     pt = run_bench(dev, rounds=1, precision="w8a8kv8", kernels=PT_KERNELS,
                    granularity="per_tensor")
     return kv16, pt
+
+
+# ---------------------------------------------------------------------------
+# phase 10: rows 8 and 11 behind the JAX dispatch's switches
+# ---------------------------------------------------------------------------
+
+SWITCHES = ("OMNISERVE_PREFILL_SINGLE_PASS", "OMNISERVE_EMBED_DMA")
+ROW7_NAMES = ("paged_prefill_attention", "paged_prefill_kv8",
+              "paged_prefill_kv16", "paged_prefill_pt", "paged_prefill_ring")
+ROW8_NAMES = ("paged_prefill_single_pass", "paged_prefill_single_pass_kv8",
+              "paged_prefill_single_pass_pt",
+              "paged_prefill_single_pass_list")
+SWITCHED_BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                          "paged_prefill_single_pass",
+                          "decode_attention_append", "embed_gather")
+
+
+@contextlib.contextmanager
+def switches_on():
+    """Both of the JAX dispatch's switches on within the block; the
+    environment as it was after it."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(dict.fromkeys(SWITCHES, "1"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_single_pass(label, args, kw, n_bytes, ops, library, reps=3,
+                      short_by_one=True):
+    """Row 8 on ``args`` / ``kw`` against its plain version at the JAX
+    test's 2e-2 and at ATTN_ROW_RTOL of each row's norm, refusing a causal
+    frontier one page short and (``short_by_one``) a context length one
+    short planted in the plain version; timed beside the plain version, row
+    7 on the same inputs and ``library()`` (ms or None). Returns (the
+    kernel table's entry, row 7's ms).
+
+    A context one short hides one key from the last token's rows alone; at
+    8K-32K visible keys that moves a row by ~1e-4 of its norm, below any
+    gate a bf16 output allows, so the long chunks plant the page fault
+    only."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.cuda import prefill_single_pass as psp
+
+    q, pool, layer, tables, q_pos, ctx = args
+    page = kw["page_size"]
+    what = f"single-pass prefill {label}"
+    got = psp.paged_prefill_single_pass(*args, **kw)
+    want = psp.paged_prefill_single_pass_plain(*args, **kw)
+    faults = [("the causal frontier one page short", ctx - page)]
+    if short_by_one:
+        faults.append(("a context length one short", ctx - 1))
+    planted = [(name, psp.paged_prefill_single_pass_plain(
+        q, pool, layer, tables, q_pos, bad_ctx, **kw))
+        for name, bad_ctx in faults]
+    err, row = hold(got, want, 2e-2, 2e-2, ATTN_ROW_RTOL, what,
+                    planted=planted)
+    del got, want, planted
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: psp.paged_prefill_single_pass(*args, **kw), reps,
+                 warmup=1)
+    row7 = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), reps,
+                   warmup=1)
+    plain = time_ms(lambda: psp.paged_prefill_single_pass_plain(*args, **kw),
+                    1, warmup=0)
+    lib = library()
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
+    log(f"  {what}: kernel_ms {ms:.4f} (row 7 on the same inputs {row7:.4f}, "
+        f"row 8 / row 7 {ms / row7:.3f}) plain_ms {plain:.4f} bound_ms "
+        f"{bnd:.4f} ({by}) library_ms {lib if lib is None else f'{lib:.4f}'} "
+        f"(SDPA over K/V dequantized beforehand, not counted) max_abs_err "
+        f"{err:.3g}, largest row error {row:.3g} of its norm (limit "
+        f"{ATTN_ROW_RTOL})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err), row7
+
+
+def check_single_pass_dense(dev, gen, kv_bits=4, per_tensor=False, b=128,
+                            history=896, tc=128, band=False, page=128):
+    """Row 8 over ``dense_chunk_inputs`` (with ``band``: kv heads 4-7
+    streaming, phase 7's ctx band of 128 sink + 8,192 local tokens)."""
+    import torch
+
+    args, kw, label, n_bytes, pairs = dense_chunk_inputs(
+        dev, gen, kv_bits, per_tensor, b, history, tc, page)
+    q = args[0]
+    hq, d = q.shape[2], q.shape[3]
+    hkv = args[1].num_heads
+    ops = 4.0 * d * hq * pairs
+    head_mask = None
+    if band:
+        sink, local = 128, 8192
+        flags = (torch.arange(hkv, device=dev) < hkv // 2).repeat_interleave(
+            hq // hkv)
+        kw.update(head_is_retrieval=flags, sink_size=sink, local_size=local)
+        n_stream = int((~flags).sum())
+        ctx_len = history + tc
+        kv_pos = torch.arange(ctx_len, device=dev)
+        stream_pairs = b * band_pairs(args[4][0], kv_pos, sink, local)
+        ops = 4.0 * d * ((hq - n_stream) * pairs + n_stream * stream_pairs)
+
+        def head_mask(shape):
+            qp = args[4][0][:, None].long()
+            kp = kv_pos[None, :]
+            in_band = (kp < sink) | (qp - kp < local)
+            return flags[:, None, None] | in_band[None]
+
+        label += f", kv heads {hkv // 2}-{hkv - 1} streaming (sink {sink}, "
+        label += f"local {local})"
+    label = (f"{label} B={b} Tc={tc} history={history} Hq={hq} Hkv={hkv} "
+             f"page={kw['page_size']}")
+    return check_single_pass(label, args, kw, n_bytes, ops,
+                             lambda: dense_sdpa_ms(args, kw, head_mask),
+                             short_by_one=history + tc <= 1024)
+
+
+def check_single_pass_ring(dev, gen, context, tc, n_ring, label):
+    """Row 8 over ``ring_chunk_inputs`` (the streaming heads' ring call)."""
+    args, kw, n_bytes, pairs, note = ring_chunk_inputs(dev, gen, context, tc,
+                                                       n_ring)
+    q = args[0]
+    return check_single_pass(f"ring ({label}) {note}", args, kw, n_bytes,
+                             4.0 * q.shape[3] * q.shape[2] * pairs,
+                             lambda: ring_sdpa_ms(args, kw),
+                             short_by_one=False)
+
+
+def check_embed_gather(dev, gen, table, b, reps=20):
+    """Row 11 at ``b`` decode rows over the Llama-3-8B embedding table:
+    equal bytes to the plain version with a negative id and an id of V
+    among the ids; times over ``reps`` calls with fresh ids each, replayed
+    from one CUDA graph (a few-us kernel), beside the plain version and
+    ``table[ids]`` as the library call."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import embed_gather as eg
+
+    v, d = table.shape
+    ids = torch.randint(0, v, (b,), generator=gen, device=dev)
+    ids[0], ids[-1] = -1, v
+    got = eg.embed_gather(table, ids)
+    want = eg.embed_gather_plain(table, ids)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"embed gather B={b}: bytes differ from the "
+                             "plain version's")
+    if not (torch.equal(got[0], table[0]) and torch.equal(got[-1],
+                                                          table[-1])):
+        raise AssertionError(f"embed gather B={b}: out-of-range ids not "
+                             "clamped")
+    batches = [torch.randint(0, v, (b,), generator=gen, device=dev)
+               for _ in range(reps)]
+
+    def cycling(fn):
+        it = itertools.cycle(batches)
+        return lambda: fn(next(it))
+
+    ms = time_graphed_ms(cycling(lambda i: eg.embed_gather(table, i)), reps)
+    plain = time_graphed_ms(cycling(lambda i: eg.embed_gather_plain(table,
+                                                                    i)), reps)
+    lib = time_graphed_ms(cycling(lambda i: table[i]), reps)
+    n_bytes = 2 * b * d * table.element_size() + 8 * b
+    bnd, by = bound_ms(n_bytes, 0.0, BF16_FLOPS_PER_S)
+    log(f"  embed gather B={b} over [{v}, {d}] {table.dtype}: kernel_ms "
+        f"{ms:.5f} plain_ms {plain:.5f} bound_ms {bnd:.6f} ({by}) library_ms "
+        f"{lib:.5f} (table[ids]); equal bytes, ids -1 and {v} clamped "
+        f"(graph replay of {reps} calls with fresh ids)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=0.0)
+
+
+def check_switched_kernels(dev, gen):
+    """Phase 10 (a): rows 8 and 11 against their plain versions at the
+    main paths' shapes, row 8 beside row 7 on the same inputs. Returns the
+    kernel table's entries of rows 8 and 11."""
+    import torch
+
+    rows, ab = {}, {}
+
+    def case(label, name, result):
+        entry, row7 = result
+        ab[label] = (entry["ms"], row7)
+        if name:
+            rows[name] = entry
+
+    for name, kv_bits, pt in (("paged_prefill_single_pass", 4, False),
+                              ("paged_prefill_single_pass_kv8", 8, False),
+                              ("paged_prefill_single_pass_pt", 8, True)):
+        case(f"bench chunk {name}", name,
+             check_single_pass_dense(dev, gen, kv_bits, pt))
+    # 384-token pages: under kv4 a 128-token unit's two 64-key sub-tiles
+    # sit in different nibble halves of the page's 192 rows
+    for kv_bits, pt in ((4, False), (4, True), (8, False)):
+        case(f"page 384 kv{kv_bits}{' pt' if pt else ''}", None,
+             check_single_pass_dense(dev, gen, kv_bits, pt, b=16, page=384))
+    # a long dense chunk: the last 8,192 tokens of a 32K context, without
+    # and with the band
+    case("32K, last 8192, kv4", None, check_single_pass_dense(
+        dev, gen, b=1, history=24576, tc=8192))
+    case("32K, last 8192, kv4, band", None, check_single_pass_dense(
+        dev, gen, b=1, history=24576, tc=8192, band=True))
+    case("ring, phase 7 (a)'s first chunk", "paged_prefill_single_pass_list",
+         check_single_pass_ring(dev, gen, 32000, 32000, 314,
+                                "phase 7's first chunk"))
+    case("wrapped ring", None, check_single_pass_ring(dev, gen, 20000, 2048,
+                                                      80, "wrapped"))
+    torch.cuda.empty_cache()
+    table = (torch.randn((LLAMA3_8B["vocab_size"], LLAMA3_8B["hidden_size"]),
+                         generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    check_embed_gather(dev, gen, table, 8)
+    rows["embed_gather"] = check_embed_gather(dev, gen, table, 128)
+    del table
+    log("  A/B on the same inputs, kernel_ms row 8 / row 7 (ratio): "
+        + "; ".join(f"{k} {a:.4f} / {b_:.4f} ({a / b_:.3f})"
+                    for k, (a, b_) in ab.items()))
+    return rows
+
+
+def run_switched_protocols(dev, phase5, phase7):
+    """Phase 10 (b): phase 5's protocol with both switches on (row 8 must
+    launch as often as row 7 did in phase 5's measured round, row 7 never,
+    the row gather once a decode step); the 2-layer full-width chunked
+    forwards at w4a8kv8 and w8a8kv8 per-tensor, kernels against plain at
+    their gates. (c): phase 7 (a)'s LServe command with both switches on
+    (row 8 over the retrieval pool and the ring, row 7 never). ``phase5`` /
+    ``phase7``: those phases' launches and round figures. Returns the
+    launches of rows 8 and 11 on these paths."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+
+    launches = {}
+    with switches_on():
+        log("  (b) phase 5's protocol with both switches on")
+        stats = {}
+        bench = run_bench(dev, kernels=SWITCHED_BENCH_KERNELS, trace=False,
+                          stats=stats)
+        n_layers = LLAMA3_8B["num_hidden_layers"]
+        steps = bench["decode_attention_append"] // n_layers
+        want = {"paged_prefill_single_pass":
+                phase5["launches"]["paged_prefill_attention"],
+                "embed_gather": steps, **dict.fromkeys(ROW7_NAMES, 0)}
+        got = {k: bench[k] for k in want}
+        if got != want:
+            raise AssertionError(f"switched bench launched {got}, expected "
+                                 f"{want}")
+        p5 = phase5["stats"]
+        log(f"  (b) beside phase 5 (switches off, same run): prefill step "
+            f"{stats['prefill_ms']:.1f} ms vs {p5['prefill_ms']:.1f} ms; "
+            f"decode {stats['decode_tps']:.1f} vs {p5['decode_tps']:.1f} "
+            f"tok/s; graphs {stats['graphs']} vs {p5['graphs']}; peak "
+            f"device memory {stats['peak_gib']:.2f} vs "
+            f"{p5['peak_gib']:.2f} GiB; launches {json.dumps(got)} (row 7 "
+            f"in phase 5: {p5['row7']})")
+        launches.update({k: bench[k] for k in ("paged_prefill_single_pass",
+                                                "embed_gather")})
+        gc.collect()
+        torch.cuda.empty_cache()
+        for precision, name in (("w4a8kv8", "paged_prefill_single_pass_kv8"),
+                                ("w8a8kv8-pt",
+                                 "paged_prefill_single_pass_pt")):
+            cuda.reset_launch_counts()
+            spec, params, prompts, tables, kv_scales = check_forward(
+                dev, precision, with_floor=True)
+            check_chunked_forward(dev, spec, params, prompts, tables,
+                                  with_floor=True, kv_scales=kv_scales)
+            n = {k: cuda.LAUNCHES[k] for k in (name, *ROW7_NAMES,
+                                               "embed_gather")}
+            log(f"  (b) {precision} forwards with both switches on: "
+                f"launches {json.dumps(n)}")
+            if n[name] <= 0 or n["embed_gather"] <= 0 or any(
+                    n[k] for k in ROW7_NAMES):
+                raise AssertionError(f"{precision} switched forwards "
+                                     f"launched {n}")
+            launches[name] = n[name]
+            del spec, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        log("  (c) phase 7 (a)'s LServe command with both switches on")
+        stats = {}
+        prefill = run_lserve_prefill(dev, single_pass=True, stats=stats)
+        p7 = phase7["stats"]
+        log(f"  (c) beside phase 7 (a) (switches off, same run): prefill "
+            f"{stats['prefill_s']:.3f} s vs {p7['prefill_s']:.3f} s; decode "
+            f"{stats['decode_tps']:.2f} vs {p7['decode_tps']:.2f} tok/s; "
+            f"measured round's launches {json.dumps(prefill)}")
+        launches["paged_prefill_single_pass_list"] = prefill[
+            "paged_prefill_single_pass_list"]
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2754,7 +3140,9 @@ def main() -> int:
         "prefill 8192, 32-step windows) through qserve_benchmark.run_round")
     # the bench's kernels report its launches; the flash kernel, which the
     # bench's chunked prefill does not run, reports phase 4's
-    bench = run_bench(dev)
+    p5_stats = {}
+    bench = run_bench(dev, stats=p5_stats)
+    p5_stats["row7"] = bench["paged_prefill_attention"]
     launches.update({k: bench[k] for k in BENCH_KERNELS})
     phase_done("phase 5")
     log("phase 6: LServe benchmark protocol (batch 1, 32768 in / 128 out, "
@@ -2765,7 +3153,8 @@ def main() -> int:
     log("phase 7: LServe prefill side (--sparse-context-mode "
         "--sparse-decode-mode, static sparsity 0.5; 32768 in / 128 out "
         "chunked, 16384 in / 32 out whole prompt) through lserve_benchmark")
-    prefill = run_lserve_prefill(dev)
+    p7_stats = {}
+    prefill = run_lserve_prefill(dev, stats=p7_stats)
     launches.update({k: prefill[k] for k in ("flash_prefill_band",
                                              "paged_prefill_ring")})
     phase_done("phase 7")
@@ -2786,6 +3175,14 @@ def main() -> int:
     launches.update({k: pt[k] for k in ("paged_prefill_pt",
                                         "decode_attention_append_pt")})
     phase_done("phase 9")
+    log("phase 10: rows 8 and 11 behind the JAX dispatch's switches "
+        "(OMNISERVE_PREFILL_SINGLE_PASS=1, OMNISERVE_EMBED_DMA=1): kernels "
+        "vs plain and row 8 vs row 7, then phase 5's protocol, the kv8 and "
+        "per-tensor chunked forwards and phase 7 (a) with both switches on")
+    kernels.update(check_switched_kernels(dev, gen))
+    launches.update(run_switched_protocols(
+        dev, {"launches": bench, "stats": p5_stats}, {"stats": p7_stats}))
+    phase_done("phase 10")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -2843,6 +3240,12 @@ def main() -> int:
         "paged_prefill_pt": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        **dict.fromkeys(ROW8_NAMES, (
+            "omniserve_tpu_torch/csrc/prefill_single_pass.cu",
+            "omniserve_tpu/ops/pallas/prefill_single_pass.py:291")),
+        "embed_gather": (
+            "omniserve_tpu_torch/csrc/embed_gather.cu",
+            "omniserve_tpu/ops/pallas/embed_gather.py:46"),
     }
     idle = [name for name in meta if launches[name] <= 0]
     if idle:

@@ -34,6 +34,8 @@ SOURCES: Dict[str, List[str]] = {
     "kv_append.cu": ["--fmad=false"],
     "flash_prefill.cu": [],
     "paged_prefill.cu": [],
+    "prefill_single_pass.cu": [],
+    "embed_gather.cu": [],
 }
 COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -747,7 +747,10 @@ def llama_forward(
             "append over a ring, ROADMAP.md queue 2 item 2; the engine "
             "builds a streaming pool only under --sparse-decode-mode"
         )
-    h = params["embed"][batch.token_ids.long()].to(torch.bfloat16)
+    ids = batch.token_ids.long()
+    # prefill keeps the direct index, as the JAX forward does
+    h = (params["embed"][ids] if is_prefill
+         else dispatch.embed_lookup(params["embed"], ids)).to(torch.bfloat16)
     if spec.with_stats:
         reset_page_stats_all_layers(retrieval_pool, batch.new_page_ids)
     page_io = (_prefill_page_ids(batch, spec) if is_prefill

@@ -38,6 +38,11 @@ LAUNCHES = {
     "paged_prefill_kv8": 0,
     "paged_prefill_kv16": 0,
     "paged_prefill_pt": 0,
+    "paged_prefill_single_pass": 0,
+    "paged_prefill_single_pass_kv8": 0,
+    "paged_prefill_single_pass_pt": 0,
+    "paged_prefill_single_pass_list": 0,
+    "embed_gather": 0,
 }
 
 _force_plain = False

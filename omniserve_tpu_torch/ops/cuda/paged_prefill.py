@@ -84,39 +84,21 @@ def paged_prefill_attention_plain(
     )
 
 
-def paged_prefill_attention(
-    q: torch.Tensor,             # [B, Tc, Hq, D] bf16
-    pool: KVPool,
-    layer: int,
-    block_tables: torch.Tensor,  # [B, W] int32
-    q_positions: torch.Tensor,   # [B, Tc] int32, -1 = padding
-    context_lens: torch.Tensor,  # [B] int32, history + chunk
-    *,
-    sm_scale: float,
-    page_size: int,
-    head_is_retrieval: Optional[torch.Tensor] = None,   # [Hq] bool
-    sink_size: int = 0,
-    local_size: int = 0,
-    sel_logic: Optional[torch.Tensor] = None,           # [B, W] int32
-    ring_span_pages: int = 0,
-    ring_sink_tokens: int = 0,
-    kv_bits: int = 4,
-    kv_zeros: bool = True,
-) -> torch.Tensor:
-    """Kernel: causal GQA attention of the chunk over the pool, reading the
-    pages in place. Without ``sel_logic`` the table is the dense history
-    (slot = logical page); with it, slot s holds logical page
-    ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
-    newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
-    keep the sink + local band. kv8, per-tensor (``kv_zeros=False``, the
-    pool's scales read on the device) and kv16 pages take the dense table
-    only. Returns [B, Tc, Hq, D] bf16."""
+def launch(fn, name: str, q, pool: KVPool, layer: int, block_tables,
+           q_positions, context_lens, *, sm_scale: float, page_size: int,
+           head_is_retrieval=None, sink_size: int = 0, local_size: int = 0,
+           sel_logic=None, ring_span_pages: int = 0,
+           ring_sink_tokens: int = 0, kv_bits: int = 4,
+           kv_zeros: bool = True) -> torch.Tensor:
+    """Check the tensors of a chunked-prefill kernel call, launch ``fn``
+    (this file's kernel or the single-pass one: the two take the same C
+    arguments) and count it under ``name``. Returns [B, Tc, Hq, D] bf16."""
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
     if d != HEAD_DIM or n_rep * hkv != hq or n_rep not in N_REPS:
         raise ValueError(
-            f"paged prefill kernel needs head_dim {HEAD_DIM} and n_rep in "
+            f"paged prefill kernels need head_dim {HEAD_DIM} and n_rep in "
             f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
     want_rows = {4: page_size // 2, 8: page_size, 16: page_size}.get(kv_bits)
@@ -124,7 +106,7 @@ def paged_prefill_attention(
     pt = kv_bits < 16 and not kv_zeros
     if (rows != want_rows or (pool.kv_scales is None) == fine
             or (pool.k_scale_per_tensor is None) == pt):
-        raise ValueError("paged prefill kernel serves kv4 / kv8 pools, fine-"
+        raise ValueError("paged prefill kernels serve kv4 / kv8 pools, fine-"
                          f"grained or per-tensor, and kv16 pools; got "
                          f"kv{kv_bits} (kv_zeros={kv_zeros}), {rows} rows of "
                          f"a {page_size}-token page")
@@ -156,23 +138,18 @@ def paged_prefill_attention(
         sel_ptr = sel_logic.data_ptr()
     elif ring_span_pages:
         raise ValueError("ring_span_pages needs sel_logic")
-    band = head_is_retrieval is not None and bool(sink_size or local_size)
-    if (kv_bits != 4 or pt) and (sel_logic is not None or band):
-        raise ValueError("paged prefill kernel takes kv8, kv16 and per-"
-                         "tensor pages over a dense table only (no page "
-                         "list, no band)")
-    if band:
+    if head_is_retrieval is not None and bool(sink_size or local_size):
         if tuple(head_is_retrieval.shape) != (hq,):
             raise ValueError(f"head_is_retrieval must be [{hq}] (per q "
                              f"head), got {tuple(head_is_retrieval.shape)}")
-        # per-q-head -> per-kv-head, as the Pallas wrapper does
+        # per-q-head -> per-kv-head, as the Pallas wrappers do
         flags = head_is_retrieval[::n_rep].to(torch.int32).contiguous()
         cuda.check(flags, "head_is_retrieval", torch.int32, (hkv,))
         flags_ptr = flags.data_ptr()
     out = torch.empty_like(q)
     if b == 0 or tc == 0:
         return out
-    err = _lib().launch_paged_prefill(
+    err = fn(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), planes_ptr, k_pt, v_pt,
         block_tables.data_ptr(), q_positions.data_ptr(),
@@ -181,11 +158,53 @@ def paged_prefill_attention(
         int(ring_span_pages), int(ring_sink_tokens), float(sm_scale),
         kv_bits, cuda.stream_handle(),
     )
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
+    return out
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,             # [B, Tc, Hq, D] bf16
+    pool: KVPool,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, W] int32
+    q_positions: torch.Tensor,   # [B, Tc] int32, -1 = padding
+    context_lens: torch.Tensor,  # [B] int32, history + chunk
+    *,
+    sm_scale: float,
+    page_size: int,
+    head_is_retrieval: Optional[torch.Tensor] = None,   # [Hq] bool
+    sink_size: int = 0,
+    local_size: int = 0,
+    sel_logic: Optional[torch.Tensor] = None,           # [B, W] int32
+    ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
+    kv_bits: int = 4,
+    kv_zeros: bool = True,
+) -> torch.Tensor:
+    """Kernel: causal GQA attention of the chunk over the pool, reading the
+    pages in place. Without ``sel_logic`` the table is the dense history
+    (slot = logical page); with it, slot s holds logical page
+    ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
+    newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
+    keep the sink + local band. kv8, per-tensor (``kv_zeros=False``, the
+    pool's scales read on the device) and kv16 pages take the dense table
+    only. Returns [B, Tc, Hq, D] bf16."""
+    pt = kv_bits < 16 and not kv_zeros
+    band = head_is_retrieval is not None and bool(sink_size or local_size)
+    if (kv_bits != 4 or pt) and (sel_logic is not None or band):
+        raise ValueError("paged prefill kernel takes kv8, kv16 and per-"
+                         "tensor pages over a dense table only (no page "
+                         "list, no band)")
     name = ("paged_prefill_ring" if sel_logic is not None
             else "paged_prefill_pt" if pt
             else "paged_prefill_kv16" if kv_bits == 16
             else "paged_prefill_kv8" if kv_bits == 8
             else "paged_prefill_attention")
-    cuda.raise_on_error(err, name)
-    cuda.LAUNCHES[name] += 1
-    return out
+    return launch(
+        _lib().launch_paged_prefill, name, q, pool, layer, block_tables,
+        q_positions, context_lens, sm_scale=sm_scale, page_size=page_size,
+        head_is_retrieval=head_is_retrieval, sink_size=sink_size,
+        local_size=local_size, sel_logic=sel_logic,
+        ring_span_pages=ring_span_pages, ring_sink_tokens=ring_sink_tokens,
+        kv_bits=kv_bits, kv_zeros=kv_zeros)

@@ -12,16 +12,58 @@ pool, split as the JAX dispatch splits it (``append_kv_decode``, then
 decode (the same two calls over the retrieval and streaming pools,
 fine-grained kv4).
 Every other mode of the JAX dispatch raises
-``NotImplementedError`` naming its ROADMAP.md item (the JAX dispatch's
-single-pass paged-prefill variant, off by default there, is ROADMAP.md
-queue 2 item 10).
+``NotImplementedError`` naming its ROADMAP.md item.
+
+Two environment switches, read at call time with the JAX dispatch's names
+and defaults (off), choose the JAX package's alternative kernels for CUDA
+tensors: ``OMNISERVE_PREFILL_SINGLE_PASS=1`` sends kv4 / kv8 chunked
+prefill to the single-pass kernel where ``single_pass_applies`` holds, and
+``OMNISERVE_EMBED_DMA=1`` sends the decode step's embedding to the row
+gather kernel (``embed_lookup``). With a switch on and its rule holding, a
+build or launch failure raises: no call falls back.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from omniserve_tpu_torch.ops import attention_ref, cuda
+
+
+def supports(kv_bits: int, page_size: int, head_dim: int) -> bool:
+    """Whether the single-pass kernel serves this pool: the JAX package's
+    rule (``omniserve_tpu/ops/pallas/decode_attention.py:67-88``), kept
+    here as a copy: kv4 / kv8, page rows a multiple of 32, pages a multiple
+    of 128 tokens, head_dim a multiple of 128."""
+    if kv_bits not in (4, 8) or page_size <= 0:
+        return False
+    rows_pg = page_size // 2 if kv_bits == 4 else page_size
+    return rows_pg % 32 == 0 and page_size % 128 == 0 and head_dim % 128 == 0
+
+
+def single_pass_applies(kv_bits: int, page_size: int, head_dim: int,
+                        return_lse: bool = False) -> bool:
+    """Whether chunked prefill goes to the single-pass kernel: the JAX
+    dispatch's rule (``omniserve_tpu/ops/dispatch.py:179-207``), with
+    ``OMNISERVE_PREFILL_SINGLE_PASS`` read now."""
+    return (os.environ.get("OMNISERVE_PREFILL_SINGLE_PASS", "0") == "1"
+            and not return_lse and kv_bits in (4, 8)
+            and supports(kv_bits, int(page_size), int(head_dim)))
+
+
+def embed_lookup(table, ids):
+    """Decode-step embedding rows. On a card with ``OMNISERVE_EMBED_DMA=1``
+    the row gather kernel (which clamps ids into the table); otherwise
+    ``table[ids]``, as the JAX dispatch (``omniserve_tpu/ops/dispatch.py:
+    149-164``)."""
+    if cuda.use_kernel(table) and \
+            os.environ.get("OMNISERVE_EMBED_DMA", "0") == "1":
+        from omniserve_tpu_torch.ops.cuda import embed_gather
+
+        return embed_gather.embed_gather(table, ids)
+    return table[ids]
 
 
 def _check_lserve_kv(kv_bits: int, kv_zeros: bool) -> None:
@@ -182,28 +224,40 @@ def paged_prefill_attention(
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
     (history + the chunk, appended by the caller): kv4 / kv8 pools, fine-
     grained or per-tensor, and kv16 pools; a page list or a band only over
-    fine-grained kv4 (LServe).
+    fine-grained kv4 (LServe), but where ``single_pass_applies``, which
+    takes them over any kv4 / kv8 pool.
 
     ``sel_logic`` [B, W] names the logical page each table slot holds (-1
     dead); with ``ring_span_pages`` the source is the streaming ring, whose
     newest page's stale rows are relabelled one ring span back (valid from
     ``ring_sink_tokens``). Streaming heads (``head_is_retrieval`` [Hq]
     False) keep the sink + local band. On a card: the kernel reads them as
-    they are. On the CPU: the plain version, which turns the list into a
-    per-row position map as the JAX dispatch does."""
+    they are: the single-pass kernel where ``single_pass_applies``, else
+    the paged-prefill kernel. On the CPU: the plain version, which turns
+    the list into a per-row position map as the JAX dispatch does. The
+    rule, not the device, decides what is served: where
+    ``single_pass_applies``, page lists and bands over any kv4 / kv8 pool
+    are served on both (the kernel on a card, its plain version on the
+    CPU)."""
     if return_lse:
         raise NotImplementedError(
             "LSE outputs of paged prefill are the sequence-parallel path; "
             "see ROADMAP.md queue 1 item 10"
         )
-    listed = sel_logic is not None or (
-        head_is_retrieval is not None and bool(sink_size or local_size))
-    if listed:
-        _check_lserve_kv(kv_bits, kv_zeros)
-    from omniserve_tpu_torch.ops.cuda import paged_prefill
+    if single_pass_applies(kv_bits, page_size, q.shape[-1]):
+        from omniserve_tpu_torch.ops.cuda import prefill_single_pass as psp
 
-    fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
-          else paged_prefill.paged_prefill_attention_plain)
+        fn = (psp.paged_prefill_single_pass if cuda.use_kernel(q)
+              else psp.paged_prefill_single_pass_plain)
+    else:
+        listed = sel_logic is not None or (
+            head_is_retrieval is not None and bool(sink_size or local_size))
+        if listed:
+            _check_lserve_kv(kv_bits, kv_zeros)
+        from omniserve_tpu_torch.ops.cuda import paged_prefill
+
+        fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)
+              else paged_prefill.paged_prefill_attention_plain)
     return fn(q.contiguous(), pool, layer, block_tables, q_positions,
               context_lens, sm_scale=sm_scale, page_size=page_size,
               head_is_retrieval=head_is_retrieval, sink_size=sink_size,
