@@ -49,11 +49,10 @@ Phases (any failure raises and exits nonzero before the last line):
    prompt (whole-prompt band), a warmup and a measured round each, then
    one traced prefill step of each;
 8. phase 5's protocol at ``--precision w4a8kv4 --group-size 128`` (a
-   warmup and a measured round, then a traced prefill step and window)
-   and at ``w4a8kv8`` (one round);
+   warmup and a measured round) and at ``w4a8kv8`` (one round);
 9. phase 5's protocol at ``--precision w16a16kv16`` (a warmup and a
-   measured round) and at ``w8a8kv8 --kv-quant-granularity per_tensor``
-   (one round), each then a traced prefill step and window;
+   measured round, then a traced prefill step and window) and at
+   ``w8a8kv8 --kv-quant-granularity per_tensor`` (one round);
 10. the JAX dispatch's two switches on (``OMNISERVE_PREFILL_SINGLE_PASS=1``,
     ``OMNISERVE_EMBED_DMA=1``, restored after): (a) the single-pass
     prefill kernel (row 8) against its plain version and timed beside row
@@ -64,6 +63,13 @@ Phases (any failure raises and exits nonzero before the last line):
     phase 5's protocol, then the 2-layer chunked forwards at w4a8kv8 and
     w8a8kv8 per-tensor; (c) phase 7 (a)'s LServe command; each beside
     the switch-off figures of the same run;
+11. phase 7 (a)'s protocol at the reference's own LServe precision,
+    ``--precision w8a8kv8 --kv-quant-granularity per_tensor`` (both flags,
+    32,768 in / 128 out, a warmup and a measured round, a traced prefill
+    step and decode window), then at ``w4a8kv8`` (32,768 in / 32 out, a
+    warmup and a measured round): the kv8 and per-tensor modes of rows 4 (band/ring), 5, 7
+    (ring) and 10, which phase 2 holds against their plain versions and
+    phase 3 runs in 2-layer sparse forwards at both precisions;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -987,13 +993,14 @@ def check_flash_band(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def ring_chunk_inputs(dev, gen, context, tc, n_ring):
+def ring_chunk_inputs(dev, gen, context, tc, n_ring, mode="kv4"):
     """The streaming heads' call of a chunked sparse prefill: B=1, a chunk
     of ``tc`` queries ending at ``context`` over a 1 + ``n_ring`` slot ring
     (4 streaming kv heads, n_rep 4, pages of 128 tokens, 128 sink + 8,192
-    local tokens, fine-grained kv4), slots resolved by
-    ``ring_logical_blocks``. Returns (args, kw, bytes and (query, key)
-    pairs the function needs, a note on the ring)."""
+    local tokens, a ``LIST_MODES`` pool: layer 0 of one layer, fine-grained
+    kv4, else layer 1 of two), slots resolved by ``ring_logical_blocks``.
+    Returns (args, kw, bytes and (query, key) pairs the function needs, a
+    note on the ring)."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
@@ -1001,7 +1008,9 @@ def ring_chunk_inputs(dev, gen, context, tc, n_ring):
 
     hs, n_rep, d, page, sink, local = 4, 4, 128, 128, 128, 8192
     n_slots = 1 + n_ring
-    pool = random_kv_pool(gen, dev, 1, n_slots + 1, hs, page, d, 4)
+    layers = 1 if mode == "kv4" else 2
+    pool = list_mode_pool(gen, dev, layers, n_slots + 1, hs, page, d, mode)
+    kv_bits, pt = LIST_MODES[mode]
     table = torch.randperm(n_slots, generator=gen, device=dev).view(
         1, n_slots).to(torch.int32)
     ctx = torch.tensor([context], dtype=torch.int32, device=dev)
@@ -1015,16 +1024,19 @@ def ring_chunk_inputs(dev, gen, context, tc, n_ring):
                                             device=dev),
               sink_size=sink, local_size=local, sel_logic=sel,
               ring_span_pages=n_ring, ring_sink_tokens=page)
+    if mode != "kv4":
+        kw.update(kv_bits=kv_bits, kv_zeros=not pt)
     kv_pos = pp.kv_positions_of(sel, ctx, page, n_ring, page)[0]
     stale = int(((kv_pos >= 0) & (kv_pos // page != sel[0].repeat_interleave(
         page))).sum())
     pairs = band_pairs(q_pos[0], kv_pos, sink, local)
     live_slots = int((sel >= 0).sum())
-    n_bytes = (live_slots * hs * (page * d + 4 * 4 * page)   # codes + planes
+    n_bytes = (live_slots * hs * page_bytes(mode, page, d)  # codes, planes
                + 2 * (2 * tc * hs * n_rep * d) + 4 * tc)
-    note = (f"context {context} Tc={tc} ring 1+{n_ring} slots ({live_slots} "
-            f"live, {stale} relabelled stale rows) Hs={hs} n_rep={n_rep}")
-    return (q, pool, 0, table, q_pos, ctx), kw, n_bytes, pairs, note
+    note = (f"{mode} context {context} Tc={tc} ring 1+{n_ring} slots "
+            f"({live_slots} live, {stale} relabelled stale rows) Hs={hs} "
+            f"n_rep={n_rep}")
+    return (q, pool, layers - 1, table, q_pos, ctx), kw, n_bytes, pairs, note
 
 
 def ring_sdpa_ms(args, kw, reps=3):
@@ -1044,7 +1056,9 @@ def ring_sdpa_ms(args, kw, reps=3):
     kv_pos = pp.kv_positions_of(sel, ctx, page, kw["ring_span_pages"],
                                 kw["ring_sink_tokens"])[0]
     try:
-        k, v = gather_kv_for_seq(pool, layer, table, page)   # [1, S, Hs, D]
+        k, v = gather_kv_for_seq(pool, layer, table, page,
+                                 kw.get("kv_bits", 4),
+                                 kw.get("kv_zeros", True))   # [1, S, Hs, D]
         kb = k.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
             .transpose(1, 2).contiguous()
         vb = v.to(torch.bfloat16).repeat_interleave(n_rep, dim=2) \
@@ -1063,16 +1077,28 @@ def ring_sdpa_ms(args, kw, reps=3):
         torch.cuda.empty_cache()
 
 
-def check_paged_ring(dev, gen, context, tc, n_ring, label):
-    """The ring chunk of ``ring_chunk_inputs`` through row 7."""
+def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
+    """The ring chunk of ``ring_chunk_inputs`` through row 7. kv8 and
+    per-tensor modes also hold each row within 1e-2 of its norm and refuse
+    the plain version with the other layer's scales or planes."""
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
 
     args, kw, n_bytes, pairs, note = ring_chunk_inputs(dev, gen, context, tc,
-                                                       n_ring)
+                                                       n_ring, mode)
     q = args[0]
     got = pp.paged_prefill_attention(*args, **kw)
     want = pp.paged_prefill_attention_plain(*args, **kw)
-    err = allclose_err(got, want, 2e-2, 2e-2, f"paged prefill ring {label}")
+    what = f"paged prefill ring {mode} {label}"
+    if mode == "kv4":
+        err = allclose_err(got, want, 2e-2, 2e-2, what)
+    else:
+        bad = pp.paged_prefill_attention_plain(
+            q, wrong_layer(args[1], mode), *args[2:], **kw)
+        err, row = hold(got, want, 2e-2, 2e-2, ATTN_ROW_RTOL, what,
+                        [("the other layer's scales" if LIST_MODES[mode][1]
+                          else "the other layer's planes", bad)])
+        note = f"{note} (row error {row:.3g} of its norm)"
+        del bad
     del got, want
     ms = time_ms(lambda: pp.paged_prefill_attention(*args, **kw), 3,
                  warmup=1)
@@ -1090,26 +1116,28 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_kv_append(dev, gen):
+def check_kv_append(dev, gen, mode="kv4"):
     """The decode append at the LServe path's shapes: 8 rows (the padded
     batch) and 128, 4 pool heads (retrieval, with K stats; streaming,
-    without) and 8. Pool bytes, planes and stats must equal the plain
-    version's on every page but the trash page. The row kept for the
-    kernels line is T=8, H=4 with stats."""
+    without) and 8. Pool bytes, planes (fine-grained) and stats must equal
+    the plain version's on every page but the trash page. kv8 and
+    per-tensor modes also refuse a plain append that writes each token one
+    slot late and, per-tensor, one with the other layer's scales. The row
+    kept for the kernels line is T=8, H=4 with stats."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import kv_append as ka
-    from omniserve_tpu_torch.ops.paged_kv import KVPool
 
     page, d, n_sub = 128, 128, 4
+    kv_bits, pt = LIST_MODES[mode]
     kept = None
     for t, heads, with_stats in ((8, 4, True), (8, 4, False), (128, 4, True),
                                  (128, 8, False)):
         n_pages = 2 * t + 1
-        base = random_kv_pool(gen, dev, 2, n_pages, heads, page, d, 4)
+        base = list_mode_pool(gen, dev, 2, n_pages, heads, page, d, mode)
         stats = torch.randn((2, n_pages, heads, 2 * n_sub, d), generator=gen,
                             device=dev) if with_stats else None
-        pool_k = KVPool(base.k_data, base.v_data, base.kv_scales, stats)
+        pool_k = base._replace(k_stats=stats)
         pool_p = pool_k.clone()
         pages = torch.randperm(n_pages - 1, generator=gen, device=dev)[:t].to(
             torch.int32)
@@ -1119,20 +1147,30 @@ def check_kv_append(dev, gen):
         k = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
         args = (1, k, v, pages, slots, page)
+        kw = dict(update_stats=with_stats, kv_bits=kv_bits, kv_zeros=not pt)
+        planted = {}
+        if mode != "kv4":
+            planted["each token one slot late"] = (
+                pool_k.clone(), (1, k, v, pages, (slots + 1) % page, page))
+            if pt:
+                planted["the other layer's scales"] = (
+                    wrong_layer(pool_k.clone(), mode), args)
         ka.append_kv_decode(pool_k, *args, update_stats=with_stats)
-        ka.append_kv_decode_plain(pool_p, *args, update_stats=with_stats)
-        torch.cuda.synchronize()
-        err = 0.0
-        for name, a, b_ in zip(pool_k._fields, pool_k, pool_p):
-            if a is None:
-                continue
-            if not torch.equal(a[:, :-1], b_[:, :-1]):
-                n_bad = int((a[:, :-1] != b_[:, :-1]).sum())
-                raise AssertionError(
-                    f"kv append T={t} H={heads}: pool {name} differs from "
-                    f"the plain append in {n_bad} elements")
-            err = max(err, float((a[:, :-1].float() - b_[:, :-1].float())
-                                 .abs().max()))
+        ka.append_kv_decode_plain(pool_p, *args, **kw)
+        sync(dev)
+        what = f"kv append {mode} T={t} H={heads}"
+        err = pools_equal(pool_k, pool_p, what, skip_trash=True)
+        for label, (bad, bad_args) in planted.items():
+            ka.append_kv_decode_plain(bad, *bad_args, **kw)
+            try:
+                pools_equal(pool_k, bad._replace(
+                    k_scale_per_tensor=pool_k.k_scale_per_tensor,
+                    v_scale_per_tensor=pool_k.v_scale_per_tensor),
+                    what, skip_trash=True)
+            except AssertionError as e:
+                log(f"    {what}: planted {label} refused ({e})")
+            else:
+                raise AssertionError(f"{what}: equal bytes with {label}")
 
         # the same token again writes the same bytes: safe to repeat
         def call():
@@ -1141,18 +1179,20 @@ def check_kv_append(dev, gen):
         ms = time_graphed_ms(call, 20)
         call_ms = time_ms(call, 50)
         plain = time_ms(lambda: ka.append_kv_decode_plain(
-            pool_p, *args, update_stats=with_stats), 5, warmup=1)
+            pool_p, *args, **kw), 5, warmup=1)
+        rw = 2 * 2 * d if kv_bits == 4 else 2 * d   # kv4 bytes read + written
         per_head = (2 * d * 2            # k, v in (bf16)
-                    + 2 * 2 * d          # K and V byte rows read + written
-                    + 16                 # four plane lanes
+                    + rw                 # K and V code rows
+                    + (0 if pt else 16)  # four plane lanes
                     + (2 * 2 * d * 4 if with_stats else 0))  # min/max rows RMW
         bnd, by = bound_ms(t * heads * per_head + 8 * t,
                            t * heads * d * 8.0, BF16_FLOPS_PER_S)
-        log(f"  kv append T={t} H={heads} stats={with_stats}: kernel_ms "
-            f"{ms:.4f} (graph replay; {call_ms:.4f} per eager wrapper call) "
-            f"plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) library_ms "
-            f"None max_abs_err {err:g}; pool bytes, planes"
-            f"{' and stats' if with_stats else ''} equal")
+        log(f"  kv append {mode} T={t} H={heads} stats={with_stats}: "
+            f"kernel_ms {ms:.4f} (graph replay; {call_ms:.4f} per eager "
+            f"wrapper call) plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) "
+            f"library_ms None max_abs_err {err:g}; pool bytes"
+            f"{'' if pt else ', planes'}{' and stats' if with_stats else ''} "
+            "equal")
         if kept is None:
             kept = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                         library_ms=None, max_abs_err=err)
@@ -1208,16 +1248,72 @@ def check_kv_append_kv16(dev, gen):
     return kept
 
 
+# LServe's pool modes of the page-list kernels, rows 10 and 7's ring:
+# label -> (kv bits, per-tensor)
+LIST_MODES = {"kv4": (4, False), "kv8": (8, False), "pt8": (8, True)}
+
+
+def kv_suffix(kv_bits, per_tensor) -> str:
+    """The launch-name suffix of a kv4 / kv8 pool mode: "" (fine-grained
+    kv4), "_kv8" or "_pt" (per-tensor kv4 or kv8)."""
+    return "_pt" if per_tensor else "_kv8" if kv_bits == 8 else ""
+
+
+def dense_prefill_name(suffix) -> str:
+    """Row 7's launch name over a dense table of a pool mode."""
+    return "paged_prefill" + suffix if suffix else "paged_prefill_attention"
+
+
+def list_mode_pool(gen, dev, layers, n_pages, heads, page, d, mode):
+    """``random_kv_pool`` in a list mode; per-tensor pools take per-layer
+    scales that span N(0, 1) values and differ by layer (so a scale read
+    from the wrong layer is a fault a gate sees)."""
+    import torch
+
+    kv_bits, pt = LIST_MODES[mode]
+    scales = None
+    if pt:
+        qmax = 7 if kv_bits == 4 else 127
+        scales = (torch.linspace(3.0, 4.2, layers, device=dev) / qmax,
+                  torch.linspace(3.6, 2.6, layers, device=dev) / qmax)
+    return random_kv_pool(gen, dev, layers, n_pages, heads, page, d, kv_bits,
+                          pt_scales=scales)
+
+
+def page_bytes(mode, page, d) -> int:
+    """Bytes of one page of one kv head: K+V codes, and the four f32 plane
+    rows of a fine-grained page."""
+    kv_bits, pt = LIST_MODES[mode]
+    return page * d * kv_bits // 4 + (0 if pt else 16 * page)
+
+
+def wrong_layer(pool, mode):
+    """A planted fault: the pool with every layer's per-tensor scales (or,
+    fine-grained, planes) taken from the other layer (layers reversed)."""
+    if LIST_MODES[mode][1]:
+        return pool._replace(
+            k_scale_per_tensor=pool.k_scale_per_tensor.flip(0).contiguous(),
+            v_scale_per_tensor=pool.v_scale_per_tensor.flip(0).contiguous())
+    return pool._replace(kv_scales=pool.kv_scales.flip(0).contiguous())
+
+
 def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
-                     page, tol=5e-2, library=None):
+                     page, tol=5e-2, library=None, mode="kv4", planted=()):
     """Check + time one page-list decode call; ``n_pages_read`` = the
     (sequence, head) pages this run's lists make the kernel read.
     ``library`` = (q, k, v, valid) for the SDPA yardstick over the listed
-    pages dequantized beforehand (not counted)."""
+    pages dequantized beforehand (not counted). With ``planted`` ((label,
+    plain call with a fault)), also within 1e-2 of each row's norm, and
+    each fault refused by the same gate."""
     import torch.nn.functional as F
 
     got, want = fn(), plain_fn()
-    err = allclose_err(got, want, tol, tol, label)
+    if planted:
+        err, row = hold(got, want, tol, tol, ATTN_ROW_RTOL, label,
+                        [(what, bad()) for what, bad in planted])
+        label = f"{label} (row error {row:.3g} of its norm)"
+    else:
+        err = allclose_err(got, want, tol, tol, label)
     ms = time_graphed_ms(fn, 20)
     call_ms = time_ms(fn, 50)
     plain = time_ms(plain_fn, 3, warmup=1)
@@ -1226,7 +1322,7 @@ def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
         q, k, v, valid = library
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=valid[:, :, None, :], scale=d ** -0.5), 20)
-    n_bytes = (n_pages_read * (page * d + 4 * 4 * page)  # K+V codes, 4 planes
+    n_bytes = (n_pages_read * page_bytes(mode, page, d)  # codes (+ planes)
                + 2 * b * heads * n_rep * d * 2)          # q in, out
     bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * n_pages_read * page,
                        BF16_FLOPS_PER_S)
@@ -1252,11 +1348,13 @@ def list_library_inputs(q, pool, layer, sel_phys, sel_logic, lengths, page,
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16), valid
 
 
-def check_decode_ph(dev, gen, b):
+def check_decode_ph(dev, gen, b, mode="kv4"):
     """Dynamic-sparse decode at the LServe path's shape: 4 retrieval heads,
     n_rep 4, a budget of 32 pages out of a 32K-token context (257 pages, the
     last one partly filled): the newest page first, then 31 others in no
-    order, a different list per head."""
+    order, a different list per head. kv8 and per-tensor modes (layer 1 of
+    a 2-layer pool) also hold each row within 1e-2 of its norm and refuse
+    the plain version with the other layer's scales or planes."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -1265,7 +1363,9 @@ def check_decode_ph(dev, gen, b):
     ctx_pages = 257
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
-    pool = random_kv_pool(gen, dev, 1, b * ctx_pages + 1, hr, page, d, 4)
+    layers = 1 if mode == "kv4" else 2
+    pool = list_mode_pool(gen, dev, layers, b * ctx_pages + 1, hr, page, d,
+                          mode)
     tables = torch.randperm(b * ctx_pages, generator=gen, device=dev).view(
         b, ctx_pages)
     picks = torch.stack([torch.stack([
@@ -1278,22 +1378,29 @@ def check_decode_ph(dev, gen, b):
     sel_logic = sel_logic.to(torch.int32).contiguous()
     sel_phys = sel_phys.to(torch.int32).contiguous()
     q = torch.randn((b, hr, n_rep, d), generator=gen, device=dev).bfloat16()
-    args = (q, pool, 0, sel_phys, sel_logic, lens)
+    layer = layers - 1
+    args = (q, pool, layer, sel_phys, sel_logic, lens)
     kw = dict(sm_scale=d ** -0.5, page_size=page)
+    planted = () if mode == "kv4" else (
+        ("the other layer's scales" if LIST_MODES[mode][1]
+         else "the other layer's planes",
+         lambda: da.page_list_attention_plain(
+             q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
-        f"decode per-head lists B={b} Hr={hr} n_rep={n_rep} budget {budget} "
-        f"pages of {ctx_pages}",
+        f"decode per-head lists {mode} B={b} Hr={hr} n_rep={n_rep} budget "
+        f"{budget} pages of {ctx_pages}",
         lambda: da.paged_mqa_attention_single_pass_ph(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hr * budget, b, hr, n_rep, d, page,
-        library=list_library_inputs(q, pool, 0, sel_phys, sel_logic, lens,
-                                    page))
+        b * hr * budget, b, hr, n_rep, d, page, mode=mode, planted=planted,
+        library=list_library_inputs(q, pool, layer, sel_phys, sel_logic,
+                                    lens, page))
 
 
-def check_decode_band(dev, gen, b):
+def check_decode_band(dev, gen, b, mode="kv4"):
     """The streaming call at the LServe path's shape: 4 streaming heads, the
     compact list of 1 sink page + 2 ring pages after the ring has wrapped
-    (32K-token contexts), band = 128 sink tokens + the last 256."""
+    (32K-token contexts), band = 128 sink tokens + the last 256. kv8 and
+    per-tensor modes as ``check_decode_ph``."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -1301,7 +1408,8 @@ def check_decode_band(dev, gen, b):
     hs, n_rep, d, page = 4, 4, 128, 128
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
-    pool = random_kv_pool(gen, dev, 1, 3 * b + 1, hs, page, d, 4)
+    layers = 1 if mode == "kv4" else 2
+    pool = list_mode_pool(gen, dev, layers, 3 * b + 1, hs, page, d, mode)
     stables = torch.randperm(3 * b, generator=gen, device=dev).view(b, 3).to(
         torch.int32)
     sel_phys, sel_logic, span = da.streaming_page_lists(stables, lens, 1,
@@ -1309,17 +1417,24 @@ def check_decode_band(dev, gen, b):
     if sel_logic.shape != (b, 3) or int(sel_logic.min()) < 0:
         raise AssertionError(f"streaming list {sel_logic.tolist()}")
     q = torch.randn((b, hs, n_rep, d), generator=gen, device=dev).bfloat16()
-    args = (q, pool, 0, sel_phys, sel_logic, lens)
+    layer = layers - 1
+    args = (q, pool, layer, sel_phys, sel_logic, lens)
     kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=128,
               band_local_tokens=256, ring_span_pages=span,
               ring_sink_tokens=page)
+    planted = () if mode == "kv4" else (
+        ("the other layer's scales" if LIST_MODES[mode][1]
+         else "the other layer's planes",
+         lambda: da.page_list_attention_plain(
+             q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
-        f"decode band+ring B={b} Hs={hs} n_rep={n_rep} list 1 sink + 2 ring "
-        f"pages", lambda: da.paged_mqa_attention_single_pass(*args, **kw),
+        f"decode band+ring {mode} B={b} Hs={hs} n_rep={n_rep} list 1 sink + "
+        f"2 ring pages",
+        lambda: da.paged_mqa_attention_single_pass(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hs * 3, b, hs, n_rep, d, page,
+        b * hs * 3, b, hs, n_rep, d, page, mode=mode, planted=planted,
         library=list_library_inputs(
-            q, pool, 0, sel_phys, sel_logic, lens, page,
+            q, pool, layer, sel_phys, sel_logic, lens, page,
             **{k: v for k, v in kw.items() if k != "sm_scale"
                and k != "page_size"}))
 
@@ -1385,16 +1500,18 @@ ATTN_ULP_RATE = 4e-4
 FLOOR_FACTOR = 3.0
 
 
-def _mode_ctx(mode):
+def _mode_ctx(mode, nudged=None):
     """kernels: the card's kernels; plain: the plain versions; floor: the
-    plain versions with one-ulp nudges on every attention output."""
+    plain versions with one-ulp nudges on every attention output (of the
+    dispatch's entry points ``nudged``, or the dense path's)."""
     stack = contextlib.ExitStack()
     if mode in ("plain", "floor"):
         from omniserve_tpu_torch.ops import cuda
 
         stack.enter_context(cuda.plain_versions())
     if mode == "floor":
-        stack.enter_context(nudged_attention())
+        stack.enter_context(nudged_attention() if nudged is None
+                            else nudged_attention(names=nudged))
     return stack
 
 
@@ -1792,24 +1909,56 @@ def check_window(dev, spec, params, pool, tables, lens, first, n_steps=8,
         f"; {n_graphs} graph(s) captured in {capture_s:.2f} s")
 
 
-def check_sparse_forward(dev):
+def sparse_precision(spec, precision):
+    """``spec`` at one precision of ``PRECISIONS`` (body and KV pool)."""
+    wb, ab, gs, kv, zeros = PRECISIONS[precision]
+    return dataclasses.replace(spec, weight_bits=wb, act_bits=ab,
+                               group_size=gs, kv_bits=kv, kv_zeros=zeros)
+
+
+def sparse_pools(spec, n_pages, n_stream_pages, dev, kv_scales=None):
+    """The retrieval pool (K stats) and the streaming pool of a 2-layer
+    LServe forward at ``spec``'s KV mode, 4 pool heads each; per-tensor
+    pools take ``kv_scales`` as ``CacheEngine.load_kv_scales`` gives both
+    pools the same."""
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    kv = dict(kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros, device=dev)
+    heads = spec.num_kv_heads // 2
+    pools = (make_kv_pool(2, n_pages, heads, 128, 128, with_stats=True,
+                          **kv),
+             make_kv_pool(2, n_stream_pages, heads, 128, 128, **kv))
+    for pool in pools:
+        if kv_scales is not None and pool.k_scale_per_tensor is not None:
+            pool.k_scale_per_tensor.copy_(kv_scales[0])
+            pool.v_scale_per_tensor.copy_(kv_scales[1])
+    return pools
+
+
+# attention entry points a sparse forward's floor nudges
+SPARSE_NUDGED = ("prefill_attention", "paged_prefill_attention",
+                 "paged_decode_attention")
+
+
+def check_sparse_forward(dev, precision="w4a8kv4"):
     """LServe's decode side at full width, 2 layers: 4 of the 8 kv heads
     keep their history in the retrieval pool (K stats, a budget of 4 pages
     so the selector drops pages of the 9-page prompt), 4 live in the
     streaming ring (1 sink + 2 ring pages, wrapped by every prompt). A
     whole-prompt prefill into both pools and two decode steps (a refresh
-    step, a reuse step), kernels against plain versions; then a 10-step
-    window against the eager loop."""
+    step, a reuse step), kernels against plain versions; then, at the
+    default w4a8kv4, a 10-step window against the eager loop. Other
+    ``PRECISIONS`` (kv8, per-tensor KV with scales calibrated on a dense
+    kv16 twin) run the forwards, a W8A8 body at its floor's gate."""
     import numpy as np
     import torch
 
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops import cuda
-    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
 
     g = LLAMA3_8B
     hkv = g["num_key_value_heads"]
-    spec = llama.LlamaSpec(
+    spec = sparse_precision(llama.LlamaSpec(
         num_layers=2, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"], num_kv_heads=hkv, head_dim=128,
@@ -1817,7 +1966,8 @@ def check_sparse_forward(dev):
         lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=2,
         dec_sink_tokens=128, dec_local_tokens=256, sub_chunks=4,
         budget_pages=4, selector_interval=4,
-    )
+    ), precision)
+    suffix = kv_suffix(spec.kv_bits, not spec.kv_zeros)
     flags = np.zeros((2, hkv), bool)
     flags[:, : hkv // 2] = True
     params = llama.make_random_packed_params(spec, seed=1, device=dev,
@@ -1841,21 +1991,25 @@ def check_sparse_forward(dev):
         streaming_block_tables=stables.to(dev),
         new_page_ids=tables.reshape(-1).to(dev),
     )
+    kv_scales = None
+    if not spec.kv_zeros:     # calibrated on a dense kv16 twin
+        kv_scales = calibrate_kv_scales(
+            dataclasses.replace(spec, sparse_decode=False), params, pre,
+            n * w + 1, dev)
+    modes = ("kernels", "plain") + (("floor",) if spec.weight_bits == 8
+                                    else ())
     runs = {}
-    for mode in ("kernels", "plain"):
-        rp = make_kv_pool(2, n * w + 1, hkv // 2, 128, 128, with_stats=True,
-                          device=dev)
-        sp = make_kv_pool(2, n * 3 + 1, hkv // 2, 128, 128, device=dev)
-        ctx = (cuda.plain_versions() if mode == "plain"
-               else contextlib.nullcontext())
-        with ctx, torch.inference_mode():
+    for mode in modes:
+        rp, sp = sparse_pools(spec, n * w + 1, n * 3 + 1, dev, kv_scales)
+        with _mode_ctx(mode, SPARSE_NUDGED), torch.inference_mode():
             lp, _, _, _ = llama.llama_forward(params, rp, sp, pre, spec,
                                               is_prefill=True)
         runs[mode] = dict(prefill=lp, pools=(rp, sp))
     nxt = runs["plain"]["prefill"].argmax(-1)
     positions = torch.tensor(lens, dtype=torch.int32).to(dev)
+    per_layer = {k + suffix: v for k, v in LSERVE_LAUNCHES_PER_LAYER.items()}
     for step, refresh in enumerate((True, False)):
-        for mode in ("kernels", "plain"):
+        for mode in modes:
             rp, sp = runs[mode]["pools"]
             sel = runs[mode].get("sel")
             if sel is None:
@@ -1870,35 +2024,37 @@ def check_sparse_forward(dev):
                                         device=dev),
                 refresh_selection=refresh, cached_page_idxes=sel,
             )
-            ctx = (cuda.plain_versions() if mode == "plain"
-                   else contextlib.nullcontext())
             before = dict(cuda.LAUNCHES)
-            with ctx, torch.inference_mode():
+            with _mode_ctx(mode, SPARSE_NUDGED), torch.inference_mode():
                 ld, _, _, new_sel = llama.llama_forward(
                     params, rp, sp, dec, spec, is_prefill=False)
             runs[mode]["sel"] = new_sel
             runs[mode][f"decode{step}"] = ld
             if mode == "kernels":
-                ticks = {k: cuda.LAUNCHES[k] - before[k]
-                         for k in LSERVE_KERNELS}
+                ticks = {k: cuda.LAUNCHES[k] - before[k] for k in per_layer}
                 if ticks != {k: n * spec.num_layers
-                             for k, n in LSERVE_LAUNCHES_PER_LAYER.items()}:
+                             for k, n in per_layer.items()}:
                     raise AssertionError(f"sparse decode step launched "
                                          f"{ticks}")
         nxt = runs["plain"][f"decode{step}"].argmax(-1)
+    results = {mode: {st: runs[mode][st] for st in
+                      ("prefill", "decode0", "decode1")} for mode in modes}
     for step in ("prefill", "decode0", "decode1"):
         a, b_ = runs["kernels"][step], runs["plain"][step]
         if not bool(torch.isfinite(a).all()) or a.shape != (n, spec.vocab):
             raise AssertionError(f"sparse forward {step}: bad logits")
         scale = float(b_.abs().max())
         err = float((a - b_).abs().max())
-        log(f"  sparse forward 2 layers {step}: max |logit| {scale:.4g}, max "
-            f"abs diff kernels vs plain {err:.4g} ({err / scale:.3g} of "
-            f"max), argmax agreement "
+        bound, floor = logits_bound(results, step, scale,
+                                    spec.weight_bits == 8)
+        note = "" if floor is None else f"; floor {floor:.3g}, bound {bound:.3g}"
+        log(f"  sparse forward 2 layers {precision} {step}: max |logit| "
+            f"{scale:.4g}, max abs diff kernels vs plain {err:.4g} "
+            f"({err / scale:.3g} of max{note}), argmax agreement "
             f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
-        if err > LOGITS_RTOL * scale:
-            raise AssertionError(f"sparse forward {step}: logits differ by "
-                                 f"{err} > {LOGITS_RTOL} x {scale}")
+        if err > bound * scale:
+            raise AssertionError(f"sparse forward {precision} {step}: logits "
+                                 f"differ by {err} > {bound} x {scale}")
     ks, ps = runs["kernels"]["sel"], runs["plain"]["sel"]
     same = float((ks.sort(-1).values == ps.sort(-1).values).float().mean())
     used = int((ks[:, 1, 0] >= 0).sum(-1).min())
@@ -1909,13 +2065,15 @@ def check_sparse_forward(dev):
     if used != spec.budget_pages or same < 0.9:
         raise AssertionError("sparse forward: selection did not fill its "
                              "budget or strays from the plain run's")
+    if precision != "w4a8kv4":
+        return
     rp, sp = runs["kernels"]["pools"]
     first = runs["kernels"]["decode1"].argmax(-1)
     check_window(dev, spec, params, rp, tables, [m + 2 for m in lens], first,
                  n_steps=10, spool=sp, stables=stables)
 
 
-def check_sparse_prefill_forward(dev):
+def check_sparse_prefill_forward(dev, precision="w4a8kv4"):
     """LServe's prefill side at full width, 2 layers, both sparse modes: 4
     of the 8 kv heads stream with a ctx band of 128 sink + 256 local tokens
     over a 1 + 4 page ring (a 256-token chunk beside the local window).
@@ -1923,18 +2081,19 @@ def check_sparse_prefill_forward(dev):
     band) and in [4, 256] chunks (retrieval heads dense over the paged
     history, streaming heads through the ring, which the longer prompts
     wrap), each with kernels against plain versions; the chunked run must
-    launch the ring mode once per layer and chunk."""
+    launch the ring mode once per layer and chunk. Other ``PRECISIONS``
+    (kv8, per-tensor KV with scales calibrated on a dense kv16 twin) the
+    same, a W8A8 body at its floor's gate."""
     import numpy as np
     import torch
 
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops import cuda
-    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
     from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
 
     g = LLAMA3_8B
     hkv = g["num_key_value_heads"]
-    spec = llama.LlamaSpec(
+    spec = sparse_precision(llama.LlamaSpec(
         num_layers=2, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"], num_kv_heads=hkv, head_dim=128,
@@ -1942,7 +2101,9 @@ def check_sparse_prefill_forward(dev):
         lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=4,
         dec_sink_tokens=128, dec_local_tokens=256, sub_chunks=4,
         budget_pages=4, sparse_prefill=True, ctx_sink=128, ctx_local=256,
-    )
+    ), precision)
+    suffix = kv_suffix(spec.kv_bits, not spec.kv_zeros)
+    dense_name = dense_prefill_name(suffix)
     flags = np.zeros((2, hkv), bool)
     flags[:, ::2] = True
     params = llama.make_random_packed_params(spec, seed=3, device=dev,
@@ -1967,16 +2128,20 @@ def check_sparse_prefill_forward(dev):
         new_page_ids=tables.reshape(-1).to(dev),
     )
     seqs = [(p.tolist(), tables[i].tolist()) for i, p in enumerate(prompts)]
+    kv_scales = None
+    if not spec.kv_zeros:     # calibrated on a dense kv16 twin
+        kv_scales = calibrate_kv_scales(
+            dataclasses.replace(spec, sparse_decode=False,
+                                sparse_prefill=False),
+            params, whole, n * w + 1, dev)
+    modes = ("kernels", "plain") + (("floor",) if spec.weight_bits == 8
+                                    else ())
     out = {}
     for path in ("whole", "chunked"):
-        for mode in ("kernels", "plain"):
-            rp = make_kv_pool(2, n * w + 1, hkv // 2, 128, 128,
-                              with_stats=True, device=dev)
-            sp = make_kv_pool(2, n * 5 + 1, hkv // 2, 128, 128, device=dev)
-            ctx = (cuda.plain_versions() if mode == "plain"
-                   else contextlib.nullcontext())
+        for mode in modes:
+            rp, sp = sparse_pools(spec, n * w + 1, n * 5 + 1, dev, kv_scales)
             cuda.reset_launch_counts()
-            with ctx, torch.inference_mode():
+            with _mode_ctx(mode, SPARSE_NUDGED), torch.inference_mode():
                 if path == "whole":
                     logits = llama.llama_forward(params, rp, sp, whole, spec,
                                                  is_prefill=True)[0]
@@ -1996,8 +2161,8 @@ def check_sparse_prefill_forward(dev):
             out[(path, mode)] = logits
             if mode == "kernels":
                 want = ({"flash_prefill_band": 2} if path == "whole" else
-                        {"paged_prefill_ring": 2 * n_chunks,
-                         "paged_prefill_attention": 2 * n_chunks})
+                        {"paged_prefill_ring" + suffix: 2 * n_chunks,
+                         dense_name: 2 * n_chunks})
                 got = {k: cuda.LAUNCHES[k] for k in want}
                 if got != want:
                     raise AssertionError(f"sparse prefill {path}: launches "
@@ -2007,20 +2172,25 @@ def check_sparse_prefill_forward(dev):
             raise AssertionError(f"sparse prefill {path}: bad logits")
         scale = float(b_.abs().max())
         err = float((a - b_).abs().max())
-        log(f"  sparse prefill 2 layers, {path} ({n_chunks} chunk(s)): max "
-            f"|logit| {scale:.4g}, max abs diff kernels vs plain {err:.4g} "
-            f"({err / scale:.3g} of max), argmax agreement "
+        bound, floor = logits_bound(
+            {m: {path: out[(path, m)]} for m in modes}, path, scale,
+            spec.weight_bits == 8)
+        note = "" if floor is None else f"; floor {floor:.3g}, bound {bound:.3g}"
+        log(f"  sparse prefill 2 layers {precision}, {path} ({n_chunks} "
+            f"chunk(s)): max |logit| {scale:.4g}, max abs diff kernels vs "
+            f"plain {err:.4g} ({err / scale:.3g} of max{note}), argmax "
+            f"agreement "
             f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
-        if err > LOGITS_RTOL * scale:
-            raise AssertionError(f"sparse prefill {path}: logits differ by "
-                                 f"{err} > {LOGITS_RTOL} x {scale}")
+        if err > bound * scale:
+            raise AssertionError(f"sparse prefill {precision} {path}: logits "
+                                 f"differ by {err} > {bound} x {scale}")
     if n_chunks != 5:
         raise AssertionError(f"chunked sparse prefill ran {n_chunks} chunks")
     a, b_ = out[("chunked", "plain")], out[("whole", "plain")]
     log(f"  sparse prefill plain versions, chunked vs whole prompt: max abs "
         f"diff {float((a - b_).abs().max()):.4g} of max |logit| "
         f"{float(b_.abs().max()):.4g} (the chunks read earlier chunks' K/V "
-        f"back through the 4-bit pool)")
+        f"back through the kv{spec.kv_bits} pool)")
 
 
 def check_precision_forwards(dev):
@@ -2513,20 +2683,23 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
 
 def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                        short_gen=32, chunk=32000, multi=16,
-                       single_pass=False, stats=None):
+                       single_pass=False, stats=None, precision="w4a8kv4",
+                       granularity="fine_grained", trace_window=False):
     """``lserve_benchmark.py``'s protocol with the reference's LServe flags
     (``--sparse-context-mode --sparse-decode-mode --static-sparsity 0.5``,
     ctx band 128 + 8,192 tokens, ``chunk_prefill_size`` 32000) at
-    Llama-3.1-8B's config, decode in ``multi``-step windows, each round
-    through ``lserve_benchmark.process_requests_split_stage``: (a) batch 1,
-    32,768 prompt tokens, 128 greedy tokens, which prefill in two chunks
-    over the 1 + 314 page ring; (b) a 16,384-token prompt, 32 tokens, which
-    takes the whole-prompt band path. A warmup and a measured round each,
-    then one traced prefill step of each. With ``single_pass`` (phase 10
-    (c), the switch on): (a) alone, untraced, its prefill on row 8 over
-    both pools. ``stats`` (a dict) receives (a)'s measured prefill seconds
-    and decode tok/s. Returns the measured rounds' launches of the
-    prefill kernels."""
+    Llama-3.1-8B's config, ``precision`` and KV ``granularity``, decode in
+    ``multi``-step windows, each round through
+    ``lserve_benchmark.process_requests_split_stage``: (a) batch 1, 32,768
+    prompt tokens, 128 greedy tokens, which prefill in two chunks over the
+    1 + 314 page ring; (b) a 16,384-token prompt, 32 tokens, which takes
+    the whole-prompt band path (not run with ``short_len`` None). A
+    warmup and a measured round each, then one traced prefill step of each
+    and, with ``trace_window``, one traced decode window of (a). With ``single_pass`` (phase 10 (c), the switch on): (a) alone,
+    untraced, its prefill on row 8 over both pools. ``stats`` (a dict)
+    receives (a)'s measured prefill seconds, decode tok/s and peak memory.
+    Returns the measured rounds' launches of the prefill kernels and of
+    the decode kernels of the pool's mode."""
     import argparse
 
     import torch
@@ -2547,7 +2720,8 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
         model=write_model_dir("llama3.1-8b", LLAMA31_8B),
-        precision="w4a8kv4", load_format="dummy", tokenizer_mode="skip",
+        precision=precision, kv_quant_granularity=granularity,
+        load_format="dummy", tokenizer_mode="skip",
         device=str(dev), block_size=sizing.block_size,
         sparse_context_mode=True, sparse_decode_mode=True,
         static_sparsity=0.5, chunk_prefill_size=chunk,
@@ -2570,13 +2744,22 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
         f"{spec.ctx_sink}+{spec.ctx_local} tokens; retrieval pool "
         f"{ce.retrieval_pool.num_pages} pages")
     ring_tok = spec.local_blocks * spec.page_size
+    wb, ab, _, kv_bits, kv_zeros = PRECISIONS[precision + (
+        "-pt" if granularity == "per_tensor" else "")]
     if not (spec.sparse_prefill and spec.sparse_decode
             and spec.rope_llama3 is not None
-            and ring_tok >= spec.ctx_local + min(chunk, long_len)):
+            and ring_tok >= spec.ctx_local + min(chunk, long_len)
+            and (spec.weight_bits, spec.act_bits, spec.kv_bits,
+                 spec.kv_zeros) == (wb, ab, kv_bits, kv_zeros)):
         raise AssertionError("LServe prefill phase: engine is not the "
                              "sparse-context + sparse-decode Llama-3.1-8B "
-                             "configuration with a ring that holds the "
-                             "ctx-local window and a chunk")
+                             f"configuration at {precision} {granularity} "
+                             "with a ring that holds the ctx-local window "
+                             "and a chunk")
+    suffix = kv_suffix(kv_bits, not kv_zeros)
+    dense_name = dense_prefill_name(suffix)
+    ring_name = "paged_prefill_ring" + suffix
+    decode_kernels = tuple(k + suffix for k in LSERVE_KERNELS)
     engine.ifb_config.decode_multi_step = multi
     groups = []
     add_request = engine.add_request
@@ -2592,11 +2775,12 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     # whole-prompt path one band-mode flash call per layer
     per_pool = n_chunks * n_layers
     cases = (("a", long_len, long_gen,
-              {"paged_prefill_attention": per_pool,
-               "paged_prefill_ring": per_pool, "flash_prefill_band": 0}),
+              {dense_name: per_pool, ring_name: per_pool,
+               "flash_prefill_band": 0}),
              ("b", short_len, short_gen,
-              {"paged_prefill_attention": 0, "paged_prefill_ring": 0,
-               "flash_prefill_band": n_layers}))
+              {dense_name: 0, ring_name: 0, "flash_prefill_band": n_layers}))
+    if short_len is None:
+        cases = cases[:1]
     if single_pass:
         cases = (("a", long_len, long_gen,
                   {"paged_prefill_attention": 0, "paged_prefill_ring": 0,
@@ -2642,7 +2826,7 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
             if pre != want:
                 raise AssertionError(f"LServe prefill ({case}) {r}: prefill "
                                      f"launched {pre}, expected {want}")
-            chunks = max(pre["paged_prefill_ring"],
+            chunks = max(pre.get(ring_name, 0),
                          pre.get("paged_prefill_single_pass_list", 0)
                          ) // n_layers
             log(f"  ({case}) {r}: prefill {prompt_len} tokens "
@@ -2655,29 +2839,44 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                 f"graphs captured {runner.graphs_captured - graphs_before}; "
                 f"prefill launches {json.dumps(pre)}; round launches of the "
                 f"decode kernels "
-                f"{json.dumps({k: launches[k] for k in LSERVE_KERNELS})}; "
+                f"{json.dumps({k: launches[k] for k in decode_kernels})}; "
                 f"peak device memory "
                 f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
+            idle = [k for k in decode_kernels if launches[k] <= 0]
+            if idle:
+                raise AssertionError(f"LServe prefill ({case}) {r}: decode "
+                                     f"kernels not launched: {idle}")
             if r == "measured":
-                for k in want:
+                for k in (*want, *decode_kernels):
                     result[k] = result.get(k, 0) + launches[k]
                 if case == "a" and stats is not None:
-                    stats.update(prefill_s=t_prefill, decode_tps=decode_tps)
+                    stats.update(
+                        prefill_s=t_prefill, decode_tps=decode_tps,
+                        peak_gib=device_gib(dev,
+                                            torch.cuda.max_memory_allocated))
     engine.add_request = add_request
     log(f"  launches in the measured rounds: {json.dumps(result)}")
     if single_pass:
         return result
 
     # where a prefill's time goes: one traced prefill step of each path
-    engine.ifb_config.decode_multi_step = 1
-    for case, prompt_len in (("a", long_len), ("b", short_len)):
+    # (and of (a)'s decode: one traced window after its prefill)
+    for case, prompt_len, _, _ in cases:
+        window = trace_window and case == "a"
+        engine.ifb_config.decode_multi_step = multi if window else 1
+        gen = multi + 2 if window else 2
         engine.add_request(
-            f"prof-{case}", profiling_config=ProfilingConfig(prompt_len, 2),
-            sampling_params=SamplingParams(temperature=0.0, max_tokens=2,
+            f"prof-{case}", profiling_config=ProfilingConfig(prompt_len, gen),
+            sampling_params=SamplingParams(temperature=0.0, max_tokens=gen,
                                            ignore_eos=True))
         trace_steps(engine, f"({case}) sparse prefill, {prompt_len} tokens",
                     1)
+        if window:
+            trace_steps(engine, f"({case}) sparse decode, one {multi}-step "
+                        f"window after {prompt_len} tokens", 1)
         while engine.has_unfinished_requests():
+            engine.step()
+        while engine._multi_step_buffer:
             engine.step()
     return result
 
@@ -2694,13 +2893,14 @@ KV8_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul", "paged_prefill_kv8",
 
 def run_bench_precisions(dev):
     """Phase 5's protocol (``run_bench``) at ``--precision w4a8kv4
-    --group-size 128`` (a warmup and a measured round, then a traced
-    prefill step and window), then at ``w4a8kv8`` per-channel (one measured
-    round). Returns each run's launches."""
+    --group-size 128`` (a warmup and a measured round), then at
+    ``w4a8kv8`` per-channel (one measured round); untraced, to keep the
+    script well inside its time limit (run J's trace of the g128 steps is
+    in PERF.md). Returns each run's launches."""
     import torch
 
     log("  (a) w4a8kv4 g128")
-    g128 = run_bench(dev, group_size=128, kernels=G128_KERNELS)
+    g128 = run_bench(dev, group_size=128, kernels=G128_KERNELS, trace=False)
     gc.collect()
     torch.cuda.empty_cache()
     log("  (b) w4a8kv8")
@@ -2722,8 +2922,8 @@ def run_bench_kv_modes(dev):
     """Phase 9: phase 5's protocol (``run_bench``) at ``--precision
     w16a16kv16`` (a warmup and a measured round, then a traced prefill step
     and window), then at ``w8a8kv8 --kv-quant-granularity per_tensor``
-    (one measured round, then a traced prefill step and window). Returns
-    each run's launches."""
+    (one measured round, untraced: run M's trace of its steps is in
+    PERF.md). Returns each run's launches."""
     import torch
 
     log("  (a) w16a16kv16")
@@ -2732,7 +2932,7 @@ def run_bench_kv_modes(dev):
     torch.cuda.empty_cache()
     log("  (b) w8a8kv8 per-tensor")
     pt = run_bench(dev, rounds=1, precision="w8a8kv8", kernels=PT_KERNELS,
-                   granularity="per_tensor")
+                   granularity="per_tensor", trace=False)
     return kv16, pt
 
 
@@ -3034,6 +3234,41 @@ def run_switched_protocols(dev, phase5, phase7):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the reference's LServe command at its own precision
+# ---------------------------------------------------------------------------
+
+LSERVE_KV_KERNELS = tuple(
+    k + sfx for sfx in ("_kv8", "_pt")
+    for k in ("decode_attention_ph", "decode_attention_band",
+              "kv_append_decode", "paged_prefill_ring"))
+
+
+def run_lserve_kv_modes(dev):
+    """Phase 11: phase 7 (a)'s protocol (``run_lserve_prefill``) at the
+    reference's LServe precision, ``w8a8kv8 --kv-quant-granularity
+    per_tensor`` (the sweep command of its ``lserve_benchmark/launch.sh``;
+    unit scales under dummy weights): 32,768 in / 128 out, a warmup and a
+    measured round, then a traced prefill step and a traced 16-step decode
+    window; then at ``w4a8kv8`` (fine-grained): 32,768 in / 32 out, a
+    warmup and a measured round. Returns both runs' measured launches."""
+    import torch
+
+    log("  (a) w8a8kv8 per-tensor")
+    stats = {}
+    a = run_lserve_prefill(dev, short_len=None, precision="w8a8kv8",
+                           granularity="per_tensor", trace_window=True,
+                           stats=stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) w4a8kv8")
+    b = run_lserve_prefill(dev, long_gen=32, short_len=None,
+                           precision="w4a8kv8")
+    log(f"  (a)'s measured round: prefill {stats['prefill_s']:.3f} s, decode "
+        f"{stats['decode_tps']:.2f} tok/s, peak {stats['peak_gib']:.2f} GiB")
+    return {**a, **b}
+
+
 def main() -> int:
     import torch
 
@@ -3120,6 +3355,20 @@ def main() -> int:
     check_decode_ph(dev, gen, b=8)
     check_decode_band(dev, gen, b=8)
     time_selector(dev, gen)
+    # LServe over kv8 and per-tensor kv8 pools: rows 5, 4 (band/ring), 10
+    # and 7 (ring) at the shapes above
+    for mode in ("kv8", "pt8"):
+        sfx = kv_suffix(*LIST_MODES[mode])
+        kernels["decode_attention_ph" + sfx] = check_decode_ph(
+            dev, gen, b=1, mode=mode)
+        check_decode_ph(dev, gen, b=8, mode=mode)
+        kernels["decode_attention_band" + sfx] = check_decode_band(
+            dev, gen, b=1, mode=mode)
+        check_decode_band(dev, gen, b=8, mode=mode)
+        kernels["kv_append_decode" + sfx] = check_kv_append(dev, gen, mode)
+        kernels["paged_prefill_ring" + sfx] = check_paged_ring(
+            dev, gen, 32000, 32000, 314, "phase 7's first chunk", mode)
+        check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", mode)
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables, _ = check_forward(dev)
@@ -3132,6 +3381,11 @@ def main() -> int:
     check_sparse_forward(dev)
     torch.cuda.empty_cache()
     check_sparse_prefill_forward(dev)
+    for precision in ("w8a8kv8-pt", "w4a8kv8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_sparse_forward(dev, precision)
+        check_sparse_prefill_forward(dev, precision)
     phase_done("phase 3")
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
@@ -3183,6 +3437,13 @@ def main() -> int:
     launches.update(run_switched_protocols(
         dev, {"launches": bench, "stats": p5_stats}, {"stats": p7_stats}))
     phase_done("phase 10")
+    log("phase 11: the reference's LServe command at its own precision "
+        "(w8a8kv8 --kv-quant-granularity per_tensor, both flags, static "
+        "sparsity 0.5; 32768 in / 128 out), then w4a8kv8 (32768 in / 32 "
+        "out), through lserve_benchmark")
+    lserve_kv = run_lserve_kv_modes(dev)
+    launches.update({k: lserve_kv[k] for k in LSERVE_KV_KERNELS})
+    phase_done("phase 11")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -3240,6 +3501,22 @@ def main() -> int:
         "paged_prefill_pt": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        **{f"decode_attention_ph{sfx}": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:1119")
+           for sfx in ("_kv8", "_pt")},
+        **{f"decode_attention_band{sfx}": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620")
+           for sfx in ("_kv8", "_pt")},
+        **{f"kv_append_decode{sfx}": (
+            "omniserve_tpu_torch/csrc/kv_append.cu",
+            "omniserve_tpu/ops/pallas/kv_append.py:156")
+           for sfx in ("_kv8", "_pt")},
+        **{f"paged_prefill_ring{sfx}": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268")
+           for sfx in ("_kv8", "_pt")},
         **dict.fromkeys(ROW8_NAMES, (
             "omniserve_tpu_torch/csrc/prefill_single_pass.cu",
             "omniserve_tpu/ops/pallas/prefill_single_pass.py:291")),

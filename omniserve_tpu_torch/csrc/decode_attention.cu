@@ -11,6 +11,7 @@
 //   3. paged_mqa_attention_single_pass in its plain mode with the streaming
 //      band over a ring pool: one page list per sequence, shared by the
 //      heads (launch_decode_attention_band);
+// entries 1-3 over kv4 or kv8 pools, fine-grained or per-tensor;
 // and of omniserve_tpu/ops/pallas/paged_attention.py:
 //   4. paged_mqa_attention (:255, kernel _mqa_kernel :58), the two-stage
 //      decode, over a kv16 (bf16) pool: one page list per sequence, read in
@@ -269,6 +270,9 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
 // Contract (plain version: attention_ref.paged_decode_attention with
 // page_idxes, and with a streaming pool; the wrappers in
 // omniserve_tpu_torch/ops/cuda/decode_attention.py build the lists):
+//   - pages as entry 1 reads them: kv4 half-split nibble rows or kv8 byte
+//     rows, fine-grained (folded planes) or per-tensor (PT: no planes, the
+//     layer's scales kpt / vpt read on the device, codes biased by 8 / 128);
 //   - entry i of a list names a physical page sel_phys and the logical page
 //     sel_logic it holds (-1 = dead entry, skipped); lists are in no order.
 //     head_stride = entries per head for per-head lists, 0 for one list per
@@ -283,17 +287,22 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
 //     pos >= max(0, len - band_local).
 //   - a row with len <= 0, or no live token, outputs zeros.
 // The pool is only read. Bounded by device-memory bytes, as entry 1: each
-// listed page costs its K/V nibbles and four plane rows. Same design: one
-// block per (pool head, sequence), one thread per token for the scores,
-// one warp per query row for the online softmax, one thread per head-dim
-// lane for P.V; garbage in dead slots (never-written planes) is masked
-// before it meets a product.
-template <int NREP, bool BAND>
+// listed page costs its K/V codes (D bytes a token under kv4, 2*D under
+// kv8) and, fine-grained, four plane rows. Same design: one block per
+// (pool head, sequence), one thread per token for the scores, one warp per
+// query row for the online softmax, one thread per head-dim lane for P.V;
+// garbage in dead slots (never-written planes, stale codes) is masked
+// before it meets a product: a dead slot's P.V weight is 0 and a code is
+// always finite. KV_BITS and PT are template axes, so the kv4 fine-grained
+// instantiations keep the code they had.
+template <int NREP, bool BAND, int KV_BITS, bool PT>
 __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
-    const uint8_t* __restrict__ k_data,       // layer: [P, H, page/2, D]
+    const uint8_t* __restrict__ k_data,       // layer: [P, H, rows, D]
     const uint8_t* __restrict__ v_data,
     const float* __restrict__ planes,         // layer: [P, 4, H, page]
+    const float* __restrict__ kpt,            // PT: the layer's K scale
+    const float* __restrict__ vpt,            // PT: the layer's V scale
     const int* __restrict__ sel_phys,         // [B, (H,) Tp]
     const int* __restrict__ sel_logic,        // [B, (H,) Tp]
     const int* __restrict__ lengths,          // [B]
@@ -318,7 +327,11 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
       out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
     return;
   }
+  constexpr bool KV8 = KV_BITS == 8;
+  constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
+  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
   const int half = page / 2;
+  const int rows = KV8 ? page : half;   // byte rows per page and head
   const int cur_page = (len - 1) / page, cur_slot = (len - 1) % page;
   const int win_start = max(0, len - band_local);
 
@@ -348,8 +361,8 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
         BAND && band_sink >= 0 && ring_span > 0 && logic == cur_page;
     if (first >= len && !ring_cur) continue;       // nothing live here
     const int phys = sel_phys[list_off + i];
-    const uint8_t* krows = k_data + ((size_t)phys * H + h) * half * D;
-    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * half * D;
+    const uint8_t* krows = k_data + ((size_t)phys * H + h) * rows * D;
+    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * rows * D;
     const float* pl = planes + (size_t)phys * 4 * H * page + (size_t)h * page;
     for (int t = tid; t < page; t += NT) {
       int pos = first + t, floor_pos = 0;
@@ -360,19 +373,27 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
       bool ok = pos < len && pos >= floor_pos;
       if (BAND && band_sink >= 0) ok = ok && (pos < band_sink || pos >= win_start);
       live[t] = ok;
-      const float s0 = pl[t];
-      ks[t] = s0;
-      kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;     // k_scale * k_zero
-      vs[t] = pl[(size_t)2 * H * page + t];
-      vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;       // v_zero
+      if constexpr (PT) {            // codes read as (code - bias) * pt
+        ks[t] = k_pt;
+        kc[t] = BIAS * k_pt;
+        vs[t] = v_pt;
+        vz[t] = BIAS;
+      } else {
+        const float s0 = pl[t];
+        ks[t] = s0;
+        kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;   // k_scale * k_zero
+        vs[t] = pl[(size_t)2 * H * page + t];
+        vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;     // v_zero
+      }
     }
     __syncthreads();
-    // scores: one thread per token, dots over the packed K nibbles
+    // scores: one thread per token, dots over the K codes
     for (int t = tid; t < page; t += NT) {
       if (live[t]) {
-        const int shift = t >= half ? 4 : 0;
-        const uint4* kr =
-            reinterpret_cast<const uint4*>(krows + (size_t)(t % half) * D);
+        const int shift = (!KV8 && t >= half) ? 4 : 0;
+        const uint32_t mask = KV8 ? 0xFFu : 0xFu;
+        const uint4* kr = reinterpret_cast<const uint4*>(
+            krows + (size_t)(KV8 ? t : t % half) * D);
         float dot[NREP];
         for (int r = 0; r < n_rep; ++r) dot[r] = 0.0f;
 #pragma unroll 2
@@ -383,7 +404,8 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
           for (int wi = 0; wi < 4; ++wi) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float code = (float)((words[wi] >> (8 * e + shift)) & 0xF);
+              const float code =
+                  (float)((words[wi] >> (8 * e + shift)) & mask);
               const int d = c * 16 + wi * 4 + e;
               for (int r = 0; r < n_rep; ++r) dot[r] += q_s[r][d] * code;
             }
@@ -425,15 +447,23 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
       }
     }
     __syncthreads();
-    // P.V: one thread per head-dim lane; rows t and t + page/2 share a byte
-    // (dead slots carry weight 0, and a nibble is always a finite code)
+    // P.V: one thread per head-dim lane; kv4 rows t and t + page/2 share a
+    // byte, kv8 rows hold one token each (dead slots carry weight 0, and a
+    // code is always finite)
     for (int r = 0; r < n_rep; ++r) acc[r] = acc[r] * alpha_s[r] - c_s[r];
-    for (int row = 0; row < half; ++row) {
-      const uint32_t byte = vrows[(size_t)row * D + tid];
-      const float lo = (float)(byte & 0xF);
-      const float hi = (float)(byte >> 4);
-      for (int r = 0; r < n_rep; ++r)
-        acc[r] += score[r][row] * lo + score[r][row + half] * hi;
+    if constexpr (KV8) {
+      for (int row = 0; row < page; ++row) {
+        const float code = (float)vrows[(size_t)row * D + tid];
+        for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * code;
+      }
+    } else {
+      for (int row = 0; row < half; ++row) {
+        const uint32_t byte = vrows[(size_t)row * D + tid];
+        const float lo = (float)(byte & 0xF);
+        const float hi = (float)(byte >> 4);
+        for (int r = 0; r < n_rep; ++r)
+          acc[r] += score[r][row] * lo + score[r][row + half] * hi;
+      }
     }
     __syncthreads();
   }
@@ -623,22 +653,36 @@ static int launch_list(bool band, const void* q, const void* k_data,
                        const void* lengths, void* out, int B, int H,
                        int n_rep, int page, int Tp, int head_stride,
                        float sm_scale, int band_sink, int band_local,
-                       int ring_span, int ring_sink_tok, void* stream) {
+                       int ring_span, int ring_sink_tok, int kv_bits,
+                       const void* k_pt, const void* v_pt, void* stream) {
+  const bool pt = k_pt != nullptr;
+  if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
+      (!pt && planes == nullptr) || page <= 0 || page > MAX_PAGE)
+    return (int)cudaErrorInvalidValue;
   dim3 grid(H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_LIST(R, BAND)                                               \
-  decode_attn_list_kernel<R, BAND><<<grid, NT, 0, s>>>(                    \
+#define LAUNCH_LIST(R, BAND, BITS, PT)                                     \
+  decode_attn_list_kernel<R, BAND, BITS, PT><<<grid, NT, 0, s>>>(          \
       static_cast<const __nv_bfloat16*>(q),                                \
       static_cast<const uint8_t*>(k_data),                                 \
       static_cast<const uint8_t*>(v_data),                                 \
-      static_cast<const float*>(planes),                                   \
+      static_cast<const float*>(planes), static_cast<const float*>(k_pt),  \
+      static_cast<const float*>(v_pt),                                     \
       static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic), \
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),  \
       H, page, Tp, head_stride, sm_scale, band_sink, band_local,           \
       ring_span, ring_sink_tok)
-#define LAUNCH_REP(R)                \
-  if (band) LAUNCH_LIST(R, true);    \
-  else LAUNCH_LIST(R, false)
+#define LAUNCH_MODE(R, BAND)                                  \
+  if (pt) {                                                   \
+    if (kv_bits == 8) LAUNCH_LIST(R, BAND, 8, true);          \
+    else LAUNCH_LIST(R, BAND, 4, true);                       \
+  } else {                                                    \
+    if (kv_bits == 8) LAUNCH_LIST(R, BAND, 8, false);         \
+    else LAUNCH_LIST(R, BAND, 4, false);                      \
+  }
+#define LAUNCH_REP(R)                     \
+  if (band) { LAUNCH_MODE(R, true) }      \
+  else { LAUNCH_MODE(R, false) }
   switch (n_rep) {
     case 1: LAUNCH_REP(1); break;
     case 2: LAUNCH_REP(2); break;
@@ -647,31 +691,38 @@ static int launch_list(bool band, const void* q, const void* k_data,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH_REP
+#undef LAUNCH_MODE
 #undef LAUNCH_LIST
   return (int)cudaGetLastError();
 }
 
 // Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp].
+// kv_bits 4 or 8; per-tensor codes when k_pt / v_pt (device addresses of
+// the layer's scales) are given, and planes may then be null.
 int launch_decode_attention_ph(
     const void* q, const void* k_data, const void* v_data,
     const void* planes, const void* sel_phys, const void* sel_logic,
     const void* lengths, void* out, int B, int H, int n_rep, int page,
-    int Tp, float sm_scale, void* stream) {
+    int Tp, float sm_scale, int kv_bits, const void* k_pt, const void* v_pt,
+    void* stream) {
   return launch_list(false, q, k_data, v_data, planes, sel_phys, sel_logic,
                      lengths, out, B, H, n_rep, page, Tp, Tp, sm_scale, -1,
-                     0, 0, 0, stream);
+                     0, 0, 0, kv_bits, k_pt, v_pt, stream);
 }
 
-// Plain mode with the streaming band: one page list [B, Tp] per sequence.
+// Plain mode with the streaming band: one page list [B, Tp] per sequence
+// (pools as launch_decode_attention_ph takes them).
 int launch_decode_attention_band(
     const void* q, const void* k_data, const void* v_data,
     const void* planes, const void* sel_phys, const void* sel_logic,
     const void* lengths, void* out, int B, int H, int n_rep, int page,
     int Tp, float sm_scale, int band_sink, int band_local, int ring_span,
-    int ring_sink_tok, void* stream) {
+    int ring_sink_tok, int kv_bits, const void* k_pt, const void* v_pt,
+    void* stream) {
   return launch_list(true, q, k_data, v_data, planes, sel_phys, sel_logic,
                      lengths, out, B, H, n_rep, page, Tp, 0, sm_scale,
-                     band_sink, band_local, ring_span, ring_sink_tok, stream);
+                     band_sink, band_local, ring_span, ring_sink_tok,
+                     kv_bits, k_pt, v_pt, stream);
 }
 
 // Two-stage decode's kv16 mode: one page list [B, Tp] per sequence over a

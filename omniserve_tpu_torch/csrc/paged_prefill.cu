@@ -4,10 +4,10 @@
 // Replaces the TPU kernel omniserve_tpu/ops/pallas/paged_prefill.py:
 //   paged_prefill_attention (:268, kernel _prefill_kernel :39, tile dequant
 //   :150-240): dense heads over a block table (fine-grained kv4 or kv8
-//   pages, per-tensor kv4 or kv8 pages, kv16 pages), and, over fine-grained
-//   kv4 pages, the explicit page-list mode with the streaming ring's
-//   relabel and the per-head sink + local band (LServe's chunked prefill
-//   over the ring pool).
+//   pages, per-tensor kv4 or kv8 pages, kv16 pages), and, over the same
+//   kv4 / kv8 pages but kv16, the explicit page-list mode with the
+//   streaming ring's relabel and the per-head sink + local band (LServe's
+//   chunked prefill over the ring pool).
 //
 // Contract (plain version: omniserve_tpu_torch/ops/attention_ref.py
 // paged_prefill_attention):
@@ -118,8 +118,8 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
 // SPARSE = a page list and/or per-head flags; the dense instantiation is
 // the plain block-table walk, so the bench's chunked prefill pays nothing
 // for the ring mode. KV_BITS = 4, 8 (one byte per value) or 16 (bf16
-// values); PT = per-tensor codes. kv8, kv16 and PT are dense only; the
-// fine-grained kv4 instantiations compile the code they had without them.
+// values); PT = per-tensor codes. kv16 is dense only; the fine-grained
+// kv4 instantiations compile the code they had without the other modes.
 template <bool SPARSE, int KV_BITS, bool PT>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
@@ -489,8 +489,8 @@ extern "C" {
 // for a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for
 // all dense; ring_span > 0 (pages) relabels the ring's stale rows;
 // kv_bits 4, 8 or 16; k_pt / v_pt: device addresses of the layer's
-// per-tensor scales (kv4 / kv8 without planes), or null. Only fine-grained
-// kv4 takes a page list or flags.
+// per-tensor scales (kv4 / kv8 without planes), or null. kv4 and kv8,
+// fine-grained or per-tensor, take a page list or flags; kv16 does not.
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
                          const void* k_pt, const void* v_pt,
@@ -506,12 +506,18 @@ int launch_paged_prefill(const void* q, const void* k_data,
       (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
       pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||
-      (sparse && (kv_bits != 4 || pt)) ||
+      (sparse && kv_bits == 16) ||
       (!pt && kv_bits != 16 && planes == nullptr))
     return (int)cudaErrorInvalidValue;
   auto kernel = paged_prefill_kernel<false, 4, false>;
-  if (sparse) kernel = paged_prefill_kernel<true, 4, false>;
-  else if (kv_bits == 16) kernel = paged_prefill_kernel<false, 16, false>;
+  if (sparse) {
+    if (kv_bits == 8)
+      kernel = pt ? paged_prefill_kernel<true, 8, true>
+                  : paged_prefill_kernel<true, 8, false>;
+    else
+      kernel = pt ? paged_prefill_kernel<true, 4, true>
+                  : paged_prefill_kernel<true, 4, false>;
+  } else if (kv_bits == 16) kernel = paged_prefill_kernel<false, 16, false>;
   else if (kv_bits == 8)
     kernel = pt ? paged_prefill_kernel<false, 8, true>
                 : paged_prefill_kernel<false, 8, false>;

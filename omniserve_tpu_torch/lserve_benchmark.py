@@ -8,13 +8,15 @@ plain versions):
 
     GLOBAL_PROMPT_LEN=32768 GLOBAL_GENERATE_LEN=128 \\
     python -m omniserve_tpu_torch.lserve_benchmark --model <path> \\
-        --precision w4a8kv4 --load-format dummy --tokenizer-mode skip \\
+        --precision w8a8kv8 --kv-quant-granularity per_tensor \\
+        --load-format dummy --tokenizer-mode skip \\
         --sparse-context-mode --sparse-decode-mode --static-sparsity 0.5 \\
         --block-size 128
 
-(the reference's LServe flags: streaming heads keep a ctx sink + local band
-at prefill, a prompt above ``--chunk-prefill-size`` prefills in chunks over
-the streaming ring, and decode is dynamic-sparse).
+(the reference's LServe flags and precision: streaming heads keep a ctx
+sink + local band at prefill, a prompt above ``--chunk-prefill-size``
+prefills in chunks over the streaming ring, and decode is dynamic-sparse;
+kv4 and kv8 pools, fine-grained or per-tensor, serve under them).
 """
 
 import argparse

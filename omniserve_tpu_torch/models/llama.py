@@ -4,9 +4,9 @@ Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
 sparse prefill and dynamic-sparse decode) with the same parameter tree and
 the same per-layer op order. Bodies: W4A8 with per-channel or per-group
 (g128) weights, W8A8, W16A16 (bf16 activations, no quantization); pools:
-fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16 (all but
-fine-grained kv4 on the dense path only; the per-tensor scales ride in the
-pool, where the attention calls read them). Per layer:
+fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16 (kv16 on the
+dense path only; the per-tensor scales ride in the pool, where the
+attention calls read them). Per layer:
 
 - fused RMSNorm -> int8 quant (+ act sums for per-channel W4), the qkv
   GEMM, RoPE;
@@ -159,14 +159,11 @@ class LlamaSpec:
                 f"kv{self.kv_bits} pools are outside the precision matrix "
                 "(kv4, kv8, kv16)"
             )
-        if (self.sparse_decode or self.sparse_prefill) and (
-                self.kv_bits != 4 or not self.kv_zeros):
+        if (self.sparse_decode or self.sparse_prefill) and self.kv_bits == 16:
             raise NotImplementedError(
-                f"kv{self.kv_bits} "
-                f"{'fine-grained' if self.kv_zeros else 'per-tensor'} pools "
-                "under --sparse-decode-mode / --sparse-context-mode are "
-                "ROADMAP.md queue 1 item 8b (LServe serves fine-grained kv4 "
-                "pools)"
+                "kv16 pools under --sparse-decode-mode / --sparse-context-"
+                "mode are ROADMAP.md queue 1 item 8b (LServe serves kv4 and "
+                "kv8 pools, fine-grained or per-tensor)"
             )
         if self.attn_bias:
             raise NotImplementedError(

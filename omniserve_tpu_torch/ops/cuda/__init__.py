@@ -28,13 +28,21 @@ LAUNCHES = {
     "decode_attention_append_pt": 0,
     "paged_mqa_attention_kv16": 0,
     "decode_attention_ph": 0,
+    "decode_attention_ph_kv8": 0,
+    "decode_attention_ph_pt": 0,
     "decode_attention_band": 0,
+    "decode_attention_band_kv8": 0,
+    "decode_attention_band_pt": 0,
     "kv_append_decode": 0,
+    "kv_append_decode_kv8": 0,
+    "kv_append_decode_pt": 0,
     "kv_append_decode_kv16": 0,
     "flash_prefill": 0,
     "flash_prefill_band": 0,
     "paged_prefill_attention": 0,
     "paged_prefill_ring": 0,
+    "paged_prefill_ring_kv8": 0,
+    "paged_prefill_ring_pt": 0,
     "paged_prefill_kv8": 0,
     "paged_prefill_kv16": 0,
     "paged_prefill_pt": 0,

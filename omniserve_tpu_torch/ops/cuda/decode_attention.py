@@ -1,7 +1,7 @@
 """Paged decode attention (``csrc/decode_attention.cu``): the fused KV
-append over a dense page list (kv4 or kv8 pools, fine-grained or
-per-tensor), dynamic-sparse decode over per-head page lists, the streaming
-band over a ring pool (kv4), and the dense decode over a kv16 pool.
+append over a dense page list, dynamic-sparse decode over per-head page
+lists and the streaming band over a ring pool (each over kv4 or kv8 pools,
+fine-grained or per-tensor), and the dense decode over a kv16 pool.
 
 Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
@@ -60,11 +60,11 @@ def _lib():
         )
         lib.launch_decode_attention_append.restype = _I
         lib.launch_decode_attention_ph.argtypes = (
-            [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 3
         )
         lib.launch_decode_attention_ph.restype = _I
         lib.launch_decode_attention_band.argtypes = (
-            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P]
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P] * 3
         )
         lib.launch_decode_attention_band.restype = _I
         lib.launch_decode_attention_kv16.argtypes = (
@@ -183,8 +183,20 @@ def paged_decode_attention_fused(
 # ---------------------------------------------------------------------------
 
 
-def _check_list_call(q4, pool: KVPool, sel_phys, sel_logic, lengths,
-                     page_size: int, list_shape) -> None:
+def list_mode(pool: KVPool, page_size: int):
+    """(kv bits, per-tensor, launch-name suffix) of a kv4 / kv8 pool, the
+    bits read from its page rows as the JAX kernels do: "" (fine-grained
+    kv4), "_kv8" (fine-grained kv8) or "_pt" (per-tensor kv4 or kv8)."""
+    kv_bits = 8 if pool.k_data.shape[3] == page_size else 4
+    pt = pool.k_scale_per_tensor is not None
+    return kv_bits, pt, "_pt" if pt else "_kv8" if kv_bits == 8 else ""
+
+
+def _list_call_args(q4, pool: KVPool, layer: int, sel_phys, sel_logic,
+                    lengths, page_size: int, list_shape):
+    """Check a list kernel call; returns (planes, k_pt, v_pt) device
+    addresses (null where the mode has none), the kv bits and the launch-
+    name suffix."""
     b, hp, n_rep, d = q4.shape
     if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
         raise ValueError(
@@ -192,17 +204,34 @@ def _check_list_call(q4, pool: KVPool, sel_phys, sel_logic, lengths,
             f"and one q group per pool head; got q {tuple(q4.shape)} for "
             f"{pool.num_heads} pool heads"
         )
-    if (pool.k_data.shape[3] * 2 != page_size or page_size > MAX_PAGE
-            or pool.kv_scales is None):
-        raise ValueError("decode kernel serves kv4 fine-grained pools with "
-                         f"pages of at most {MAX_PAGE} tokens")
+    kv_bits, pt, suffix = list_mode(pool, page_size)
+    rows = pool.k_data.shape[3]
+    if (rows not in (page_size // 2, page_size) or page_size > MAX_PAGE
+            or (pool.kv_scales is None) != pt):
+        raise ValueError("decode kernel serves kv4 and kv8 pools, fine-"
+                         "grained or per-tensor, with pages of at most "
+                         f"{MAX_PAGE} tokens; got {rows} rows of a "
+                         f"{page_size}-token page")
     cuda.check(q4, "q", torch.bfloat16)
     cuda.check(pool.k_data, "k_data", torch.uint8)
     cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
-    cuda.check(pool.kv_scales, "kv_scales", torch.float32)
     cuda.check(sel_phys, "sel_phys", torch.int32, list_shape)
     cuda.check(sel_logic, "sel_logic", torch.int32, list_shape)
     cuda.check(lengths, "lengths", torch.int32, (b,))
+    planes = k_pt = v_pt = None
+    if pt:
+        num_layers = pool.k_data.shape[0]
+        cuda.check(pool.k_scale_per_tensor, "k_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        cuda.check(pool.v_scale_per_tensor, "v_scale_per_tensor",
+                   torch.float32, (num_layers,))
+        # device addresses of this layer's scales: never read on the host
+        k_pt = pool.k_scale_per_tensor[layer].data_ptr()
+        v_pt = pool.v_scale_per_tensor[layer].data_ptr()
+    else:
+        cuda.check(pool.kv_scales, "kv_scales", torch.float32)
+        planes = pool.kv_scales[layer].data_ptr()
+    return (planes, k_pt, v_pt), kv_bits, suffix
 
 
 def paged_mqa_attention_single_pass_ph(
@@ -217,21 +246,26 @@ def paged_mqa_attention_single_pass_ph(
     page_size: int,
 ) -> torch.Tensor:
     """Kernel: dynamic-sparse decode over per-(sequence, head) page lists
-    (in no order; all dead gives zeros). Returns [B, Hr, n_rep, D] bf16."""
+    (in no order; all dead gives zeros) of a kv4 or kv8 pool, fine-grained
+    or per-tensor. Returns [B, Hr, n_rep, D] bf16. Launches count as
+    ``decode_attention_ph`` (fine-grained kv4), ``decode_attention_ph_kv8``
+    or ``decode_attention_ph_pt``."""
     b, hp, n_rep, _ = q.shape
     tp = sel_logic.shape[-1]
-    _check_list_call(q, pool, sel_phys, sel_logic, lengths, page_size,
-                     (b, hp, tp))
+    (planes, k_pt, v_pt), kv_bits, suffix = _list_call_args(
+        q, pool, layer, sel_phys, sel_logic, lengths, page_size,
+        (b, hp, tp))
     out = torch.empty_like(q)
     err = _lib().launch_decode_attention_ph(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
-        pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
-        sel_phys.data_ptr(), sel_logic.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hp, n_rep, page_size, tp, float(sm_scale),
+        pool.v_data[layer].data_ptr(), planes, sel_phys.data_ptr(),
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
+        n_rep, page_size, tp, float(sm_scale), kv_bits, k_pt, v_pt,
         cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "decode_attention_ph")
-    cuda.LAUNCHES["decode_attention_ph"] += 1
+    name = "decode_attention_ph" + suffix
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
     return out
 
 
@@ -250,27 +284,31 @@ def paged_mqa_attention_single_pass(
     ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
 ) -> torch.Tensor:
-    """Kernel: decode over one page list per sequence, in its plain mode
-    (no append). ``band_sink_tokens >= 0`` turns the streaming band on:
-    only positions ``< band_sink_tokens`` or ``>= length -
-    band_local_tokens`` are attended; ``ring_span_pages > 0`` relabels the
-    slots past the write head of the page being written (they hold tokens
-    one ring wrap older). Returns [B, Hp, n_rep, D] bf16."""
+    """Kernel: decode over one page list per sequence of a kv4 or kv8 pool
+    (fine-grained or per-tensor), in its plain mode (no append).
+    ``band_sink_tokens >= 0`` turns the streaming band on: only positions
+    ``< band_sink_tokens`` or ``>= length - band_local_tokens`` are
+    attended; ``ring_span_pages > 0`` relabels the slots past the write
+    head of the page being written (they hold tokens one ring wrap older).
+    Returns [B, Hp, n_rep, D] bf16. Launches count as
+    ``decode_attention_band`` (fine-grained kv4), ``decode_attention_band_
+    kv8`` or ``decode_attention_band_pt``."""
     b, hp, n_rep, _ = q.shape
     tp = sel_logic.shape[-1]
-    _check_list_call(q, pool, sel_phys, sel_logic, lengths, page_size,
-                     (b, tp))
+    (planes, k_pt, v_pt), kv_bits, suffix = _list_call_args(
+        q, pool, layer, sel_phys, sel_logic, lengths, page_size, (b, tp))
     out = torch.empty_like(q)
     err = _lib().launch_decode_attention_band(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
-        pool.v_data[layer].data_ptr(), pool.kv_scales[layer].data_ptr(),
-        sel_phys.data_ptr(), sel_logic.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hp, n_rep, page_size, tp, float(sm_scale),
-        int(band_sink_tokens), int(band_local_tokens), int(ring_span_pages),
-        int(ring_sink_tokens), cuda.stream_handle(),
+        pool.v_data[layer].data_ptr(), planes, sel_phys.data_ptr(),
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
+        n_rep, page_size, tp, float(sm_scale), int(band_sink_tokens),
+        int(band_local_tokens), int(ring_span_pages), int(ring_sink_tokens),
+        kv_bits, k_pt, v_pt, cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "decode_attention_band")
-    cuda.LAUNCHES["decode_attention_band"] += 1
+    name = "decode_attention_band" + suffix
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
     return out
 
 
@@ -325,11 +363,11 @@ def page_list_kv(
     band_local_tokens: int = 0, ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
 ):
-    """The listed pages of a fine-grained kv4 or a kv16 pool, dequantized:
-    (k, v) [B, Hp, Tp*page, D] f32 and ``valid`` [B, Hp, Tp*page], each
-    slot live as the list contract says (position below the length, the
-    ring relabel, the band). Lists are [B, Hp, Tp] (per head) or [B, Tp]
-    (shared by the ``n_heads`` heads)."""
+    """The listed pages of a kv4 / kv8 pool (fine-grained or per-tensor)
+    or a kv16 pool, dequantized: (k, v) [B, Hp, Tp*page, D] f32 and
+    ``valid`` [B, Hp, Tp*page], each slot live as the list contract says
+    (position below the length, the ring relabel, the band). Lists are
+    [B, Hp, Tp] (per head) or [B, Tp] (shared by the ``n_heads`` heads)."""
     b = lengths.shape[0]
     if sel_logic.dim() == 2:
         sel_phys = sel_phys[:, None, :].expand(b, n_heads, -1)
@@ -342,19 +380,29 @@ def page_list_kv(
         k = pool.k_data[layer][phys, heads].float()    # [B, Hp, Tp, page, D]
         v = pool.v_data[layer][phys, heads].float()
     else:
-        planes = pool.kv_scales[layer][phys, :, heads]  # [B, Hp, Tp, 4, pg]
+        kv_bits, pt, _ = list_mode(pool, page_size)
 
         def values(data, scale, zero):
             pages = data[layer][phys, heads]           # [B, Hp, Tp, rows, D]
-            codes = torch.cat([(pages & 0xF).float(), (pages >> 4).float()],
-                              dim=-2)                  # [B, Hp, Tp, page, D]
-            return (codes - zero[..., None]) * scale[..., None]
+            if kv_bits == 8:                           # row = slot
+                codes = pages.float()
+            else:                                      # half-split nibbles
+                codes = torch.cat([(pages & 0xF).float(),
+                                   (pages >> 4).float()], dim=-2)
+            return (codes - zero) * scale              # [B, Hp, Tp, page, D]
 
-        k_scale = planes[..., 0, :]
-        k = values(pool.k_data, k_scale,
-                   planes[..., 1, :] / torch.clamp(k_scale, min=1e-20)
-                   - 128.0)
-        v = values(pool.v_data, planes[..., 2, :], planes[..., 3, :] - 128.0)
+        if pt:      # biased codes times the layer's scale
+            bias = 128.0 if kv_bits == 8 else 8.0
+            k = values(pool.k_data, pool.k_scale_per_tensor[layer], bias)
+            v = values(pool.v_data, pool.v_scale_per_tensor[layer], bias)
+        else:
+            planes = pool.kv_scales[layer][phys, :, heads]  # [B,Hp,Tp,4,pg]
+            k_scale = planes[..., 0, :, None]
+            k = values(pool.k_data, k_scale,
+                       planes[..., 1, :, None]
+                       / torch.clamp(k_scale, min=1e-20) - 128.0)
+            v = values(pool.v_data, planes[..., 2, :, None],
+                       planes[..., 3, :, None] - 128.0)
 
     ln = lengths.long()[:, None, None, None]
     slot = torch.arange(page_size, device=dev)
@@ -489,7 +537,7 @@ def paged_decode_attention(
     local band of the ring pool. CUDA tensors go to the kernels, CPU
     tensors to ``page_list_attention_plain``."""
     b, hq, d = q.shape
-    on_card = q.is_cuda
+    on_card = cuda.use_kernel(q)
     lengths = context_lens.to(torch.int32)
     pure_dense = head_is_retrieval is None
     hkv = pool.num_heads if pure_dense else head_is_retrieval.shape[0]

@@ -5,12 +5,12 @@ Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
 whole-prompt prefill and chunked prefill over the paged pool (dense heads
 over kv4 / kv8 pools, fine-grained or per-tensor, and kv16 pools; LServe's
 streaming heads with their sink + local band, over the ring pool's page
-list in chunked prefill, fine-grained kv4), the dense decode step with its
-KV append fused in (kv4 / kv8, fine-grained or per-tensor) or, over a kv16
-pool, split as the JAX dispatch splits it (``append_kv_decode``, then
-``paged_decode_attention``), and the split decode step of dynamic-sparse
-decode (the same two calls over the retrieval and streaming pools,
-fine-grained kv4).
+list in chunked prefill, kv4 / kv8, fine-grained or per-tensor), the dense
+decode step with its KV append fused in (kv4 / kv8, fine-grained or
+per-tensor) or, over a kv16 pool, split as the JAX dispatch splits it
+(``append_kv_decode``, then ``paged_decode_attention``), and the split
+decode step of dynamic-sparse decode (the same two calls over the
+retrieval and streaming pools, kv4 / kv8, fine-grained or per-tensor).
 Every other mode of the JAX dispatch raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
@@ -66,15 +66,16 @@ def embed_lookup(table, ids):
     return table[ids]
 
 
-def _check_lserve_kv(kv_bits: int, kv_zeros: bool) -> None:
+def _check_lserve_kv(kv_bits: int) -> None:
     """Raise for pools LServe's modes (sparse decode's split append and
     attention, the page-list and band modes of paged prefill) do not serve:
-    anything but fine-grained kv4 (ROADMAP.md queue 1 item 8b)."""
-    if kv_bits != 4 or not kv_zeros:
+    kv16 (ROADMAP.md queue 1 item 8b). kv4 and kv8, fine-grained or
+    per-tensor, are served."""
+    if kv_bits == 16:
         raise NotImplementedError(
-            f"kv{kv_bits} (kv_zeros={kv_zeros}) pools under LServe's sparse "
-            "modes are outside the port, which serves fine-grained kv4 "
-            "pools there; see ROADMAP.md queue 1 item 8b"
+            "kv16 pools under LServe's sparse modes are outside the port, "
+            "which serves kv4 and kv8 pools there; see ROADMAP.md queue 1 "
+            "item 8b"
         )
 
 
@@ -160,10 +161,9 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
                      kv_bits, kv_zeros, update_stats=False, sub_chunks=4):
     """Decode-step KV append (+ optional K min/max stats), in place. Tokens
     must target distinct pages (the decode invariant); page id -1 marks an
-    inactive token. Fine-grained kv4 pools (sparse decode appends apart)
-    and kv16 pools (the dense decode's split path)."""
-    if kv_bits != 16:
-        _check_lserve_kv(kv_bits, kv_zeros)
+    inactive token. kv4 / kv8 pools, fine-grained or per-tensor (sparse
+    decode appends apart), and kv16 pools (the dense decode's split
+    path)."""
     from omniserve_tpu_torch.ops.cuda import kv_append
 
     if cuda.use_kernel(k):
@@ -175,6 +175,7 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
     return kv_append.append_kv_decode_plain(
         pool, layer, k, v, page_ids, slots, page_size,
         update_stats=update_stats, sub_chunks=sub_chunks, kv_bits=kv_bits,
+        kv_zeros=kv_zeros,
     )
 
 
@@ -187,11 +188,12 @@ def paged_decode_attention(
     """Decode attention WITHOUT the append, over the retrieval pool (dense
     history or the selector's ``page_idxes``) and, for streaming heads, the
     ring pool's sink + local band. On a card: the page-list kernels. On the
-    CPU: ``attention_ref.paged_decode_attention``. Fine-grained kv4 pools
-    (sparse decode attends apart from the append) and, over a dense
-    history, kv16 pools (the dense decode's split path)."""
-    if kv_bits != 16 or page_idxes is not None or streaming_pool is not None:
-        _check_lserve_kv(kv_bits, kv_zeros)
+    CPU: ``attention_ref.paged_decode_attention``. kv4 / kv8 pools, fine-
+    grained or per-tensor (sparse decode attends apart from the append),
+    and, over a dense history, kv16 pools (the dense decode's split
+    path)."""
+    if page_idxes is not None or streaming_pool is not None:
+        _check_lserve_kv(kv_bits)
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import decode_attention
 
@@ -223,9 +225,8 @@ def paged_prefill_attention(
 ):
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
     (history + the chunk, appended by the caller): kv4 / kv8 pools, fine-
-    grained or per-tensor, and kv16 pools; a page list or a band only over
-    fine-grained kv4 (LServe), but where ``single_pass_applies``, which
-    takes them over any kv4 / kv8 pool.
+    grained or per-tensor, and kv16 pools; a page list or a band (LServe)
+    over kv4 / kv8 pools only.
 
     ``sel_logic`` [B, W] names the logical page each table slot holds (-1
     dead); with ``ring_span_pages`` the source is the streaming ring, whose
@@ -235,10 +236,8 @@ def paged_prefill_attention(
     they are: the single-pass kernel where ``single_pass_applies``, else
     the paged-prefill kernel. On the CPU: the plain version, which turns
     the list into a per-row position map as the JAX dispatch does. The
-    rule, not the device, decides what is served: where
-    ``single_pass_applies``, page lists and bands over any kv4 / kv8 pool
-    are served on both (the kernel on a card, its plain version on the
-    CPU)."""
+    rule, not the device, decides which kernel's plain version serves a CPU
+    call."""
     if return_lse:
         raise NotImplementedError(
             "LSE outputs of paged prefill are the sequence-parallel path; "
@@ -253,7 +252,7 @@ def paged_prefill_attention(
         listed = sel_logic is not None or (
             head_is_retrieval is not None and bool(sink_size or local_size))
         if listed:
-            _check_lserve_kv(kv_bits, kv_zeros)
+            _check_lserve_kv(kv_bits)
         from omniserve_tpu_torch.ops.cuda import paged_prefill
 
         fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from omniserve_tpu.ops import attention_ref as j_ref
+from omniserve_tpu.ops import dispatch as j_dispatch
 from omniserve_tpu.ops.paged_kv import append_kv as j_append_kv
 from omniserve_tpu.ops.paged_kv import gather_kv_for_seq as j_gather
 from omniserve_tpu.ops.paged_kv import make_kv_pool as j_make_kv_pool
@@ -226,13 +227,35 @@ def test_append_targets():
     assert int(slots[0]) == 0
 
 
+def random_pools(rng, kv_bits, kv_zeros, n_pages, h, page, d, layers=2):
+    """A JAX pool of random codes (fine-grained planes or per-tensor
+    scales that span N(0, 1) values) and its port twin."""
+    pt = {}
+    if not kv_zeros:
+        qmax = 7 if kv_bits == 4 else 127
+        pt = {n: jnp.asarray(rng.uniform(2.5, 3.5, layers) / qmax,
+                             jnp.float32)
+              for n in ("k_scale_per_tensor", "v_scale_per_tensor")}
+    pool = j_make_kv_pool(layers, n_pages, h, page, d, kv_bits=kv_bits,
+                          kv_zeros=kv_zeros, **pt)
+    pool = pool._replace(**{n: jnp.asarray(rng.integers(
+        0, 256, pool.k_data.shape, dtype=np.uint8))
+        for n in ("k_data", "v_data")})
+    if kv_zeros:
+        pool = pool._replace(kv_scales=jnp.asarray(rng.uniform(
+            0.05, 0.5, pool.kv_scales.shape).astype(np.float32)))
+    return pool, pool_from_numpy(pool, "cpu")
+
+
 def test_decode_dispatch_raises_outside_slice():
     """The fused append serves kv4 and kv8 pools, fine-grained or
     per-tensor, and kv16 pools through the split path
     (``tests/test_torch_kv16_pertensor.py``); a streaming pool raises
-    naming its ROADMAP item at any width, and kv16, per-tensor KV and kv8
-    raise at what only sparse decode reaches: a page selection or a
-    streaming pool at the split attention, a non-kv16 split append."""
+    naming its ROADMAP item at any width. What only sparse decode reaches
+    (a page selection or a streaming pool at the split attention, a
+    non-kv16 split append) serves kv8 and per-tensor kv4 / kv8 pools, equal
+    to the JAX package (attention 1e-5, append bytes), and raises for kv16
+    naming item 8b."""
     q = torch.zeros(1, 2, 8)
     for kv_bits, kv_zeros in ((4, True), (16, True), (8, False), (4, False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,19 +263,64 @@ def test_decode_dispatch_raises_outside_slice():
                 q, None, object(), 0, None, None, None, None, sm_scale=1.0,
                 page_size=8, kv_bits=kv_bits, kv_zeros=kv_zeros,
             )
-    for kv_bits, kv_zeros in ((16, True), (8, True), (8, False), (4, False)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            dispatch.paged_decode_attention(
-                q, None, 0, None, None, 1.0, 8, kv_bits, kv_zeros,
-                page_idxes=torch.zeros(1, 1, 1))
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            dispatch.paged_decode_attention(
-                q, None, 0, None, None, 1.0, 8, kv_bits, kv_zeros,
-                streaming_pool=object())
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        dispatch.paged_decode_attention(
+            q, None, 0, None, None, 1.0, 8, 16, True,
+            page_idxes=torch.zeros(1, 1, 1))
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        dispatch.paged_decode_attention(
+            q, None, 0, None, None, 1.0, 8, 16, True,
+            streaming_pool=object())
+
+    rng = np.random.default_rng(9)
+    page, h, d, b = 16, 2, 32, 2
+    tables = np.array([[3, 0, 5], [1, 4, 2]], np.int32)
+    stables = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    lens = np.array([40, 27], np.int32)
+    sel = np.array([[[2, 0], [2, -1]], [[1, 0], [1, 0]]], np.int32)
+    qn = rng.standard_normal((b, 2 * h, d)).astype(np.float32)
+    flags, rank = np.array([True, False]), np.array([0, 0], np.int32)
+    sm = d ** -0.5
     for kv_bits, kv_zeros in ((8, True), (8, False), (4, False)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            dispatch.append_kv_decode(None, 0, q, q, None, None, 8, kv_bits,
-                                      kv_zeros)
+        jr, tr = random_pools(rng, kv_bits, kv_zeros, 7, h, page, d)
+        js, ts = random_pools(rng, kv_bits, kv_zeros, 7, 1, page, d)
+        js = js._replace(k_scale_per_tensor=jr.k_scale_per_tensor,
+                         v_scale_per_tensor=jr.v_scale_per_tensor)
+        ts = ts._replace(k_scale_per_tensor=tr.k_scale_per_tensor,
+                         v_scale_per_tensor=tr.v_scale_per_tensor)
+        args = (1, tables, lens, sm, page, kv_bits, kv_zeros)
+        dual = dict(head_is_retrieval=flags, head_rank=rank, sink_blocks=1,
+                    local_blocks=2, streaming_block_tables=stables,
+                    page_idxes=sel[:, :, :1])
+        for kw in (dict(page_idxes=sel), dual):
+            want = j_ref.paged_decode_attention(
+                jnp.asarray(qn), jr, *args[:1],
+                *(jnp.asarray(a) for a in args[1:3]), *args[3:],
+                **({"streaming_pool": js} if "head_rank" in kw else {}),
+                **{k: jnp.asarray(v) for k, v in kw.items()
+                   if isinstance(v, np.ndarray)},
+                **{k: v for k, v in kw.items()
+                   if not isinstance(v, np.ndarray)})
+            got = dispatch.paged_decode_attention(
+                T(qn), tr, *args[:1], *(T(a) for a in args[1:3]), *args[3:],
+                **({"streaming_pool": ts} if "head_rank" in kw else {}),
+                **{k: T(v) if isinstance(v, np.ndarray) else v
+                   for k, v in kw.items()})
+            np.testing.assert_allclose(N(got), np.asarray(want), atol=1e-5,
+                                       rtol=1e-5)
+            assert np.abs(np.asarray(want)).max() > 1e-2
+        k_new = rng.standard_normal((b, h, d)).astype(np.float32)
+        v_new = rng.standard_normal((b, h, d)).astype(np.float32)
+        pages, slots = np.array([6, -1], np.int32), np.array([3, 9], np.int32)
+        jout = j_dispatch.append_kv_decode(
+            jr, 0, jnp.asarray(k_new), jnp.asarray(v_new),
+            jnp.asarray(pages), jnp.asarray(slots), page, kv_bits, kv_zeros)
+        dispatch.append_kv_decode(tr, 0, T(k_new), T(v_new), T(pages),
+                                  T(slots), page, kv_bits, kv_zeros)
+        for name in ("k_data", "v_data", "kv_scales"):
+            if getattr(jout, name) is not None:
+                np.testing.assert_array_equal(
+                    N(getattr(tr, name)), np.asarray(getattr(jout, name)))
 
 
 # -- paged prefill (chunked prefill attention) ---------------------------
@@ -369,11 +437,12 @@ def test_append_kv_page_aligned_bytes_match_jax():
 
 
 def test_paged_prefill_dispatch_raises_outside_slice():
-    """Bands and page lists serve (``tests/test_torch_lserve_prefill.py``),
-    and kv8, kv16 and per-tensor pages over a dense table
-    (``tests/test_torch_precision.py``, ``tests/test_torch_kv16_pertensor.
-    py``); LSE outputs (sequence parallelism), and kv16, per-tensor KV and
-    kv8 under a page list or band raise."""
+    """Bands and page lists serve over kv4 / kv8 pages, fine-grained or
+    per-tensor (``tests/test_torch_lserve_prefill.py``; kv8 and per-tensor
+    below, equal to the JAX dispatch at 1e-5), and kv8, kv16 and
+    per-tensor pages over a dense table (``tests/test_torch_precision.py``,
+    ``tests/test_torch_kv16_pertensor.py``); LSE outputs (sequence
+    parallelism), and kv16 under a page list or band raise."""
     q = torch.zeros(1, 2, 2, 8)
     kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
     with pytest.raises(NotImplementedError, match="item 10"):
@@ -388,11 +457,34 @@ def test_paged_prefill_dispatch_raises_outside_slice():
                                       4, True, kv_positions=torch.zeros(1),
                                       return_lse=True)
     for bad in (dict(kv_bits=16, sel_logic=torch.zeros(1, 1)),
-                dict(kv_zeros=False, head_is_retrieval=torch.ones(2),
-                     sink_size=4, local_size=4),
-                dict(kv_bits=8, sel_logic=torch.zeros(1, 1)),
-                dict(kv_bits=8, head_is_retrieval=torch.ones(2),
+                dict(kv_bits=16, head_is_retrieval=torch.ones(2),
                      sink_size=4, local_size=4)):
         with pytest.raises(NotImplementedError, match="item 8b"):
             dispatch.paged_prefill_attention(q, None, 0, None, None, None,
                                              **dict(kw, **bad))
+    rng = np.random.default_rng(11)
+    page, hkv, d = 8, 2, 32
+    table = np.array([[4, 1, 6, 0, 3]], np.int32)
+    sel = np.array([[0, 3, 1, -1, 2]], np.int32)
+    ctx = np.array([30], np.int32)
+    qn = rng.standard_normal((1, 6, 2 * hkv, d)).astype(np.float32)
+    q_pos = np.arange(24, 30, dtype=np.int32)[None]
+    flags = np.array([True, True, False, False])
+    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False)):
+        jpool, tpool = random_pools(rng, kv_bits, kv_zeros, 7, hkv, page, d,
+                                    layers=1)
+        for extra in (dict(sel_logic=sel),
+                      dict(head_is_retrieval=flags, sink_size=4,
+                           local_size=12)):
+            want = j_dispatch.paged_prefill_attention(
+                jnp.asarray(qn), jpool, 0, jnp.asarray(table),
+                jnp.asarray(q_pos), jnp.asarray(ctx), d ** -0.5, page,
+                kv_bits, kv_zeros, **{k: jnp.asarray(v) if isinstance(
+                    v, np.ndarray) else v for k, v in extra.items()})
+            got = dispatch.paged_prefill_attention(
+                T(qn), tpool, 0, T(table), T(q_pos), T(ctx), d ** -0.5,
+                page, kv_bits, kv_zeros, **{k: T(v) if isinstance(
+                    v, np.ndarray) else v for k, v in extra.items()})
+            np.testing.assert_allclose(N(got), np.asarray(want), atol=1e-5,
+                                       rtol=1e-5)
+            assert np.abs(np.asarray(want)).max() > 1e-2

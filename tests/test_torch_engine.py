@@ -100,25 +100,54 @@ def test_greedy_tokens_match_jax_engine(tiny_model_dir):
     assert min(margins) > LOGIT_RTOL, min(margins)
 
 
-def test_engine_raises_outside_slice(tiny_model_dir):
+def test_engine_raises_outside_slice(tiny_model_dir, monkeypatch):
     """Chunked prefill, prefix reuse, multi-step windows, LServe's decode
     and prefill sides and the precision matrix serve (see
     tests/test_torch_engine_windows.py, tests/test_torch_lserve_{engine,
     prefill}.py, tests/test_torch_precision_engine.py and
-    tests/test_torch_kv16_engine.py); per-tensor KV, kv16 and kv8 under
+    tests/test_torch_kv16_engine.py), and so do kv8 and per-tensor KV under
+    LServe's modes: those cases serve greedy requests equal to the JAX
+    engine's (compared while every top-2 margin exceeds 2e-3). kv16 under
     LServe's modes and tensor parallelism stay outside the port and raise
     naming their ROADMAP item."""
-    for extra in (dict(precision="w8a8kv8",
-                       kv_quant_granularity="per_tensor",
-                       sparse_decode_mode=True, static_sparsity=0.5),
-                  dict(precision="w16a16kv16", sparse_context_mode=True),
-                  dict(precision="w4a8kv8", sparse_decode_mode=True,
-                       static_sparsity=0.5),
+    from tests.test_torch_precision_engine import TrustedPrefix
+
+    for extra in (dict(precision="w16a16kv16", sparse_context_mode=True),
                   dict(tensor_parallel_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMEngine.from_engine_args(EngineArgs(
                 device="cpu", **dict(engine_kwargs(tiny_model_dir),
                                      **extra)))
+    for extra in (dict(precision="w8a8kv8",
+                       kv_quant_granularity="per_tensor",
+                       sparse_decode_mode=True, static_sparsity=0.5),
+                  dict(precision="w4a8kv8", sparse_decode_mode=True,
+                       static_sparsity=0.5)):
+        kw = dict(engine_kwargs(tiny_model_dir), **extra)
+        with jax.disable_jit():
+            jeng = JLLMEngine.from_engine_args(JEngineArgs(**kw))
+            jparams = jax.tree.map(np.asarray,
+                                   jeng.worker.model_runner.params)
+            want = run(jeng, JSamplingParams)
+        teng = LLMEngine.from_engine_args(EngineArgs(device="cpu", **kw))
+        runner = teng.worker.model_runner
+        assert runner.spec.sparse_decode and runner.spec.kv_bits == 8
+        assert runner.cache_engine.streaming_pool is not None
+        runner.load_params(params_from_numpy(jparams, "cpu"))
+        groups = []
+        add_request = teng.add_request
+
+        def recording_add(*a, **k):
+            add_request(*a, **k)
+            groups.append(teng.scheduler.waiting[-1])
+
+        with monkeypatch.context() as m:
+            m.setattr(teng, "add_request", recording_add)
+            trusted = TrustedPrefix(m, groups)
+            got = run(teng, SamplingParams)
+        assert [len(got[f"r{i}"]) for i in range(3)] == MAX_TOKENS
+        # never vacuous: at least every request's first token is compared
+        assert trusted.compare(got, want) >= len(PROMPTS), extra
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(tiny_model_dir):

@@ -557,12 +557,266 @@ def test_decode_attention_band_kernel(dev, band):
                                atol=5e-2)
 
 
+LIST_MODES = ("kv8", "pt4", "pt8")
+
+
+def _plant_dead_garbage(pool, layer, page, lens, phys_of):
+    """NaN planes (fine-grained pools) past each context's end in the page
+    that holds it, and 0xFF codes there: never-written slots hold garbage,
+    and every use of them must stay behind the mask. ``phys_of(s, p)`` is
+    the physical page of sequence s's logical page p."""
+    rows = pool.k_data.shape[3]
+    for s, n in enumerate(lens):
+        if n <= 0 or n % page == 0:
+            continue
+        phys, slot = phys_of(s, (n - 1) // page), (n - 1) % page + 1
+        if pool.kv_scales is not None:
+            pool.kv_scales[layer, phys, :, :, slot:] = float("nan")
+        if rows == page:         # kv8 rows: slot = row
+            pool.k_data[layer, phys, :, slot:] = 255
+            pool.v_data[layer, phys, :, slot:] = 255
+
+
+@pytest.mark.parametrize("page", [128, 256])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", LIST_MODES)
+def test_decode_attention_list_kv_modes_kernel(dev, mode, n_rep, page):
+    """Rows 4 (band/ring) and 5 (per-head lists) over kv8 and per-tensor
+    pools: per-head lists in no order with dead entries, a context inside a
+    listed page, an all-dead list and an inactive row; the ring's band
+    list (wrapped mid page and on a page boundary, inside the sink page,
+    inactive). Garbage planted past each context; launches counted under
+    the mode's name."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    h, d, n_pages = 2, 128, 24
+    g = _gen(dev, 31)
+    suffix = "_kv8" if mode == "kv8" else "_pt"
+    pool = _codes_pool(dev, g, mode, 2, n_pages + 1, h, page, d)
+    lens = [5 * page + 9, 3 * page, 2 * page + 60, 0]
+    sel_logic = torch.tensor([
+        [[5, 0, 3, -1, 1], [5, 4, -1, 2, 0]],
+        [[2, 1, 0, -1, -1], [2, -1, 0, -1, -1]],
+        [[-1, -1, -1, -1, -1], [2, 1, 0, -1, -1]],
+        [[0, 1, -1, -1, -1], [0, -1, -1, -1, -1]],
+    ], dtype=torch.int32)
+    # logical page p of row r lives in physical page p + 6 r (no page is
+    # shared, so garbage past one row's context is no other row's token)
+    _plant_dead_garbage(pool, 1, page, lens, lambda s, p: p + 6 * s)
+    sel_phys = torch.where(
+        sel_logic >= 0, sel_logic + 6 * torch.arange(4)[:, None, None], 0,
+    ).to(torch.int32)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((4, h, n_rep, d), generator=g, device=dev).bfloat16()
+    args = (q, pool, 1, sel_phys.to(dev), sel_logic.to(dev), lens_t)
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    before = cuda.LAUNCHES["decode_attention_ph" + suffix]
+    got = da.paged_mqa_attention_single_pass_ph(*args, **kw)
+    assert cuda.LAUNCHES["decode_attention_ph" + suffix] == before + 1
+    want = da.page_list_attention_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[2, 0].abs().max()) == 0.0      # all-dead list
+    assert float(got[3].abs().max()) == 0.0         # inactive row
+    assert float(got[2, 1].abs().max()) > 0.0
+    assert torch.isfinite(got.float()).all()
+
+    # the ring's band: 1 sink + 2 ring pages per sequence
+    b = 4
+    slens = torch.tensor([5 * page + 37, 4 * page, 90, 0],
+                         dtype=torch.int32, device=dev)
+    spool = _codes_pool(dev, g, mode, 2, 3 * b + 1, h, page, d)
+    stables = torch.arange(3 * b, dtype=torch.int32, device=dev).view(b, 3)
+    _plant_dead_garbage(spool, 1, page, [0, 0, 90, 0],
+                        lambda s, p: int(stables[s, 0]))
+    sel_phys, sel_logic, span = da.streaming_page_lists(
+        stables, slens, 1, page, 2 * page)
+    q = torch.randn((b, h, n_rep, d), generator=g, device=dev).bfloat16()
+    kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=page,
+              band_local_tokens=2 * page, ring_span_pages=span,
+              ring_sink_tokens=page)
+    before = cuda.LAUNCHES["decode_attention_band" + suffix]
+    got = da.paged_mqa_attention_single_pass(q, spool, 1, sel_phys,
+                                             sel_logic, slens, **kw)
+    assert cuda.LAUNCHES["decode_attention_band" + suffix] == before + 1
+    want = da.page_list_attention_plain(q, spool, 1, sel_phys, sel_logic,
+                                        slens, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert float(got[3].abs().max()) == 0.0
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("page", [128, 256])
+@pytest.mark.parametrize("with_stats", [True, False])
+@pytest.mark.parametrize("mode", LIST_MODES)
+def test_kv_append_decode_kv_modes_kernel(dev, mode, with_stats, page):
+    """Row 10 over kv8 and per-tensor pools: three appends on the same
+    dirty pages, two tokens inactive; bytes, planes, stats and scales equal
+    the plain version's on every page but the trash page."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+    from omniserve_tpu_torch.ops.paged_kv import KVPool
+
+    heads, d, t, n_sub = 4, 128, 8, 4
+    g = _gen(dev, 32)
+    kv_bits, fine = PSP_MODES[mode]
+    base = _codes_pool(dev, g, mode, 2, 13, heads, page, d)
+    stats = (torch.randn((2, 13, heads, 2 * n_sub, d), generator=g,
+                         device=dev) if with_stats else None)
+    pool = base._replace(k_stats=stats)
+    twin = pool.clone()
+    name = "kv_append_decode" + ("_kv8" if mode == "kv8" else "_pt")
+    pages = torch.tensor([4, 9, -1, 0, 7, -1, 2, 10], dtype=torch.int32,
+                         device=dev)
+    for step, slot0 in enumerate((5, page // 2, page - 1)):
+        slots = ((slot0 + torch.arange(t) * 17) % page).to(torch.int32).to(dev)
+        k = torch.randn((t, heads, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((t, heads, d), generator=g, device=dev).bfloat16()
+        before = cuda.LAUNCHES[name]
+        ka.append_kv_decode(pool, step % 2, k, v, pages, slots, page,
+                            update_stats=with_stats, sub_chunks=n_sub)
+        assert cuda.LAUNCHES[name] == before + 1
+        ka.append_kv_decode_plain(twin, step % 2, k, v, pages, slots, page,
+                                  update_stats=with_stats, sub_chunks=n_sub,
+                                  kv_bits=kv_bits, kv_zeros=fine)
+    torch.cuda.synchronize()
+    assert isinstance(pool, KVPool)
+    assert_pools_equal(pool, twin, skip_trash=True)
+
+
+@pytest.mark.parametrize("page,n_rep", [(128, 1), (256, 2), (128, 4),
+                                        (256, 8)])
+@pytest.mark.parametrize("mode", LIST_MODES)
+def test_paged_prefill_ring_kv_modes_kernel(dev, mode, page, n_rep):
+    """Row 7's page list with the ring relabel and the band over kv8 and
+    per-tensor pools: two sequences wrapped several times, one padded
+    halfway, stale rows past the write head; launches counted under the
+    mode's ring name."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
+
+    lens, chunk, sink_b, local_b = [20 * page + 37, 15 * page + 50], 128, 1, 6
+    b, h, d = len(lens), 2, 128
+    n_slots = sink_b + local_b
+    g = _gen(dev, 33)
+    pool = _codes_pool(dev, g, mode, 1, b * n_slots + 1, h, page, d)
+    tables = torch.randperm(b * n_slots, generator=g, device=dev).view(
+        b, n_slots).to(torch.int32)
+    ctx = torch.tensor(lens, dtype=torch.int32)
+    q_pos = torch.stack([n - chunk + torch.arange(chunk, dtype=torch.int32)
+                         for n in lens])
+    q_pos[1] = lens[1] - chunk // 2 + torch.arange(chunk, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    sel = ring_logical_blocks(ctx, n_slots, sink_b, local_b, page)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    kv_bits, fine = PSP_MODES[mode]
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=fine, sel_logic=sel, ring_span_pages=local_b,
+              ring_sink_tokens=sink_b * page,
+              head_is_retrieval=torch.tensor(
+                  [True] * n_rep + [False] * n_rep, device=dev),
+              sink_size=page, local_size=3 * page)
+    name = "paged_prefill_ring" + ("_kv8" if mode == "kv8" else "_pt")
+    before = cuda.LAUNCHES[name]
+    got = pp.paged_prefill_attention(q, pool, 0, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = pp.paged_prefill_attention_plain(q, pool, 0, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["pt4", "pt8"])
+def test_list_kernels_read_per_tensor_scales_after_capture(dev, mode):
+    """Rows 5, 4 (band) and 10 captured in one CUDA graph over a per-tensor
+    pool, the layer's scales changed afterwards in place: the replay uses
+    the new scales (read on the device), equal to the plain versions run
+    with them."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    page, h, d, n_rep, b = 128, 2, 128, 4, 2
+    g = _gen(dev, 34)
+    pool = _codes_pool(dev, g, mode, 2, 9, h, page, d)
+    kv_bits = PSP_MODES[mode][0]
+    lens = torch.tensor([3 * page + 5, 2 * page], dtype=torch.int32,
+                        device=dev)
+    sel_logic = torch.tensor([[[3, 0, 1], [3, 2, -1]], [[1, 0, -1], [1, -1,
+                              0]]], dtype=torch.int32, device=dev)
+    sel_phys = torch.where(sel_logic >= 0, sel_logic + 4 * torch.arange(
+        b, device=dev)[:, None, None], 0).to(torch.int32)
+    q = torch.randn((b, h, n_rep, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    pages = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    slots = torch.tensor([5, 0], dtype=torch.int32, device=dev)
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    band_kw = dict(band_sink_tokens=page, band_local_tokens=page,
+                   ring_span_pages=0)
+    lists = (sel_phys[:, 0].contiguous(), sel_logic[:, 0].contiguous())
+    twin = pool.clone()
+    out = {}
+
+    def step():
+        ka.append_kv_decode(pool, 1, k, v, pages, slots, page)
+        out["ph"] = da.paged_mqa_attention_single_pass_ph(
+            q, pool, 1, sel_phys, sel_logic, lens, **kw)
+        out["band"] = da.paged_mqa_attention_single_pass(
+            q, pool, 1, *lists, lens, **kw, **band_kw)
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    qmax = 7 if kv_bits == 4 else 127
+    for p in (pool, twin):
+        p.k_scale_per_tensor.copy_(torch.tensor([2.0, 2.6], device=dev)
+                                   / qmax)
+        p.v_scale_per_tensor.copy_(torch.tensor([1.5, 2.2], device=dev)
+                                   / qmax)
+    graph.replay()
+    torch.cuda.synchronize()
+    ka.append_kv_decode_plain(twin, 1, k, v, pages, slots, page,
+                              kv_bits=kv_bits, kv_zeros=False)
+    assert_pools_equal(pool, twin)
+    want_ph = da.page_list_attention_plain(q, twin, 1, sel_phys, sel_logic,
+                                           lens, **kw)
+    want_band = da.page_list_attention_plain(q, twin, 1, *lists, lens, **kw,
+                                             **band_kw)
+    torch.testing.assert_close(out["ph"].float(), want_ph.float(),
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(out["band"].float(), want_band.float(),
+                               rtol=5e-2, atol=5e-2)
+
+
 def test_sparse_decode_window_graphs_match_eager(dev):
     """Ten window steps under sparse decode (refresh steps and reuse steps,
     a page boundary): the two replayed graphs give the eager loop's tokens,
     pool bytes, K stats and selection."""
+    _sparse_window_case(dev, 4, True)
+
+
+@pytest.mark.parametrize("mode", ["kv8", "pt4", "pt8"])
+def test_sparse_decode_window_kv_modes_graph_matches_eager(dev, mode):
+    """The same over kv8 and per-tensor pools; per-tensor scales are loaded
+    into both pools AFTER the graphs are captured, so the replayed steps
+    must read them on the device."""
+    kv_bits, fine = PSP_MODES[mode]
+    _sparse_window_case(dev, kv_bits, fine)
+
+
+def _sparse_window_case(dev, kv_bits, kv_zeros):
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda.decode_attention import list_mode
     from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
     from omniserve_tpu_torch.worker.decode_window import DecodeWindow
 
@@ -572,7 +826,7 @@ def test_sparse_decode_window_graphs_match_eager(dev):
         num_kv_heads=4, head_dim=128, vocab=1024, page_size=page,
         lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=2,
         dec_sink_tokens=128, dec_local_tokens=256, budget_pages=3,
-        selector_interval=4)
+        selector_interval=4, kv_bits=kv_bits, kv_zeros=kv_zeros)
     flags = np.array([[True, True, False, False]] * 2)
     params = llama.make_random_packed_params(spec, seed=3, device=dev,
                                              retrieval_flags=flags)
@@ -581,9 +835,21 @@ def test_sparse_decode_window_graphs_match_eager(dev):
     tables[:3] = np.arange(3 * w).reshape(3, w)
     stables = np.zeros((b_pad, 3), np.int32)
     stables[:3] = np.arange(9).reshape(3, 3)
-    rpool = make_kv_pool(2, 3 * w + 1, 2, page, 128, with_stats=True,
-                         device=dev)
-    spool = make_kv_pool(2, 10, 2, page, 128, device=dev)
+    kv = dict(kv_bits=kv_bits, kv_zeros=kv_zeros, device=dev)
+    rpool = make_kv_pool(2, 3 * w + 1, 2, page, 128, with_stats=True, **kv)
+    spool = make_kv_pool(2, 10, 2, page, 128, **kv)
+    suffix = list_mode(rpool, page)[2]
+    qmax = 7 if kv_bits == 4 else 127
+    scales = (torch.tensor([0.9, 1.1], device=dev) / qmax,
+              torch.tensor([1.0, 0.8], device=dev) / qmax)
+
+    def load_scales(*pools):
+        for pool in pools:
+            if pool.k_scale_per_tensor is not None:
+                pool.k_scale_per_tensor.copy_(scales[0])
+                pool.v_scale_per_tensor.copy_(scales[1])
+
+    load_scales(rpool, spool)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, spec.vocab, n) for n in lens]
 
@@ -614,18 +880,23 @@ def test_sparse_decode_window_graphs_match_eager(dev):
         for mode, (rp, sp) in pools.items():
             sel = torch.full((2, b_pad, 4, 3), -1, dtype=torch.int32,
                              device=dev)
+            for pool in (rp, sp):       # captured at other (unit) scales
+                if pool.k_scale_per_tensor is not None:
+                    pool.k_scale_per_tensor.fill_(1.0)
+                    pool.v_scale_per_tensor.fill_(1.0)
             win = DecodeWindow(params, rp, spec, b_pad, w, dev,
                                use_graph=mode == "graph", streaming_pool=sp,
                                page_idxes=sel)
             assert len(win.graphs) == (2 if mode == "graph" else 0)
             assert int(sel.max()) == -1            # capture left it alone
+            load_scales(rp, sp)
             win.load(first, positions, active, tables, stables)
             before = dict(cuda.LAUNCHES)
             toks[mode] = win.run(10, refresh_first=True).cpu().numpy()
             assert win.refreshes_in(10, True) == 3
-            for name, per_step in (("kv_append_decode", 2),
-                                   ("decode_attention_ph", 1),
-                                   ("decode_attention_band", 1)):
+            for name, per_step in (("kv_append_decode" + suffix, 2),
+                                   ("decode_attention_ph" + suffix, 1),
+                                   ("decode_attention_band" + suffix, 1)):
                 assert (cuda.LAUNCHES[name] - before[name]
                         == 10 * spec.num_layers * per_step), name
             sels[mode] = sel.cpu().numpy()

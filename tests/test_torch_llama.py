@@ -221,8 +221,21 @@ def test_random_packed_params_shapes():
 def test_forward_raises_outside_slice(extra):
     """The precision matrix serves, kv16 and per-tensor KV included
     (``tests/test_torch_precision.py``, ``tests/test_torch_kv16_pertensor.
-    py``); kv16, per-tensor KV and kv8 under LServe's modes and the QKV
+    py``), and so do kv8 and per-tensor KV under LServe's modes: those
+    cases run a prefill and two decode steps equal to the JAX forward's
+    (``tests/test_torch_lserve_llama.check_sparse_forward``: logits 1e-4
+    of their scale, pools equal). kv16 under LServe's modes and the QKV
     bias raise naming ROADMAP.md queue 1 item 8b."""
-    spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), **extra))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        spec.check_supported()
+    if extra.get("kv_bits") == 16 or extra.get("attn_bias"):
+        spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), **extra))
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            spec.check_supported()
+        return
+    from tests.test_torch_lserve_llama import PAGE as LPAGE
+    from tests.test_torch_lserve_llama import check_sparse_forward
+
+    overrides = dict(extra)
+    if overrides.get("sparse_prefill"):      # a band the prompts exceed
+        overrides.update(ctx_sink=LPAGE, ctx_local=2 * LPAGE)
+    overrides.setdefault("sparse_decode", False)
+    check_sparse_forward(overrides, n_steps=2)

@@ -13,6 +13,7 @@ way).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from omniserve_tpu.models import llama as j_llama
@@ -37,9 +38,13 @@ def spec_kwargs():
     )
 
 
+FIELDS = ("k_data", "v_data", "kv_scales", "k_stats", "k_scale_per_tensor",
+          "v_scale_per_tensor")
+
+
 class _NumpyPool:
     def __init__(self, jpool):
-        for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+        for name in FIELDS:
             a = getattr(jpool, name)
             setattr(self, name, None if a is None else np.array(a))
 
@@ -47,13 +52,16 @@ class _NumpyPool:
 def assert_pools_equal(tpool, jpool, what):
     """Every page but the trash page (the top one): the JAX scatters drop a
     -1 page id, the port sends its stats reset to the trash page."""
-    for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+    for name in FIELDS:
         want = getattr(jpool, name)
         if want is None:
             assert getattr(tpool, name) is None
             continue
+        keep = slice(None) if want.ndim == 1 else slice(None, -1)
         np.testing.assert_array_equal(
-            getattr(tpool, name).numpy()[:, :-1], np.asarray(want)[:, :-1],
+            getattr(tpool, name).numpy()[:, keep] if want.ndim > 1 else
+            getattr(tpool, name).numpy(), np.asarray(want)[:, keep]
+            if want.ndim > 1 else np.asarray(want),
             err_msg=f"{what}: {name}")
 
 
@@ -63,14 +71,31 @@ def assert_logits_close(got, want):
 
 
 def test_sparse_prefill_then_decode_matches_jax():
-    j_spec = j_llama.LlamaSpec(**spec_kwargs())
-    t_spec = t_llama.LlamaSpec(**spec_kwargs())
+    crossed, refreshed = check_sparse_forward()
+    assert crossed == 1 and refreshed == 2
+
+
+def check_sparse_forward(overrides=None, n_steps=6):
+    """A whole-prompt prefill, then ``n_steps`` decode steps of both
+    forwards (``spec_kwargs`` with ``overrides``: other KV modes, sparse
+    prefill, no sparse decode) from the same weights and dirty pools:
+    logits at 1e-4 of their scale, pools equal, selections equal as sets.
+    Per-tensor pools carry the same calibrated-range scales in both
+    pools. Returns (decode steps that began a page, selector
+    refreshes)."""
+    kw = dict(spec_kwargs(), **(overrides or {}))
+    j_spec = j_llama.LlamaSpec(**kw)
+    t_spec = t_llama.LlamaSpec(**kw)
     t_spec.check_supported()
+    sparse = t_spec.sparse_decode
+    # without sparse decode every kv head is a retrieval head, as the
+    # engines build it (no streaming pool)
+    flags = FLAGS if sparse else np.ones_like(FLAGS)
     jparams = j_llama.make_random_packed_params(
-        j_spec, seed=11, retrieval_flags=FLAGS)
+        j_spec, seed=11, retrieval_flags=flags)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     assert tparams["attn_meta"]["retrieval_flags"].dtype == torch.bool
-    tmeta = t_llama.make_attn_meta(t_spec, FLAGS, device="cpu")
+    tmeta = t_llama.make_attn_meta(t_spec, flags, device="cpu")
     for key in ("retrieval_flags", "head_rank"):
         np.testing.assert_array_equal(tmeta[key].numpy(),
                                       np.asarray(jparams["attn_meta"][key]))
@@ -91,18 +116,30 @@ def test_sparse_prefill_then_decode_matches_jax():
     new_pages = np.array([4, 1, 7, 9, 3, 3, 0, 5, 2, 8, 1, 4, 2], np.int32)
 
     # dirty pools (recycled pages): random bytes, planes and stats
-    jr = j_make_kv_pool(N_LAYERS, 11, 1, PAGE, 16, with_stats=True)
-    js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, 16)
-    jr = jr._replace(
-        k_data=jnp.asarray(rng.integers(0, 256, jr.k_data.shape,
-                                        dtype=np.uint8)),
-        kv_scales=jnp.asarray(rng.uniform(0.1, 1, jr.kv_scales.shape)
-                              .astype(np.float32)),
-        k_stats=jnp.asarray(rng.normal(size=jr.k_stats.shape)
-                            .astype(np.float32) * 50))
+    kv_bits, kv_zeros = t_spec.kv_bits, t_spec.kv_zeros
+    pt = {}
+    if not kv_zeros:   # K/V of this model stay within ~1.5
+        qmax = 7 if kv_bits == 4 else 127
+        pt = dict(k_scale_per_tensor=jnp.asarray([1.5 / qmax, 1.7 / qmax],
+                                                 jnp.float32),
+                  v_scale_per_tensor=jnp.asarray([1.4 / qmax, 1.6 / qmax],
+                                                 jnp.float32))
+    heads = 1 if sparse else HKV
+    jr = j_make_kv_pool(N_LAYERS, 11, heads, PAGE, 16, kv_bits=kv_bits,
+                        kv_zeros=kv_zeros, with_stats=sparse, **pt)
+    js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, 16, kv_bits=kv_bits,
+                        kv_zeros=kv_zeros, **pt) if sparse else None
+    jr = jr._replace(k_data=jnp.asarray(rng.integers(
+        0, 256, jr.k_data.shape, dtype=np.uint8)))
+    if kv_zeros:
+        jr = jr._replace(kv_scales=jnp.asarray(rng.uniform(
+            0.1, 1, jr.kv_scales.shape).astype(np.float32)))
+    if sparse:
+        jr = jr._replace(k_stats=jnp.asarray(rng.normal(
+            size=jr.k_stats.shape).astype(np.float32) * 50))
     tr = pool_from_numpy(_NumpyPool(jr), "cpu")
-    ts = pool_from_numpy(_NumpyPool(js), "cpu")
-    assert tr.k_stats is not None and ts.k_stats is None
+    ts = pool_from_numpy(_NumpyPool(js), "cpu") if sparse else None
+    assert (tr.k_stats is not None) == sparse
 
     j_batch = j_llama.PrefillBatch(
         token_ids=jnp.asarray(tokens), positions=jnp.asarray(pos),
@@ -118,7 +155,7 @@ def test_sparse_prefill_then_decode_matches_jax():
         block_tables=torch.from_numpy(tables),
         last_token_idx=torch.from_numpy(last),
         seq_lens=torch.tensor(lens, dtype=torch.int32),
-        streaming_block_tables=torch.from_numpy(stables),
+        streaming_block_tables=torch.from_numpy(stables) if sparse else None,
         new_page_ids=torch.from_numpy(new_pages),
     )
     with jax.disable_jit():
@@ -129,7 +166,8 @@ def test_sparse_prefill_then_decode_matches_jax():
     assert sel is None
     assert_logits_close(t_logits.numpy(), np.asarray(j_logits))
     assert_pools_equal(tr, jr, "prefill retrieval")
-    assert_pools_equal(ts, js, "prefill streaming")
+    if sparse:
+        assert_pools_equal(ts, js, "prefill streaming")
 
     # six decode steps, rows (seq 0, seq 1, inactive)
     nxt = np.append(np.asarray(j_logits).argmax(-1), 0).astype(np.int32)
@@ -140,7 +178,7 @@ def test_sparse_prefill_then_decode_matches_jax():
     j_cache = jnp.full((N_LAYERS, 3, HKV, BUDGET), -1, jnp.int32)
     t_cache = torch.full((N_LAYERS, 3, HKV, BUDGET), -1, dtype=torch.int32)
     crossed = refreshed = 0
-    for step in range(6):
+    for step in range(n_steps):
         refresh = step % INTERVAL == 0
         fresh = [int(dtables[i, dpos[i] // PAGE]) for i in range(2)
                  if dpos[i] % PAGE == 0]
@@ -160,7 +198,8 @@ def test_sparse_prefill_then_decode_matches_jax():
             positions=torch.from_numpy(dpos.copy()),
             block_tables=torch.from_numpy(dtables),
             active=torch.from_numpy(active),
-            streaming_block_tables=torch.from_numpy(dstables),
+            streaming_block_tables=(torch.from_numpy(dstables) if sparse
+                                    else None),
             new_page_ids=torch.from_numpy(npg),
             refresh_selection=refresh, cached_page_idxes=t_cache,
         )
@@ -171,6 +210,11 @@ def test_sparse_prefill_then_decode_matches_jax():
             tparams, tr, ts, t_dec, t_spec, is_prefill=False)
         assert_logits_close(t_logits.numpy()[:2], np.asarray(j_logits)[:2])
         assert_pools_equal(tr, jr, f"decode step {step} retrieval")
+        nxt = np.append(np.asarray(j_logits)[:2].argmax(-1), 0).astype(
+            np.int32)
+        dpos = dpos + np.array([1, 1, 0], np.int32)
+        if not sparse:
+            continue
         assert_pools_equal(ts, js, f"decode step {step} streaming")
         jsel, tsel = np.asarray(j_cache), t_cache.numpy()
         assert tsel.shape == jsel.shape
@@ -178,11 +222,23 @@ def test_sparse_prefill_then_decode_matches_jax():
             assert set(tsel[idx]) == set(jsel[idx]), (step, idx)
         # seq 0 has 5-6 pages against a budget of 3: pages are dropped, and
         # the retrieval head's first pick is the newest page
-        newest = dpos[0] // PAGE
         if refresh:
-            assert tsel[0, 0, 0, 0] == newest
+            assert tsel[0, 0, 0, 0] == (dpos[0] - 1) // PAGE
             assert len(set(tsel[0, 0, 0])) == BUDGET
-        nxt = np.append(np.asarray(j_logits)[:2].argmax(-1), 0).astype(
-            np.int32)
-        dpos = dpos + np.array([1, 1, 0], np.int32)
-    assert crossed == 1 and refreshed == 2
+    return crossed, refreshed
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(kv_bits=8),
+    dict(kv_bits=8, kv_zeros=False, sparse_prefill=True, ctx_sink=PAGE,
+         ctx_local=2 * PAGE),
+    dict(kv_zeros=False),
+], ids=["w4a8kv8", "w4a8kv8-pt-both-flags", "w4a8kv4-pt"])
+def test_sparse_forward_kv_modes_match_jax(overrides):
+    """LServe's sparse decode (and, for per-tensor kv8, sparse prefill's
+    band too) over kv8 and per-tensor pools: four decode steps, one
+    refresh, a page boundary crossed. The W8A8 body of the reference's
+    LServe precision is held in ``tests/test_torch_llama.py`` and in the
+    engine (``tests/test_torch_lserve_prefill.py``)."""
+    crossed, refreshed = check_sparse_forward(overrides, n_steps=4)
+    assert crossed == 1 and refreshed == 1

@@ -8,7 +8,8 @@ the page selector (scores 1e-5; selections as page SETS, because the JAX
 decode attention over the retrieval pool's selected pages and the
 streaming pool's sink + local band (1e-4 against the JAX reference in
 f32; 5e-2 against the Pallas per-head kernel in interpret mode, which
-quantizes q and p to int8).
+quantizes q and p to int8). The append and the dual-pool decode also run
+over kv8 and per-tensor (kv4 / kv8) pools, LServe's other KV modes.
 """
 
 import jax.numpy as jnp
@@ -28,6 +29,11 @@ from omniserve_tpu_torch.ops.cuda import decode_attention as t_dec
 
 PAGE, D, SUB = 128, 128, 4
 L = 2
+FIELDS = ("k_data", "v_data", "kv_scales", "k_stats", "k_scale_per_tensor",
+          "v_scale_per_tensor")
+# LServe's KV modes: label -> (kv_bits, kv_zeros)
+KV_MODES = {"kv4": (4, True), "kv8": (8, True), "kv4-pt": (4, False),
+            "kv8-pt": (8, False)}
 
 
 def to_torch_pool(jpool):
@@ -35,38 +41,54 @@ def to_torch_pool(jpool):
         pass
 
     p = _P()
-    for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+    for name in FIELDS:
         a = getattr(jpool, name)
         setattr(p, name, None if a is None else np.asarray(a))
     return pool_from_numpy(p, "cpu")
 
 
 def assert_pools_equal(tpool, jpool, skip_pages=()):
-    for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+    for name in FIELDS:
         want = getattr(jpool, name)
         got = getattr(tpool, name)
         if want is None:
             assert got is None
+            continue
+        if want.ndim == 1:              # per-tensor scales [L]
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
             continue
         keep = [p for p in range(want.shape[1]) if p not in skip_pages]
         np.testing.assert_array_equal(got.numpy()[:, keep],
                                       np.asarray(want)[:, keep], err_msg=name)
 
 
-def fresh_pools(n_pages, heads, with_stats, seed=0):
+def pt_scales(rng, kv_bits):
+    """Per-layer K and V scales that span the codes of N(0, 1) values."""
+    qmax = 7 if kv_bits == 4 else 127
+    return tuple(jnp.asarray(rng.uniform(2.5, 3.5, L).astype(np.float32)
+                             / qmax) for _ in range(2))
+
+
+def fresh_pools(n_pages, heads, with_stats, seed=0, kv_bits=4,
+                kv_zeros=True):
     """A JAX pool and its port twin with the same random (dirty) content."""
     rng = np.random.default_rng(seed)
-    jpool = j_kv.make_kv_pool(L, n_pages, heads, PAGE, D, kv_bits=4,
-                              kv_zeros=True, with_stats=with_stats,
-                              sub_chunks=SUB)
+    k_pt = v_pt = None
+    if not kv_zeros:
+        k_pt, v_pt = pt_scales(rng, kv_bits)
+    jpool = j_kv.make_kv_pool(L, n_pages, heads, PAGE, D, kv_bits=kv_bits,
+                              kv_zeros=kv_zeros, with_stats=with_stats,
+                              sub_chunks=SUB, k_scale_per_tensor=k_pt,
+                              v_scale_per_tensor=v_pt)
     jpool = jpool._replace(
         k_data=jnp.asarray(rng.integers(0, 256, jpool.k_data.shape,
                                         dtype=np.uint8)),
         v_data=jnp.asarray(rng.integers(0, 256, jpool.v_data.shape,
                                         dtype=np.uint8)),
-        kv_scales=jnp.asarray(rng.uniform(
-            0.01, 1.0, jpool.kv_scales.shape).astype(np.float32)),
     )
+    if kv_zeros:
+        jpool = jpool._replace(kv_scales=jnp.asarray(rng.uniform(
+            0.01, 1.0, jpool.kv_scales.shape).astype(np.float32)))
     if with_stats:
         jpool = jpool._replace(k_stats=jnp.asarray(
             rng.normal(size=jpool.k_stats.shape).astype(np.float32)))
@@ -120,9 +142,24 @@ def test_ring_maps_match_jax(sink_b, local_b):
 def test_append_kv_decode_plain_matches_jax(with_stats):
     """Eight tokens to distinct pages (two inactive), three steps on the
     same pages: pool bytes, planes and stats equal the JAX CPU path's."""
+    check_append_matches_jax(with_stats, "kv4")
+
+
+@pytest.mark.parametrize("mode", ["kv8", "kv4-pt", "kv8-pt"])
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_append_kv_decode_kv_modes_match_jax(with_stats, mode):
+    """The same over kv8 and per-tensor pools (LServe's other KV modes):
+    pool bytes, planes (kv8), per-tensor scales and stats equal the JAX
+    CPU path's (``append_kv``, then ``update_k_stats``)."""
+    check_append_matches_jax(with_stats, mode)
+
+
+def check_append_matches_jax(with_stats, mode):
     rng = np.random.default_rng(2)
     heads = 2
-    jpool, tpool = fresh_pools(12, heads, with_stats=with_stats, seed=3)
+    kv_bits, kv_zeros = KV_MODES[mode]
+    jpool, tpool = fresh_pools(12, heads, with_stats=with_stats, seed=3,
+                               kv_bits=kv_bits, kv_zeros=kv_zeros)
     pages = np.array([4, 9, -1, 0, 7, -1, 2, 10], np.int32)
     for step, slot0 in enumerate((5, 63, 64)):
         slots = ((slot0 + np.arange(8) * 17) % PAGE).astype(np.int32)
@@ -134,12 +171,12 @@ def test_append_kv_decode_plain_matches_jax(with_stats):
         layer = step % L
         jpool = j_dispatch.append_kv_decode(
             jpool, layer, jnp.asarray(k), jnp.asarray(v), jnp.asarray(pages),
-            jnp.asarray(slots), PAGE, 4, True, update_stats=with_stats,
-            sub_chunks=SUB)
+            jnp.asarray(slots), PAGE, kv_bits, kv_zeros,
+            update_stats=with_stats, sub_chunks=SUB)
         out = t_dispatch.append_kv_decode(
             tpool, layer, torch.from_numpy(k), torch.from_numpy(v),
-            torch.from_numpy(pages), torch.from_numpy(slots), PAGE, 4, True,
-            update_stats=with_stats, sub_chunks=SUB)
+            torch.from_numpy(pages), torch.from_numpy(slots), PAGE, kv_bits,
+            kv_zeros, update_stats=with_stats, sub_chunks=SUB)
         assert out is tpool                      # in place
     assert_pools_equal(tpool, jpool)
 
@@ -161,18 +198,24 @@ def ring_slot(blk):
     return np.where(blk < SINK_B, blk, SINK_B + (blk - SINK_B) % LOCAL_B)
 
 
-@pytest.fixture(scope="module")
-def dual_pools():
+def build_dual_pools(kv_bits=4, kv_zeros=True):
     """Both pools filled as a whole-prompt prefill fills them (streaming
-    writes that the ring would overwrite are dropped)."""
+    writes that the ring would overwrite are dropped); per-tensor pools
+    carry the same per-layer scales, as ``CacheEngine.load_kv_scales``
+    gives both."""
     rng = np.random.default_rng(5)
     b, w = len(LENS), 6
     tables = rng.permutation(b * w).astype(np.int32).reshape(b, w)
     stables = rng.permutation(b * 3).astype(np.int32).reshape(b, 3)
-    jr = j_kv.make_kv_pool(L, b * w + 1, 2, PAGE, D, kv_bits=4,
-                           kv_zeros=True, with_stats=True, sub_chunks=SUB)
-    js = j_kv.make_kv_pool(L, b * 3 + 1, 2, PAGE, D, kv_bits=4,
-                           kv_zeros=True)
+    pt = {}
+    if not kv_zeros:
+        pt = dict(zip(("k_scale_per_tensor", "v_scale_per_tensor"),
+                      pt_scales(np.random.default_rng(6), kv_bits)))
+    jr = j_kv.make_kv_pool(L, b * w + 1, 2, PAGE, D, kv_bits=kv_bits,
+                           kv_zeros=kv_zeros, with_stats=True,
+                           sub_chunks=SUB, **pt)
+    js = j_kv.make_kv_pool(L, b * 3 + 1, 2, PAGE, D, kv_bits=kv_bits,
+                           kv_zeros=kv_zeros, **pt)
     jr = j_kv.reset_page_stats_all_layers(jr, jnp.asarray(tables.reshape(-1)))
     for i, n in enumerate(LENS):
         if n == 0:
@@ -189,16 +232,22 @@ def dual_pools():
             kk = jnp.asarray(k * (1 + layer))
             jr = j_kv.append_kv(jr, layer, kk[:, FLAGS], jnp.asarray(
                 v[:, FLAGS]), jnp.asarray(pages_r), jnp.asarray(slots),
-                PAGE, 4, True)
+                PAGE, kv_bits, kv_zeros)
             jr = j_kv.update_k_stats(jr, layer, kk[:, FLAGS],
                                      jnp.asarray(pages_r),
                                      jnp.asarray(slots), PAGE, SUB)
             js = j_kv.append_kv(js, layer, kk[:, ~FLAGS], jnp.asarray(
                 v[:, ~FLAGS]), jnp.asarray(pages_s.astype(np.int32)),
-                jnp.asarray(slots), PAGE, 4, True)
+                jnp.asarray(slots), PAGE, kv_bits, kv_zeros)
     q = rng.normal(size=(b, 4 * N_REP, D)).astype(np.float32)
     return dict(jr=jr, js=js, tr=to_torch_pool(jr), ts=to_torch_pool(js),
-                tables=tables, stables=stables, q=q)
+                tables=tables, stables=stables, q=q, kv_bits=kv_bits,
+                kv_zeros=kv_zeros)
+
+
+@pytest.fixture(scope="module")
+def dual_pools():
+    return build_dual_pools()
 
 
 def selections(dp, layer, budget):
@@ -336,3 +385,51 @@ def test_selected_pages_match_pallas_ph_kernel_interpret(dual_pools):
         torch.from_numpy(dp["tables"]), torch.tensor([0, 2]))
     np.testing.assert_array_equal(t_logic.numpy(), sel)
     np.testing.assert_array_equal(t_phys.numpy(), sel_phys)
+
+
+@pytest.mark.parametrize("mode", ["kv8", "kv4-pt", "kv8-pt"])
+def test_dual_pool_decode_kv_modes_match_jax(mode):
+    """LServe's sparse decode over kv8 and per-tensor pools: the dual-pool
+    attention (3 selected pages a retrieval head, the ring's band of 128
+    sink + 256 local tokens) of the port's plain version and of its
+    page-list composition against the JAX reference (1e-4, both f32 over
+    the same codes), and the per-head list plain version against the
+    Pallas ``_ph`` kernel in interpret mode with the pool's per-tensor
+    scales (5e-2, as above)."""
+    dp = build_dual_pools(*KV_MODES[mode])
+    kv_bits, kv_zeros = dp["kv_bits"], dp["kv_zeros"]
+    sm, layer, budget, dec = D ** -0.5, 1, 3, (PAGE, 2 * PAGE)
+    sel = np.asarray(selections(dp, layer, budget)[2])
+    want = np.asarray(j_ref.paged_decode_attention(
+        jnp.asarray(dp["q"]), dp["jr"], layer, jnp.asarray(dp["tables"]),
+        jnp.asarray(LENS), sm, PAGE, kv_bits, kv_zeros,
+        **decode_kwargs(dp, "jax", sel, dec=dec)))
+    targs = (torch.from_numpy(dp["q"]), dp["tr"], layer,
+             torch.from_numpy(dp["tables"]), torch.from_numpy(LENS), sm, PAGE)
+    got = t_dispatch.paged_decode_attention(
+        *targs, kv_bits, kv_zeros, **decode_kwargs(dp, "torch", sel, dec=dec))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    lists = t_dec.paged_decode_attention(
+        *targs, **decode_kwargs(dp, "torch", sel, dec=dec))
+    np.testing.assert_allclose(lists.numpy(), want, rtol=0, atol=1e-4)
+    assert np.abs(want[:3]).max() > 1e-2 and not want[3].any()
+
+    sel_r = sel[:, FLAGS]
+    b = len(LENS)
+    safe = np.clip(sel_r, 0, dp["tables"].shape[1] - 1)
+    sel_phys = np.take_along_axis(
+        np.repeat(dp["tables"][:, None, :], 2, 1), safe, axis=2)
+    sel_phys = np.where(sel_r >= 0, sel_phys, 0).astype(np.int32)
+    q_r = np.ascontiguousarray(dp["q"].reshape(b, 4, N_REP, D)[:, FLAGS])
+    jr = dp["jr"]
+    pt = (None if kv_zeros else (jr.k_scale_per_tensor[layer],
+                                 jr.v_scale_per_tensor[layer]))
+    want_ph = np.asarray(j_sp.paged_mqa_attention_single_pass_ph(
+        jnp.asarray(q_r), jr, layer, jnp.asarray(sel_phys),
+        jnp.asarray(sel_r), jnp.asarray(LENS), sm_scale=sm, page_size=PAGE,
+        kv_zeros=kv_zeros, pt_scales=pt, interpret=True))
+    got_ph = t_dec.page_list_attention_plain(
+        torch.from_numpy(q_r), dp["tr"], layer, torch.from_numpy(sel_phys),
+        torch.from_numpy(sel_r), torch.from_numpy(LENS), sm_scale=sm,
+        page_size=PAGE)
+    np.testing.assert_allclose(got_ph.numpy(), want_ph, rtol=5e-2, atol=5e-2)

@@ -42,6 +42,8 @@ from omniserve_tpu_torch.ops import attention_ref as t_ref
 from omniserve_tpu_torch.ops import dispatch as t_dispatch
 from omniserve_tpu_torch.ops import paged_kv as t_kv
 from omniserve_tpu_torch.ops.cuda import paged_prefill as t_pp
+from tests.test_torch_precision_engine import TrustedPrefix
+from tests.test_torch_precision_engine import serve as precision_serve
 
 D = 128
 EXACT = 1e-5          # f32 plain versions against the JAX reference
@@ -54,7 +56,8 @@ def T(a):
 
 class _NumpyPool:
     def __init__(self, jpool):
-        for name in ("k_data", "v_data", "kv_scales", "k_stats"):
+        for name in ("k_data", "v_data", "kv_scales", "k_stats",
+                     "k_scale_per_tensor", "v_scale_per_tensor"):
             a = getattr(jpool, name)
             setattr(self, name, None if a is None else np.array(a))
 
@@ -123,11 +126,17 @@ def ring_slot(b):
     return b if b < SINK_B else SINK_B + (b - SINK_B) % LOCAL_B
 
 
-def fill_ring(length, h, rng):
-    """A kv4 ring pool (one layer) with ``length`` tokens appended through
-    the ring mapping, in both frameworks."""
-    jpool = j_kv.make_kv_pool(1, N_SLOTS + 1, h, PAGE, D, kv_bits=4,
-                              kv_zeros=True)
+def fill_ring(length, h, rng, kv_bits=4, kv_zeros=True):
+    """A kv4 / kv8 ring pool (one layer; per-tensor with scales that span
+    the codes of these values) with ``length`` tokens appended through the
+    ring mapping, in both frameworks."""
+    pt = {}
+    if not kv_zeros:
+        qmax = 7 if kv_bits == 4 else 127
+        pt = dict(k_scale_per_tensor=jnp.asarray([1.6 / qmax], jnp.float32),
+                  v_scale_per_tensor=jnp.asarray([1.4 / qmax], jnp.float32))
+    jpool = j_kv.make_kv_pool(1, N_SLOTS + 1, h, PAGE, D, kv_bits=kv_bits,
+                              kv_zeros=kv_zeros, **pt)
     k = rng.normal(size=(length, h, D)).astype(np.float32) * 0.5
     v = rng.normal(size=(length, h, D)).astype(np.float32) * 0.5
     pos = np.arange(length)
@@ -135,7 +144,7 @@ def fill_ring(length, h, rng):
     table = np.arange(N_SLOTS, dtype=np.int32)
     jpool = j_kv.append_kv(jpool, 0, jnp.asarray(k), jnp.asarray(v),
                            jnp.asarray(table[slots]),
-                           jnp.asarray(pos % PAGE), PAGE, 4, True)
+                           jnp.asarray(pos % PAGE), PAGE, kv_bits, kv_zeros)
     return jpool, to_torch_pool(jpool), table[None]
 
 
@@ -146,9 +155,23 @@ def test_ring_prefill_matches_jax_and_pallas(length):
     head at 61), one streaming kv head, n_rep 2: the port's plain version
     with the position map, its dispatch with the ring arguments, the JAX
     reference and dispatch, and the Pallas kernel in interpret mode."""
+    check_ring_prefill(length, 4, True)
+
+
+@pytest.mark.parametrize("length,kv_bits,kv_zeros", [
+    (61, 8, True), (90, 8, False), (61, 4, False)])
+def test_ring_prefill_kv_modes_match_jax_and_pallas(length, kv_bits,
+                                                    kv_zeros):
+    """The same over kv8 and per-tensor ring pools (LServe's other KV
+    modes), the Pallas kernel in interpret mode at 2e-2
+    (``tests/test_paged_prefill.py``'s tolerance)."""
+    check_ring_prefill(length, kv_bits, kv_zeros, pallas_tol=2e-2)
+
+
+def check_ring_prefill(length, kv_bits, kv_zeros, pallas_tol=3e-2):
     rng = np.random.default_rng(length)
     h, n_rep, tq = 1, 2, 8
-    jpool, tpool, table = fill_ring(length, h, rng)
+    jpool, tpool, table = fill_ring(length, h, rng, kv_bits, kv_zeros)
     q = rng.normal(size=(1, tq, h * n_rep, D)).astype(np.float32)
     q_pos = np.arange(length - tq, length, dtype=np.int32)[None]
     ctx = np.array([length], np.int32)
@@ -157,8 +180,10 @@ def test_ring_prefill_matches_jax_and_pallas(length):
     ring = dict(ring_span_pages=LOCAL_B, ring_sink_tokens=SINK_B * PAGE)
     flags = np.zeros(h * n_rep, bool)
     jargs = (jnp.asarray(q), jpool, 0, jnp.asarray(table),
-             jnp.asarray(q_pos), jnp.asarray(ctx), sm, PAGE, 4, True)
-    targs = (T(q), tpool, 0, T(table), T(q_pos), T(ctx), sm, PAGE, 4, True)
+             jnp.asarray(q_pos), jnp.asarray(ctx), sm, PAGE, kv_bits,
+             kv_zeros)
+    targs = (T(q), tpool, 0, T(table), T(q_pos), T(ctx), sm, PAGE, kv_bits,
+             kv_zeros)
 
     j_sel = j_kv.ring_logical_blocks(jnp.asarray(ctx), N_SLOTS, SINK_B,
                                      LOCAL_B, PAGE)
@@ -190,7 +215,8 @@ def test_ring_prefill_matches_jax_and_pallas(length):
     pallas = np.asarray(j_pp.paged_prefill_attention(
         *jargs, head_is_retrieval=jnp.asarray(flags), sel_logic=j_sel,
         interpret=True, **band, **ring), np.float32)
-    np.testing.assert_allclose(t_via.numpy(), pallas, atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(t_via.numpy(), pallas, atol=pallas_tol,
+                               rtol=pallas_tol)
 
 
 def test_ring_positions_match_brute_force():
@@ -537,3 +563,57 @@ def test_sparse_context_alone_engine_matches_jax(tiny_model_dir, monkeypatch,
     assert bool(runner.params["attn_meta"]["retrieval_flags"].all())
     assert prefills and not any(s for _, s in prefills)
     assert all(c for c, _ in prefills) == (chunk == 96)
+
+
+# per-layer K and V scales [L] (max |x| / 127) of the tiny W8A8 model's
+# K and V on these requests, read from a w8a8kv16 twin
+W8A8_KV8_SCALES = ([0.0092, 0.0101], [0.0083, 0.0089])
+
+
+@pytest.mark.parametrize("precision,granularity,kv_scales", [
+    ("w8a8kv8", "per_tensor", W8A8_KV8_SCALES),
+    ("w4a8kv8", "fine_grained", None),
+])
+def test_sparse_engine_kv_modes_match_jax(tiny_model_dir, monkeypatch,
+                                          precision, granularity, kv_scales):
+    """Both LServe flags over LServe's other pools: the reference's own
+    LServe precision (``w8a8kv8 --kv-quant-granularity per_tensor``, the
+    calibrated scales in both pools of both engines, the port's through
+    ``load_params(kv_scales=)``) and fine-grained ``w4a8kv8``; prompts of
+    200 and 120 tokens in 48-token chunks (the 200-token ring wraps), IFB
+    single steps. Greedy tokens are compared while every top-2 margin
+    exceeds ``MARGIN`` (``TrustedPrefix``: a W8A8 body's margins come
+    near it)."""
+    reqs = requests(5, (200, 120), 6)
+    kw = engine_kwargs(tiny_model_dir, precision=precision,
+                       kv_quant_granularity=granularity,
+                       chunk_prefill_size=96)
+    with jax.disable_jit():
+        jeng = JLLMEngine.from_engine_args(JEngineArgs(**kw))
+        if kv_scales is not None:
+            ce = jeng.worker.model_runner.cache_engine
+            pt = dict(k_scale_per_tensor=jnp.float32(kv_scales[0]),
+                      v_scale_per_tensor=jnp.float32(kv_scales[1]))
+            ce.set_pools(ce.retrieval_pool._replace(**pt),
+                         ce.streaming_pool._replace(**pt))
+        jparams = jax.tree.map(np.asarray, jeng.worker.model_runner.params)
+        want = serve(jeng, JSamplingParams, reqs)
+    teng = LLMEngine.from_engine_args(EngineArgs(device="cpu", **kw))
+    runner = teng.worker.model_runner
+    runner.load_params(params_from_numpy(jparams, "cpu"),
+                       kv_scales=None if kv_scales is None else
+                       tuple(torch.tensor(x) for x in kv_scales))
+    spec, spool = runner.spec, runner.cache_engine.streaming_pool
+    assert (spec.kv_bits, spec.kv_zeros) == (8, kv_scales is None)
+    assert spec.sparse_prefill and spec.sparse_decode
+    if kv_scales is not None:
+        assert spool.k_scale_per_tensor.tolist() == list(
+            np.float32(kv_scales[0]))
+    groups = []
+    trusted = TrustedPrefix(monkeypatch, groups)
+    got = precision_serve(teng, SamplingParams, reqs, groups)
+    assert [len(t) for t in got.values()] == [6, 6]
+    # never vacuous: at least every request's first token is compared
+    assert trusted.compare(got, want) >= len(reqs)
+    assert trusted.cut is None or min(trusted.cut.values()) >= 1
+    assert trusted.chunked == 5          # ceil(200 / 48) chunks

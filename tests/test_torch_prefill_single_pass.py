@@ -34,6 +34,7 @@ from omniserve_tpu_torch.models.convert import pool_from_numpy
 from omniserve_tpu_torch.ops import dispatch as t_dispatch
 from omniserve_tpu_torch.ops import paged_kv as t_kv
 from omniserve_tpu_torch.ops.cuda import embed_gather as t_embed
+from omniserve_tpu_torch.ops.cuda import paged_prefill as t_pp
 from omniserve_tpu_torch.ops.cuda import prefill_single_pass as t_psp
 
 B, HKV, NREP, D, PAGE = 2, 2, 2, 128, 16
@@ -273,10 +274,11 @@ def test_switches_on_cpu_take_the_plain_paths(monkeypatch):
                                               (8, False)])
 def test_switch_serves_lserve_modes_on_cpu(monkeypatch, kv_bits, kv_zeros):
     """Where the rule holds, the rule and not the device decides what is
-    served: a page list with a band over a kv8 or per-tensor pool (outside
-    row 7's LServe modes) goes to the single-pass plain version on the CPU
-    with the switch on, as it goes to the kernel on a card, and is refused
-    with the switch off."""
+    served: a page list with a band over a kv8 or per-tensor pool goes to
+    the single-pass plain version on the CPU with the switch on, as it goes
+    to the kernel on a card, and with the switch off to row 7's plain
+    version (row 7 serves these LServe modes too), which computes the same
+    function."""
     rng = np.random.default_rng(13)
     page, n_pages, chunk = 128, 4, 16
     rows = page // 2 if kv_bits == 4 else page
@@ -311,8 +313,11 @@ def test_switch_serves_lserve_modes_on_cpu(monkeypatch, kv_bits, kv_zeros):
         kv_zeros=kv_zeros, **kw))
     assert bool(torch.isfinite(got).all()) and got.abs().max() > 0
     monkeypatch.setenv("OMNISERVE_PREFILL_SINGLE_PASS", "0")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_dispatch.paged_prefill_attention(*args, **kw)
+    off = t_dispatch.paged_prefill_attention(*args, **kw)
+    assert torch.equal(off, t_pp.paged_prefill_attention_plain(
+        *args[:6], sm_scale=SM, page_size=page, kv_bits=kv_bits,
+        kv_zeros=kv_zeros, **kw))
+    torch.testing.assert_close(off, got, atol=1e-5, rtol=1e-5)
 
 
 # -- the embedding row gather -----------------------------------------------
