@@ -13,7 +13,9 @@ Phases (any failure raises and exits nonzero before the last line):
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time, the bound
    (bytes over 3.35 TB/s or operations over the tensor-core peak) and one
-   PyTorch library call's time where one computes the same function; the
+   PyTorch library call's time where one computes the same function (the
+   prefill attention kernels also with their achieved TFLOP/s, share of
+   the operations bound, and ptxas's registers and spills); the
    band mode of flash prefill at 16K tokens and the ring mode of paged
    prefill at phase 7's first chunk and on a wrapped ring; the kv16 and
    per-tensor modes (the kv16 decode and append, the per-tensor fused
@@ -217,6 +219,50 @@ def bound_ms(n_bytes: float, ops: float, peak: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rate_note(ops: float, ms: float, bnd: float) -> str:
+    """Achieved TFLOP/s of a kernel time and its share of the operations
+    bound (the tensor cores' bf16 peak) and of bound_ms."""
+    t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    return (f"achieved {ops / ms / 1e9:.1f} TFLOP/s = {100 * t_ops / ms:.1f}% "
+            f"of the operations bound ({100 * bnd / ms:.1f}% of bound_ms)")
+
+
+def ptxas_report(src: str):
+    """``-Xptxas -v``'s registers and spills for each kernel function of
+    ``src`` in this run's build, one line each (template arguments of the
+    paged prefill kernel spelled out)."""
+    import re
+
+    from omniserve_tpu_torch.csrc import build
+
+    text = build.build_log.get(src)
+    if not text:
+        return [f"{src}: no ptxas report (built before this run)"]
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+            # the last <length><identifier> of the mangled nested name
+            rest, ident = re.sub(r"^_ZN?", "", name), name
+            while True:
+                t = re.match(r"(\d+)", rest)
+                if not t:
+                    break
+                n, k = int(t.group(1)), len(t.group(1))
+                ident, rest = rest[k:k + n], rest[k + n:]
+            t = re.match(r"ILb(\d)ELi(\d+)ELb(\d)E", rest)
+            name = ident if not t else (
+                f"{ident}<SPARSE={t.group(1)}, KV_BITS={t.group(2)}, "
+                f"PT={t.group(3)}>")
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def allclose_err(got, want, atol: float, rtol: float, what: str) -> float:
@@ -561,10 +607,14 @@ def check_flash(dev, gen):
         qb, kb, vb, is_causal=True, scale=sm, enable_gqa=True), 10)
     pairs = n_seg * seg_len * (seg_len + 1) / 2
     n_bytes = 2 * (2 * t * hq * d + 2 * t * hkv * d) + 8 * t
-    bnd, by = bound_ms(n_bytes, 4.0 * d * hq * pairs, BF16_FLOPS_PER_S)
+    ops = 4.0 * d * hq * pairs
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
     log(f"  flash prefill T={t} ({n_seg}x{seg_len}) Hq={hq} Hkv={hkv} D={d}: "
         f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
-        f"library_ms {lib:.4f} max_abs_err {err:.3g}")
+        f"library_ms {lib:.4f} max_abs_err {err:.3g}; "
+        f"{rate_note(ops, ms, bnd)}")
+    for line in ptxas_report("flash_prefill.cu"):
+        log(f"    ptxas {line}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -881,7 +931,8 @@ def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
                     warmup=0)
     lib = dense_sdpa_ms(args, kw)
     hq, d = q.shape[2], q.shape[3]
-    bnd, by = bound_ms(n_bytes, 4.0 * d * hq * pairs, BF16_FLOPS_PER_S)
+    ops = 4.0 * d * hq * pairs
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
     log(f"  paged prefill {label} B={b} Tc={q.shape[1]} history="
         f"{int(q_pos[0, 0])} Hq={hq} Hkv={pool.num_heads} D={d} page="
         f"{kw['page_size']}: kernel_ms {ms:.4f} plain_ms "
@@ -889,7 +940,11 @@ def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
         f"{lib if lib is None else f'{lib:.4f}'} "
         f"(SDPA over pre-dequantized K/V, dequantization not counted) "
         f"max_abs_err {err:.3g}" + ("" if row is None else
-                                    f" (row error {row:.3g} of its norm)"))
+                                    f" (row error {row:.3g} of its norm)")
+        + f"; {rate_note(ops, ms, bnd)}")
+    if kv_bits == 4 and not per_tensor:
+        for line in ptxas_report("paged_prefill.cu"):
+            log(f"    ptxas {line}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -981,6 +1036,10 @@ def check_flash_band(dev, gen):
              + n_stream * band_pairs(pos, pos, sink, local))
     n_bytes = 2 * (2 * t * hq * d + 2 * t * hkv * d) + 8 * t
     bnd, by = bound_ms(n_bytes, 4.0 * d * pairs, BF16_FLOPS_PER_S)
+    dense_ops = 4.0 * d * hq * t * (t + 1) / 2
+    log(f"  flash prefill band: {rate_note(4.0 * d * pairs, ms, bnd)}; the "
+        f"dense kernel at the same shape "
+        f"{rate_note(dense_ops, dense_ms, dense_ops / BF16_FLOPS_PER_S * 1e3)}")
     log(f"  flash prefill band T={t} Hq={hq} Hkv={hkv} ({hkv // 2} kv heads "
         f"streaming, sink {sink}, local {local}): kernel_ms {ms:.4f} (dense "
         f"kernel at the same shape {dense_ms:.4f}) plain_ms {plain:.4f} "
@@ -1105,13 +1164,14 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
     plain = time_ms(lambda: pp.paged_prefill_attention_plain(*args, **kw), 1,
                     warmup=0)
     lib = ring_sdpa_ms(args, kw)
-    bnd, by = bound_ms(n_bytes, 4.0 * q.shape[3] * q.shape[2] * pairs,
-                       BF16_FLOPS_PER_S)
+    ops = 4.0 * q.shape[3] * q.shape[2] * pairs
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
     log(f"  paged prefill ring ({label}) {note}: kernel_ms {ms:.4f} "
         f"plain_ms {plain:.4f} "
         f"bound_ms {bnd:.4f} ({by}) library_ms "
         f"{lib if lib is None else f'{lib:.4f}'} (SDPA over pre-dequantized "
-        f"K/V with the band mask) max_abs_err {err:.3g}")
+        f"K/V with the band mask) max_abs_err {err:.3g}; "
+        f"{rate_note(ops, ms, bnd)}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -2362,6 +2422,7 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
 
 # the __global__ functions of omniserve_tpu_torch/csrc/*.cu
 PORT_KERNEL_FUNCTIONS = ("quant_gemm_kernel", "flash_prefill_kernel",
+                         "flash_tile_ranges_kernel",
                          "paged_prefill_kernel", "decode_attn_append_kernel",
                          "decode_attn_list_kernel", "kv_append_kernel")
 

@@ -35,93 +35,100 @@
 //
 // What bounds it: operations (4 * D flops per visible (query, key) pair
 // and q head, against D + 16 bytes per cached token and kv head, 2 * D +
-// 16 under kv8).
-// Design: one block of 4 warps per (tile of 64 query rows, kv head,
-// sequence). A row is a (token, GQA rep) pair, so the n_rep q heads of one
-// kv head share every K/V tile. The block reads the pages IN PLACE through
-// the block table (no gather copy) and walks 64-token K/V tiles: over a
-// dense table only up to its causal frontier min(context_len, max q_pos +
-// 1); over a page list (not in position order) every slot, skipping each
-// tile whose positions all fall outside the q tile's causal band before
-// it loads a byte of it (the LServe prefill gain: a streaming head of a
-// 32K chunk reads the sink and ~8K band of its ring). Each tile is
-// dequantized with the folded planes (or the per-tensor scales) into f16
-// shared memory (K token-major, V transposed), and each warp runs its 16
-// rows on the tensor cores with mma.sync m16n8k16 (f16 inputs, f32
-// accumulation): S = Q K^T, an online softmax on the S fragments in
-// registers, P (f16, re-packed from the S fragments) times V. f16 rather
-// than bf16 keeps 11 bits of the dequantized values and of P. kv16 pages
-// are bf16, whose range f16 does not hold: that mode copies them into a
-// bf16 tile as they are, keeps q in bf16 and runs the bf16 mma.sync (P in
-// bf16, as the TPU kernel rounds it). TMA, wgmma and a producer warp are
-// later work.
+// 16 under kv8): the tensor cores. The first port (PR 2) ran mma.sync
+// from 4 warps that staged and dequantized each tile synchronously, 13x
+// off that bound and 3.7-4.1x slower than SDPA over pre-dequantized K/V.
+//
+// Design (the shared core is attn_sm90.cuh): one block per (128 query
+// rows, kv head, sequence), the chunk's last rows (the most keys)
+// launched first; a row is a (token, GQA rep) pair, so the n_rep q heads
+// of one kv head share every K/V tile. Four roles:
+// - a copy warp walks the 64-key tiles of the table IN PLACE: over a
+//   dense table up to the causal frontier min(context_len, max q_pos + 1);
+//   over a page list every slot, skipping, before a byte of it is
+//   requested, each tile that no row can see (a ballot over 32 slots at a
+//   time finds the next live slot: a streaming head of a 32K chunk reads
+//   its sink and ~8K band of the ring). It brings each live tile's codes
+//   (and planes) into a ring of 3 raw stages (2 under kv16) with
+//   cp.async.bulk on an mbarrier: one copy of the tile's 64 rows when they
+//   are consecutive rows of one page (a kv4 64-key sub-tile lies in one
+//   half of its page, so it takes its own rows slot % (page/2) and its own
+//   nibble), else one copy per key row;
+// - a dequant warpgroup turns each raw stage into f16 K and V tiles (bf16
+//   values as they are under kv16) in the 128-byte-swizzled layout wgmma
+//   reads, with the folded planes or the per-tensor scales, into a ring of
+//   2 operand stages; a key that no row can see (dead slot, past the
+//   context, NaN planes) is written as 0;
+// - two consumer warpgroups of 64 rows run S = Q K^T and O += P V on
+//   wgmma (f16, f32 accumulation; P in f16, bf16 under kv16, as the first
+//   port), the online softmax in registers; only tiles that hold a causal
+//   edge, a dead key or a band edge take an element mask.
+// setmaxnreg moves registers from the copy warpgroup (its idle warps exit)
+// and the dequant warpgroup to the consumers. What is left between it and
+// the bound (H100 SXM, 700 W): ~18% of the bf16 peak on the bench's
+// chunks, ~23% over kv16 pages, which skip the dequantization: the
+// dequant warpgroup paces the kv4 / kv8 tiles, and each short block's
+// prologue (Q staged by the consumers, the rings filling) is not hidden
+// (a persistent version ran the bench's chunks 3-10% faster and the ring
+// 7-19% slower, items of unequal weight taken in a fixed order).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_sm90.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int BQ = 64, BKV = 64;
-constexpr int NT = 128;         // 4 warps x 16 query rows
-constexpr int QS = D + 8;       // f16 row stride of the q and k tiles
-constexpr int VS = BKV + 8;     // f16 row stride of the transposed v tile
+using namespace sm90;
 
-constexpr size_t SMEM_BYTES =
-    sizeof(__half) * (BQ * QS + BKV * QS + D * VS) +
-    sizeof(float) * 4 * BKV + sizeof(int) * (BQ + 4 * BKV);
-constexpr int NO_POS = 0x7fffffff;  // a tile row that holds no token
+// 2 consumer warpgroups, a dequant warpgroup and a copy warpgroup of which
+// one warp works (setmaxnreg acts on whole warpgroups: the idle warps give
+// their registers to the consumers and exit)
+constexpr int NT = 512;
+constexpr int NK = 2;     // operand (f16 / bf16) ring
+constexpr int REGS_COPY = 40, REGS_DEQUANT = 64, REGS_CONSUMER = 200;
 
-__device__ __forceinline__ uint32_t pack_h2(float lo, float hi) {
-  const __half2 h = __floats2half2_rn(lo, hi);   // lo in the low 16 bits
-  return *reinterpret_cast<const uint32_t*>(&h);
+template <int KV_BITS>
+struct Cfg {
+  static constexpr int ROWB = KV_BITS == 16 ? 256 : 128;  // bytes of a pool row
+  static constexpr int NR = KV_BITS == 16 ? 2 : 3;        // raw ring
+  static constexpr int RAW = 2 * BN * ROWB;    // a tile's K and V rows
+  static constexpr int OFF_KV = 2 * QHALF;
+  static constexpr int OFF_RAW = OFF_KV + NK * 2 * TILE;
+  static constexpr int OFF_META = OFF_RAW + NR * RAW;
+  // raw planes [NR][4][BN] f32, raw kp / shift [NR][BN], raw hdr [NR][4],
+  // operand kp [NK][BN], operand hdr [NK][4], then the barriers
+  static constexpr int META = NR * 4 * BN * 4 + 2 * NR * BN * 4 + NR * 16 +
+                              NK * BN * 4 + NK * 16 + 2 * (NR + NK) * 8;
+  static constexpr size_t SMEM = OFF_META + META + 1024;   // + alignment
+};
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
-__device__ __forceinline__ uint32_t pack_b2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// (float)code, exact for code < 2^23, without the int-to-float unit
+__device__ __forceinline__ float code_f(uint32_t c) {
+  return __uint_as_float(0x4B000000u | c) - 8388608.0f;
 }
 
-template <bool BF16>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (BF16) return pack_b2(lo, hi);
-  else return pack_h2(lo, hi);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __half* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), f16 (or, BF16,
-// bf16) in, f32 out
-template <bool BF16 = false>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  if constexpr (BF16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+__device__ __forceinline__ uint32_t h2(float lo, float hi) {
+  const __half2 x = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
 }
 
 // SPARSE = a page list and/or per-head flags; the dense instantiation is
 // the plain block-table walk, so the bench's chunked prefill pays nothing
 // for the ring mode. KV_BITS = 4, 8 (one byte per value) or 16 (bf16
-// values); PT = per-tensor codes. kv16 is dense only; the fine-grained
-// kv4 instantiations compile the code they had without the other modes.
+// values); PT = per-tensor codes. kv16 is dense only.
 template <bool SPARSE, int KV_BITS, bool PT>
-__global__ void __launch_bounds__(NT) paged_prefill_kernel(
+__global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
     const uint8_t* __restrict__ v_data, const float* __restrict__ planes,
     const float* __restrict__ kpt, const float* __restrict__ vpt,
@@ -129,353 +136,413 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ context_lens, const int* __restrict__ sel_logic,
     const int* __restrict__ flags, __nv_bfloat16* __restrict__ out, int Tc,
     int H, int n_rep, int page, int W, int sink_size, int local_size,
-    int ring_span, int ring_sink_tok, float sm_scale) {
-  constexpr bool KV8 = KV_BITS == 8, KV16 = KV_BITS == 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // 16-bit tiles: f16 values, or bf16 bits under KV16
-  __half* Qs = reinterpret_cast<__half*>(smem_raw);   // [BQ][QS]
-  __half* Ks = Qs + BQ * QS;                           // [BKV][QS]
-  __half* Vt = Ks + BKV * QS;                          // [D][VS]
-  float* t_ks = reinterpret_cast<float*>(Vt + D * VS); // per tile token:
-  float* t_kc = t_ks + BKV;                            //   k_scale * k_zero
-  float* t_vs = t_kc + BKV;                            //   v_scale
-  float* t_vz = t_vs + BKV;                            //   v_zero
-  int* qpos = reinterpret_cast<int*>(t_vz + BKV);      // [BQ]
-  int* t_phys = qpos + BQ;      // [BKV] physical page, -1 = no token
-  int* t_row = t_phys + BKV;    // [BKV] byte row within the page
-  int* t_shift = t_row + BKV;   // [BKV] 0 (low nibble) or 4 (high)
-  int* t_pos = t_shift + BKV;   // [BKV] position, NO_POS = no token
-  __shared__ int frontier, q_lo, q_hi;
+    int ring_span, int ring_sink_tok, float scale_log2) {
+  using C = Cfg<KV_BITS>;
+  constexpr bool KV4 = KV_BITS == 4, KV8 = KV_BITS == 8, KV16 = KV_BITS == 16;
+  constexpr bool FINE = !PT && !KV16;      // planes in the pool
+  constexpr int NR = C::NR, ROWB = C::ROWB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = base;                         // [2][128][64] 16-bit
+  unsigned char* kvs = base + C::OFF_KV;            // stage: K tile, V tile
+  unsigned char* raws = base + C::OFF_RAW;          // stage: K rows, V rows
+  float* raw_pl = reinterpret_cast<float*>(base + C::OFF_META);  // [NR][4][BN]
+  int* raw_kp = reinterpret_cast<int*>(raw_pl + NR * 4 * BN);    // [NR][BN]
+  int* raw_sh = raw_kp + NR * BN;                                // [NR][BN]
+  int* raw_hdr = raw_sh + NR * BN;          // [NR][4]: j0 (-1 = end), whole
+  int* kv_kp = raw_hdr + NR * 4;                                 // [NK][BN]
+  int* kv_hdr = kv_kp + NK * BN;                                 // [NK][4]
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(kv_hdr + NK * 4);
+  uint64_t* raw_empty = raw_full + NR;
+  uint64_t* kv_full = raw_empty + NR;
+  uint64_t* kv_empty = kv_full + NK;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row / column pair
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int t0 = blockIdx.x * (BQ / n_rep);   // first query token of the tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * (BM / n_rep);  // heaviest first
   const int Hq = H * n_rep;
-  const int half = page / 2;
-  const int rows = KV_BITS == 4 ? half : page;   // rows per page and head
-  const int ctx = context_lens[b];
   const bool dense = !SPARSE || flags == nullptr || flags[h] != 0;
-  const bool listed = SPARSE && sel_logic != nullptr;
-  // the ring's write head: rows of page cb past it are one wrap older
-  const int cb = (ctx - 1) / page, last_row = (ctx - 1) % page;
 
-  // query row r: token t0 + r / n_rep, q head h * n_rep + r % n_rep
-  for (int i = tid; i < BQ * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int t = t0 + r / n_rep;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-    if (t < Tc) {
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * Tc + t) * Hq + h * n_rep + r % n_rep) * D + c);
-      if constexpr (KV16) {
-        packed = v;                           // the bf16 tile takes q as is
-      } else {
-        const __nv_bfloat162* p =
-            reinterpret_cast<const __nv_bfloat162*>(&v);
-        uint32_t w[4];
+  if (tid == 0) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(p[e]);
-          w[e] = pack_h2(f.x, f.y);
-        }
-        packed = make_uint4(w[0], w[1], w[2], w[3]);
-      }
+    for (int st = 0; st < NR; ++st) {
+      mbar_init(&raw_full[st], 32);     // the copy warp's lanes (+ bytes)
+      mbar_init(&raw_empty[st], 128);   // the dequant warpgroup
     }
-    *reinterpret_cast<uint4*>(Qs + r * QS + c) = packed;
-  }
-  if (tid < BQ) {
-    const int t = t0 + tid / n_rep;
-    qpos[tid] = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
+#pragma unroll
+    for (int st = 0; st < NK; ++st) {
+      mbar_init(&kv_full[st], 128);     // the dequant warpgroup
+      mbar_init(&kv_empty[st], 8);      // one arrive per consumer warp
+    }
+    fence_mbar_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    int pmax = -1, pmin = NO_POS;
-    for (int r = 0; r < BQ; ++r)
-      if (qpos[r] >= 0) {
-        pmax = max(pmax, qpos[r]);
-        pmin = min(pmin, qpos[r]);
+
+  if (warp >= 12) {
+    // ---- copy warp: walk the table, bring live tiles' rows in ----
+    reg_dealloc<REGS_COPY>();
+    if (warp != 12) return;
+    const int ctx = context_lens[b];
+    const bool listed = SPARSE && sel_logic != nullptr;
+    const int half = page / 2, rows = KV4 ? half : page;
+    // the ring's write head: rows of page cb past it are one wrap older
+    const int cb = (ctx - 1) / page, last_row = (ctx - 1) % page;
+    int qlo = NO_POS, qhi = -1;
+    for (int r = lane; r < BM; r += 32) {
+      const int t = t0 + r / n_rep;
+      const int qp = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
+      if (qp >= 0) {
+        qlo = min(qlo, qp);
+        qhi = max(qhi, qp);
       }
+    }
+    qlo = warp_min(qlo);
+    qhi = warp_max(qhi);
     // over a dense table, keys at or past the frontier are visible to no
     // row of this tile; a page list is walked whole
-    frontier = pmax < 0 ? 0
-                        : (listed ? W * page : min(min(ctx, pmax + 1), W * page));
-    q_lo = pmin;
-    q_hi = pmax;
-  }
-  __syncthreads();
-  const int kv_end = frontier, qlo = q_lo, qhi = q_hi;
-
-  // this warp's 16 query rows as mma A fragments, kept in registers
-  const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __half* p = Qs + (r0 + g) * QS + kk * 16 + 2 * t4;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * QS);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * QS + 8);
-  }
-  const int qp0 = qpos[r0 + g], qp1 = qpos[r0 + g + 8];
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-  for (int j0 = 0; j0 < kv_end; j0 += BKV) {
-    __syncthreads();   // every warp is done with the previous tile
-    if constexpr (SPARSE) {
-      // the position each row of this K/V tile holds, and whether any
-      // query row of the tile can see it (conservative over its rows)
-      bool need = false;
-      if (tid < BKV) {
-        const int j = j0 + tid;
-        int phys = -1, kp = NO_POS;
-        if (j < kv_end) {
-          const int s = j / page, r = j % page;
-          const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
-          int p = logic * page + r, lo = 0;
-          if (ring_span > 0 && logic == cb && r > last_row) {
-            p -= ring_span * page;
-            lo = ring_sink_tok;
-          }
-          if (logic >= 0 && p < ctx && p >= lo) {
-            kp = p;
-            phys = block_tables[(size_t)b * W + s];
-          }
-        }
-        need = kp <= qhi &&
-               (dense || kp < sink_size || kp + local_size > qlo);
-        t_phys[tid] = need ? phys : -1;
-        t_pos[tid] = kp;
-      }
-      if (!__syncthreads_or(need)) continue;   // uniform per block
-    } else if (tid < BKV) {
-      const int j = j0 + tid;
-      t_phys[tid] = j < kv_end ? block_tables[(size_t)b * W + j / page] : -1;
-    }
-    // where each needed token lives, and its folded planes (per-tensor:
-    // scale pt and zero = the code bias; kv16: none)
-    if (tid < BKV) {
-      const int phys = t_phys[tid];
-      int row = 0, shift = 0;
-      float ks = 0.0f, kc = 0.0f, vs = 0.0f, vz = 0.0f;
-      if (phys >= 0) {
-        const int slot = (j0 + tid) % page;
-        row = KV_BITS == 4 ? slot % half : slot;
-        shift = (KV_BITS == 4 && slot >= half) ? 4 : 0;
-        if constexpr (PT) {
-          constexpr float bias = KV8 ? 128.0f : 8.0f;
-          ks = *kpt;
-          kc = bias * ks;
-          vs = *vpt;
-          vz = bias;
-        } else if constexpr (!KV16) {
-          const float* pl = planes + (size_t)phys * 4 * H * page +
-                            (size_t)h * page + slot;
-          ks = pl[0];
-          kc = pl[(size_t)H * page] - 128.0f * ks;        // k_scale * k_zero
-          vs = pl[(size_t)2 * H * page];
-          vz = pl[(size_t)3 * H * page] - 128.0f;         // v_zero
-        }
-      }
-      t_row[tid] = row;
-      t_shift[tid] = shift;
-      t_ks[tid] = ks;
-      t_kc[tid] = kc;
-      t_vs[tid] = vs;
-      t_vz[tid] = vz;
-    }
-    __syncthreads();
-    if constexpr (KV16) {
-      // copy K token-major and V transposed, 8 bf16 values per 16-byte load
-      const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(k_data);
-      const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(v_data);
-      for (int i = tid; i < BKV * (D / 8); i += NT) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-        const int phys = t_phys[r];
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u);
-        if (phys >= 0)
-          kw = *reinterpret_cast<const uint4*>(
-              kp + (((size_t)phys * H + h) * page + t_row[r]) * D + c);
-        *reinterpret_cast<uint4*>(Ks + r * QS + c) = kw;
-      }
-      for (int i = tid; i < BKV * (D / 8); i += NT) {
-        const int r = i % BKV, c = (i / BKV) * 8;
-        const int phys = t_phys[r];
-        uint4 vw = make_uint4(0u, 0u, 0u, 0u);
-        if (phys >= 0)
-          vw = *reinterpret_cast<const uint4*>(
-              vp + (((size_t)phys * H + h) * page + t_row[r]) * D + c);
-        const uint16_t* e16 = reinterpret_cast<const uint16_t*>(&vw);
-        uint16_t* dv = reinterpret_cast<uint16_t*>(Vt + c * VS + r);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dv[e * VS] = e16[e];
-      }
-    } else {
-      // dequantize K token-major: 16 bytes (16 lanes of one token) per load
-      for (int i = tid; i < BKV * (D / 16); i += NT) {
-        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-        uint32_t w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-        const int phys = t_phys[r];
-        if (phys >= 0) {
-          const uint4 kw = *reinterpret_cast<const uint4*>(
-              k_data + (((size_t)phys * H + h) * rows + t_row[r]) * D + c);
-          const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
-          const int sh = t_shift[r];
-          const float ks = t_ks[r], kc = t_kc[r];
-          constexpr uint32_t mask = KV8 ? 0xFFu : 0xFu;
-#pragma unroll
-          for (int wi = 0; wi < 4; ++wi) {
-#pragma unroll
-            for (int e = 0; e < 4; e += 2) {
-              const float a = (float)((words[wi] >> (8 * e + sh)) & mask);
-              const float a2 = (float)((words[wi] >> (8 * e + 8 + sh)) & mask);
-              w[wi * 2 + e / 2] = pack_h2(a * ks - kc, a2 * ks - kc);
+    const int kv_end =
+        qhi < 0 ? 0 : (listed ? W * page : min(min(ctx, qhi + 1), W * page));
+    Ring ring;
+    int win = -1;            // the 32-slot window of win_live
+    uint32_t win_live = 0;   // slots of the window that may hold a live key
+    for (int j0 = 0; j0 < kv_end;) {
+      if constexpr (SPARSE) {
+        const int sa = j0 / page, sb = min((j0 + BN - 1) / page, W - 1);
+        if ((sa >> 5) != win) {
+          win = sa >> 5;
+          const int s = (win << 5) + lane;
+          bool live = false;
+          if (s < W) {
+            const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
+            if (logic >= 0) {
+              int plo = logic * page;
+              const int phi = min(plo + page - 1, ctx - 1);
+              if (ring_span > 0 && logic == cb) plo -= ring_span * page;
+              live = plo <= phi && plo <= qhi &&
+                     (dense || plo < sink_size || phi + local_size > qlo);
             }
           }
+          win_live = __ballot_sync(0xffffffffu, live);
         }
-        uint4* dk = reinterpret_cast<uint4*>(Ks + r * QS + c);
-        dk[0] = make_uint4(w[0], w[1], w[2], w[3]);
-        dk[1] = make_uint4(w[4], w[5], w[6], w[7]);
+        if ((sb >> 5) == win) {
+          const int n = sb - sa + 1;
+          const uint32_t span = (n >= 32 ? 0xffffffffu : ((1u << n) - 1u))
+                                << (sa & 31);
+          if ((win_live & span) == 0) {
+            // on to the window's next live slot, or the next window
+            const int hi_bit = (sb & 31) + 1;
+            const uint32_t later =
+                hi_bit >= 32 ? 0u : (win_live >> hi_bit) << hi_bit;
+            const int next = later ? (win << 5) + __ffs(later) - 1
+                                   : (win + 1) << 5;
+            j0 = max(j0 + BN, (int)((long long)next * page / BN * BN));
+            continue;
+          }
+        }
       }
-      // dequantize V transposed ([d][token]); consecutive lanes take
-      // consecutive tokens, so the 2-byte stores do not collide in banks
-      for (int i = tid; i < BKV * (D / 16); i += NT) {
-        const int r = i % BKV, c = (i / BKV) * 16;
-        const int phys = t_phys[r];
-        __half* dv = Vt + c * VS + r;
-        if (phys >= 0) {
-          const uint4 vw = *reinterpret_cast<const uint4*>(
-              v_data + (((size_t)phys * H + h) * rows + t_row[r]) * D + c);
-          const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
-          const int sh = t_shift[r];
-          const float vs = t_vs[r], vz = t_vz[r];
+      // each lane's two keys: position (NO_POS = no row needs it), where
+      // it lives
+      int kp[2], phys[2], row[2], shift[2], slot[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + lane + 32 * e;
+        kp[e] = NO_POS;
+        phys[e] = -1;
+        row[e] = shift[e] = slot[e] = 0;
+        if (j < kv_end) {
+          const int s = j / page, r = j - s * page;
+          if constexpr (SPARSE) {
+            const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
+            int p = logic * page + r, lo = 0;
+            if (ring_span > 0 && logic == cb && r > last_row) {
+              p -= ring_span * page;
+              lo = ring_sink_tok;
+            }
+            if (logic >= 0 && p < ctx && p >= lo && p <= qhi &&
+                (dense || p < sink_size || p + local_size > qlo))
+              kp[e] = p;
+          } else {
+            kp[e] = j;
+          }
+          if (kp[e] != NO_POS) {
+            phys[e] = block_tables[(size_t)b * W + s];
+            row[e] = KV4 ? r % half : r;
+            shift[e] = (KV4 && r >= half) ? 4 : 0;
+            slot[e] = r;
+          }
+        }
+      }
+      const uint32_t need0 = __ballot_sync(0xffffffffu, kp[0] != NO_POS);
+      const uint32_t need1 = __ballot_sync(0xffffffffu, kp[1] != NO_POS);
+      if ((need0 | need1) == 0) {     // skipped before a byte is requested
+        j0 += BN;
+        continue;
+      }
+      // the tile's 64 rows are consecutive rows of one page: one copy each
+      const int sa = j0 / page, r0 = j0 - sa * page;
+      const bool contig = sa == (j0 + BN - 1) / page && (page & 3) == 0 &&
+                          (!KV4 || (r0 < half) == (r0 + BN - 1 < half));
+      const int src = __ffs(need0 ? need0 : need1) - 1;
+      const int phys_c =
+          __shfl_sync(0xffffffffu, need0 ? phys[0] : phys[1], src);
+      const uint32_t bytes =
+          contig ? 2 * BN * ROWB + (FINE ? 4 * BN * 4 : 0)
+                 : (__popc(need0) + __popc(need1)) * 2 * ROWB;
+      // every row of the block sees every key of the tile
+      bool whole = true;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        whole = whole && kp[e] != NO_POS && kp[e] <= qlo &&
+                (dense || kp[e] < sink_size || qhi - kp[e] < local_size);
+      whole = __all_sync(0xffffffffu, whole);
+
+      const int st = ring.stage;
+      mbar_wait(&raw_empty[st], ring.phase ^ 1u);
+      unsigned char* rk = raws + st * C::RAW;
+      unsigned char* rv = rk + BN * ROWB;
+      float* pl = raw_pl + st * 4 * BN;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = lane + 32 * e;
+        raw_kp[st * BN + c] = kp[e];
+        raw_sh[st * BN + c] = shift[e];
+        if (FINE && !contig && kp[e] != NO_POS) {
+          const float* src_pl = planes + (size_t)phys[e] * 4 * H * page +
+                                (size_t)h * page + slot[e];
+#pragma unroll
+          for (int pi = 0; pi < 4; ++pi)
+            pl[pi * BN + c] = src_pl[(size_t)pi * H * page];
+        }
+      }
+      if (lane == 0) {
+        raw_hdr[4 * st] = j0;
+        raw_hdr[4 * st + 1] = whole;
+        mbar_arrive_tx(&raw_full[st], bytes);
+      }
+      __syncwarp();
+      if (contig) {
+        if (lane == 0) {
+          const size_t prow =
+              ((size_t)phys_c * H + h) * rows + (KV4 ? r0 % half : r0);
+          bulk_load(rk, k_data + prow * ROWB, BN * ROWB, &raw_full[st]);
+          bulk_load(rv, v_data + prow * ROWB, BN * ROWB, &raw_full[st]);
+          if constexpr (FINE) {
+#pragma unroll
+            for (int pi = 0; pi < 4; ++pi)
+              bulk_load(pl + pi * BN,
+                        planes + ((size_t)phys_c * 4 + pi) * H * page +
+                            (size_t)h * page + r0,
+                        BN * 4, &raw_full[st]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (kp[e] == NO_POS) continue;
+          const int c = lane + 32 * e;
+          const size_t prow = ((size_t)phys[e] * H + h) * rows + row[e];
+          bulk_load(rk + c * ROWB, k_data + prow * ROWB, ROWB, &raw_full[st]);
+          bulk_load(rv + c * ROWB, v_data + prow * ROWB, ROWB, &raw_full[st]);
+        }
+      }
+      if (lane != 0) mbar_arrive(&raw_full[st]);
+      ring.advance<NR>();
+      j0 += BN;
+    }
+    mbar_wait(&raw_empty[ring.stage], ring.phase ^ 1u);   // the end marker
+    if (lane == 0) raw_hdr[4 * ring.stage] = -1;
+    mbar_arrive(&raw_full[ring.stage]);
+  } else if (warp >= 8) {
+    // ---- dequant warpgroup: raw rows -> swizzled f16 (bf16) tiles ----
+    reg_dealloc<REGS_DEQUANT>();
+    const int td = tid - 256, r = td >> 1, dh = td & 1;   // key r, half dh
+    float ks_pt = 0.0f, vs_pt = 0.0f;
+    if constexpr (PT) {
+      ks_pt = *kpt;
+      vs_pt = *vpt;
+    }
+    Ring rr, rk;
+    while (true) {
+      mbar_wait(&raw_full[rr.stage], rr.phase);
+      const int j0 = raw_hdr[4 * rr.stage];
+      mbar_wait(&kv_empty[rk.stage], rk.phase ^ 1u);
+      if (td == 0) {
+        kv_hdr[4 * rk.stage] = j0;
+        kv_hdr[4 * rk.stage + 1] = raw_hdr[4 * rr.stage + 1];
+      }
+      if (j0 >= 0) {
+        const int kp = raw_kp[rr.stage * BN + r];
+        const bool dead = kp == NO_POS;
+        if (dh == 0) kv_kp[rk.stage * BN + r] = kp;
+        const unsigned char* sk = raws + rr.stage * C::RAW + r * ROWB;
+        const unsigned char* sv = sk + BN * ROWB;
+        unsigned char* dk = kvs + rk.stage * 2 * TILE + dh * HALF;
+        unsigned char* dv = dk + TILE;
+        if constexpr (KV16) {
+          const int co = chunk_order(r, dh);
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int c = co ^ s;
+            uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+            if (!dead) {
+              kx = *reinterpret_cast<const uint4*>(sk + dh * 128 + c * 16);
+              vx = *reinterpret_cast<const uint4*>(sv + dh * 128 + c * 16);
+            }
+            *reinterpret_cast<uint4*>(dk + swz(r, c)) = kx;
+            *reinterpret_cast<uint4*>(dv + swz(r, c)) = vx;
+          }
+        } else {
+          float ks, kc, vs, vz;
+          if constexpr (PT) {
+            constexpr float bias = KV8 ? 128.0f : 8.0f;
+            ks = ks_pt;
+            kc = bias * ks_pt;
+            vs = vs_pt;
+            vz = bias;
+          } else {
+            const float* pl = raw_pl + rr.stage * 4 * BN;
+            ks = dead ? 0.0f : pl[r];
+            kc = dead ? 0.0f : pl[BN + r] - 128.0f * ks;    // k_scale * k_zero
+            vs = dead ? 0.0f : pl[2 * BN + r];
+            vz = dead ? 0.0f : pl[3 * BN + r] - 128.0f;     // v_zero
+          }
+          const int sh = raw_sh[rr.stage * BN + r];
           constexpr uint32_t mask = KV8 ? 0xFFu : 0xFu;
 #pragma unroll
-          for (int wi = 0; wi < 4; ++wi) {
+          for (int s = 0; s < 4; ++s) {
+            // 16 codes: values dh * 64 + 16 ci .. + 15, chunks 2 ci, 2 ci + 1
+            const int ci = (s + r + 2 * dh) & 3;
+            uint32_t wk[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+            uint32_t wv[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+            if (!dead) {
+              const uint4 kw =
+                  *reinterpret_cast<const uint4*>(sk + dh * 64 + ci * 16);
+              const uint4 vw =
+                  *reinterpret_cast<const uint4*>(sv + dh * 64 + ci * 16);
+              const uint32_t kws[4] = {kw.x, kw.y, kw.z, kw.w};
+              const uint32_t vws[4] = {vw.x, vw.y, vw.z, vw.w};
+#pragma unroll
+              for (int wi = 0; wi < 4; ++wi) {
+                float a[4], bv[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  a[e] = code_f((kws[wi] >> (8 * e + sh)) & mask) * ks - kc;
+                  bv[e] = (code_f((vws[wi] >> (8 * e + sh)) & mask) - vz) * vs;
+                }
+                wk[2 * wi] = h2(a[0], a[1]);
+                wk[2 * wi + 1] = h2(a[2], a[3]);
+                wv[2 * wi] = h2(bv[0], bv[1]);
+                wv[2 * wi + 1] = h2(bv[2], bv[3]);
+              }
+            }
+            *reinterpret_cast<uint4*>(dk + swz(r, 2 * ci)) =
+                make_uint4(wk[0], wk[1], wk[2], wk[3]);
+            *reinterpret_cast<uint4*>(dk + swz(r, 2 * ci + 1)) =
+                make_uint4(wk[4], wk[5], wk[6], wk[7]);
+            *reinterpret_cast<uint4*>(dv + swz(r, 2 * ci)) =
+                make_uint4(wv[0], wv[1], wv[2], wv[3]);
+            *reinterpret_cast<uint4*>(dv + swz(r, 2 * ci + 1)) =
+                make_uint4(wv[4], wv[5], wv[6], wv[7]);
+          }
+        }
+        fence_proxy_async();
+      }
+      mbar_arrive(&kv_full[rk.stage]);
+      mbar_arrive(&raw_empty[rr.stage]);
+      rr.advance<NR>();
+      rk.advance<NK>();
+      if (j0 < 0) break;
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    reg_alloc<REGS_CONSUMER>();
+    const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
+    {
+      // this warpgroup's 64 rows of Q into the swizzled tile: f16, or
+      // bf16 as it is under kv16
+      const int tw = tid & 127, rq = 64 * wg + (tw >> 1), dh = tw & 1;
+      const int t = t0 + rq / n_rep;
+      const __nv_bfloat16* src =
+          q + (((size_t)b * Tc + t) * Hq + h * n_rep + rq % n_rep) * D +
+          dh * 64;
+      unsigned char* dst = qs + dh * QHALF;
+      const int co = chunk_order(rq, dh);
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int c = co ^ s;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (t < Tc) {
+          x = *reinterpret_cast<const uint4*>(src + c * 8);
+          if constexpr (!KV16) {
+            const __nv_bfloat162* p =
+                reinterpret_cast<const __nv_bfloat162*>(&x);
+            uint32_t w[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float vq = (float)((words[wi] >> (8 * e + sh)) & mask);
-              dv[(wi * 4 + e) * VS] = __float2half_rn((vq - vz) * vs);
+              const float2 f = __bfloat1622float2(p[e]);
+              w[e] = h2(f.x, f.y);
             }
+            x = make_uint4(w[0], w[1], w[2], w[3]);
           }
-        } else {
+        }
+        *reinterpret_cast<uint4*>(dst + swz(rq, c)) = x;
+      }
+      fence_proxy_async();
+      wg_sync(1 + wg);
+    }
+    const int r0 = 64 * wg + 16 * wl + g;    // this thread's rows r0, r0 + 8
+    int qpos[2];
 #pragma unroll
-          for (int e = 0; e < 16; ++e) dv[e * VS] = __float2half_rn(0.0f);
+    for (int hi = 0; hi < 2; ++hi) {
+      const int t = t0 + (r0 + 8 * hi) / n_rep;
+      qpos[hi] = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
+    }
+    float o0[32], o1[32], s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o0[i] = o1[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    const uint32_t q0 = smem_u32(qs) + wg * 64 * 128, q1 = q0 + QHALF;
+    Ring ring;
+    while (true) {
+      const int st = ring.stage;
+      mbar_wait(&kv_full[st], ring.phase);
+      if (kv_hdr[4 * st] < 0) break;
+      const bool whole = kv_hdr[4 * st + 1] != 0;
+      const uint32_t kb = smem_u32(kvs + st * 2 * TILE);
+      qk_tile<!KV16>(s, q0, q1, kb, kb + HALF);
+      if (whole) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+      } else {
+        const int* kps = kv_kp + st * BN;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int2 p2 = *reinterpret_cast<const int2*>(kps + nb * 8 + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hi = e >> 1, qp = qpos[hi];
+            const int kp = (e & 1) ? p2.y : p2.x;   // NO_POS fails kp <= qp
+            bool ok = qp >= 0 && kp <= qp;
+            if constexpr (SPARSE)
+              ok = ok && (dense || kp < sink_size || qp - kp < local_size);
+            s[4 * nb + e] = ok ? s[4 * nb + e] * scale_log2 : -INFINITY;
+          }
         }
       }
-    }
-    __syncthreads();
-
-    // S = Q K^T: rows r0 + g (s[.][0..1]) and r0 + g + 8 (s[.][2..3]),
-    // keys j0 + nt * 8 + 2 * t4 + {0, 1}
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __half* kb = Ks + (nt * 8 + g) * QS + kk * 16 + 2 * t4;
-        mma16816<KV16>(s[nt], qa[kk], ld32(kb), ld32(kb + 8));
-      }
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        bool ok0, ok1;
-        if constexpr (SPARSE) {
-          // NO_POS fails kp <= qp; the band test runs only on real keys
-          const int kp = t_pos[nt * 8 + 2 * t4 + e];
-          ok0 = qp0 >= 0 && kp <= qp0 &&
-                (dense || kp < sink_size || qp0 - kp < local_size);
-          ok1 = qp1 >= 0 && kp <= qp1 &&
-                (dense || kp < sink_size || qp1 - kp < local_size);
-        } else {
-          const int j = j0 + nt * 8 + 2 * t4 + e;   // kv_end <= ctx
-          ok0 = qp0 >= 0 && j <= qp0 && j < kv_end;
-          ok1 = qp1 >= 0 && j <= qp1 && j < kv_end;
-        }
-        s[nt][e] = ok0 ? s[nt][e] * sm_scale : -INFINITY;
-        s[nt][2 + e] = ok1 ? s[nt][2 + e] * sm_scale : -INFINITY;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    // a row's 64 scores live in the 4 lanes of one quad
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = mn0 == -INFINITY ? 1.0f : expf(m0 - mn0);
-    const float al1 = mn1 == -INFINITY ? 1.0f : expf(m1 - mn1);
-    float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = mn0 == -INFINITY ? 0.0f : expf(s[nt][e] - mn0);
-        s[nt][2 + e] = mn1 == -INFINITY ? 0.0f : expf(s[nt][2 + e] - mn1);
-        ps0 += s[nt][e];
-        ps1 += s[nt][2 + e];
-      }
+      softmax_tile(s, m, l, o0, o1);
+      pv_tile<!KV16>(o0, o1, s, kb + TILE, kb + TILE + HALF);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[st]);
+      ring.advance<NK>();
     }
 #pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o_);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o_);
-    }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd][0] *= al0;
-      o[nd][1] *= al0;
-      o[nd][2] *= al1;
-      o[nd][3] *= al1;
-    }
-    // O += P V: the S accumulator of key tiles 2kk, 2kk+1 is the A
-    // fragment of key step kk
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack2<KV16>(s[2 * kk][0], s[2 * kk][1]),
-          pack2<KV16>(s[2 * kk][2], s[2 * kk][3]),
-          pack2<KV16>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack2<KV16>(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __half* vb = Vt + (nd * 8 + g) * VS + kk * 16 + 2 * t4;
-        mma16816<KV16>(o[nd], pa, ld32(vb), ld32(vb + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int ir = r0 + g + 8 * hi;
-    const int t = t0 + ir / n_rep;
-    if (t >= Tc) continue;
-    const float l = hi ? l1 : l0;
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;
-    __nv_bfloat16* orow =
-        out + (((size_t)b * Tc + t) * Hq + h * n_rep + ir % n_rep) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[nd][2 * hi] * inv, o[nd][2 * hi + 1] * inv);
+    for (int hi = 0; hi < 2; ++hi) {
+      const int rq = r0 + 8 * hi, t = t0 + rq / n_rep;
+      const size_t orow =
+          ((size_t)b * Tc + min(t, Tc - 1)) * Hq + h * n_rep + rq % n_rep;
+      store_row(out + orow * D, o0, o1, hi, l[hi], qpos[hi] < 0, t < Tc,
+                lane);
     }
   }
 }
@@ -491,6 +558,7 @@ extern "C" {
 // kv_bits 4, 8 or 16; k_pt / v_pt: device addresses of the layer's
 // per-tensor scales (kv4 / kv8 without planes), or null. kv4 and kv8,
 // fine-grained or per-tensor, take a page list or flags; kv16 does not.
+// k_data, v_data and planes 16-byte aligned.
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
                          const void* k_pt, const void* v_pt,
@@ -502,14 +570,21 @@ int launch_paged_prefill(const void* q, const void* k_data,
                          float sm_scale, int kv_bits, void* stream) {
   const bool sparse = sel_logic != nullptr || flags != nullptr;
   const bool pt = k_pt != nullptr;
-  if (n_rep <= 0 || BQ % n_rep || page <= 0 || page % 2 || W <= 0 ||
+  if (n_rep <= 0 || BM % n_rep || page <= 0 || page % 2 || W <= 0 ||
       (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
       pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||
       (sparse && kv_bits == 16) ||
-      (!pt && kv_bits != 16 && planes == nullptr))
+      (!pt && kv_bits != 16 && planes == nullptr) ||
+      (reinterpret_cast<uintptr_t>(k_data) |
+       reinterpret_cast<uintptr_t>(v_data) |
+       reinterpret_cast<uintptr_t>(planes)) % 16)
     return (int)cudaErrorInvalidValue;
+  // the 9 instantiations: dense kv4, kv4 pt, kv8, kv8 pt, kv16; page
+  // list / band kv4, kv4 pt, kv8, kv8 pt
   auto kernel = paged_prefill_kernel<false, 4, false>;
+  int which = 0;
+  size_t smem = Cfg<4>::SMEM;
   if (sparse) {
     if (kv_bits == 8)
       kernel = pt ? paged_prefill_kernel<true, 8, true>
@@ -517,17 +592,41 @@ int launch_paged_prefill(const void* q, const void* k_data,
     else
       kernel = pt ? paged_prefill_kernel<true, 4, true>
                   : paged_prefill_kernel<true, 4, false>;
-  } else if (kv_bits == 16) kernel = paged_prefill_kernel<false, 16, false>;
-  else if (kv_bits == 8)
+    which = 5 + (kv_bits == 8 ? 2 : 0) + (pt ? 1 : 0);
+  } else if (kv_bits == 16) {
+    kernel = paged_prefill_kernel<false, 16, false>;
+    smem = Cfg<16>::SMEM;
+    which = 4;
+  } else if (kv_bits == 8) {
     kernel = pt ? paged_prefill_kernel<false, 8, true>
                 : paged_prefill_kernel<false, 8, false>;
-  else if (pt) kernel = paged_prefill_kernel<false, 4, true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    which = pt ? 3 : 2;
+  } else if (pt) {
+    kernel = paged_prefill_kernel<false, 4, true>;
+    which = 1;
+  }
+  static_assert(Cfg<4>::SMEM == Cfg<8>::SMEM, "kv4 and kv8 share a layout");
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int tok_per_tile = BQ / n_rep;
-  dim3 grid((Tc + tok_per_tile - 1) / tok_per_tile, H, B);
-  kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  // each instantiation's shared-memory size is set, and its register
+  // budget checked, once per device
+  static bool ready[9][MAX_DEVICES] = {};
+  if (dev >= MAX_DEVICES || !ready[which][dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (!reg_budget_ok(attr.numRegs, 256, REGS_CONSUMER, 128, REGS_DEQUANT,
+                       128, REGS_COPY))
+      return (int)cudaErrorInvalidConfiguration;
+    if (dev < MAX_DEVICES) ready[which][dev] = true;
+  }
+  const int tok_per_tile = BM / n_rep;
+  dim3 grid(H, B, (Tc + tok_per_tile - 1) / tok_per_tile);
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const uint8_t*>(k_data), static_cast<const uint8_t*>(v_data),
       static_cast<const float*>(planes), static_cast<const float*>(k_pt),
@@ -536,7 +635,7 @@ int launch_paged_prefill(const void* q, const void* k_data,
       static_cast<const int*>(context_lens),
       static_cast<const int*>(sel_logic), static_cast<const int*>(flags),
       static_cast<__nv_bfloat16*>(out), Tc, H, n_rep, page, W, sink_size,
-      local_size, ring_span, ring_sink_tok, sm_scale);
+      local_size, ring_span, ring_sink_tok, sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 

@@ -116,6 +116,12 @@ def launch(fn, name: str, q, pool: KVPool, layer: int, block_tables,
     data_dtype = torch.bfloat16 if kv_bits == 16 else torch.uint8
     cuda.check(pool.k_data, "k_data", data_dtype)
     cuda.check(pool.v_data, "v_data", data_dtype, pool.k_data.shape)
+    # the kernels copy whole pool rows asynchronously (16-byte units)
+    for x, what in ((pool.k_data, "k_data"), (pool.v_data, "v_data"),
+                    (pool.kv_scales, "kv_scales")):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned, got base % 16 "
+                             f"= {x.data_ptr() % 16}")
     planes_ptr = k_pt = v_pt = None
     if fine:
         cuda.check(pool.kv_scales, "kv_scales", torch.float32)

@@ -1711,3 +1711,218 @@ def test_dispatch_switches_choose_rows_8_and_11(dev, monkeypatch):
     assert not dispatch.single_pass_applies(16, page, d)
     with pytest.raises(NotImplementedError):
         dispatch.paged_prefill_attention(*args, return_lse=True)
+
+
+# -- rows 9 and 7 on the wgmma core: 128-row query tiles, 64-key stages ------
+
+
+@pytest.mark.parametrize("lens,pad,hq,hkv,flags_kv,sink,local", [
+    ([1000], 37, 8, 2, None, 0, 0),            # ragged tail: T % 64 != 0
+    # segments straddle the 128-row q tiles; sink and band edges mid tile
+    ([100, 200, 63], 5, 4, 2, [1, 0], 40, 100),
+    # q tiles of padding only: an empty live kv range
+    ([90], 300, 8, 8, [0, 0, 0, 0, 1, 1, 1, 1], 16, 33),
+    ([129, 127, 256], 0, 16, 2, [0, 1], 64, 64),   # edges on tile edges
+])
+def test_flash_prefill_tile_edges_kernel(dev, lens, pad, hq, hkv, flags_kv,
+                                         sink, local):
+    """Row 9's tiles against the plain version where they are cut: ragged
+    tails, segments across q tiles, q tiles with nothing to attend, band
+    edges inside a key tile; padding rows give exactly 0."""
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    n, d = sum(lens), 128
+    t = n + pad
+    g = _gen(dev, 40)
+    q = torch.randn((t, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    seg = torch.full((t,), -1, dtype=torch.int32)
+    pos = torch.zeros(t, dtype=torch.int32)
+    o = 0
+    for i, m in enumerate(lens):
+        seg[o:o + m] = i
+        pos[o:o + m] = torch.arange(m)
+        o += m
+    seg, pos = seg.to(dev), pos.to(dev)
+    kw = {}
+    if flags_kv is not None:
+        kw = dict(head_is_retrieval=torch.tensor(
+            flags_kv, dtype=torch.bool, device=dev).repeat_interleave(
+                hq // hkv), sink_size=sink, local_size=local)
+    got = fa.flash_prefill(q, k, v, seg, pos, d ** -0.5, **kw)
+    want = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if pad:
+        assert float(got[n:].float().abs().max()) == 0.0
+
+
+def _plant_past_context(pool, layer, page, ctx, tables, kv_bits, fine):
+    """Garbage where no row may look: past each context in the page that
+    holds it and in the table's later pages, NaN planes (fine-grained
+    pools), 0xFF codes (kv4 / kv8) or NaN values (kv16)."""
+    w = tables.shape[1]
+    for s in range(tables.shape[0]):
+        n = int(ctx[s])
+        for slot_tbl in range((n - 1) // page, w):
+            phys = int(tables[s, slot_tbl])
+            first = (n - 1) % page + 1 if slot_tbl == (n - 1) // page else 0
+            if first >= page:
+                continue
+            if kv_bits == 16:
+                pool.k_data[layer, phys, :, first:] = float("nan")
+                pool.v_data[layer, phys, :, first:] = float("nan")
+                continue
+            if fine:
+                pool.kv_scales[layer, phys, :, :, first:] = float("nan")
+            if kv_bits == 8:
+                pool.k_data[layer, phys, :, first:] = 255
+                pool.v_data[layer, phys, :, first:] = 255
+            elif first == 0:
+                pool.k_data[layer, phys] = 255
+                pool.v_data[layer, phys] = 255
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [128, 256, 384])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8", "kv16"])
+def test_paged_prefill_pages_and_reps_kernel(dev, mode, page, n_rep):
+    """Row 7 over a dense table in every kv mode, at pages of 128, 256 and
+    384 tokens (under kv4 a 64-key sub-tile of a 384-token page lies in
+    the page's first or second half: its own rows and nibble) and every
+    GQA width, the second row padded halfway; past each context the pool
+    holds garbage (NaN planes or values, 0xFF codes) that the kernel must
+    keep out of every product: its plain version runs on the clean pool.
+    Launches counted under the mode's name."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import KVPool
+
+    b, h, d, chunk = 2, 2, 128, 150
+    history = 2 * page + 37
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 41)
+    if mode == "kv16":
+        shape = (2, b * w + 1, h, page, d)
+        pool = KVPool(*(torch.randn(shape, generator=g, device=dev).bfloat16()
+                        for _ in range(2)), None)
+        kv_bits, fine = 16, True
+    else:
+        pool = _codes_pool(dev, g, mode, 2, b * w + 1, h, page, d)
+        kv_bits, fine = PSP_MODES[mode]
+    tables = torch.randperm(b * w, generator=g, device=dev).view(b, w).to(
+        torch.int32)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    clean = pool.clone()
+    _plant_past_context(pool, 1, page, ctx, tables, kv_bits, fine)
+    name = {"kv4": "paged_prefill_attention", "kv8": "paged_prefill_kv8",
+            "kv16": "paged_prefill_kv16"}.get(mode, "paged_prefill_pt")
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=fine)
+    before = cuda.LAUNCHES[name]
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = pp.paged_prefill_attention_plain(q, clean, 1, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("page", [128, 384])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt8"])
+def test_paged_prefill_page_list_dead_slots_kernel(dev, mode, page):
+    """Row 7's page-list mode at pages of 128 and 384: slots in any order,
+    dead slots whose pages hold NaN planes and 0xFF codes, logical pages
+    left out of the list, garbage past each context; one retrieval and one
+    streaming kv head with sink and band edges inside tiles."""
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    h, d, n_rep, chunk = 2, 128, 4, 200
+    g = _gen(dev, 42)
+    pool = _codes_pool(dev, g, mode, 1, 13, h, page, d)
+    tables = torch.tensor([[3, 9, 0, 5, 11, 7], [1, 4, 10, 2, 8, 6]],
+                          dtype=torch.int32, device=dev)
+    sel = torch.tensor([[0, 3, 1, -1, 4, 2], [5, -1, 0, 1, -1, 2]],
+                       dtype=torch.int32, device=dev)
+    ctx = torch.tensor([5 * page - 20, 5 * page + 50], dtype=torch.int32,
+                       device=dev)
+    q_pos = torch.stack([int(n) - chunk + torch.arange(chunk)
+                         for n in ctx.tolist()]).to(device=dev,
+                                                    dtype=torch.int32)
+    q = torch.randn((2, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    kv_bits, fine = PSP_MODES[mode]
+    clean = pool.clone()
+    for s, slot in ((0, 3), (1, 1), (1, 4)):        # the dead slots' pages
+        phys = int(tables[s, slot])
+        if fine:
+            pool.kv_scales[0, phys] = float("nan")
+        pool.k_data[0, phys] = 255
+        pool.v_data[0, phys] = 255
+    # past each context: the last listed page's tail
+    for s, (last_logic, first) in enumerate(((4, page - 20), (5, 50))):
+        phys = int(tables[s, sel[s].tolist().index(last_logic)])
+        if fine:
+            pool.kv_scales[0, phys, :, :, first:] = float("nan")
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=fine, sel_logic=sel,
+              head_is_retrieval=torch.tensor([True] * n_rep + [False] * n_rep,
+                                             device=dev),
+              sink_size=40, local_size=150)
+    got = pp.paged_prefill_attention(q, pool, 0, tables, q_pos, ctx, **kw)
+    want = pp.paged_prefill_attention_plain(q, clean, 0, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("case", ["one", "packed", "padding", "prefix",
+                                  "shuffled", "split", "pad_first", "long"])
+def test_flash_tile_ranges_kernel(dev, case, band):
+    """Row 9's tile-range kernel (run first by every flash prefill launch)
+    equals its plain version, ranges and launch order, on usual batches
+    and on inputs it answers with every key tile."""
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    rng = np.random.default_rng(7)
+
+    def packed(lens, pad=0, start=None):
+        seg, pos = [], []
+        for i, n in enumerate(lens):
+            seg += [i] * n
+            p0 = 0 if start is None else start[i]
+            pos += list(range(p0, p0 + n))
+        return seg + [-1] * pad, pos + [0] * pad
+
+    seg, pos = {
+        "one": packed([1000]),
+        "packed": packed([50, 130, 7, 300], pad=5),
+        "padding": packed([90], pad=300),
+        "prefix": packed([200, 90, 300], pad=7, start=[64, 0, 1000]),
+        "shuffled": (packed([260, 150])[0],
+                     rng.permutation(410).tolist()),
+        "split": ([0] * 100 + [1] * 80 + [0] * 90,
+                  list(range(100)) + list(range(80)) + list(range(100, 190))),
+        "pad_first": ([-1] * 10 + [0] * 300, [0] * 10 + list(range(300))),
+        "long": packed([16384]),
+    }[case]
+    seg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = fa.tile_ranges(seg, pos, 128, 8192 if case == "long" else 100, band)
+    want = fa.live_tile_ranges(seg, pos, 128, 8192 if case == "long" else 100,
+                               band)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
