@@ -232,7 +232,7 @@ def rate_note(ops: float, ms: float, bnd: float) -> str:
 def ptxas_report(src: str):
     """``-Xptxas -v``'s registers and spills for each kernel function of
     ``src`` in this run's build, one line each (template arguments of the
-    paged prefill kernel spelled out)."""
+    paged prefill kernel spelled out, the others' values listed)."""
     import re
 
     from omniserve_tpu_torch.csrc import build
@@ -254,9 +254,12 @@ def ptxas_report(src: str):
                 n, k = int(t.group(1)), len(t.group(1))
                 ident, rest = rest[k:k + n], rest[k + n:]
             t = re.match(r"ILb(\d)ELi(\d+)ELb(\d)E", rest)
-            name = ident if not t else (
-                f"{ident}<SPARSE={t.group(1)}, KV_BITS={t.group(2)}, "
-                f"PT={t.group(3)}>")
+            args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+            name = (f"{ident}<SPARSE={t.group(1)}, KV_BITS={t.group(2)}, "
+                    f"PT={t.group(3)}>" if t else
+                    f"{ident}<" + ", ".join(re.findall(
+                        r"L[a-z]+(\d+)E", args.group(1))) + ">" if args
+                    else ident)
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -703,13 +706,11 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
                 library_ms=None, max_abs_err=err)
 
 
-def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
-    """Row 6's kv16 mode: decode over the dense list of a bf16 pool, the
-    split path's attention half (its append is ``kv_append_decode_kv16``).
-    The library yardstick is SDPA over K/V gathered BEFOREHAND into [B, H,
-    Tmax, D] bf16 with a length mask (the gather is not in its time)."""
+def decode_kv16_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100):
+    """Row 6's kv16 call over the dense list of a bf16 pool (8 kv heads,
+    n_rep 4, pages of 128, lengths drawn from [lens_from, lens_to]):
+    (args, kw, tables)."""
     import torch
-    import torch.nn.functional as F
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
@@ -723,17 +724,47 @@ def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
     pool = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, 16)
     q = torch.randn((b, hkv, n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    layer, sm = 1, d ** -0.5
     lists = da.dense_page_lists(tables, lens, page)
+    return ((q, pool, 1, *lists, lens),
+            dict(sm_scale=d ** -0.5, page_size=page), tables)
+
+
+def split_note(b, heads, tp, ms, n_bytes) -> str:
+    """The split kernels' S (``split_plan`` on this card), then the achieved
+    device-memory rate of ``n_bytes`` in ``ms`` and its share of the bytes
+    bound."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    n_split = da.split_plan(b, heads, tp, da.sm_count(
+        torch.cuda.current_device()))[0]
+    rate = n_bytes / (ms * 1e-3)
+    return (f"S {n_split}; {rate / 1e9:.1f} GB/s = "
+            f"{100 * rate / HBM_BYTES_PER_S:.1f}% of the bytes bound")
+
+
+def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
+    """Row 6's kv16 mode: decode over the dense list of a bf16 pool, the
+    split path's attention half (its append is ``kv_append_decode_kv16``).
+    The library yardstick is SDPA over K/V gathered BEFOREHAND into [B, H,
+    Tmax, D] bf16 with a length mask (the gather is not in its time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    args, kw, tables = decode_kv16_inputs(dev, gen, b, lens_from, lens_to)
+    q, pool, layer, sel_phys, sel_logic, lens = args
+    _, hkv, n_rep, d = q.shape
+    page, sm, w = kw["page_size"], kw["sm_scale"], tables.shape[1]
 
     def fn():
-        return da.paged_mqa_attention_kv16(q, pool, layer, *lists, lens,
-                                           sm_scale=sm, page_size=page)
+        return da.paged_mqa_attention_kv16(*args, **kw)
 
     def plain_fn(n=lens):
         return da.page_list_attention_plain(
-            q, pool, layer, *da.dense_page_lists(tables, n, page), n,
-            sm_scale=sm, page_size=page)
+            q, pool, layer, *da.dense_page_lists(tables, n, page), n, **kw)
 
     err, row = hold(fn(), plain_fn(), KV16_TOL, KV16_TOL, ATTN_ROW_RTOL,
                     f"kv16 decode B={b}", planted=(
@@ -743,8 +774,8 @@ def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
     ms = time_graphed_ms(fn, 20)
     call_ms = time_ms(fn, 50)
     plain = time_ms(plain_fn, 3, warmup=1)
-    k, v, valid = da.page_list_kv(pool, layer, *lists, lens, hkv,
-                                  page_size=page)
+    k, v, valid = da.page_list_kv(pool, layer, sel_phys, sel_logic, lens,
+                                  hkv, page_size=page)
     kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
     mask = valid[:, :, None, :]
     del k, v
@@ -762,7 +793,8 @@ def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
         f"{call_ms:.4f} per eager wrapper call) plain_ms {plain:.4f} "
         f"bound_ms {bnd:.4f} ({by}) library_ms {lib:.4f} (SDPA over K/V "
         f"gathered beforehand, gather not counted) max_abs_err {err:.3g} "
-        f"(row error {row:.3g} of its norm)")
+        f"(row error {row:.3g} of its norm); "
+        f"{split_note(b, hkv, w, ms, n_bytes)}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -1358,13 +1390,15 @@ def wrong_layer(pool, mode):
 
 
 def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
-                     page, tol=5e-2, library=None, mode="kv4", planted=()):
+                     page, tp, tol=5e-2, library=None, mode="kv4",
+                     planted=()):
     """Check + time one page-list decode call; ``n_pages_read`` = the
     (sequence, head) pages this run's lists make the kernel read.
     ``library`` = (q, k, v, valid) for the SDPA yardstick over the listed
     pages dequantized beforehand (not counted). With ``planted`` ((label,
     plain call with a fault)), also within 1e-2 of each row's norm, and
-    each fault refused by the same gate."""
+    each fault refused by the same gate. ``tp`` = entries of each list
+    (split over blocks by ``split_plan``)."""
     import torch.nn.functional as F
 
     got, want = fn(), plain_fn()
@@ -1390,7 +1424,7 @@ def _list_kernel_row(label, fn, plain_fn, n_pages_read, b, heads, n_rep, d,
         f"eager wrapper call) plain_ms {plain:.4f} bound_ms {bnd:.5f} ({by}) "
         f"library_ms {lib if lib is None else f'{lib:.4f}'} (SDPA over the "
         f"listed pages dequantized beforehand, not counted) max_abs_err "
-        f"{err:.3g}")
+        f"{err:.3g}; {split_note(b, heads, tp, ms, n_bytes)}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
@@ -1408,16 +1442,13 @@ def list_library_inputs(q, pool, layer, sel_phys, sel_logic, lengths, page,
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16), valid
 
 
-def check_decode_ph(dev, gen, b, mode="kv4"):
+def decode_ph_inputs(dev, gen, b, mode="kv4"):
     """Dynamic-sparse decode at the LServe path's shape: 4 retrieval heads,
     n_rep 4, a budget of 32 pages out of a 32K-token context (257 pages, the
     last one partly filled): the newest page first, then 31 others in no
-    order, a different list per head. kv8 and per-tensor modes (layer 1 of
-    a 2-layer pool) also hold each row within 1e-2 of its norm and refuse
-    the plain version with the other layer's scales or planes."""
+    order, a different list per head; a 2-layer pool but under kv4 (layer
+    1 read). Returns (args, kw)."""
     import torch
-
-    from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
     hr, n_rep, d, page, budget = 4, 4, 128, 128, 32
     ctx_pages = 257
@@ -1438,9 +1469,21 @@ def check_decode_ph(dev, gen, b, mode="kv4"):
     sel_logic = sel_logic.to(torch.int32).contiguous()
     sel_phys = sel_phys.to(torch.int32).contiguous()
     q = torch.randn((b, hr, n_rep, d), generator=gen, device=dev).bfloat16()
-    layer = layers - 1
-    args = (q, pool, layer, sel_phys, sel_logic, lens)
-    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    return ((q, pool, layers - 1, sel_phys, sel_logic, lens),
+            dict(sm_scale=d ** -0.5, page_size=page))
+
+
+def check_decode_ph(dev, gen, b, mode="kv4"):
+    """Row 5 at ``decode_ph_inputs``' shape. kv8 and per-tensor modes
+    (layer 1 of a 2-layer pool) also hold each row within 1e-2 of its norm
+    and refuse the plain version with the other layer's scales or
+    planes."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    args, kw = decode_ph_inputs(dev, gen, b, mode)
+    q, pool, layer, sel_phys, sel_logic, lens = args
+    _, hr, n_rep, d = q.shape
+    budget, page = sel_logic.shape[-1], kw["page_size"]
     planted = () if mode == "kv4" else (
         ("the other layer's scales" if LIST_MODES[mode][1]
          else "the other layer's planes",
@@ -1448,19 +1491,19 @@ def check_decode_ph(dev, gen, b, mode="kv4"):
              q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
         f"decode per-head lists {mode} B={b} Hr={hr} n_rep={n_rep} budget "
-        f"{budget} pages of {ctx_pages}",
+        f"{budget} pages of 257",
         lambda: da.paged_mqa_attention_single_pass_ph(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hr * budget, b, hr, n_rep, d, page, mode=mode, planted=planted,
-        library=list_library_inputs(q, pool, layer, sel_phys, sel_logic,
-                                    lens, page))
+        b * hr * budget, b, hr, n_rep, d, page, budget, mode=mode,
+        planted=planted, library=list_library_inputs(
+            q, pool, layer, sel_phys, sel_logic, lens, page))
 
 
-def check_decode_band(dev, gen, b, mode="kv4"):
+def decode_band_inputs(dev, gen, b, mode="kv4"):
     """The streaming call at the LServe path's shape: 4 streaming heads, the
     compact list of 1 sink page + 2 ring pages after the ring has wrapped
-    (32K-token contexts), band = 128 sink tokens + the last 256. kv8 and
-    per-tensor modes as ``check_decode_ph``."""
+    (32K-token contexts), band = 128 sink tokens + the last 256. Returns
+    (args, kw)."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -1477,11 +1520,21 @@ def check_decode_band(dev, gen, b, mode="kv4"):
     if sel_logic.shape != (b, 3) or int(sel_logic.min()) < 0:
         raise AssertionError(f"streaming list {sel_logic.tolist()}")
     q = torch.randn((b, hs, n_rep, d), generator=gen, device=dev).bfloat16()
-    layer = layers - 1
-    args = (q, pool, layer, sel_phys, sel_logic, lens)
-    kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=128,
-              band_local_tokens=256, ring_span_pages=span,
-              ring_sink_tokens=page)
+    return ((q, pool, layers - 1, sel_phys, sel_logic, lens),
+            dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=128,
+                 band_local_tokens=256, ring_span_pages=span,
+                 ring_sink_tokens=page))
+
+
+def check_decode_band(dev, gen, b, mode="kv4"):
+    """Row 4's band at ``decode_band_inputs``' shape. kv8 and per-tensor
+    modes as ``check_decode_ph``."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    args, kw = decode_band_inputs(dev, gen, b, mode)
+    q, pool, layer, sel_phys, sel_logic, lens = args
+    _, hs, n_rep, d = q.shape
+    page = kw["page_size"]
     planted = () if mode == "kv4" else (
         ("the other layer's scales" if LIST_MODES[mode][1]
          else "the other layer's planes",
@@ -1492,8 +1545,8 @@ def check_decode_band(dev, gen, b, mode="kv4"):
         f"2 ring pages",
         lambda: da.paged_mqa_attention_single_pass(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hs * 3, b, hs, n_rep, d, page, mode=mode, planted=planted,
-        library=list_library_inputs(
+        b * hs * 3, b, hs, n_rep, d, page, sel_logic.shape[-1], mode=mode,
+        planted=planted, library=list_library_inputs(
             q, pool, layer, sel_phys, sel_logic, lens, page,
             **{k: v for k, v in kw.items() if k != "sm_scale"
                and k != "page_size"}))
@@ -2424,7 +2477,8 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
 PORT_KERNEL_FUNCTIONS = ("quant_gemm_kernel", "flash_prefill_kernel",
                          "flash_tile_ranges_kernel",
                          "paged_prefill_kernel", "decode_attn_append_kernel",
-                         "decode_attn_list_kernel", "kv_append_kernel")
+                         "decode_attn_list_kernel", "decode_attn_kv16_kernel",
+                         "decode_split_combine_kernel", "kv_append_kernel")
 
 
 def trace_steps(engine, label, n_steps):
@@ -3412,6 +3466,8 @@ def main() -> int:
         check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536,
                      kv_bits=kv_bits, per_tensor=True)
     check_decode_kv16(dev, gen, b=128, lens_from=1045, lens_to=1536)
+    for line in ptxas_report("decode_attention.cu"):
+        log(f"    ptxas {line}")
     # the page-list kernels at a batch of 8 long contexts
     check_decode_ph(dev, gen, b=8)
     check_decode_band(dev, gen, b=8)

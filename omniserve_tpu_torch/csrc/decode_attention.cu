@@ -1,24 +1,21 @@
-// Paged decode attention for Hopper (sm_90a): three entry points over one
-// page walk.
+// Paged decode attention for Hopper (sm_90a): four entry points.
 //
 // Replace the TPU kernels of omniserve_tpu/ops/pallas/decode_attention.py:
 //   1. paged_mqa_attention_single_pass (:620, kernel _sp_kernel :112) in its
 //      append= mode over a dense, contiguous page list, kv4 or kv8 pools
-//      (launch_decode_attention_append);
-//   2. paged_mqa_attention_single_pass_ph (:1119, kernel _sp_kernel_ph :850):
-//      dynamic-sparse decode over per-(sequence, kv head) page lists
-//      (launch_decode_attention_ph);
+//      (launch_decode_attention_append, decode_attn_append_kernel);
+//   2. paged_mqa_attention_single_pass_ph (:1119, kernel _sp_kernel_ph :850,
+//      pallas_call :1206): dynamic-sparse decode over per-(sequence, kv
+//      head) page lists (launch_decode_attention_ph);
 //   3. paged_mqa_attention_single_pass in its plain mode with the streaming
 //      band over a ring pool: one page list per sequence, shared by the
-//      heads (launch_decode_attention_band);
+//      heads (launch_decode_attention_band, decode_attn_list_kernel);
 // entries 1-3 over kv4 or kv8 pools, fine-grained or per-tensor;
 // and of omniserve_tpu/ops/pallas/paged_attention.py:
-//   4. paged_mqa_attention (:255, kernel _mqa_kernel :58), the two-stage
-//      decode, over a kv16 (bf16) pool: one page list per sequence, read in
-//      place, with no gather stage (launch_decode_attention_kv16).
-// Entries 2 and 3 are one kernel (decode_attn_list_kernel), see below;
-// entry 4 is a kernel of its own (decode_attn_kv16_kernel) so the kv4
-// instantiations keep their code.
+//   4. paged_mqa_attention (:255, kernel _mqa_kernel :58, pallas_call :421),
+//      the two-stage decode, over a kv16 (bf16) pool: one page list per
+//      sequence, read in place, with no gather stage
+//      (launch_decode_attention_kv16, decode_attn_kv16_kernel).
 //
 // Contract of entry 1 (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
 // paged_decode_attention_fused_plain = append_kv, then
@@ -45,18 +42,63 @@
 //     staging below takes scale = pt and zero = bias, so the score and P.V
 //     loops are the fine-grained ones.
 //
-// What bounds it: device-memory bytes (each cached token costs D bytes of
-// K+V nibbles, 2*D bytes under kv8, and 16 bytes of planes; the math is a
-// few FMAs per byte).
-// Design: one block per (kv head, sequence) walks that sequence's pages;
+// What bounds every entry: device-memory bytes. Each cached token costs D
+// bytes of K+V nibbles (2*D under kv8, 4*D under kv16) and, fine-grained,
+// 16 bytes of planes; the math is 2*n_rep flops a byte or less.
+//
+// Entry 1: one block per (kv head, sequence) walks that sequence's pages;
 // one thread per token computes the n_rep query dots straight from the
-// packed nibbles (rank-1 zero-point term from the folded planes), one warp
+// packed codes (rank-1 zero-point term from the folded planes), one warp
 // per query row runs the online softmax over the page, and one thread per
-// head-dim lane accumulates P.V from the packed V rows. The new token is an
-// extra exact lane; its write-back happens after every pool read of the
-// block. Compiled with --fmad=false so the quantization codes and planes
-// are bit-identical to the plain append.
+// head-dim lane accumulates P.V. The new token is an extra exact lane; its
+// write-back happens after every pool read of the block.
+//
+// Entries 2, 3 and 4 (the split decode): one block of 4 consumer warps and
+// a copy warp per (split, kv head, sequence). Two things kept their first
+// bodies (one block per list, synchronous loads) far from the bytes bound,
+// and the design answers each:
+//   - too little parallelism (at batch 1, 4 lists of 32 pages on 132 SMs):
+//     each list of Tp entries is cut into S contiguous runs of entries,
+//     one block each. S comes from host-known shapes only (B, H, Tp and
+//     the SM count, about two waves of blocks; see split_plan in
+//     omniserve_tpu_torch/ops/cuda/decode_attention.py), never from lengths
+//     or list contents, so a captured launch keeps its grid. With S = 1 a
+//     block writes the bf16 output itself; with S > 1 it writes f32
+//     partials (row max m, sum l, unnormalised acc[n_rep][D]; a split with
+//     no live token writes m = -inf, l = 0, acc = 0) to a workspace the
+//     wrapper allocates, and decode_split_combine_kernel merges the S
+//     partials of each row in split order by the log-sum-exp rule of
+//     omniserve_tpu/parallel/sp.py:sp_combine (no atomics: a replayed graph
+//     gives the eager call's bits);
+//   - loads not in flight: the copy warp brings each listed page's rows in
+//     with cp.async.bulk into a ring of 3 mbarrier-guarded stages while the
+//     consumers score the previous one, and skips, before a byte moves,
+//     dead entries and pages past the length. Entries 2 and 3 stage a kv8
+//     page in runs of 64 token rows and a kv4 page whole (its rows hold
+//     two tokens each), with the four plane runs of a fine-grained page;
+//     entry 4 stages 32 tokens of a kv16 page, its K rows one bulk copy
+//     each into rows padded to 272 bytes (so ldmatrix reads them without
+//     bank conflicts) and its V rows as one copy.
+// The consumers score from shared memory: entries 2 and 3 with 8 lanes on
+// a K row (16 bytes each, neighbouring addresses), the n_rep dots from the
+// codes and the rank-1 zero-point term ks*(q.code) - kc*qsum as entry 1;
+// entry 4 with mma.sync m16n8k16 (the page's tokens as 16-row tiles, the
+// n_rep q rows as the 8 columns; bf16 in, f32 out, exact products; on an
+// H100 2.05x faster at B=128 than a warp per token summing FMAs from shared
+// memory). One
+// warp per query row runs the online softmax over the stage in f32, and
+// the P.V products stay f32 FMAs (P is never rounded): consumer thread c
+// owns head-dim lanes 2 (c % 64) and +1 for the tokens of parity c / 64. A
+// slot that is dead, past the length or outside the band is masked in S
+// and gets weight 0 in P before it meets a product (never-written planes
+// may hold NaN). The band's short lists (entry 3: 1 sink + 2 ring pages)
+// took the split body after an A/B against the first body on an H100
+// (PERF.md's kernel table, row 4).
+// The file is compiled with --fmad=false (entry 1's codes and planes are
+// bit-identical to the plain append); entries 2-4 write their FMAs as
+// __fmaf_rn.
 
+#include "attn_sm90.cuh"   // mbarriers, bulk copies, the stage ring
 #include "kv_common.cuh"
 
 namespace {
@@ -265,218 +307,145 @@ __global__ void __launch_bounds__(NT) decode_attn_append_kernel(
   }
 }
 
-// Decode attention over explicit page lists (entries 2 and 3).
-//
-// Contract (plain version: attention_ref.paged_decode_attention with
-// page_idxes, and with a streaming pool; the wrappers in
-// omniserve_tpu_torch/ops/cuda/decode_attention.py build the lists):
-//   - pages as entry 1 reads them: kv4 half-split nibble rows or kv8 byte
-//     rows, fine-grained (folded planes) or per-tensor (PT: no planes, the
-//     layer's scales kpt / vpt read on the device, codes biased by 8 / 128);
-//   - entry i of a list names a physical page sel_phys and the logical page
-//     sel_logic it holds (-1 = dead entry, skipped); lists are in no order.
-//     head_stride = entries per head for per-head lists, 0 for one list per
-//     sequence shared by every head of the pool.
-//   - the token in slot t of the page sits at position sel_logic*page + t.
-//     BAND with band_sink >= 0 and ring_span > 0: the page being written (logical page
-//     (len-1)/page) still holds, past its write head, tokens of one ring
-//     wrap earlier: those slots are relabelled pos - ring_span*page and are
-//     live only at or above ring_sink_tok.
-//   - a token is attended iff pos < len (and, relabelled, pos >= the ring's
-//     first position), and under BAND only if pos < band_sink or
-//     pos >= max(0, len - band_local).
-//   - a row with len <= 0, or no live token, outputs zeros.
-// The pool is only read. Bounded by device-memory bytes, as entry 1: each
-// listed page costs its K/V codes (D bytes a token under kv4, 2*D under
-// kv8) and, fine-grained, four plane rows. Same design: one block per
-// (pool head, sequence), one thread per token for the scores, one warp per
-// query row for the online softmax, one thread per head-dim lane for P.V;
-// garbage in dead slots (never-written planes, stale codes) is masked
-// before it meets a product: a dead slot's P.V weight is 0 and a code is
-// always finite. KV_BITS and PT are template axes, so the kv4 fine-grained
-// instantiations keep the code they had.
-template <int NREP, bool BAND, int KV_BITS, bool PT>
-__global__ void __launch_bounds__(NT) decode_attn_list_kernel(
-    const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
-    const uint8_t* __restrict__ k_data,       // layer: [P, H, rows, D]
-    const uint8_t* __restrict__ v_data,
-    const float* __restrict__ planes,         // layer: [P, 4, H, page]
-    const float* __restrict__ kpt,            // PT: the layer's K scale
-    const float* __restrict__ vpt,            // PT: the layer's V scale
-    const int* __restrict__ sel_phys,         // [B, (H,) Tp]
-    const int* __restrict__ sel_logic,        // [B, (H,) Tp]
-    const int* __restrict__ lengths,          // [B]
-    __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
-    int H, int page, int Tp, int head_stride, float sm_scale, int band_sink,
-    int band_local, int ring_span, int ring_sink_tok) {
-  constexpr int n_rep = NREP;
-  __shared__ float q_s[NREP][D];
-  __shared__ float score[NREP][MAX_PAGE];
-  __shared__ float ks[MAX_PAGE], kc[MAX_PAGE], vs[MAX_PAGE], vz[MAX_PAGE];
-  __shared__ unsigned char live[MAX_PAGE];
-  __shared__ float qsum[NREP], m_s[NREP], l_s[NREP];
-  __shared__ float alpha_s[NREP], c_s[NREP];
-  __shared__ float red[NWARP];
+// ---------------------------------------------------------------------------
+// The split decode (entries 2 and 4): see the header for the design.
+// ---------------------------------------------------------------------------
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b];
-  const size_t row_base = ((size_t)b * H + h) * n_rep;
-  if (len <= 0) {
-    for (int r = 0; r < n_rep; ++r)
-      out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
-    return;
-  }
-  constexpr bool KV8 = KV_BITS == 8;
-  constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
-  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
-  const int half = page / 2;
-  const int rows = KV8 ? page : half;   // byte rows per page and head
-  const int cur_page = (len - 1) / page, cur_slot = (len - 1) % page;
-  const int win_start = max(0, len - band_local);
+constexpr int NSTAGE = 3;               // ring stages
+constexpr int SPLIT_NT = NT + 32;       // 4 consumer warps, then the copy warp
+constexpr int COPY_WARP = NWARP;
+constexpr int CONSUMERS = 1;            // named barrier of the consumer warps
 
-  for (int r = 0; r < n_rep; ++r)
-    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
-  __syncthreads();
-  for (int r = 0; r < n_rep; ++r) {
-    const float s = block_reduce(q_s[r][tid], 0, red);
-    if (tid == 0) qsum[r] = s;
-  }
-  float acc[NREP];
-  for (int r = 0; r < n_rep; ++r) acc[r] = 0.0f;
-  if (tid < n_rep) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void consumers_sync() { sm90::wg_sync(CONSUMERS); }
 
-  const size_t list_off = (size_t)b * (head_stride ? (size_t)H * head_stride
-                                                    : (size_t)Tp) +
-                          (size_t)h * head_stride;
-  for (int i = 0; i < Tp; ++i) {
-    const int logic = sel_logic[list_off + i];
-    if (logic < 0) continue;                       // block-uniform
-    const int first = logic * page;
-    const bool ring_cur =
-        BAND && band_sink >= 0 && ring_span > 0 && logic == cur_page;
-    if (first >= len && !ring_cur) continue;       // nothing live here
-    const int phys = sel_phys[list_off + i];
-    const uint8_t* krows = k_data + ((size_t)phys * H + h) * rows * D;
-    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * rows * D;
-    const float* pl = planes + (size_t)phys * 4 * H * page + (size_t)h * page;
-    for (int t = tid; t < page; t += NT) {
-      int pos = first + t, floor_pos = 0;
-      if (ring_cur && t > cur_slot) {
-        pos -= ring_span * page;
-        floor_pos = ring_sink_tok;
-      }
-      bool ok = pos < len && pos >= floor_pos;
-      if (BAND && band_sink >= 0) ok = ok && (pos < band_sink || pos >= win_start);
-      live[t] = ok;
-      if constexpr (PT) {            // codes read as (code - bias) * pt
-        ks[t] = k_pt;
-        kc[t] = BIAS * k_pt;
-        vs[t] = v_pt;
-        vz[t] = BIAS;
-      } else {
-        const float s0 = pl[t];
-        ks[t] = s0;
-        kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;   // k_scale * k_zero
-        vs[t] = pl[(size_t)2 * H * page + t];
-        vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;     // v_zero
-      }
+__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 127) & ~uintptr_t(127));
+}
+
+// Which slots of a listed page are attended (the list contract below;
+// the kv16 lists take it with no band). Every test is block-uniform per
+// entry, so the copy warp and the consumers walk the same stages.
+struct ListMask {
+  int len, page, band_sink, win_start, ring_span, ring_sink_tok, cur_page,
+      cur_slot;
+  bool band, ring;
+
+  __device__ ListMask(int len_, int page_, int band_sink_, int band_local,
+                      int ring_span_, int ring_sink_tok_)
+      : len(len_), page(page_), band_sink(band_sink_),
+        win_start(max(0, len_ - band_local)), ring_span(ring_span_),
+        ring_sink_tok(ring_sink_tok_), cur_page((len_ - 1) / page_),
+        cur_slot((len_ - 1) % page_), band(band_sink_ >= 0),
+        ring(band_sink_ >= 0 && ring_span_ > 0) {}
+
+  // the slots [0, n) of logical page `logic` that can hold a live token
+  // (0: skip the entry): up to the length, the whole page being written on
+  // a ring (its slots past the write head hold one wrap older tokens)
+  __device__ int slots(int logic) const {
+    if (logic < 0 || logic * page >= len) return 0;
+    return ring && logic == cur_page ? page : min(page, len - logic * page);
+  }
+
+  __device__ bool live(int logic, int slot) const {
+    int pos = logic * page + slot, floor_pos = 0;
+    if (ring && logic == cur_page && slot > cur_slot) {
+      pos -= ring_span * page;
+      floor_pos = ring_sink_tok;
     }
-    __syncthreads();
-    // scores: one thread per token, dots over the K codes
-    for (int t = tid; t < page; t += NT) {
-      if (live[t]) {
-        const int shift = (!KV8 && t >= half) ? 4 : 0;
-        const uint32_t mask = KV8 ? 0xFFu : 0xFu;
-        const uint4* kr = reinterpret_cast<const uint4*>(
-            krows + (size_t)(KV8 ? t : t % half) * D);
-        float dot[NREP];
-        for (int r = 0; r < n_rep; ++r) dot[r] = 0.0f;
-#pragma unroll 2
-        for (int c = 0; c < D / 16; ++c) {
-          const uint4 w4 = kr[c];
-          const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
+    const bool ok = pos < len && pos >= floor_pos;
+    return band ? ok && (pos < band_sink || pos >= win_start) : ok;
+  }
+};
+
+// sum over the 8 lanes of an aligned group
+__device__ __forceinline__ float group8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  return v;
+}
+
+// the N floats at src (16-byte aligned when N % 4 == 0, 8 when N == 2)
+template <int N>
+__device__ __forceinline__ void load_row(float (&p)[N], const float* src) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-          for (int wi = 0; wi < 4; ++wi) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float code =
-                  (float)((words[wi] >> (8 * e + shift)) & mask);
-              const int d = c * 16 + wi * 4 + e;
-              for (int r = 0; r < n_rep; ++r) dot[r] += q_s[r][d] * code;
-            }
-          }
-        }
-        for (int r = 0; r < n_rep; ++r)
-          score[r][t] = sm_scale * (ks[t] * dot[r] - kc[t] * qsum[r]);
-      }
+    for (int j = 0; j < N; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + j);
+      p[j] = v.x;
+      p[j + 1] = v.y;
+      p[j + 2] = v.z;
+      p[j + 3] = v.w;
     }
-    __syncthreads();
-    // online softmax, one warp per query row
-    for (int r = warp; r < n_rep; r += NWARP) {
-      float mx = -INFINITY;
-      for (int t = lane; t < page; t += 32)
-        if (live[t]) mx = fmaxf(mx, score[r][t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      // m_new stays -inf only while no live token has been met
-      const float alpha = m_new == -INFINITY ? 1.0f : expf(m_old - m_new);
-      float lsum = 0.0f, csum = 0.0f;
-      for (int t = lane; t < page; t += 32) {
-        float pr = 0.0f, w = 0.0f;
-        if (live[t]) {
-          pr = expf(score[r][t] - m_new);
-          w = pr * vs[t];
-          csum += w * vz[t];
-        }
-        score[r][t] = w;
-        lsum += pr;
-      }
-      lsum = warp_sum(lsum);
-      csum = warp_sum(csum);
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + lsum;
-        alpha_s[r] = alpha;
-        c_s[r] = csum;
-      }
-    }
-    __syncthreads();
-    // P.V: one thread per head-dim lane; kv4 rows t and t + page/2 share a
-    // byte, kv8 rows hold one token each (dead slots carry weight 0, and a
-    // code is always finite)
-    for (int r = 0; r < n_rep; ++r) acc[r] = acc[r] * alpha_s[r] - c_s[r];
-    if constexpr (KV8) {
-      for (int row = 0; row < page; ++row) {
-        const float code = (float)vrows[(size_t)row * D + tid];
-        for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * code;
-      }
-    } else {
-      for (int row = 0; row < half; ++row) {
-        const uint32_t byte = vrows[(size_t)row * D + tid];
-        const float lo = (float)(byte & 0xF);
-        const float hi = (float)(byte >> 4);
-        for (int r = 0; r < n_rep; ++r)
-          acc[r] += score[r][row] * lo + score[r][row + half] * hi;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int r = 0; r < n_rep; ++r) {
-    const float l = l_s[r];
-    out[(row_base + r) * D + tid] =
-        __float2bfloat16(l > 0.0f ? acc[r] / l : 0.0f);
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    p[0] = v.x;
+    p[1] = v.y;
+  } else {
+    p[0] = src[0];
   }
 }
 
-// Decode attention over one page list per sequence of a kv16 pool
-// (entry 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 out
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The end of a split: consumer thread c holds acc for head-dim lanes
+// 2 (c % 64), +1 over the tokens of parity c / 64; the two halves are
+// summed here. S = 1: out = acc / l (0 where no token was live) in bf16.
+// S > 1: the f32 partial of split s, acc [S][rows][D] then (m, l)
+// [S][rows][2], rows = B * H * n_rep.
+template <int NREP>
+__device__ __forceinline__ void split_finish(
+    float (&acc)[NREP][2], const float* m_s, const float* l_s, float* red,
+    int ctid, size_t row_base, int s, int S, size_t rows,
+    __nv_bfloat16* out, float* ws) {
+  const int dp = ctid & 63, th = ctid >> 6;
+  if (th == 1) {
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      red[r * D + 2 * dp] = acc[r][0];
+      red[r * D + 2 * dp + 1] = acc[r][1];
+    }
+  }
+  consumers_sync();
+  if (th == 1) return;
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    const float a0 = acc[r][0] + red[r * D + 2 * dp];
+    const float a1 = acc[r][1] + red[r * D + 2 * dp + 1];
+    const size_t row = row_base + r;
+    if (S == 1) {
+      const float l = l_s[r];
+      *reinterpret_cast<__nv_bfloat162*>(out + row * D + 2 * dp) =
+          __floats2bfloat162_rn(l > 0.0f ? a0 / l : 0.0f,
+                                l > 0.0f ? a1 / l : 0.0f);
+    } else {
+      const size_t prow = (size_t)s * rows + row;
+      *reinterpret_cast<float2*>(ws + prow * D + 2 * dp) = make_float2(a0, a1);
+      if (dp == 0) {
+        float* ml = ws + (size_t)S * rows * D + prow * 2;
+        ml[0] = m_s[r];
+        ml[1] = l_s[r];
+      }
+    }
+  }
+}
+
+// Entry 4: decode over one page list per sequence of a kv16 pool.
 //
 // Contract (plain version: attention_ref.paged_decode_attention over a
 // kv16 pool; the wrapper passes the dense list of the block table):
@@ -487,16 +456,19 @@ __global__ void __launch_bounds__(NT) decode_attn_list_kernel(
 //     at position sel_logic*page + t and is attended iff pos < len;
 //   - out = softmax(q.k * sm_scale) . v over those tokens, in f32; a row
 //     with len <= 0, or no live token, outputs zeros.
-// What bounds it: device-memory bytes (4*D bytes of K+V per cached token
-// and kv head, the n_rep dots are 2*n_rep*D flops against them).
-// Design: one block per (kv head, sequence) walks the list. Scores: one
-// warp per token, each lane reads 4 consecutive bf16 of the K row (a warp
-// reads the 256-byte row in one coalesced sweep) and the n_rep dots are
-// warp sums; one warp per query row runs the online softmax over the
-// page; P.V: one thread per head-dim lane walks the page's V rows (each
-// row one coalesced 256-byte read by the block).
+// Block (split s, kv head h, sequence b) takes list entries [s * per_split,
+// (s + 1) * per_split). A stage holds 32 tokens of one page: K rows padded
+// to KV16_KROW bytes (one bulk copy each), then the V rows (one copy). 32
+// tokens in 3 stages (50 KB) let 3 blocks share an SM where 64 let 2; on an
+// H100 that ran 0.91x the time of 64-token stages at B=128 and 0.83x at
+// B=8 (16 tokens in 4 stages: 1.14x; 2 or 4 stages of 32: 1.02x / 0.95x).
+constexpr int KV16_TS = 32;                  // tokens a stage holds
+constexpr int KV16_KROW = 2 * D + 16;        // a K row in shared memory
+constexpr int KV16_STAGE = KV16_TS * (KV16_KROW + 2 * D);
+constexpr int KV16_SMEM = NSTAGE * KV16_STAGE + 128;   // + alignment slack
+
 template <int NREP>
-__global__ void __launch_bounds__(NT) decode_attn_kv16_kernel(
+__global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, H, n_rep, D]
     const __nv_bfloat16* __restrict__ k_data,  // layer: [P, H, page, D]
     const __nv_bfloat16* __restrict__ v_data,
@@ -504,96 +476,493 @@ __global__ void __launch_bounds__(NT) decode_attn_kv16_kernel(
     const int* __restrict__ sel_logic,         // [B, Tp]
     const int* __restrict__ lengths,           // [B]
     __nv_bfloat16* __restrict__ out,           // [B, H, n_rep, D]
-    int H, int page, int Tp, float sm_scale) {
-  constexpr int n_rep = NREP;
-  __shared__ float q_s[NREP][D];
-  __shared__ float score[NREP][MAX_PAGE];
+    float* __restrict__ ws,                    // S > 1: the partials
+    int H, int page, int Tp, int per_split, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align128(smem_raw);
+  __shared__ __align__(16) float sc[NREP][KV16_TS];   // scores
+  __shared__ __align__(16) float pw[KV16_TS][NREP];   // probabilities
+  __shared__ __align__(16) float red[NREP * D];
   __shared__ float m_s[NREP], l_s[NREP], alpha_s[NREP];
+  __shared__ __align__(8) uint64_t full[NSTAGE], empty[NSTAGE];
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = lengths[b];
-  const size_t row_base = ((size_t)b * H + h) * n_rep;
-  if (len <= 0) {
-    for (int r = 0; r < n_rep; ++r)
-      out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
+  const size_t list_off = (size_t)b * Tp;
+  const int i0 = s * per_split, i1 = min(Tp, i0 + per_split);
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      sm90::mbar_init(&full[st], 1);      // the copy warp's lane 0 (+ bytes)
+      sm90::mbar_init(&empty[st], NT);    // every consumer thread
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const ListMask mask(len, page, -1, 0, 0, 0);
+  if (warp == COPY_WARP) {
+    sm90::Ring rg;
+    for (int i = i0; i < i1; ++i) {
+      const int ntok = mask.slots(sel_logic[list_off + i]);
+      if (ntok == 0) continue;
+      const size_t row0 = ((size_t)sel_phys[list_off + i] * H + h) * page;
+      for (int t0 = 0; t0 < ntok; t0 += KV16_TS) {
+        const int ts = min(KV16_TS, ntok - t0);
+        const int st = rg.stage;
+        sm90::mbar_wait(&empty[st], rg.phase ^ 1u);
+        unsigned char* ks = ring + st * KV16_STAGE;
+        if (lane == 0) sm90::mbar_arrive_tx(&full[st], 4u * D * ts);
+        __syncwarp();
+        const __nv_bfloat16* krows = k_data + (row0 + t0) * D;
+        for (int t = lane; t < ts; t += 32)
+          sm90::bulk_load(ks + t * KV16_KROW, krows + (size_t)t * D, 2 * D,
+                          &full[st]);
+        if (lane == 0)
+          sm90::bulk_load(ks + KV16_TS * KV16_KROW, v_data + (row0 + t0) * D,
+                          2u * D * ts, &full[st]);
+        rg.advance<NSTAGE>();
+      }
+    }
     return;
   }
-  for (int r = 0; r < n_rep; ++r)
-    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
-  if (tid < n_rep) {
+
+  // q as the B operand of S^T = K q^T: column n is q row n (zero past
+  // n_rep); k step kk covers head dims 16 kk .. 16 kk + 15
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t row_base = ((size_t)b * H + h) * NREP;
+  uint32_t qb[D / 16][2];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qb[kk][0] = qb[kk][1] = 0u;
+    if (g < NREP) {
+      const __nv_bfloat16* qr = q + (row_base + g) * D + 16 * kk + 2 * t4;
+      qb[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
+      qb[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+    }
+  }
+  if (tid < NREP) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.0f;
   }
-  float acc[NREP];
-  for (int r = 0; r < n_rep; ++r) acc[r] = 0.0f;
-  __syncthreads();
+  float acc[NREP][2];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) acc[r][0] = acc[r][1] = 0.0f;
+  const int dp = tid & 63, th = tid >> 6;
+  consumers_sync();
 
-  const size_t list_off = (size_t)b * Tp;
-  for (int i = 0; i < Tp; ++i) {
-    const int logic = sel_logic[list_off + i];
-    if (logic < 0) continue;                       // block-uniform
-    const int first = logic * page;
-    if (first >= len) continue;
-    const int ntok = min(page, len - first);
-    const int phys = sel_phys[list_off + i];
-    const __nv_bfloat16* krows = k_data + ((size_t)phys * H + h) * page * D;
-    const __nv_bfloat16* vrows = v_data + ((size_t)phys * H + h) * page * D;
-    // scores: one warp per token, 4 lanes of the head dim per thread
-    for (int t = warp; t < ntok; t += NWARP) {
-      const uint2 raw =
-          *reinterpret_cast<const uint2*>(krows + (size_t)t * D + lane * 4);
-      const float2 k01 =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 k23 =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  sm90::Ring rg;
+  for (int i = i0; i < i1; ++i) {
+    const int ntok = mask.slots(sel_logic[list_off + i]);
+    if (ntok == 0) continue;
+    for (int t0 = 0; t0 < ntok; t0 += KV16_TS) {
+      const int ts = min(KV16_TS, ntok - t0);
+      const int st = rg.stage;
+      sm90::mbar_wait(&full[st], rg.phase);
+      const unsigned char* ks = ring + st * KV16_STAGE;
+      const __nv_bfloat16* vs =
+          reinterpret_cast<const __nv_bfloat16*>(ks + KV16_TS * KV16_KROW);
+      // scores: warp w's tokens 16 w .. 16 w + 15 are the A operand's rows
+      // (rows past ts hold stale bytes and are never stored)
+      if (16 * warp < ts) {
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const uint32_t a_addr = sm90::smem_u32(
+            ks + (16 * warp + (lane & 15)) * KV16_KROW + (lane >> 4) * 16);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_addr + 32 * kk);
+          mma16816(c, a, qb[kk][0], qb[kk][1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 16 * warp + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
+          if (r < NREP && t < ts) sc[r][t] = c[e] * sm_scale;
+        }
+      }
+      consumers_sync();
+      // online softmax, one warp per query row (ts >= 1: m_new is finite)
+      for (int r = warp; r < NREP; r += NWARP) {
+        float mx = -INFINITY;
+        for (int t = lane; t < ts; t += 32) mx = fmaxf(mx, sc[r][t]);
+        mx = warp_max(mx);
+        const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
+        float lsum = 0.0f;
+        for (int t = lane; t < ts; t += 32) {
+          const float p = expf(sc[r][t] - m_new);
+          pw[t][r] = p;
+          lsum += p;
+        }
+        lsum = warp_sum(lsum);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          m_s[r] = m_new;
+          l_s[r] = l_s[r] * alpha + lsum;
+          alpha_s[r] = alpha;
+        }
+      }
+      consumers_sync();
+      // P.V in f32
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
-        const float* qr = &q_s[r][lane * 4];
-        float dot = qr[0] * k01.x + qr[1] * k01.y + qr[2] * k23.x +
-                    qr[3] * k23.y;
-        dot = warp_sum(dot);
-        if (lane == 0) score[r][t] = dot * sm_scale;
+        acc[r][0] *= alpha_s[r];
+        acc[r][1] *= alpha_s[r];
+      }
+      for (int t = th; t < ts; t += 2) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vs + t * D + 2 * dp));
+        float p[NREP];
+        load_row<NREP>(p, pw[t]);
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) {
+          acc[r][0] = __fmaf_rn(p[r], v.x, acc[r][0]);
+          acc[r][1] = __fmaf_rn(p[r], v.y, acc[r][1]);
+        }
+      }
+      sm90::mbar_arrive(&empty[st]);
+      rg.advance<NSTAGE>();
+    }
+  }
+  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, s, gridDim.x,
+                     (size_t)gridDim.z * H * NREP, out, ws);
+}
+
+// Entries 2 and 3: decode over explicit page lists of a kv4 or kv8 pool.
+//
+// Contract (plain version: attention_ref.paged_decode_attention with
+// page_idxes, and with a streaming pool; the wrappers in
+// omniserve_tpu_torch/ops/cuda/decode_attention.py build the lists):
+//   - pages as entry 1 reads them: kv4 half-split nibble rows or kv8 byte
+//     rows, fine-grained (folded planes) or per-tensor (PT: no planes, the
+//     layer's scales kpt / vpt read on the device, codes biased by 8 / 128);
+//   - entry i of a list names a physical page sel_phys and the logical page
+//     sel_logic it holds (-1 = dead entry, skipped); lists are in no order,
+//     one per (sequence, head) [B, H, Tp] for entry 2, one per sequence
+//     shared by the heads [B, Tp] for entry 3 (BAND).
+//   - the token in slot t of the page sits at position sel_logic*page + t.
+//     With band_sink >= 0 and ring_span > 0: the page being written
+//     (logical page (len-1)/page) still holds, past its write head, tokens
+//     of one ring wrap earlier: those slots are relabelled pos -
+//     ring_span*page and are live only at or above ring_sink_tok.
+//   - a token is attended iff pos < len (and, relabelled, pos >= the ring's
+//     first position), and with band_sink >= 0 only if pos < band_sink or
+//     pos >= max(0, len - band_local).
+//   - a row with len <= 0, or no live token, outputs zeros.
+// The pool is only read. A kv8 stage holds a run of up to 64 token rows of
+// a page, a kv4 stage the whole page (page/2 rows, token t in row t %
+// (page/2), high nibble iff t >= page/2): the K rows, the V rows, then,
+// fine-grained, the four plane runs of the slots it covers. Only rows that
+// can hold a live token are copied (a kv8 run rounded up to 4 rows, so the
+// plane runs stay multiples of 16 bytes).
+constexpr int LIST_KV8_ROWS = 64;     // token rows of a kv8 stage
+constexpr int LIST_TS = MAX_PAGE;     // token slots of a stage, at most
+
+__host__ __device__ constexpr int list_stage_rows(int kv_bits, int page) {
+  return kv_bits == 8 ? (page < LIST_KV8_ROWS ? page : LIST_KV8_ROWS)
+                      : page / 2;
+}
+__host__ __device__ constexpr int list_stage_slots(int kv_bits, int page) {
+  return kv_bits == 8 ? list_stage_rows(8, page) : page;
+}
+__host__ __device__ constexpr int list_stage_bytes(int kv_bits, bool pt,
+                                                   int page) {
+  return (2 * list_stage_rows(kv_bits, page) * D +
+          (pt ? 0 : 16 * list_stage_slots(kv_bits, page)) + 127) / 128 * 128;
+}
+
+// The rows a stage copies and the plane slots it covers, from the slots
+// [0, ntok) of the page that can hold a live token and the stage's first
+// row r0.
+template <bool KV8>
+__device__ __forceinline__ void list_stage_extent(int ntok, int r0, int rs,
+                                                  int half, int& nrow,
+                                                  int& nslot) {
+  if (KV8) {
+    nrow = (min(rs, ntok - r0) + 3) & ~3;
+    nslot = nrow;
+  } else {
+    nrow = min(half, ntok);
+    nslot = (ntok + 3) & ~3;
+  }
+}
+
+template <int NREP, bool BAND, int KV_BITS, bool PT>
+__global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
+    const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
+    const uint8_t* __restrict__ k_data,       // layer: [P, H, rows, D]
+    const uint8_t* __restrict__ v_data,
+    const float* __restrict__ planes,         // layer: [P, 4, H, page]
+    const float* __restrict__ kpt,            // PT: the layer's K scale
+    const float* __restrict__ vpt,            // PT: the layer's V scale
+    const int* __restrict__ sel_phys,         // [B, H, Tp]; BAND [B, Tp]
+    const int* __restrict__ sel_logic,        // [B, H, Tp]; BAND [B, Tp]
+    const int* __restrict__ lengths,          // [B]
+    __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
+    float* __restrict__ ws,                   // S > 1: the partials
+    int H, int page, int Tp, int per_split, float sm_scale, int band_sink,
+    int band_local, int ring_span, int ring_sink_tok) {
+  constexpr bool KV8 = KV_BITS == 8, FINE = !PT;
+  constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
+  constexpr int RQ = NREP < 4 ? NREP : 4;       // q rows a scoring pass holds
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align128(smem_raw);
+  __shared__ __align__(16) float q_s[NREP][D];
+  __shared__ __align__(16) float sc[NREP][LIST_TS];    // scores
+  __shared__ __align__(16) float pw[LIST_TS][NREP];    // p * v_scale
+  __shared__ __align__(16) float red[NREP * D];
+  __shared__ float qsum[NREP], m_s[NREP], l_s[NREP], alpha_s[NREP], c_s[NREP];
+  __shared__ __align__(8) uint64_t full[NSTAGE], empty[NSTAGE];
+
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = lengths[b];
+  const int half = page / 2, rows = KV8 ? page : half;
+  const int rs = list_stage_rows(KV_BITS, page);
+  const int ts = list_stage_slots(KV_BITS, page);
+  const int stage_bytes = list_stage_bytes(KV_BITS, PT, page);
+  const size_t list_off = BAND ? (size_t)b * Tp : ((size_t)b * H + h) * Tp;
+  const ListMask mask(len, page, BAND ? band_sink : -1, band_local,
+                      ring_span, ring_sink_tok);
+  const int i0 = s * per_split, i1 = min(Tp, i0 + per_split);
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      sm90::mbar_init(&full[st], 1);      // the copy warp's lane 0 (+ bytes)
+      sm90::mbar_init(&empty[st], NT);    // every consumer thread
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == COPY_WARP) {
+    sm90::Ring rg;
+    for (int i = i0; i < i1; ++i) {
+      const int ntok = mask.slots(sel_logic[list_off + i]);
+      if (ntok == 0) continue;
+      const int phys = sel_phys[list_off + i];
+      const size_t prow = ((size_t)phys * H + h) * rows;
+      for (int r0 = 0; r0 < (KV8 ? ntok : 1); r0 += rs) {
+        int nrow, nslot;
+        list_stage_extent<KV8>(ntok, r0, rs, half, nrow, nslot);
+        const int st = rg.stage;
+        sm90::mbar_wait(&empty[st], rg.phase ^ 1u);
+        unsigned char* kst = ring + st * stage_bytes;
+        if (lane == 0)
+          sm90::mbar_arrive_tx(&full[st],
+                               2u * nrow * D + (FINE ? 16u * nslot : 0u));
+        __syncwarp();
+        if (lane == 0)
+          sm90::bulk_load(kst, k_data + (prow + r0) * D, nrow * D, &full[st]);
+        else if (lane == 1)
+          sm90::bulk_load(kst + rs * D, v_data + (prow + r0) * D, nrow * D,
+                          &full[st]);
+        else if (FINE && lane < 6)
+          sm90::bulk_load(
+              reinterpret_cast<float*>(kst + 2 * rs * D) + (lane - 2) * ts,
+              planes + (((size_t)phys * 4 + lane - 2) * H + h) * page + r0,
+              4 * nslot, &full[st]);
+        rg.advance<NSTAGE>();
       }
     }
-    __syncthreads();
-    // online softmax, one warp per query row (ntok >= 1: m_new is finite)
-    for (int r = warp; r < n_rep; r += NWARP) {
-      float mx = -INFINITY;
-      for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, score[r][t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float lsum = 0.0f;
-      for (int t = lane; t < ntok; t += 32) {
-        const float pr = expf(score[r][t] - m_new);
-        score[r][t] = pr;
-        lsum += pr;
-      }
-      lsum = warp_sum(lsum);
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + lsum;
-        alpha_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    // P.V: one thread per head-dim lane
-    for (int r = 0; r < n_rep; ++r) acc[r] *= alpha_s[r];
-#pragma unroll 4
-    for (int row = 0; row < ntok; ++row) {
-      const float v = __bfloat162float(vrows[(size_t)row * D + tid]);
-      for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * v;
-    }
-    __syncthreads();
+    return;
   }
 
-  for (int r = 0; r < n_rep; ++r) {
-    const float l = l_s[r];
-    out[(row_base + r) * D + tid] =
-        __float2bfloat16(l > 0.0f ? acc[r] / l : 0.0f);
+  const size_t row_base = ((size_t)b * H + h) * NREP;
+#pragma unroll
+  for (int r = 0; r < NREP; ++r)
+    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
+  if (tid < NREP) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
   }
+  consumers_sync();
+  for (int r = warp; r < NREP; r += NWARP) {
+    const float4 v = reinterpret_cast<const float4*>(q_s[r])[lane];
+    const float sum = warp_sum(v.x + v.y + v.z + v.w);
+    if (lane == 0) qsum[r] = sum;
+  }
+  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
+  float acc[NREP][2];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) acc[r][0] = acc[r][1] = 0.0f;
+  const int grp = lane >> 3, l8 = lane & 7, dp = tid & 63, th = tid >> 6;
+  consumers_sync();
+
+  sm90::Ring rg;
+  for (int i = i0; i < i1; ++i) {
+    const int logic = sel_logic[list_off + i];
+    const int ntok = mask.slots(logic);
+    if (ntok == 0) continue;
+    for (int r0 = 0; r0 < (KV8 ? ntok : 1); r0 += rs) {
+      int nrow, nslot;
+      list_stage_extent<KV8>(ntok, r0, rs, half, nrow, nslot);
+      const int n_pw = KV8 ? nrow : page;   // stage slots the softmax covers
+      const int st = rg.stage;
+      sm90::mbar_wait(&full[st], rg.phase);
+      const unsigned char* kst = ring + st * stage_bytes;
+      const unsigned char* vst = kst + rs * D;
+      const float* pst = reinterpret_cast<const float*>(kst + 2 * rs * D);
+      // scores: 8 lanes on a K row, 16 code bytes each; only live slots'
+      // scores are ever read
+      for (int rq = 0; rq < NREP; rq += RQ) {
+        float qr[RQ][16];
+#pragma unroll
+        for (int j = 0; j < RQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 16; e += 4) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(&q_s[rq + j][16 * l8 + e]);
+            qr[j][e] = v.x;
+            qr[j][e + 1] = v.y;
+            qr[j][e + 2] = v.z;
+            qr[j][e + 3] = v.w;
+          }
+        for (int rb = 4 * warp; rb < nrow; rb += 16) {   // warp-uniform
+          const int row = rb + grp;
+          const bool ok = row < nrow;
+          uint4 w4 = make_uint4(0u, 0u, 0u, 0u);
+          if (ok) w4 = *reinterpret_cast<const uint4*>(kst + row * D + 16 * l8);
+          const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
+          float dlo[RQ], dhi[RQ];
+#pragma unroll
+          for (int j = 0; j < RQ; ++j) dlo[j] = dhi[j] = 0.0f;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const uint32_t byte = (words[e >> 2] >> (8 * (e & 3))) & 0xFFu;
+            if constexpr (KV8) {
+              const float c = (float)byte;
+#pragma unroll
+              for (int j = 0; j < RQ; ++j)
+                dlo[j] = __fmaf_rn(qr[j][e], c, dlo[j]);
+            } else {
+              const float lo = (float)(byte & 0xFu), hi = (float)(byte >> 4);
+#pragma unroll
+              for (int j = 0; j < RQ; ++j) {
+                dlo[j] = __fmaf_rn(qr[j][e], lo, dlo[j]);
+                dhi[j] = __fmaf_rn(qr[j][e], hi, dhi[j]);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < RQ; ++j) {
+            dlo[j] = group8_sum(dlo[j]);
+            if constexpr (!KV8) dhi[j] = group8_sum(dhi[j]);
+          }
+          if (ok && l8 == 0) {
+#pragma unroll
+            for (int k = 0; k < (KV8 ? 1 : 2); ++k) {
+              const int t = row + k * half;     // stage slot
+              if (!mask.live(logic, r0 + t)) continue;
+              const float ks = FINE ? pst[t] : k_pt;
+              const float kc = FINE ? pst[ts + t] - 128.0f * ks : BIAS * k_pt;
+#pragma unroll
+              for (int j = 0; j < RQ; ++j)
+                sc[rq + j][t] =
+                    sm_scale * (ks * (k ? dhi[j] : dlo[j]) - kc * qsum[rq + j]);
+            }
+          }
+        }
+      }
+      consumers_sync();
+      // online softmax, one warp per query row; a dead slot's weight is 0
+      for (int r = warp; r < NREP; r += NWARP) {
+        float mx = -INFINITY;
+        for (int t = lane; t < n_pw; t += 32)
+          if (mask.live(logic, r0 + t)) mx = fmaxf(mx, sc[r][t]);
+        mx = warp_max(mx);
+        const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
+        float lsum = 0.0f, csum = 0.0f;
+        for (int t = lane; t < n_pw; t += 32) {
+          float p = 0.0f, w = 0.0f;
+          if (mask.live(logic, r0 + t)) {
+            p = expf(sc[r][t] - m_new);
+            w = p * (FINE ? pst[2 * ts + t] : v_pt);
+            csum += w * (FINE ? pst[3 * ts + t] - 128.0f : BIAS);   // v_zero
+          }
+          pw[t][r] = w;
+          lsum += p;
+        }
+        lsum = warp_sum(lsum);
+        csum = warp_sum(csum);
+        if (lane == 0) {
+          const float alpha = m_new == -INFINITY ? 1.0f : expf(m_old - m_new);
+          m_s[r] = m_new;
+          l_s[r] = l_s[r] * alpha + lsum;
+          alpha_s[r] = alpha;
+          c_s[r] = csum;
+        }
+      }
+      consumers_sync();
+      // P.V in f32: kv8 rows hold one token, kv4 rows t and t + page/2
+      // (codes are finite, and dead slots carry weight 0)
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        acc[r][0] *= alpha_s[r];
+        acc[r][1] *= alpha_s[r];
+        if (th == 0) {
+          acc[r][0] -= c_s[r];
+          acc[r][1] -= c_s[r];
+        }
+      }
+      for (int row = th; row < nrow; row += 2) {
+        const uint32_t two =
+            *reinterpret_cast<const uint16_t*>(vst + row * D + 2 * dp);
+        float w[NREP];
+        load_row<NREP>(w, pw[row]);
+        if constexpr (KV8) {
+          const float c0 = (float)(two & 0xFFu), c1 = (float)(two >> 8);
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) {
+            acc[r][0] = __fmaf_rn(w[r], c0, acc[r][0]);
+            acc[r][1] = __fmaf_rn(w[r], c1, acc[r][1]);
+          }
+        } else {
+          float wh[NREP];
+          load_row<NREP>(wh, pw[row + half]);
+          const float lo0 = (float)(two & 0xFu);
+          const float hi0 = (float)((two >> 4) & 0xFu);
+          const float lo1 = (float)((two >> 8) & 0xFu);
+          const float hi1 = (float)(two >> 12);
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) {
+            acc[r][0] = __fmaf_rn(wh[r], hi0, __fmaf_rn(w[r], lo0, acc[r][0]));
+            acc[r][1] = __fmaf_rn(wh[r], hi1, __fmaf_rn(w[r], lo1, acc[r][1]));
+          }
+        }
+      }
+      sm90::mbar_arrive(&empty[st]);
+      rg.advance<NSTAGE>();
+    }
+  }
+  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, s, gridDim.x,
+                     (size_t)gridDim.z * H * NREP, out, ws);
+}
+
+// Merges the S partials of each (sequence, head, rep) row in split order
+// (omniserve_tpu/parallel/sp.py:sp_combine's rule): m* = max_s m_s, then
+// out = sum_s acc_s e_s / sum_s l_s e_s, e_s = exp(m_s - m*) once per
+// split, over the splits that met a live token (m_s > -inf); 0 where none
+// did. One block per row, one thread per head-dim lane.
+__global__ void __launch_bounds__(NT) decode_split_combine_kernel(
+    const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int rows,
+    int S) {
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = ws + (size_t)S * rows * D;
+  float m_star = -INFINITY;
+  for (int s = 0; s < S; ++s)
+    m_star = fmaxf(m_star, ml[((size_t)s * rows + row) * 2]);
+  float num = 0.0f, den = 0.0f;
+  for (int s = 0; s < S; ++s) {
+    const size_t prow = (size_t)s * rows + row;
+    const float m = ml[prow * 2];
+    if (m == -INFINITY) continue;
+    const float e = expf(m - m_star);
+    den = __fmaf_rn(ml[prow * 2 + 1], e, den);
+    num = __fmaf_rn(ws[prow * D + d], e, num);
+  }
+  out[row * D + d] = __float2bfloat16(den > 0.0f ? num / den : 0.0f);
 }
 
 }  // namespace
@@ -647,111 +1016,183 @@ int launch_decode_attention_append(
   return (int)cudaGetLastError();
 }
 
-static int launch_list(bool band, const void* q, const void* k_data,
-                       const void* v_data, const void* planes,
-                       const void* sel_phys, const void* sel_logic,
-                       const void* lengths, void* out, int B, int H,
-                       int n_rep, int page, int Tp, int head_stride,
-                       float sm_scale, int band_sink, int band_local,
-                       int ring_span, int ring_sink_tok, int kv_bits,
-                       const void* k_pt, const void* v_pt, void* stream) {
-  const bool pt = k_pt != nullptr;
-  if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
-      (!pt && planes == nullptr) || page <= 0 || page > MAX_PAGE)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_LIST(R, BAND, BITS, PT)                                     \
-  decode_attn_list_kernel<R, BAND, BITS, PT><<<grid, NT, 0, s>>>(          \
-      static_cast<const __nv_bfloat16*>(q),                                \
-      static_cast<const uint8_t*>(k_data),                                 \
-      static_cast<const uint8_t*>(v_data),                                 \
-      static_cast<const float*>(planes), static_cast<const float*>(k_pt),  \
-      static_cast<const float*>(v_pt),                                     \
-      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic), \
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),  \
-      H, page, Tp, head_stride, sm_scale, band_sink, band_local,           \
-      ring_span, ring_sink_tok)
-#define LAUNCH_MODE(R, BAND)                                  \
-  if (pt) {                                                   \
-    if (kv_bits == 8) LAUNCH_LIST(R, BAND, 8, true);          \
-    else LAUNCH_LIST(R, BAND, 4, true);                       \
-  } else {                                                    \
-    if (kv_bits == 8) LAUNCH_LIST(R, BAND, 8, false);         \
-    else LAUNCH_LIST(R, BAND, 4, false);                      \
+}  // extern "C"
+
+namespace {
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory, once per kernel and
+// device (a launch that asks for more than 48 KB without it is refused).
+int allow_smem(const void* kernel, int bytes) {
+  constexpr int N = 64;
+  static const void* fns[N];
+  static int devs[N], n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < n; ++i)
+    if (fns[i] == kernel && devs[i] == dev) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (n < N) {
+    fns[n] = kernel;
+    devs[n] = dev;
+    ++n;
   }
-#define LAUNCH_REP(R)                     \
-  if (band) { LAUNCH_MODE(R, true) }      \
-  else { LAUNCH_MODE(R, false) }
-  switch (n_rep) {
-    case 1: LAUNCH_REP(1); break;
-    case 2: LAUNCH_REP(2); break;
-    case 4: LAUNCH_REP(4); break;
-    case 8: LAUNCH_REP(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH_REP
-#undef LAUNCH_MODE
-#undef LAUNCH_LIST
+  return 0;
+}
+
+// S = the number of runs of per_split list entries (one block each)
+int split_count(int Tp, int per_split) {
+  return Tp <= 0 ? 1 : (Tp + per_split - 1) / per_split;
+}
+
+// After a split kernel: with S > 1 the combine over its partials.
+int finish_split(int err, const void* ws, void* out, int rows, int S,
+                 cudaStream_t s) {
+  if (err != 0 || S == 1) return err;
+  decode_split_combine_kernel<<<rows, NT, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), rows,
+      S);
   return (int)cudaGetLastError();
 }
 
-// Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp].
-// kv_bits 4 or 8; per-tensor codes when k_pt / v_pt (device addresses of
-// the layer's scales) are given, and planes may then be null.
+using ListKernel = void (*)(const __nv_bfloat16*, const uint8_t*,
+                            const uint8_t*, const float*, const float*,
+                            const float*, const int*, const int*, const int*,
+                            __nv_bfloat16*, float*, int, int, int, int, float,
+                            int, int, int, int);
+using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                            const __nv_bfloat16*, const int*, const int*,
+                            const int*, __nv_bfloat16*, float*, int, int,
+                            int, int, float);
+
+template <int R, bool BAND>
+ListKernel list_kernel(int kv_bits, bool pt) {
+  if (pt)
+    return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, true>
+                        : decode_attn_list_kernel<R, BAND, 4, true>;
+  return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, false>
+                      : decode_attn_list_kernel<R, BAND, 4, false>;
+}
+
+// Entries 2 (band = false) and 3: grid (S, H, B), S = the runs of
+// per_split list entries; with S > 1 the combine over the partials in ws.
+int launch_list(bool band, const void* q, const void* k_data,
+                const void* v_data, const void* planes, const void* sel_phys,
+                const void* sel_logic, const void* lengths, void* out,
+                void* ws, int B, int H, int n_rep, int page, int Tp,
+                int per_split, float sm_scale, int band_sink, int band_local,
+                int ring_span, int ring_sink_tok, int kv_bits,
+                const void* k_pt, const void* v_pt, void* stream) {
+  const bool pt = k_pt != nullptr;
+  const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
+  if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
+      (!pt && planes == nullptr) || page <= 0 || page > MAX_PAGE ||
+      page % 4 != 0 || S <= 0 || (S > 1 && ws == nullptr) ||
+      !aligned16(k_data) || !aligned16(v_data) || !aligned16(planes))
+    return (int)cudaErrorInvalidValue;
+  ListKernel kernel = nullptr;
+#define PICK(R)                                     \
+  kernel = band ? list_kernel<R, true>(kv_bits, pt) \
+                : list_kernel<R, false>(kv_bits, pt)
+  switch (n_rep) {
+    case 1: PICK(1); break;
+    case 2: PICK(2); break;
+    case 4: PICK(4); break;
+    case 8: PICK(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PICK
+  int err = allow_smem(reinterpret_cast<const void*>(kernel),
+                       NSTAGE * list_stage_bytes(kv_bits, pt, MAX_PAGE) + 128);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(S, H, B), SPLIT_NT,
+           NSTAGE * list_stage_bytes(kv_bits, pt, page) + 128, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const uint8_t*>(k_data), static_cast<const uint8_t*>(v_data),
+      static_cast<const float*>(planes), static_cast<const float*>(k_pt),
+      static_cast<const float*>(v_pt), static_cast<const int*>(sel_phys),
+      static_cast<const int*>(sel_logic), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, page, Tp,
+      per_split, sm_scale, band_sink, band_local, ring_span, ring_sink_tok);
+  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp], each
+// cut into runs of per_split entries (grid (S, H, B)); ws holds the f32
+// partials when S > 1 (S * B*H*n_rep * (D + 2) floats; may be null at
+// S = 1). kv_bits 4 or 8 (pages of a multiple of 4 tokens: the plane runs
+// are bulk copies of 16-byte multiples); per-tensor codes when k_pt / v_pt
+// (device addresses of the layer's scales) are given, and planes may then
+// be null. Returns cudaGetLastError() after the launches (0 = launched).
 int launch_decode_attention_ph(
     const void* q, const void* k_data, const void* v_data,
     const void* planes, const void* sel_phys, const void* sel_logic,
-    const void* lengths, void* out, int B, int H, int n_rep, int page,
-    int Tp, float sm_scale, int kv_bits, const void* k_pt, const void* v_pt,
-    void* stream) {
+    const void* lengths, void* out, void* ws, int B, int H, int n_rep,
+    int page, int Tp, int per_split, float sm_scale, int kv_bits,
+    const void* k_pt, const void* v_pt, void* stream) {
   return launch_list(false, q, k_data, v_data, planes, sel_phys, sel_logic,
-                     lengths, out, B, H, n_rep, page, Tp, Tp, sm_scale, -1,
-                     0, 0, 0, kv_bits, k_pt, v_pt, stream);
+                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
+                     sm_scale, -1, 0, 0, 0, kv_bits, k_pt, v_pt, stream);
 }
 
-// Plain mode with the streaming band: one page list [B, Tp] per sequence
-// (pools as launch_decode_attention_ph takes them).
+// Plain mode with the streaming band: one page list [B, Tp] per sequence,
+// shared by the heads, split and pooled as launch_decode_attention_ph's.
 int launch_decode_attention_band(
     const void* q, const void* k_data, const void* v_data,
     const void* planes, const void* sel_phys, const void* sel_logic,
-    const void* lengths, void* out, int B, int H, int n_rep, int page,
-    int Tp, float sm_scale, int band_sink, int band_local, int ring_span,
-    int ring_sink_tok, int kv_bits, const void* k_pt, const void* v_pt,
-    void* stream) {
+    const void* lengths, void* out, void* ws, int B, int H, int n_rep,
+    int page, int Tp, int per_split, float sm_scale, int band_sink,
+    int band_local, int ring_span, int ring_sink_tok, int kv_bits,
+    const void* k_pt, const void* v_pt, void* stream) {
   return launch_list(true, q, k_data, v_data, planes, sel_phys, sel_logic,
-                     lengths, out, B, H, n_rep, page, Tp, 0, sm_scale,
-                     band_sink, band_local, ring_span, ring_sink_tok,
-                     kv_bits, k_pt, v_pt, stream);
+                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
+                     sm_scale, band_sink, band_local, ring_span,
+                     ring_sink_tok, kv_bits, k_pt, v_pt, stream);
 }
 
 // Two-stage decode's kv16 mode: one page list [B, Tp] per sequence over a
-// bf16 pool, read in place.
+// bf16 pool, read in place, cut into runs of per_split entries as
+// launch_decode_attention_ph's lists.
 int launch_decode_attention_kv16(
     const void* q, const void* k_data, const void* v_data,
     const void* sel_phys, const void* sel_logic, const void* lengths,
-    void* out, int B, int H, int n_rep, int page, int Tp, float sm_scale,
-    void* stream) {
-  if (page <= 0 || page > MAX_PAGE) return (int)cudaErrorInvalidValue;
-  dim3 grid(H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_KV16(R)                                                     \
-  decode_attn_kv16_kernel<R><<<grid, NT, 0, s>>>(                          \
-      static_cast<const __nv_bfloat16*>(q),                                \
-      static_cast<const __nv_bfloat16*>(k_data),                           \
-      static_cast<const __nv_bfloat16*>(v_data),                           \
-      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic), \
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),  \
-      H, page, Tp, sm_scale)
+    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
+    int per_split, float sm_scale, void* stream) {
+  const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
+  if (page <= 0 || page > MAX_PAGE || S <= 0 || (S > 1 && ws == nullptr) ||
+      !aligned16(k_data) || !aligned16(v_data))
+    return (int)cudaErrorInvalidValue;
+  Kv16Kernel kernel = nullptr;
   switch (n_rep) {
-    case 1: LAUNCH_KV16(1); break;
-    case 2: LAUNCH_KV16(2); break;
-    case 4: LAUNCH_KV16(4); break;
-    case 8: LAUNCH_KV16(8); break;
+    case 1: kernel = decode_attn_kv16_kernel<1>; break;
+    case 2: kernel = decode_attn_kv16_kernel<2>; break;
+    case 4: kernel = decode_attn_kv16_kernel<4>; break;
+    case 8: kernel = decode_attn_kv16_kernel<8>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef LAUNCH_KV16
-  return (int)cudaGetLastError();
+  int err = allow_smem(reinterpret_cast<const void*>(kernel), KV16_SMEM);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(S, H, B), SPLIT_NT, KV16_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_data),
+      static_cast<const __nv_bfloat16*>(v_data),
+      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(ws), H, page, Tp, per_split, sm_scale);
+  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
 }
 
 }  // extern "C"

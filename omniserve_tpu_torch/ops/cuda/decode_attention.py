@@ -31,12 +31,20 @@ one plain version, ``page_list_attention_plain``, which follows the list
 contract; ``attention_ref.paged_decode_attention`` is the plain
 version of the whole composition. What bounds the kernels and how they are
 laid out is in the CUDA source's header.
+
+The list kernels and the kv16 kernel split each list over blocks:
+``split_plan`` picks the number of splits S from shapes the host knows
+(never from lengths or list contents: a captured launch keeps its grid),
+and with S > 1 the kernels write f32 partials that a second kernel merges
+(``combine_partials_plain`` is its plain version; ``page_list_partials_plain``
+gives the partials the kernels write).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,19 +68,105 @@ def _lib():
         )
         lib.launch_decode_attention_append.restype = _I
         lib.launch_decode_attention_ph.argtypes = (
-            [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 3
+            [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I] + [_P] * 3
         )
         lib.launch_decode_attention_ph.restype = _I
         lib.launch_decode_attention_band.argtypes = (
-            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P] * 3
+            [_P] * 9 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P] * 3
         )
         lib.launch_decode_attention_band.restype = _I
         lib.launch_decode_attention_kv16.argtypes = (
-            [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
+            [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
         )
         lib.launch_decode_attention_kv16.restype = _I
         lib._typed = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The split over pages (per-head lists and kv16): plan, partials, combine
+# ---------------------------------------------------------------------------
+
+SPLIT_WAVES = 2   # blocks to aim for, in multiples of the SM count
+
+
+def split_plan(b: int, h: int, tp: int, sm_count: int) -> Tuple[int, int]:
+    """(S, per_split): each of the ``b * h`` page lists of ``tp`` entries
+    is cut into S runs of ``per_split`` consecutive entries (the last run
+    may be shorter, none is empty), one block each, so that about
+    ``SPLIT_WAVES`` waves of blocks cover the card's ``sm_count`` SMs.
+    Shapes only: the same call on any lengths or lists gets the same grid."""
+    tp = max(int(tp), 1)
+    want = -(-SPLIT_WAVES * int(sm_count) // max(int(b) * int(h), 1))
+    per = -(-tp // min(max(want, 1), tp))
+    return -(-tp // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a card, read once."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _split_launch(q4, tp: int):
+    """(per_split, workspace pointer or None) of a split kernel call on
+    q4 [B, H, n_rep, D]: the f32 partials [S, B*H*n_rep] x (D + 2) live in
+    a ``torch.empty`` (a captured step takes it from the graph's pool)."""
+    b, h, n_rep, d = q4.shape
+    index = q4.device.index
+    n_split, per = split_plan(
+        b, h, tp, sm_count(torch.cuda.current_device() if index is None
+                           else index))
+    if n_split == 1:
+        return per, None, None
+    ws = torch.empty(n_split * b * h * n_rep * (d + 2), dtype=torch.float32,
+                     device=q4.device)
+    return per, ws, ws.data_ptr()
+
+
+def page_list_partials_plain(
+    q, pool: KVPool, layer: int, sel_phys, sel_logic, lengths, *,
+    sm_scale: float, page_size: int, per_split: int,
+):
+    """The partials a split kernel writes, in f32 (q [B, Hp, n_rep, D], the
+    lists as ``page_list_attention_plain`` takes them): for each run s of
+    ``per_split`` list entries, the row max ``m`` [S, B, Hp, n_rep] of the
+    scores over its live slots (-inf if none), the sum ``l`` of exp(score
+    - m) and the unnormalised ``acc`` [S, B, Hp, n_rep, D] = sum p v
+    (0 where no slot is live)."""
+    tp = sel_logic.shape[-1]
+    ms, ls, accs = [], [], []
+    for i0 in range(0, max(tp, 1), per_split):
+        keep = torch.zeros(tp, dtype=torch.bool, device=sel_logic.device)
+        keep[i0:i0 + per_split] = True
+        logic = torch.where(keep, sel_logic, -1)
+        k, v, valid = page_list_kv(pool, layer, sel_phys, logic, lengths,
+                                   q.shape[1], page_size=page_size)
+        scores = torch.einsum("bhrd,bhsd->bhrs", q.float(), k) * sm_scale
+        mask = valid[:, :, None].expand_as(scores)
+        m = scores.masked_fill(~mask, float("-inf")).amax(dim=-1)
+        p = torch.where(mask, torch.exp(scores - torch.where(
+            mask.any(dim=-1), m, 0.0)[..., None]), 0.0)
+        v = torch.where(valid[..., None], v, 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhrs,bhsd->bhrd", p, v))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials_plain(m, l, acc):
+    """Plain version of the combine kernel (the log-sum-exp rule of
+    ``omniserve_tpu/parallel/sp.py:sp_combine``): partials m, l [S, ...]
+    and acc [S, ..., D] of disjoint parts of one softmax -> the f32
+    attention output [..., D]; a part with m = -inf counts for nothing,
+    and a row that no part saw gives 0."""
+    live = m > float("-inf")
+    m_star = m.amax(dim=0)
+    e = torch.where(live, torch.exp(m - m_star), 0.0)
+    num = torch.where(live[..., None], acc * e[..., None], 0.0).sum(dim=0)
+    den = (l * e).sum(dim=0)
+    return torch.where(den[..., None] > 0,
+                       num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
 
 
 def append_targets(block_tables, context_lens, page_size):
@@ -207,11 +301,11 @@ def _list_call_args(q4, pool: KVPool, layer: int, sel_phys, sel_logic,
     kv_bits, pt, suffix = list_mode(pool, page_size)
     rows = pool.k_data.shape[3]
     if (rows not in (page_size // 2, page_size) or page_size > MAX_PAGE
-            or (pool.kv_scales is None) != pt):
+            or page_size % 4 or (pool.kv_scales is None) != pt):
         raise ValueError("decode kernel serves kv4 and kv8 pools, fine-"
-                         "grained or per-tensor, with pages of at most "
-                         f"{MAX_PAGE} tokens; got {rows} rows of a "
-                         f"{page_size}-token page")
+                         "grained or per-tensor, with pages of a multiple "
+                         f"of 4 tokens up to {MAX_PAGE}; got {rows} rows of "
+                         f"a {page_size}-token page")
     cuda.check(q4, "q", torch.bfloat16)
     cuda.check(pool.k_data, "k_data", torch.uint8)
     cuda.check(pool.v_data, "v_data", torch.uint8, pool.k_data.shape)
@@ -247,20 +341,23 @@ def paged_mqa_attention_single_pass_ph(
 ) -> torch.Tensor:
     """Kernel: dynamic-sparse decode over per-(sequence, head) page lists
     (in no order; all dead gives zeros) of a kv4 or kv8 pool, fine-grained
-    or per-tensor. Returns [B, Hr, n_rep, D] bf16. Launches count as
-    ``decode_attention_ph`` (fine-grained kv4), ``decode_attention_ph_kv8``
-    or ``decode_attention_ph_pt``."""
+    or per-tensor, split over blocks by ``split_plan`` (and merged by the
+    combine kernel in the same call). Returns [B, Hr, n_rep, D] bf16.
+    Launches count as ``decode_attention_ph`` (fine-grained kv4),
+    ``decode_attention_ph_kv8`` or ``decode_attention_ph_pt``, one a
+    call."""
     b, hp, n_rep, _ = q.shape
     tp = sel_logic.shape[-1]
     (planes, k_pt, v_pt), kv_bits, suffix = _list_call_args(
         q, pool, layer, sel_phys, sel_logic, lengths, page_size,
         (b, hp, tp))
     out = torch.empty_like(q)
+    per, ws, ws_ptr = _split_launch(q, tp)
     err = _lib().launch_decode_attention_ph(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), planes, sel_phys.data_ptr(),
-        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
-        n_rep, page_size, tp, float(sm_scale), kv_bits, k_pt, v_pt,
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws_ptr, b,
+        hp, n_rep, page_size, tp, per, float(sm_scale), kv_bits, k_pt, v_pt,
         cuda.stream_handle(),
     )
     name = "decode_attention_ph" + suffix
@@ -290,21 +387,24 @@ def paged_mqa_attention_single_pass(
     ``< band_sink_tokens`` or ``>= length - band_local_tokens`` are
     attended; ``ring_span_pages > 0`` relabels the slots past the write
     head of the page being written (they hold tokens one ring wrap older).
-    Returns [B, Hp, n_rep, D] bf16. Launches count as
-    ``decode_attention_band`` (fine-grained kv4), ``decode_attention_band_
-    kv8`` or ``decode_attention_band_pt``."""
+    The list is split over blocks as ``paged_mqa_attention_single_pass_ph``'s
+    (pages of a multiple of 4 tokens). Returns [B, Hp, n_rep, D] bf16.
+    Launches count as ``decode_attention_band`` (fine-grained kv4),
+    ``decode_attention_band_kv8`` or ``decode_attention_band_pt``, one a
+    call."""
     b, hp, n_rep, _ = q.shape
     tp = sel_logic.shape[-1]
     (planes, k_pt, v_pt), kv_bits, suffix = _list_call_args(
         q, pool, layer, sel_phys, sel_logic, lengths, page_size, (b, tp))
     out = torch.empty_like(q)
+    per, ws, ws_ptr = _split_launch(q, tp)
     err = _lib().launch_decode_attention_band(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), planes, sel_phys.data_ptr(),
-        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
-        n_rep, page_size, tp, float(sm_scale), int(band_sink_tokens),
-        int(band_local_tokens), int(ring_span_pages), int(ring_sink_tokens),
-        kv_bits, k_pt, v_pt, cuda.stream_handle(),
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws_ptr, b,
+        hp, n_rep, page_size, tp, per, float(sm_scale),
+        int(band_sink_tokens), int(band_local_tokens), int(ring_span_pages),
+        int(ring_sink_tokens), kv_bits, k_pt, v_pt, cuda.stream_handle(),
     )
     name = "decode_attention_band" + suffix
     cuda.raise_on_error(err, name)
@@ -324,8 +424,9 @@ def paged_mqa_attention_kv16(
     page_size: int,
 ) -> torch.Tensor:
     """Kernel: decode over one page list per sequence of a kv16 pool, the
-    pages read in place. Returns [B, H, n_rep, D] bf16. Launches count as
-    ``paged_mqa_attention_kv16``."""
+    pages read in place, split over blocks by ``split_plan`` (and merged by
+    the combine kernel in the same call). Returns [B, H, n_rep, D] bf16.
+    Launches count as ``paged_mqa_attention_kv16``, one a call."""
     b, hp, n_rep, d = q.shape
     tp = sel_logic.shape[-1]
     if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
@@ -346,11 +447,13 @@ def paged_mqa_attention_kv16(
     cuda.check(sel_logic, "sel_logic", torch.int32, (b, tp))
     cuda.check(lengths, "lengths", torch.int32, (b,))
     out = torch.empty_like(q)
+    per, ws, ws_ptr = _split_launch(q, tp)
     err = _lib().launch_decode_attention_kv16(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), sel_phys.data_ptr(),
-        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hp,
-        n_rep, page_size, tp, float(sm_scale), cuda.stream_handle(),
+        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws_ptr, b,
+        hp, n_rep, page_size, tp, per, float(sm_scale),
+        cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "paged_mqa_attention_kv16")
     cuda.LAUNCHES["paged_mqa_attention_kv16"] += 1

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's two prefill attention kernels, rows 7 (paged prefill)
-and 9 (flash prefill), at every shape ``PERF.md``'s kernel table lists for
-them, on one NVIDIA GPU; or two trees of the port in turns.
+"""Time the port's attention kernels at every shape ``PERF.md``'s kernel
+table lists for them, on one NVIDIA GPU; or two trees of the port in turns.
+Rows (``--rows``, comma-separated; default all): 9 (flash prefill), 7
+(paged prefill), and the decode rows 5 (per-head page lists), 6 (kv16
+decode) and 4 (the streaming band).
 
 Run from the root of a checkout:
 
-    python3 scripts/torch_prefill_ab.py --turns OTHER_TREE [--out FILE]
-    python3 scripts/torch_prefill_ab.py [--root TREE] [--label NAME]
+    python3 scripts/torch_prefill_ab.py --turns OTHER_TREE [--rows 5,6,4]
+        [--out FILE]
+    python3 scripts/torch_prefill_ab.py [--root TREE] [--rows ...]
+        [--label NAME]
 
 ``--turns OTHER_TREE`` times the tree at OTHER_TREE (e.g. a ``git
 archive`` of the parent commit unpacked into a directory ``.gitignore``
@@ -24,8 +28,17 @@ on the sink + local band (and the dense kernel at that shape); paged
 prefill at the bench's last chunk (B=128, Tc=128 after 896) over kv4,
 kv8, kv16 and per-tensor kv8 pages, and the ring at phase 7 (a)'s first
 chunk (Tc=32,000) and wrapped (context 20,000, Tc=2,048) over kv4, kv8
-and per-tensor kv8 pages. Times are CUDA-event means over a few launches
-after a warmup (``chip_smoke.time_ms``).
+and per-tensor kv8 pages; row 5 over 4 heads' lists of 32 of 257 pages
+(``chip_smoke.decode_ph_inputs``) and row 4's band list of 1 sink + 2 ring
+pages (``decode_band_inputs``), each at B=1 and B=8 over kv4, kv8 and
+per-tensor kv8 pools; row 6 over kv16 pages at B=8 (lengths 1,000-1,100)
+and B=128 (1,045-1,536; ``decode_kv16_inputs``). Prefill times are
+CUDA-event means over a few launches after a warmup
+(``chip_smoke.time_ms``); decode times are per call of 20 calls captured in
+one CUDA graph and replayed (``chip_smoke.time_graphed_ms``, as the kernel
+table's decode rows), each beside "... sdpa": one
+``scaled_dot_product_attention`` over the same K/V dequantized or gathered
+beforehand (not counted), the kernel table's library yardstick.
 """
 
 from __future__ import annotations
@@ -39,13 +52,18 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def measure(root: str) -> dict:
+ROWS = ("9", "7", "5", "6", "4")
+
+
+def measure(root: str, rows=ROWS) -> dict:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # noqa: E402  (input generators and timing)
     sys.path.insert(0, os.path.abspath(root))
     import torch
+    import torch.nn.functional as F
 
     import omniserve_tpu_torch
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
 
@@ -78,20 +96,21 @@ def measure(root: str) -> dict:
         "row9 dense 8x1024": (8192, 8, False, 10),
         "row9 band T=16384": (16384, 1, True, 3),
         "row9 dense T=16384": (16384, 1, False, 3),
-    }.items():
+    }.items() if "9" in rows else ():
         args, kw = flash_inputs(t, n_seg, band)
         out[name] = cs.time_ms(lambda: fa.flash_prefill(*args, **kw), reps,
                                warmup=1)
         del args
         torch.cuda.empty_cache()
     for kv_bits, pt, label in ((4, False, "kv4"), (8, False, "kv8"),
-                               (16, False, "kv16"), (8, True, "pt8")):
+                               (16, False, "kv16"), (8, True, "pt8")
+                               ) if "7" in rows else ():
         args, kw, _, _, _ = cs.dense_chunk_inputs(dev, gen(), kv_bits, pt)
         out[f"row7 bench chunk {label}"] = cs.time_ms(
             lambda: pp.paged_prefill_attention(*args, **kw), 5, warmup=1)
         del args
         torch.cuda.empty_cache()
-    for mode in ("kv4", "kv8", "pt8"):
+    for mode in ("kv4", "kv8", "pt8") if "7" in rows else ():
         for label, (context, tc, n_ring) in (
                 ("phase 7 (a) first chunk", (32000, 32000, 314)),
                 ("wrapped", (20000, 2048, 80))):
@@ -101,16 +120,42 @@ def measure(root: str) -> dict:
                 lambda: pp.paged_prefill_attention(*args, **kw), 3, warmup=1)
             del args
             torch.cuda.empty_cache()
+    decode = []   # (name, inputs, their arguments, kernel wrapper)
+    for row, inputs, fn in (
+            ("5", cs.decode_ph_inputs, da.paged_mqa_attention_single_pass_ph),
+            ("4", cs.decode_band_inputs, da.paged_mqa_attention_single_pass)):
+        decode += [(f"row{row} {mode} B={b}", inputs, (b, mode), fn)
+                   for mode in ("kv4", "kv8", "pt8") for b in (1, 8)
+                   if row in rows]
+    if "6" in rows:
+        decode += [(f"row6 kv16 B={b}", cs.decode_kv16_inputs, lens,
+                    da.paged_mqa_attention_kv16)
+                   for b, lens in ((8, (8, 1000, 1100)),
+                                   (128, (128, 1045, 1536)))]
+    for name, inputs, in_args, fn in decode:
+        args, kw = inputs(dev, gen(), *in_args)[:2]
+        out[name] = cs.time_graphed_ms(lambda: fn(*args, **kw), 20)
+        band_kw = {k: v for k, v in kw.items()
+                   if k not in ("sm_scale", "page_size")}
+        q, k, v, valid = cs.list_library_inputs(*args, kw["page_size"],
+                                                **band_kw)
+        out[f"{name} sdpa"] = cs.time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=valid[:, :, None, :],
+                scale=kw["sm_scale"]), 20)
+        del args, q, k, v, valid
+        torch.cuda.empty_cache()
     return out
 
 
-def turns(other: str, out_path: str) -> dict:
+def turns(other: str, out_path: str, rows=ROWS) -> dict:
     runs = []
     for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
                         ("other", other)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
-             "--label", label], capture_output=True, text=True, timeout=1500)
+             "--label", label, "--rows", ",".join(rows)],
+            capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             raise SystemExit(f"torch_prefill_ab: the {label} run failed:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
@@ -144,11 +189,16 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default="")
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help="kernel-table rows to time, of " + ",".join(ROWS))
     args = ap.parse_args()
+    rows = tuple(args.rows.split(","))
+    if not set(rows) <= set(ROWS):
+        ap.error(f"--rows takes some of {','.join(ROWS)}")
     if args.turns:
-        print(json.dumps(turns(args.turns, args.out)), flush=True)
+        print(json.dumps(turns(args.turns, args.out, rows)), flush=True)
     else:
-        print(json.dumps(measure(args.root)), flush=True)
+        print(json.dumps(measure(args.root, rows)), flush=True)
     return 0
 
 

@@ -1926,3 +1926,164 @@ def test_flash_tile_ranges_kernel(dev, case, band):
                                band)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# Rows 5 and 6 split over pages: per-head lists of kv4 / kv8 / per-tensor
+# kv8 pages (row 5) and the kv16 list shared by the heads (row 6)
+# ---------------------------------------------------------------------------
+
+SPLIT_MODES = {"kv4": "decode_attention_ph", "kv8": "decode_attention_ph_kv8",
+               "pt8": "decode_attention_ph_pt",
+               "kv16": "paged_mqa_attention_kv16"}
+
+
+def _split_case(dev, seed, mode, b, h, n_rep, page, tp, lens):
+    """A 2-layer pool and page lists [B, H, tp] in no order over layer 1:
+    each list takes its sequence's newest page, other live pages, a dead
+    entry and a page past the length (sequence 1 keeps those two at the
+    end, so the last runs of entries hold nothing live); list (2, 0) is all
+    dead; a row of length 0 lists pages all the same. NaN planes (kv16: NaN
+    values) and 0xFF kv8 codes are planted past each context, in the page
+    past it and in the page the dead entries name. Returns (q, pool,
+    sel_phys, sel_logic, lengths)."""
+    from omniserve_tpu_torch.ops.paged_kv import KVPool
+
+    d, g = 128, _gen(dev, seed)
+    rng = np.random.default_rng(seed)
+    w = max(-(-max(lens) // page), 1) + 1
+    n_pages = b * w + 1
+    trash = n_pages - 1                      # the page dead entries name
+    if mode == "kv16":
+        pool = KVPool(*(torch.randn((2, n_pages, h, page, d), generator=g,
+                                    device=dev).bfloat16() for _ in range(2)),
+                      None)
+    else:
+        pool = _codes_pool(dev, g, mode, 2, n_pages, h, page, d)
+    logic = np.full((b, h, tp), -1, np.int64)
+    for s, n in enumerate(lens):
+        live = -(-n // page)
+        for hh in range(h):
+            if s == 2 and hh == 0:
+                continue
+            first = [live - 1] if live else []
+            others = list(rng.permutation(max(live - 1, 0)))
+            extra = [-1, live] if tp >= 3 else []
+            picks = (first + others)[:tp - len(extra)]
+            if s == 1:
+                entries = list(rng.permutation(picks)) + extra
+            else:
+                entries = list(rng.permutation(picks + extra))
+            logic[s, hh, :len(entries)] = entries
+    phys = np.where(logic >= 0, logic + w * np.arange(b)[:, None, None],
+                    trash)
+    # garbage where no live token sits
+    _plant_dead_garbage(pool, 1, page, lens, lambda s, p: p + w * s)
+    for s, n in enumerate(lens):
+        for p in {-(-n // page), -1}:        # the page past it, the trash
+            pg = trash if p < 0 else w * s + p
+            if mode == "kv16":
+                pool.k_data[1, pg] = float("nan")
+                pool.v_data[1, pg] = float("nan")
+                continue
+            if pool.kv_scales is not None:
+                pool.kv_scales[1, pg] = float("nan")
+            pool.k_data[1, pg] = 255
+            pool.v_data[1, pg] = 255
+    if mode == "kv16":
+        for s, n in enumerate(lens):
+            if n % page:
+                pg = w * s + (n - 1) // page
+                pool.k_data[1, pg, :, n % page:] = float("nan")
+                pool.v_data[1, pg, :, n % page:] = float("nan")
+    q = torch.randn((b, h, n_rep, d), generator=g, device=dev).bfloat16()
+    return (q, pool, torch.from_numpy(phys).to(torch.int32).to(dev),
+            torch.from_numpy(logic).to(torch.int32).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _split_call(mode, q, pool, sel_phys, sel_logic, lens, page, plain=False):
+    """Row 5 (per-head lists) or, kv16, row 6 over head 0's lists."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    if mode == "kv16":
+        sel_phys = sel_phys[:, 0].contiguous()
+        sel_logic = sel_logic[:, 0].contiguous()
+    fn = (da.page_list_attention_plain if plain else
+          da.paged_mqa_attention_kv16 if mode == "kv16"
+          else da.paged_mqa_attention_single_pass_ph)
+    return fn(q, pool, 1, sel_phys, sel_logic, lens, sm_scale=128 ** -0.5,
+              page_size=page)
+
+
+def _check_split(dev, mode, args, page, want_split):
+    """Kernel against plain (kv16 5e-3, the quantized modes 5e-2), zeros
+    for rows of length 0 and all-dead lists, one launch counted, the split
+    plan as wanted; returns the kernel's output."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    q, _, _, sel_logic, lens = args
+    b, h = q.shape[:2]
+    n_split, per = da.split_plan(b, h, sel_logic.shape[-1],
+                                 da.sm_count(dev.index or 0))
+    assert want_split(n_split, per), (n_split, per)
+    name = SPLIT_MODES[mode]
+    before = cuda.LAUNCHES[name]
+    got = _split_call(mode, *args, page)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES[name] == before + 1
+    want = _split_call(mode, *args, page, plain=True)
+    tol = 5e-3 if mode == "kv16" else 5e-2
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for s, n in enumerate(lens.tolist()):
+        if n <= 0:
+            assert float(got[s].abs().max()) == 0.0
+    if b > 2:      # an all-dead list (kv16: sequence 2's, head 0's list)
+        assert float(got[2, 0].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode,page", [
+    (m, p) for m in SPLIT_MODES
+    for p in ((16, 128, 256) if m == "kv16" else (128, 256))])
+def test_split_decode_kernel(dev, mode, page, n_rep):
+    """S > 1 with a ragged last run (Tp = 11 entries in runs of 2 at 32
+    lists on 132 SMs): kernel (and combine) against the plain version, a
+    run of dead and past-length entries only, a row of length 0, garbage
+    planted in dead slots; then one captured CUDA graph replayed twice
+    equals the eager call bit for bit. kv16 also at pages of 16."""
+    b, h, tp = 8, 4, 11
+    lens = [9 * page + 5, 7 * page, 9 * page + page - 1, 0, 4 * page + 1,
+            9 * page, 8 * page + 77 % page, 3]
+    args = _split_case(dev, 41, mode, b, h, n_rep, page, tp, lens)
+    got = _check_split(dev, mode, args, page,
+                       lambda n, per: n > 1 and tp % per != 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _split_call(mode, *args, page)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, got) and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("shape", ["one block per list", "tp1"])
+@pytest.mark.parametrize("mode", list(SPLIT_MODES))
+def test_split_decode_one_run_kernel(dev, mode, shape):
+    """S = 1 (the block writes the output itself): 264 lists of 3 entries
+    (two waves of blocks on 132 SMs without a split), and lists of one
+    entry each (Tp = 1: the newest page)."""
+    page = 128
+    if shape == "tp1":
+        b, h, tp = 4, 4, 1
+        lens = [2 * page + 9, page, 0, 5]
+    else:
+        b, h, tp = 66, 4, 3
+        lens = [(s * 37) % (3 * page) for s in range(b)]
+    args = _split_case(dev, 43, mode, b, h, 4, page, tp, lens)
+    _check_split(dev, mode, args, page, lambda n, per: n == 1)
