@@ -326,32 +326,59 @@ def hold(got, want, atol, rtol, row_rtol, what, planted=()):
 # ---------------------------------------------------------------------------
 
 
-def check_quant_gemms(dev, gen):
-    """The per-channel body's four GEMM shapes at M = 8, 128, 8192, 16384,
-    kernel against plain within 1e-5; returns the rows and the largest
-    error."""
+def gemm_layer_inputs(dev, gen, m):
+    """Row 1's operands for one layer's four GEMMs at M rows: (name, K, N,
+    a_i8, [packed weights], s1, s1_szero, a_scale, a_sum) each; decode M
+    (<= 128) rotates copies of the weights past the 50 MB L2, as a layer
+    finds them cold."""
     import torch
 
-    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    out = []
+    for name, k, n in LAYER_GEMMS:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        a_i8, a_scale, a_sum = quantize_activations(x, fuse_sum=True)
+        n_copies = max(1, math.ceil(120e6 / (k // 2 * n))) if m <= 128 else 1
+        qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
+                             dtype=torch.uint8, device=dev)
+               for _ in range(n_copies)]
+        s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006, generator=gen)
+        out.append((name, k, n, a_i8, qws, s1, 8.0 * s1, a_scale, a_sum))
+    return out
+
+
+def time_gemm_ms(fn, qws, m):
+    """Row 1's time on rotating weight copies: at decode M (<= 128) by
+    graph replay (the host's per-call cost exceeds the kernel's there),
+    else by CUDA events over eager calls."""
+    it = iter(range(10 ** 9))
+
+    def call():
+        return fn(qws[next(it) % len(qws)])
+
+    if m <= 128:
+        return time_graphed_ms(call, 4 * len(qws))
+    return time_ms(call, 10)
+
+
+def check_quant_gemms(dev, gen):
+    """The per-channel body's four GEMM shapes at M = 8, 128, 8192, 16384,
+    kernel against plain within 1e-5; logs each GEMM's tile plan, achieved
+    rate and share of its bound; returns the rows and the largest error."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
 
     rows = []
     worst = 0.0
     # decode at batch 8 and 128; a whole-prompt prefill of 8 x 1024 and
     # a [128, 128] chunk of the bench's chunked prefill
     for m in (8, 128, 8192, 16384):
-        for name, k, n in LAYER_GEMMS:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            a_i8, a_scale, a_sum = quantize_activations(x, fuse_sum=True)
+        for name, k, n, a_i8, qws, s1, sz, a_scale, a_sum in \
+                gemm_layer_inputs(dev, gen, m):
             w_bytes = k // 2 * n
-            # decode finds each layer's weights cold: rotate copies past L2
-            n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 128 else 1
-            qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
-                                 dtype=torch.uint8, device=dev)
-                   for _ in range(n_copies)]
-            s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006,
-                                                     generator=gen)
-            sz = 8.0 * s1
             got = qm.w4a8_matmul_per_channel(a_i8, qws[0], s1, sz, a_scale,
                                              a_sum, out_dtype=torch.float32)
             want = qm.w4a8_matmul_per_channel_plain(
@@ -359,11 +386,8 @@ def check_quant_gemms(dev, gen):
             err = allclose_err(got, want, 1e-5, 1e-5,
                                f"w4a8 M={m} K={k} N={n}")
             worst = max(worst, err)
-            it = iter(range(10 ** 9))
-            reps = 50 if m <= 128 else 10
-            ms = time_ms(lambda: qm.w4a8_matmul_per_channel(
-                a_i8, qws[next(it) % n_copies], s1, sz, a_scale, a_sum),
-                reps)
+            ms = time_gemm_ms(lambda w: qm.w4a8_matmul_per_channel(
+                a_i8, w, s1, sz, a_scale, a_sum), qws, m)
             plain = time_ms(lambda: qm.w4a8_matmul_per_channel_plain(
                 a_i8, qws[0], s1, sz, a_scale, a_sum), 3, warmup=1)
             lib = None
@@ -373,20 +397,32 @@ def check_quant_gemms(dev, gen):
                     p = torch._int_mm(a_i8, w_i8)
                     return (p.float() * s1[None] * a_scale[:, None]
                             - sz[None] * a_sum[:, None]).to(torch.bfloat16)
-                lib = time_ms(lib_call, reps)
+                lib = time_ms(lib_call, 50 if m <= 128 else 10)
             except RuntimeError as e:
                 log(f"  torch._int_mm unavailable at M={m}: "
                     f"{str(e).splitlines()[0]}")
             n_bytes = m * k + w_bytes + 8 * n + 8 * m + 2 * m * n
-            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+            ops = 2.0 * m * n * k
+            bnd, by = bound_ms(n_bytes, ops, INT8_OPS_PER_S)
+            plan = qm.channel_plan(m, n, k, cuda.sm_count(dev))
+            rate = (f"{n_bytes / ms / 1e6:.1f} GB/s" if by == "bytes" else
+                    f"{ops / ms / 1e9:.1f} TOP/s")
             rows.append(dict(m=m, name=name, k=k, n=n, ms=ms, plain_ms=plain,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              max_abs_err=err))
             log(f"  w4a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: "
                 f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
                 f"({by}) library_ms {lib if lib is None else f'{lib:.4f}'} "
-                f"max_abs_err {err:.3g}")
+                f"max_abs_err {err:.3g}; plan M tile {plan.mt} x "
+                f"{128 * plan.n_wg} channels, {plan.splits} split(s) of "
+                f"{plan.per_split} stages, {plan.blocks} blocks; {rate} = "
+                f"{100 * bnd / ms:.1f}% of the bound")
             del qws, w_i8
+    for m in (8, 128, 8192, 16384):
+        r = layer_row(rows, m)
+        log(f"  w4a8 layer of 4 GEMMs M={m}: kernel_ms {r['ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) = "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
     return rows, worst
 
 
@@ -622,14 +658,15 @@ def check_flash(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
-                 per_tensor=False):
-    """The fused decode (row 4's append mode) over a dense list: kv4 or kv8
-    pages, fine-grained or (``per_tensor``) per-tensor with scales
-    calibrated on this run's new K/V, so the codes span their range."""
+def decode_append_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100,
+                         kv_bits=4, per_tensor=False):
+    """Row 4's fused append over a dense list: kv4 or kv8 pages (8 kv
+    heads, n_rep 4, pages of 128, lengths drawn from [lens_from, lens_to]),
+    fine-grained or (``per_tensor``) per-tensor with scales calibrated on
+    this call's new K/V, so the codes span their range. Returns (args, kw,
+    pt scales or None): ``fused(*args, **kw)`` and ``fused_plain`` on a
+    clone of args[1], with ``kv_zeros`` added."""
     import torch
-
-    from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
     hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
     lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
@@ -646,11 +683,29 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
         torch.bfloat16)
     pt = (calibrated_pt_scales(layers, kv_bits, k_new, v_new)
           if per_tensor else None)
-    pool_k = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits,
-                            pt_scales=pt)
+    pool = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, kv_bits,
+                          pt_scales=pt)
+    return ((q, pool, 1, tables, lens, k_new, v_new),
+            dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits), pt)
+
+
+def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
+                 per_tensor=False):
+    """The fused decode (row 4's append mode) over a dense list: kv4 or kv8
+    pages, fine-grained or (``per_tensor``) per-tensor with scales
+    calibrated on this run's new K/V, so the codes span their range. Timed
+    by graph replay (re-appending the same token writes the same bytes)."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    args, kw, pt = decode_append_inputs(dev, gen, b, lens_from, lens_to,
+                                        kv_bits, per_tensor)
+    q, pool_k, layer, tables, lens, k_new, v_new = args
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    n_rep, page = hq // hkv, kw["page_size"]
     pool_p = pool_k.clone()
-    layer, sm = 1, d ** -0.5
-    kw = dict(sm_scale=sm, page_size=page, kv_bits=kv_bits)
     label = f"kv{kv_bits}{' per-tensor' if per_tensor else ''}"
     planted = ()
     if per_tensor:    # the plain version one token short, on a fresh copy
@@ -658,8 +713,7 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
                     da.paged_decode_attention_fused_plain(
                         q, pool_k.clone(), layer, tables, lens - 1, k_new,
                         v_new, kv_zeros=False, **kw)),)
-    got = da.paged_decode_attention_fused(q, pool_k, layer, tables, lens,
-                                          k_new, v_new, **kw)
+    got = da.paged_decode_attention_fused(*args, **kw)
     want = da.paged_decode_attention_fused_plain(
         q, pool_p, layer, tables, lens, k_new, v_new,
         kv_zeros=not per_tensor, **kw)
@@ -680,8 +734,8 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
             raise AssertionError(f"per-tensor decode check: the new K codes "
                                  f"span {span} levels only")
     # re-appending the same token writes the same bytes: safe to repeat
-    ms = time_ms(lambda: da.paged_decode_attention_fused(
-        q, pool_k, layer, tables, lens, k_new, v_new, **kw), 50)
+    ms = time_graphed_ms(lambda: da.paged_decode_attention_fused(
+        *args, **kw), 20)
     plain = time_ms(lambda: da.paged_decode_attention_fused_plain(
         q, pool_p, layer, tables, lens, k_new, v_new,
         kv_zeros=not per_tensor, **kw), 5, warmup=1)
@@ -697,11 +751,12 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
     log(f"  decode attention+append {label} B={b} Hkv={hkv} "
         f"n_rep={n_rep} D={d} "
         f"page={page} lens {int(lens.min())}-{int(lens.max())}: kernel_ms "
-        f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
-        f"library_ms None (the function also writes the pool) max_abs_err "
-        f"{err:.3g}" + ("" if row is None else
-                        f" (row error {row:.3g} of its norm)")
-        + "; pool bytes equal")
+        f"{ms:.4f} (graph replay) plain_ms {plain:.4f} bound_ms {bnd:.4f} "
+        f"({by}) library_ms None (the function also writes the pool) "
+        f"max_abs_err {err:.3g}" + ("" if row is None else
+                                    f" (row error {row:.3g} of its norm)")
+        + "; pool bytes equal; "
+        + split_note(b, hkv, tables.shape[1], ms, n_bytes))
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None, max_abs_err=err)
 
@@ -737,8 +792,10 @@ def split_note(b, heads, tp, ms, n_bytes) -> str:
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    n_split = da.split_plan(b, heads, tp, da.sm_count(
-        torch.cuda.current_device()))[0]
+    from omniserve_tpu_torch.ops import cuda
+
+    n_split = da.split_plan(b, heads, tp, cuda.sm_count(
+        torch.device("cuda", torch.cuda.current_device())))[0]
     rate = n_bytes / (ms * 1e-3)
     return (f"S {n_split}; {rate / 1e9:.1f} GB/s = "
             f"{100 * rate / HBM_BYTES_PER_S:.1f}% of the bytes bound")
@@ -2474,11 +2531,32 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
 
 
 # the __global__ functions of omniserve_tpu_torch/csrc/*.cu
-PORT_KERNEL_FUNCTIONS = ("quant_gemm_kernel", "flash_prefill_kernel",
-                         "flash_tile_ranges_kernel",
-                         "paged_prefill_kernel", "decode_attn_append_kernel",
-                         "decode_attn_list_kernel", "decode_attn_kv16_kernel",
-                         "decode_split_combine_kernel", "kv_append_kernel")
+PORT_KERNEL_FUNCTIONS = ("w4a8_channel_kernel", "quant_gemm_kernel",
+                         "flash_prefill_kernel", "flash_tile_ranges_kernel",
+                         "paged_prefill_kernel", "decode_attn_list_kernel",
+                         "decode_attn_kv16_kernel",
+                         "decode_split_combine_kernel", "kv_append_kernel",
+                         "prefill_single_pass_kernel", "embed_gather_kernel")
+
+# the __global__ function each wrapper launches (by name prefix; the first
+# match counts), named in the kernels line
+WRAPPER_FUNCTIONS = (
+    ("w4a8_matmul_per_channel", "w4a8_channel_kernel"),
+    ("w4a8_matmul_per_group", "quant_gemm_kernel"),
+    ("w8a8_matmul", "quant_gemm_kernel"),
+    ("decode_attention_", "decode_attn_list_kernel"),
+    ("paged_mqa_attention_kv16", "decode_attn_kv16_kernel"),
+    ("flash_prefill", "flash_prefill_kernel"),
+    ("paged_prefill_single_pass", "prefill_single_pass_kernel"),
+    ("paged_prefill", "paged_prefill_kernel"),
+    ("kv_append_decode", "kv_append_kernel"),
+    ("embed_gather", "embed_gather_kernel"),
+)
+
+
+def kernel_function(name: str) -> str:
+    return next(fn for prefix, fn in WRAPPER_FUNCTIONS
+                if name.startswith(prefix))
 
 
 def trace_steps(engine, label, n_steps):
@@ -3645,8 +3723,9 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on the path: {idle}")
     line = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kernels[name]}
+        {"name": name, "function": kernel_function(name), "route": "cuda",
+         "source": src, "replaces": rep, "launches": launches[name],
+         **kernels[name]}
         for name, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": line}), flush=True)

@@ -79,9 +79,9 @@ class DecAttnConfig:
         self.sub_chunk_per_block = sub_chunk_per_block
         self.sparse_kv_cache_budget = sparse_kv_cache_budget
         self.selector_update_interval = selector_update_interval
-        # Reference-surface parity only: the port's decode kernel walks every
-        # context length in one block per (sequence, kv head); a
-        # multi-block split is queued in ROADMAP.md.
+        # Reference-surface parity only (unused, as in the JAX package): the
+        # port's decode kernels split every page list over blocks by
+        # ops/cuda/decode_attention.split_plan, from shapes alone.
         self.multiblock_switch = multiblock_switch
         self.page_size = page_size
         self._ring_local_blocks = 0

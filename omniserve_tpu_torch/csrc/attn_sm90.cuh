@@ -1,5 +1,7 @@
-// The Hopper (sm_90a) core shared by the two prefill attention kernels,
-// flash_prefill.cu (row 9) and paged_prefill.cu (row 7).
+// The Hopper (sm_90a) core shared by the port's kernels: written for the
+// two prefill attention kernels, flash_prefill.cu (row 9) and
+// paged_prefill.cu (row 7); its rings, copies and tensor maps also serve
+// decode_attention.cu and quant_gemm.cu.
 //
 // Both compute the same online-softmax tile loop over 64-key K/V tiles for
 // a block of 128 query rows: S = Q K^T on the tensor cores, the softmax on
@@ -22,8 +24,9 @@
 //   wgmma operand in any layout mode.
 // - mbarrier helpers for a ring of stages (full: the producer's copies
 //   landed; empty: every consumer warp is done with the stage), TMA and
-//   bulk copies that complete on an mbarrier, setmaxnreg to move registers
-//   from the producer warps to the two consumer warpgroups.
+//   bulk copies that complete on an mbarrier (and the host's encoding of
+//   128-byte-swizzled tensor maps), setmaxnreg to move registers from the
+//   producer warps to the two consumer warpgroups.
 // - The online softmax on the accumulator fragments: a row's 64 scores of
 //   a tile live in the 4 threads of one quad, so its max and sum reduce
 //   with two shuffles.
@@ -260,6 +263,56 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t a[4],
 
 #undef SM90_D32
 #undef SM90_ACC32
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once at run time (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over a row-major [rows, cols] matrix of `type` (rows row_bytes
+// apart), boxes of box_rows x box_cols elements (128 bytes a box row) in
+// the 128-byte swizzle; reads past the edges give 0. Returns 0 or a
+// cudaError_t value.
+inline int encode_swizzled(CUtensorMap* map, CUtensorMapDataType type,
+                           const void* base, uint64_t cols, uint64_t rows,
+                           uint64_t row_bytes, uint32_t box_cols,
+                           uint32_t box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 // byte offset of the 16-byte chunk `c` (0-7) of row `r` inside a swizzled
 // [rows][64] half tile

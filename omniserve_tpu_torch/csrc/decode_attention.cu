@@ -3,7 +3,8 @@
 // Replace the TPU kernels of omniserve_tpu/ops/pallas/decode_attention.py:
 //   1. paged_mqa_attention_single_pass (:620, kernel _sp_kernel :112) in its
 //      append= mode over a dense, contiguous page list, kv4 or kv8 pools
-//      (launch_decode_attention_append, decode_attn_append_kernel);
+//      (launch_decode_attention_append, decode_attn_list_kernel's APPEND
+//      instantiations);
 //   2. paged_mqa_attention_single_pass_ph (:1119, kernel _sp_kernel_ph :850,
 //      pallas_call :1206): dynamic-sparse decode over per-(sequence, kv
 //      head) page lists (launch_decode_attention_ph);
@@ -26,7 +27,7 @@
 //     (len-1) % page; it is quantized from its bf16 value (fine-grained
 //     over L = 15 levels for kv4, 255 for kv8: scale = max(max-min,
 //     1e-8)/L, zero = -L*min/range, code = rint(x/scale + zero) in [0, L]),
-//     attended through its dequantized value, and written into the pool:
+//     written into the pool and attended as the pool then holds it:
 //     kv4 merges its nibble into the byte it shares with slot s +- page/2,
 //     kv8 writes one byte per value at row s; its four folded plane lanes
 //     are set (k_scale, k_scale*(k_zero+128), v_scale, v_zero+128) for both.
@@ -46,17 +47,10 @@
 // bytes of K+V nibbles (2*D under kv8, 4*D under kv16) and, fine-grained,
 // 16 bytes of planes; the math is 2*n_rep flops a byte or less.
 //
-// Entry 1: one block per (kv head, sequence) walks that sequence's pages;
-// one thread per token computes the n_rep query dots straight from the
-// packed codes (rank-1 zero-point term from the folded planes), one warp
-// per query row runs the online softmax over the page, and one thread per
-// head-dim lane accumulates P.V. The new token is an extra exact lane; its
-// write-back happens after every pool read of the block.
-//
-// Entries 2, 3 and 4 (the split decode): one block of 4 consumer warps and
-// a copy warp per (split, kv head, sequence). Two things kept their first
-// bodies (one block per list, synchronous loads) far from the bytes bound,
-// and the design answers each:
+// Every entry is a split decode: one block of 4 consumer warps and a copy
+// warp per (split, kv head, sequence). Two things kept their first bodies
+// (one block per list, synchronous loads) far from the bytes bound, and
+// the design answers each:
 //   - too little parallelism (at batch 1, 4 lists of 32 pages on 132 SMs):
 //     each list of Tp entries is cut into S contiguous runs of entries,
 //     one block each. S comes from host-known shapes only (B, H, Tp and
@@ -71,7 +65,7 @@
 //     omniserve_tpu/parallel/sp.py:sp_combine (no atomics: a replayed graph
 //     gives the eager call's bits);
 //   - loads not in flight: the copy warp brings each listed page's rows in
-//     with cp.async.bulk into a ring of 3 mbarrier-guarded stages while the
+//     with cp.async.bulk into a ring of mbarrier-guarded stages while the
 //     consumers score the previous one, and skips, before a byte moves,
 //     dead entries and pages past the length. Entries 2 and 3 stage a kv8
 //     page in runs of 64 token rows and a kv4 page whole (its rows hold
@@ -79,24 +73,35 @@
 //     entry 4 stages 32 tokens of a kv16 page, its K rows one bulk copy
 //     each into rows padded to 272 bytes (so ldmatrix reads them without
 //     bank conflicts) and its V rows as one copy.
-// The consumers score from shared memory: entries 2 and 3 with 8 lanes on
-// a K row (16 bytes each, neighbouring addresses), the n_rep dots from the
-// codes and the rank-1 zero-point term ks*(q.code) - kc*qsum as entry 1;
-// entry 4 with mma.sync m16n8k16 (the page's tokens as 16-row tiles, the
-// n_rep q rows as the 8 columns; bf16 in, f32 out, exact products; on an
-// H100 2.05x faster at B=128 than a warp per token summing FMAs from shared
-// memory). One
-// warp per query row runs the online softmax over the stage in f32, and
-// the P.V products stay f32 FMAs (P is never rounded): consumer thread c
-// owns head-dim lanes 2 (c % 64) and +1 for the tokens of parity c / 64. A
+// The consumers work from shared memory on the tensor cores with
+// mma.sync m16n8k16 (f32 out): the scores S^T = K q^T take a stage's tokens
+// as 16-row tiles and the n_rep q rows as the 8 columns; entry 4 reads its
+// bf16 K rows with ldmatrix (on an H100 2.05x faster at B=128 than a warp
+// per token summing FMAs from shared memory), entries 1-3 unpack their
+// codes to f16 (1024 + code by a byte permute, minus 1024: exact) against
+// q in f16, with the rank-1 zero-point term ks*(q.code) - kc*qsum. One warp
+// per query row runs the online softmax over the stage in f32. P.V: f32
+// FMAs for kv16 and kv4 pages (P is never rounded: consumer thread c owns
+// head-dim lanes 2 (c % 64) and +1 for the tokens of parity c / 64); for
+// kv8 pages mma.sync, the weights p * v_scale times 2^8 in f16 as the A
+// operand (q rows), the V codes unpacked to f16 as B (a warp's 32 head
+// dims, 16 slots a step), the zero-point term c = sum w * v_zero kept in
+// f32 (on an H100 each choice beat the other, in turns, at B=8 and 128).
+// The list kernel's ring holds 2 stages (entry 4's 3). A
 // slot that is dead, past the length or outside the band is masked in S
 // and gets weight 0 in P before it meets a product (never-written planes
-// may hold NaN). The band's short lists (entry 3: 1 sink + 2 ring pages)
-// took the split body after an A/B against the first body on an H100
-// (PERF.md's kernel table, row 4).
+// may hold NaN). Entry 1 walks the block table itself (entry i = logical
+// page i; no list is built on the host) and the block whose run holds the
+// row's newest page quantizes the new token: the fine-grained min / max
+// reduce over the 128 consumer lanes (a named barrier, the copy warp has
+// left) or the per-tensor scalars, then writes its codes into the staged
+// page and into the pool as the stage lands (append_token), so the token
+// is scored as any other slot and the pool gets append_kv's bytes. The
+// band's short lists (entry 3: 1 sink + 2 ring pages) and the append
+// (entry 1) took the split body after A/Bs against their first bodies on
+// an H100 (PERF.md's kernel table, row 4).
 // The file is compiled with --fmad=false (entry 1's codes and planes are
-// bit-identical to the plain append); entries 2-4 write their FMAs as
-// __fmaf_rn.
+// bit-identical to the plain append); the FMAs are written as __fmaf_rn.
 
 #include "attn_sm90.cuh"   // mbarriers, bulk copies, the stage ring
 #include "kv_common.cuh"
@@ -105,210 +110,8 @@ namespace {
 
 using namespace kv;
 
-// KV_BITS = 4 (half-split nibble pages) or 8 (one byte per value); PT =
-// per-tensor codes (planes null, kpt / vpt the layer's scales).
-template <int NREP, int KV_BITS, bool PT>
-__global__ void __launch_bounds__(NT) decode_attn_append_kernel(
-    const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
-    const __nv_bfloat16* __restrict__ k_new,  // [B, H, D]
-    const __nv_bfloat16* __restrict__ v_new,  // [B, H, D]
-    uint8_t* __restrict__ k_data,             // layer: [P, H, rows, D]
-    uint8_t* __restrict__ v_data,
-    float* __restrict__ planes,               // layer: [P, 4, H, page]
-    const float* __restrict__ kpt,            // PT: the layer's K scale
-    const float* __restrict__ vpt,            // PT: the layer's V scale
-    const int* __restrict__ block_tables,     // [B, W]
-    const int* __restrict__ context_lens,     // [B]
-    __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
-    int H, int page, int W, float sm_scale) {
-  constexpr int n_rep = NREP;
-  __shared__ float q_s[NREP][D];
-  __shared__ float score[NREP][MAX_PAGE];
-  __shared__ float ks[MAX_PAGE], kc[MAX_PAGE], vs[MAX_PAGE], vz[MAX_PAGE];
-  __shared__ float qsum[NREP], m_s[NREP], l_s[NREP];
-  __shared__ float alpha_s[NREP], c_s[NREP];
-  __shared__ float red[NWARP];
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = context_lens[b];
-  const size_t row_base = ((size_t)b * H + h) * n_rep;
-  if (len <= 0) {
-    for (int r = 0; r < n_rep; ++r)
-      out[(row_base + r) * D + tid] = __float2bfloat16(0.0f);
-    return;
-  }
-  constexpr bool KV8 = KV_BITS == 8;
-  constexpr int LEVELS = KV8 ? 255 : 15;
-  constexpr int QMAX = KV8 ? 127 : 7;          // per-tensor code range
-  constexpr float BIAS = (float)(QMAX + 1);
-  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
-  const int half = page / 2;
-  const int rows = KV8 ? page : half;   // byte rows per page and head
-
-  for (int r = 0; r < n_rep; ++r)
-    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
-  __syncthreads();
-  for (int r = 0; r < n_rep; ++r) {
-    const float s = block_reduce(q_s[r][tid], 0, red);
-    if (tid == 0) qsum[r] = s;
-  }
-
-  // the new token: quantize, attend through its dequantized value
-  const size_t kv_off = ((size_t)b * H + h) * D + tid;
-  const float kx = __bfloat162float(k_new[kv_off]);
-  const float vx = __bfloat162float(v_new[kv_off]);
-  const TokQuant kq = PT ? quant_pt<QMAX>(kx, k_pt) : quant_kv<LEVELS>(kx, red);
-  const TokQuant vq = PT ? quant_pt<QMAX>(vx, v_pt) : quant_kv<LEVELS>(vx, red);
-  float acc[NREP];
-  for (int r = 0; r < n_rep; ++r) {
-    const float s = block_reduce(q_s[r][tid] * kq.dq, 0, red) * sm_scale;
-    if (tid == 0) {
-      m_s[r] = s;
-      l_s[r] = 1.0f;
-    }
-    acc[r] = vq.dq;
-  }
-  __syncthreads();
-
-  // existing tokens: positions [0, len - 1)
-  const int n_old = len - 1;
-  const int n_pages = (n_old + page - 1) / page;
-  for (int p = 0; p < n_pages; ++p) {
-    const int phys = block_tables[(size_t)b * W + p];
-    const int ntok = min(page, n_old - p * page);
-    const uint8_t* krows = k_data + ((size_t)phys * H + h) * rows * D;
-    const uint8_t* vrows = v_data + ((size_t)phys * H + h) * rows * D;
-    for (int t = tid; t < page; t += NT) {
-      if constexpr (PT) {
-        ks[t] = k_pt;
-        kc[t] = BIAS * k_pt;
-        vs[t] = v_pt;
-        vz[t] = BIAS;
-      } else {
-        const float* pl =
-            planes + (size_t)phys * 4 * H * page + (size_t)h * page;
-        const float s0 = pl[t];
-        ks[t] = s0;
-        kc[t] = pl[(size_t)H * page + t] - 128.0f * s0;   // k_scale * k_zero
-        vs[t] = pl[(size_t)2 * H * page + t];
-        vz[t] = pl[(size_t)3 * H * page + t] - 128.0f;     // v_zero
-      }
-    }
-    __syncthreads();
-    // scores: one thread per token, dots over the K codes
-    for (int t = tid; t < page; t += NT) {
-      if (t < ntok) {
-        const int shift = (!KV8 && t >= half) ? 4 : 0;
-        const uint32_t mask = KV8 ? 0xFFu : 0xFu;
-        const uint4* kr = reinterpret_cast<const uint4*>(
-            krows + (size_t)(KV8 ? t : t % half) * D);
-        float dot[NREP];
-        for (int r = 0; r < n_rep; ++r) dot[r] = 0.0f;
-#pragma unroll 2
-        for (int c = 0; c < D / 16; ++c) {
-          const uint4 w4 = kr[c];
-          const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-          for (int wi = 0; wi < 4; ++wi) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float code =
-                  (float)((words[wi] >> (8 * e + shift)) & mask);
-              const int d = c * 16 + wi * 4 + e;
-              for (int r = 0; r < n_rep; ++r) dot[r] += q_s[r][d] * code;
-            }
-          }
-        }
-        for (int r = 0; r < n_rep; ++r)
-          score[r][t] = sm_scale * (ks[t] * dot[r] - kc[t] * qsum[r]);
-      }
-    }
-    __syncthreads();
-    // online softmax, one warp per query row
-    for (int r = warp; r < n_rep; r += NWARP) {
-      float mx = -INFINITY;
-      for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, score[r][t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float lsum = 0.0f, csum = 0.0f;
-      for (int t = lane; t < page; t += 32) {
-        const float pr = t < ntok ? expf(score[r][t] - m_new) : 0.0f;
-        const float w = pr * vs[t];
-        score[r][t] = w;
-        lsum += pr;
-        csum += w * vz[t];
-      }
-      lsum = warp_sum(lsum);
-      csum = warp_sum(csum);
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + lsum;
-        alpha_s[r] = alpha;
-        c_s[r] = csum;
-      }
-    }
-    __syncthreads();
-    // P.V: one thread per head-dim lane; kv4 rows t and t + page/2 share a
-    // byte, kv8 rows hold one token each
-    for (int r = 0; r < n_rep; ++r) acc[r] = acc[r] * alpha_s[r] - c_s[r];
-    if constexpr (KV8) {
-      for (int row = 0; row < ntok; ++row) {
-        const float code = (float)vrows[(size_t)row * D + tid];
-        for (int r = 0; r < n_rep; ++r) acc[r] += score[r][row] * code;
-      }
-    } else {
-      const int nrow = min(half, ntok);
-      for (int row = 0; row < nrow; ++row) {
-        const uint32_t byte = vrows[(size_t)row * D + tid];
-        const float lo = (float)(byte & 0xF);
-        const float hi = (float)(byte >> 4);
-        const bool has_hi = row + half < ntok;
-        for (int r = 0; r < n_rep; ++r) {
-          acc[r] += score[r][row] * lo;
-          if (has_hi) acc[r] += score[r][row + half] * hi;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int r = 0; r < n_rep; ++r)
-    out[(row_base + r) * D + tid] = __float2bfloat16(acc[r] / l_s[r]);
-
-  // write-back of the new token (after every pool read of this block)
-  const int pos = len - 1;
-  const int phys = block_tables[(size_t)b * W + pos / page];
-  const int slot = pos % page;
-  const uint32_t kc_new = (uint32_t)kq.code, vc_new = (uint32_t)vq.code;
-  if constexpr (KV8) {
-    const size_t byte_off = (((size_t)phys * H + h) * page + slot) * D + tid;
-    k_data[byte_off] = (uint8_t)kc_new;
-    v_data[byte_off] = (uint8_t)vc_new;
-  } else {
-    const int row = slot % half;
-    const bool is_hi = slot >= half;
-    const size_t byte_off = (((size_t)phys * H + h) * half + row) * D + tid;
-    const uint32_t kb = k_data[byte_off], vb = v_data[byte_off];
-    k_data[byte_off] = (uint8_t)(is_hi ? ((kb & 0x0F) | (kc_new << 4))
-                                       : ((kb & 0xF0) | kc_new));
-    v_data[byte_off] = (uint8_t)(is_hi ? ((vb & 0x0F) | (vc_new << 4))
-                                       : ((vb & 0xF0) | vc_new));
-  }
-  if (!PT && tid < 4) {
-    float val;
-    if (tid == 0) val = kq.scale;
-    else if (tid == 1) val = kq.scale * (kq.zero + 128.0f);
-    else if (tid == 2) val = vq.scale;
-    else val = vq.zero + 128.0f;
-    planes[(((size_t)phys * 4 + tid) * H + h) * page + slot] = val;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The split decode (entries 2 and 4): see the header for the design.
+// The split decode (every entry): see the header for the design.
 // ---------------------------------------------------------------------------
 
 constexpr int NSTAGE = 3;               // ring stages
@@ -358,14 +161,6 @@ struct ListMask {
   }
 };
 
-// sum over the 8 lanes of an aligned group
-__device__ __forceinline__ float group8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  return v;
-}
-
 // the N floats at src (16-byte aligned when N % 4 == 0, 8 when N == 2)
 template <int N>
 __device__ __forceinline__ void load_row(float (&p)[N], const float* src) {
@@ -403,7 +198,40 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The end of a split: consumer thread c holds acc for head-dim lanes
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), f16 in, f32 out
+__device__ __forceinline__ void mma16816_f16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two f16 of the form 1024 + c (c < 1024, exact) -> the codes c, exact
+__device__ __forceinline__ uint32_t codes_f16(uint32_t biased) {
+  const __half2 h = __hsub2(*reinterpret_cast<const __half2*>(&biased),
+                            __floats2half2_rn(1024.0f, 1024.0f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the low nibbles of bytes 0 and 2 of x as two exact f16 codes
+__device__ __forceinline__ uint32_t nibbles_f16(uint32_t x) {
+  return codes_f16((x & 0x000F000Fu) | 0x64006400u);
+}
+
+// The end of a split (entry 4, and entries 1-3 over kv4 pages): consumer
+// thread c holds acc for head-dim lanes
 // 2 (c % 64), +1 over the tokens of parity c / 64; the two halves are
 // summed here. S = 1: out = acc / l (0 where no token was live) in bf16.
 // S > 1: the f32 partial of split s, acc [S][rows][D] then (m, l)
@@ -655,8 +483,16 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
 // fine-grained, the four plane runs of the slots it covers. Only rows that
 // can hold a live token are copied (a kv8 run rounded up to 4 rows, so the
 // plane runs stay multiples of 16 bytes).
+// ring stages of the list kernel: on an H100, 2 ran faster than 3 at B=128
+// (more resident blocks an SM) and as fast at B=8, and faster than 1 (PERF.md,
+// row 4)
+constexpr int LIST_NSTAGE = 2;
 constexpr int LIST_KV8_ROWS = 64;     // token rows of a kv8 stage
 constexpr int LIST_TS = MAX_PAGE;     // token slots of a stage, at most
+// P.V's f16 weights are p * v_scale times 2^8 (an exact power of two, out
+// of f16's subnormal range for weights down to ~2.4e-7, below 65504 for
+// v_scale < 255), its f32 sums scaled back at the end
+constexpr float P_SCALE = 256.0f;
 
 __host__ __device__ constexpr int list_stage_rows(int kv_bits, int page) {
   return kv_bits == 8 ? (page < LIST_KV8_ROWS ? page : LIST_KV8_ROWS)
@@ -687,7 +523,51 @@ __device__ __forceinline__ void list_stage_extent(int ntok, int r0, int rs,
   }
 }
 
-template <int NREP, bool BAND, int KV_BITS, bool PT>
+// APPEND: the new token into the staged page and into the pool, by the
+// consumers (thread = head-dim lane) right after the stage that holds its
+// slot landed: stage slot t of the stage at kst (rs rows of K codes, rs of
+// V, then FINE the four plane runs of ts slots; a kv4 stage starts at slot
+// 0), pool slot `slot` of page phys. The staged bytes are the pool's, so a
+// kv4 byte merged here keeps its partner nibble (slot +- page/2) as the
+// plain append does, and both copies get the same byte. The pool write
+// comes after the block's only read of that page (the bulk copy has
+// landed); no other block reads it. The consumers then meet, so the
+// scoring reads the patched rows and planes.
+template <bool KV8, bool FINE>
+__device__ __forceinline__ void append_token(
+    unsigned char* kst, int rs, int ts, int t, int half, const TokQuant& kq,
+    const TokQuant& vq, uint8_t* k_data, uint8_t* v_data, float* planes,
+    int phys, int H, int h, int page, int slot) {
+  const int tid = threadIdx.x;
+  unsigned char* vst = kst + rs * D;
+  const uint32_t kc = (uint32_t)kq.code, vc = (uint32_t)vq.code;
+  const int row = KV8 ? t : t % half;
+  uint32_t kb = kc, vb = vc;
+  if (!KV8) {
+    const uint32_t ko = kst[row * D + tid], vo = vst[row * D + tid];
+    const bool hi = t >= half;
+    kb = hi ? ((ko & 0x0Fu) | (kc << 4)) : ((ko & 0xF0u) | kc);
+    vb = hi ? ((vo & 0x0Fu) | (vc << 4)) : ((vo & 0xF0u) | vc);
+  }
+  kst[row * D + tid] = (uint8_t)kb;
+  vst[row * D + tid] = (uint8_t)vb;
+  const size_t off = (((size_t)phys * H + h) * (KV8 ? page : half) +
+                      (KV8 ? slot : slot % half)) * D + tid;
+  k_data[off] = (uint8_t)kb;
+  v_data[off] = (uint8_t)vb;
+  if (FINE && tid < 4) {   // the folded plane lanes, as append_kv sets them
+    const float val = tid == 0   ? kq.scale
+                      : tid == 1 ? kq.scale * (kq.zero + 128.0f)
+                      : tid == 2 ? vq.scale
+                                 : vq.zero + 128.0f;
+    reinterpret_cast<float*>(kst + 2 * rs * D)[tid * ts + t] = val;
+    planes[(((size_t)phys * 4 + tid) * H + h) * page + slot] = val;
+  }
+  sm90::fence_proxy_async();   // before the ring's next copy into the stage
+  consumers_sync();
+}
+
+template <int NREP, bool BAND, int KV_BITS, bool PT, bool APPEND>
 __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
     const uint8_t* __restrict__ k_data,       // layer: [P, H, rows, D]
@@ -698,21 +578,24 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     const int* __restrict__ sel_phys,         // [B, H, Tp]; BAND [B, Tp]
     const int* __restrict__ sel_logic,        // [B, H, Tp]; BAND [B, Tp]
     const int* __restrict__ lengths,          // [B]
+    const __nv_bfloat16* __restrict__ k_new,  // APPEND: [B, H, D]
+    const __nv_bfloat16* __restrict__ v_new,
     __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
     float* __restrict__ ws,                   // S > 1: the partials
     int H, int page, int Tp, int per_split, float sm_scale, int band_sink,
     int band_local, int ring_span, int ring_sink_tok) {
   constexpr bool KV8 = KV_BITS == 8, FINE = !PT;
   constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
-  constexpr int RQ = NREP < 4 ? NREP : 4;       // q rows a scoring pass holds
+  static_assert(!APPEND || BAND, "the append walks a list shared by heads");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align128(smem_raw);
   __shared__ __align__(16) float q_s[NREP][D];
   __shared__ __align__(16) float sc[NREP][LIST_TS];    // scores
   __shared__ __align__(16) float pw[LIST_TS][NREP];    // p * v_scale
-  __shared__ __align__(16) float red[NREP * D];
+  __shared__ float red[NWARP];                          // APPEND's reduce
+  __shared__ __align__(16) float red2[KV8 ? 4 : NREP * D];  // kv4's finish
   __shared__ float qsum[NREP], m_s[NREP], l_s[NREP], alpha_s[NREP], c_s[NREP];
-  __shared__ __align__(8) uint64_t full[NSTAGE], empty[NSTAGE];
+  __shared__ __align__(8) uint64_t full[LIST_NSTAGE], empty[LIST_NSTAGE];
 
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -727,7 +610,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
   const int i0 = s * per_split, i1 = min(Tp, i0 + per_split);
   if (tid == 0) {
 #pragma unroll
-    for (int st = 0; st < NSTAGE; ++st) {
+    for (int st = 0; st < LIST_NSTAGE; ++st) {
       sm90::mbar_init(&full[st], 1);      // the copy warp's lane 0 (+ bytes)
       sm90::mbar_init(&empty[st], NT);    // every consumer thread
     }
@@ -738,7 +621,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
   if (warp == COPY_WARP) {
     sm90::Ring rg;
     for (int i = i0; i < i1; ++i) {
-      const int ntok = mask.slots(sel_logic[list_off + i]);
+      const int ntok = mask.slots(APPEND ? i : sel_logic[list_off + i]);
       if (ntok == 0) continue;
       const int phys = sel_phys[list_off + i];
       const size_t prow = ((size_t)phys * H + h) * rows;
@@ -762,7 +645,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
               reinterpret_cast<float*>(kst + 2 * rs * D) + (lane - 2) * ts,
               planes + (((size_t)phys * 4 + lane - 2) * H + h) * page + r0,
               4 * nslot, &full[st]);
-        rg.advance<NSTAGE>();
+        rg.advance<LIST_NSTAGE>();
       }
     }
     return;
@@ -783,15 +666,51 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     if (lane == 0) qsum[r] = sum;
   }
   const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
-  float acc[NREP][2];
+  // q as the f16 B operand of the scores: column n is q row n (zero past
+  // n_rep); thread t4's k indices 2 t4, 2 t4 + 1 (b0) and 2 t4 + 8, + 9
+  // (b1) of step kk are head dims 32 t4 + 4 kk + {0, 2} and {1, 3}, the
+  // order in which the A operand's code words unpack
+  const int g = lane >> 2, t4 = lane & 3;
+  uint32_t qb[D / 16][2];
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  const int grp = lane >> 3, l8 = lane & 7, dp = tid & 63, th = tid >> 6;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qb[kk][0] = qb[kk][1] = 0u;
+    if (g < NREP) {
+      const float* qr = &q_s[g][32 * t4 + 4 * kk];
+      qb[kk][0] = pack_f16(qr[0], qr[2]);
+      qb[kk][1] = pack_f16(qr[1], qr[3]);
+    }
+  }
+  // APPEND: the block whose run holds the row's newest page quantizes the
+  // new token (thread = head-dim lane), as append_kv does
+  const bool owner = APPEND && len > 0 && i0 <= mask.cur_page &&
+                     mask.cur_page < i1;
+  TokQuant kq = {}, vq = {};
+  if (owner) {
+    const size_t off = ((size_t)b * H + h) * D + tid;
+    const float kx = __bfloat162float(k_new[off]);
+    const float vx = __bfloat162float(v_new[off]);
+    constexpr int LEVELS = KV8 ? 255 : 15, QMAX = KV8 ? 127 : 7;
+    auto reduce = [&](float v, int op) {
+      return reduce_nt(v, op, red, [] { consumers_sync(); });
+    };
+    kq = PT ? quant_pt<QMAX>(kx, k_pt) : quant_kv_by<LEVELS>(kx, reduce);
+    vq = PT ? quant_pt<QMAX>(vx, v_pt) : quant_kv_by<LEVELS>(vx, reduce);
+  }
+  // P.V's accumulators: kv8, n-tile j's mma fragment (rows 8-15 unused);
+  // kv4, row r's head-dim lanes 2 (tid % 64), +1 (tokens of parity tid / 64)
+  constexpr int AR = KV8 ? 4 : NREP, AC = KV8 ? 4 : 2;
+  float acc[AR][AC];
+#pragma unroll
+  for (int r = 0; r < AR; ++r)
+#pragma unroll
+    for (int c = 0; c < AC; ++c) acc[r][c] = 0.0f;
+  const int dp = tid & 63, th = tid >> 6;
   consumers_sync();
 
   sm90::Ring rg;
   for (int i = i0; i < i1; ++i) {
-    const int logic = sel_logic[list_off + i];
+    const int logic = APPEND ? i : sel_logic[list_off + i];
     const int ntok = mask.slots(logic);
     if (ntok == 0) continue;
     for (int r0 = 0; r0 < (KV8 ? ntok : 1); r0 += rs) {
@@ -800,67 +719,68 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
       const int n_pw = KV8 ? nrow : page;   // stage slots the softmax covers
       const int st = rg.stage;
       sm90::mbar_wait(&full[st], rg.phase);
-      const unsigned char* kst = ring + st * stage_bytes;
+      unsigned char* kst = ring + st * stage_bytes;
       const unsigned char* vst = kst + rs * D;
       const float* pst = reinterpret_cast<const float*>(kst + 2 * rs * D);
-      // scores: 8 lanes on a K row, 16 code bytes each; only live slots'
-      // scores are ever read
-      for (int rq = 0; rq < NREP; rq += RQ) {
-        float qr[RQ][16];
+      if (owner && logic == mask.cur_page &&
+          (!KV8 || (mask.cur_slot >= r0 && mask.cur_slot < r0 + rs)))
+        append_token<KV8, FINE>(kst, rs, ts, mask.cur_slot - r0, half, kq, vq,
+                                const_cast<uint8_t*>(k_data),
+                                const_cast<uint8_t*>(v_data),
+                                const_cast<float*>(planes),
+                                sel_phys[list_off + i], H, h, page,
+                                mask.cur_slot);
+      // scores on the tensor cores, S^T = K q^T: warp w's pass takes the
+      // stage's K rows rb .. rb + 15 as the A operand's rows (kv4: a tile of
+      // their low nibbles, slots rb.., and one of their high nibbles, slots
+      // rb + page/2 ..); only live slots' scores are stored or read
+      for (int rb = 16 * warp; rb < nrow; rb += 16 * NWARP) {  // warp-uniform
+        uint4 kw[2][2];    // rows rb + g, rb + g + 8: bytes [32 t4, +32)
 #pragma unroll
-        for (int j = 0; j < RQ; ++j)
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = rb + g + 8 * hr;
 #pragma unroll
-          for (int e = 0; e < 16; e += 4) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(&q_s[rq + j][16 * l8 + e]);
-            qr[j][e] = v.x;
-            qr[j][e + 1] = v.y;
-            qr[j][e + 2] = v.z;
-            qr[j][e + 3] = v.w;
-          }
-        for (int rb = 4 * warp; rb < nrow; rb += 16) {   // warp-uniform
-          const int row = rb + grp;
-          const bool ok = row < nrow;
-          uint4 w4 = make_uint4(0u, 0u, 0u, 0u);
-          if (ok) w4 = *reinterpret_cast<const uint4*>(kst + row * D + 16 * l8);
-          const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
-          float dlo[RQ], dhi[RQ];
+          for (int i = 0; i < 2; ++i)
+            kw[hr][i] = row < nrow ? *reinterpret_cast<const uint4*>(
+                                         kst + row * D + 32 * t4 + 16 * i)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+        }
+        float clo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float chi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int j = 0; j < RQ; ++j) dlo[j] = dhi[j] = 0.0f;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t x0 = word_of(kw[0][kk >> 2], kk & 3);
+          const uint32_t x1 = word_of(kw[1][kk >> 2], kk & 3);
+          uint32_t a[4];
+          if constexpr (KV8) {
+            a[0] = codes_f16(__byte_perm(x0, 0x64646464u, 0x4240));
+            a[1] = codes_f16(__byte_perm(x1, 0x64646464u, 0x4240));
+            a[2] = codes_f16(__byte_perm(x0, 0x64646464u, 0x4341));
+            a[3] = codes_f16(__byte_perm(x1, 0x64646464u, 0x4341));
+            mma16816_f16(clo, a, qb[kk][0], qb[kk][1]);
+          } else {
 #pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            const uint32_t byte = (words[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-            if constexpr (KV8) {
-              const float c = (float)byte;
-#pragma unroll
-              for (int j = 0; j < RQ; ++j)
-                dlo[j] = __fmaf_rn(qr[j][e], c, dlo[j]);
-            } else {
-              const float lo = (float)(byte & 0xFu), hi = (float)(byte >> 4);
-#pragma unroll
-              for (int j = 0; j < RQ; ++j) {
-                dlo[j] = __fmaf_rn(qr[j][e], lo, dlo[j]);
-                dhi[j] = __fmaf_rn(qr[j][e], hi, dhi[j]);
-              }
+            for (int nib = 0; nib < 2; ++nib) {
+              a[0] = nibbles_f16(x0 >> (4 * nib));
+              a[1] = nibbles_f16(x1 >> (4 * nib));
+              a[2] = nibbles_f16(x0 >> (4 * nib + 8));
+              a[3] = nibbles_f16(x1 >> (4 * nib + 8));
+              mma16816_f16(nib ? chi : clo, a, qb[kk][0], qb[kk][1]);
             }
           }
+        }
+        // c[e]: K row rb + g + 8 (e / 2), q row 2 t4 + e % 2
 #pragma unroll
-          for (int j = 0; j < RQ; ++j) {
-            dlo[j] = group8_sum(dlo[j]);
-            if constexpr (!KV8) dhi[j] = group8_sum(dhi[j]);
-          }
-          if (ok && l8 == 0) {
+        for (int e = 0; e < 4; ++e) {
+          const int row = rb + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
+          if (r >= NREP || row >= nrow) continue;
 #pragma unroll
-            for (int k = 0; k < (KV8 ? 1 : 2); ++k) {
-              const int t = row + k * half;     // stage slot
-              if (!mask.live(logic, r0 + t)) continue;
-              const float ks = FINE ? pst[t] : k_pt;
-              const float kc = FINE ? pst[ts + t] - 128.0f * ks : BIAS * k_pt;
-#pragma unroll
-              for (int j = 0; j < RQ; ++j)
-                sc[rq + j][t] =
-                    sm_scale * (ks * (k ? dhi[j] : dlo[j]) - kc * qsum[rq + j]);
-            }
+          for (int k = 0; k < (KV8 ? 1 : 2); ++k) {
+            const int t = row + k * half;      // stage slot
+            if (!mask.live(logic, r0 + t)) continue;
+            const float ks = FINE ? pst[t] : k_pt;
+            const float kc = FINE ? pst[ts + t] - 128.0f * ks : BIAS * k_pt;
+            sc[r][t] = sm_scale * (ks * (k ? chi[e] : clo[e]) - kc * qsum[r]);
           }
         }
       }
@@ -894,31 +814,25 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
         }
       }
       consumers_sync();
-      // P.V in f32: kv8 rows hold one token, kv4 rows t and t + page/2
-      // (codes are finite, and dead slots carry weight 0)
+      if constexpr (!KV8) {
+        // kv4: P.V in f32 FMAs (faster here than the tensor cores on an
+        // H100; the weights never rounded): thread tid owns head-dim lanes
+        // 2 (tid % 64), +1 of the rows of parity tid / 64, whose bytes hold
+        // slots row and row + page/2
 #pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-        acc[r][0] *= alpha_s[r];
-        acc[r][1] *= alpha_s[r];
-        if (th == 0) {
-          acc[r][0] -= c_s[r];
-          acc[r][1] -= c_s[r];
-        }
-      }
-      for (int row = th; row < nrow; row += 2) {
-        const uint32_t two =
-            *reinterpret_cast<const uint16_t*>(vst + row * D + 2 * dp);
-        float w[NREP];
-        load_row<NREP>(w, pw[row]);
-        if constexpr (KV8) {
-          const float c0 = (float)(two & 0xFFu), c1 = (float)(two >> 8);
-#pragma unroll
-          for (int r = 0; r < NREP; ++r) {
-            acc[r][0] = __fmaf_rn(w[r], c0, acc[r][0]);
-            acc[r][1] = __fmaf_rn(w[r], c1, acc[r][1]);
+        for (int r = 0; r < NREP; ++r) {
+          acc[r][0] *= alpha_s[r];
+          acc[r][1] *= alpha_s[r];
+          if (th == 0) {
+            acc[r][0] -= c_s[r];
+            acc[r][1] -= c_s[r];
           }
-        } else {
-          float wh[NREP];
+        }
+        for (int row = th; row < nrow; row += 2) {
+          const uint32_t two =
+              *reinterpret_cast<const uint16_t*>(vst + row * D + 2 * dp);
+          float w[NREP], wh[NREP];
+          load_row<NREP>(w, pw[row]);
           load_row<NREP>(wh, pw[row + half]);
           const float lo0 = (float)(two & 0xFu);
           const float hi0 = (float)((two >> 4) & 0xFu);
@@ -930,13 +844,98 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
             acc[r][1] = __fmaf_rn(wh[r], hi1, __fmaf_rn(w[r], lo1, acc[r][1]));
           }
         }
+      } else {
+        // kv8: P.V on the tensor cores (faster here than f32 FMAs on an
+        // H100): O[r][d] += sum_t w[t][r] code[t][d], the weights w (p *
+        // v_scale) times P_SCALE in f16 as the A operand (q row r = row g;
+        // rows 8-15 zero), the stage's V codes as B (warp w's head dims
+        // 32 w + 4 n + j as column n of n-tile j), 16 stage slots a step; a
+        // slot past the stage gets weight 0 and code 0 (a dead slot's
+        // weight is 0 and its codes finite)
+        const float al = g < NREP ? alpha_s[g] : 1.0f;
+        const float cs = g < NREP ? c_s[g] * P_SCALE : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] = acc[j][0] * al - cs;
+          acc[j][1] = acc[j][1] * al - cs;
+        }
+        for (int t0 = 0; t0 < n_pw; t0 += 16) {
+          uint32_t a[4] = {0u, 0u, 0u, 0u};
+          uint32_t v[4];   // dims 32 w + 4 g .. + 3 of slots t0 + 2 t4 + u
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int t = t0 + 2 * t4 + (u & 1) + 8 * (u >> 1);
+            v[u] = t < n_pw ? *reinterpret_cast<const uint32_t*>(
+                                  vst + t * D + 32 * warp + 4 * g)
+                            : 0u;
+          }
+          if (g < NREP) {
+            float wt[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int t = t0 + 2 * t4 + (u & 1) + 8 * (u >> 1);
+              wt[u] = t < n_pw ? pw[t][g] * P_SCALE : 0.0f;
+            }
+            a[0] = pack_f16(wt[0], wt[1]);
+            a[2] = pack_f16(wt[2], wt[3]);
+          }
+          // (slot pair, dim) f16 pairs: byte j of the two slots' words
+          const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
+          const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
+          const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
+          const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t sel = (j & 1) ? 0x4342 : 0x4140;
+            const uint32_t b0 = codes_f16(
+                __byte_perm(j < 2 ? lo01 : hi01, 0x64646464u, sel));
+            const uint32_t b1 = codes_f16(
+                __byte_perm(j < 2 ? lo23 : hi23, 0x64646464u, sel));
+            mma16816_f16(acc[j], a, b0, b1);
+          }
+        }
       }
       sm90::mbar_arrive(&empty[st]);
-      rg.advance<NSTAGE>();
+      rg.advance<LIST_NSTAGE>();
     }
   }
-  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, s, gridDim.x,
-                     (size_t)gridDim.z * H * NREP, out, ws);
+  if constexpr (!KV8) {
+    split_finish<NREP>(acc, m_s, l_s, red2, tid, row_base, s, gridDim.x,
+                       (size_t)gridDim.z * H * NREP, out, ws);
+  } else {
+    // the end of a split: thread (warp w, g < NREP, t4) holds row g's head
+    // dims 32 w + 8 t4 + i: acc[i % 4][i / 4] times P_SCALE
+    if (g >= NREP) return;
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = acc[i & 3][i >> 2] * (1.0f / P_SCALE);
+    const size_t row = row_base + g;
+    const int d0 = 32 * warp + 8 * t4;
+    if (gridDim.x == 1) {
+      const float l = l_s[g];
+      uint4 pk;
+      uint32_t* p32 = reinterpret_cast<uint32_t*>(&pk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(
+            l > 0.0f ? o[2 * i] / l : 0.0f,
+            l > 0.0f ? o[2 * i + 1] / l : 0.0f);
+        p32[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(out + row * D + d0) = pk;
+    } else {
+      const size_t rows = (size_t)gridDim.z * H * NREP;
+      const size_t prow = (size_t)s * rows + row;
+      float4* dst = reinterpret_cast<float4*>(ws + prow * D + d0);
+      dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+      if (warp == 0 && t4 == 0) {
+        float* ml = ws + (size_t)gridDim.x * rows * D + prow * 2;
+        ml[0] = m_s[g];
+        ml[1] = l_s[g];
+      }
+    }
+  }
 }
 
 // Merges the S partials of each (sequence, head, rep) row in split order
@@ -964,61 +963,6 @@ __global__ void __launch_bounds__(NT) decode_split_combine_kernel(
   }
   out[row * D + d] = __float2bfloat16(den > 0.0f ? num / den : 0.0f);
 }
-
-}  // namespace
-
-extern "C" {
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-// kv_bits: 4 (half-split nibble pages) or 8 (one byte per value).
-// Per-tensor codes when k_pt / v_pt (device addresses of the layer's
-// scales) are given; planes are then not read and may be null.
-int launch_decode_attention_append(
-    const void* q, const void* k_new, const void* v_new, void* k_data,
-    void* v_data, void* planes, const void* block_tables,
-    const void* context_lens, void* out, int B, int H, int n_rep, int page,
-    int W, float sm_scale, int kv_bits, const void* k_pt, const void* v_pt,
-    void* stream) {
-  const bool pt = k_pt != nullptr;
-  if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
-      (!pt && planes == nullptr))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_BITS(R, BITS, PT)                                           \
-  decode_attn_append_kernel<R, BITS, PT><<<grid, NT, 0, s>>>(              \
-      static_cast<const __nv_bfloat16*>(q),                                \
-      static_cast<const __nv_bfloat16*>(k_new),                            \
-      static_cast<const __nv_bfloat16*>(v_new),                            \
-      static_cast<uint8_t*>(k_data), static_cast<uint8_t*>(v_data),        \
-      static_cast<float*>(planes), static_cast<const float*>(k_pt),        \
-      static_cast<const float*>(v_pt),                                     \
-      static_cast<const int*>(block_tables),                               \
-      static_cast<const int*>(context_lens),                               \
-      static_cast<__nv_bfloat16*>(out), H, page, W, sm_scale)
-#define LAUNCH(R)                                     \
-  if (pt) {                                           \
-    if (kv_bits == 8) LAUNCH_BITS(R, 8, true);        \
-    else LAUNCH_BITS(R, 4, true);                     \
-  } else {                                            \
-    if (kv_bits == 8) LAUNCH_BITS(R, 8, false);       \
-    else LAUNCH_BITS(R, 4, false);                    \
-  }
-  switch (n_rep) {
-    case 1: LAUNCH(1); break;
-    case 2: LAUNCH(2); break;
-    case 4: LAUNCH(4); break;
-    case 8: LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
-#undef LAUNCH_BITS
-  return (int)cudaGetLastError();
-}
-
-}  // extern "C"
-
-namespace {
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -1065,6 +1009,7 @@ int finish_split(int err, const void* ws, void* out, int rows, int S,
 using ListKernel = void (*)(const __nv_bfloat16*, const uint8_t*,
                             const uint8_t*, const float*, const float*,
                             const float*, const int*, const int*, const int*,
+                            const __nv_bfloat16*, const __nv_bfloat16*,
                             __nv_bfloat16*, float*, int, int, int, int, float,
                             int, int, int, int);
 using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
@@ -1072,35 +1017,41 @@ using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                             const int*, __nv_bfloat16*, float*, int, int,
                             int, int, float);
 
-template <int R, bool BAND>
+template <int R, bool BAND, bool APPEND>
 ListKernel list_kernel(int kv_bits, bool pt) {
   if (pt)
-    return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, true>
-                        : decode_attn_list_kernel<R, BAND, 4, true>;
-  return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, false>
-                      : decode_attn_list_kernel<R, BAND, 4, false>;
+    return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, true, APPEND>
+                        : decode_attn_list_kernel<R, BAND, 4, true, APPEND>;
+  return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, false, APPEND>
+                      : decode_attn_list_kernel<R, BAND, 4, false, APPEND>;
 }
 
-// Entries 2 (band = false) and 3: grid (S, H, B), S = the runs of
-// per_split list entries; with S > 1 the combine over the partials in ws.
-int launch_list(bool band, const void* q, const void* k_data,
+enum ListMode { kPerHead = 0, kBand = 1, kAppend = 2 };
+
+// Entries 1 (the dense list of block_tables with the append), 2 (per-head
+// lists) and 3 (the band): grid (S, H, B), S = the runs of per_split list
+// entries; with S > 1 the combine over the partials in ws.
+int launch_list(ListMode mode, const void* q, const void* k_data,
                 const void* v_data, const void* planes, const void* sel_phys,
-                const void* sel_logic, const void* lengths, void* out,
-                void* ws, int B, int H, int n_rep, int page, int Tp,
-                int per_split, float sm_scale, int band_sink, int band_local,
-                int ring_span, int ring_sink_tok, int kv_bits,
-                const void* k_pt, const void* v_pt, void* stream) {
+                const void* sel_logic, const void* lengths,
+                const void* k_new, const void* v_new, void* out, void* ws,
+                int B, int H, int n_rep, int page, int Tp, int per_split,
+                float sm_scale, int band_sink, int band_local, int ring_span,
+                int ring_sink_tok, int kv_bits, const void* k_pt,
+                const void* v_pt, void* stream) {
   const bool pt = k_pt != nullptr;
   const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
   if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
       (!pt && planes == nullptr) || page <= 0 || page > MAX_PAGE ||
       page % 4 != 0 || S <= 0 || (S > 1 && ws == nullptr) ||
-      !aligned16(k_data) || !aligned16(v_data) || !aligned16(planes))
+      !aligned16(k_data) || !aligned16(v_data) || !aligned16(planes) ||
+      (mode == kAppend && (k_new == nullptr || v_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   ListKernel kernel = nullptr;
-#define PICK(R)                                     \
-  kernel = band ? list_kernel<R, true>(kv_bits, pt) \
-                : list_kernel<R, false>(kv_bits, pt)
+#define PICK(R)                                                    \
+  kernel = mode == kAppend ? list_kernel<R, true, true>(kv_bits, pt) \
+           : mode == kBand ? list_kernel<R, true, false>(kv_bits, pt)  \
+                           : list_kernel<R, false, false>(kv_bits, pt)
   switch (n_rep) {
     case 1: PICK(1); break;
     case 2: PICK(2); break;
@@ -1110,16 +1061,19 @@ int launch_list(bool band, const void* q, const void* k_data,
   }
 #undef PICK
   int err = allow_smem(reinterpret_cast<const void*>(kernel),
-                       NSTAGE * list_stage_bytes(kv_bits, pt, MAX_PAGE) + 128);
+                       LIST_NSTAGE * list_stage_bytes(kv_bits, pt, MAX_PAGE) +
+                           128);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<dim3(S, H, B), SPLIT_NT,
-           NSTAGE * list_stage_bytes(kv_bits, pt, page) + 128, s>>>(
+           LIST_NSTAGE * list_stage_bytes(kv_bits, pt, page) + 128, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const uint8_t*>(k_data), static_cast<const uint8_t*>(v_data),
       static_cast<const float*>(planes), static_cast<const float*>(k_pt),
       static_cast<const float*>(v_pt), static_cast<const int*>(sel_phys),
       static_cast<const int*>(sel_logic), static_cast<const int*>(lengths),
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, page, Tp,
       per_split, sm_scale, band_sink, band_local, ring_span, ring_sink_tok);
   return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
@@ -1128,6 +1082,27 @@ int launch_list(bool band, const void* q, const void* k_data,
 }  // namespace
 
 extern "C" {
+
+// The fused decode: the new token's K/V (k_new, v_new [B, H, D] bf16)
+// quantized into the pool and attended with the dense list of each row's
+// block table [B, W] (entry i = logical page i, dead past the length), cut
+// into runs of per_split entries (grid (S, H, B)); ws holds the f32
+// partials when S > 1 (S * B*H*n_rep * (D + 2) floats; may be null at
+// S = 1). kv_bits 4 or 8, pages of a multiple of 4 tokens up to 256;
+// per-tensor codes when k_pt / v_pt (device addresses of the layer's
+// scales) are given, and planes may then be null. Returns
+// cudaGetLastError() after the launches (0 = launched).
+int launch_decode_attention_append(
+    const void* q, const void* k_new, const void* v_new, void* k_data,
+    void* v_data, void* planes, const void* block_tables,
+    const void* context_lens, void* out, void* ws, int B, int H, int n_rep,
+    int page, int W, int per_split, float sm_scale, int kv_bits,
+    const void* k_pt, const void* v_pt, void* stream) {
+  return launch_list(kAppend, q, k_data, v_data, planes, block_tables,
+                     nullptr, context_lens, k_new, v_new, out, ws, B, H,
+                     n_rep, page, W, per_split, sm_scale, -1, 0, 0, 0,
+                     kv_bits, k_pt, v_pt, stream);
+}
 
 // Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp], each
 // cut into runs of per_split entries (grid (S, H, B)); ws holds the f32
@@ -1142,9 +1117,10 @@ int launch_decode_attention_ph(
     const void* lengths, void* out, void* ws, int B, int H, int n_rep,
     int page, int Tp, int per_split, float sm_scale, int kv_bits,
     const void* k_pt, const void* v_pt, void* stream) {
-  return launch_list(false, q, k_data, v_data, planes, sel_phys, sel_logic,
-                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
-                     sm_scale, -1, 0, 0, 0, kv_bits, k_pt, v_pt, stream);
+  return launch_list(kPerHead, q, k_data, v_data, planes, sel_phys,
+                     sel_logic, lengths, nullptr, nullptr, out, ws, B, H,
+                     n_rep, page, Tp, per_split, sm_scale, -1, 0, 0, 0,
+                     kv_bits, k_pt, v_pt, stream);
 }
 
 // Plain mode with the streaming band: one page list [B, Tp] per sequence,
@@ -1156,10 +1132,10 @@ int launch_decode_attention_band(
     int page, int Tp, int per_split, float sm_scale, int band_sink,
     int band_local, int ring_span, int ring_sink_tok, int kv_bits,
     const void* k_pt, const void* v_pt, void* stream) {
-  return launch_list(true, q, k_data, v_data, planes, sel_phys, sel_logic,
-                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
-                     sm_scale, band_sink, band_local, ring_span,
-                     ring_sink_tok, kv_bits, k_pt, v_pt, stream);
+  return launch_list(kBand, q, k_data, v_data, planes, sel_phys, sel_logic,
+                     lengths, nullptr, nullptr, out, ws, B, H, n_rep, page,
+                     Tp, per_split, sm_scale, band_sink, band_local,
+                     ring_span, ring_sink_tok, kv_bits, k_pt, v_pt, stream);
 }
 
 // Two-stage decode's kv16 mode: one page list [B, Tp] per sequence over a

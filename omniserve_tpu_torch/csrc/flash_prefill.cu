@@ -433,50 +433,13 @@ __global__ void __launch_bounds__(RT) flash_tile_ranges_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 2-D map over a row-major bf16 [rows, cols] matrix (rows `row_bytes`
 // apart), boxes of box_rows x 64 columns (128 bytes) in the 128-byte
 // swizzle; rows past the end read as 0.
 int encode_rows(CUtensorMap* map, const void* base, uint64_t cols,
                 uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_swizzled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols,
+                         rows, row_bytes, 64, box_rows);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // Device code shared by the paged-KV kernels (decode_attention.cu,
-// kv_append.cu): block reductions over one 128-thread block (one thread per
-// head-dim lane), the fine-grained quantizer of one [D] vector over 15
+// kv_append.cu): reductions over 128 threads (one thread per head-dim
+// lane), the fine-grained quantizer of one [D] vector over 15
 // levels (kv4) or 255 (kv8), and the per-tensor quantizer of one value by
 // a calibrated scale (codes biased by 8 or 128).
 //
@@ -35,20 +35,28 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide sum / max / min over NT threads (all threads get the result).
-__device__ inline float block_reduce(float v, int op, float* red) {
+// Sum / max / min over NT threads that meet at `sync` (all threads get the
+// result): __syncthreads for a whole block, a named barrier for the
+// consumer threads of a block whose other warps have left.
+template <typename Sync>
+__device__ inline float reduce_nt(float v, int op, float* red, Sync sync) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (op == 0) v = warp_sum(v);
   else if (op == 1) v = warp_max(v);
   else v = -warp_max(-v);
-  __syncthreads();
+  sync();
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  sync();
   float r = red[0];
 #pragma unroll
   for (int w = 1; w < NWARP; ++w)
     r = op == 0 ? r + red[w] : (op == 1 ? fmaxf(r, red[w]) : fminf(r, red[w]));
   return r;
+}
+
+// Block-wide sum / max / min over NT threads (all threads get the result).
+__device__ inline float block_reduce(float v, int op, float* red) {
+  return reduce_nt(v, op, red, [] { __syncthreads(); });
 }
 
 struct TokQuant {
@@ -57,12 +65,13 @@ struct TokQuant {
 
 // Fine-grained quantization of one lane of a [D] vector over LEVELS = 15
 // (kv4) or 255 (kv8) levels, exactly the plain version's op order
-// (ops/quantization.kv_quantize_fine_grained).
-template <int LEVELS>
-__device__ inline TokQuant quant_kv(float x, float* red) {
+// (ops/quantization.kv_quantize_fine_grained); `reduce(v, op)` is the
+// max (op 1) / min (op 2) over the D lanes.
+template <int LEVELS, typename Reduce>
+__device__ inline TokQuant quant_kv_by(float x, Reduce reduce) {
   constexpr float L = (float)LEVELS;
-  const float mx = block_reduce(x, 1, red);
-  const float mn = block_reduce(x, 2, red);
+  const float mx = reduce(x, 1);
+  const float mn = reduce(x, 2);
   const float rng = fmaxf(mx - mn, 1e-8f);
   TokQuant t;
   t.scale = rng / L;
@@ -70,6 +79,12 @@ __device__ inline TokQuant quant_kv(float x, float* red) {
   t.code = fminf(fmaxf(rintf(x / t.scale + t.zero), 0.0f), L);
   t.dq = (t.code - t.zero) * t.scale;
   return t;
+}
+
+template <int LEVELS>
+__device__ inline TokQuant quant_kv(float x, float* red) {
+  return quant_kv_by<LEVELS>(
+      x, [red](float v, int op) { return block_reduce(v, op, red); });
 }
 
 // Per-tensor quantization of one value with the layer's calibrated scale

@@ -18,32 +18,64 @@
 //       k + K/2 in group K/2/G + k / G.
 //   W8: qweight [K, N] int8;  out = psum * w_scale[n] * a_scale[m]
 //
-// What bounds it: at decode M (a handful of rows) the weight bytes (bytes
+// What bounds them: at decode M (a handful of rows) the weight bytes (bytes
 // bound: 4 bits per weight); at prefill M (thousands of rows) the int8
-// tensor-core rate. Design: one block computes a BM x BN output tile with
-// mma.sync m16n8k32 (s8 x s8 -> s32). Weight tiles are read from device
-// memory as packed bytes (4 bits per weight for W4), transposed 4x4 bytes
-// in registers into a k-contiguous shared-memory tile, and the nibbles are
-// split in registers right before each mma (lo = w & 0x0F0F0F0F,
-// hi = (w >> 4) & 0x0F0F0F0F): the W4 path issues one mma against the low
-// half of K and one against the high half from the same loaded word.
-// Per group, the progressive dequant runs on that split word too: its four
-// bytes are four u4 codes of one column n in one group (G % 32 == 0, so a
-// 32-deep k step never straddles groups), so one 32-bit multiply by s2
-// scales all four (each product <= 15 * 17 = 255: no carry crosses a byte;
-// the derived quantizer never gives s2 > 17) and __vadd4 adds the zero
-// bytewise, wrapping mod 256 exactly as the int8 cast of the reference.
-// The tile's s2 and zeros (one per 32-deep k chunk, column and K half) are
-// staged in shared memory with the weight tile. Two tile shapes: 16 x 32
-// for M <= 16 (many blocks stream the weights), 128 x 128 for larger M.
-// No cp.async/TMA pipelining or wgmma yet (a later PR).
+// tensor-core rate.
 //
-// Built with --fmad=false so the f32 epilogue rounds exactly as the plain
-// PyTorch version does.
+// Per channel (w4a8_channel_kernel): a producer warp keeps a ring of
+// mbarrier-guarded TMA copies in flight (the reference layout as it is: a
+// 128-row x 128-byte box of packed weights per consumer warpgroup, and the
+// activation rows of both K halves as K-major boxes, all in the 128-byte
+// swizzle), and consumer warpgroups run int8 wgmma (m64nNk32 .s32.s8.s8)
+// with the operands swapped: out^T = W^T a^T, the weights the register A
+// operand (64 output channels a wgmma), the activations the shared-memory
+// B operand (N = the block's M tile). Each consumer thread loads the packed
+// bytes it needs once (32-bit words, 4 k rows of 4 channels), transposes
+// them 4 x 4 in registers so each word holds 4 k of one channel, and splits
+// each word once into the low-half and high-half nibbles: one loaded byte
+// feeds one wgmma against the low K half's activations and one against the
+// high half's. A thread's 4 channels are rows g and g + 8 of two m64 tiles,
+// so its epilogue writes 4 adjacent channels. Two bodies of that kernel,
+// chosen by M in ops/cuda/quant_matmul.channel_plan (from M, N, K and the
+// SM count only, so a captured launch keeps its grid):
+//   - decode (M <= 128): one consumer warpgroup, 128 channels x an M tile of
+//     32, 64 or 128 rows, a ring of 3-4 stages; K is split over the blocks
+//     of a cluster (at most 8) so that about one wave of resident blocks
+//     covers the SMs (at an M tile of 128 whose channel tiles alone fill
+//     that wave, the prefill body's two warpgroups instead: each
+//     activation tile then serves 256 channels). The split stays exact:
+//     each block keeps its int32
+//     partial, the cluster sums them through distributed shared memory
+//     (integer sums: any order gives the same bits) and only then applies
+//     the one f32 epilogue, so the output equals the plain version's, and a
+//     replayed graph the eager call;
+//   - prefill (M > 128): two consumer warpgroups sharing each activation
+//     tile, a 256-channel x 128-row block tile, 3 stages, no split; blocks
+//     walk the M tiles of one channel tile first (its weights stay in L2).
+// Per group and W8A8 (quant_gemm_kernel): one block computes a BM x BN
+// output tile with mma.sync m16n8k32 (s8 x s8 -> s32). Weight tiles are read
+// from device memory as packed bytes (4 bits per weight for W4), transposed
+// 4x4 bytes in registers into a k-contiguous shared-memory tile, and the
+// nibbles are split in registers right before each mma (lo = w & 0x0F0F0F0F,
+// hi = (w >> 4) & 0x0F0F0F0F): the W4 path issues one mma against the low
+// half of K and one against the high half from the same loaded word. The
+// progressive dequant runs on that split word too: its four bytes are four
+// u4 codes of one column n in one group (G % 32 == 0, so a 32-deep k step
+// never straddles groups), so one 32-bit multiply by s2 scales all four
+// (each product <= 15 * 17 = 255: no carry crosses a byte; the derived
+// quantizer never gives s2 > 17) and __vadd4 adds the zero bytewise,
+// wrapping mod 256 exactly as the int8 cast of the reference. The tile's s2
+// and zeros (one per 32-deep k chunk, column and K half) are staged in
+// shared memory with the weight tile. Two tile shapes: 16 x 32 for M <= 16
+// (many blocks stream the weights), 128 x 128 for larger M; loads are
+// synchronous.
+//
+// Built with --fmad=false so the f32 epilogues round exactly as the plain
+// PyTorch versions do.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "attn_sm90.cuh"   // mbarriers, TMA, wgmma descriptors
 
 namespace {
 
@@ -74,7 +106,7 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-enum Mode { kW8 = 0, kW4Channel = 1, kW4Group = 2 };
+enum Mode { kW8 = 0, kW4Group = 2 };
 
 // A [M, K] int8 row-major; W: W4 -> [K/2, N] packed, W8 -> [K, N] int8.
 // KW = rows of W (K/2 or K) must be a multiple of BK; N a multiple of 4;
@@ -84,11 +116,9 @@ __global__ void __launch_bounds__(WM * WN * 32)
     quant_gemm_kernel(const int8_t* __restrict__ A,
                       const uint8_t* __restrict__ W,
                       const float* __restrict__ w_scale,
-                      const float* __restrict__ w_szero,
                       const int8_t* __restrict__ s2,
                       const int8_t* __restrict__ s2_zero,
                       const float* __restrict__ a_scale,
-                      const float* __restrict__ a_sum,
                       OutT* __restrict__ out, int M, int N, int K, int G) {
   constexpr bool W4 = MODE != kW8;
   constexpr bool GROUP = MODE == kW4Group;
@@ -226,58 +256,496 @@ __global__ void __launch_bounds__(WM * WN * 32)
         const int n = n0 + wn * WTN + nt * 8 + tig * 2 + (e & 1);
         if (m < M && n < N) {
           const float p = (float)acc[mt][nt][e];
-          float o = p * w_scale[n] * a_scale[m];
-          if (MODE == kW4Channel) o = o - w_szero[n] * a_sum[m];
-          store_out(out + (size_t)m * N + n, o);
+          store_out(out + (size_t)m * N + n, p * w_scale[n] * a_scale[m]);
         }
       }
 }
 
 template <int MODE, typename OutT>
-int launch(const void* a, const void* w, const void* ws, const void* wz,
-           const void* s2, const void* s2z, const void* as, const void* asum,
-           void* out, int M, int N, int K, int G, cudaStream_t stream) {
+int launch(const void* a, const void* w, const void* ws, const void* s2,
+           const void* s2z, const void* as, void* out, int M, int N, int K,
+           int G, cudaStream_t stream) {
   const int8_t* A = static_cast<const int8_t*>(a);
   const uint8_t* Wt = static_cast<const uint8_t*>(w);
   const float* fs = static_cast<const float*>(ws);
-  const float* fz = static_cast<const float*>(wz);
   const int8_t* g2 = static_cast<const int8_t*>(s2);
   const int8_t* g2z = static_cast<const int8_t*>(s2z);
   const float* fa = static_cast<const float*>(as);
-  const float* fsum = static_cast<const float*>(asum);
   OutT* o = static_cast<OutT*>(out);
   if (M <= 16) {
     constexpr int BM = 16, BN = 32, BK = 128;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     quant_gemm_kernel<BM, BN, BK, 1, 4, MODE, OutT><<<grid, 128, 0, stream>>>(
-        A, Wt, fs, fz, g2, g2z, fa, fsum, o, M, N, K, G);
+        A, Wt, fs, g2, g2z, fa, o, M, N, K, G);
   } else {
     constexpr int BM = 128, BN = 128, BK = 64;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     quant_gemm_kernel<BM, BN, BK, 2, 4, MODE, OutT><<<grid, 256, 0, stream>>>(
-        A, Wt, fs, fz, g2, g2z, fa, fsum, o, M, N, K, G);
+        A, Wt, fs, g2, g2z, fa, o, M, N, K, G);
   }
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Per channel: w4a8_channel_kernel (see the header for the design).
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int CH_RK = 128;              // packed weight rows a stage holds
+constexpr int CH_NW = 128;              // output channels of a warpgroup
+constexpr int CH_WTILE = CH_RK * CH_NW;  // bytes of a warpgroup's weight box
+constexpr int CH_MAX_SPLIT = 8;         // blocks of a cluster (portable)
+
+template <int MT, int NWG>
+__host__ __device__ constexpr int ch_stage_bytes() {
+  return NWG * CH_WTILE + 2 * MT * 128;   // weights, then both K halves of a
+}
+template <int MT, int NWG, int NSTAGE>
+__host__ __device__ constexpr int ch_smem_bytes() {
+  return NSTAGE * ch_stage_bytes<MT, NWG>() + 1024;   // + alignment slack
+}
+// the int32 partial of a split block: [MT][NWG * CH_NW + 4] (padded rows)
+template <int NWG>
+__host__ __device__ constexpr int ch_partial_stride() {
+  return NWG * CH_NW + 4;
+}
+
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+// keep the compiler from moving register accesses across the asynchronous
+// wgmma region (accumulators), or reusing A registers a wgmma in flight
+// still reads
+template <int N>
+__device__ __forceinline__ void keep_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// byte offset of word q (bytes 4q..4q+3) of row k in a 128-byte-swizzled
+// box of 128-byte rows
+__device__ __forceinline__ uint32_t swz_word(int k, int q) {
+  return static_cast<uint32_t>(k * 128 + ((((q >> 2) ^ (k & 7))) << 4) +
+                               ((q & 3) << 2));
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// out[m, n .. n+3] from their int32 sums, in the plain version's op order
+template <typename OutT>
+__device__ __forceinline__ void channel_epilogue(
+    OutT* __restrict__ out, const int (&p)[4], const float* __restrict__ s1,
+    const float* __restrict__ s1_szero, const float* __restrict__ a_scale,
+    const float* __restrict__ a_sum, int m, int n, int N) {
+  const float4 sc = *reinterpret_cast<const float4*>(s1 + n);
+  const float4 sz = *reinterpret_cast<const float4*>(s1_szero + n);
+  const float as = a_scale[m], am = a_sum[m];
+  const float scs[4] = {sc.x, sc.y, sc.z, sc.w};
+  const float szs[4] = {sz.x, sz.y, sz.z, sz.w};
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = (float)p[i] * scs[i] * as - szs[i] * am;
+  store4(out + (size_t)m * N + n, v);
+}
+
+// Block (M tile x, channel tile y, split z): channels [y * NWG * 128, +NWG *
+// 128), rows [x * MT, +MT), packed weight rows [z * per_split * 128, ...).
+// Threads: NWG consumer warpgroups, then the producer warp. A [M, K] int8
+// (amap: boxes 128 k x MT rows), W [K/2, N] (wmap: boxes 128 channels x
+// 128 rows); K/2 % 128 == 0, N % 16 == 0 (checked by the launcher).
+template <int MT, int NWG, int NSTAGE, typename OutT>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ s1, const float* __restrict__ s1_szero,
+    const float* __restrict__ a_scale, const float* __restrict__ a_sum,
+    OutT* __restrict__ out, int M, int N, int K, int per_split) {
+  constexpr int NC = NWG * 128;                      // consumer threads
+  constexpr int SB = ch_stage_bytes<MT, NWG>();
+  constexpr int PS = ch_partial_stride<NWG>();
+  constexpr int NACC = MT / 2;                       // accumulators a tile
+  static_assert(MT * PS * 4 <= NSTAGE * SB, "partial fits the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[NSTAGE], empty[NSTAGE];
+  // split: the epilogue's scales, staged while the main loop runs
+  __shared__ __align__(16) float ep_s1[NWG * CH_NW], ep_sz[NWG * CH_NW];
+  __shared__ float ep_as[MT], ep_am[MT];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * (NWG * CH_NW);
+  const int kh = K / 2;
+  const int it0 = blockIdx.z * per_split;
+  const int n_it = min(kh / CH_RK, it0 + per_split) - it0;
+  const int S = gridDim.z;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      sm90::mbar_init(&full[st], 1);      // the producer (+ bytes)
+      sm90::mbar_init(&empty[st], NC);    // every consumer thread
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == NC / 32) {
+    // producer: one lane keeps the ring full, the others stage a split's
+    // epilogue scales; the warp stays for the cluster's barriers below
+    if (lane > 0 && S > 1) {
+      for (int i = lane - 1; i < NWG * CH_NW; i += 31) {
+        const bool ok = n0 + i < N;
+        ep_s1[i] = ok ? s1[n0 + i] : 0.0f;
+        ep_sz[i] = ok ? s1_szero[n0 + i] : 0.0f;
+      }
+      for (int i = lane - 1; i < MT; i += 31) {
+        const bool ok = m0 + i < M;
+        ep_as[i] = ok ? a_scale[m0 + i] : 0.0f;
+        ep_am[i] = ok ? a_sum[m0 + i] : 0.0f;
+      }
+    }
+    if (lane == 0) {
+      sm90::Ring rg;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = rg.stage;
+        sm90::mbar_wait(&empty[st], rg.phase ^ 1u);
+        unsigned char* sb = smem + st * SB;
+        sm90::mbar_arrive_tx(&full[st], SB);
+        const int kp = (it0 + it) * CH_RK;
+#pragma unroll
+        for (int c = 0; c < NWG; ++c)
+          sm90::tma_load_2d(sb + c * CH_WTILE, &wmap, &full[st],
+                            n0 + c * CH_NW, kp);
+        sm90::tma_load_2d(sb + NWG * CH_WTILE, &amap, &full[st], kp, m0);
+        sm90::tma_load_2d(sb + NWG * CH_WTILE + MT * 128, &amap, &full[st],
+                          kh + kp, m0);
+        rg.advance<NSTAGE>();
+      }
+    }
+  }
+
+  // consumer thread (warpgroup c, warp w, lane 4 g + t): the weight words
+  // of column q = 8 w + g (channels 4q .. 4q+3 of the warpgroup's 128) at
+  // k rows 4t.., 16+4t.. of each 32-row step; they are rows g, g + 8 of the
+  // two m64 tiles: channel 4q + 2 tile + (row >= 8)
+  const int c = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int q = 8 * w + g;
+  int acc0[NACC], acc1[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc0[i] = acc1[i] = 0;
+  if (warp < NC / 32) {
+    sm90::Ring rg;
+    uint32_t afr[2][16];
+    for (int it = 0; it < n_it; ++it) {
+      const int st = rg.stage;
+      sm90::mbar_wait(&full[st], rg.phase);
+      const unsigned char* wt = smem + st * SB + c * CH_WTILE;
+      const uint32_t a_lo = sm90::smem_u32(smem + st * SB + NWG * CH_WTILE);
+      const uint32_t a_hi = a_lo + MT * 128;
+#pragma unroll
+      for (int kk = 0; kk < CH_RK / 32; ++kk) {
+        uint32_t(&a)[16] = afr[kk & 1];
+        uint32_t in0[4], in1[4], t0[4], t1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          in0[j] = *reinterpret_cast<const uint32_t*>(
+              wt + swz_word(32 * kk + 4 * t + j, q));
+          in1[j] = *reinterpret_cast<const uint32_t*>(
+              wt + swz_word(32 * kk + 16 + 4 * t + j, q));
+        }
+        transpose4x4(in0, t0);    // t0[i]: k 4t.. of channel 4q + i
+        transpose4x4(in1, t1);    // t1[i]: k 16+4t..
+        // a[8 half + 4 tile + r]: the A fragment of (K half, m64 tile)
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile) {
+          const uint32_t x[4] = {t0[2 * tile], t0[2 * tile + 1],
+                                 t1[2 * tile], t1[2 * tile + 1]};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            a[4 * tile + r] = x[r] & 0x0F0F0F0Fu;
+            a[8 + 4 * tile + r] = (x[r] >> 4) & 0x0F0F0F0Fu;
+          }
+        }
+        keep_regs(a);
+        keep_regs(acc0);
+        keep_regs(acc1);
+        sm90::wg_fence();
+        const uint64_t d_lo = sm90::desc_b128(a_lo + 32 * kk, 16, 1024);
+        const uint64_t d_hi = sm90::desc_b128(a_hi + 32 * kk, 16, 1024);
+        WgmmaS8<MT>::mma(acc0, a, d_lo);
+        WgmmaS8<MT>::mma(acc1, a + 4, d_lo);
+        WgmmaS8<MT>::mma(acc0, a + 8, d_hi);
+        WgmmaS8<MT>::mma(acc1, a + 12, d_hi);
+        sm90::wg_commit();
+        // the previous step's group has finished: its A registers are free
+        sm90::wg_wait<1>();
+        keep_regs(afr[(kk + 1) & 1]);
+      }
+      sm90::wg_wait<0>();
+      keep_regs(afr[0]);
+      keep_regs(afr[1]);
+      keep_regs(acc0);
+      keep_regs(acc1);
+      sm90::mbar_arrive(&empty[st]);
+      rg.advance<NSTAGE>();
+    }
+  }
+
+  const int nq = n0 + c * CH_NW + 4 * q;   // this thread's first channel
+  if (S == 1) {
+    if (warp < NC / 32 && nq < N) {
+#pragma unroll
+      for (int nb = 0; nb < MT / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * nb + 2 * t + e;
+          if (m >= M) continue;
+          const int p[4] = {acc0[4 * nb + e], acc0[4 * nb + 2 + e],
+                            acc1[4 * nb + e], acc1[4 * nb + 2 + e]};
+          channel_epilogue(out, p, s1, s1_szero, a_scale, a_sum, m, nq, N);
+        }
+    }
+    return;
+  }
+
+  // split over K: the partials meet in distributed shared memory, written
+  // over the ring once every warpgroup is done reading it
+  cg::cluster_group cluster = cg::this_cluster();
+  int* part = reinterpret_cast<int*>(smem);
+  __syncthreads();
+  if (warp < NC / 32) {
+#pragma unroll
+    for (int nb = 0; nb < MT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ml = 8 * nb + 2 * t + e;
+        *reinterpret_cast<int4*>(part + ml * PS + c * CH_NW + 4 * q) =
+            make_int4(acc0[4 * nb + e], acc0[4 * nb + 2 + e],
+                      acc1[4 * nb + e], acc1[4 * nb + 2 + e]);
+      }
+  }
+  cluster.sync();
+  // block r of the cluster finishes the rows r, r + S, ... of the tile:
+  // thread (row lane lr, chunk col) reads the S partials of 4 channels at
+  // once (one latency a row), scales from shared memory
+  const int rank = (int)cluster.block_rank();
+  const int rows = min(MT, M - m0);
+  constexpr int CHUNKS = NWG * CH_NW / 4;            // 4 channels each
+  constexpr int LANES = (NC + 32) / CHUNKS;          // rows in flight
+  const int col = 4 * (tid % CHUNKS), lr = tid / CHUNKS;
+  if (lr < LANES && n0 + col < N) {
+    const float4 sc4 = *reinterpret_cast<const float4*>(ep_s1 + col);
+    const float4 sz4 = *reinterpret_cast<const float4*>(ep_sz + col);
+    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const float sz[4] = {sz4.x, sz4.y, sz4.z, sz4.w};
+#pragma unroll 2
+    for (int ml = rank + S * lr; ml < rows; ml += S * LANES) {
+      int4 v[CH_MAX_SPLIT];
+#pragma unroll
+      for (int s = 0; s < CH_MAX_SPLIT; ++s)
+        if (s < S)
+          v[s] = *reinterpret_cast<const int4*>(
+              cluster.map_shared_rank(part + ml * PS + col, s));
+      int p[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int s = 0; s < CH_MAX_SPLIT; ++s)
+        if (s < S) {
+          p[0] += v[s].x;
+          p[1] += v[s].y;
+          p[2] += v[s].z;
+          p[3] += v[s].w;
+        }
+      const float as = ep_as[ml], am = ep_am[ml];
+      float o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] = (float)p[i] * sc[i] * as - sz[i] * am;
+      store4(out + (size_t)(m0 + ml) * N + n0 + col, o);
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its partial
+}
+
+template <int MT, int NWG, int NSTAGE, typename OutT>
+int launch_channel(const void* a, const void* w, const void* s1,
+                   const void* s1_szero, const void* a_scale,
+                   const void* a_sum, void* out, int M, int N, int K,
+                   int splits, int per_split, cudaStream_t stream) {
+  constexpr int SMEM = ch_smem_bytes<MT, NWG, NSTAGE>();
+  auto kernel = w4a8_channel_kernel<MT, NWG, NSTAGE, OutT>;
+  CUtensorMap amap, wmap;
+  // byte matrices, boxes of 128 bytes x MT activation rows / CH_RK rows
+  int err = sm90::encode_swizzled(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a,
+                                  (uint64_t)K, (uint64_t)M, (uint64_t)K, 128,
+                                  MT);
+  if (err == 0)
+    err = sm90::encode_swizzled(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w,
+                                (uint64_t)N, (uint64_t)K / 2, (uint64_t)N,
+                                128, CH_RK);
+  if (err != 0) return err;
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return (int)cerr;
+  static bool ready[sm90::MAX_DEVICES] = {};   // per instantiation
+  if (dev >= sm90::MAX_DEVICES || !ready[dev]) {
+    cerr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (cerr != cudaSuccess) return (int)cerr;
+    if (dev < sm90::MAX_DEVICES) ready[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + MT - 1) / MT, (N + NWG * CH_NW - 1) / (NWG * CH_NW),
+                     splits);
+  cfg.blockDim = dim3(NWG * 128 + 32);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  cerr = cudaLaunchKernelEx(
+      &cfg, kernel, amap, wmap, static_cast<const float*>(s1),
+      static_cast<const float*>(s1_szero), static_cast<const float*>(a_scale),
+      static_cast<const float*>(a_sum), static_cast<OutT*>(out), M, N, K,
+      per_split);
+  if (cerr != cudaSuccess) return (int)cerr;
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_channel_plan(const void* a, const void* w, const void* s1,
+                        const void* s1_szero, const void* a_scale,
+                        const void* a_sum, void* out, int M, int N, int K,
+                        int mt, int n_wg, int splits, int per_split,
+                        cudaStream_t s) {
+#define CH_ARGS a, w, s1, s1_szero, a_scale, a_sum, out, M, N, K, splits, \
+                per_split, s
+  // ring depths: on an H100 at M=128, 4 stages (one block an SM) beat 2
+  // and 3; at M=8, 2 and 3 beat 4 on the split GEMMs but not on gate_up
+  if (n_wg == 2 && mt == 128)   // two warpgroups: prefill, and wide decode
+    return launch_channel<128, 2, 3, OutT>(CH_ARGS);
+  if (n_wg != 1) return (int)cudaErrorInvalidValue;
+  switch (mt) {                 // the decode body
+    case 32: return launch_channel<32, 1, 4, OutT>(CH_ARGS);
+    case 64: return launch_channel<64, 1, 3, OutT>(CH_ARGS);
+    case 128: return launch_channel<128, 1, 4, OutT>(CH_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CH_ARGS
+}
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 = launched).
+// Per channel, on the plan of ops/cuda/quant_matmul.channel_plan: M tiles
+// of mt rows (32, 64 or 128) with n_wg consumer warpgroups (1: the decode
+// body; 2 at mt = 128: the prefill body), K/2 cut into runs of per_split
+// 128-row stages, one block of a cluster of `splits` each. Needs K/2 % 128
+// == 0, N % 16 == 0, a, qweight, s1 and s1_szero 16-byte aligned. Returns
+// cudaGetLastError() after the launch (0 = launched).
 int launch_w4a8_per_channel(const void* a, const void* qweight,
                             const void* s1, const void* s1_szero,
                             const void* a_scale, const void* a_sum,
                             void* out, int out_f32, int M, int N, int K,
+                            int mt, int n_wg, int splits, int per_split,
                             void* stream) {
+  const int n_it = K / 2 / CH_RK;
+  if (M <= 0 || N <= 0 || K <= 0 || (K / 2) % CH_RK || N % 16 ||
+      splits < 1 || splits > CH_MAX_SPLIT || per_split < 1 ||
+      (long long)splits * per_split < n_it ||
+      (long long)(splits - 1) * per_split >= n_it ||
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(qweight) |
+        reinterpret_cast<uintptr_t>(s1) |
+        reinterpret_cast<uintptr_t>(s1_szero)) & 15u))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32
-             ? launch<kW4Channel, float>(a, qweight, s1, s1_szero, nullptr,
-                                         nullptr, a_scale, a_sum, out, M, N,
-                                         K, 0, s)
-             : launch<kW4Channel, __nv_bfloat16>(
-                   a, qweight, s1, s1_szero, nullptr, nullptr, a_scale,
-                   a_sum, out, M, N, K, 0, s);
+  return out_f32 ? launch_channel_plan<float>(
+                       a, qweight, s1, s1_szero, a_scale, a_sum, out, M, N,
+                       K, mt, n_wg, splits, per_split, s)
+                 : launch_channel_plan<__nv_bfloat16>(
+                       a, qweight, s1, s1_szero, a_scale, a_sum, out, M, N,
+                       K, mt, n_wg, splits, per_split, s);
 }
 
 // G: input channels per group; needs G % 32 == 0 and (K/2) % G == 0.
@@ -288,11 +756,10 @@ int launch_w4a8_per_group(const void* a, const void* qweight, const void* s1,
   if (G <= 0 || G % 32 || (K / 2) % G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_f32
-             ? launch<kW4Group, float>(a, qweight, s1, nullptr, s2, s2_zero,
-                                       a_scale, nullptr, out, M, N, K, G, s)
-             : launch<kW4Group, __nv_bfloat16>(a, qweight, s1, nullptr, s2,
-                                               s2_zero, a_scale, nullptr, out,
-                                               M, N, K, G, s);
+             ? launch<kW4Group, float>(a, qweight, s1, s2, s2_zero, a_scale, out,
+                                       M, N, K, G, s)
+             : launch<kW4Group, __nv_bfloat16>(a, qweight, s1, s2, s2_zero,
+                                               a_scale, out, M, N, K, G, s);
 }
 
 int launch_w8a8(const void* a, const void* qweight, const void* w_scale,
@@ -300,11 +767,10 @@ int launch_w8a8(const void* a, const void* qweight, const void* w_scale,
                 int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_f32 ? launch<kW8, float>(a, qweight, w_scale, nullptr, nullptr,
-                                      nullptr, a_scale, nullptr, out, M, N, K,
-                                      0, s)
+                                      a_scale, out, M, N, K, 0, s)
                  : launch<kW8, __nv_bfloat16>(a, qweight, w_scale, nullptr,
-                                              nullptr, nullptr, a_scale,
-                                              nullptr, out, M, N, K, 0, s);
+                                              nullptr, a_scale, out, M, N, K,
+                                              0, s);
 }
 
 }  // extern "C"

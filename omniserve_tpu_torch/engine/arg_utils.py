@@ -255,9 +255,9 @@ class EngineArgs:
         parser.add_argument("--selector-update-interval", type=int, default=4)
         parser.add_argument(
             "--multiblock-switch", type=int, default=2048,
-            help="accepted for reference-CLI parity; a NO-OP in the port (its "
-            "decode kernel walks every length in one block per sequence "
-            "and kv head; a multi-block split is queued in ROADMAP.md)",
+            help="accepted for reference-CLI parity; a NO-OP in the port, as "
+            "in the JAX package (its decode kernels split every page list "
+            "over blocks by a plan from the batch's shapes alone)",
         )
         return parser
 

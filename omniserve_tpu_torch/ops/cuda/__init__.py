@@ -16,6 +16,7 @@ too, which is how a check runs both on the same card.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -75,6 +76,17 @@ def plain_versions():
 def use_kernel(t: torch.Tensor) -> bool:
     """Whether the callers send this tensor to a kernel wrapper."""
     return t.is_cuda and not _force_plain
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once: the split plans' input."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def stream_handle() -> int:

@@ -32,18 +32,18 @@ contract; ``attention_ref.paged_decode_attention`` is the plain
 version of the whole composition. What bounds the kernels and how they are
 laid out is in the CUDA source's header.
 
-The list kernels and the kv16 kernel split each list over blocks:
-``split_plan`` picks the number of splits S from shapes the host knows
-(never from lengths or list contents: a captured launch keeps its grid),
-and with S > 1 the kernels write f32 partials that a second kernel merges
-(``combine_partials_plain`` is its plain version; ``page_list_partials_plain``
-gives the partials the kernels write).
+Every kernel here splits each list over blocks (the fused append walks the
+dense list of the block table): ``split_plan`` picks the number of splits S
+from shapes the host knows (never from lengths or list contents: a captured
+launch keeps its grid), and with S > 1 the kernels write f32 partials that
+a second kernel merges (``combine_partials_plain`` is its plain version;
+``page_list_partials_plain`` and ``fused_append_partials_plain`` give the
+partials the kernels write).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -64,7 +64,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_decode_attention_append.argtypes = (
-            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 3
+            [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I] + [_P] * 3
         )
         lib.launch_decode_attention_append.restype = _I
         lib.launch_decode_attention_ph.argtypes = (
@@ -102,21 +102,12 @@ def split_plan(b: int, h: int, tp: int, sm_count: int) -> Tuple[int, int]:
     return -(-tp // per), per
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    """The SM count of a card, read once."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _split_launch(q4, tp: int):
     """(per_split, workspace pointer or None) of a split kernel call on
     q4 [B, H, n_rep, D]: the f32 partials [S, B*H*n_rep] x (D + 2) live in
     a ``torch.empty`` (a captured step takes it from the graph's pool)."""
     b, h, n_rep, d = q4.shape
-    index = q4.device.index
-    n_split, per = split_plan(
-        b, h, tp, sm_count(torch.cuda.current_device() if index is None
-                           else index))
+    n_split, per = split_plan(b, h, tp, cuda.sm_count(q4.device))
     if n_split == 1:
         return per, None, None
     ws = torch.empty(n_split * b * h * n_rep * (d + 2), dtype=torch.float32,
@@ -199,6 +190,30 @@ def paged_decode_attention_fused_plain(
     )
 
 
+def fused_append_partials_plain(
+    q, pool: KVPool, layer: int, block_tables, context_lens, k_new, v_new,
+    *, sm_scale: float, page_size: int, per_split: int, kv_bits: int = 4,
+    kv_zeros: bool = True,
+):
+    """The partials the fused decode kernel's split writes (q [B, Hq, D],
+    the rest as ``paged_decode_attention_fused_plain`` takes them): the new
+    token goes into the pool as the block that owns its page writes it
+    (``append_kv``'s bytes), then each run of ``per_split`` entries of the
+    dense list of the block table gives its m, l [S, B, Hkv, n_rep] and acc
+    [S, B, Hkv, n_rep, D] (``page_list_partials_plain``): the token counts
+    in the run that holds its page."""
+    pages, slots = append_targets(block_tables, context_lens, page_size)
+    append_kv(pool, layer, k_new, v_new, pages, slots, page_size,
+              kv_bits=kv_bits, kv_zeros=kv_zeros)
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    lists = dense_page_lists(block_tables, context_lens, page_size)
+    return page_list_partials_plain(
+        q.reshape(b, hkv, hq // hkv, d), pool, layer, *lists,
+        context_lens.to(torch.int32), sm_scale=sm_scale,
+        page_size=page_size, per_split=per_split)
+
+
 def paged_decode_attention_fused(
     q: torch.Tensor,             # [B, Hq, D] bf16
     pool: KVPool,
@@ -214,9 +229,13 @@ def paged_decode_attention_fused(
 ) -> torch.Tensor:
     """Kernel: attention over the pool plus the new token, whose K/V it
     quantizes and writes into the pool (kv4 or kv8; per-tensor codes when
-    the pool carries per-tensor scales, read on the device). Returns [B,
-    Hq, D] bf16. Launches count as ``decode_attention_append`` (kv4),
-    ``decode_attention_append_kv8`` or ``decode_attention_append_pt``."""
+    the pool carries per-tensor scales, read on the device), over the
+    dense list of each row's block table split over blocks by
+    ``split_plan`` (and merged by the combine kernel in the same call;
+    pages of a multiple of 4 tokens). Returns [B, Hq, D] bf16. Launches
+    count as ``decode_attention_append`` (kv4),
+    ``decode_attention_append_kv8`` or ``decode_attention_append_pt``, one a
+    call."""
     b, hq, d = q.shape
     _, num_pages, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
@@ -227,12 +246,12 @@ def paged_decode_attention_fused(
         )
     want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
     pt = pool.k_scale_per_tensor is not None
-    if (rows != want_rows or page_size > MAX_PAGE
+    if (rows != want_rows or page_size > MAX_PAGE or page_size % 4
             or (pool.kv_scales is None) == (not pt)):
         raise ValueError("decode kernel serves kv4 and kv8 pools, fine-"
-                         "grained or per-tensor, with pages of at most "
-                         f"{MAX_PAGE} tokens; got kv{kv_bits}, {rows} rows "
-                         f"of a {page_size}-token page")
+                         "grained or per-tensor, with pages of a multiple "
+                         f"of 4 tokens up to {MAX_PAGE}; got kv{kv_bits}, "
+                         f"{rows} rows of a {page_size}-token page")
     cuda.check(q, "q", torch.bfloat16)
     cuda.check(k_new, "k_new", torch.bfloat16, (b, hkv, d))
     cuda.check(v_new, "v_new", torch.bfloat16, (b, hkv, d))
@@ -256,13 +275,14 @@ def paged_decode_attention_fused(
     if block_tables.shape[0] != b:
         raise ValueError("block_tables rows != batch")
     out = torch.empty_like(q)
+    w = block_tables.shape[1]
+    per, ws, ws_ptr = _split_launch(q.view(b, hkv, n_rep, d), w)
     err = _lib().launch_decode_attention_append(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(),
-        planes_ptr, block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), b, hkv, n_rep, page_size,
-        block_tables.shape[1], float(sm_scale), kv_bits, k_pt, v_pt,
-        cuda.stream_handle(),
+        planes_ptr, block_tables.data_ptr(), context_lens.data_ptr(),
+        out.data_ptr(), ws_ptr, b, hkv, n_rep, page_size, w, per,
+        float(sm_scale), kv_bits, k_pt, v_pt, cuda.stream_handle(),
     )
     name = ("decode_attention_append_pt" if pt
             else "decode_attention_append_kv8" if kv_bits == 8

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels at every shape ``PERF.md``'s kernel
-table lists for them, on one NVIDIA GPU; or two trees of the port in turns.
-Rows (``--rows``, comma-separated; default all): 9 (flash prefill), 7
-(paged prefill), and the decode rows 5 (per-head page lists), 6 (kv16
-decode) and 4 (the streaming band).
+"""Time the port's kernels at every shape ``PERF.md``'s kernel table lists
+for them, on one NVIDIA GPU; or two trees of the port in turns. Rows
+(``--rows``, comma-separated; default all): 9 (flash prefill), 7 (paged
+prefill), the decode rows 5 (per-head page lists), 6 (kv16 decode) and 4
+(the streaming band), 4a (row 4's fused append) and 1 (the W4A8
+per-channel GEMM).
 
 Run from the root of a checkout:
 
-    python3 scripts/torch_prefill_ab.py --turns OTHER_TREE [--rows 5,6,4]
+    python3 scripts/torch_prefill_ab.py --turns OTHER_TREE [--rows 1,4a]
         [--out FILE]
     python3 scripts/torch_prefill_ab.py [--root TREE] [--rows ...]
         [--label NAME]
@@ -32,13 +33,20 @@ and per-tensor kv8 pages; row 5 over 4 heads' lists of 32 of 257 pages
 (``chip_smoke.decode_ph_inputs``) and row 4's band list of 1 sink + 2 ring
 pages (``decode_band_inputs``), each at B=1 and B=8 over kv4, kv8 and
 per-tensor kv8 pools; row 6 over kv16 pages at B=8 (lengths 1,000-1,100)
-and B=128 (1,045-1,536; ``decode_kv16_inputs``). Prefill times are
-CUDA-event means over a few launches after a warmup
-(``chip_smoke.time_ms``); decode times are per call of 20 calls captured in
-one CUDA graph and replayed (``chip_smoke.time_graphed_ms``, as the kernel
-table's decode rows), each beside "... sdpa": one
-``scaled_dot_product_attention`` over the same K/V dequantized or gathered
-beforehand (not counted), the kernel table's library yardstick.
+and B=128 (1,045-1,536; ``decode_kv16_inputs``); row 4's fused append
+over kv4, kv8 and per-tensor kv4 / kv8 pools at B=8 (lengths 1,000-1,100)
+and B=128 (1,024-1,536; ``decode_append_inputs``); row 1 as one layer's
+four GEMMs (qkv, o, gate_up, down of Llama-3-8B) at M = 8, 128, 8,192 and
+16,384 (``gemm_layer_inputs``; decode M rotates weight copies past L2),
+each GEMM timed and the layer's sum reported. Prefill times and row 1 above
+M=128 are CUDA-event means over a few launches after a warmup
+(``chip_smoke.time_ms``); decode times and row 1 at M <= 128 are per call
+of calls captured in one CUDA graph and replayed
+(``chip_smoke.time_graphed_ms``, as the kernel table's decode rows); rows
+5, 6 and 4 beside "... sdpa": one ``scaled_dot_product_attention`` over
+the same K/V dequantized or gathered beforehand (not counted), the kernel
+table's library yardstick (row 4a has none: it also writes the pool; row
+1's, ``torch._int_mm`` plus the epilogue, is logged by ``chip_smoke``).
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-ROWS = ("9", "7", "5", "6", "4")
+ROWS = ("9", "7", "5", "6", "4", "4a", "1")
 
 
 def measure(root: str, rows=ROWS) -> dict:
@@ -66,6 +74,7 @@ def measure(root: str, rows=ROWS) -> dict:
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_prefill_ab: needs an NVIDIA GPU")
@@ -144,6 +153,27 @@ def measure(root: str, rows=ROWS) -> dict:
                 q, k, v, attn_mask=valid[:, :, None, :],
                 scale=kw["sm_scale"]), 20)
         del args, q, k, v, valid
+        torch.cuda.empty_cache()
+    for label, kv_bits, pt in (("kv4", 4, False), ("kv8", 8, False),
+                               ("pt4", 4, True), ("pt8", 8, True)
+                               ) if "4a" in rows else ():
+        for b, lens in ((8, (1000, 1100)), (128, (1024, 1536))):
+            args, kw, _ = cs.decode_append_inputs(dev, gen(), b, *lens,
+                                                  kv_bits, pt)
+            out[f"row4a {label} B={b}"] = cs.time_graphed_ms(
+                lambda: da.paged_decode_attention_fused(*args, **kw), 20)
+            del args
+            torch.cuda.empty_cache()
+    for m in (8, 128, 8192, 16384) if "1" in rows else ():
+        total = 0.0
+        for name, _, _, a_i8, qws, s1, sz, a_scale, a_sum in \
+                cs.gemm_layer_inputs(dev, gen(), m):
+            ms = cs.time_gemm_ms(lambda w: qm.w4a8_matmul_per_channel(
+                a_i8, w, s1, sz, a_scale, a_sum), qws, m)
+            out[f"row1 {name} M={m}"] = ms
+            total += ms
+            del qws
+        out[f"row1 layer M={m}"] = total
         torch.cuda.empty_cache()
     return out
 

@@ -1,7 +1,8 @@
 """The split over pages of the port's decode kernels, on the CPU.
 
-The per-head list kernel and the kv16 kernel cut each page list into runs
-of entries, one block each, and merge the blocks' f32 partials with a
+The list kernel (per-head lists, the band, and the fused append over the
+dense list of the block table) and the kv16 kernel cut each page list into
+runs of entries, one block each, and merge the blocks' f32 partials with a
 second kernel. What of that runs on the host or has a plain version is
 held here:
 
@@ -17,7 +18,11 @@ held here:
 - the partials the kernels write (``page_list_partials_plain``), merged by
   the same combine, equal the unsplit plain version within 1e-5, for
   per-head lists in no order with dead entries, a run of dead entries only
-  and a row of length 0.
+  and a row of length 0;
+- the fused append's partials (``fused_append_partials_plain``: the new
+  token counted in the run that owns its page), merged by the same
+  combine, equal the unsplit plain fused decode within 1e-5, kv4 / kv8 /
+  per-tensor kv8, with the pool equal to ``append_kv``'s byte for byte.
 """
 
 import jax
@@ -165,3 +170,41 @@ def test_split_partials_plain_match_unsplit(mode, per_split):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert float(got[2, 0].abs().max()) == 0.0 and float(
         got[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("per_split", [1, 2])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt8"])
+def test_append_split_partials_match_fused_plain(mode, per_split):
+    """The fused decode on the split body: the new token appended by the
+    block that owns its page, the runs' partials over the dense list of
+    the block table merged by the plain combine, equal the unsplit plain
+    fused decode within 1e-5, and the pool equals ``append_kv``'s byte for
+    byte. New tokens at slot 0 of a fresh page, at slot page/2 (the kv4
+    byte it shares), at the last slot, a row of length 1 and one of 0."""
+    kv_bits, kv_zeros = MODES[mode]
+    rng = np.random.default_rng(11)
+    h, n_rep, w = 2, 4, 6
+    lengths = [5 * PAGE + 1, 2 * PAGE + PAGE // 2 + 1, 3 * PAGE, 1, 0]
+    b = len(lengths)
+    tables = rng.permutation(b * w).astype(np.int32).reshape(b, w)
+    _, pool = filled_pools(rng, mode, h, [max(n - 1, 0) for n in lengths],
+                           tables)
+    twin = pool.clone()
+    q = torch.from_numpy(bf16_values(rng, (b, h * n_rep, D)))
+    k_new, v_new = (torch.from_numpy(bf16_values(rng, (b, h, D)))
+                    for _ in range(2))
+    args = (torch.from_numpy(tables), torch.tensor(lengths, dtype=torch.int32),
+            k_new, v_new)
+    kw = dict(sm_scale=D ** -0.5, page_size=PAGE, kv_bits=kv_bits,
+              kv_zeros=kv_zeros)
+    m, l, acc = t_dec.fused_append_partials_plain(q, pool, 1, *args,
+                                                  per_split=per_split, **kw)
+    assert m.shape[0] == -(-w // per_split)
+    got = t_dec.combine_partials_plain(m, l, acc).reshape(b, h * n_rep, D)
+    want = t_dec.paged_decode_attention_fused_plain(q, twin, 1, *args, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert float(got[4].abs().max()) == 0.0
+    for x, y in zip(pool, twin):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)

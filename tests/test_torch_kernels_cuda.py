@@ -26,13 +26,16 @@ def _gen(dev, seed=0):
 
 
 def assert_pools_equal(a, b, skip_trash=False):
-    """Same bytes, planes and stats; ``skip_trash`` leaves out the top page,
-    which absorbs the kernels' writes for inactive rows."""
+    """Same bytes, planes and stats (float tensors bit for bit, so NaN
+    planted in dead slots compares equal to itself); ``skip_trash`` leaves
+    out the top page, which absorbs the kernels' writes for inactive rows."""
     end = -1 if skip_trash else None
     for x, y in zip(a, b):
         assert (x is None) == (y is None)
         if x is None:
             continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
         if x.dim() == 1:          # per-tensor scales [L]
             assert torch.equal(x, y)
         else:
@@ -40,7 +43,7 @@ def assert_pools_equal(a, b, skip_trash=False):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (8, 512, 256),
-                                   (40, 1024, 384), (300, 256, 68)])
+                                   (40, 1024, 384), (300, 256, 80)])
 def test_w4a8_per_channel_kernel(dev, m, k, n):
     from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
@@ -86,6 +89,12 @@ def test_kernels_refuse_bad_inputs(dev):
     r = torch.ones(4, device=dev)
     with pytest.raises(ValueError, match="% 128"):
         qm.w4a8_matmul_per_channel(a, w, f, f, r, r)
+    # the per-channel kernel's TMA boxes need rows of a multiple of 16 bytes
+    a2 = torch.zeros((4, 256), dtype=torch.int8, device=dev)
+    w2 = torch.zeros((128, 68), dtype=torch.uint8, device=dev)
+    f2 = torch.ones(68, device=dev)
+    with pytest.raises(ValueError, match="% 16"):
+        qm.w4a8_matmul_per_channel(a2, w2, f2, f2, r, r)
     with pytest.raises(ValueError, match="CUDA"):
         qm.w8a8_matmul(a.cpu(), w.to(torch.int8), f, r)
 
@@ -2026,7 +2035,7 @@ def _check_split(dev, mode, args, page, want_split):
     q, _, _, sel_logic, lens = args
     b, h = q.shape[:2]
     n_split, per = da.split_plan(b, h, sel_logic.shape[-1],
-                                 da.sm_count(dev.index or 0))
+                                 cuda.sm_count(dev))
     assert want_split(n_split, per), (n_split, per)
     name = SPLIT_MODES[mode]
     before = cuda.LAUNCHES[name]
@@ -2087,3 +2096,149 @@ def test_split_decode_one_run_kernel(dev, mode, shape):
         lens = [(s * 37) % (3 * page) for s in range(b)]
     args = _split_case(dev, 43, mode, b, h, 4, page, tp, lens)
     _check_split(dev, mode, args, page, lambda n, per: n == 1)
+
+
+# (K, N) of one Llama-3-8B layer's W4A8 projections: qkv, o, gate_up, down
+LAYER_GEMMS = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 100, 128, 256, 8192])
+@pytest.mark.parametrize("k,n", LAYER_GEMMS)
+def test_w4a8_per_channel_layer_shapes_kernel(dev, k, n, m):
+    """Row 1 at the main path's layer shapes, both bodies (M <= 128: the
+    decode body, split over K in a cluster; above: the prefill body): equal
+    to the plain version (error 0; bf16 out and f32 out), and one captured
+    CUDA graph replayed twice equal to the eager call bit for bit."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    g = _gen(dev, 5)
+    a, s, asum = quantize_activations(
+        torch.randn((m, k), generator=g, device=dev), fuse_sum=True)
+    qw = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8,
+                       device=dev)
+    s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006, generator=g)
+    sz = 8.0 * s1
+    for dtype in (torch.float32, torch.bfloat16):
+        before = cuda.LAUNCHES["w4a8_matmul_per_channel"]
+        got = qm.w4a8_matmul_per_channel(a, qw, s1, sz, s, asum,
+                                         out_dtype=dtype)
+        assert cuda.LAUNCHES["w4a8_matmul_per_channel"] == before + 1
+        want = qm.w4a8_matmul_per_channel_plain(a, qw, s1, sz, s, asum,
+                                                out_dtype=dtype)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert float((got.float() - want.float()).abs().max()) == 0.0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.w4a8_matmul_per_channel(a, qw, s1, sz, s, asum)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, got) and torch.equal(out, got)
+
+
+APPEND_NAMES = {"kv4": "decode_attention_append",
+                "kv8": "decode_attention_append_kv8",
+                "pt4": "decode_attention_append_pt",
+                "pt8": "decode_attention_append_pt"}
+
+
+def _append_case(dev, mode, b, page, seed):
+    """A 2-layer pool of random codes over b sequences of 8 kv heads whose
+    lengths (the new token included) put it at slot 0 of a fresh page, at
+    slot page/2 (the kv4 byte it shares), at the last slot, and in the
+    middle of a page, with a row of length 1 and one of 0. Returns (q,
+    pool, tables, lens, k_new, v_new, kv_bits, kv_zeros, plant): ``plant``
+    puts NaN planes and (kv8) 0xFF codes in every slot at or past the new
+    token's of a pool (the plain versions read them into masked products,
+    so they run on a copy without it)."""
+    h, n_rep, d = 8, 4, 128
+    pattern = [2 * page + 1, page + page // 2 + 1, 3 * page, 1, 0,
+               2 * page + 37, page // 2 + 1, 3 * page - 5]
+    lens = [pattern[s] if s < len(pattern)
+            else 1 + (s * 97) % (3 * page) for s in range(b)]
+    w = 3
+    g = _gen(dev, seed)
+    pool = _codes_pool(dev, g, mode, 2, b * w + 1, h, page, d)
+    tables = torch.randperm(b * w, generator=g, device=dev).view(b, w).to(
+        torch.int32)
+    phys = tables.tolist()
+
+    def plant(p):
+        _plant_dead_garbage(p, 1, page, [max(n - 1, 0) for n in lens],
+                            lambda s, lp: phys[s][lp])
+        for s, n in enumerate(lens):   # a new token at slot 0 of its page
+            if n > 0 and (n - 1) % page == 0:
+                pg = phys[s][(n - 1) // page]
+                if p.kv_scales is not None:
+                    p.kv_scales[1, pg] = float("nan")
+                if p.k_data.shape[3] == page:
+                    p.k_data[1, pg] = 255
+                    p.v_data[1, pg] = 255
+
+    q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
+    kn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    vn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    kv_bits, fine = PSP_MODES[mode]
+    return (q, pool, tables, torch.tensor(lens, dtype=torch.int32,
+                                          device=dev), kn, vn, kv_bits, fine,
+            plant)
+
+
+@pytest.mark.parametrize("b", [8, 128])
+@pytest.mark.parametrize("page", [128, 256])
+@pytest.mark.parametrize("mode", list(APPEND_NAMES))
+def test_decode_attention_append_split_kernel(dev, mode, page, b):
+    """Row 4's fused append on the split body (S > 1 at B=8, S = 1 at
+    B=128 on 132 SMs): outputs within 5e-2 and 1e-2 of each row's norm,
+    zeros for the row of length 0, pools and planes byte-equal to the
+    plain append (garbage planted where the token lands), one launch
+    counted; a captured graph replayed twice equals the eager call (the
+    re-appended token writes the same bytes)."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    q, pool, tables, lens, kn, vn, kv_bits, fine, plant = _append_case(
+        dev, mode, b, page, 61)
+    n_split = da.split_plan(b, 8, tables.shape[1],
+                            cuda.sm_count(dev))[0]
+    assert (n_split > 1) == (b == 8 and cuda.sm_count(dev) >= 132)
+    clean = pool.clone()
+    plant(pool)
+    twin = pool.clone()
+    kw = dict(sm_scale=128 ** -0.5, page_size=page, kv_bits=kv_bits)
+    name = APPEND_NAMES[mode]
+    before = cuda.LAUNCHES[name]
+    got = da.paged_decode_attention_fused(q, pool, 1, tables, lens, kn, vn,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES[name] == before + 1
+    # the pool's bytes against the plain append over the same garbage, the
+    # output against the plain version over the pool without it
+    da.paged_decode_attention_fused_plain(q, twin, 1, tables, lens, kn, vn,
+                                          kv_zeros=fine, **kw)
+    want = da.paged_decode_attention_fused_plain(
+        q, clean, 1, tables, lens, kn, vn, kv_zeros=fine, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    live = lens > 0
+    num = (got.float() - want.float()).norm(dim=-1)[live]
+    den = want.float().norm(dim=-1)[live].clamp_min(1e-30)
+    assert float((num / den).max()) <= 1e-2
+    assert float(got[~live].abs().max()) == 0.0
+    assert_pools_equal(pool, twin)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_decode_attention_fused(q, pool, 1, tables, lens, kn,
+                                              vn, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, got) and torch.equal(out, got)
+    assert_pools_equal(pool, twin)
