@@ -17,9 +17,13 @@ Phases (any failure raises and exits nonzero before the last line):
    prefill attention kernels also with their achieved TFLOP/s, share of
    the operations bound, and ptxas's registers and spills); the
    band mode of flash prefill at 16K tokens and the ring mode of paged
-   prefill at phase 7's first chunk and on a wrapped ring; the kv16 and
-   per-tensor modes (the kv16 decode and append, the per-tensor fused
-   decode, kv16 and per-tensor paged prefill);
+   prefill at phase 7's first chunk and on a wrapped ring; the three int8
+   GEMMs on their wgmma body (per channel, g128 and W8A8 at a layer's
+   four shapes and W8A8 at the lm_head, each with its plan, decode M by
+   graph replay on weight copies rotated past L2, a flipped weight byte
+   and a wrong s2 refused) and the mma.sync body at N % 16 != 0; the
+   kv16 and per-tensor modes (the kv16 decode and append, the per-tensor
+   fused decode, kv16 and per-tensor paged prefill);
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
@@ -254,7 +258,7 @@ def ptxas_report(src: str):
                 n, k = int(t.group(1)), len(t.group(1))
                 ident, rest = rest[k:k + n], rest[k + n:]
             t = re.match(r"ILb(\d)ELi(\d+)ELb(\d)E", rest)
-            args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+            args = re.match(r"I((?:L[a-z]+\d+E)+)", rest)
             name = (f"{ident}<SPARSE={t.group(1)}, KV_BITS={t.group(2)}, "
                     f"PT={t.group(3)}>" if t else
                     f"{ident}<" + ", ".join(re.findall(
@@ -362,6 +366,106 @@ def time_gemm_ms(fn, qws, m):
     return time_ms(call, 10)
 
 
+def int_mm_ms(a_i8, w_i8, epilogue, reps):
+    """The library yardstick of an int8 GEMM: one ``torch._int_mm`` plus
+    the epilogue ``epilogue(psum, m)``. ``_int_mm`` needs M > 16, so at
+    M <= 16 the rows are zero-padded to 32 (labelled "padded" in the log
+    and the table) and the epilogue reads the first M rows."""
+    import torch
+
+    m = a_i8.shape[0]
+    a = a_i8 if m > 16 else torch.cat(
+        [a_i8, a_i8.new_zeros((32 - m, a_i8.shape[1]))])
+    return time_ms(lambda: epilogue(torch._int_mm(a, w_i8)[:m], m), reps)
+
+
+def padded_note(m) -> str:
+    return " (rows zero-padded to 32)" if m <= 16 else ""
+
+
+def plan_note(plan) -> str:
+    """A GEMM's plan (``quant_matmul.gemm_plan``) as one phrase."""
+    if plan is None:
+        return "the mma.sync body (N % 16 != 0)"
+    return (f"plan M tile {plan.mt} x {128 * plan.n_wg} channels, "
+            f"{plan.splits} split(s) of {plan.per_split} stages, "
+            f"{plan.blocks} blocks")
+
+
+def expect_body(mode, m, n, k, body, what):
+    """Raise unless ``quant_matmul.gemm_plan`` sends this shape to the
+    __global__ function ``body`` of csrc/quant_gemm.cu: the wgmma body
+    (a plan) or, at N % 16 != 0, the mma.sync body (None). The launchers
+    branch on the same N % 16; the card tests read the launched kernel's
+    name from the profiler."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+
+    plan = qm.gemm_plan(mode, m, n, k, cuda.sm_count(torch.device("cuda")))
+    got = "quant_gemm_kernel" if plan is None else "int8_wgmma_kernel"
+    if got != body:
+        raise AssertionError(f"{what}: expected {body}, the plan gives {got}")
+
+
+def flip_weight_byte(w):
+    """A copy of an int8 / packed-u4 weight with one byte changed (bits 0
+    and 4 of row 1, column 3: both nibbles of a packed byte)."""
+    bad = w.clone()
+    bad[1, 3] ^= 0x11
+    return bad
+
+
+def w8a8_layer_inputs(dev, gen, m):
+    """Row 3's operands for the W8A8 body's four GEMMs at M rows: (name, K,
+    N, a_i8, [int8 weights], w_scale, a_scale) each; decode M (<= 128)
+    rotates weight copies past the 50 MB L2, as a layer finds them."""
+    import torch
+
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    out = []
+    for name, k, n in LAYER_GEMMS:
+        a_i8, a_scale, _ = quantize_activations(
+            torch.randn((m, k), generator=gen, device=dev))
+        n_copies = max(1, math.ceil(120e6 / (k * n))) if m <= 128 else 1
+        ws = [torch.randint(-127, 128, (k, n), generator=gen,
+                            dtype=torch.int8, device=dev)
+              for _ in range(n_copies)]
+        sc = torch.empty(n, device=dev).uniform_(0.0003, 0.0006,
+                                                 generator=gen)
+        out.append((name, k, n, a_i8, ws, sc, a_scale))
+    return out
+
+
+def group_layer_inputs(dev, gen, m, gs=128):
+    """Row 2's operands for the g``gs`` body's four GEMMs at M rows: (name,
+    K, N, a_i8, [packed weights], s1, s2, s2_zero, a_scale) each, s2 over
+    the derived quantizer's whole range [1, 17] and zeros over the whole
+    int8 range (the wrap included); decode M rotates weight copies."""
+    import torch
+
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    out = []
+    for name, k, n in LAYER_GEMMS:
+        a_i8, a_scale, _ = quantize_activations(
+            torch.randn((m, k), generator=gen, device=dev))
+        w_bytes = k // 2 * n + 2 * (k // gs) * n
+        n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 128 else 1
+        qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
+                             dtype=torch.uint8, device=dev)
+               for _ in range(n_copies)]
+        s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006, generator=gen)
+        s2 = torch.randint(1, 18, (k // gs, n), generator=gen,
+                           dtype=torch.int8, device=dev)
+        s2z = torch.randint(-128, 128, (k // gs, n), generator=gen,
+                            dtype=torch.int8, device=dev)
+        out.append((name, k, n, a_i8, qws, s1, s2, s2z, a_scale))
+    return out
+
+
 def check_quant_gemms(dev, gen):
     """The per-channel body's four GEMM shapes at M = 8, 128, 8192, 16384,
     kernel against plain within 1e-5; logs each GEMM's tile plan, achieved
@@ -390,17 +494,12 @@ def check_quant_gemms(dev, gen):
                 a_i8, w, s1, sz, a_scale, a_sum), qws, m)
             plain = time_ms(lambda: qm.w4a8_matmul_per_channel_plain(
                 a_i8, qws[0], s1, sz, a_scale, a_sum), 3, warmup=1)
-            lib = None
             w_i8 = torch.cat([(qws[0] & 0xF), (qws[0] >> 4)]).to(torch.int8)
-            try:
-                def lib_call():
-                    p = torch._int_mm(a_i8, w_i8)
-                    return (p.float() * s1[None] * a_scale[:, None]
-                            - sz[None] * a_sum[:, None]).to(torch.bfloat16)
-                lib = time_ms(lib_call, 50 if m <= 128 else 10)
-            except RuntimeError as e:
-                log(f"  torch._int_mm unavailable at M={m}: "
-                    f"{str(e).splitlines()[0]}")
+            lib = int_mm_ms(
+                a_i8, w_i8, lambda p, mm: (
+                    p.float() * s1[None] * a_scale[:mm, None]
+                    - sz[None] * a_sum[:mm, None]).to(torch.bfloat16),
+                50 if m <= 128 else 10)
             n_bytes = m * k + w_bytes + 8 * n + 8 * m + 2 * m * n
             ops = 2.0 * m * n * k
             bnd, by = bound_ms(n_bytes, ops, INT8_OPS_PER_S)
@@ -412,10 +511,8 @@ def check_quant_gemms(dev, gen):
                              max_abs_err=err))
             log(f"  w4a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: "
                 f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
-                f"({by}) library_ms {lib if lib is None else f'{lib:.4f}'} "
-                f"max_abs_err {err:.3g}; plan M tile {plan.mt} x "
-                f"{128 * plan.n_wg} channels, {plan.splits} split(s) of "
-                f"{plan.per_split} stages, {plan.blocks} blocks; {rate} = "
+                f"({by}) library_ms {lib:.4f}{padded_note(m)} "
+                f"max_abs_err {err:.3g}; {plan_note(plan)}; {rate} = "
                 f"{100 * bnd / ms:.1f}% of the bound")
             del qws, w_i8
     for m in (8, 128, 8192, 16384):
@@ -430,74 +527,79 @@ def check_per_group_gemms(dev, gen, group_size=128):
     """The g128 body's four GEMM shapes at M = 8, 128 (decode), 8192 and
     16384 (prefill): kernel equal to its plain version (max error 0), with
     s2 drawn over the derived quantizer's whole range [1, 17] and zeros over
-    the whole int8 range (the wrap included), then once at the edge: every
-    code 15, every s2 17."""
+    the whole int8 range (the wrap included), a flipped weight byte and a
+    wrong s2 refused at M = 8 and 8192; decode M timed by graph replay on
+    rotating weight copies (the eager time logged beside); then once at the
+    edge: every code 15, every s2 17."""
     import torch
 
+    from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
     rows = []
     gs = group_size
+    kw = dict(group_size=gs)
     for m in (8, 128, 8192, 16384):
-        for name, k, n in LAYER_GEMMS:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            a_i8, a_scale, _ = quantize_activations(x)
+        for name, k, n, a_i8, qws, s1, s2, s2z, a_scale in \
+                group_layer_inputs(dev, gen, m, gs):
             w_bytes = k // 2 * n + 2 * (k // gs) * n
-            n_copies = max(1, math.ceil(120e6 / w_bytes)) if m <= 128 else 1
-            qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
-                                 dtype=torch.uint8, device=dev)
-                   for _ in range(n_copies)]
-            s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006,
-                                                     generator=gen)
-            s2 = torch.randint(1, 18, (k // gs, n), generator=gen,
-                               dtype=torch.int8, device=dev)
-            s2z = torch.randint(-128, 128, (k // gs, n), generator=gen,
-                                dtype=torch.int8, device=dev)
-            kw = dict(group_size=gs)
             got = qm.w4a8_matmul_per_group(a_i8, qws[0], s1, s2, s2z,
                                            a_scale, out_dtype=torch.float32,
                                            **kw)
             want = qm.w4a8_matmul_per_group_plain(
                 a_i8, qws[0], s1, s2, s2z, a_scale, out_dtype=torch.float32,
                 **kw)
-            err = allclose_err(got, want, 0.0, 0.0,
-                               f"w4a8 g{gs} M={m} K={k} N={n}")
-            del got, want
-            it = iter(range(10 ** 9))
-            reps = 50 if m <= 128 else 10
-            ms = time_ms(lambda: qm.w4a8_matmul_per_group(
-                a_i8, qws[next(it) % n_copies], s1, s2, s2z, a_scale, **kw),
-                reps)
+            planted = ()
+            if m in (8, 8192) and name == "qkv":
+                bad_s2 = s2.clone()
+                bad_s2[0, 5] = 17 if int(bad_s2[0, 5]) < 17 else 16
+                planted = [(label, qm.w4a8_matmul_per_group_plain(
+                    a_i8, w, s1, s, s2z, a_scale, out_dtype=torch.float32,
+                    **kw)) for label, w, s in (
+                        ("one flipped weight byte", flip_weight_byte(qws[0]),
+                         s2), ("one wrong s2", qws[0], bad_s2))]
+                expect_body("group", m, n, k, "int8_wgmma_kernel",
+                            f"w4a8 g{gs} M={m}")
+            err, _ = hold(got, want, 0.0, 0.0, 0.0,
+                          f"w4a8 g{gs} M={m} K={k} N={n}", planted)
+            del got, want, planted
+            ms = time_gemm_ms(lambda w: qm.w4a8_matmul_per_group(
+                a_i8, w, s1, s2, s2z, a_scale, **kw), qws, m)
+            eager = ""
+            if m <= 128:
+                it = iter(range(10 ** 9))
+                eager = " eager_ms {:.4f}".format(time_ms(
+                    lambda: qm.w4a8_matmul_per_group(
+                        a_i8, qws[next(it) % len(qws)], s1, s2, s2z,
+                        a_scale, **kw), 50))
             plain = time_ms(lambda: qm.w4a8_matmul_per_group_plain(
                 a_i8, qws[0], s1, s2, s2z, a_scale, **kw), 3, warmup=1)
             # yardstick: int8 weights dequantized BEFOREHAND (progressive
             # dequant not counted), one torch._int_mm and the epilogue
-            lib = None
-            w_u4 = torch.cat([qws[0] & 0xF, qws[0] >> 4]).to(torch.int32)
-            w_i8 = (w_u4.view(k // gs, gs, n) * s2.int()[:, None]
-                    + s2z.int()[:, None])
-            w_i8 = (((w_i8 + 128) & 0xFF) - 128).to(torch.int8).view(k, n)
-            del w_u4
-            try:
-                def lib_call():
-                    p = torch._int_mm(a_i8, w_i8)
-                    return (p.float() * s1[None] * a_scale[:, None]).to(
-                        torch.bfloat16)
-                lib = time_ms(lib_call, reps)
-            except RuntimeError as e:
-                log(f"  torch._int_mm unavailable at M={m}: "
-                    f"{str(e).splitlines()[0]}")
+            w_i8 = qm.dequant_per_group(qws[0], s2, s2z, gs)
+            lib = int_mm_ms(a_i8, w_i8, lambda p, mm: (
+                p.float() * s1[None] * a_scale[:mm, None]).to(
+                    torch.bfloat16), 50 if m <= 128 else 10)
             n_bytes = m * k + w_bytes + 4 * n + 4 * m + 2 * m * n
-            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+            ops = 2.0 * m * n * k
+            bnd, by = bound_ms(n_bytes, ops, INT8_OPS_PER_S)
+            plan = qm.gemm_plan("group", m, n, k, cuda.sm_count(dev))
             rows.append(dict(m=m, name=name, k=k, n=n, ms=ms, plain_ms=plain,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              max_abs_err=err))
             log(f"  w4a8 g{gs} {name:7s} M={m:5d} K={k:5d} N={n:5d}: "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-                f"{bnd:.4f} ({by}) library_ms "
-                f"{lib if lib is None else f'{lib:.4f}'} max_abs_err {err:g}")
+                f"kernel_ms {ms:.4f}{eager} plain_ms {plain:.4f} bound_ms "
+                f"{bnd:.4f} ({by}) library_ms {lib:.4f}{padded_note(m)} "
+                f"max_abs_err {err:g}; {plan_note(plan)}; "
+                f"{100 * bnd / ms:.1f}% of the bound")
             del qws, w_i8
+    for m in (8, 128, 8192, 16384):
+        r = layer_row(rows, m)
+        log(f"  w4a8 g{gs} layer of 4 GEMMs M={m}: kernel_ms {r['ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) = "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; library_ms "
+            f"{r['library_ms']:.4f}{padded_note(m)}")
     # the edge: u4 = 15, s2 = 17 (255 before the zero), wrapping zeros
     m, k, n = 128, 4096, 6144
     a_i8, a_scale, _ = quantize_activations(
@@ -536,8 +638,12 @@ def layer_row(rows, m):
 
 
 def check_w8a8(dev, gen, m=8):
+    """Row 3 at the lm_head (K=4,096, N=128,256), M rows: equal to its plain
+    version (max error 0; a flipped weight byte refused), timed by graph
+    replay (the eager time logged beside: the host's per-call cost)."""
     import torch
 
+    from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
@@ -549,72 +655,132 @@ def check_w8a8(dev, gen, m=8):
     ws = torch.empty(n, device=dev).uniform_(0.0003, 0.0006, generator=gen)
     got = qm.w8a8_matmul(a_i8, w, ws, a_scale, out_dtype=torch.float32)
     want = qm.w8a8_matmul_plain(a_i8, w, ws, a_scale, out_dtype=torch.float32)
-    err = allclose_err(got, want, 1e-5, 1e-5, "w8a8 lm_head")
-    ms = time_ms(lambda: qm.w8a8_matmul(a_i8, w, ws, a_scale,
-                                        out_dtype=torch.float32), 20)
+    bad = flip_weight_byte(w)
+    planted = [("one flipped weight byte", qm.w8a8_matmul_plain(
+        a_i8, bad, ws, a_scale, out_dtype=torch.float32))]
+    del bad
+    err, _ = hold(got, want, 0.0, 0.0, 0.0, f"w8a8 lm_head M={m}", planted)
+    del got, want, planted
+    expect_body("w8", m, n, k, "int8_wgmma_kernel", f"w8a8 lm_head M={m}")
+    ms = time_gemm_ms(lambda wt: qm.w8a8_matmul(
+        a_i8, wt, ws, a_scale, out_dtype=torch.float32), [w], m)
+    eager = time_ms(lambda: qm.w8a8_matmul(a_i8, w, ws, a_scale,
+                                           out_dtype=torch.float32), 20)
     plain = time_ms(lambda: qm.w8a8_matmul_plain(
         a_i8, w, ws, a_scale, out_dtype=torch.float32), 3, warmup=1)
-    lib = None
-    try:
-        lib = time_ms(lambda: torch._int_mm(a_i8, w).float()
-                      * ws[None] * a_scale[:, None], 20)
-    except RuntimeError as e:
-        log(f"  torch._int_mm unavailable at M={m}: {str(e).splitlines()[0]}")
+    lib = int_mm_ms(a_i8, w, lambda p, mm: p.float() * ws[None]
+                    * a_scale[:mm, None], 20)
     n_bytes = m * k + k * n + 4 * n + 4 * m + 4 * m * n
     bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
-    log(f"  w8a8 lm_head M={m} K={k} N={n}: kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} bound_ms {bnd:.4f} ({by}) library_ms "
-        f"{lib if lib is None else f'{lib:.4f}'} max_abs_err {err:.3g}")
+    plan = qm.gemm_plan("w8", m, n, k, cuda.sm_count(dev))
+    log(f"  w8a8 lm_head M={m} K={k} N={n}: kernel_ms {ms:.4f} (graph "
+        f"replay; eager_ms {eager:.4f}) plain_ms {plain:.4f} bound_ms "
+        f"{bnd:.4f} ({by}) library_ms {lib:.4f}{padded_note(m)} "
+        f"max_abs_err {err:.3g}; {plan_note(plan)}; "
+        f"{100 * bnd / ms:.1f}% of the bound")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
 
 def check_w8a8_body_gemms(dev, gen):
     """The W8A8 body's four GEMM shapes (row 3's kernel, as phase 9 (b)
-    runs it) at the bench's decode M=128 (weights rotated past L2, as a
-    layer finds them) and chunk M=8192, against plain within 1e-5; logs
-    each GEMM and the layer's sum."""
+    runs it) at the bench's decode M=128 (graph replay on weight copies
+    rotated past L2, as a layer finds them; the eager time logged beside)
+    and chunk M=8192, equal to plain (max error 0; a flipped weight byte
+    refused at the split decode and the two-warpgroup prefill); logs each
+    GEMM's plan and share of its bound, and the layer's sum."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+
+    for m in (128, 8192):
+        tot = dict(ms=0.0, plain=0.0, bound=0.0, lib=0.0)
+        for name, k, n, a_i8, ws, sc, a_scale in \
+                w8a8_layer_inputs(dev, gen, m):
+            got = qm.w8a8_matmul(a_i8, ws[0], sc, a_scale,
+                                 out_dtype=torch.float32)
+            want = qm.w8a8_matmul_plain(a_i8, ws[0], sc, a_scale,
+                                        out_dtype=torch.float32)
+            planted = ()
+            if name == "o":      # split at M=128, two warpgroups at 8192
+                planted = [("one flipped weight byte", qm.w8a8_matmul_plain(
+                    a_i8, flip_weight_byte(ws[0]), sc, a_scale,
+                    out_dtype=torch.float32))]
+                expect_body("w8", m, n, k, "int8_wgmma_kernel", f"w8a8 M={m}")
+            hold(got, want, 0.0, 0.0, 0.0, f"w8a8 M={m} K={k} N={n}",
+                 planted)
+            del got, want, planted
+            ms = time_gemm_ms(lambda w: qm.w8a8_matmul(
+                a_i8, w, sc, a_scale), ws, m)
+            eager = ""
+            if m <= 128:
+                it = iter(range(10 ** 9))
+                eager = " eager_ms {:.4f}".format(time_ms(
+                    lambda: qm.w8a8_matmul(a_i8, ws[next(it) % len(ws)], sc,
+                                           a_scale), 50))
+            plain = time_ms(lambda: qm.w8a8_matmul_plain(
+                a_i8, ws[0], sc, a_scale), 3, warmup=1)
+            lib = int_mm_ms(a_i8, ws[0], lambda p, mm: (
+                p.float() * sc[None] * a_scale[:mm, None]).to(
+                    torch.bfloat16), 50 if m <= 128 else 10)
+            n_bytes = m * k + k * n + 4 * n + 4 * m + 2 * m * n
+            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+            plan = qm.gemm_plan("w8", m, n, k, cuda.sm_count(dev))
+            for key, val in (("ms", ms), ("plain", plain), ("bound", bnd),
+                             ("lib", lib)):
+                tot[key] += val
+            log(f"  w8a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: kernel_ms "
+                f"{ms:.4f}{eager} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
+                f"({by}) library_ms {lib:.4f} (torch._int_mm + epilogue); "
+                f"{plan_note(plan)}; {100 * bnd / ms:.1f}% of the bound")
+            del ws
+        log(f"  w8a8 body layer (4 GEMMs) M={m}: kernel_ms {tot['ms']:.4f} "
+            f"plain_ms {tot['plain']:.4f} bound_ms {tot['bound']:.4f} "
+            f"library_ms {tot['lib']:.4f} = "
+            f"{100 * tot['bound'] / tot['ms']:.1f}% of the bound")
+
+
+def check_narrow_gemms(dev, gen):
+    """Rows 3 and 2 at N % 16 != 0 (no supported model's shape) take the
+    mma.sync body (``quant_gemm_kernel``): equal to plain, max error 0."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
-    for m in (128, 8192):
-        tot = dict(ms=0.0, plain=0.0, bound=0.0, lib=0.0)
-        for name, k, n in LAYER_GEMMS:
-            a_i8, a_scale, _ = quantize_activations(
-                torch.randn((m, k), generator=gen, device=dev))
-            n_copies = max(1, math.ceil(120e6 / (k * n))) if m <= 128 else 1
-            ws = [torch.randint(-127, 128, (k, n), generator=gen,
-                                dtype=torch.int8, device=dev)
-                  for _ in range(n_copies)]
-            sc = torch.empty(n, device=dev).uniform_(0.0003, 0.0006,
-                                                     generator=gen)
-            got = qm.w8a8_matmul(a_i8, ws[0], sc, a_scale,
-                                 out_dtype=torch.float32)
-            want = qm.w8a8_matmul_plain(a_i8, ws[0], sc, a_scale,
-                                        out_dtype=torch.float32)
-            allclose_err(got, want, 1e-5, 1e-5, f"w8a8 M={m} K={k} N={n}")
-            it = iter(range(10 ** 9))
-            reps = 50 if m <= 128 else 10
-            ms = time_ms(lambda: qm.w8a8_matmul(
-                a_i8, ws[next(it) % n_copies], sc, a_scale), reps)
-            plain = time_ms(lambda: qm.w8a8_matmul_plain(
-                a_i8, ws[0], sc, a_scale), 3, warmup=1)
-            lib = time_ms(lambda: (torch._int_mm(a_i8, ws[0]).float()
-                                   * sc[None] * a_scale[:, None]).to(
-                                       torch.bfloat16), reps)
-            n_bytes = m * k + k * n + 4 * n + 4 * m + 2 * m * n
-            bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
-            for key, val in (("ms", ms), ("plain", plain), ("bound", bnd),
-                             ("lib", lib)):
-                tot[key] += val
-            log(f"  w8a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: kernel_ms "
-                f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
-                f"library_ms {lib:.4f} (torch._int_mm + epilogue)")
-        log(f"  w8a8 body layer (4 GEMMs) M={m}: kernel_ms {tot['ms']:.4f} "
-            f"plain_ms {tot['plain']:.4f} bound_ms {tot['bound']:.4f} "
-            f"library_ms {tot['lib']:.4f}")
+    for m in (8, 300):
+        a_i8, a_scale, _ = quantize_activations(
+            torch.randn((m, 512), generator=gen, device=dev))
+        w = torch.randint(-127, 128, (512, 260), generator=gen,
+                          dtype=torch.int8, device=dev)
+        ws = torch.empty(260, device=dev).uniform_(0.0003, 0.0006,
+                                                   generator=gen)
+        args = (a_i8, w, ws, a_scale)
+        expect_body("w8", m, 260, 512, "quant_gemm_kernel",
+                    f"w8a8 N=260 M={m}")
+        err = allclose_err(qm.w8a8_matmul(*args, out_dtype=torch.float32),
+                           qm.w8a8_matmul_plain(*args,
+                                                out_dtype=torch.float32),
+                           0.0, 0.0, f"w8a8 N=260 M={m}")
+        qw = torch.randint(0, 256, (256, 68), generator=gen,
+                           dtype=torch.uint8, device=dev)
+        s1 = torch.empty(68, device=dev).uniform_(0.003, 0.006,
+                                                  generator=gen)
+        s2 = torch.randint(1, 18, (4, 68), generator=gen, dtype=torch.int8,
+                           device=dev)
+        s2z = torch.randint(-128, 128, (4, 68), generator=gen,
+                            dtype=torch.int8, device=dev)
+        gargs = (a_i8, qw, s1, s2, s2z, a_scale)
+        expect_body("group", m, 68, 512, "quant_gemm_kernel",
+                    f"w4a8 g128 N=68 M={m}")
+        gerr = allclose_err(
+            qm.w4a8_matmul_per_group(*gargs, out_dtype=torch.float32),
+            qm.w4a8_matmul_per_group_plain(*gargs, out_dtype=torch.float32),
+            0.0, 0.0, f"w4a8 g128 N=68 M={m}")
+        log(f"  narrow N, mma.sync body (quant_gemm_kernel), M={m}: w8a8 "
+            f"K=512 N=260 max_abs_err {err:g}; w4a8 g128 K=512 N=68 "
+            f"max_abs_err {gerr:g}")
 
 
 def check_flash(dev, gen):
@@ -2531,7 +2697,7 @@ def profile_engine(engine, rng, n_req, prompt_len, n_decode=3):
 
 
 # the __global__ functions of omniserve_tpu_torch/csrc/*.cu
-PORT_KERNEL_FUNCTIONS = ("w4a8_channel_kernel", "quant_gemm_kernel",
+PORT_KERNEL_FUNCTIONS = ("int8_wgmma_kernel", "quant_gemm_kernel",
                          "flash_prefill_kernel", "flash_tile_ranges_kernel",
                          "paged_prefill_kernel", "decode_attn_list_kernel",
                          "decode_attn_kv16_kernel",
@@ -2541,9 +2707,9 @@ PORT_KERNEL_FUNCTIONS = ("w4a8_channel_kernel", "quant_gemm_kernel",
 # the __global__ function each wrapper launches (by name prefix; the first
 # match counts), named in the kernels line
 WRAPPER_FUNCTIONS = (
-    ("w4a8_matmul_per_channel", "w4a8_channel_kernel"),
-    ("w4a8_matmul_per_group", "quant_gemm_kernel"),
-    ("w8a8_matmul", "quant_gemm_kernel"),
+    ("w4a8_matmul_per_channel", "int8_wgmma_kernel"),
+    ("w4a8_matmul_per_group", "int8_wgmma_kernel"),
+    ("w8a8_matmul", "int8_wgmma_kernel"),
     ("decode_attention_", "decode_attn_list_kernel"),
     ("paged_mqa_attention_kv16", "decode_attn_kv16_kernel"),
     ("flash_prefill", "flash_prefill_kernel"),
@@ -3536,6 +3702,9 @@ def main() -> int:
     # the bench's decode shapes (batch 128), logged beside the rows above
     check_w8a8(dev, gen, m=128)
     check_w8a8_body_gemms(dev, gen)
+    check_narrow_gemms(dev, gen)
+    for line in ptxas_report("quant_gemm.cu"):
+        log(f"    ptxas {line}")
     for kv_bits in (4, 8):
         check_decode(dev, gen, b=128, lens_from=1024, lens_to=1536,
                      kv_bits=kv_bits)

@@ -19,56 +19,67 @@
 //   W8: qweight [K, N] int8;  out = psum * w_scale[n] * a_scale[m]
 //
 // What bounds them: at decode M (a handful of rows) the weight bytes (bytes
-// bound: 4 bits per weight); at prefill M (thousands of rows) the int8
+// bound: 4 or 8 bits per weight); at prefill M (thousands of rows) the int8
 // tensor-core rate.
 //
-// Per channel (w4a8_channel_kernel): a producer warp keeps a ring of
-// mbarrier-guarded TMA copies in flight (the reference layout as it is: a
-// 128-row x 128-byte box of packed weights per consumer warpgroup, and the
-// activation rows of both K halves as K-major boxes, all in the 128-byte
-// swizzle), and consumer warpgroups run int8 wgmma (m64nNk32 .s32.s8.s8)
-// with the operands swapped: out^T = W^T a^T, the weights the register A
-// operand (64 output channels a wgmma), the activations the shared-memory
-// B operand (N = the block's M tile). Each consumer thread loads the packed
-// bytes it needs once (32-bit words, 4 k rows of 4 channels), transposes
-// them 4 x 4 in registers so each word holds 4 k of one channel, and splits
-// each word once into the low-half and high-half nibbles: one loaded byte
-// feeds one wgmma against the low K half's activations and one against the
-// high half's. A thread's 4 channels are rows g and g + 8 of two m64 tiles,
-// so its epilogue writes 4 adjacent channels. Two bodies of that kernel,
-// chosen by M in ops/cuda/quant_matmul.channel_plan (from M, N, K and the
-// SM count only, so a captured launch keeps its grid):
+// One body serves all three (int8_wgmma_kernel, template MODE: kW4Channel,
+// kW8, kW4Group): a producer warp keeps a ring of mbarrier-guarded TMA
+// copies in flight (the reference layout as it is: a 128-row x 128-byte box
+// of weight rows per consumer warpgroup, and the activation rows as K-major
+// boxes, both K halves for W4, all in the 128-byte swizzle), and consumer
+// warpgroups run int8 wgmma (m64nNk32 .s32.s8.s8) with the operands
+// swapped: out^T = W^T a^T, the weights the register A operand (64 output
+// channels a wgmma), the activations the shared-memory B operand (N = the
+// block's M tile). Each consumer thread loads the weight bytes it needs once
+// (32-bit words, 4 k rows of 4 channels) and transposes them 4 x 4 in
+// registers so each word holds 4 k of one channel:
+//   - W8: the words are the A fragment as they are; a 32-deep k step issues
+//     two wgmma, one per m64 tile of channels;
+//   - W4 per channel: each word is split once into the low-half and
+//     high-half nibbles: one loaded byte feeds one wgmma against the low K
+//     half's activations and one against the high half's (four a step);
+//   - W4 per group: as per channel, then each split word is dequantized
+//     progressively: its four bytes are four u4 codes of one channel in one
+//     group (G % 32 == 0, so a 32-deep k step never straddles groups), so
+//     one 32-bit multiply by s2 scales all four (each product <= 15 * 17 =
+//     255: no carry crosses a byte; the derived quantizer never gives s2 >
+//     17) and __vadd4 adds the zero bytewise, wrapping mod 256 exactly as
+//     the int8 cast of the reference. The producer copies each stage's s2
+//     and zero rows (the groups its 128 rows touch, both K halves) into the
+//     stage with four small TMA boxes, so no consumer waits on device
+//     memory in the inner loop; a thread's 4 channels are adjacent, so one
+//     32-bit shared load gives their four s2 (or zero) bytes. Its step runs
+//     as two half steps (the low K half's two wgmma, then the high half's),
+//     each on 8 A registers: a thread of 288 gets at most 168 registers,
+//     and one 16-register buffer a step spilled 108 bytes at two
+//     warpgroups (the half steps: 60; quarter steps on 4 registers: 88,
+//     and slower on an H100).
+// A thread's 4 channels are rows g and g + 8 of two m64 tiles, so its
+// epilogue writes 4 adjacent channels. Two bodies of that kernel, chosen by
+// M in ops/cuda/quant_matmul.gemm_plan (from the mode, M, N, K and the SM
+// count only, so a captured launch keeps its grid):
 //   - decode (M <= 128): one consumer warpgroup, 128 channels x an M tile of
-//     32, 64 or 128 rows, a ring of 3-4 stages; K is split over the blocks
-//     of a cluster (at most 8) so that about one wave of resident blocks
-//     covers the SMs (at an M tile of 128 whose channel tiles alone fill
-//     that wave, the prefill body's two warpgroups instead: each
+//     32, 64 or 128 rows; K (its stages of 128 weight rows) is split over the
+//     blocks of a cluster (at most 8) so that about one wave of resident
+//     blocks covers the SMs (at an M tile of 128 whose channel tiles alone
+//     fill that wave, the prefill body's two warpgroups instead: each
 //     activation tile then serves 256 channels). The split stays exact:
-//     each block keeps its int32
-//     partial, the cluster sums them through distributed shared memory
-//     (integer sums: any order gives the same bits) and only then applies
-//     the one f32 epilogue, so the output equals the plain version's, and a
-//     replayed graph the eager call;
+//     each block keeps its int32 partial, the cluster sums them through
+//     distributed shared memory (integer sums: any order gives the same
+//     bits) and only then applies the one f32 epilogue, so the output
+//     equals the plain version's, and a replayed graph the eager call;
 //   - prefill (M > 128): two consumer warpgroups sharing each activation
-//     tile, a 256-channel x 128-row block tile, 3 stages, no split; blocks
-//     walk the M tiles of one channel tile first (its weights stay in L2).
-// Per group and W8A8 (quant_gemm_kernel): one block computes a BM x BN
-// output tile with mma.sync m16n8k32 (s8 x s8 -> s32). Weight tiles are read
-// from device memory as packed bytes (4 bits per weight for W4), transposed
-// 4x4 bytes in registers into a k-contiguous shared-memory tile, and the
-// nibbles are split in registers right before each mma (lo = w & 0x0F0F0F0F,
-// hi = (w >> 4) & 0x0F0F0F0F): the W4 path issues one mma against the low
-// half of K and one against the high half from the same loaded word. The
-// progressive dequant runs on that split word too: its four bytes are four
-// u4 codes of one column n in one group (G % 32 == 0, so a 32-deep k step
-// never straddles groups), so one 32-bit multiply by s2 scales all four
-// (each product <= 15 * 17 = 255: no carry crosses a byte; the derived
-// quantizer never gives s2 > 17) and __vadd4 adds the zero bytewise,
-// wrapping mod 256 exactly as the int8 cast of the reference. The tile's s2
-// and zeros (one per 32-deep k chunk, column and K half) are staged in
-// shared memory with the weight tile. Two tile shapes: 16 x 32 for M <= 16
-// (many blocks stream the weights), 128 x 128 for larger M; loads are
-// synchronous.
+//     tile, a 256-channel x 128-row block tile, no split; blocks walk the M
+//     tiles of one channel tile first (its weights stay in L2).
+// The TMA boxes need rows of a multiple of 16 bytes (N % 16 == 0). W8 and
+// per group at N % 16 != 0 (no shape of a supported model: Llama-3-8B's N
+// are 6,144, 4,096, 28,672 and 128,256, Llama-2's and Mistral's vocab
+// 32,000, Qwen2's 152,064) take quant_gemm_kernel instead, picked by that
+// shape alone: one block computes a BM x BN output tile with mma.sync
+// m16n8k32 (s8 x s8 -> s32), weight tiles read with synchronous loads,
+// transposed 4x4 bytes in registers into a k-contiguous shared-memory tile,
+// the W4 nibbles split and dequantized as above right before each mma; two
+// tile shapes, 16 x 32 for M <= 16, 128 x 128 for larger M.
 //
 // Built with --fmad=false so the f32 epilogues round exactly as the plain
 // PyTorch versions do.
@@ -106,7 +117,7 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-enum Mode { kW8 = 0, kW4Group = 2 };
+enum Mode { kW8 = 0, kW4Channel = 1, kW4Group = 2 };
 
 // A [M, K] int8 row-major; W: W4 -> [K/2, N] packed, W8 -> [K, N] int8.
 // KW = rows of W (K/2 or K) must be a multiple of BK; N a multiple of 4;
@@ -287,23 +298,40 @@ int launch(const void* a, const void* w, const void* ws, const void* s2,
 }
 
 // ---------------------------------------------------------------------------
-// Per channel: w4a8_channel_kernel (see the header for the design).
+// The int8 wgmma body: int8_wgmma_kernel (see the header for the design).
 // ---------------------------------------------------------------------------
 
 namespace cg = cooperative_groups;
 
-constexpr int CH_RK = 128;              // packed weight rows a stage holds
+constexpr int CH_RK = 128;              // weight rows a stage holds
 constexpr int CH_NW = 128;              // output channels of a warpgroup
 constexpr int CH_WTILE = CH_RK * CH_NW;  // bytes of a warpgroup's weight box
 constexpr int CH_MAX_SPLIT = 8;         // blocks of a cluster (portable)
+constexpr int GS_ROWS = CH_RK / 32;     // per group: s2 / zero rows a box
 
-template <int MT, int NWG>
-__host__ __device__ constexpr int ch_stage_bytes() {
-  return NWG * CH_WTILE + 2 * MT * 128;   // weights, then both K halves of a
+// A stage: NWG weight boxes, then the activation boxes (both K halves for
+// W4), then per group four boxes of GS_ROWS x NWG * 128 bytes (s2 of the
+// low half, s2 of the high half, zeros of the low half, of the high half)
+template <int MODE, int MT, int NWG>
+__host__ __device__ constexpr int stage_bytes() {
+  return NWG * CH_WTILE + (MODE == kW8 ? 1 : 2) * MT * 128 +
+         (MODE == kW4Group ? 4 * GS_ROWS * NWG * CH_NW : 0);
 }
-template <int MT, int NWG, int NSTAGE>
-__host__ __device__ constexpr int ch_smem_bytes() {
-  return NSTAGE * ch_stage_bytes<MT, NWG>() + 1024;   // + alignment slack
+// ring depth by mode and tile, each the fastest of 2-6 stages in turns on
+// an H100 at the main path's shapes (M = 8, 128, 8192; the M tile of 64,
+// off that path, untimed): per channel 4 stages at an M tile of 128 and 32
+// beat 2 and 3; W8 and per group run best on shallower rings (2 at M=8,
+// two warpgroups at 3 and 2 stages)
+template <int MODE, int MT, int NWG>
+__host__ __device__ constexpr int ring_depth() {
+  if (MODE == kW4Channel) return NWG == 2 ? 3 : MT == 64 ? 3 : 4;
+  if (MODE == kW8) return NWG == 2 ? 3 : MT == 32 ? 2 : MT == 64 ? 3 : 4;
+  return NWG == 2 ? 2 : MT == 32 ? 2 : 3;    // per group
+}
+template <int MODE, int MT, int NWG>
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_depth<MODE, MT, NWG>() * stage_bytes<MODE, MT, NWG>() +
+         1024;   // + alignment slack
 }
 // the int32 partial of a split block: [MT][NWG * CH_NW + 4] (padded rows)
 template <int NWG>
@@ -410,54 +438,80 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 }
 
 // out[m, n .. n+3] from their int32 sums, in the plain version's op order
-template <typename OutT>
-__device__ __forceinline__ void channel_epilogue(
+// (s1 is w_scale for W8; s1_szero and a_sum are read per channel only)
+template <int MODE, typename OutT>
+__device__ __forceinline__ void gemm_epilogue(
     OutT* __restrict__ out, const int (&p)[4], const float* __restrict__ s1,
     const float* __restrict__ s1_szero, const float* __restrict__ a_scale,
     const float* __restrict__ a_sum, int m, int n, int N) {
   const float4 sc = *reinterpret_cast<const float4*>(s1 + n);
-  const float4 sz = *reinterpret_cast<const float4*>(s1_szero + n);
-  const float as = a_scale[m], am = a_sum[m];
   const float scs[4] = {sc.x, sc.y, sc.z, sc.w};
-  const float szs[4] = {sz.x, sz.y, sz.z, sz.w};
+  const float as = a_scale[m];
   float v[4];
+  if constexpr (MODE == kW4Channel) {
+    const float4 sz = *reinterpret_cast<const float4*>(s1_szero + n);
+    const float szs[4] = {sz.x, sz.y, sz.z, sz.w};
+    const float am = a_sum[m];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    v[i] = (float)p[i] * scs[i] * as - szs[i] * am;
+    for (int i = 0; i < 4; ++i)
+      v[i] = (float)p[i] * scs[i] * as - szs[i] * am;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (float)p[i] * scs[i] * as;
+  }
   store4(out + (size_t)m * N + n, v);
 }
 
 // Block (M tile x, channel tile y, split z): channels [y * NWG * 128, +NWG *
-// 128), rows [x * MT, +MT), packed weight rows [z * per_split * 128, ...).
-// Threads: NWG consumer warpgroups, then the producer warp. A [M, K] int8
-// (amap: boxes 128 k x MT rows), W [K/2, N] (wmap: boxes 128 channels x
-// 128 rows); K/2 % 128 == 0, N % 16 == 0 (checked by the launcher).
-template <int MT, int NWG, int NSTAGE, typename OutT>
-__global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
+// 128), rows [x * MT, +MT), weight rows [z * per_split * 128, ...) (of each
+// K half for W4). Threads: NWG consumer warpgroups, then the producer warp.
+// A [M, K] int8 (amap: boxes 128 k x MT rows), W [KW, N] with KW = K/2 (W4)
+// or K (W8) (wmap: boxes 128 channels x 128 rows), per group s2 / s2_zero
+// [K/G, N] int8 (s2map / zmap: boxes NWG * 128 channels x min(4, K/G)
+// rows; the other modes get amap there, unused); s1 is w_scale for W8, and
+// s1_szero / a_sum are read per channel only. KW % 128 == 0, N % 16 == 0,
+// per group G % 32 == 0 and (K/2) % G == 0 (checked by the launcher).
+template <int MODE, int MT, int NWG, int NSTAGE, typename OutT>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1) int8_wgmma_kernel(
     const __grid_constant__ CUtensorMap amap,
     const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap s2map,
+    const __grid_constant__ CUtensorMap zmap,
     const float* __restrict__ s1, const float* __restrict__ s1_szero,
     const float* __restrict__ a_scale, const float* __restrict__ a_sum,
-    OutT* __restrict__ out, int M, int N, int K, int per_split) {
+    OutT* __restrict__ out, int M, int N, int K, int G, int per_split) {
+  constexpr bool W4 = MODE != kW8;
+  constexpr bool GROUP = MODE == kW4Group;
+  constexpr bool ZERO = MODE == kW4Channel;          // the a_sum term
+  constexpr int NA = W4 ? 2 : 1;                     // activation boxes
   constexpr int NC = NWG * 128;                      // consumer threads
-  constexpr int SB = ch_stage_bytes<MT, NWG>();
+  constexpr int CW = NWG * CH_NW;                    // channels of a block
+  constexpr int SB = stage_bytes<MODE, MT, NWG>();
+  constexpr int A_OFF = NWG * CH_WTILE;              // activation boxes
+  constexpr int S_OFF = A_OFF + NA * MT * 128;       // per group: scales
+  constexpr int SBOX = GS_ROWS * CW;                 // bytes of a scale box
   constexpr int PS = ch_partial_stride<NWG>();
   constexpr int NACC = MT / 2;                       // accumulators a tile
+  static_assert(SB % 1024 == 0, "stages keep the 1024-byte swizzle atom");
   static_assert(MT * PS * 4 <= NSTAGE * SB, "partial fits the ring");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __shared__ __align__(8) uint64_t full[NSTAGE], empty[NSTAGE];
   // split: the epilogue's scales, staged while the main loop runs
-  __shared__ __align__(16) float ep_s1[NWG * CH_NW], ep_sz[NWG * CH_NW];
+  __shared__ __align__(16) float ep_s1[CW], ep_sz[CW];
   __shared__ float ep_as[MT], ep_am[MT];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * (NWG * CH_NW);
-  const int kh = K / 2;
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * CW;
+  const int kw = W4 ? K / 2 : K;                     // weight rows
   const int it0 = blockIdx.z * per_split;
-  const int n_it = min(kh / CH_RK, it0 + per_split) - it0;
+  const int n_it = min(kw / CH_RK, it0 + per_split) - it0;
   const int S = gridDim.z;
+  // per group: groups of a K half, and the rows each scale box lands
+  const int g_half = GROUP ? kw / G : 0;
+  const int g_rows = GROUP ? min(GS_ROWS, K / G) : 0;
+  const uint32_t tx = A_OFF + NA * MT * 128 + (GROUP ? 4 * g_rows * CW : 0);
   if (tid == 0) {
 #pragma unroll
     for (int st = 0; st < NSTAGE; ++st) {
@@ -472,15 +526,15 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
     // producer: one lane keeps the ring full, the others stage a split's
     // epilogue scales; the warp stays for the cluster's barriers below
     if (lane > 0 && S > 1) {
-      for (int i = lane - 1; i < NWG * CH_NW; i += 31) {
+      for (int i = lane - 1; i < CW; i += 31) {
         const bool ok = n0 + i < N;
         ep_s1[i] = ok ? s1[n0 + i] : 0.0f;
-        ep_sz[i] = ok ? s1_szero[n0 + i] : 0.0f;
+        ep_sz[i] = ok && ZERO ? s1_szero[n0 + i] : 0.0f;
       }
       for (int i = lane - 1; i < MT; i += 31) {
         const bool ok = m0 + i < M;
         ep_as[i] = ok ? a_scale[m0 + i] : 0.0f;
-        ep_am[i] = ok ? a_sum[m0 + i] : 0.0f;
+        ep_am[i] = ok && ZERO ? a_sum[m0 + i] : 0.0f;
       }
     }
     if (lane == 0) {
@@ -489,15 +543,25 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
         const int st = rg.stage;
         sm90::mbar_wait(&empty[st], rg.phase ^ 1u);
         unsigned char* sb = smem + st * SB;
-        sm90::mbar_arrive_tx(&full[st], SB);
+        sm90::mbar_arrive_tx(&full[st], tx);
         const int kp = (it0 + it) * CH_RK;
 #pragma unroll
         for (int c = 0; c < NWG; ++c)
           sm90::tma_load_2d(sb + c * CH_WTILE, &wmap, &full[st],
                             n0 + c * CH_NW, kp);
-        sm90::tma_load_2d(sb + NWG * CH_WTILE, &amap, &full[st], kp, m0);
-        sm90::tma_load_2d(sb + NWG * CH_WTILE + MT * 128, &amap, &full[st],
-                          kh + kp, m0);
+        sm90::tma_load_2d(sb + A_OFF, &amap, &full[st], kp, m0);
+        if constexpr (W4)
+          sm90::tma_load_2d(sb + A_OFF + MT * 128, &amap, &full[st], kw + kp,
+                            m0);
+        if constexpr (GROUP) {
+          const int g0 = kp / G;    // the first group the stage touches
+          sm90::tma_load_2d(sb + S_OFF, &s2map, &full[st], n0, g0);
+          sm90::tma_load_2d(sb + S_OFF + SBOX, &s2map, &full[st], n0,
+                            g_half + g0);
+          sm90::tma_load_2d(sb + S_OFF + 2 * SBOX, &zmap, &full[st], n0, g0);
+          sm90::tma_load_2d(sb + S_OFF + 3 * SBOX, &zmap, &full[st], n0,
+                            g_half + g0);
+        }
         rg.advance<NSTAGE>();
       }
     }
@@ -514,16 +578,24 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
   for (int i = 0; i < NACC; ++i) acc0[i] = acc1[i] = 0;
   if (warp < NC / 32) {
     sm90::Ring rg;
-    uint32_t afr[2][16];
+    uint32_t afr[2][GROUP ? 8 : 8 * NA];   // per group: a half step's
     for (int it = 0; it < n_it; ++it) {
       const int st = rg.stage;
       sm90::mbar_wait(&full[st], rg.phase);
-      const unsigned char* wt = smem + st * SB + c * CH_WTILE;
-      const uint32_t a_lo = sm90::smem_u32(smem + st * SB + NWG * CH_WTILE);
+      const unsigned char* sb = smem + st * SB;
+      const unsigned char* wt = sb + c * CH_WTILE;
+      const uint32_t a_lo = sm90::smem_u32(sb + A_OFF);
       const uint32_t a_hi = a_lo + MT * 128;
+      // per group: the scale-box row of each 32-deep step's group
+      int grow[CH_RK / 32];
+      if constexpr (GROUP) {
+        const int j0 = (it0 + it) * (CH_RK / 32), gs = G / 32;
+#pragma unroll
+        for (int kk = 0; kk < CH_RK / 32; ++kk)
+          grow[kk] = (j0 + kk) / gs - j0 / gs;
+      }
 #pragma unroll
       for (int kk = 0; kk < CH_RK / 32; ++kk) {
-        uint32_t(&a)[16] = afr[kk & 1];
         uint32_t in0[4], in1[4], t0[4], t1[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -534,31 +606,81 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
         }
         transpose4x4(in0, t0);    // t0[i]: k 4t.. of channel 4q + i
         transpose4x4(in1, t1);    // t1[i]: k 16+4t..
-        // a[8 half + 4 tile + r]: the A fragment of (K half, m64 tile)
+        if constexpr (GROUP) {
+          // half steps (low K half, then high), each on its own 8 A
+          // registers: half the A registers of one buffer a step, which
+          // the dequant's words need (168 registers a thread at most with
+          // two warpgroups). s2 and the zero of channel 4q + i are bytes i
+          // of the stage's words for the step's group.
+          const unsigned char* sc =
+              sb + S_OFF + grow[kk] * CW + c * CH_NW + 4 * q;
 #pragma unroll
-        for (int tile = 0; tile < 2; ++tile) {
-          const uint32_t x[4] = {t0[2 * tile], t0[2 * tile + 1],
-                                 t1[2 * tile], t1[2 * tile + 1]};
+          for (int h = 0; h < 2; ++h) {
+            uint32_t(&a)[8] = afr[h];
+            const uint32_t s2w =
+                *reinterpret_cast<const uint32_t*>(sc + h * SBOX);
+            const uint32_t zw =
+                *reinterpret_cast<const uint32_t*>(sc + (2 + h) * SBOX);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            a[4 * tile + r] = x[r] & 0x0F0F0F0Fu;
-            a[8 + 4 * tile + r] = (x[r] >> 4) & 0x0F0F0F0Fu;
+            for (int tile = 0; tile < 2; ++tile) {
+              const uint32_t x[4] = {t0[2 * tile], t0[2 * tile + 1],
+                                     t1[2 * tile], t1[2 * tile + 1]};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const int ch = 2 * tile + (r & 1);
+                const uint32_t u = (h ? x[r] >> 4 : x[r]) & 0x0F0F0F0Fu;
+                a[4 * tile + r] =
+                    __vadd4(u * __byte_perm(s2w, 0u, 0x4440 + ch),
+                            __byte_perm(zw, 0u, 0x1111 * ch));
+              }
+            }
+            keep_regs(a);
+            keep_regs(acc0);
+            keep_regs(acc1);
+            sm90::wg_fence();
+            const uint64_t d =
+                sm90::desc_b128((h ? a_hi : a_lo) + 32 * kk, 16, 1024);
+            WgmmaS8<MT>::mma(acc0, a, d);
+            WgmmaS8<MT>::mma(acc1, a + 4, d);
+            sm90::wg_commit();
+            // the other half's group has finished: its registers are free
+            sm90::wg_wait<1>();
+            keep_regs(afr[h ^ 1]);
           }
+        } else {
+          uint32_t(&a)[8 * NA] = afr[kk & 1];
+          // a[8 half + 4 tile + r]: the A fragment of (K half, m64 tile)
+#pragma unroll
+          for (int tile = 0; tile < 2; ++tile) {
+            const uint32_t x[4] = {t0[2 * tile], t0[2 * tile + 1],
+                                   t1[2 * tile], t1[2 * tile + 1]};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              if constexpr (!W4) {
+                a[4 * tile + r] = x[r];
+              } else {
+                a[4 * tile + r] = x[r] & 0x0F0F0F0Fu;
+                a[8 + 4 * tile + r] = (x[r] >> 4) & 0x0F0F0F0Fu;
+              }
+            }
+          }
+          keep_regs(a);
+          keep_regs(acc0);
+          keep_regs(acc1);
+          sm90::wg_fence();
+          const uint64_t d_lo = sm90::desc_b128(a_lo + 32 * kk, 16, 1024);
+          WgmmaS8<MT>::mma(acc0, a, d_lo);
+          WgmmaS8<MT>::mma(acc1, a + 4, d_lo);
+          if constexpr (W4) {
+            const uint64_t d_hi = sm90::desc_b128(a_hi + 32 * kk, 16, 1024);
+            WgmmaS8<MT>::mma(acc0, a + 8, d_hi);
+            WgmmaS8<MT>::mma(acc1, a + 12, d_hi);
+          }
+          sm90::wg_commit();
+          // the previous step's group has finished: its A registers are free
+          sm90::wg_wait<1>();
+          keep_regs(afr[(kk + 1) & 1]);
         }
-        keep_regs(a);
-        keep_regs(acc0);
-        keep_regs(acc1);
-        sm90::wg_fence();
-        const uint64_t d_lo = sm90::desc_b128(a_lo + 32 * kk, 16, 1024);
-        const uint64_t d_hi = sm90::desc_b128(a_hi + 32 * kk, 16, 1024);
-        WgmmaS8<MT>::mma(acc0, a, d_lo);
-        WgmmaS8<MT>::mma(acc1, a + 4, d_lo);
-        WgmmaS8<MT>::mma(acc0, a + 8, d_hi);
-        WgmmaS8<MT>::mma(acc1, a + 12, d_hi);
-        sm90::wg_commit();
-        // the previous step's group has finished: its A registers are free
-        sm90::wg_wait<1>();
-        keep_regs(afr[(kk + 1) & 1]);
       }
       sm90::wg_wait<0>();
       keep_regs(afr[0]);
@@ -581,7 +703,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
           if (m >= M) continue;
           const int p[4] = {acc0[4 * nb + e], acc0[4 * nb + 2 + e],
                             acc1[4 * nb + e], acc1[4 * nb + 2 + e]};
-          channel_epilogue(out, p, s1, s1_szero, a_scale, a_sum, m, nq, N);
+          gemm_epilogue<MODE>(out, p, s1, s1_szero, a_scale, a_sum, m, nq,
+                              N);
         }
     }
     return;
@@ -609,7 +732,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
   // once (one latency a row), scales from shared memory
   const int rank = (int)cluster.block_rank();
   const int rows = min(MT, M - m0);
-  constexpr int CHUNKS = NWG * CH_NW / 4;            // 4 channels each
+  constexpr int CHUNKS = CW / 4;                     // 4 channels each
   constexpr int LANES = (NC + 32) / CHUNKS;          // rows in flight
   const int col = 4 * (tid % CHUNKS), lr = tid / CHUNKS;
   if (lr < LANES && n0 + col < N) {
@@ -637,29 +760,70 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) w4a8_channel_kernel(
       const float as = ep_as[ml], am = ep_am[ml];
       float o[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] = (float)p[i] * sc[i] * as - sz[i] * am;
+      for (int i = 0; i < 4; ++i)
+        o[i] = ZERO ? (float)p[i] * sc[i] * as - sz[i] * am
+                    : (float)p[i] * sc[i] * as;
       store4(out + (size_t)(m0 + ml) * N + n0 + col, o);
     }
   }
   cluster.sync();   // no block leaves while another reads its partial
 }
 
-template <int MT, int NWG, int NSTAGE, typename OutT>
-int launch_channel(const void* a, const void* w, const void* s1,
-                   const void* s1_szero, const void* a_scale,
-                   const void* a_sum, void* out, int M, int N, int K,
-                   int splits, int per_split, cudaStream_t stream) {
-  constexpr int SMEM = ch_smem_bytes<MT, NWG, NSTAGE>();
-  auto kernel = w4a8_channel_kernel<MT, NWG, NSTAGE, OutT>;
-  CUtensorMap amap, wmap;
+struct GemmArgs {
+  const void* a;         // [M, K] int8
+  const void* w;         // [K/2, N] packed u4 or [K, N] int8
+  const void* s1;        // [N] f32: s1 (W4) or w_scale (W8)
+  const void* s1_szero;  // [N] f32, per channel
+  const void* s2;        // [K/G, N] int8, per group
+  const void* s2_zero;   // [K/G, N] int8, per group
+  const void* a_scale;   // [M] f32
+  const void* a_sum;     // [M] f32, per channel
+  void* out;             // [M, N] f32 or bf16
+  int M, N, K, G, splits, per_split;
+};
+
+// a map over the per-group [K/G, N] int8 rows, boxes of NWG * 128 channels
+// x min(4, K/G) rows, unswizzled
+inline int encode_group_rows(CUtensorMap* map, const void* base, int N,
+                             int rows, int box_cols) {
+  sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols,
+                             (cuuint32_t)(rows < GS_ROWS ? rows : GS_ROWS)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int MODE, int MT, int NWG, typename OutT>
+int launch_wgmma(const GemmArgs& g, cudaStream_t stream) {
+  constexpr int NSTAGE = ring_depth<MODE, MT, NWG>();
+  constexpr int SMEM = smem_bytes<MODE, MT, NWG>();
+  constexpr int CW = NWG * CH_NW;
+  auto kernel = int8_wgmma_kernel<MODE, MT, NWG, NSTAGE, OutT>;
+  const int kw = MODE == kW8 ? g.K : g.K / 2;
+  CUtensorMap amap, wmap, s2map, zmap;
   // byte matrices, boxes of 128 bytes x MT activation rows / CH_RK rows
-  int err = sm90::encode_swizzled(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a,
-                                  (uint64_t)K, (uint64_t)M, (uint64_t)K, 128,
-                                  MT);
+  int err = sm90::encode_swizzled(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, g.a,
+                                  (uint64_t)g.K, (uint64_t)g.M,
+                                  (uint64_t)g.K, 128, MT);
   if (err == 0)
-    err = sm90::encode_swizzled(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w,
-                                (uint64_t)N, (uint64_t)K / 2, (uint64_t)N,
+    err = sm90::encode_swizzled(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, g.w,
+                                (uint64_t)g.N, (uint64_t)kw, (uint64_t)g.N,
                                 128, CH_RK);
+  s2map = amap;
+  zmap = amap;
+  if (MODE == kW4Group && err == 0)
+    err = encode_group_rows(&s2map, g.s2, g.N, g.K / g.G, CW);
+  if (MODE == kW4Group && err == 0)
+    err = encode_group_rows(&zmap, g.s2_zero, g.N, g.K / g.G, CW);
   if (err != 0) return err;
   int dev = 0;
   cudaError_t cerr = cudaGetDevice(&dev);
@@ -672,8 +836,7 @@ int launch_channel(const void* a, const void* w, const void* s1,
     if (dev < sm90::MAX_DEVICES) ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + MT - 1) / MT, (N + NWG * CH_NW - 1) / (NWG * CH_NW),
-                     splits);
+  cfg.gridDim = dim3((g.M + MT - 1) / MT, (g.N + CW - 1) / CW, g.splits);
   cfg.blockDim = dim3(NWG * 128 + 32);
   cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
@@ -681,96 +844,112 @@ int launch_channel(const void* a, const void* w, const void* s1,
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
+  attr[0].val.clusterDim.z = g.splits;
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
+  cfg.numAttrs = g.splits > 1 ? 1 : 0;
   cerr = cudaLaunchKernelEx(
-      &cfg, kernel, amap, wmap, static_cast<const float*>(s1),
-      static_cast<const float*>(s1_szero), static_cast<const float*>(a_scale),
-      static_cast<const float*>(a_sum), static_cast<OutT*>(out), M, N, K,
-      per_split);
+      &cfg, kernel, amap, wmap, s2map, zmap, static_cast<const float*>(g.s1),
+      static_cast<const float*>(g.s1_szero),
+      static_cast<const float*>(g.a_scale),
+      static_cast<const float*>(g.a_sum), static_cast<OutT*>(g.out), g.M,
+      g.N, g.K, g.G, g.per_split);
   if (cerr != cudaSuccess) return (int)cerr;
   return (int)cudaGetLastError();
 }
 
-template <typename OutT>
-int launch_channel_plan(const void* a, const void* w, const void* s1,
-                        const void* s1_szero, const void* a_scale,
-                        const void* a_sum, void* out, int M, int N, int K,
-                        int mt, int n_wg, int splits, int per_split,
-                        cudaStream_t s) {
-#define CH_ARGS a, w, s1, s1_szero, a_scale, a_sum, out, M, N, K, splits, \
-                per_split, s
-  // ring depths: on an H100 at M=128, 4 stages (one block an SM) beat 2
-  // and 3; at M=8, 2 and 3 beat 4 on the split GEMMs but not on gate_up
+template <int MODE, typename OutT>
+int launch_plan(const GemmArgs& g, int mt, int n_wg, cudaStream_t s) {
   if (n_wg == 2 && mt == 128)   // two warpgroups: prefill, and wide decode
-    return launch_channel<128, 2, 3, OutT>(CH_ARGS);
+    return launch_wgmma<MODE, 128, 2, OutT>(g, s);
   if (n_wg != 1) return (int)cudaErrorInvalidValue;
   switch (mt) {                 // the decode body
-    case 32: return launch_channel<32, 1, 4, OutT>(CH_ARGS);
-    case 64: return launch_channel<64, 1, 3, OutT>(CH_ARGS);
-    case 128: return launch_channel<128, 1, 4, OutT>(CH_ARGS);
+    case 32: return launch_wgmma<MODE, 32, 1, OutT>(g, s);
+    case 64: return launch_wgmma<MODE, 64, 1, OutT>(g, s);
+    case 128: return launch_wgmma<MODE, 128, 1, OutT>(g, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef CH_ARGS
+}
+
+// Checks the plan and the pointers of the wgmma body, then launches it.
+template <int MODE>
+int launch_checked(const GemmArgs& g, int out_f32, int mt, int n_wg,
+                   cudaStream_t s) {
+  const int kw = MODE == kW8 ? g.K : g.K / 2;
+  const int n_it = kw / CH_RK;
+  uintptr_t ptrs = reinterpret_cast<uintptr_t>(g.a) |
+                   reinterpret_cast<uintptr_t>(g.w) |
+                   reinterpret_cast<uintptr_t>(g.s1);
+  if (MODE == kW4Channel) ptrs |= reinterpret_cast<uintptr_t>(g.s1_szero);
+  if (MODE == kW4Group)
+    ptrs |= reinterpret_cast<uintptr_t>(g.s2) |
+            reinterpret_cast<uintptr_t>(g.s2_zero);
+  if (g.M <= 0 || g.N <= 0 || g.K <= 0 || kw % CH_RK || g.N % 16 ||
+      g.splits < 1 || g.splits > CH_MAX_SPLIT || g.per_split < 1 ||
+      (long long)g.splits * g.per_split < n_it ||
+      (long long)(g.splits - 1) * g.per_split >= n_it || (ptrs & 15u))
+    return (int)cudaErrorInvalidValue;
+  return out_f32 ? launch_plan<MODE, float>(g, mt, n_wg, s)
+                 : launch_plan<MODE, __nv_bfloat16>(g, mt, n_wg, s);
 }
 }  // namespace
 
 extern "C" {
 
-// Per channel, on the plan of ops/cuda/quant_matmul.channel_plan: M tiles
-// of mt rows (32, 64 or 128) with n_wg consumer warpgroups (1: the decode
-// body; 2 at mt = 128: the prefill body), K/2 cut into runs of per_split
-// 128-row stages, one block of a cluster of `splits` each. Needs K/2 % 128
-// == 0, N % 16 == 0, a, qweight, s1 and s1_szero 16-byte aligned. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// The wgmma body (N % 16 == 0) runs on the plan of
+// ops/cuda/quant_matmul.gemm_plan: M tiles of mt rows (32, 64 or 128)
+// with n_wg consumer warpgroups (1: the decode body; 2 at mt = 128: the
+// prefill body), the weight rows (K/2 for W4, K for W8) cut into runs of
+// per_split 128-row stages, one block of a cluster of `splits` each. It
+// needs those rows % 128 == 0 and a, qweight, s1 / w_scale, s1_szero, s2,
+// s2_zero 16-byte aligned. Each returns cudaGetLastError() after the
+// launch (0 = launched).
 int launch_w4a8_per_channel(const void* a, const void* qweight,
                             const void* s1, const void* s1_szero,
                             const void* a_scale, const void* a_sum,
                             void* out, int out_f32, int M, int N, int K,
                             int mt, int n_wg, int splits, int per_split,
                             void* stream) {
-  const int n_it = K / 2 / CH_RK;
-  if (M <= 0 || N <= 0 || K <= 0 || (K / 2) % CH_RK || N % 16 ||
-      splits < 1 || splits > CH_MAX_SPLIT || per_split < 1 ||
-      (long long)splits * per_split < n_it ||
-      (long long)(splits - 1) * per_split >= n_it ||
-      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(qweight) |
-        reinterpret_cast<uintptr_t>(s1) |
-        reinterpret_cast<uintptr_t>(s1_szero)) & 15u))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch_channel_plan<float>(
-                       a, qweight, s1, s1_szero, a_scale, a_sum, out, M, N,
-                       K, mt, n_wg, splits, per_split, s)
-                 : launch_channel_plan<__nv_bfloat16>(
-                       a, qweight, s1, s1_szero, a_scale, a_sum, out, M, N,
-                       K, mt, n_wg, splits, per_split, s);
+  const GemmArgs g = {a, qweight, s1, s1_szero, nullptr, nullptr, a_scale,
+                      a_sum, out, M, N, K, 0, splits, per_split};
+  return launch_checked<kW4Channel>(g, out_f32, mt, n_wg,
+                                    static_cast<cudaStream_t>(stream));
 }
 
-// G: input channels per group; needs G % 32 == 0 and (K/2) % G == 0.
+// G: input channels per group; needs G % 32 == 0 and (K/2) % G == 0. At
+// N % 16 != 0 the mma.sync body (the plan's arguments unused).
 int launch_w4a8_per_group(const void* a, const void* qweight, const void* s1,
                           const void* s2, const void* s2_zero,
                           const void* a_scale, void* out, int out_f32, int M,
-                          int N, int K, int G, void* stream) {
+                          int N, int K, int G, int mt, int n_wg, int splits,
+                          int per_split, void* stream) {
   if (G <= 0 || G % 32 || (K / 2) % G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32
-             ? launch<kW4Group, float>(a, qweight, s1, s2, s2_zero, a_scale, out,
-                                       M, N, K, G, s)
-             : launch<kW4Group, __nv_bfloat16>(a, qweight, s1, s2, s2_zero,
-                                               a_scale, out, M, N, K, G, s);
+  if (N % 16)
+    return out_f32
+               ? launch<kW4Group, float>(a, qweight, s1, s2, s2_zero, a_scale,
+                                         out, M, N, K, G, s)
+               : launch<kW4Group, __nv_bfloat16>(a, qweight, s1, s2, s2_zero,
+                                                 a_scale, out, M, N, K, G, s);
+  const GemmArgs g = {a, qweight, s1, nullptr, s2, s2_zero, a_scale,
+                      nullptr, out, M, N, K, G, splits, per_split};
+  return launch_checked<kW4Group>(g, out_f32, mt, n_wg, s);
 }
 
+// At N % 16 != 0 the mma.sync body (the plan's arguments unused).
 int launch_w8a8(const void* a, const void* qweight, const void* w_scale,
                 const void* a_scale, void* out, int out_f32, int M, int N,
-                int K, void* stream) {
+                int K, int mt, int n_wg, int splits, int per_split,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<kW8, float>(a, qweight, w_scale, nullptr, nullptr,
-                                      a_scale, out, M, N, K, 0, s)
-                 : launch<kW8, __nv_bfloat16>(a, qweight, w_scale, nullptr,
-                                              nullptr, a_scale, out, M, N, K,
-                                              0, s);
+  if (N % 16)
+    return out_f32 ? launch<kW8, float>(a, qweight, w_scale, nullptr, nullptr,
+                                        a_scale, out, M, N, K, 0, s)
+                   : launch<kW8, __nv_bfloat16>(a, qweight, w_scale, nullptr,
+                                                nullptr, a_scale, out, M, N,
+                                                K, 0, s);
+  const GemmArgs g = {a, qweight, w_scale, nullptr, nullptr, nullptr,
+                      a_scale, nullptr, out, M, N, K, 0, splits, per_split};
+  return launch_checked<kW8>(g, out_f32, mt, n_wg, s);
 }
 
 }  // extern "C"

@@ -58,6 +58,19 @@ def w4a8_matmul_per_channel_ref(
     return out.to(out_dtype)
 
 
+def dequant_per_group(qweight, s2_scales, s2_zeros, group_size):
+    """Half-split packed [K/2, N] uint4 with per-group s2 / zeros [K/G, N]
+    -> the [K, N] int8 weights: wrap_int8(w_u4 * s2 + zero) per group."""
+    k2, n = qweight.shape
+    k = 2 * k2
+    w_u4 = torch.cat([qweight & 0xF, qweight >> 4]).to(torch.int32)
+    w = (w_u4.reshape(k // group_size, group_size, n)
+         * s2_scales.to(torch.int32)[:, None, :]
+         + s2_zeros.to(torch.int32)[:, None, :])
+    # two's-complement wrap to int8, as JAX's int16 -> int8 astype
+    return (((w + 128) & 0xFF) - 128).to(torch.int8).reshape(k, n)
+
+
 def w4a8_matmul_per_group_ref(
     a_i8: torch.Tensor,       # [M, K] int8
     qweight: torch.Tensor,    # [K/2, N] uint8 (half-split packed uint4)
@@ -68,16 +81,8 @@ def w4a8_matmul_per_group_ref(
     group_size: int = 128,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    k2, n = qweight.shape
-    k = 2 * k2
-    n_groups = k // group_size
-    w_u4 = torch.cat([qweight & 0xF, qweight >> 4]).to(torch.int32)
-    w = (w_u4.reshape(n_groups, group_size, n)
-         * s2_scales.to(torch.int32)[:, None, :]
-         + s2_zeros.to(torch.int32)[:, None, :])
-    # two's-complement wrap to int8, as JAX's int16 -> int8 astype
-    w_i8 = (((w + 128) & 0xFF) - 128).to(torch.int8).reshape(k, n)
-    psum = _int8_matmul(a_i8, w_i8)
+    psum = _int8_matmul(a_i8, dequant_per_group(qweight, s2_scales,
+                                                s2_zeros, group_size))
     out = psum.float() * s1_scales[None, :] * a_scale[:, None]
     return out.to(out_dtype)
 

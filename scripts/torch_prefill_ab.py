@@ -3,8 +3,9 @@
 for them, on one NVIDIA GPU; or two trees of the port in turns. Rows
 (``--rows``, comma-separated; default all): 9 (flash prefill), 7 (paged
 prefill), the decode rows 5 (per-head page lists), 6 (kv16 decode) and 4
-(the streaming band), 4a (row 4's fused append) and 1 (the W4A8
-per-channel GEMM).
+(the streaming band), 4a (row 4's fused append), 1 (the W4A8
+per-channel GEMM), 2 (the g128 W4A8 GEMM), 3 (the W8A8 GEMM at the W8A8
+body's shapes) and 3h (the W8A8 GEMM at the lm_head).
 
 Run from the root of a checkout:
 
@@ -38,15 +39,19 @@ over kv4, kv8 and per-tensor kv4 / kv8 pools at B=8 (lengths 1,000-1,100)
 and B=128 (1,024-1,536; ``decode_append_inputs``); row 1 as one layer's
 four GEMMs (qkv, o, gate_up, down of Llama-3-8B) at M = 8, 128, 8,192 and
 16,384 (``gemm_layer_inputs``; decode M rotates weight copies past L2),
-each GEMM timed and the layer's sum reported. Prefill times and row 1 above
+each GEMM timed and the layer's sum reported; rows 2 and 3 the same way
+over the same four shapes (``group_layer_inputs`` at g128,
+``w8a8_layer_inputs``); row 3h at the lm_head (K=4,096, N=128,256) at
+M = 8 and 128 (the lm_head runs at decode M only; one weight copy already
+exceeds L2). Prefill times and the GEMMs above
 M=128 are CUDA-event means over a few launches after a warmup
-(``chip_smoke.time_ms``); decode times and row 1 at M <= 128 are per call
-of calls captured in one CUDA graph and replayed
+(``chip_smoke.time_ms``); decode times and the GEMMs at M <= 128 are per
+call of calls captured in one CUDA graph and replayed
 (``chip_smoke.time_graphed_ms``, as the kernel table's decode rows); rows
 5, 6 and 4 beside "... sdpa": one ``scaled_dot_product_attention`` over
 the same K/V dequantized or gathered beforehand (not counted), the kernel
-table's library yardstick (row 4a has none: it also writes the pool; row
-1's, ``torch._int_mm`` plus the epilogue, is logged by ``chip_smoke``).
+table's library yardstick (row 4a has none: it also writes the pool; the
+GEMMs', ``torch._int_mm`` plus the epilogue, is logged by ``chip_smoke``).
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-ROWS = ("9", "7", "5", "6", "4", "4a", "1")
+ROWS = ("9", "7", "5", "6", "4", "4a", "1", "2", "3", "3h")
 
 
 def measure(root: str, rows=ROWS) -> dict:
@@ -75,6 +80,7 @@ def measure(root: str, rows=ROWS) -> dict:
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_prefill_ab: needs an NVIDIA GPU")
@@ -174,6 +180,40 @@ def measure(root: str, rows=ROWS) -> dict:
             total += ms
             del qws
         out[f"row1 layer M={m}"] = total
+        torch.cuda.empty_cache()
+    for m in (8, 128, 8192, 16384) if "2" in rows else ():
+        total = 0.0
+        for name, _, _, a_i8, qws, s1, s2, s2z, a_scale in \
+                cs.group_layer_inputs(dev, gen(), m, 128):
+            ms = cs.time_gemm_ms(lambda w: qm.w4a8_matmul_per_group(
+                a_i8, w, s1, s2, s2z, a_scale, group_size=128), qws, m)
+            out[f"row2 g128 {name} M={m}"] = ms
+            total += ms
+            del qws
+        out[f"row2 g128 layer M={m}"] = total
+        torch.cuda.empty_cache()
+    for m in (8, 128, 8192, 16384) if "3" in rows else ():
+        total = 0.0
+        for name, _, _, a_i8, ws, sc, a_scale in \
+                cs.w8a8_layer_inputs(dev, gen(), m):
+            ms = cs.time_gemm_ms(lambda w: qm.w8a8_matmul(
+                a_i8, w, sc, a_scale), ws, m)
+            out[f"row3 {name} M={m}"] = ms
+            total += ms
+            del ws
+        out[f"row3 layer M={m}"] = total
+        torch.cuda.empty_cache()
+    for m in (8, 128) if "3h" in rows else ():
+        g = gen()
+        a_i8, a_scale, _ = quantize_activations(
+            torch.randn((m, 4096), generator=g, device=dev))
+        w = torch.randint(-127, 128, (4096, 128256), generator=g,
+                          dtype=torch.int8, device=dev)
+        ws = torch.empty(128256, device=dev).uniform_(0.0003, 0.0006,
+                                                      generator=g)
+        out[f"row3h lm_head M={m}"] = cs.time_gemm_ms(
+            lambda wt: qm.w8a8_matmul(a_i8, wt, ws, a_scale), [w], m)
+        del w
         torch.cuda.empty_cache()
     return out
 

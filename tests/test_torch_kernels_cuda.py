@@ -2242,3 +2242,180 @@ def test_decode_attention_append_split_kernel(dev, mode, page, b):
     torch.cuda.synchronize()
     assert torch.equal(first, got) and torch.equal(out, got)
     assert_pools_equal(pool, twin)
+
+
+# -- rows 3 (W8A8) and 2 (per group) on the int8 wgmma body ----------------
+
+WGMMA_M = [1, 8, 100, 128, 129, 300, 8192]   # decode (split) and prefill
+
+
+def _graph_equals_eager(call, eager):
+    """One captured CUDA graph of ``call`` replayed twice equals the eager
+    output bit for bit."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager) and torch.equal(out, eager)
+
+
+def _assert_split(qm, mode, m, k, n, dev):
+    """Decode M splits the weight rows over a cluster, except where the
+    channel tiles alone fill the card (gate_up, the lm_head)."""
+    from omniserve_tpu_torch.ops import cuda
+
+    plan = qm.gemm_plan(mode, m, n, k, cuda.sm_count(dev))
+    assert plan is not None
+    if m <= qm.DECODE_MAX_M and n < 16384:
+        assert plan.splits > 1, plan
+    if m > qm.DECODE_MAX_M:
+        assert (plan.n_wg, plan.splits) == (2, 1), plan
+
+
+@pytest.mark.parametrize("m", WGMMA_M)
+@pytest.mark.parametrize("k,n", LAYER_GEMMS)
+def test_w8a8_wgmma_layer_shapes_kernel(dev, k, n, m):
+    """Row 3's W8 mode at the W8A8 body's layer shapes: equal to the plain
+    version (error 0, f32 and bf16 out), split at decode M, and a replayed
+    graph equal to the eager call."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    g = _gen(dev, 11)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8,
+                      device=dev)
+    ws = torch.empty(n, device=dev).uniform_(0.0003, 0.0006, generator=g)
+    _assert_split(qm, "w8", m, k, n, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = cuda.LAUNCHES["w8a8_matmul"]
+        got = qm.w8a8_matmul(a, w, ws, s, out_dtype=dtype)
+        assert cuda.LAUNCHES["w8a8_matmul"] == before + 1
+        want = qm.w8a8_matmul_plain(a, w, ws, s, out_dtype=dtype)
+        assert torch.equal(got, want)
+    _graph_equals_eager(lambda: qm.w8a8_matmul(a, w, ws, s), got)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_w8a8_wgmma_lm_head_kernel(dev, m):
+    """Row 3 at the lm_head (K=4,096, N=128,256): the channel tiles alone
+    fill the card (no split); equal to plain, graph replay equal."""
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    k, n = 4096, 128256
+    g = _gen(dev, 12)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8,
+                      device=dev)
+    ws = torch.empty(n, device=dev).uniform_(0.0003, 0.0006, generator=g)
+    assert qm.gemm_plan("w8", m, n, k, 132).splits == 1
+    for dtype in (torch.float32, torch.bfloat16):
+        got = qm.w8a8_matmul(a, w, ws, s, out_dtype=dtype)
+        assert torch.equal(got, qm.w8a8_matmul_plain(a, w, ws, s,
+                                                     out_dtype=dtype))
+    _graph_equals_eager(lambda: qm.w8a8_matmul(a, w, ws, s), got)
+
+
+@pytest.mark.parametrize("m", WGMMA_M)
+@pytest.mark.parametrize("k,n,group_size", [
+    (4096, 6144, 32), (4096, 6144, 64), (4096, 6144, 128),
+    (14336, 4096, 128), (14336, 4096, 224), (1792, 256, 224),
+])
+def test_w4a8_per_group_wgmma_kernel(dev, k, n, group_size, m):
+    """Row 2's per-group mode at layer shapes and G in {32, 64, 128, 224}
+    (224: a stage of 128 packed rows straddles two groups): equal to the
+    plain version (error 0, f32 and bf16 out) with s2 up to 17 and zeros
+    over the whole int8 range, split at decode M, graph replay equal."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    g = _gen(dev, 13)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    qw, s1, s2, s2z = _per_group_weights(g, k, n, group_size, layers=1)
+    args = (a, qw[0], s1[0], s2[0], s2z[0], s)
+    if n >= 4096:
+        _assert_split(qm, "group", m, k, n, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = cuda.LAUNCHES["w4a8_matmul_per_group"]
+        got = qm.w4a8_matmul_per_group(*args, group_size=group_size,
+                                       out_dtype=dtype)
+        assert cuda.LAUNCHES["w4a8_matmul_per_group"] == before + 1
+        want = qm.w4a8_matmul_per_group_plain(*args, group_size=group_size,
+                                              out_dtype=dtype)
+        assert torch.equal(got, want)
+    _graph_equals_eager(lambda: qm.w4a8_matmul_per_group(
+        *args, group_size=group_size), got)
+
+
+@pytest.mark.parametrize("m", [8, 128, 300])
+def test_w4a8_per_group_wgmma_s2_17_edge(dev, m):
+    """Every code 15 and every s2 17 (255 before the zero), zeros that wrap
+    both ways, at the qkv shape: the split decode and the prefill body."""
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    k, n, gs = 4096, 6144, 128
+    g = _gen(dev, 14)
+    a, s, _ = quantize_activations(torch.randn((m, k), generator=g,
+                                               device=dev))
+    qw = torch.full((k // 2, n), 0xFF, dtype=torch.uint8, device=dev)
+    s1 = torch.full((n,), 0.004, device=dev)
+    s2 = torch.full((k // gs, n), 17, dtype=torch.int8, device=dev)
+    zeros = torch.tensor([-128, -8, 0, 100, 127], dtype=torch.int8,
+                         device=dev)
+    s2z = zeros[torch.randint(0, 5, s2.shape, generator=g, device=dev)]
+    got = qm.w4a8_matmul_per_group(a, qw, s1, s2, s2z, s, group_size=gs,
+                                   out_dtype=torch.float32)
+    want = qm.w4a8_matmul_per_group_plain(a, qw, s1, s2, s2z, s,
+                                          group_size=gs,
+                                          out_dtype=torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_w8a8_and_per_group_narrow_n_take_mma_sync_body(dev):
+    """At N % 16 != 0 (the TMA boxes' rows) rows 3 and 2 launch the
+    mma.sync body, ``quant_gemm_kernel``; the main path's shapes launch the
+    wgmma body, ``int8_wgmma_kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    def launched(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, " ".join(e.name for e in prof.events()
+                             if e.device_type == DeviceType.CUDA)
+
+    g = _gen(dev, 15)
+    for m, n, body in ((33, 260, "quant_gemm_kernel"),
+                       (33, 256, "int8_wgmma_kernel")):
+        a, s, _ = quantize_activations(torch.randn((m, 512), generator=g,
+                                                   device=dev))
+        w = torch.randint(-128, 128, (512, n), generator=g,
+                          dtype=torch.int8, device=dev)
+        ws = torch.empty(n, device=dev).uniform_(0.0003, 0.0006, generator=g)
+        got, names = launched(lambda: qm.w8a8_matmul(a, w, ws, s))
+        assert body in names, names
+        assert torch.equal(got, qm.w8a8_matmul_plain(a, w, ws, s))
+    for m, n, body in ((300, 68, "quant_gemm_kernel"),
+                       (300, 64, "int8_wgmma_kernel")):
+        a, s, _ = quantize_activations(torch.randn((m, 256), generator=g,
+                                                   device=dev))
+        qw, s1, s2, s2z = _per_group_weights(g, 256, n, 128, layers=1)
+        args = (a, qw[0], s1[0], s2[0], s2z[0], s)
+        got, names = launched(lambda: qm.w4a8_matmul_per_group(*args))
+        assert body in names, names
+        assert torch.equal(got, qm.w4a8_matmul_per_group_plain(*args))
