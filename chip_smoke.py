@@ -1432,20 +1432,21 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
 
 
 def check_kv_append(dev, gen, mode="kv4"):
-    """The decode append at the LServe path's shapes: 8 rows (the padded
-    batch) and 128, 4 pool heads (retrieval, with K stats; streaming,
-    without) and 8. Pool bytes, planes (fine-grained) and stats must equal
+    """The decode append at the LServe path's shapes, through both entries
+    of row 10. The single-pool entry at 8 rows (the padded batch) and 128,
+    4 pool heads (retrieval, with K stats; streaming, without) and 8; then
+    the two-pool entry (``check_kv_append_pools``), which the LServe decode
+    step launches. Pool bytes, planes (fine-grained) and stats must equal
     the plain version's on every page but the trash page. kv8 and
     per-tensor modes also refuse a plain append that writes each token one
     slot late and, per-tensor, one with the other layer's scales. The row
-    kept for the kernels line is T=8, H=4 with stats."""
+    kept for the kernels line is the two-pool entry's at T=8."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import kv_append as ka
 
     page, d, n_sub = 128, 128, 4
     kv_bits, pt = LIST_MODES[mode]
-    kept = None
     for t, heads, with_stats in ((8, 4, True), (8, 4, False), (128, 4, True),
                                  (128, 8, False)):
         n_pages = 2 * t + 1
@@ -1508,10 +1509,109 @@ def check_kv_append(dev, gen, mode="kv4"):
             f"library_ms None max_abs_err {err:g}; pool bytes"
             f"{'' if pt else ', planes'}{' and stats' if with_stats else ''} "
             "equal")
-        if kept is None:
-            kept = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                        library_ms=None, max_abs_err=err)
+    kept = check_kv_append_pools(dev, gen, mode, 8)
+    check_kv_append_pools(dev, gen, mode, 128)
     return kept
+
+
+def check_kv_append_pools(dev, gen, mode, t):
+    """Row 10's two-pool entry as the LServe decode step calls it: ``t``
+    tokens of Llama-3.1-8B's 8 kv heads, K and V read in place from a
+    fused qkv row, rows 0, 2, 4, 6 to the retrieval pool (with K stats)
+    and 1, 3, 5, 7 to the streaming pool, one launch. Both pools must equal
+    the two plain appends' (each on its gathered heads) on every page but
+    the trash page; the plain versions with each token one slot late, the
+    pools' head maps swapped and (per tensor) the other layer's scales are
+    refused. Timed by graph replay beside the plain version and beside
+    what the decode step ran before, per layer: two single-pool launches
+    on head-gathered copies (``gathered_ms``)."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    page, d, n_sub, heads = 128, 128, 4, 4
+    kv_bits, pt = LIST_MODES[mode]
+    n_pages = 2 * t + 1
+    rpool = list_mode_pool(gen, dev, 2, n_pages, heads, page, d, mode)
+    rpool = rpool._replace(k_stats=torch.randn(
+        (2, n_pages, heads, 2 * n_sub, d), generator=gen, device=dev))
+    spool = list_mode_pool(gen, dev, 2, n_pages, heads, page, d, mode)
+    targets = []
+    for first in (0, 1):
+        pages = torch.randperm(n_pages - 1, generator=gen, device=dev)[:t].to(
+            torch.int32)
+        pages[1::5] = -1                       # inactive rows
+        slots = torch.randint(0, page, (t,), generator=gen, device=dev).to(
+            torch.int32)
+        src = torch.arange(first, 2 * heads, 2, device=dev)
+        targets.append((pages, slots, src))
+    tr, ts = targets
+    qkv = torch.randn((t, 48, d), generator=gen, device=dev).bfloat16()
+    k, v = qkv[:, 32:40], qkv[:, 40:48]      # views: 32 q, 8 k, 8 v heads
+    kw = dict(update_stats=True, sub_chunks=n_sub)
+    plain_kw = dict(kw, kv_bits=kv_bits, kv_zeros=not pt)
+    got = (rpool.clone(), spool.clone())
+    want = (rpool.clone(), spool.clone())
+    ka.append_kv_decode_pools(*got, 1, k, v, tr, ts, page, **kw)
+    ka.append_kv_decode_pools_plain(*want, 1, k, v, tr, ts, page, **plain_kw)
+    sync(dev)
+    what = f"two-pool kv append {mode} T={t} H=4+4"
+    err = max(pools_equal(a, b_, what, skip_trash=True)
+              for a, b_ in zip(got, want))
+    faults = {
+        "each token one slot late": ((rpool, spool),
+                                     (tr[0], (tr[1] + 1) % page, tr[2]),
+                                     (ts[0], (ts[1] + 1) % page, ts[2])),
+        "the pools' head maps swapped": ((rpool, spool),
+                                         (tr[0], tr[1], ts[2]),
+                                         (ts[0], ts[1], tr[2])),
+    }
+    if pt:
+        faults["the other layer's scales"] = (
+            (wrong_layer(rpool, mode), wrong_layer(spool, mode)), tr, ts)
+    for label, (pools, a, b_) in faults.items():
+        bad = tuple(p.clone() for p in pools)
+        ka.append_kv_decode_pools_plain(*bad, 1, k, v, a, b_, page,
+                                        **plain_kw)
+        try:
+            for x, y in zip(got, bad):
+                pools_equal(x, y._replace(
+                    k_scale_per_tensor=x.k_scale_per_tensor,
+                    v_scale_per_tensor=x.v_scale_per_tensor), what,
+                    skip_trash=True)
+        except AssertionError as e:
+            log(f"    {what}: planted {label} refused ({e})")
+        else:
+            raise AssertionError(f"{what}: equal pools with {label}")
+
+    # the same token again writes the same bytes: safe to repeat
+    def call():
+        ka.append_kv_decode_pools(*got, 1, k, v, tr, ts, page, **kw)
+
+    def gathered():
+        ka.append_kv_decode(got[0], 1, k[:, tr[2]], v[:, tr[2]], tr[0],
+                            tr[1], page, **kw)
+        ka.append_kv_decode(got[1], 1, k[:, ts[2]], v[:, ts[2]], ts[0],
+                            ts[1], page)
+
+    ms = time_graphed_ms(call, 20)
+    call_ms = time_ms(call, 50)
+    gathered_ms = time_graphed_ms(gathered, 20)
+    plain = time_ms(lambda: ka.append_kv_decode_pools_plain(
+        *want, 1, k, v, tr, ts, page, **plain_kw), 5, warmup=1)
+    rw = 2 * 2 * d if kv_bits == 4 else 2 * d   # kv4 bytes read + written
+    per_row = 2 * d * 2 + rw + (0 if pt else 16)
+    n_bytes = (t * 2 * heads * per_row + t * heads * 2 * 2 * d * 4
+               + 2 * (8 * t + 8 * heads))
+    bnd, by = bound_ms(n_bytes, t * 2 * heads * d * 8.0, BF16_FLOPS_PER_S)
+    log(f"  {what} stats on the retrieval pool: kernel_ms {ms:.4f} (graph "
+        f"replay; {call_ms:.4f} per eager wrapper call; the two "
+        f"single-pool launches on gathered heads {gathered_ms:.4f}) "
+        f"plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) library_ms None "
+        f"max_abs_err {err:g}; both pools' bytes"
+        f"{'' if pt else ', planes'} and stats equal")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, max_abs_err=err)
 
 
 def check_kv_append_kv16(dev, gen):
@@ -2900,9 +3000,9 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
 # phase 6: the LServe benchmark protocol through the port's engine
 # ---------------------------------------------------------------------------
 
-# launches of one sparse decode step, per layer: an append into each pool,
-# the retrieval heads' page lists, the streaming heads' band
-LSERVE_LAUNCHES_PER_LAYER = {"kv_append_decode": 2, "decode_attention_ph": 1,
+# launches of one sparse decode step, per layer: one append into both
+# pools, the retrieval heads' page lists, the streaming heads' band
+LSERVE_LAUNCHES_PER_LAYER = {"kv_append_decode": 1, "decode_attention_ph": 1,
                              "decode_attention_band": 1}
 LSERVE_KERNELS = tuple(LSERVE_LAUNCHES_PER_LAYER)
 # every round of the protocol must go through these
@@ -3006,6 +3106,15 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
             if missing:
                 raise AssertionError(f"LServe {mode} {r}: kernels not "
                                      f"launched: {missing}")
+            # each layer of a single decode step: one append launch into
+            # both pools (no head gather), one of each attention kernel
+            per_layer = {k: launches[k] / (steps * spec.num_layers)
+                         for k in LSERVE_KERNELS}
+            if mode == "single steps" and per_layer != \
+                    LSERVE_LAUNCHES_PER_LAYER:
+                raise AssertionError(f"LServe {mode} {r}: launches per "
+                                     f"layer and decode step {per_layer}, "
+                                     f"not {LSERVE_LAUNCHES_PER_LAYER}")
             refreshes = runner.selector_refreshes - refreshes_before
             log(f"  {mode}, {r}: prefill {prompt_len} tokens "
                 f"{t_prefill:.3f} s ({prefill_tps:.0f} tok/s); decode "
@@ -3477,6 +3586,8 @@ def check_switched_kernels(dev, gen):
     import torch
 
     rows, ab = {}, {}
+    for line in ptxas_report("prefill_single_pass.cu"):
+        log(f"    ptxas {line}")
 
     def case(label, name, result):
         entry, row7 = result
@@ -3733,6 +3844,8 @@ def main() -> int:
         kernels["paged_prefill_ring" + sfx] = check_paged_ring(
             dev, gen, 32000, 32000, 314, "phase 7's first chunk", mode)
         check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", mode)
+    for line in ptxas_report("kv_append.cu"):
+        log(f"    ptxas {line}")
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables, _ = check_forward(dev)

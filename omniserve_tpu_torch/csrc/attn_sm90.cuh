@@ -1,14 +1,16 @@
 // The Hopper (sm_90a) core shared by the port's kernels: written for the
 // two prefill attention kernels, flash_prefill.cu (row 9) and
-// paged_prefill.cu (row 7); its rings, copies and tensor maps also serve
-// decode_attention.cu and quant_gemm.cu.
+// paged_prefill.cu (row 7), and the single-pass prefill,
+// prefill_single_pass.cu (row 8); its rings, copies and tensor
+// maps also serve decode_attention.cu and quant_gemm.cu.
 //
-// Both compute the same online-softmax tile loop over 64-key K/V tiles for
-// a block of 128 query rows: S = Q K^T on the tensor cores, the softmax on
-// the S accumulator in registers, then O += P V. They differ only in how a
-// K/V tile reaches shared memory (TMA of bf16 rows for row 9; bulk copies
-// of paged codes, dequantized by a producer warpgroup, for row 7), so the
-// pieces below are the whole tensor-core side of both:
+// They compute the same online-softmax tile loop over 64-key K/V tiles
+// for a block of 128 query rows: S = Q K^T on the tensor cores, the
+// softmax on the S accumulator in registers, then O += P V. They differ
+// in how a K/V tile reaches shared memory (TMA of bf16 rows for row 9;
+// bulk copies of paged codes, dequantized by a producer warpgroup, for
+// row 7, converted to code tiles and corrected per key in registers for
+// row 8), so the pieces below are the whole tensor-core side of them:
 //
 // - wgmma.mma_async m64n64k16, f32 accumulation, bf16 or f16 operands.
 //   S = Q K^T reads Q and K from shared memory (K-major descriptors);
@@ -358,21 +360,14 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi, bool f16) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// O += P V: p holds the tile's probabilities in the S accumulator layout
-// (rounded here to f16 or bf16); v0/v1 are the V tile's halves (columns
-// 0-63 and 64-127), 64 keys each, token-major.
+// O += P V with P packed: a[kk] is the register A operand of keys 16 kk ..
+// 16 kk + 15 (a[kk][w] holds accumulator elements 8 kk + 2 w, + 1); v0/v1
+// are the V tile's halves (columns 0-63 and 64-127), 64 keys each,
+// token-major.
 template <bool F16>
-__device__ __forceinline__ void pv_tile(float (&o0)[32], float (&o1)[32],
-                                        const float (&p)[32], uint32_t v0,
-                                        uint32_t v1) {
-  uint32_t a[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack2(p[8 * kk + 0], p[8 * kk + 1], F16);
-    a[kk][1] = pack2(p[8 * kk + 2], p[8 * kk + 3], F16);
-    a[kk][2] = pack2(p[8 * kk + 4], p[8 * kk + 5], F16);
-    a[kk][3] = pack2(p[8 * kk + 6], p[8 * kk + 7], F16);
-  }
+__device__ __forceinline__ void pv_tile_a(float (&o0)[32], float (&o1)[32],
+                                          const uint32_t (&a)[4][4],
+                                          uint32_t v0, uint32_t v1) {
   fence_regs(o0);
   fence_regs(o1);
   wg_fence();
@@ -386,6 +381,23 @@ __device__ __forceinline__ void pv_tile(float (&o0)[32], float (&o1)[32],
   wg_wait<0>();
   fence_regs(o0);
   fence_regs(o1);
+}
+
+// O += P V: p holds the tile's probabilities in the S accumulator layout
+// (rounded here to f16 or bf16).
+template <bool F16>
+__device__ __forceinline__ void pv_tile(float (&o0)[32], float (&o1)[32],
+                                        const float (&p)[32], uint32_t v0,
+                                        uint32_t v1) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack2(p[8 * kk + 0], p[8 * kk + 1], F16);
+    a[kk][1] = pack2(p[8 * kk + 2], p[8 * kk + 3], F16);
+    a[kk][2] = pack2(p[8 * kk + 4], p[8 * kk + 5], F16);
+    a[kk][3] = pack2(p[8 * kk + 6], p[8 * kk + 7], F16);
+  }
+  pv_tile_a<F16>(o0, o1, a, v0, v1);
 }
 
 // Online softmax of one tile for this thread's two rows (the scores in s

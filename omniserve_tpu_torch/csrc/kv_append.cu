@@ -1,5 +1,6 @@
 // Decode-step KV append into the paged kv4, kv8 or kv16 pool, with the
-// optional K min/max page statistics, for Hopper (sm_90a).
+// optional K min/max page statistics, for Hopper (sm_90a); one launch
+// writes one pool, or LServe's two (retrieval and streaming) at once.
 //
 // Replaces the TPU kernel omniserve_tpu/ops/pallas/kv_append.py:
 //   append_kv_decode (:156, kernel _append_kernel :58), in its kv4 and kv8
@@ -7,17 +8,22 @@
 //   mode (:42, :108: the bf16 rows stored as they are).
 //
 // Contract (plain version: omniserve_tpu_torch/ops/cuda/kv_append.py
-// append_kv_decode_plain = append_kv, then update_k_stats):
-//   - one new token per sequence, each to a DISTINCT page (the decode
-//     invariant), so no two blocks touch one byte; page id < 0 marks an
-//     inactive token, which is written to the trash page P-1;
-//   - per head, K and V are quantized from their f32 values: fine-grained
-//     over L = 15 (kv4) or 255 (kv8) levels (scale = max(max-min, 1e-8)/L,
-//     zero = -L*min/range, code = rint(x/scale + zero) in [0, L]), the four
-//     folded planes (k_scale, k_scale*(k_zero+128), v_scale, v_zero+128)
-//     into lane `slot`; or per-tensor (PT) with the layer's K / V scale pt,
-//     read on the device (code = clip(rint(x/pt), -qmax-1, qmax) + qmax+1,
-//     qmax 7 or 127), no planes;
+// append_kv_decode_plain = append_kv, then update_k_stats; the two-pool
+// entry's is that, once per pool):
+//   - one new token per sequence, each to a DISTINCT page of its pool (the
+//     decode invariant), so no two warps touch one byte; page id < 0 marks
+//     an inactive token, which is written to the trash page P-1;
+//   - row h of a pool takes the token's K and V rows of head src[h] (the
+//     pool's row -> kv head map; null: head h), read in place from k / v
+//     [T, Hin, D] with `stride` elements between tokens;
+//   - per pool row, K and V are quantized from their f32 values:
+//     fine-grained over L = 15 (kv4) or 255 (kv8) levels (scale =
+//     max(max-min, 1e-8)/L, zero = -L*min/range, code = rint(x/scale +
+//     zero) in [0, L]), the four folded planes (k_scale,
+//     k_scale*(k_zero+128), v_scale, v_zero+128) into lane `slot`; or
+//     per-tensor (PT) with the pool's layer K / V scale pt, read on the
+//     device (code = clip(rint(x/pt), -qmax-1, qmax) + qmax+1, qmax 7 or
+//     127), no planes;
 //   - kv4 codes go into the nibble of byte row slot % (page/2), the high
 //     nibble iff slot >= page/2; kv8 codes into byte row `slot`;
 //   - kv16 (KV_BITS 16): the token's K and V rows are rounded to bf16 (a
@@ -33,10 +39,14 @@
 // What bounds it: launch latency and a few KB of scattered traffic per
 // token (D bytes of K and V read-modify-written and 16 bytes of planes
 // under kv4, 2*D bytes written under kv8, 4*D under kv16, 2*D floats of
-// stats). Design: one block per token, one thread per head-dim lane, a
-// loop over the pool's heads; the quantizers are the ones the fused decode
-// kernel uses (kv_common.cuh). Compiled with --fmad=false so pool bytes,
-// planes and stats equal the plain version's exactly.
+// stats). Design: one warp per (token, pool row), every row of both pools
+// at once; a lane holds 4 of the D values (one 8- or 16-byte load of K and
+// of V) and writes them as one word (kv4 / kv8), 8 bytes (kv16) and one
+// float4 of each stats row. The fine-grained quantizer's max and min
+// reduce by warp shuffles alone: no shared memory, no block barrier. Max
+// and min do not depend on the order of the reduction, and the rest of
+// the quantizer is per value (kv_common.cuh), compiled with --fmad=false,
+// so pool bytes, planes and stats equal the plain version's exactly.
 
 #include "kv_common.cuh"
 
@@ -44,81 +54,158 @@ namespace {
 
 using namespace kv;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int WARPS = 4;          // (token, pool row) items per block
+constexpr int LANE_VALUES = D / 32;
+
+// One pool's side of an append.
+struct Side {
+  void* k_data;            // layer: [P, H, rows, D] u8 or [P, H, page, D] bf16
+  void* v_data;
+  float* planes;           // layer: [P, 4, H, page] f32, or null
+  const float* kpt;        // PT: the layer's K scale
+  const float* vpt;        // PT: the layer's V scale
+  float* stats;            // layer: [P, H, 2*n_sub, D] f32, or null
+  const int* page_ids;     // [T], < 0 = inactive
+  const int* slots;        // [T]
+  const long long* src;    // [H] kv head of each pool row, or null (= row)
+  int H, P;
+};
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  x[0] = w.x;
+  x[1] = w.y;
+  x[2] = w.z;
+  x[3] = w.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
+
+// The lane's 4 codes, one per byte (value e in byte e), of a row whose
+// other values sit in the warp's other lanes; `q` gets the row's scale and
+// zero (fine-grained) or pt and the bias (per tensor).
+template <int KV_BITS, bool PT>
+__device__ __forceinline__ uint32_t quant4(const float (&x)[4], float pt,
+                                           TokQuant& q) {
+  constexpr int LEVELS = KV_BITS == 8 ? 255 : 15;
+  constexpr int QMAX = KV_BITS == 8 ? 127 : 7;
+  float mx = 0.0f, mn = 0.0f;
+  if constexpr (!PT) {
+    mx = warp_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+    mn = -warp_max(-fminf(fminf(x[0], x[1]), fminf(x[2], x[3])));
+  }
+  uint32_t codes = 0u;
+#pragma unroll
+  for (int e = 0; e < LANE_VALUES; ++e) {
+    q = PT ? quant_pt<QMAX>(x[e], pt) : quant_kv_range<LEVELS>(x[e], mx, mn);
+    codes |= static_cast<uint32_t>(q.code) << (8 * e);
+  }
+  return codes;
 }
 
 template <typename T, int KV_BITS, bool PT>
-__global__ void __launch_bounds__(NT) kv_append_kernel(
-    const T* __restrict__ k,              // [T, H, D]
-    const T* __restrict__ v,              // [T, H, D]
-    const int* __restrict__ page_ids,     // [T], < 0 = inactive
-    const int* __restrict__ slots,        // [T]
-    void* __restrict__ k_data,            // layer: [P, H, rows, D] u8 or
-    void* __restrict__ v_data,            //        [P, H, page, D] bf16
-    float* __restrict__ planes,           // layer: [P, 4, H, page] or null
-    const float* __restrict__ kpt,        // PT: the layer's K scale
-    const float* __restrict__ vpt,        // PT: the layer's V scale
-    float* __restrict__ stats,            // layer: [P, H, 2*n_sub, D] or null
-    int H, int P, int page, int n_sub) {
+__global__ void __launch_bounds__(32 * WARPS) kv_append_kernel(
+    const T* __restrict__ k, const T* __restrict__ v, int k_stride,
+    int v_stride, Side a, Side b, int n_tok, int page, int n_sub) {
   constexpr bool KV16 = KV_BITS == 16, KV8 = KV_BITS == 8;
-  constexpr int LEVELS = KV8 ? 255 : 15;
-  constexpr int QMAX = KV8 ? 127 : 7;
-  __shared__ float red[NWARP];
-  const int t = blockIdx.x, tid = threadIdx.x;
-  int pg = page_ids[t];
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int n_a = n_tok * a.H;
+  if (item >= n_a + n_tok * b.H) return;
+  const bool second = item >= n_a;
+  const Side s = second ? b : a;
+  const int i = second ? item - n_a : item;
+  const int t = i / s.H, h = i - t * s.H;
+  int pg = s.page_ids[t];
   const bool active = pg >= 0;
-  if (!active) pg = P - 1;
-  const int slot = active ? slots[t] : 0;
-  const int half = page / 2;
-  const int row = KV8 ? slot : slot % half;
-  const int rows = KV8 ? page : half;   // byte rows per page and head
-  const bool is_hi = !KV8 && slot >= half;
-  const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
-  for (int h = 0; h < H; ++h) {
-    const size_t in_off = ((size_t)t * H + h) * D + tid;
-    const float kx = to_f32(k[in_off]);
-    if constexpr (KV16) {
-      const size_t off = (((size_t)pg * H + h) * page + slot) * D + tid;
-      static_cast<__nv_bfloat16*>(k_data)[off] = __float2bfloat16(kx);
-      static_cast<__nv_bfloat16*>(v_data)[off] =
-          __float2bfloat16(to_f32(v[in_off]));
+  if (!active) pg = s.P - 1;
+  const int slot = active ? s.slots[t] : 0;
+  const int src = s.src != nullptr ? static_cast<int>(s.src[h]) : h;
+  const int d0 = LANE_VALUES * lane;
+  float kx[4], vx[4];
+  load4(k + (size_t)t * k_stride + (size_t)src * D + d0, kx);
+  load4(v + (size_t)t * v_stride + (size_t)src * D + d0, vx);
+  const size_t head = (size_t)pg * s.H + h;
+  if constexpr (KV16) {
+    const size_t off = (head * page + slot) * D + d0;
+    const __nv_bfloat162 k01 = __floats2bfloat162_rn(kx[0], kx[1]);
+    const __nv_bfloat162 k23 = __floats2bfloat162_rn(kx[2], kx[3]);
+    const __nv_bfloat162 v01 = __floats2bfloat162_rn(vx[0], vx[1]);
+    const __nv_bfloat162 v23 = __floats2bfloat162_rn(vx[2], vx[3]);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(s.k_data) + off) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&k01),
+                   *reinterpret_cast<const uint32_t*>(&k23));
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(s.v_data) + off) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&v01),
+                   *reinterpret_cast<const uint32_t*>(&v23));
+  } else {
+    TokQuant kq, vq;
+    const uint32_t kc = quant4<KV_BITS, PT>(kx, PT ? *s.kpt : 0.0f, kq);
+    const uint32_t vc = quant4<KV_BITS, PT>(vx, PT ? *s.vpt : 0.0f, vq);
+    const int half = page / 2;
+    const int rows = KV8 ? page : half;   // byte rows per page and head
+    const int row = KV8 ? slot : slot % half;
+    const size_t off = (head * rows + row) * D + d0;
+    uint32_t* kd = reinterpret_cast<uint32_t*>(
+        static_cast<uint8_t*>(s.k_data) + off);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(
+        static_cast<uint8_t*>(s.v_data) + off);
+    if constexpr (KV8) {
+      *kd = kc;
+      *vd = vc;
+    } else if (slot >= half) {      // the high nibbles
+      *kd = (*kd & 0x0F0F0F0Fu) | (kc << 4);
+      *vd = (*vd & 0x0F0F0F0Fu) | (vc << 4);
     } else {
-      uint8_t* kd = static_cast<uint8_t*>(k_data);
-      uint8_t* vd = static_cast<uint8_t*>(v_data);
-      const float vx = to_f32(v[in_off]);
-      const TokQuant kq = PT ? quant_pt<QMAX>(kx, k_pt) : quant_kv<LEVELS>(kx, red);
-      const TokQuant vq = PT ? quant_pt<QMAX>(vx, v_pt) : quant_kv<LEVELS>(vx, red);
-      const size_t byte_off = (((size_t)pg * H + h) * rows + row) * D + tid;
-      const uint32_t kc = (uint32_t)kq.code, vc = (uint32_t)vq.code;
-      if constexpr (KV8) {
-        kd[byte_off] = (uint8_t)kc;
-        vd[byte_off] = (uint8_t)vc;
-      } else {
-        const uint32_t kb = kd[byte_off], vb = vd[byte_off];
-        kd[byte_off] =
-            (uint8_t)(is_hi ? ((kb & 0x0F) | (kc << 4)) : ((kb & 0xF0) | kc));
-        vd[byte_off] =
-            (uint8_t)(is_hi ? ((vb & 0x0F) | (vc << 4)) : ((vb & 0xF0) | vc));
-      }
-      if (!PT && tid < 4) {
-        float val;
-        if (tid == 0) val = kq.scale;
-        else if (tid == 1) val = kq.scale * (kq.zero + 128.0f);
-        else if (tid == 2) val = vq.scale;
-        else val = vq.zero + 128.0f;
-        planes[(((size_t)pg * 4 + tid) * H + h) * page + slot] = val;
-      }
+      *kd = (*kd & 0xF0F0F0F0u) | kc;
+      *vd = (*vd & 0xF0F0F0F0u) | vc;
     }
-    if (stats != nullptr) {
-      const int sub = slot / (page / n_sub);
-      float* st =
-          stats + (((size_t)pg * H + h) * 2 * n_sub + 2 * sub) * D + tid;
-      st[0] = fminf(st[0], kx);
-      st[D] = fmaxf(st[D], kx);
+    if (!PT && lane < 4) {
+      float val;
+      if (lane == 0) val = kq.scale;
+      else if (lane == 1) val = kq.scale * (kq.zero + 128.0f);
+      else if (lane == 2) val = vq.scale;
+      else val = vq.zero + 128.0f;
+      s.planes[(((size_t)pg * 4 + lane) * s.H + h) * page + slot] = val;
     }
   }
+  if (s.stats != nullptr) {
+    const int sub = slot / (page / n_sub);
+    float4* lo =
+        reinterpret_cast<float4*>(s.stats + (head * 2 * n_sub + 2 * sub) * D +
+                                  d0);
+    float4* hi = reinterpret_cast<float4*>(reinterpret_cast<float*>(lo) + D);
+    const float4 cl = *lo, ch = *hi;
+    *lo = make_float4(fminf(cl.x, kx[0]), fminf(cl.y, kx[1]),
+                      fminf(cl.z, kx[2]), fminf(cl.w, kx[3]));
+    *hi = make_float4(fmaxf(ch.x, kx[0]), fmaxf(ch.y, kx[1]),
+                      fmaxf(ch.z, kx[2]), fmaxf(ch.w, kx[3]));
+  }
+}
+
+Side side(void* k_data, void* v_data, void* planes, const void* k_pt,
+          const void* v_pt, void* stats, const void* page_ids,
+          const void* slots, const void* src, int H, int P) {
+  return Side{k_data,
+              v_data,
+              static_cast<float*>(planes),
+              static_cast<const float*>(k_pt),
+              static_cast<const float*>(v_pt),
+              static_cast<float*>(stats),
+              static_cast<const int*>(page_ids),
+              static_cast<const int*>(slots),
+              static_cast<const long long*>(src),
+              H,
+              P};
 }
 
 }  // namespace
@@ -126,28 +213,44 @@ __global__ void __launch_bounds__(NT) kv_append_kernel(
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
-// kv_bits: 4 (nibble pages), 8 (byte pages) or 16 (bf16 pages). kv4 / kv8
-// take folded planes (fine-grained) or, when k_pt / v_pt (device addresses
-// of the layer's scales) are given, per-tensor codes and no planes.
-int launch_kv_append_decode(const void* k, const void* v, int is_f32,
-                            const void* page_ids, const void* slots,
-                            void* k_data, void* v_data, void* planes,
-                            const void* k_pt, const void* v_pt, void* stats,
-                            int T, int H, int P, int page, int n_sub,
-                            int kv_bits, void* stream) {
-  const bool pt = k_pt != nullptr;
-  if ((kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
-      pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||
-      (kv_bits != 16 && !pt && planes == nullptr))
+// kv_bits: 4 (nibble pages), 8 (byte pages) or 16 (bf16 pages), the same
+// for both pools. kv4 / kv8 take folded planes (fine-grained) or, when
+// k_pt / v_pt (device addresses of the layer's scales) are given,
+// per-tensor codes and no planes; both pools in one mode. Pool b is left
+// alone when b_H == 0 (the single-pool entry). src: int64 [H] row -> kv
+// head maps, or null. k / v: bf16 (is_f32 0) or f32 rows, 8- / 16-byte
+// aligned, with k_stride / v_stride elements (a multiple of 4) between
+// tokens.
+int launch_kv_append_decode(
+    const void* k, const void* v, int is_f32, int k_stride, int v_stride,
+    int T, int page, int n_sub, int kv_bits,
+    void* a_k_data, void* a_v_data, void* a_planes, const void* a_k_pt,
+    const void* a_v_pt, void* a_stats, const void* a_page_ids,
+    const void* a_slots, const void* a_src, int a_H, int a_P,
+    void* b_k_data, void* b_v_data, void* b_planes, const void* b_k_pt,
+    const void* b_v_pt, void* b_stats, const void* b_page_ids,
+    const void* b_slots, const void* b_src, int b_H, int b_P, void* stream) {
+  const bool pt = a_k_pt != nullptr;
+  const bool fine = kv_bits != 16 && !pt;
+  if ((kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || a_H <= 0 ||
+      b_H < 0 || pt != (a_v_pt != nullptr) || (pt && kv_bits == 16) ||
+      (fine && a_planes == nullptr) || k_stride % 4 || v_stride % 4 ||
+      page <= 0 || page % 2 || n_sub <= 0 || page % n_sub ||
+      (b_H > 0 && (pt != (b_k_pt != nullptr) || pt != (b_v_pt != nullptr) ||
+                   (fine && b_planes == nullptr))))
     return (int)cudaErrorInvalidValue;
+  const Side a = side(a_k_data, a_v_data, a_planes, a_k_pt, a_v_pt, a_stats,
+                      a_page_ids, a_slots, a_src, a_H, a_P);
+  const Side b = side(b_k_data, b_v_data, b_planes, b_k_pt, b_v_pt, b_stats,
+                      b_page_ids, b_slots, b_src, b_H, b_P);
+  const int items = T * (a_H + b_H);
+  if (items == 0) return (int)cudaSuccess;
+  const int blocks = (items + WARPS - 1) / WARPS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(TYPE, BITS, PT)                                              \
-  kv_append_kernel<TYPE, BITS, PT><<<T, NT, 0, s>>>(                        \
-      static_cast<const TYPE*>(k), static_cast<const TYPE*>(v),             \
-      static_cast<const int*>(page_ids), static_cast<const int*>(slots),    \
-      k_data, v_data, static_cast<float*>(planes),                          \
-      static_cast<const float*>(k_pt), static_cast<const float*>(v_pt),     \
-      static_cast<float*>(stats), H, P, page, n_sub)
+  kv_append_kernel<TYPE, BITS, PT><<<blocks, 32 * WARPS, 0, s>>>(           \
+      static_cast<const TYPE*>(k), static_cast<const TYPE*>(v), k_stride,   \
+      v_stride, a, b, T, page, n_sub)
 #define LAUNCH_MODE(TYPE)                                     \
   if (kv_bits == 16) LAUNCH(TYPE, 16, false);                 \
   else if (kv_bits == 8) {                                    \

@@ -1,8 +1,8 @@
 // Device code shared by the paged-KV kernels (decode_attention.cu,
-// kv_append.cu): reductions over 128 threads (one thread per head-dim
-// lane), the fine-grained quantizer of one [D] vector over 15
-// levels (kv4) or 255 (kv8), and the per-tensor quantizer of one value by
-// a calibrated scale (codes biased by 8 or 128).
+// kv_append.cu): warp reductions and reductions over 128 threads (one
+// thread per head-dim lane), the fine-grained quantizer of one [D] vector
+// over 15 levels (kv4) or 255 (kv8), and the per-tensor quantizer of one
+// value by a calibrated scale (codes biased by 8 or 128).
 //
 // The quantizers follow the plain versions' f32 op order
 // (ops/quantization.kv_quantize_fine_grained, kv_quantize_per_tensor);
@@ -54,24 +54,17 @@ __device__ inline float reduce_nt(float v, int op, float* red, Sync sync) {
   return r;
 }
 
-// Block-wide sum / max / min over NT threads (all threads get the result).
-__device__ inline float block_reduce(float v, int op, float* red) {
-  return reduce_nt(v, op, red, [] { __syncthreads(); });
-}
-
 struct TokQuant {
   float code, dq, scale, zero;
 };
 
-// Fine-grained quantization of one lane of a [D] vector over LEVELS = 15
-// (kv4) or 255 (kv8) levels, exactly the plain version's op order
-// (ops/quantization.kv_quantize_fine_grained); `reduce(v, op)` is the
-// max (op 1) / min (op 2) over the D lanes.
-template <int LEVELS, typename Reduce>
-__device__ inline TokQuant quant_kv_by(float x, Reduce reduce) {
+// Fine-grained quantization of one value x of a [D] vector whose max and
+// min are mx and mn, over LEVELS = 15 (kv4) or 255 (kv8) levels, exactly
+// the plain version's op order (ops/quantization.kv_quantize_fine_grained).
+template <int LEVELS>
+__device__ __forceinline__ TokQuant quant_kv_range(float x, float mx,
+                                                   float mn) {
   constexpr float L = (float)LEVELS;
-  const float mx = reduce(x, 1);
-  const float mn = reduce(x, 2);
   const float rng = fmaxf(mx - mn, 1e-8f);
   TokQuant t;
   t.scale = rng / L;
@@ -81,10 +74,13 @@ __device__ inline TokQuant quant_kv_by(float x, Reduce reduce) {
   return t;
 }
 
-template <int LEVELS>
-__device__ inline TokQuant quant_kv(float x, float* red) {
-  return quant_kv_by<LEVELS>(
-      x, [red](float v, int op) { return block_reduce(v, op, red); });
+// The same for one lane of the vector; `reduce(v, op)` is the max (op 1) /
+// min (op 2) over the D lanes.
+template <int LEVELS, typename Reduce>
+__device__ inline TokQuant quant_kv_by(float x, Reduce reduce) {
+  const float mx = reduce(x, 1);
+  const float mn = reduce(x, 2);
+  return quant_kv_range<LEVELS>(x, mx, mn);
 }
 
 // Per-tensor quantization of one value with the layer's calibrated scale

@@ -43,17 +43,10 @@
 // rows, kv head, sequence), the chunk's last rows (the most keys)
 // launched first; a row is a (token, GQA rep) pair, so the n_rep q heads
 // of one kv head share every K/V tile. Four roles:
-// - a copy warp walks the 64-key tiles of the table IN PLACE: over a
-//   dense table up to the causal frontier min(context_len, max q_pos + 1);
-//   over a page list every slot, skipping, before a byte of it is
-//   requested, each tile that no row can see (a ballot over 32 slots at a
-//   time finds the next live slot: a streaming head of a 32K chunk reads
-//   its sink and ~8K band of the ring). It brings each live tile's codes
-//   (and planes) into a ring of 3 raw stages (2 under kv16) with
-//   cp.async.bulk on an mbarrier: one copy of the tile's 64 rows when they
-//   are consecutive rows of one page (a kv4 64-key sub-tile lies in one
-//   half of its page, so it takes its own rows slot % (page/2) and its own
-//   nibble), else one copy per key row;
+// - a copy warp (paged_copy.cuh, shared with row 8) walks the 64-key
+//   tiles of the table IN PLACE, up to the causal frontier or over a page
+//   list's live slots, and bulk-copies each live tile's codes (and
+//   planes) into a ring of 3 raw stages (2 under kv16);
 // - a dequant warpgroup turns each raw stage into f16 K and V tiles (bf16
 //   values as they are under kv16) in the 128-byte-swizzled layout wgmma
 //   reads, with the folded planes or the per-tensor scales, into a ring of
@@ -72,7 +65,7 @@
 // (a persistent version ran the bench's chunks 3-10% faster and the ring
 // 7-19% slower, items of unequal weight taken in a fixed order).
 
-#include "attn_sm90.cuh"
+#include "paged_copy.cuh"
 
 namespace {
 
@@ -100,19 +93,6 @@ struct Cfg {
   static constexpr size_t SMEM = OFF_META + META + 1024;   // + alignment
 };
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // (float)code, exact for code < 2^23, without the int-to-float unit
 __device__ __forceinline__ float code_f(uint32_t c) {
   return __uint_as_float(0x4B000000u | c) - 8388608.0f;
@@ -138,7 +118,7 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     int H, int n_rep, int page, int W, int sink_size, int local_size,
     int ring_span, int ring_sink_tok, float scale_log2) {
   using C = Cfg<KV_BITS>;
-  constexpr bool KV4 = KV_BITS == 4, KV8 = KV_BITS == 8, KV16 = KV_BITS == 16;
+  constexpr bool KV8 = KV_BITS == 8, KV16 = KV_BITS == 16;
   constexpr bool FINE = !PT && !KV16;      // planes in the pool
   constexpr int NR = C::NR, ROWB = C::ROWB;
   extern __shared__ unsigned char smem_raw[];
@@ -183,176 +163,13 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     // ---- copy warp: walk the table, bring live tiles' rows in ----
     reg_dealloc<REGS_COPY>();
     if (warp != 12) return;
-    const int ctx = context_lens[b];
-    const bool listed = SPARSE && sel_logic != nullptr;
-    const int half = page / 2, rows = KV4 ? half : page;
-    // the ring's write head: rows of page cb past it are one wrap older
-    const int cb = (ctx - 1) / page, last_row = (ctx - 1) % page;
-    int qlo = NO_POS, qhi = -1;
-    for (int r = lane; r < BM; r += 32) {
-      const int t = t0 + r / n_rep;
-      const int qp = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
-      if (qp >= 0) {
-        qlo = min(qlo, qp);
-        qhi = max(qhi, qp);
-      }
-    }
-    qlo = warp_min(qlo);
-    qhi = warp_max(qhi);
-    // over a dense table, keys at or past the frontier are visible to no
-    // row of this tile; a page list is walked whole
-    const int kv_end =
-        qhi < 0 ? 0 : (listed ? W * page : min(min(ctx, qhi + 1), W * page));
-    Ring ring;
-    int win = -1;            // the 32-slot window of win_live
-    uint32_t win_live = 0;   // slots of the window that may hold a live key
-    for (int j0 = 0; j0 < kv_end;) {
-      if constexpr (SPARSE) {
-        const int sa = j0 / page, sb = min((j0 + BN - 1) / page, W - 1);
-        if ((sa >> 5) != win) {
-          win = sa >> 5;
-          const int s = (win << 5) + lane;
-          bool live = false;
-          if (s < W) {
-            const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
-            if (logic >= 0) {
-              int plo = logic * page;
-              const int phi = min(plo + page - 1, ctx - 1);
-              if (ring_span > 0 && logic == cb) plo -= ring_span * page;
-              live = plo <= phi && plo <= qhi &&
-                     (dense || plo < sink_size || phi + local_size > qlo);
-            }
-          }
-          win_live = __ballot_sync(0xffffffffu, live);
-        }
-        if ((sb >> 5) == win) {
-          const int n = sb - sa + 1;
-          const uint32_t span = (n >= 32 ? 0xffffffffu : ((1u << n) - 1u))
-                                << (sa & 31);
-          if ((win_live & span) == 0) {
-            // on to the window's next live slot, or the next window
-            const int hi_bit = (sb & 31) + 1;
-            const uint32_t later =
-                hi_bit >= 32 ? 0u : (win_live >> hi_bit) << hi_bit;
-            const int next = later ? (win << 5) + __ffs(later) - 1
-                                   : (win + 1) << 5;
-            j0 = max(j0 + BN, (int)((long long)next * page / BN * BN));
-            continue;
-          }
-        }
-      }
-      // each lane's two keys: position (NO_POS = no row needs it), where
-      // it lives
-      int kp[2], phys[2], row[2], shift[2], slot[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = j0 + lane + 32 * e;
-        kp[e] = NO_POS;
-        phys[e] = -1;
-        row[e] = shift[e] = slot[e] = 0;
-        if (j < kv_end) {
-          const int s = j / page, r = j - s * page;
-          if constexpr (SPARSE) {
-            const int logic = listed ? sel_logic[(size_t)b * W + s] : s;
-            int p = logic * page + r, lo = 0;
-            if (ring_span > 0 && logic == cb && r > last_row) {
-              p -= ring_span * page;
-              lo = ring_sink_tok;
-            }
-            if (logic >= 0 && p < ctx && p >= lo && p <= qhi &&
-                (dense || p < sink_size || p + local_size > qlo))
-              kp[e] = p;
-          } else {
-            kp[e] = j;
-          }
-          if (kp[e] != NO_POS) {
-            phys[e] = block_tables[(size_t)b * W + s];
-            row[e] = KV4 ? r % half : r;
-            shift[e] = (KV4 && r >= half) ? 4 : 0;
-            slot[e] = r;
-          }
-        }
-      }
-      const uint32_t need0 = __ballot_sync(0xffffffffu, kp[0] != NO_POS);
-      const uint32_t need1 = __ballot_sync(0xffffffffu, kp[1] != NO_POS);
-      if ((need0 | need1) == 0) {     // skipped before a byte is requested
-        j0 += BN;
-        continue;
-      }
-      // the tile's 64 rows are consecutive rows of one page: one copy each
-      const int sa = j0 / page, r0 = j0 - sa * page;
-      const bool contig = sa == (j0 + BN - 1) / page && (page & 3) == 0 &&
-                          (!KV4 || (r0 < half) == (r0 + BN - 1 < half));
-      const int src = __ffs(need0 ? need0 : need1) - 1;
-      const int phys_c =
-          __shfl_sync(0xffffffffu, need0 ? phys[0] : phys[1], src);
-      const uint32_t bytes =
-          contig ? 2 * BN * ROWB + (FINE ? 4 * BN * 4 : 0)
-                 : (__popc(need0) + __popc(need1)) * 2 * ROWB;
-      // every row of the block sees every key of the tile
-      bool whole = true;
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        whole = whole && kp[e] != NO_POS && kp[e] <= qlo &&
-                (dense || kp[e] < sink_size || qhi - kp[e] < local_size);
-      whole = __all_sync(0xffffffffu, whole);
-
-      const int st = ring.stage;
-      mbar_wait(&raw_empty[st], ring.phase ^ 1u);
-      unsigned char* rk = raws + st * C::RAW;
-      unsigned char* rv = rk + BN * ROWB;
-      float* pl = raw_pl + st * 4 * BN;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e;
-        raw_kp[st * BN + c] = kp[e];
-        raw_sh[st * BN + c] = shift[e];
-        if (FINE && !contig && kp[e] != NO_POS) {
-          const float* src_pl = planes + (size_t)phys[e] * 4 * H * page +
-                                (size_t)h * page + slot[e];
-#pragma unroll
-          for (int pi = 0; pi < 4; ++pi)
-            pl[pi * BN + c] = src_pl[(size_t)pi * H * page];
-        }
-      }
-      if (lane == 0) {
-        raw_hdr[4 * st] = j0;
-        raw_hdr[4 * st + 1] = whole;
-        mbar_arrive_tx(&raw_full[st], bytes);
-      }
-      __syncwarp();
-      if (contig) {
-        if (lane == 0) {
-          const size_t prow =
-              ((size_t)phys_c * H + h) * rows + (KV4 ? r0 % half : r0);
-          bulk_load(rk, k_data + prow * ROWB, BN * ROWB, &raw_full[st]);
-          bulk_load(rv, v_data + prow * ROWB, BN * ROWB, &raw_full[st]);
-          if constexpr (FINE) {
-#pragma unroll
-            for (int pi = 0; pi < 4; ++pi)
-              bulk_load(pl + pi * BN,
-                        planes + ((size_t)phys_c * 4 + pi) * H * page +
-                            (size_t)h * page + r0,
-                        BN * 4, &raw_full[st]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (kp[e] == NO_POS) continue;
-          const int c = lane + 32 * e;
-          const size_t prow = ((size_t)phys[e] * H + h) * rows + row[e];
-          bulk_load(rk + c * ROWB, k_data + prow * ROWB, ROWB, &raw_full[st]);
-          bulk_load(rv + c * ROWB, v_data + prow * ROWB, ROWB, &raw_full[st]);
-        }
-      }
-      if (lane != 0) mbar_arrive(&raw_full[st]);
-      ring.advance<NR>();
-      j0 += BN;
-    }
-    mbar_wait(&raw_empty[ring.stage], ring.phase ^ 1u);   // the end marker
-    if (lane == 0) raw_hdr[4 * ring.stage] = -1;
-    mbar_arrive(&raw_full[ring.stage]);
+    const PagedWalk walk{k_data, v_data, planes, block_tables, q_positions,
+                         context_lens, SPARSE ? sel_logic : nullptr, b, h, H,
+                         Tc, t0, n_rep, page, W, sink_size, local_size,
+                         ring_span, ring_sink_tok, dense};
+    const RawRing ring{raws, raw_pl, raw_kp, raw_sh, raw_hdr, raw_full,
+                       raw_empty};
+    paged_copy_warp<SPARSE, KV_BITS, FINE, NR>(walk, ring, lane);
   } else if (warp >= 8) {
     // ---- dequant warpgroup: raw rows -> swizzled f16 (bf16) tiles ----
     reg_dealloc<REGS_DEQUANT>();

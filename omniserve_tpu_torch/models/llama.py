@@ -505,29 +505,27 @@ def _write_kv(pools, layer: int, k, v, page_io, meta_l, spec: LlamaSpec,
     args = (spec.page_size, spec.kv_bits, spec.kv_zeros)
     # pool row r <- the kv head h with flags[h] and rank[h] == r
     src_r = pool_head_sources(rank, flags, retrieval_pool.num_heads, True)
-    k_r, v_r = k[:, src_r], v[:, src_r]
-    if unique_pages:
-        dispatch.append_kv_decode(
-            retrieval_pool, layer, k_r, v_r, pages_r, slots_r, *args,
-            update_stats=update_stats, sub_chunks=spec.sub_chunks,
-        )
-    else:
-        append_kv(retrieval_pool, layer, k_r, v_r, pages_r, slots_r, *args,
-                  page_aligned=page_aligned)
-        if update_stats:
-            update_k_stats(retrieval_pool, layer, k_r, pages_r, slots_r,
-                           spec.page_size, spec.sub_chunks)
+    src_s = None
     if streaming_pool is not None:
         src_s = pool_head_sources(rank, flags, streaming_pool.num_heads,
                                   False)
-        if unique_pages:
-            dispatch.append_kv_decode(
-                streaming_pool, layer, k[:, src_s], v[:, src_s], pages_s,
-                slots_s, *args,
-            )
-        else:
-            append_kv(streaming_pool, layer, k[:, src_s], v[:, src_s],
-                      pages_s, slots_s, *args, page_aligned=page_aligned)
+    if unique_pages:
+        # decode: both pools in one append, each row reading its head
+        dispatch.append_kv_decode_pools(
+            retrieval_pool, streaming_pool, layer, k, v,
+            (pages_r, slots_r, src_r), (pages_s, slots_s, src_s), *args,
+            update_stats=update_stats, sub_chunks=spec.sub_chunks,
+        )
+        return
+    k_r, v_r = k[:, src_r], v[:, src_r]
+    append_kv(retrieval_pool, layer, k_r, v_r, pages_r, slots_r, *args,
+              page_aligned=page_aligned)
+    if update_stats:
+        update_k_stats(retrieval_pool, layer, k_r, pages_r, slots_r,
+                       spec.page_size, spec.sub_chunks)
+    if streaming_pool is not None:
+        append_kv(streaming_pool, layer, k[:, src_s], v[:, src_s],
+                  pages_s, slots_s, *args, page_aligned=page_aligned)
 
 
 def _run_selector(q, retrieval_pool: KVPool, layer: int, batch: DecodeBatch,

@@ -7,9 +7,10 @@ contract as row 7 (``ops/cuda/paged_prefill.py``) over kv4 / kv8 pages,
 fine-grained or per-tensor, a block table, a page list (with the streaming
 ring's relabel) and the per-head sink + local band, computed on the raw
 codes with per-key corrections (P rounded to f16 where the TPU kernel
-rounds it to bf16; the CUDA source's header says why), launched through
-row 7's ``paged_prefill.launch`` (the two kernels take the same
-arguments). Launches are counted as ``paged_prefill_single_pass``
+rounds it to bf16; the CUDA source's header says why) on row 7's Hopper
+core (wgmma, bulk-copied rings, row 7's copy warp; no dequantization:
+the tiles hold the codes), launched through row 7's
+``paged_prefill.launch`` (the two kernels take the same arguments). Launches are counted as ``paged_prefill_single_pass``
 (fine-grained kv4, dense table),
 ``paged_prefill_single_pass_kv8`` (fine-grained kv8, dense table),
 ``paged_prefill_single_pass_pt`` (per-tensor kv4 or kv8, dense table) and
@@ -34,7 +35,7 @@ from omniserve_tpu_torch.ops.paged_kv import KVPool
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "prefill_single_pass.cu"
-UNIT = 128          # the kernel stages 128-token units: pages are multiples
+UNIT = 128          # pages are multiples of it (the TPU kernel's contract)
 
 
 def _lib():

@@ -179,6 +179,36 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
     )
 
 
+def append_kv_decode_pools(retrieval_pool, streaming_pool, layer, k, v,
+                           retrieval, streaming, page_size, kv_bits,
+                           kv_zeros, update_stats=False, sub_chunks=4):
+    """The decode step's token into both of LServe's pools, in place:
+    ``retrieval`` / ``streaming`` are (page ids [T] (-1 inactive), slots
+    [T], src [H_pool]) of each pool, row h taking kv head ``src[h]`` of
+    ``k`` / ``v`` [T, Hkv, D]; stats (``update_stats``) go to the retrieval
+    pool only. On a card one kernel launch writes both (no head gather);
+    on the CPU, per pool, the head gather and the JAX dispatch's scatter
+    path. ``streaming_pool`` None: the retrieval pool alone."""
+    from omniserve_tpu_torch.ops.cuda import kv_append
+
+    if cuda.use_kernel(k):
+        def targets(pages, slots, src):
+            return (pages.to(torch.int32), slots.to(torch.int32),
+                    src.to(torch.int64))
+
+        return kv_append.append_kv_decode_pools(
+            retrieval_pool, streaming_pool, layer, k, v,
+            targets(*retrieval),
+            None if streaming_pool is None else targets(*streaming),
+            page_size, update_stats=update_stats, sub_chunks=sub_chunks,
+        )
+    return kv_append.append_kv_decode_pools_plain(
+        retrieval_pool, streaming_pool, layer, k, v, retrieval, streaming,
+        page_size, update_stats=update_stats, sub_chunks=sub_chunks,
+        kv_bits=kv_bits, kv_zeros=kv_zeros,
+    )
+
+
 def paged_decode_attention(
     q, pool, layer, block_tables, context_lens, sm_scale, page_size,
     kv_bits, kv_zeros, streaming_pool=None, streaming_block_tables=None,

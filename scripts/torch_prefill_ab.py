@@ -5,7 +5,9 @@ for them, on one NVIDIA GPU; or two trees of the port in turns. Rows
 prefill), the decode rows 5 (per-head page lists), 6 (kv16 decode) and 4
 (the streaming band), 4a (row 4's fused append), 1 (the W4A8
 per-channel GEMM), 2 (the g128 W4A8 GEMM), 3 (the W8A8 GEMM at the W8A8
-body's shapes) and 3h (the W8A8 GEMM at the lm_head).
+body's shapes), 3h (the W8A8 GEMM at the lm_head), 8 (the single-pass
+prefill), 10 (the decode KV append, one pool) and 10d (the LServe decode
+step's append into both pools).
 
 Run from the root of a checkout:
 
@@ -43,7 +45,18 @@ each GEMM timed and the layer's sum reported; rows 2 and 3 the same way
 over the same four shapes (``group_layer_inputs`` at g128,
 ``w8a8_layer_inputs``); row 3h at the lm_head (K=4,096, N=128,256) at
 M = 8 and 128 (the lm_head runs at decode M only; one weight copy already
-exceeds L2). Prefill times and the GEMMs above
+exceeds L2); row 8 at the bench's last chunk over kv4, kv8 and per-tensor
+kv8 pages, the last 8,192 tokens of a 32,768-token context over kv4 pages
+without and with half the kv heads on the band (128 sink + 8,192 local
+tokens), and over the kv4 ring at phase 7 (a)'s first chunk and wrapped;
+row 10 over kv4, kv8 and per-tensor kv8 pools at T=8 with 4 pool heads
+and K stats and at T=128 with 8 pool heads without (``chip_smoke``'s
+``check_kv_append`` shapes); row 10d at T=8 and 128 over the same modes:
+Llama-3.1-8B's 8 kv heads, K / V read from a fused qkv row, rows 0, 2, 4,
+6 to the retrieval pool (with K stats) and 1, 3, 5, 7 to the streaming
+pool, timed as the tree's decode step runs it (a tree with the two-pool
+entry: one launch; a tree without: each pool's head gather and its own
+launch). Prefill times and the GEMMs above
 M=128 are CUDA-event means over a few launches after a warmup
 (``chip_smoke.time_ms``); decode times and the GEMMs at M <= 128 are per
 call of calls captured in one CUDA graph and replayed
@@ -65,7 +78,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-ROWS = ("9", "7", "5", "6", "4", "4a", "1", "2", "3", "3h")
+ROWS = ("9", "7", "5", "6", "4", "4a", "1", "2", "3", "3h", "8", "10",
+        "10d")
 
 
 def measure(root: str, rows=ROWS) -> dict:
@@ -78,7 +92,9 @@ def measure(root: str, rows=ROWS) -> dict:
     import omniserve_tpu_torch
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.cuda import prefill_single_pass as psp
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
@@ -215,6 +231,86 @@ def measure(root: str, rows=ROWS) -> dict:
             lambda wt: qm.w8a8_matmul(a_i8, wt, ws, a_scale), [w], m)
         del w
         torch.cuda.empty_cache()
+    single_pass = []   # (name, args, kw, reps)
+    for kv_bits, pt, label in ((4, False, "kv4"), (8, False, "kv8"),
+                               (8, True, "pt8")) if "8" in rows else ():
+        args, kw = cs.dense_chunk_inputs(dev, gen(), kv_bits, pt)[:2]
+        single_pass.append((f"row8 bench chunk {label}", args, kw, 5))
+    for band in (False, True) if "8" in rows else ():
+        args, kw = cs.dense_chunk_inputs(dev, gen(), 4, False, 1, 24576,
+                                         8192)[:2]
+        if band:
+            hq, hkv = args[0].shape[2], args[1].num_heads
+            kw.update(head_is_retrieval=(torch.arange(hkv, device=dev)
+                                         < hkv // 2).repeat_interleave(
+                                             hq // hkv),
+                      sink_size=128, local_size=8192)
+        single_pass.append((f"row8 32K last 8192 kv4{' band' if band else ''}",
+                            args, kw, 3))
+    for label, (context, tc, n_ring) in (
+            ("phase 7 (a) first chunk", (32000, 32000, 314)),
+            ("wrapped", (20000, 2048, 80))) if "8" in rows else ():
+        args, kw = cs.ring_chunk_inputs(dev, gen(), context, tc, n_ring)[:2]
+        single_pass.append((f"row8 ring {label} kv4", args, kw, 3))
+    for name, args, kw, reps in single_pass:
+        out[name] = cs.time_ms(
+            lambda: psp.paged_prefill_single_pass(*args, **kw), reps,
+            warmup=1)
+    del single_pass
+    torch.cuda.empty_cache()
+    page, d = 128, 128
+    for mode in ("kv4", "kv8", "pt8") if "10" in rows else ():
+        for t, heads, stats in ((8, 4, True), (128, 8, False)):
+            g = gen()
+            pool = cs.list_mode_pool(g, dev, 2, 2 * t + 1, heads, page, d,
+                                     mode)
+            if stats:
+                pool = pool._replace(k_stats=torch.randn(
+                    (2, 2 * t + 1, heads, 8, d), generator=g, device=dev))
+            pages = torch.randperm(2 * t, generator=g, device=dev)[:t].to(
+                torch.int32)
+            slots = torch.randint(0, page, (t,), generator=g,
+                                  device=dev).to(torch.int32)
+            k, v = (torch.randn((t, heads, d), generator=g,
+                                device=dev).bfloat16() for _ in range(2))
+            out[f"row10 {mode} T={t} H={heads}"
+                f"{' stats' if stats else ''}"] = cs.time_graphed_ms(
+                lambda: ka.append_kv_decode(pool, 1, k, v, pages, slots,
+                                            page, update_stats=stats), 20)
+    for mode in ("kv4", "kv8", "pt8") if "10d" in rows else ():
+        for t in (8, 128):
+            g = gen()
+            pools, targets = [], []
+            for first in (0, 1):
+                pool = cs.list_mode_pool(g, dev, 2, 2 * t + 1, 4, page, d,
+                                         mode)
+                if first == 0:
+                    pool = pool._replace(k_stats=torch.randn(
+                        (2, 2 * t + 1, 4, 8, d), generator=g, device=dev))
+                pools.append(pool)
+                pages = torch.randperm(2 * t, generator=g, device=dev)[:t].to(
+                    torch.int32)
+                slots = torch.randint(0, page, (t,), generator=g,
+                                      device=dev).to(torch.int32)
+                targets.append((pages, slots,
+                                torch.arange(first, 8, 2, device=dev)))
+            qkv = torch.randn((t, 48, d), generator=g, device=dev).bfloat16()
+            k, v = qkv[:, 32:40], qkv[:, 40:48]
+            (rp, sp), (tr, ts) = pools, targets
+
+            if hasattr(ka, "append_kv_decode_pools"):
+                def step():
+                    ka.append_kv_decode_pools(rp, sp, 1, k, v, tr, ts, page,
+                                              update_stats=True)
+            else:
+                def step():
+                    ka.append_kv_decode(rp, 1, k[:, tr[2]].contiguous(),
+                                        v[:, tr[2]].contiguous(), tr[0],
+                                        tr[1], page, update_stats=True)
+                    ka.append_kv_decode(sp, 1, k[:, ts[2]].contiguous(),
+                                        v[:, ts[2]].contiguous(), ts[0],
+                                        ts[1], page)
+            out[f"row10d {mode} T={t} H=4+4"] = cs.time_graphed_ms(step, 20)
     return out
 
 

@@ -695,6 +695,127 @@ def test_kv_append_decode_kv_modes_kernel(dev, mode, with_stats, page):
     assert_pools_equal(pool, twin, skip_trash=True)
 
 
+# the two-pool append: 4 kv heads, rows 0 and 2 to the retrieval pool,
+# 1 and 3 to the streaming pool (each pool's row -> head map)
+POOL_SRC = ((0, 2), (1, 3))
+
+
+def _two_pool_case(dev, mode, t, with_stats, page=128, seed=51):
+    """Dirty retrieval (with stats) and streaming pools of ``mode`` (kv4,
+    kv8, pt4, pt8), one token per sequence into distinct pages of each
+    (every fifth inactive), bf16 K / V rows [t, 4, D] as slices of a fused
+    qkv row (tokens 3 * 4 * D apart), and the pools' maps."""
+    d, n_sub, hp = 128, 4, 2
+    g = _gen(dev, seed)
+    n_pages = 2 * t + 1
+    pools = []
+    for stats in (with_stats, False):
+        pool = _codes_pool(dev, g, mode, 2, n_pages, hp, page, d)
+        if pool.k_scale_per_tensor is not None:    # layers' scales differ
+            pool.k_scale_per_tensor[0] *= 1.3
+            pool.v_scale_per_tensor[0] *= 0.8
+        if stats:
+            pool = pool._replace(k_stats=torch.randn(
+                (2, n_pages, hp, 2 * n_sub, d), generator=g, device=dev))
+        pools.append(pool)
+    targets = []
+    for src in POOL_SRC:
+        pages = torch.randperm(n_pages - 1, generator=g, device=dev)[:t].to(
+            torch.int32)
+        pages[1::5] = -1
+        slots = torch.randint(0, page, (t,), generator=g, device=dev).to(
+            torch.int32)
+        targets.append((pages, slots,
+                        torch.tensor(src, dtype=torch.int64, device=dev)))
+    qkv = torch.randn((t, 3, 4, d), generator=g, device=dev).bfloat16()
+    return pools, targets, qkv[:, 1], qkv[:, 2]
+
+
+def _refused(pools, twins, what):
+    """Raise unless the two pairs of pools differ somewhere (trash page
+    left out)."""
+    for got, want in zip(pools, twins):
+        try:
+            assert_pools_equal(got, want, skip_trash=True)
+        except AssertionError:
+            return
+    raise AssertionError(f"equal pools with {what} planted")
+
+
+@pytest.mark.parametrize("t", [1, 8, 128])
+@pytest.mark.parametrize("with_stats", [True, False])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8"])
+def test_kv_append_decode_pools_kernel(dev, mode, with_stats, t):
+    """Row 10's two-pool entry, one launch for LServe's retrieval and
+    streaming pools, each row reading its kv head through the pool's map
+    out of K / V rows that are views of a fused qkv row: bytes, planes,
+    stats (retrieval pool only) and scales equal the two plain appends'
+    on every page but the trash page, three steps on the same pages. The
+    plain versions refuse a token one slot late, the other layer's scales
+    or planes, and the two pools' maps swapped."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    kv_bits, fine = PSP_MODES[mode]
+    (rpool, spool), (tr, ts), k, v = _two_pool_case(dev, mode, t, with_stats)
+    assert k.stride(0) == 3 * 4 * 128     # read in place, no gather
+    twins = (rpool.clone(), spool.clone())
+    start = (rpool.clone(), spool.clone())
+    name = ka.launch_name(kv_bits, not fine)
+    kw = dict(update_stats=with_stats, sub_chunks=4)
+    plain_kw = dict(kv_bits=kv_bits, kv_zeros=fine, **kw)
+    for step in range(3):
+        layer = step % 2
+        before = cuda.LAUNCHES[name]
+        ka.append_kv_decode_pools(rpool, spool, layer, k, v, tr, ts, 128,
+                                  **kw)
+        assert cuda.LAUNCHES[name] == before + 1
+        ka.append_kv_decode_pools_plain(*twins, layer, k, v, tr, ts, 128,
+                                        **plain_kw)
+        tr = (tr[0], (tr[1] + 37) % 128, tr[2])    # the same pages
+        ts = (ts[0], (ts[1] + 64) % 128, ts[2])
+    torch.cuda.synchronize()
+    for got, want in zip((rpool, spool), twins):
+        assert_pools_equal(got, want, skip_trash=True)
+    # planted faults, against one step from the starting pools
+    got = tuple(p.clone() for p in start)
+    ka.append_kv_decode_pools(*got, 1, k, v, tr, ts, 128, **kw)
+    faults = {
+        "each token one slot late": (start, (tr[0], (tr[1] + 1) % 128, tr[2]),
+                                     (ts[0], (ts[1] + 1) % 128, ts[2])),
+        "the pools' maps swapped": (start, (tr[0], tr[1], ts[2]),
+                                    (ts[0], ts[1], tr[2])),
+    }
+    if not fine:      # per-tensor codes quantized with layer 0's scales
+        faults["the other layer's scales"] = (tuple(p._replace(
+            k_scale_per_tensor=p.k_scale_per_tensor.flip(0).contiguous(),
+            v_scale_per_tensor=p.v_scale_per_tensor.flip(0).contiguous())
+            for p in start), tr, ts)
+    for what, (pools, a, b_) in faults.items():
+        bad = tuple(p.clone() for p in pools)
+        ka.append_kv_decode_pools_plain(*bad, 1, k, v, a, b_, 128,
+                                        **plain_kw)
+        bad = tuple(p._replace(k_scale_per_tensor=s.k_scale_per_tensor,
+                               v_scale_per_tensor=s.v_scale_per_tensor)
+                    for p, s in zip(bad, got))
+        _refused(got, bad, what)
+
+
+def test_kv_append_decode_pools_refuses_bad_inputs(dev):
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    (rpool, spool), (tr, ts), k, v = _two_pool_case(dev, "kv8", 8, False)
+    with pytest.raises(ValueError, match="src"):
+        ka.append_kv_decode_pools(rpool, spool, 0, k, v,
+                                  (tr[0], tr[1], tr[2][:1]), ts, 128)
+    with pytest.raises(TypeError, match="src"):
+        ka.append_kv_decode_pools(rpool, spool, 0, k, v,
+                                  (tr[0], tr[1], tr[2].int()), ts, 128)
+    pt_pool = _codes_pool(dev, _gen(dev, 3), "pt8", 2, 17, 2, 128)
+    with pytest.raises(ValueError, match="KV mode"):
+        ka.append_kv_decode_pools(rpool, pt_pool, 0, k, v, tr, ts, 128)
+
+
 @pytest.mark.parametrize("page,n_rep", [(128, 1), (256, 2), (128, 4),
                                         (256, 8)])
 @pytest.mark.parametrize("mode", LIST_MODES)
@@ -903,7 +1024,7 @@ def _sparse_window_case(dev, kv_bits, kv_zeros):
             before = dict(cuda.LAUNCHES)
             toks[mode] = win.run(10, refresh_first=True).cpu().numpy()
             assert win.refreshes_in(10, True) == 3
-            for name, per_step in (("kv_append_decode" + suffix, 2),
+            for name, per_step in (("kv_append_decode" + suffix, 1),
                                    ("decode_attention_ph" + suffix, 1),
                                    ("decode_attention_band" + suffix, 1)):
                 assert (cuda.LAUNCHES[name] - before[name]
@@ -1531,6 +1652,94 @@ def test_prefill_single_pass_band_dense_kernel(dev):
                head_is_retrieval=torch.tensor([True] * n_rep + [False] * n_rep,
                                               device=dev),
                sink_size=128, local_size=1000)
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [128, 256, 384])
+@pytest.mark.parametrize("mode", list(PSP_MODES))
+def test_prefill_single_pass_pages_and_reps_kernel(dev, mode, page, n_rep):
+    """Row 8 on the wgmma core over a dense table in every mode, at pages
+    of 128, 256 and 384 tokens (under kv4 a 64-key tile of a 384-token
+    page lies in the page's first or second half: its own rows and
+    nibble) and every GQA width; the chunk ends inside a tile of 128 rows
+    and the second row is padded halfway; past each context the pool holds
+    garbage (NaN planes, 0xFF codes) that the kernel must keep out of
+    every product: its plain version runs on the clean pool. Also within
+    1e-2 of each row's norm."""
+    from omniserve_tpu_torch.ops.cuda import prefill_single_pass as psp
+
+    b, h, d, chunk = 2, 2, 128, 150
+    history = 2 * page + 37
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 43)
+    pool = _codes_pool(dev, g, mode, 2, b * w + 1, h, page, d)
+    tables = torch.randperm(b * w, generator=g, device=dev).view(b, w).to(
+        torch.int32)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    kv_bits, fine = PSP_MODES[mode]
+    clean = pool.clone()
+    _plant_past_context(pool, 1, page, ctx, tables, kv_bits, fine)
+    got = _check_psp(pool, 1, tables, q_pos, ctx, q,
+                     psp.launch_name(kv_bits, fine, False), plain_pool=clean,
+                     sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+                     kv_zeros=fine)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+    want = psp.paged_prefill_single_pass_plain(
+        q, clean, 1, tables, q_pos, ctx, sm_scale=d ** -0.5, page_size=page,
+        kv_bits=kv_bits, kv_zeros=fine).float()
+    err = torch.linalg.vector_norm(got.float() - want, dim=-1)
+    assert bool((err <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)
+                 + 1e-6).all())
+
+
+@pytest.mark.parametrize("page", [128, 384])
+@pytest.mark.parametrize("mode", list(PSP_MODES))
+def test_prefill_single_pass_page_list_dead_slots_kernel(dev, mode, page):
+    """Row 8's page-list mode at pages of 128 and 384: slots in any order,
+    dead slots whose pages hold NaN planes and 0xFF codes, logical pages
+    left out of the list, garbage past each context; one retrieval and one
+    streaming kv head with sink and band edges inside tiles."""
+    h, d, n_rep, chunk = 2, 128, 4, 200
+    g = _gen(dev, 44)
+    pool = _codes_pool(dev, g, mode, 1, 13, h, page, d)
+    tables = torch.tensor([[3, 9, 0, 5, 11, 7], [1, 4, 10, 2, 8, 6]],
+                          dtype=torch.int32, device=dev)
+    sel = torch.tensor([[0, 3, 1, -1, 4, 2], [5, -1, 0, 1, -1, 2]],
+                       dtype=torch.int32, device=dev)
+    ctx = torch.tensor([5 * page - 20, 5 * page + 50], dtype=torch.int32,
+                       device=dev)
+    q_pos = torch.stack([int(n) - chunk + torch.arange(chunk)
+                         for n in ctx.tolist()]).to(device=dev,
+                                                    dtype=torch.int32)
+    q = torch.randn((2, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    kv_bits, fine = PSP_MODES[mode]
+    clean = pool.clone()
+    for s, slot in ((0, 3), (1, 1), (1, 4)):        # the dead slots' pages
+        phys = int(tables[s, slot])
+        if fine:
+            pool.kv_scales[0, phys] = float("nan")
+        pool.k_data[0, phys] = 255
+        pool.v_data[0, phys] = 255
+    # past each context: the last listed page's tail
+    for s, (last_logic, first) in enumerate(((4, page - 20), (5, 50))):
+        phys = int(tables[s, sel[s].tolist().index(last_logic)])
+        if fine:
+            pool.kv_scales[0, phys, :, :, first:] = float("nan")
+    _check_psp(pool, 0, tables, q_pos, ctx, q,
+               "paged_prefill_single_pass_list", plain_pool=clean,
+               sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+               kv_zeros=fine, sel_logic=sel,
+               head_is_retrieval=torch.tensor([True] * n_rep + [False] * n_rep,
+                                              device=dev),
+               sink_size=40, local_size=150)
 
 
 ROW_TAIL = 5e-3   # half of chip_smoke's 1e-2-of-the-row gate

@@ -181,6 +181,60 @@ def check_append_matches_jax(with_stats, mode):
     assert_pools_equal(tpool, jpool)
 
 
+@pytest.mark.parametrize("mode", ["kv4", "kv8-pt"])
+def test_append_kv_decode_pools_plain_matches_pallas(mode):
+    """The two-pool decode append's plain composition (the port's CPU path
+    of ``_write_kv``'s decode branch: one call for LServe's retrieval and
+    streaming pools, each pool row taking its kv head through the pool's
+    row -> head map) against the JAX package's ``append_kv_decode``
+    called once per pool on the gathered heads, in interpret mode as
+    ``tests/test_pallas_kv_append.py`` runs it: pool bytes, stats
+    (retrieval pool only) and scales equal on every page but the trash
+    page, planes within that test's 1e-6 (the Pallas kernel's planes sit
+    an ulp off the JAX scatter path's, which the port's equal exactly)."""
+    from omniserve_tpu.ops.pallas.kv_append import append_kv_decode
+
+    rng = np.random.default_rng(12)
+    kv_bits, kv_zeros = KV_MODES[mode]
+    src_r, src_s = np.array([0, 2]), np.array([3, 1])   # rows -> kv heads
+    jr, tr = fresh_pools(6, 2, with_stats=True, seed=13, kv_bits=kv_bits,
+                         kv_zeros=kv_zeros)
+    js, ts = fresh_pools(6, 2, with_stats=False, seed=14, kv_bits=kv_bits,
+                         kv_zeros=kv_zeros)
+    pages_r = np.array([3, -1, 0], np.int32)
+    pages_s = np.array([1, -1, 4], np.int32)
+    slots_r = np.array([5, 9, 100], np.int32)
+    slots_s = np.array([64, 9, 127], np.int32)
+    k = np.array(jnp.asarray(rng.normal(size=(3, 4, D)),
+                             jnp.bfloat16).astype(jnp.float32))
+    v = np.array(jnp.asarray(rng.normal(size=(3, 4, D)),
+                             jnp.bfloat16).astype(jnp.float32))
+    layer = 1
+    jr = append_kv_decode(jr, layer, jnp.asarray(k[:, src_r]),
+                          jnp.asarray(v[:, src_r]), jnp.asarray(pages_r),
+                          jnp.asarray(slots_r), PAGE, kv_bits, kv_zeros,
+                          update_stats=True, sub_chunks=SUB, interpret=True)
+    js = append_kv_decode(js, layer, jnp.asarray(k[:, src_s]),
+                          jnp.asarray(v[:, src_s]), jnp.asarray(pages_s),
+                          jnp.asarray(slots_s), PAGE, kv_bits, kv_zeros,
+                          interpret=True)
+    t = torch.from_numpy
+    out = t_dispatch.append_kv_decode_pools(
+        tr, ts, layer, t(k), t(v), (t(pages_r), t(slots_r), t(src_r)),
+        (t(pages_s), t(slots_s), t(src_s)), PAGE, kv_bits, kv_zeros,
+        update_stats=True, sub_chunks=SUB)
+    assert out[0] is tr and out[1] is ts           # in place
+    keep = slice(0, jr.k_data.shape[1] - 1)         # the trash page out
+    for tpool, jpool in ((tr, jr), (ts, js)):
+        if jpool.kv_scales is not None:
+            np.testing.assert_allclose(tpool.kv_scales.numpy()[:, keep],
+                                       np.asarray(jpool.kv_scales)[:, keep],
+                                       rtol=1e-6)
+        assert_pools_equal(tpool._replace(kv_scales=None),
+                           jpool._replace(kv_scales=None),
+                           skip_pages=(jr.k_data.shape[1] - 1,))
+
+
 # ---------------------------------------------------------------------------
 # A dual-pool fixture: 4 kv heads (2 retrieval, 2 streaming), three sequences
 # ---------------------------------------------------------------------------
