@@ -23,7 +23,12 @@ Phases (any failure raises and exits nonzero before the last line):
    graph replay on weight copies rotated past L2, a flipped weight byte
    and a wrong s2 refused) and the mma.sync body at N % 16 != 0; the
    kv16 and per-tensor modes (the kv16 decode and append, the per-tensor
-   fused decode, kv16 and per-tensor paged prefill);
+   fused decode, kv16 and per-tensor paged prefill); rows 4-9 at GQA
+   groups of 7 (Yi-34B's 56 q heads over 8 kv heads), each beside the same
+   kernel at n_rep 8 on the same KV, the decode rows refusing a dead row's
+   output planted over the next group's first row; rows 4 (append) and 9
+   at Qwen1.5-72B's 64 / 64 heads (n_rep 1) and phase 12's shapes; rows 1
+   and 3 at phase 12's GEMM shapes, with their plans;
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
@@ -33,7 +38,9 @@ Phases (any failure raises and exits nonzero before the last line):
    and reuse graphs) against the eager loop; then under both sparse modes,
    whole-prompt (flash band) and chunked (ring) prefill, kernels against
    plain; the same forwards across the precision matrix (kv16 and
-   per-tensor KV with calibrated scales included);
+   per-tensor KV with calibrated scales included), and the whole-prompt,
+   decode and chunked forwards at phase 12's models' widths (Yi-34B at
+   n_rep 7; Qwen1.5-72B with its QKV bias, whose effect must show);
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
@@ -76,6 +83,12 @@ Phases (any failure raises and exits nonzero before the last line):
     warmup and a measured round): the kv8 and per-tensor modes of rows 4 (band/ring), 5, 7
     (ring) and 10, which phase 2 holds against their plain versions and
     phase 3 runs in 2-layer sparse forwards at both precisions;
+12. phase 5's protocol (a warmup round cut to 32 output tokens, then the
+    measured round) on Yi-34B at batch 64 (GQA groups of 7: row 7 and row
+    4's append at n_rep 7) and Qwen1.5-72B at batch 4 (64 / 64 heads and
+    the QKV bias; its whole-prompt batch through row 9), full width and
+    depth, each with its prefill step, decode tok/s, graphs and peak
+    memory;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -126,6 +139,38 @@ LAYER_GEMMS = [  # (name, K, N) of one layer's W4A8 projections
     ("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
     ("down", 14336, 4096),
 ]
+# Yi-34B (public config.json; mit-han-lab/QServe-benchmarks' stub, as
+# scripts/make_bench_config.py:56-62): 56 q heads over 8 kv heads, GQA
+# groups of 7
+YI_34B = dict(
+    architectures=["LlamaForCausalLM"], hidden_size=7168,
+    intermediate_size=20480, num_attention_heads=56,
+    num_key_value_heads=8, num_hidden_layers=60, vocab_size=64000,
+    rope_theta=5000000.0, max_position_embeddings=4096,
+    rms_norm_eps=1e-5, model_type="llama",
+)
+# Qwen1.5-72B (public config.json; the same stubs, scripts/
+# make_bench_config.py:91-97): 64 / 64 heads and Qwen2's QKV bias
+QWEN15_72B = dict(
+    architectures=["Qwen2ForCausalLM"], hidden_size=8192,
+    intermediate_size=24576, num_attention_heads=64,
+    num_key_value_heads=64, num_hidden_layers=80, vocab_size=152064,
+    rope_theta=1000000.0, max_position_embeddings=32768,
+    rms_norm_eps=1e-6, model_type="qwen2",
+)
+# phase 12's models: (config, batch, one layer's W4A8 projections (name,
+# K, N), the lm_head's (K, N), the GEMMs' M at a decode step and a
+# prefill step: Yi's chunks of 64 x 128 tokens, Qwen's whole prompts of
+# 4 x 1,024)
+FAMILIES = {
+    "Yi-34B": (YI_34B, 64, [("qkv", 7168, 9216), ("o", 7168, 7168),
+                            ("gate_up", 7168, 40960), ("down", 20480, 7168)],
+               (7168, 64000), (64, 8192)),
+    "Qwen1.5-72B": (QWEN15_72B, 4,
+                    [("qkv", 8192, 24576), ("o", 8192, 8192),
+                     ("gate_up", 8192, 49152), ("down", 24576, 8192)],
+                    (8192, 152064), (4, 4096)),
+}
 
 
 def log(*args):
@@ -637,8 +682,9 @@ def layer_row(rows, m):
     )
 
 
-def check_w8a8(dev, gen, m=8):
-    """Row 3 at the lm_head (K=4,096, N=128,256), M rows: equal to its plain
+def check_w8a8(dev, gen, m=8, k=4096, n=128256):
+    """Row 3 at the lm_head (Llama-3-8B's K=4,096, N=128,256 unless given),
+    M rows: equal to its plain
     version (max error 0; a flipped weight byte refused), timed by graph
     replay (the eager time logged beside: the host's per-call cost)."""
     import torch
@@ -647,7 +693,6 @@ def check_w8a8(dev, gen, m=8):
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
-    k, n = 4096, 128256
     x = torch.randn((m, k), generator=gen, device=dev)
     a_i8, a_scale, _ = quantize_activations(x)
     w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
@@ -783,13 +828,16 @@ def check_narrow_gemms(dev, gen):
             f"max_abs_err {gerr:g}")
 
 
-def check_flash(dev, gen):
+def check_flash(dev, gen, hq=32, hkv=8, n_seg=8, ptxas=False):
+    """Row 9 on ``n_seg`` x 1,024 tokens at ``hq`` / ``hkv`` heads
+    (Llama-3-8B's 32 / 8 by default; Yi-34B's 56 / 8, Qwen1.5-72B's 64 /
+    64); ``ptxas``: log ptxas's registers and spills of its source."""
     import torch
     import torch.nn.functional as F
 
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
 
-    n_seg, seg_len, hq, hkv, d = 8, 1024, 32, 8, 128
+    seg_len, d = 1024, 128
     t = n_seg * seg_len
     q = torch.randn((t, hq, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -818,23 +866,25 @@ def check_flash(dev, gen):
         f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
         f"library_ms {lib:.4f} max_abs_err {err:.3g}; "
         f"{rate_note(ops, ms, bnd)}")
-    for line in ptxas_report("flash_prefill.cu"):
-        log(f"    ptxas {line}")
+    if ptxas:
+        for line in ptxas_report("flash_prefill.cu"):
+            log(f"    ptxas {line}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib, max_abs_err=err)
 
 
 def decode_append_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100,
-                         kv_bits=4, per_tensor=False):
-    """Row 4's fused append over a dense list: kv4 or kv8 pages (8 kv
-    heads, n_rep 4, pages of 128, lengths drawn from [lens_from, lens_to]),
+                         kv_bits=4, per_tensor=False, n_rep=4, hkv=8):
+    """Row 4's fused append over a dense list: kv4 or kv8 pages (``hkv`` kv
+    heads, ``n_rep`` q heads each, pages of 128, lengths drawn from
+    [lens_from, lens_to]),
     fine-grained or (``per_tensor``) per-tensor with scales calibrated on
     this call's new K/V, so the codes span their range. Returns (args, kw,
     pt scales or None): ``fused(*args, **kw)`` and ``fused_plain`` on a
     clone of args[1], with ``kv_zeros`` added."""
     import torch
 
-    hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
+    d, page, layers = 128, 128, 2
     lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
                          device=dev).to(torch.int32)
     w = int((int(lens.max()) + page - 1) // page)
@@ -856,17 +906,18 @@ def decode_append_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100,
 
 
 def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
-                 per_tensor=False):
+                 per_tensor=False, n_rep=4, hkv=8):
     """The fused decode (row 4's append mode) over a dense list: kv4 or kv8
     pages, fine-grained or (``per_tensor``) per-tensor with scales
-    calibrated on this run's new K/V, so the codes span their range. Timed
-    by graph replay (re-appending the same token writes the same bytes)."""
+    calibrated on this run's new K/V, so the codes span their range, at
+    ``hkv`` kv heads of ``n_rep`` q heads. Timed by graph replay
+    (re-appending the same token writes the same bytes)."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
     args, kw, pt = decode_append_inputs(dev, gen, b, lens_from, lens_to,
-                                        kv_bits, per_tensor)
+                                        kv_bits, per_tensor, n_rep, hkv)
     q, pool_k, layer, tables, lens, k_new, v_new = args
     b, hq, d = q.shape
     hkv = k_new.shape[1]
@@ -927,15 +978,16 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
                 library_ms=None, max_abs_err=err)
 
 
-def decode_kv16_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100):
+def decode_kv16_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100,
+                       n_rep=4):
     """Row 6's kv16 call over the dense list of a bf16 pool (8 kv heads,
-    n_rep 4, pages of 128, lengths drawn from [lens_from, lens_to]):
-    (args, kw, tables)."""
+    ``n_rep`` q heads each, pages of 128, lengths drawn from [lens_from,
+    lens_to]): (args, kw, tables)."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    hkv, n_rep, d, page, layers = 8, 4, 128, 128, 2
+    hkv, d, page, layers = 8, 128, 128, 2
     lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
                          device=dev).to(torch.int32)
     w = int((int(lens.max()) + page - 1) // page)
@@ -1088,9 +1140,10 @@ def pools_equal(got, want, what, skip_trash=False) -> float:
 
 
 def dense_chunk_inputs(dev, gen, kv_bits=4, per_tensor=False, b=128,
-                       history=896, tc=128, page=128):
+                       history=896, tc=128, page=128, n_rep=4):
     """Chunked prefill's last chunk over a dense table: ``b`` sequences x
-    ``tc`` chunk tokens after ``history`` tokens, Llama-3-8B heads, pages
+    ``tc`` chunk tokens after ``history`` tokens, 8 kv heads of ``n_rep``
+    q heads each (Llama-3-8B's 4, Yi-34B's 7), pages
     of ``page`` tokens, the tables a permutation of the pool's pages; a
     kv4 or kv8 pool, fine-grained or (``per_tensor``, random codes over
     their whole range, scales 3.5 / qmax) per-tensor, or a kv16 pool.
@@ -1098,7 +1151,7 @@ def dense_chunk_inputs(dev, gen, kv_bits=4, per_tensor=False, b=128,
     needs)."""
     import torch
 
-    hkv, n_rep, d = 8, 4, 128
+    hkv, d = 8, 128
     ctx_len = history + tc
     w = -(-ctx_len // page)
     pt = None
@@ -1765,15 +1818,15 @@ def list_library_inputs(q, pool, layer, sel_phys, sel_logic, lengths, page,
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16), valid
 
 
-def decode_ph_inputs(dev, gen, b, mode="kv4"):
+def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4):
     """Dynamic-sparse decode at the LServe path's shape: 4 retrieval heads,
-    n_rep 4, a budget of 32 pages out of a 32K-token context (257 pages, the
-    last one partly filled): the newest page first, then 31 others in no
-    order, a different list per head; a 2-layer pool but under kv4 (layer
-    1 read). Returns (args, kw)."""
+    ``n_rep`` q heads each, a budget of 32 pages out of a 32K-token
+    context (257 pages, the last one partly filled): the newest page
+    first, then 31 others in no order, a different list per head; a
+    2-layer pool but under kv4 (layer 1 read). Returns (args, kw)."""
     import torch
 
-    hr, n_rep, d, page, budget = 4, 4, 128, 128, 32
+    hr, d, page, budget = 4, 128, 128, 32
     ctx_pages = 257
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
@@ -1822,8 +1875,9 @@ def check_decode_ph(dev, gen, b, mode="kv4"):
             q, pool, layer, sel_phys, sel_logic, lens, page))
 
 
-def decode_band_inputs(dev, gen, b, mode="kv4"):
-    """The streaming call at the LServe path's shape: 4 streaming heads, the
+def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4):
+    """The streaming call at the LServe path's shape: 4 streaming heads
+    (``n_rep`` q heads each), the
     compact list of 1 sink page + 2 ring pages after the ring has wrapped
     (32K-token contexts), band = 128 sink tokens + the last 256. Returns
     (args, kw)."""
@@ -1831,7 +1885,7 @@ def decode_band_inputs(dev, gen, b, mode="kv4"):
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    hs, n_rep, d, page = 4, 4, 128, 128
+    hs, d, page = 4, 128, 128
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
     layers = 1 if mode == "kv4" else 2
@@ -1873,6 +1927,271 @@ def check_decode_band(dev, gen, b, mode="kv4"):
             q, pool, layer, sel_phys, sel_logic, lens, page,
             **{k: v for k, v in kw.items() if k != "sm_scale"
                and k != "page_size"}))
+
+
+# ---------------------------------------------------------------------------
+# phase 2: GQA groups of 7 (Yi-34B) and the GEMM shapes of phase 12's models
+# ---------------------------------------------------------------------------
+
+
+def dead_row_written(want, uniform):
+    """A planted fault: the plain output [B, H, n_rep, D] as a decode kernel
+    whose first dead row wrote its result would leave it. Row n_rep of
+    block (b, h) is flat row (b, h + 1, 0), and a dead row scores a zero q,
+    so it holds the mean of the live V rows of kv head h (``uniform``: the
+    plain version at q = 0)."""
+    b, h, n_rep, d = want.shape
+    w = want.reshape(b * h, n_rep, d).clone()
+    w[1:, 0] = uniform.reshape(b * h, n_rep, d)[:-1, 0]
+    return w.view(b, h, n_rep, d)
+
+
+def widen_group(q4):
+    """q [B, H, 7, D] -> [B, H, 8, D]: one more q row a group (its first
+    again), so the kernel at n_rep 8 reads the same KV."""
+    import torch
+
+    return torch.cat([q4, q4[:, :, :1]], dim=2).contiguous()
+
+
+def gqa_row(label, call, plain, q4, n_bytes, ops, tol, library=None,
+            planted=True):
+    """One kernel at n_rep 7 (``call(q4)`` / ``plain(q4)``, q4 [B, H, 7,
+    D]) against its plain version at atol = rtol = ``tol``; with
+    ``planted`` that gate refuses a dead row's output written over the
+    next group's first row (``dead_row_written``). Timed by graph replay
+    at n_rep 7 and, on the same KV, at n_rep 8 (``widen_group``; also
+    within ``tol`` of its plain version). ``library()`` gives SDPA's ms
+    on the same inputs, or None. Returns the kernels-line entry, with the
+    n_rep 8 time beside."""
+    import torch
+
+    got, want = call(q4), plain(q4)
+    faults = []
+    if planted:
+        faults = [("a dead row's output over the next group's first row",
+                   dead_row_written(want.view(q4.shape), plain(
+                       torch.zeros_like(q4)).view(q4.shape)).view(
+                           want.shape))]
+    # no per-row limit here (math.inf): the element gate alone refuses
+    err, _ = hold(got, want, tol, tol, math.inf, label, faults)
+    q8 = widen_group(q4)
+    allclose_err(call(q8), plain(q8), tol, tol, f"{label} at n_rep 8")
+    ms = time_graphed_ms(lambda: call(q4), 20)
+    ms8 = time_graphed_ms(lambda: call(q8), 20)
+    plain_ms = time_ms(lambda: plain(q4), 3, warmup=1)
+    lib = None if library is None else library()
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
+    log(f"  {label} n_rep=7: kernel_ms {ms:.4f} (graph replay; n_rep 8 on "
+        f"the same KV {ms8:.4f}, 7 / 8 = {ms / ms8:.3f}) plain_ms "
+        f"{plain_ms:.4f} bound_ms {bnd:.5f} ({by}) library_ms "
+        f"{lib if lib is None else f'{lib:.4f}'} max_abs_err {err:.3g}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err, n_rep8_ms=ms8)
+
+
+def list_sdpa(q4, k, v, valid, d):
+    """SDPA over the listed pages dequantized beforehand (not counted)."""
+    import torch.nn.functional as F
+
+    return lambda: time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=valid[:, :, None, :], scale=d ** -0.5), 20)
+
+
+def check_gqa7(dev, gen):
+    """Rows 4-9 at GQA groups of 7 (Yi-34B's 56 q heads over 8 kv heads),
+    each in the row capacity 8, beside the same kernel at n_rep 8 on the
+    same KV: row 4's fused append (kv4) at phase 12's decode step (B = 64,
+    lengths 1,024-1,536), row 7 at its bench chunk (64 x 128 tokens after
+    896), rows 5 and 4's band at phase 2's LServe shapes, row 6 (kv16) at
+    B = 64, row 8 at the bench chunk (beside row 7), row 9 at 56 / 8 heads.
+    Returns the kernels-line entries of the two that phase 12 launches."""
+    import torch
+
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+
+    entries = {}
+    # row 4's fused append (re-appending the same token writes the same
+    # bytes, so the kernel and the plain version run again and again)
+    args, kw, _ = decode_append_inputs(dev, gen, 64, 1024, 1536, n_rep=7)
+    q, pool, layer, tables, lens, k_new, v_new = args
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    twin = pool.clone()
+    n_tok = float(lens.sum())
+    tok_bytes = d + 16          # kv4 K + V codes and four f32 planes
+    n_bytes = (hkv * (n_tok - b) * tok_bytes + 2 * b * hq * d * 2
+               + 2 * b * hkv * d * 2 + b * hkv * tok_bytes)
+    entries["decode_attention_append_n7"] = gqa_row(
+        f"decode attention+append kv4 B={b} Hkv={hkv} lens "
+        f"{int(lens.min())}-{int(lens.max())} (library: none, it writes "
+        "the pool)",
+        lambda q4: da.paged_decode_attention_fused(
+            q4.reshape(b, -1, d), pool, layer, tables, lens, k_new, v_new,
+            **kw),
+        lambda q4: da.paged_decode_attention_fused_plain(
+            q4.reshape(b, -1, d), twin, layer, tables, lens, k_new, v_new,
+            **kw),
+        q.view(b, hkv, 7, d), n_bytes, 4.0 * d * hq * n_tok, 5e-2)
+    pools_equal(pool, twin, "decode append kv4 n_rep 7")
+    del pool, twin
+    torch.cuda.empty_cache()
+
+    # rows 5 and 4's band over page lists, row 6 over kv16 pages
+    for name, inputs, fn, tp_pages in (
+            ("decode per-head lists kv4 B=8 Hr=4 budget 32 pages of 257",
+             decode_ph_inputs, da.paged_mqa_attention_single_pass_ph, 32),
+            ("decode band+ring kv4 B=8 Hs=4 list 1 sink + 2 ring pages",
+             decode_band_inputs, da.paged_mqa_attention_single_pass, 3)):
+        args, kw = inputs(dev, gen, 8, n_rep=7)
+        q4, pool, layer, sel_phys, sel_logic, lens = args
+        bb, heads, _, d = q4.shape
+        page = kw["page_size"]
+        list_kw = {k: v for k, v in kw.items()
+                   if k not in ("sm_scale", "page_size")}
+        _, k, v, valid = list_library_inputs(q4, pool, layer, sel_phys,
+                                             sel_logic, lens, page, **list_kw)
+        n_read = bb * heads * tp_pages
+        gqa_row(name, lambda qq: fn(qq, *args[1:], **kw),
+                lambda qq: da.page_list_attention_plain(qq, *args[1:], **kw),
+                q4, n_read * page_bytes("kv4", page, d)
+                + 2 * bb * heads * 7 * d * 2,
+                4.0 * d * 7 * n_read * page, 5e-2,
+                library=list_sdpa(q4, k, v, valid, d))
+        del k, v, valid
+    args, kw, tables = decode_kv16_inputs(dev, gen, 64, 1024, 1536, n_rep=7)
+    q4, pool, layer, sel_phys, sel_logic, lens = args
+    bb, heads, _, d = q4.shape
+    k, v, valid = da.page_list_kv(pool, layer, sel_phys, sel_logic, lens,
+                                  heads, page_size=kw["page_size"])
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    del k, v
+    n_tok = float(lens.sum())
+    gqa_row(f"kv16 decode (row 6) B={bb} Hkv={heads} lens "
+            f"{int(lens.min())}-{int(lens.max())}",
+            lambda qq: da.paged_mqa_attention_kv16(qq, *args[1:], **kw),
+            lambda qq: da.page_list_attention_plain(qq, *args[1:], **kw),
+            q4, heads * n_tok * d * 4 + 2 * bb * heads * 7 * d * 2,
+            4.0 * d * 7 * heads * n_tok, KV16_TOL,
+            library=list_sdpa(q4, kb, vb, valid, d))
+    del pool, kb, vb, valid
+    torch.cuda.empty_cache()
+
+    # row 7 at the bench chunk of Yi-34B's chunked prefill (dead rows
+    # 126, 127 of each block write nothing: a plain output with them
+    # written would hold the next block's first token, computed over the
+    # same keys, so no planted fault can tell; the rows are compared)
+    args, kw, label, n_bytes, pairs = dense_chunk_inputs(
+        dev, gen, 4, False, b=64, n_rep=7)
+    q, pool, layer, tables, q_pos, ctx = args
+    bb, tc, hq, d = q.shape
+    hkv = pool.num_heads
+
+    def prefill(qq):
+        return pp.paged_prefill_attention(
+            qq.reshape(bb, tc, -1, d), pool, layer, tables, q_pos, ctx, **kw)
+
+    def prefill_plain(qq):
+        return pp.paged_prefill_attention_plain(
+            qq.reshape(bb, tc, -1, d), pool, layer, tables, q_pos, ctx, **kw)
+
+    q4 = q.view(bb * tc, hkv, 7, d)
+    err = allclose_err(prefill(q4), prefill_plain(q4), 2e-2, 2e-2,
+                       "paged prefill kv4 n_rep 7")
+    q8 = widen_group(q4)
+    allclose_err(prefill(q8), prefill_plain(q8), 2e-2, 2e-2,
+                 "paged prefill kv4 n_rep 8")
+    ms = time_ms(lambda: prefill(q4), 5, warmup=1)
+    ms8 = time_ms(lambda: prefill(q8), 5, warmup=1)
+    plain = time_ms(lambda: prefill_plain(q4), 1, warmup=0)
+    lib = dense_sdpa_ms(args, kw)
+    ops = 4.0 * d * hq * pairs
+    bnd, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
+    log(f"  paged prefill {label} B={bb} Tc={tc} history="
+        f"{int(q_pos[0, 0])} Hq={hq} Hkv={hkv} n_rep=7 (18 tokens a block, "
+        f"rows 126-127 dead): kernel_ms {ms:.4f} (n_rep 8 on the same KV "
+        f"{ms8:.4f}, 7 / 8 = {ms / ms8:.3f}) plain_ms {plain:.4f} bound_ms "
+        f"{bnd:.4f} ({by}) library_ms "
+        f"{lib if lib is None else f'{lib:.4f}'} (SDPA over pre-dequantized "
+        f"K/V) max_abs_err {err:.3g}; {rate_note(ops, ms, bnd)}")
+    entries["paged_prefill_attention_n7"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        max_abs_err=err, n_rep8_ms=ms8)
+    del pool, args
+    torch.cuda.empty_cache()
+    check_single_pass_dense(dev, gen, b=64, n_rep=7)
+    check_flash(dev, gen, hq=56, hkv=8)
+    return entries
+
+
+def check_mha_rows(dev, gen):
+    """Rows 4 and 9 at the shapes phase 12's Qwen1.5-72B round gives them
+    (64 q heads over 64 kv heads, n_rep 1, in the row capacity 1): row
+    4's fused append (kv4) at the decode step (B = 4, lengths 1,024 -
+    1,536) and row 9 on the whole-prompt batch (4 x 1,024 tokens), each
+    against its plain version at its gate. Returns their kernels-line
+    entries."""
+    return {
+        "decode_attention_append_mha": check_decode(
+            dev, gen, b=4, lens_from=1024, lens_to=1536, n_rep=1, hkv=64),
+        "flash_prefill_mha": check_flash(dev, gen, hq=64, hkv=64, n_seg=4),
+    }
+
+
+def check_family_gemms(dev, gen):
+    """Rows 1 and 3 at the shapes phase 12's models give them (FAMILIES):
+    each layer projection of the per-channel body at the decode step's M
+    (graph replay on weight copies rotated past the 50 MB L2) and the
+    prefill step's M, equal to its plain version within 1e-5, with its
+    plan; then the W8A8 lm_head at the decode M (``check_w8a8``)."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    for family, (_, _, gemms, (hk, hn), m_steps) in FAMILIES.items():
+        for m in m_steps:
+            total = bound_total = 0.0
+            for name, k, n in gemms:
+                a_i8, a_scale, a_sum = quantize_activations(
+                    torch.randn((m, k), generator=gen, device=dev),
+                    fuse_sum=True)
+                n_copies = (max(1, math.ceil(120e6 / (k // 2 * n)))
+                            if m <= 128 else 1)
+                qws = [torch.randint(0, 256, (k // 2, n), generator=gen,
+                                     dtype=torch.uint8, device=dev)
+                       for _ in range(n_copies)]
+                s1 = torch.empty(n, device=dev).uniform_(0.003, 0.006,
+                                                         generator=gen)
+                sz = 8.0 * s1
+                got = qm.w4a8_matmul_per_channel(
+                    a_i8, qws[0], s1, sz, a_scale, a_sum,
+                    out_dtype=torch.float32)
+                want = qm.w4a8_matmul_per_channel_plain(
+                    a_i8, qws[0], s1, sz, a_scale, a_sum,
+                    out_dtype=torch.float32)
+                err = allclose_err(got, want, 1e-5, 1e-5,
+                                   f"{family} w4a8 {name} M={m}")
+                del got, want
+                ms = time_gemm_ms(lambda w: qm.w4a8_matmul_per_channel(
+                    a_i8, w, s1, sz, a_scale, a_sum), qws, m)
+                n_bytes = m * k + k // 2 * n + 8 * n + 8 * m + 2 * m * n
+                bnd, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+                total += ms
+                bound_total += bnd
+                plan = qm.channel_plan(m, n, k, cuda.sm_count(dev))
+                log(f"  {family} w4a8 {name:7s} M={m:5d} K={k:5d} N={n:5d}: "
+                    f"kernel_ms {ms:.4f} bound_ms {bnd:.4f} ({by}) "
+                    f"max_abs_err {err:.3g}; {plan_note(plan)}; "
+                    f"{100 * bnd / ms:.1f}% of the bound")
+                del qws
+            log(f"  {family} w4a8 layer of 4 GEMMs M={m}: kernel_ms "
+                f"{total:.4f} bound_ms {bound_total:.4f} = "
+                f"{100 * bound_total / total:.1f}% of the bound")
+        check_w8a8(dev, gen, m=m_steps[0], k=hk, n=hn)
+        torch.cuda.empty_cache()
 
 
 def time_selector(dev, gen):
@@ -2095,21 +2414,23 @@ def calibrate_kv_scales(spec, params, batch, n_pages, dev):
                  for x in (pool.k_data, pool.v_data))
 
 
-def precision_spec(precision, num_layers=2):
-    """Llama-3-8B's widths at ``num_layers`` layers and one precision of
-    ``PRECISIONS`` (a w8a8 lm_head)."""
+def precision_spec(precision, num_layers=2, geometry=None):
+    """The widths of ``geometry`` (a config of this file; Llama-3-8B's by
+    default) at ``num_layers`` layers and one precision of ``PRECISIONS``
+    (a w8a8 lm_head; the QKV bias where the config is Qwen2's)."""
     from omniserve_tpu_torch.models import llama
 
-    g = LLAMA3_8B
+    g = LLAMA3_8B if geometry is None else geometry
     wb, ab, gs, kv, zeros = PRECISIONS[precision]
     return llama.LlamaSpec(
         num_layers=num_layers, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"],
         num_kv_heads=g["num_key_value_heads"], head_dim=128,
-        vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
-        lm_head_bits=8, weight_bits=wb, act_bits=ab, group_size=gs,
-        kv_bits=kv, kv_zeros=zeros,
+        vocab=g["vocab_size"], rope_base=g["rope_theta"],
+        rms_eps=g["rms_norm_eps"], page_size=128, lm_head_bits=8,
+        weight_bits=wb, act_bits=ab, group_size=gs, kv_bits=kv,
+        kv_zeros=zeros, attn_bias=g["model_type"] == "qwen2",
     )
 
 
@@ -2153,16 +2474,20 @@ def next_decode_batch(logits, prompts, tables, dev):
     )
 
 
-def check_forward(dev, precision="w4a8kv4", with_floor=False):
+def check_forward(dev, precision="w4a8kv4", with_floor=False, family=None):
     """Whole-prompt prefill and one decode step of a 2-layer full-width
-    forward, kernels against plain (``with_floor``: the gate of a body
-    whose logits move under one-ulp attention nudges). Returns (spec,
-    params, prompts, tables, kv_scales)."""
+    forward (Llama-3-8B's widths, or those of phase 12's ``family``),
+    kernels against plain (``with_floor``: the gate of a body whose logits
+    move under one-ulp attention nudges). A biased spec's plain forward
+    without its bias must move the prefill logits by more than the kernels
+    do. Returns (spec, params, prompts, tables, kv_scales)."""
     import torch
 
     from omniserve_tpu_torch.models import llama
 
-    spec = precision_spec(precision)
+    spec = precision_spec(
+        precision, geometry=None if family is None else FAMILIES[family][0])
+    label = precision if family is None else f"{family} {precision}"
     params = llama.make_random_packed_params(spec, seed=1, device=dev)
     prompts, tables, pre, n_pages = forward_batch(spec, dev)
     lens = [len(p) for p in prompts]
@@ -2170,7 +2495,7 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
     kv_scales = None
     if kv < 16 and not zeros:
         kv_scales = calibrate_kv_scales(spec, params, pre, n_pages, dev)
-        log(f"  forward {precision}: calibrated K scales "
+        log(f"  forward {label}: calibrated K scales "
             f"{[round(float(x), 6) for x in kv_scales[0]]}, V scales "
             f"{[round(float(x), 6) for x in kv_scales[1]]}")
     results = {}
@@ -2186,7 +2511,7 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
             results[mode] = dict(prefill=lp, pool=pool, t_pre=t_pre)
     if with_floor:
         share = flash_flip_share(spec, params, pre)
-        log(f"  forward {precision}: flash prefill's bf16 outputs differ "
+        log(f"  forward {label}: flash prefill's bf16 outputs differ "
             f"from the plain version's in {share:.3g} of layer 0's "
             f"elements (floor nudge rate {ATTN_ULP_RATE:g})")
     # one decode step from the same next tokens
@@ -2202,26 +2527,42 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
         a, b_ = results["kernels"][step], results["plain"][step]
         if not bool(torch.isfinite(a).all()) or a.shape != (len(lens),
                                                             spec.vocab):
-            raise AssertionError(f"forward {precision} {step}: bad logits "
+            raise AssertionError(f"forward {label} {step}: bad logits "
                                  f"{a.shape}")
         scale = float(b_.abs().max())
         err = float((a - b_).abs().max())
         agree = float((a.argmax(-1) == b_.argmax(-1)).float().mean())
         by_results = {m: {step: results[m][step]} for m in modes}
         rtol, floor = logits_bound(by_results, step, scale, with_floor)
-        log(f"  forward {precision} 2 layers {step}: max |logit| "
+        log(f"  forward {label} 2 layers {step}: max |logit| "
             f"{scale:.4g}, max abs "
             f"diff kernels vs plain {err:.4g} ({err / scale:.3g} of max), "
             f"argmax agreement {agree:.2f}"
             + ("" if floor is None else
                f"; floor {floor:.3g} of max, bound {rtol:.3g}"))
         if err > rtol * scale:
-            raise AssertionError(f"forward {precision} {step}: logits differ "
+            raise AssertionError(f"forward {label} {step}: logits differ "
                                  f"by {err} > "
                                  f"{rtol} x {scale}")
+    if spec.attn_bias:     # the bias is in both runs: leaving it out shows
+        unbiased = dataclasses.replace(spec, attn_bias=False)
+        with _mode_ctx("plain"), torch.inference_mode():
+            lu, _, _, _ = llama.llama_forward(
+                params, forward_pool(spec, n_pages, dev, kv_scales), None,
+                pre, unbiased, is_prefill=True)
+        b_, a = results["plain"]["prefill"], results["kernels"]["prefill"]
+        scale = float(b_.abs().max())
+        moved = float((lu - b_).abs().max()) / scale
+        err = float((a - b_).abs().max()) / scale
+        log(f"  forward {label}: the QKV bias left out moves the prefill "
+            f"logits by {moved:.3g} of max (kernels vs plain {err:.3g})")
+        if moved <= err:
+            raise AssertionError(f"forward {label}: the bias moves the "
+                                 f"logits by {moved} <= the kernels' {err}")
+        del lu
     kp, pp = results["kernels"]["pool"], results["plain"]["pool"]
     diff = float((kp.k_data != pp.k_data).float().mean())
-    log(f"  forward {precision} pools: fraction of K code bytes that differ "
+    log(f"  forward {label} pools: fraction of K code bytes that differ "
         f"{diff:.3g} (layer 0 identical: "
         f"{bool(torch.equal(kp.k_data[0], pp.k_data[0]))})")
     log(f"  logits tolerance: {LOGITS_RTOL} x max|logit| -- the two runs "
@@ -2229,7 +2570,7 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False):
         "order (bf16 outputs can differ by one ulp), and the next int8 "
         "activation quantization turns such a ulp into a code step of "
         "1/127 of the row max on a few elements")
-    log(f"  {precision} prefill wall (2 layers, T={sum(lens)}): kernels "
+    log(f"  {label} prefill wall (2 layers, T={sum(lens)}): kernels "
         f"{results['kernels']['t_pre'] * 1e3:.1f} ms, plain "
         f"{results['plain']['t_pre'] * 1e3:.1f} ms (first call, host clock)")
     return spec, params, [p.tolist() for p in prompts], tables, kv_scales
@@ -2673,6 +3014,34 @@ def check_precision_forwards(dev):
         torch.cuda.empty_cache()
 
 
+# the kernels phase 12's models launch in a 2-layer whole-prompt and
+# chunked forward (Yi-34B's decode step at n_rep 7, Qwen1.5-72B's at 1)
+FAMILY_FORWARD_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                          "flash_prefill", "paged_prefill_attention",
+                          "decode_attention_append")
+
+
+def check_family_forwards(dev):
+    """Phase 12's models at full width, depth 2, w4a8kv4: whole-prompt
+    prefill, a decode step and a chunked prefill, kernels against plain
+    (Qwen1.5-72B with its QKV bias, whose effect must show); each run
+    must launch FAMILY_FORWARD_KERNELS."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+
+    for family in FAMILIES:
+        cuda.reset_launch_counts()
+        spec, params, prompts, tables, _ = check_forward(dev, family=family)
+        check_chunked_forward(dev, spec, params, prompts, tables)
+        idle = [k for k in FAMILY_FORWARD_KERNELS if cuda.LAUNCHES[k] <= 0]
+        if idle:
+            raise AssertionError(f"{family} forwards launched no {idle}")
+        del spec, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full width
 # ---------------------------------------------------------------------------
@@ -2871,7 +3240,7 @@ BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
 def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
               multi=32, precision="w4a8kv4", group_size=-1,
               kernels=BENCH_KERNELS, trace=True, granularity="fine_grained",
-              stats=None):
+              stats=None, model=("llama3-8b", LLAMA3_8B), warmup_gen=None):
     """``bench.py``'s engine protocol on the port: static batch 128, 1024
     prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
     ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
@@ -2882,7 +3251,10 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     have launched in it. Then, with ``trace``, a
     fresh batch's chunked prefill step and one 32-step window under the
     profiler. ``stats`` (a dict) receives the last round's prefill step
-    ms, decode tok/s, graphs captured and the peak device memory."""
+    ms, decode tok/s, graphs captured and the peak device memory.
+    ``model`` = (directory name, config.json) of the model (Llama-3-8B
+    unless given); ``warmup_gen`` cuts the warmup round's output to that
+    many tokens."""
     import torch
 
     from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
@@ -2895,7 +3267,8 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
-        model=write_model_dir(), precision=precision, group_size=group_size,
+        model=write_model_dir(*model), precision=precision,
+        group_size=group_size,
         kv_quant_granularity=granularity, load_format="dummy",
         lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
         block_size=128, ifb_mode=False, benchmarking_mode=True,
@@ -2908,7 +3281,7 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     pool = engine.worker.model_runner.cache_engine.retrieval_pool
     pool_gib = sum(t.numel() * t.element_size() for t in pool
                    if t is not None) / 2**30
-    log(f"  engine built in {time.time() - t0:.1f} s ({precision}"
+    log(f"  engine built in {time.time() - t0:.1f} s ({model[0]}, {precision}"
         f"{f' g{group_size}' if group_size > 0 else ''}"
         f"{' per-tensor' if granularity == 'per_tensor' else ''}); device "
         "memory "
@@ -2937,16 +3310,18 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         graphs_before = runner.graphs_captured
         sampler = (card_samples(f"round {r + 1}") if r == rounds - 1
                    else contextlib.nullcontext())
+        warm = rounds > 1 and r == 0
+        n_gen = warmup_gen if warm and warmup_gen else gen_len
         with sampler:
-            toks_per_s = run_round(engine, batch, prompt_len, gen_len)
+            toks_per_s = run_round(engine, batch, prompt_len, n_gen)
             sync(dev)
         launches = dict(cuda.LAUNCHES)
         lens = [len(g.get_seqs()[0].data.output_token_ids) for g in groups]
-        if len(groups) != batch or set(lens) != {gen_len} or not all(
+        if len(groups) != batch or set(lens) != {n_gen} or not all(
                 g.is_finished() for g in groups):
             raise AssertionError(f"round {r + 1}: {len(groups)} requests, "
                                  f"output lengths {sorted(set(lens))}")
-        vocab = LLAMA3_8B["vocab_size"]
+        vocab = model[1]["vocab_size"]
         if not all(0 <= t < vocab for g in groups
                    for t in g.get_seqs()[0].data.output_token_ids):
             raise AssertionError(f"round {r + 1}: token out of vocab")
@@ -2955,8 +3330,8 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
             "paged_prefill_kv16", "paged_prefill_pt",
             "paged_prefill_single_pass", "paged_prefill_single_pass_kv8",
             "paged_prefill_single_pass_pt")) // n_layers
-        warm = rounds > 1 and r == 0
-        log(f"  round {r + 1}{' (warmup)' if warm else ''}: prefill step "
+        log(f"  round {r + 1}{' (warmup)' if warm else ''}: {batch} x "
+            f"{prompt_len} in / {n_gen} out; prefill step "
             f"{step_s[0] * 1e3:.1f} ms ({batch * prompt_len / step_s[0]:.0f} "
             f"prompt tok/s, {n_chunks} chunks); decode "
             f"{toks_per_s:.1f} tok/s ({sum(step_s[1:]) * 1e3:.1f} ms for "
@@ -2968,9 +3343,10 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
                          graphs=runner.graphs_captured - graphs_before)
     if stats is not None:
         stats["peak_gib"] = device_gib(dev, torch.cuda.max_memory_allocated)
-    log(f"  {batch} requests x {gen_len} tokens each in every round; graphs "
-        f"held {len(runner._ms_fn_cache)}, captured {runner.graphs_captured} "
-        f"in {runner.graph_capture_s:.2f} s; peak device memory "
+    log(f"  {batch} requests, each with its token count, in every round; "
+        f"graphs held {len(runner._ms_fn_cache)}, captured "
+        f"{runner.graphs_captured} in {runner.graph_capture_s:.2f} s; peak "
+        "device memory "
         f"{device_gib(dev, torch.cuda.max_memory_allocated):.2f} GiB")
     log(f"  launches in the measured round: {json.dumps(launches)}")
     missing = [k for k in kernels if launches[k] <= 0]
@@ -3487,13 +3863,14 @@ def check_single_pass(label, args, kw, n_bytes, ops, library, reps=3,
 
 
 def check_single_pass_dense(dev, gen, kv_bits=4, per_tensor=False, b=128,
-                            history=896, tc=128, band=False, page=128):
+                            history=896, tc=128, band=False, page=128,
+                            n_rep=4):
     """Row 8 over ``dense_chunk_inputs`` (with ``band``: kv heads 4-7
     streaming, phase 7's ctx band of 128 sink + 8,192 local tokens)."""
     import torch
 
     args, kw, label, n_bytes, pairs = dense_chunk_inputs(
-        dev, gen, kv_bits, per_tensor, b, history, tc, page)
+        dev, gen, kv_bits, per_tensor, b, history, tc, page, n_rep)
     q = args[0]
     hq, d = q.shape[2], q.shape[3]
     hkv = args[1].num_heads
@@ -3739,6 +4116,53 @@ def run_lserve_kv_modes(dev):
     return {**a, **b}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the reference's two other headline models at full width
+# ---------------------------------------------------------------------------
+
+# the kernels each model's protocol launches: Yi-34B prefills in chunks of
+# 64 x 128 tokens (row 7 at n_rep 7, decode row 4 at n_rep 7); Qwen1.5-72B's
+# 4 x 1,024 prompt tokens fit one 8,192-token budget, so they prefill whole
+# through row 9 (n_rep 1), and row 4 decodes at n_rep 1
+FAMILY_KERNELS = {
+    "Yi-34B": ("w4a8_matmul_per_channel", "w8a8_matmul",
+               "paged_prefill_attention", "decode_attention_append"),
+    "Qwen1.5-72B": ("w4a8_matmul_per_channel", "w8a8_matmul",
+                    "flash_prefill", "decode_attention_append"),
+}
+
+
+def run_families(dev):
+    """``bench.py``'s protocol (w4a8kv4, 1,024 in / 512 out, chunks of
+    8,192, 32-step windows, w8a8 lm_head) on Yi-34B at batch 64 and
+    Qwen1.5-72B at batch 4 (the reference's L40S batches), full width and
+    depth, random weights from a seed: a warmup round cut to 32 output
+    tokens, then the measured round, each request with its token count and
+    each of FAMILY_KERNELS launched. Returns {model: (launches, stats)}."""
+    import torch
+
+    out = {}
+    for family, (config, batch, *_) in FAMILIES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {family}: {config['num_hidden_layers']} layers, hidden "
+            f"{config['hidden_size']}, {config['num_attention_heads']} / "
+            f"{config['num_key_value_heads']} heads, vocab "
+            f"{config['vocab_size']}, batch {batch}; device memory before "
+            f"the engine {device_gib(dev, torch.cuda.memory_allocated):.2f} "
+            "GiB")
+        stats = {}
+        launches = run_bench(dev, batch=batch, kernels=FAMILY_KERNELS[family],
+                             trace=False, stats=stats,
+                             model=(family.lower(), config), warmup_gen=32)
+        out[family] = (launches, stats)
+        log(f"  {family} measured round: prefill step "
+            f"{stats['prefill_ms']:.1f} ms, decode {stats['decode_tps']:.1f} "
+            f"tok/s, graphs {stats['graphs']}, peak device memory "
+            f"{stats['peak_gib']:.2f} GiB")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3788,7 +4212,7 @@ def main() -> int:
         "w4a8_matmul_per_channel": layer_row(gemm_rows, 8192),
         "w4a8_matmul_per_group": layer_row(group_rows, 8192),
         "w8a8_matmul": check_w8a8(dev, gen),
-        "flash_prefill": check_flash(dev, gen),
+        "flash_prefill": check_flash(dev, gen, ptxas=True),
         "decode_attention_append": check_decode(dev, gen),
         "decode_attention_append_kv8": check_decode(dev, gen, kv_bits=8),
         "decode_attention_append_pt": check_decode(dev, gen, kv_bits=8,
@@ -3846,6 +4270,10 @@ def main() -> int:
         check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", mode)
     for line in ptxas_report("kv_append.cu"):
         log(f"    ptxas {line}")
+    # GQA groups of 7 beside n_rep 8, and phase 12's GEMM shapes
+    kernels.update(check_gqa7(dev, gen))
+    kernels.update(check_mha_rows(dev, gen))
+    check_family_gemms(dev, gen)
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables, _ = check_forward(dev)
@@ -3855,6 +4283,7 @@ def main() -> int:
     del spec, params, pool
     torch.cuda.empty_cache()
     check_precision_forwards(dev)
+    check_family_forwards(dev)
     check_sparse_forward(dev)
     torch.cuda.empty_cache()
     check_sparse_prefill_forward(dev)
@@ -3921,6 +4350,17 @@ def main() -> int:
     lserve_kv = run_lserve_kv_modes(dev)
     launches.update({k: lserve_kv[k] for k in LSERVE_KV_KERNELS})
     phase_done("phase 11")
+    log("phase 12: bench protocol on Yi-34B (batch 64, GQA groups of 7) and "
+        "Qwen1.5-72B (batch 4, QKV bias), full width and depth, through "
+        "qserve_benchmark.run_round")
+    families = run_families(dev)
+    yi = families["Yi-34B"][0]     # every launch of these is at n_rep 7
+    launches["decode_attention_append_n7"] = yi["decode_attention_append"]
+    launches["paged_prefill_attention_n7"] = yi["paged_prefill_attention"]
+    qwen = families["Qwen1.5-72B"][0]   # every launch of these is at 64 / 64
+    launches["decode_attention_append_mha"] = qwen["decode_attention_append"]
+    launches["flash_prefill_mha"] = qwen["flash_prefill"]
+    phase_done("phase 12")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -4000,6 +4440,21 @@ def main() -> int:
         "embed_gather": (
             "omniserve_tpu_torch/csrc/embed_gather.cu",
             "omniserve_tpu/ops/pallas/embed_gather.py:46"),
+        # n_rep 7 (Yi-34B): phase 2's entries, phase 12's launches
+        "decode_attention_append_n7": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "paged_prefill_attention_n7": (
+            "omniserve_tpu_torch/csrc/paged_prefill.cu",
+            "omniserve_tpu/ops/pallas/paged_prefill.py:268"),
+        # 64 q over 64 kv heads (Qwen1.5-72B): phase 2's entries, phase
+        # 12's launches
+        "decode_attention_append_mha": (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/decode_attention.py:620"),
+        "flash_prefill_mha": (
+            "omniserve_tpu_torch/csrc/flash_prefill.cu",
+            "omniserve_tpu/ops/pallas/flash_attention.py:150"),
     }
     idle = [name for name in meta if launches[name] <= 0]
     if idle:

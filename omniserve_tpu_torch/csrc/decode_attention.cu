@@ -100,6 +100,12 @@
 // band's short lists (entry 3: 1 sink + 2 ring pages) and the append
 // (entry 1) took the split body after A/Bs against their first bodies on
 // an H100 (PERF.md's kernel table, row 4).
+// GQA: a block holds the n_rep q heads of its kv head as the query rows of
+// an instantiation NREP = 1, 2, 4 or 8, the smallest that covers n_rep
+// (row_capacity), so any n_rep up to 8 serves (Yi-34B's 7, Qwen2-1.5B's 6,
+// Qwen2.5-14B's 5). Rows n_rep .. NREP - 1 are dead: zero q columns, no
+// softmax, never stored; the partials hold the live rows only (rows = B *
+// H * n_rep). The bytes, which bound decode, do not grow with them.
 // The file is compiled with --fmad=false (entry 1's codes and planes are
 // bit-identical to the plain append); the FMAs are written as __fmaf_rn.
 
@@ -235,11 +241,12 @@ __device__ __forceinline__ uint32_t nibbles_f16(uint32_t x) {
 // 2 (c % 64), +1 over the tokens of parity c / 64; the two halves are
 // summed here. S = 1: out = acc / l (0 where no token was live) in bf16.
 // S > 1: the f32 partial of split s, acc [S][rows][D] then (m, l)
-// [S][rows][2], rows = B * H * n_rep.
+// [S][rows][2], rows = B * H * n_rep. Only the n_rep live rows of the
+// NREP the block holds are written.
 template <int NREP>
 __device__ __forceinline__ void split_finish(
     float (&acc)[NREP][2], const float* m_s, const float* l_s, float* red,
-    int ctid, size_t row_base, int s, int S, size_t rows,
+    int ctid, size_t row_base, int n_rep, int s, int S, size_t rows,
     __nv_bfloat16* out, float* ws) {
   const int dp = ctid & 63, th = ctid >> 6;
   if (th == 1) {
@@ -253,6 +260,7 @@ __device__ __forceinline__ void split_finish(
   if (th == 1) return;
 #pragma unroll
   for (int r = 0; r < NREP; ++r) {
+    if (r >= n_rep) break;
     const float a0 = acc[r][0] + red[r * D + 2 * dp];
     const float a1 = acc[r][1] + red[r * D + 2 * dp + 1];
     const size_t row = row_base + r;
@@ -305,7 +313,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
     const int* __restrict__ lengths,           // [B]
     __nv_bfloat16* __restrict__ out,           // [B, H, n_rep, D]
     float* __restrict__ ws,                    // S > 1: the partials
-    int H, int page, int Tp, int per_split, float sm_scale) {
+    int H, int n_rep, int page, int Tp, int per_split, float sm_scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align128(smem_raw);
   __shared__ __align__(16) float sc[NREP][KV16_TS];   // scores
@@ -359,12 +367,12 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
   // q as the B operand of S^T = K q^T: column n is q row n (zero past
   // n_rep); k step kk covers head dims 16 kk .. 16 kk + 15
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t row_base = ((size_t)b * H + h) * NREP;
+  const size_t row_base = ((size_t)b * H + h) * n_rep;
   uint32_t qb[D / 16][2];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     qb[kk][0] = qb[kk][1] = 0u;
-    if (g < NREP) {
+    if (g < n_rep) {
       const __nv_bfloat16* qr = q + (row_base + g) * D + 16 * kk + 2 * t4;
       qb[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
       qb[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
@@ -406,12 +414,12 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int t = 16 * warp + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
-          if (r < NREP && t < ts) sc[r][t] = c[e] * sm_scale;
+          if (r < n_rep && t < ts) sc[r][t] = c[e] * sm_scale;
         }
       }
       consumers_sync();
       // online softmax, one warp per query row (ts >= 1: m_new is finite)
-      for (int r = warp; r < NREP; r += NWARP) {
+      for (int r = warp; r < n_rep; r += NWARP) {
         float mx = -INFINITY;
         for (int t = lane; t < ts; t += 32) mx = fmaxf(mx, sc[r][t]);
         mx = warp_max(mx);
@@ -452,8 +460,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
       rg.advance<NSTAGE>();
     }
   }
-  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, s, gridDim.x,
-                     (size_t)gridDim.z * H * NREP, out, ws);
+  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, n_rep, s,
+                     gridDim.x, (size_t)gridDim.z * H * n_rep, out, ws);
 }
 
 // Entries 2 and 3: decode over explicit page lists of a kv4 or kv8 pool.
@@ -582,8 +590,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     const __nv_bfloat16* __restrict__ v_new,
     __nv_bfloat16* __restrict__ out,          // [B, H, n_rep, D]
     float* __restrict__ ws,                   // S > 1: the partials
-    int H, int page, int Tp, int per_split, float sm_scale, int band_sink,
-    int band_local, int ring_span, int ring_sink_tok) {
+    int H, int n_rep, int page, int Tp, int per_split, float sm_scale,
+    int band_sink, int band_local, int ring_span, int ring_sink_tok) {
   constexpr bool KV8 = KV_BITS == 8, FINE = !PT;
   constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
   static_assert(!APPEND || BAND, "the append walks a list shared by heads");
@@ -651,16 +659,16 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     return;
   }
 
-  const size_t row_base = ((size_t)b * H + h) * NREP;
+  const size_t row_base = ((size_t)b * H + h) * n_rep;
 #pragma unroll
   for (int r = 0; r < NREP; ++r)
-    q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
+    if (r < n_rep) q_s[r][tid] = __bfloat162float(q[(row_base + r) * D + tid]);
   if (tid < NREP) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.0f;
   }
   consumers_sync();
-  for (int r = warp; r < NREP; r += NWARP) {
+  for (int r = warp; r < n_rep; r += NWARP) {
     const float4 v = reinterpret_cast<const float4*>(q_s[r])[lane];
     const float sum = warp_sum(v.x + v.y + v.z + v.w);
     if (lane == 0) qsum[r] = sum;
@@ -675,7 +683,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     qb[kk][0] = qb[kk][1] = 0u;
-    if (g < NREP) {
+    if (g < n_rep) {
       const float* qr = &q_s[g][32 * t4 + 4 * kk];
       qb[kk][0] = pack_f16(qr[0], qr[2]);
       qb[kk][1] = pack_f16(qr[1], qr[3]);
@@ -773,7 +781,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = rb + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
-          if (r >= NREP || row >= nrow) continue;
+          if (r >= n_rep || row >= nrow) continue;
 #pragma unroll
           for (int k = 0; k < (KV8 ? 1 : 2); ++k) {
             const int t = row + k * half;      // stage slot
@@ -786,7 +794,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
       }
       consumers_sync();
       // online softmax, one warp per query row; a dead slot's weight is 0
-      for (int r = warp; r < NREP; r += NWARP) {
+      for (int r = warp; r < n_rep; r += NWARP) {
         float mx = -INFINITY;
         for (int t = lane; t < n_pw; t += 32)
           if (mask.live(logic, r0 + t)) mx = fmaxf(mx, sc[r][t]);
@@ -852,8 +860,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
         // 32 w + 4 n + j as column n of n-tile j), 16 stage slots a step; a
         // slot past the stage gets weight 0 and code 0 (a dead slot's
         // weight is 0 and its codes finite)
-        const float al = g < NREP ? alpha_s[g] : 1.0f;
-        const float cs = g < NREP ? c_s[g] * P_SCALE : 0.0f;
+        const float al = g < n_rep ? alpha_s[g] : 1.0f;
+        const float cs = g < n_rep ? c_s[g] * P_SCALE : 0.0f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           acc[j][0] = acc[j][0] * al - cs;
@@ -869,7 +877,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
                                   vst + t * D + 32 * warp + 4 * g)
                             : 0u;
           }
-          if (g < NREP) {
+          if (g < n_rep) {
             float wt[4];
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
@@ -900,12 +908,12 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     }
   }
   if constexpr (!KV8) {
-    split_finish<NREP>(acc, m_s, l_s, red2, tid, row_base, s, gridDim.x,
-                       (size_t)gridDim.z * H * NREP, out, ws);
+    split_finish<NREP>(acc, m_s, l_s, red2, tid, row_base, n_rep, s,
+                       gridDim.x, (size_t)gridDim.z * H * n_rep, out, ws);
   } else {
-    // the end of a split: thread (warp w, g < NREP, t4) holds row g's head
-    // dims 32 w + 8 t4 + i: acc[i % 4][i / 4] times P_SCALE
-    if (g >= NREP) return;
+    // the end of a split: thread (warp w, g < n_rep, t4) holds row g's
+    // head dims 32 w + 8 t4 + i: acc[i % 4][i / 4] times P_SCALE
+    if (g >= n_rep) return;
     float o[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[i] = acc[i & 3][i >> 2] * (1.0f / P_SCALE);
@@ -924,7 +932,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
       }
       *reinterpret_cast<uint4*>(out + row * D + d0) = pk;
     } else {
-      const size_t rows = (size_t)gridDim.z * H * NREP;
+      const size_t rows = (size_t)gridDim.z * H * n_rep;
       const size_t prow = (size_t)s * rows + row;
       float4* dst = reinterpret_cast<float4*>(ws + prow * D + d0);
       dst[0] = make_float4(o[0], o[1], o[2], o[3]);
@@ -991,6 +999,15 @@ int allow_smem(const void* kernel, int bytes) {
   return 0;
 }
 
+// The query rows a block holds for n_rep q heads a kv head: the smallest
+// instantiation (1, 2, 4 or 8) that covers n_rep; 0 past 8. Rows n_rep ..
+// NREP - 1 are dead: zero q columns, never scored into the softmax or
+// stored (decode is bound by KV bytes, which a dead row does not add to).
+int row_capacity(int n_rep) {
+  return n_rep <= 0 ? 0 : n_rep <= 1 ? 1 : n_rep <= 2 ? 2 : n_rep <= 4 ? 4
+                                      : n_rep <= 8 ? 8 : 0;
+}
+
 // S = the number of runs of per_split list entries (one block each)
 int split_count(int Tp, int per_split) {
   return Tp <= 0 ? 1 : (Tp + per_split - 1) / per_split;
@@ -1010,12 +1027,12 @@ using ListKernel = void (*)(const __nv_bfloat16*, const uint8_t*,
                             const uint8_t*, const float*, const float*,
                             const float*, const int*, const int*, const int*,
                             const __nv_bfloat16*, const __nv_bfloat16*,
-                            __nv_bfloat16*, float*, int, int, int, int, float,
-                            int, int, int, int);
+                            __nv_bfloat16*, float*, int, int, int, int, int,
+                            float, int, int, int, int);
 using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                             const __nv_bfloat16*, const int*, const int*,
                             const int*, __nv_bfloat16*, float*, int, int,
-                            int, int, float);
+                            int, int, int, float);
 
 template <int R, bool BAND, bool APPEND>
 ListKernel list_kernel(int kv_bits, bool pt) {
@@ -1052,7 +1069,7 @@ int launch_list(ListMode mode, const void* q, const void* k_data,
   kernel = mode == kAppend ? list_kernel<R, true, true>(kv_bits, pt) \
            : mode == kBand ? list_kernel<R, true, false>(kv_bits, pt)  \
                            : list_kernel<R, false, false>(kv_bits, pt)
-  switch (n_rep) {
+  switch (row_capacity(n_rep)) {
     case 1: PICK(1); break;
     case 2: PICK(2); break;
     case 4: PICK(4); break;
@@ -1074,8 +1091,9 @@ int launch_list(ListMode mode, const void* q, const void* k_data,
       static_cast<const int*>(sel_logic), static_cast<const int*>(lengths),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, page, Tp,
-      per_split, sm_scale, band_sink, band_local, ring_span, ring_sink_tok);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, n_rep,
+      page, Tp, per_split, sm_scale, band_sink, band_local, ring_span,
+      ring_sink_tok);
   return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
 }
 
@@ -1151,7 +1169,7 @@ int launch_decode_attention_kv16(
       !aligned16(k_data) || !aligned16(v_data))
     return (int)cudaErrorInvalidValue;
   Kv16Kernel kernel = nullptr;
-  switch (n_rep) {
+  switch (row_capacity(n_rep)) {
     case 1: kernel = decode_attn_kv16_kernel<1>; break;
     case 2: kernel = decode_attn_kv16_kernel<2>; break;
     case 4: kernel = decode_attn_kv16_kernel<4>; break;
@@ -1167,7 +1185,7 @@ int launch_decode_attention_kv16(
       static_cast<const __nv_bfloat16*>(v_data),
       static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), H, page, Tp, per_split, sm_scale);
+      static_cast<float*>(ws), H, n_rep, page, Tp, per_split, sm_scale);
   return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
 }
 

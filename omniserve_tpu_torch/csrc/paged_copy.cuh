@@ -24,12 +24,25 @@
 // -= ring_span * page, alive only at kp >= ring_sink_tok. A key is live
 // iff kp < ctx and some row of the block may see it (causal, and for a
 // streaming head the sink + local band).
+//
+// Query rows: row rq of a block is GQA rep rq % n_rep of chunk token t0 +
+// rq / n_rep, and a block holds BM / n_rep whole tokens (any n_rep from 1
+// to 8: at n_rep 7, 18 tokens in rows 0-125); the rows past them are dead
+// (row_token).
 
 #pragma once
 
 #include "attn_sm90.cuh"
 
 namespace sm90 {
+
+// The chunk token of query row rq of the block whose first token is t0, or
+// NO_POS for a dead row past the block's BM / n_rep whole tokens: every `t
+// < Tc` test refuses it, so it loads no q row, has no position and stores
+// nothing.
+__device__ __forceinline__ int row_token(int t0, int rq, int n_rep) {
+  return rq < BM / n_rep * n_rep ? t0 + rq / n_rep : NO_POS;
+}
 
 // The walk of one block.
 struct PagedWalk {
@@ -89,7 +102,7 @@ __device__ __forceinline__ void paged_copy_warp(const PagedWalk& w,
   const int cb = (ctx - 1) / page, last_row = (ctx - 1) % page;
   int qlo = NO_POS, qhi = -1;
   for (int r = lane; r < BM; r += 32) {
-    const int t = w.t0 + r / w.n_rep;
+    const int t = row_token(w.t0, r, w.n_rep);
     const int qp = t < w.Tc ? w.q_positions[(size_t)b * w.Tc + t] : -1;
     if (qp >= 0) {
       qlo = min(qlo, qp);

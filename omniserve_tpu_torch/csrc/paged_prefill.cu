@@ -42,7 +42,9 @@
 // Design (the shared core is attn_sm90.cuh): one block per (128 query
 // rows, kv head, sequence), the chunk's last rows (the most keys)
 // launched first; a row is a (token, GQA rep) pair, so the n_rep q heads
-// of one kv head share every K/V tile. Four roles:
+// of one kv head share every K/V tile (BM / n_rep whole tokens a block; at
+// n_rep 3, 5, 6 or 7 the last rows are dead: no q load, no store). Four
+// roles:
 // - a copy warp (paged_copy.cuh, shared with row 8) walks the 64-key
 //   tiles of the table IN PLACE, up to the causal frontier or over a page
 //   list's live slots, and bulk-copies each live tile's codes (and
@@ -279,7 +281,7 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
       // this warpgroup's 64 rows of Q into the swizzled tile: f16, or
       // bf16 as it is under kv16
       const int tw = tid & 127, rq = 64 * wg + (tw >> 1), dh = tw & 1;
-      const int t = t0 + rq / n_rep;
+      const int t = row_token(t0, rq, n_rep);
       const __nv_bfloat16* src =
           q + (((size_t)b * Tc + t) * Hq + h * n_rep + rq % n_rep) * D +
           dh * 64;
@@ -312,7 +314,7 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     int qpos[2];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int t = t0 + (r0 + 8 * hi) / n_rep;
+      const int t = row_token(t0, r0 + 8 * hi, n_rep);
       qpos[hi] = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
     }
     float o0[32], o1[32], s[32];
@@ -355,7 +357,7 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     }
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int rq = r0 + 8 * hi, t = t0 + rq / n_rep;
+      const int rq = r0 + 8 * hi, t = row_token(t0, rq, n_rep);
       const size_t orow =
           ((size_t)b * Tc + min(t, Tc - 1)) * Hq + h * n_rep + rq % n_rep;
       store_row(out + orow * D, o0, o1, hi, l[hi], qpos[hi] < 0, t < Tc,
@@ -375,6 +377,7 @@ extern "C" {
 // kv_bits 4, 8 or 16; k_pt / v_pt: device addresses of the layer's
 // per-tensor scales (kv4 / kv8 without planes), or null. kv4 and kv8,
 // fine-grained or per-tensor, take a page list or flags; kv16 does not.
+// n_rep 1 to 8 (a block holds BM / n_rep whole tokens, paged_copy.cuh).
 // k_data, v_data and planes 16-byte aligned.
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
@@ -387,7 +390,7 @@ int launch_paged_prefill(const void* q, const void* k_data,
                          float sm_scale, int kv_bits, void* stream) {
   const bool sparse = sel_logic != nullptr || flags != nullptr;
   const bool pt = k_pt != nullptr;
-  if (n_rep <= 0 || BM % n_rep || page <= 0 || page % 2 || W <= 0 ||
+  if (n_rep <= 0 || n_rep > 8 || page <= 0 || page % 2 || W <= 0 ||
       (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
       pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||

@@ -40,8 +40,8 @@
 //   context_lens[b] and, for a streaming head (flags[hk] == 0; flags null =
 //   all dense), kp < sink_size or q_pos - kp < local_size. A row with no
 //   visible key gives 0. Out [B, Tc, Hq, D] bf16. page % 128 == 0 and D =
-//   128 (the TPU kernel's supports(), decode_attention.py:67-88); n_rep 1,
-//   2, 4 or 8.
+//   128 (the TPU kernel's supports(), decode_attention.py:67-88); n_rep
+//   1 to 8 (a block holds BM / n_rep whole tokens, paged_copy.cuh).
 //
 // What bounds it: operations (4 * D flops per visible (query, key) pair and
 // q head, against page * D * kv_bits / 4 + 16 * page bytes per kv head and
@@ -303,7 +303,7 @@ __global__ void __launch_bounds__(NT, 1) prefill_single_pass_kernel(
       // this warpgroup's 64 rows of Q into the swizzled tile as they are
       // (bf16), and each row's sum of those values
       const int tw = tid & 127, rq = 64 * wg + (tw >> 1), dh = tw & 1;
-      const int t = t0 + rq / n_rep;
+      const int t = row_token(t0, rq, n_rep);
       const __nv_bfloat16* src =
           q + (((size_t)b * Tc + t) * Hq + h * n_rep + rq % n_rep) * D +
           dh * 64;
@@ -336,7 +336,7 @@ __global__ void __launch_bounds__(NT, 1) prefill_single_pass_kernel(
     float qsum[2];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int t = t0 + (r0 + 8 * hi) / n_rep;
+      const int t = row_token(t0, r0 + 8 * hi, n_rep);
       qpos[hi] = t < Tc ? q_positions[(size_t)b * Tc + t] : -1;
       qsum[hi] = q_sum[r0 + 8 * hi];
     }
@@ -422,7 +422,7 @@ __global__ void __launch_bounds__(NT, 1) prefill_single_pass_kernel(
     }
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int rq = r0 + 8 * hi, t = t0 + rq / n_rep;
+      const int rq = r0 + 8 * hi, t = row_token(t0, rq, n_rep);
       const size_t orow =
           ((size_t)b * Tc + min(t, Tc - 1)) * Hq + h * n_rep + rq % n_rep;
       store_row(out + orow * D, o0, o1, hi, l[hi], qpos[hi] < 0, t < Tc,
@@ -440,8 +440,8 @@ extern "C" {
 // a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for all
 // dense; ring_span > 0 (pages) relabels the ring's stale rows; kv_bits 4 or
 // 8; k_pt / v_pt: device addresses of the layer's per-tensor scales (no
-// planes), or null (planes given). page % 128 == 0, n_rep 1, 2, 4 or 8;
-// k_data, v_data and planes 16-byte aligned.
+// planes), or null (planes given). page % 128 == 0, n_rep 1 to 8; k_data,
+// v_data and planes 16-byte aligned.
 int launch_prefill_single_pass(
     const void* q, const void* k_data, const void* v_data, const void* planes,
     const void* k_pt, const void* v_pt, const void* block_tables,
@@ -451,7 +451,7 @@ int launch_prefill_single_pass(
     float sm_scale, int kv_bits, void* stream) {
   const bool sparse = sel_logic != nullptr || flags != nullptr;
   const bool pt = k_pt != nullptr;
-  if (n_rep <= 0 || n_rep > 8 || BM % n_rep || page <= 0 || page % 128 ||
+  if (n_rep <= 0 || n_rep > 8 || page <= 0 || page % 128 ||
       W <= 0 || (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
       (!pt && planes == nullptr) ||

@@ -3,13 +3,15 @@
 Subset of ``omniserve_tpu.models.llama`` (the dense path and LServe's
 sparse prefill and dynamic-sparse decode) with the same parameter tree and
 the same per-layer op order. Bodies: W4A8 with per-channel or per-group
-(g128) weights, W8A8, W16A16 (bf16 activations, no quantization); pools:
+(g128) weights, W8A8, W16A16 (bf16 activations, no quantization), with
+the Qwen2 QKV bias where the model has one; GQA groups of 1 to 8 q heads
+a kv head (Llama-3's 4, Yi-34B's 7, Qwen1.5's MHA); pools:
 fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16 (kv16 on the
 dense path only; the per-tensor scales ride in the pool, where the
 attention calls read them). Per layer:
 
 - fused RMSNorm -> int8 quant (+ act sums for per-channel W4), the qkv
-  GEMM, RoPE;
+  GEMM (+ the QKV bias in f32), RoPE;
 - prefill: quantize + scatter K/V into the paged pool(s), then
   packed-varlen causal attention over the prompt's own K/V (under
   ``sparse_prefill`` streaming heads keep the ctx sink + local band); or,
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from omniserve_tpu_torch.ops import attention_ref, dispatch
+from omniserve_tpu_torch.ops.cuda import MAX_N_REP
 from omniserve_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_quant
 from omniserve_tpu_torch.ops.matmul import (
     bf16_matmul,
@@ -165,9 +168,12 @@ class LlamaSpec:
                 "mode are ROADMAP.md queue 1 item 8b (LServe serves kv4 and "
                 "kv8 pools, fine-grained or per-tensor)"
             )
-        if self.attn_bias:
+        if (self.num_q_heads % self.num_kv_heads
+                or not 1 <= self.n_rep <= MAX_N_REP):
             raise NotImplementedError(
-                "the QKV bias (Qwen2) is ROADMAP.md queue 1 item 8b"
+                f"{self.num_q_heads} q heads over {self.num_kv_heads} kv "
+                "heads: the attention kernels serve whole GQA groups of 1 "
+                f"to {MAX_N_REP} q heads a kv head"
             )
 
     @classmethod
@@ -378,6 +384,10 @@ def make_random_packed_params(
         out = torch.empty(shape, dtype=torch.bfloat16, device=device)
         return out.normal_(generator=gen) * 0.02
 
+    if spec.attn_bias:   # f32 [L, qkv_out], as the JAX dummy draw
+        layers["qkv_bias"] = torch.empty(
+            (L, spec.qkv_out), dtype=torch.float32, device=device,
+        ).normal_(generator=gen) * 0.02
     params = {
         "embed": normal(spec.vocab, D),
         "final_ln": torch.ones((D,), dtype=torch.float32, device=device),
@@ -567,6 +577,8 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
     pool, streaming_pool = pools
     x_q, x_scale, x_sum = _norm_quant(h, lp["attn_ln"][layer], spec)
     qkv = _apply_linear(lp["qkv"], spec, x_q, x_scale, x_sum, layer)
+    if spec.attn_bias:   # in f32, back to the GEMM's dtype (the JAX order)
+        qkv = (qkv.float() + lp["qkv_bias"][layer]).to(qkv.dtype)
     q, k, v = _split_qkv(qkv, spec, t)
     q = apply_rope(q, batch.positions, inv_freq)
     k = apply_rope(k, batch.positions, inv_freq)

@@ -20,6 +20,11 @@ import functools
 
 import torch
 
+# q heads a kv head (n_rep) every attention kernel takes: 1 to 8 (the
+# decode kernels' largest row capacity; rows 7 and 8 hold BM / n_rep whole
+# tokens a block). ``LlamaSpec.check_supported`` refuses the rest.
+MAX_N_REP = 8
+
 LAUNCHES = {
     "w4a8_matmul_per_channel": 0,
     "w4a8_matmul_per_group": 0,

@@ -57,7 +57,6 @@ _I = ctypes.c_int
 _SRC = "decode_attention.cu"
 HEAD_DIM = 128
 MAX_PAGE = 256
-N_REPS = (1, 2, 4, 8)
 
 
 def _lib():
@@ -239,10 +238,10 @@ def paged_decode_attention_fused(
     b, hq, d = q.shape
     _, num_pages, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
-    if d != HEAD_DIM or n_rep * hkv != hq or n_rep not in N_REPS:
+    if d != HEAD_DIM or n_rep * hkv != hq or not 1 <= n_rep <= cuda.MAX_N_REP:
         raise ValueError(
-            f"decode kernel needs head_dim {HEAD_DIM} and n_rep in "
-            f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
+            f"decode kernel needs head_dim {HEAD_DIM} and n_rep 1 to "
+            f"{cuda.MAX_N_REP}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
     want_rows = {4: page_size // 2, 8: page_size}.get(kv_bits)
     pt = pool.k_scale_per_tensor is not None
@@ -312,11 +311,12 @@ def _list_call_args(q4, pool: KVPool, layer: int, sel_phys, sel_logic,
     addresses (null where the mode has none), the kv bits and the launch-
     name suffix."""
     b, hp, n_rep, d = q4.shape
-    if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
+    if (d != HEAD_DIM or not 1 <= n_rep <= cuda.MAX_N_REP
+            or hp != pool.num_heads):
         raise ValueError(
-            f"decode kernel needs head_dim {HEAD_DIM}, n_rep in {N_REPS} "
-            f"and one q group per pool head; got q {tuple(q4.shape)} for "
-            f"{pool.num_heads} pool heads"
+            f"decode kernel needs head_dim {HEAD_DIM}, n_rep 1 to "
+            f"{cuda.MAX_N_REP} and one q group per pool head; got q "
+            f"{tuple(q4.shape)} for {pool.num_heads} pool heads"
         )
     kv_bits, pt, suffix = list_mode(pool, page_size)
     rows = pool.k_data.shape[3]
@@ -449,11 +449,12 @@ def paged_mqa_attention_kv16(
     Launches count as ``paged_mqa_attention_kv16``, one a call."""
     b, hp, n_rep, d = q.shape
     tp = sel_logic.shape[-1]
-    if d != HEAD_DIM or n_rep not in N_REPS or hp != pool.num_heads:
+    if (d != HEAD_DIM or not 1 <= n_rep <= cuda.MAX_N_REP
+            or hp != pool.num_heads):
         raise ValueError(
-            f"decode kernel needs head_dim {HEAD_DIM}, n_rep in {N_REPS} "
-            f"and one q group per pool head; got q {tuple(q.shape)} for "
-            f"{pool.num_heads} pool heads"
+            f"decode kernel needs head_dim {HEAD_DIM}, n_rep 1 to "
+            f"{cuda.MAX_N_REP} and one q group per pool head; got q "
+            f"{tuple(q.shape)} for {pool.num_heads} pool heads"
         )
     if pool.k_data.shape[3] != page_size or page_size > MAX_PAGE:
         raise ValueError("kv16 decode kernel needs pages of at most "

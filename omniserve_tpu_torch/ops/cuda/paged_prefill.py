@@ -32,7 +32,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "paged_prefill.cu"
 HEAD_DIM = 128
-N_REPS = (1, 2, 4, 8)
 
 
 def _lib():
@@ -98,10 +97,10 @@ def launch(fn, name: str, q, pool: KVPool, layer: int, block_tables,
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
-    if d != HEAD_DIM or n_rep * hkv != hq or n_rep not in N_REPS:
+    if d != HEAD_DIM or n_rep * hkv != hq or not 1 <= n_rep <= cuda.MAX_N_REP:
         raise ValueError(
-            f"paged prefill kernels need head_dim {HEAD_DIM} and n_rep in "
-            f"{N_REPS}; got head_dim {d}, {hq} q / {hkv} kv heads"
+            f"paged prefill kernels need head_dim {HEAD_DIM} and n_rep 1 to "
+            f"{cuda.MAX_N_REP}; got head_dim {d}, {hq} q / {hkv} kv heads"
         )
     want_rows = {4: page_size // 2, 8: page_size, 16: page_size}.get(kv_bits)
     fine = kv_bits < 16 and kv_zeros

@@ -55,7 +55,7 @@ logger = init_logger(__name__)
 
 _DENSE_ARCHS = (
     "LlamaForCausalLM", "MistralForCausalLM", "LLaMAForCausalLM",
-    "YiForCausalLM",
+    "YiForCausalLM", "Qwen2ForCausalLM",
 )
 
 

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import dead_row_written
+
 pytestmark = pytest.mark.cuda
 
 
@@ -99,7 +101,8 @@ def test_kernels_refuse_bad_inputs(dev):
         qm.w8a8_matmul(a.cpu(), w.to(torch.int8), f, r)
 
 
-@pytest.mark.parametrize("lens,hq,hkv", [([300], 8, 2), ([50, 130, 7], 4, 4)])
+@pytest.mark.parametrize("lens,hq,hkv", [([300], 8, 2), ([50, 130, 7], 4, 4),
+                                         ([300, 77], 56, 8)])   # Yi-34B's
 def test_flash_prefill_kernel(dev, lens, hq, hkv):
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -126,6 +129,7 @@ def test_flash_prefill_kernel(dev, lens, hq, hkv):
     ([700], 8, 2, [1, 0], 64, 256),            # band tiles skipped
     ([300, 450, 9], 4, 4, [0, 1, 0, 0], 16, 100),   # packed, ragged tail
     ([1000], 8, 8, [0] * 8, 0, 128),           # no sinks
+    ([700, 90], 56, 8, [1, 0, 0, 1, 0, 1, 1, 0], 64, 256),   # Yi-34B's
 ])
 def test_flash_prefill_band_kernel(dev, lens, hq, hkv, flags_kv, sink, local):
     from omniserve_tpu_torch.ops import cuda
@@ -216,6 +220,9 @@ def _ring_pool(dev, g, lens, h, page, sink_b, local_b, d=128):
     ([300, 229], 40, 16, 1, 6, 2, (16, 48), [1, 0]),
     # a ring that has not wrapped: never-written rows stay dead
     ([100, 70], 24, 16, 2, 8, 8, (16, 32), [0, 0]),
+    # GQA groups of 7 and 3 (dead rows past BM / n_rep tokens a block)
+    ([300, 229], 40, 16, 1, 6, 7, (16, 48), [1, 0]),
+    ([20000], 300, 128, 1, 80, 3, (128, 8192), [0, 1]),
 ])
 def test_paged_prefill_ring_kernel(dev, lens, chunk, page, sink_b, local_b,
                                    n_rep, band, flags):
@@ -289,7 +296,7 @@ def test_paged_prefill_page_list_kernel(dev):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("n_rep", [1, 3, 4, 7])
 def test_decode_attention_append_kernel(dev, n_rep):
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
     from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
@@ -330,6 +337,9 @@ def test_decode_attention_append_kernel(dev, n_rep):
     (16, 16, 1, 16, True),       # second row padded (q_pos -1) halfway
     (200, 130, 4, 128, False),   # page 128, chunk spans two pages
     (300, 64, 8, 128, True),
+    (40, 24, 7, 16, True),       # GQA groups of 7 and 3: 18 and 42 tokens
+    (896, 128, 7, 128, False),   # a block, the last rows dead (Yi-34B's
+    (200, 130, 3, 128, True),    # bench chunk at 7)
 ])
 def test_paged_prefill_kernel(dev, history, chunk, n_rep, page, ragged):
     from omniserve_tpu_torch.ops import cuda
@@ -469,7 +479,7 @@ def _filled_pool(dev, g, n_pages, heads, page=128, d=128):
     return pool
 
 
-@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("n_rep", [1, 3, 4, 7])
 def test_decode_attention_ph_kernel(dev, n_rep):
     """Per-head lists in no order with dead entries, a context that ends
     inside a listed page, an all-dead row and an inactive row."""
@@ -566,6 +576,62 @@ def test_decode_attention_band_kernel(dev, band):
                                atol=5e-2)
 
 
+@pytest.mark.parametrize("n_rep", [3, 7])
+def test_decode_dead_rows_write_nothing_kernel(dev, n_rep):
+    """n_rep 3 and 7 run in the row capacity 4 and 8: the fused append
+    (kv4) and the band (kv4, split over blocks) against their plain
+    versions at the tests' gate, and that gate refuses the plain output
+    with a dead row's result written over the next group's first row."""
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+    from omniserve_tpu_torch.ops.paged_kv import append_kv, make_kv_pool
+
+    page, h, d, w = 128, 2, 128, 4
+    lens = torch.tensor([3 * page + 17, 2 * page, 70], dtype=torch.int32)
+    b = len(lens)
+    tables = torch.arange(b * w, dtype=torch.int32).view(b, w).to(dev)
+    g = _gen(dev, 41)
+    pool = make_kv_pool(2, b * w + 1, h, page, d, device=dev)
+    for s in range(b):
+        n = int(lens[s]) - 1
+        pos = torch.arange(n, device=dev)
+        append_kv(pool, 1, torch.randn((n, h, d), generator=g, device=dev),
+                  torch.randn((n, h, d), generator=g, device=dev),
+                  tables[s][pos // page], pos % page, page, 4, True)
+    twin = pool.clone()
+    q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
+    kn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    vn = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    args = (tables, lens.to(dev), kn, vn)
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    got = da.paged_decode_attention_fused(q, pool, 1, *args, **kw)
+    want = da.paged_decode_attention_fused_plain(q, twin, 1, *args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    assert_pools_equal(pool, twin)
+    # the same token appended again writes the same bytes
+    uniform = da.paged_decode_attention_fused_plain(
+        torch.zeros_like(q), twin, 1, *args, **kw)
+    bad = dead_row_written(want.view(b, h, n_rep, d),
+                           uniform.view(b, h, n_rep, d))
+    assert not torch.allclose(bad.float(), want.view(b, h, n_rep, d).float(),
+                              rtol=5e-2, atol=5e-2)
+
+    # the band over the pool's dense lists, split over blocks
+    lists = da.dense_page_lists(tables, lens.to(dev), page)
+    q4 = q.view(b, h, n_rep, d)
+    bkw = dict(kw, band_sink_tokens=page, band_local_tokens=page + 40)
+    got = da.paged_mqa_attention_single_pass(q4, pool, 1, *lists,
+                                             lens.to(dev), **bkw)
+    want = da.page_list_attention_plain(q4, pool, 1, *lists, lens.to(dev),
+                                        **bkw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    uniform = da.page_list_attention_plain(torch.zeros_like(q4), pool, 1,
+                                           *lists, lens.to(dev), **bkw)
+    assert not torch.allclose(dead_row_written(want, uniform).float(),
+                              want.float(), rtol=5e-2, atol=5e-2)
+
+
 LIST_MODES = ("kv8", "pt4", "pt8")
 
 
@@ -587,7 +653,7 @@ def _plant_dead_garbage(pool, layer, page, lens, phys_of):
 
 
 @pytest.mark.parametrize("page", [128, 256])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 7, 8])
 @pytest.mark.parametrize("mode", LIST_MODES)
 def test_decode_attention_list_kv_modes_kernel(dev, mode, n_rep, page):
     """Rows 4 (band/ring) and 5 (per-head lists) over kv8 and per-tensor
@@ -817,7 +883,7 @@ def test_kv_append_decode_pools_refuses_bad_inputs(dev):
 
 
 @pytest.mark.parametrize("page,n_rep", [(128, 1), (256, 2), (128, 4),
-                                        (256, 8)])
+                                        (256, 8), (128, 7), (256, 3)])
 @pytest.mark.parametrize("mode", LIST_MODES)
 def test_paged_prefill_ring_kv_modes_kernel(dev, mode, page, n_rep):
     """Row 7's page list with the ring relabel and the band over kv8 and
@@ -1135,7 +1201,7 @@ def _kv8_pool(dev, g, layers, n_pages, h, page, d, lens, tables):
     return pool
 
 
-@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("n_rep", [1, 4, 7])
 def test_decode_attention_append_kv8_kernel(dev, n_rep):
     from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
@@ -1170,6 +1236,7 @@ def test_decode_attention_append_kv8_kernel(dev, n_rep):
     (40, 24, 2, 16, True),
     (200, 130, 4, 128, False),
     (300, 64, 8, 128, True),
+    (300, 64, 7, 128, True),
 ])
 def test_paged_prefill_kv8_kernel(dev, history, chunk, n_rep, page, ragged):
     from omniserve_tpu_torch.ops import cuda
@@ -1293,7 +1360,8 @@ def _mode_pool(dev, g, mode, layers, n_pages, h, page, d, lens, tables):
     return pool, kv_bits, zeros
 
 
-@pytest.mark.parametrize("n_rep,page", [(1, 128), (4, 128), (8, 16)])
+@pytest.mark.parametrize("n_rep,page", [(1, 128), (4, 128), (8, 16),
+                                        (7, 128), (3, 16)])
 def test_paged_mqa_attention_kv16_kernel(dev, n_rep, page):
     """Row 6's kv16 mode over the dense list against its plain version and
     against ``attention_ref.paged_decode_attention``; a row of length 0
@@ -1358,7 +1426,8 @@ def test_kv_append_decode_kv16_kernel(dev, dtype):
     assert_pools_equal(pool, twin, skip_trash=True)
 
 
-@pytest.mark.parametrize("mode,n_rep", [("pt4", 1), ("pt4", 4), ("pt8", 4)])
+@pytest.mark.parametrize("mode,n_rep", [("pt4", 1), ("pt4", 4), ("pt8", 4),
+                                        ("pt4", 7), ("pt8", 3)])
 def test_decode_attention_append_pt_kernel(dev, mode, n_rep):
     """The per-tensor fused decode against its plain version: outputs within
     5e-2, pool bytes equal (the codes of the appended token included)."""
@@ -1395,6 +1464,7 @@ def test_decode_attention_append_pt_kernel(dev, mode, n_rep):
 @pytest.mark.parametrize("history,chunk,n_rep,page,ragged", [
     (40, 24, 2, 16, True),
     (300, 64, 8, 128, True),
+    (300, 64, 7, 128, True),
 ])
 def test_paged_prefill_kv16_pt_kernel(dev, mode, history, chunk, n_rep, page,
                                       ragged):
@@ -1597,6 +1667,7 @@ def test_prefill_single_pass_page_list_kernel(dev, mode):
     ([20000], 2048, 1, 80, 4, (128, 8192)),
     # two sequences wrapped several times, one padded halfway
     ([3000, 2290], 256, 1, 6, 2, (128, 512)),
+    ([3000, 2290], 256, 1, 6, 7, (128, 512)),   # a GQA group of 7
 ])
 def test_prefill_single_pass_ring_kernel(dev, mode, lens, chunk, sink_b,
                                          local_b, n_rep, band):
@@ -1654,7 +1725,7 @@ def test_prefill_single_pass_band_dense_kernel(dev):
                sink_size=128, local_size=1000)
 
 
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 7, 8])
 @pytest.mark.parametrize("page", [128, 256, 384])
 @pytest.mark.parametrize("mode", list(PSP_MODES))
 def test_prefill_single_pass_pages_and_reps_kernel(dev, mode, page, n_rep):

@@ -168,9 +168,9 @@ def test_ring_prefill_kv_modes_match_jax_and_pallas(length, kv_bits,
     check_ring_prefill(length, kv_bits, kv_zeros, pallas_tol=2e-2)
 
 
-def check_ring_prefill(length, kv_bits, kv_zeros, pallas_tol=3e-2):
+def check_ring_prefill(length, kv_bits, kv_zeros, pallas_tol=3e-2, n_rep=2):
     rng = np.random.default_rng(length)
-    h, n_rep, tq = 1, 2, 8
+    h, tq = 1, 8
     jpool, tpool, table = fill_ring(length, h, rng, kv_bits, kv_zeros)
     q = rng.normal(size=(1, tq, h * n_rep, D)).astype(np.float32)
     q_pos = np.arange(length - tq, length, dtype=np.int32)[None]
