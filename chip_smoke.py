@@ -28,7 +28,9 @@ Phases (any failure raises and exits nonzero before the last line):
    kernel at n_rep 8 on the same KV, the decode rows refusing a dead row's
    output planted over the next group's first row; rows 4 (append) and 9
    at Qwen1.5-72B's 64 / 64 heads (n_rep 1) and phase 12's shapes; rows 1
-   and 3 at phase 12's GEMM shapes, with their plans;
+   and 3 at phase 12's GEMM shapes, with their plans; LServe over kv16
+   pools: row 6's per-head lists and band, row 7's kv16 ring and row 10's
+   two-pool kv16 append with K stats, at phase 6 / 7's shapes;
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
@@ -38,7 +40,8 @@ Phases (any failure raises and exits nonzero before the last line):
    and reuse graphs) against the eager loop; then under both sparse modes,
    whole-prompt (flash band) and chunked (ring) prefill, kernels against
    plain; the same forwards across the precision matrix (kv16 and
-   per-tensor KV with calibrated scales included), and the whole-prompt,
+   per-tensor KV with calibrated scales included), the sparse forwards
+   (and a 10-step window) at w16a16kv16 too, and the whole-prompt,
    decode and chunked forwards at phase 12's models' widths (Yi-34B at
    n_rep 7; Qwen1.5-72B with its QKV bias, whose effect must show);
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
@@ -89,6 +92,12 @@ Phases (any failure raises and exits nonzero before the last line):
     the QKV bias; its whole-prompt batch through row 9), full width and
     depth, each with its prefill step, decode tok/s, graphs and peak
     memory;
+13. phase 7 (a)'s protocol at ``--precision w16a16kv16``, the default of
+    both packages (both LServe flags, 32,768 in / 128 out, a warmup and a
+    measured round, untraced): row 6's per-head and band modes, row 7's
+    kv16 ring and row 10's two-pool kv16 append, which phase 2 holds
+    against their plain versions and phase 3 runs in 2-layer sparse
+    forwards at w16a16kv16;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -119,6 +128,11 @@ BAND_ROW_RTOL = 1e-2             # flash band: per-row error over row norm
 # the per-row one, which a length off by one on these inputs fails by ~10x
 KV16_TOL = 5e-3
 ATTN_ROW_RTOL = 1e-2
+# row 7's kv16 ring: the first rows of a chunk that starts the prompt
+# attend a few keys, so their outputs reach |x| ~ 4, where one bf16 ulp
+# (2^-7 |x|) passes 5e-3 + 5e-3 |x|; its element gate is KV16_TOL plus
+# one ulp of the value
+BF16_ULP_RTOL = 2.0 ** -7
 
 # Llama-3-8B geometry (public model card), as scripts/make_bench_config.py
 LLAMA3_8B = dict(
@@ -1447,7 +1461,10 @@ def ring_sdpa_ms(args, kw, reps=3):
 def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
     """The ring chunk of ``ring_chunk_inputs`` through row 7. kv8 and
     per-tensor modes also hold each row within 1e-2 of its norm and refuse
-    the plain version with the other layer's scales or planes."""
+    the plain version with the other layer's scales or planes; kv16 holds
+    ``KV16_TOL`` plus one bf16 ulp of each value (``BF16_ULP_RTOL``) and
+    each row's norm, and refuses it with the band's local window moved by
+    a page."""
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
 
     args, kw, n_bytes, pairs, note = ring_chunk_inputs(dev, gen, context, tc,
@@ -1459,10 +1476,17 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
     if mode == "kv4":
         err = allclose_err(got, want, 2e-2, 2e-2, what)
     else:
-        bad = pp.paged_prefill_attention_plain(
-            q, wrong_layer(args[1], mode), *args[2:], **kw)
-        err, row = hold(got, want, 2e-2, 2e-2, ATTN_ROW_RTOL, what,
-                        [("the other layer's scales" if LIST_MODES[mode][1]
+        atol, rtol = (KV16_TOL, BF16_ULP_RTOL) if mode == "kv16" else (
+            2e-2, 2e-2)
+        bad = (pp.paged_prefill_attention_plain(*args, **dict(
+            kw, local_size=kw["local_size"] - kw["page_size"]))
+            if mode == "kv16" else pp.paged_prefill_attention_plain(
+                q, wrong_layer(args[1], mode), *args[2:], **kw))
+        err, row = hold(got, want, atol, rtol, ATTN_ROW_RTOL, what,
+                        [("the band's window moved by a page"
+                          if mode == "kv16"
+                          else "the other layer's scales"
+                          if LIST_MODES[mode][1]
                           else "the other layer's planes", bad)])
         note = f"{note} (row error {row:.3g} of its norm)"
         del bad
@@ -1652,8 +1676,9 @@ def check_kv_append_pools(dev, gen, mode, t):
     gathered_ms = time_graphed_ms(gathered, 20)
     plain = time_ms(lambda: ka.append_kv_decode_pools_plain(
         *want, 1, k, v, tr, ts, page, **plain_kw), 5, warmup=1)
-    rw = 2 * 2 * d if kv_bits == 4 else 2 * d   # kv4 bytes read + written
-    per_row = 2 * d * 2 + rw + (0 if pt else 16)
+    # K and V rows written (kv4: its bytes read and written; kv16: bf16)
+    rw = 2 * d if kv_bits == 8 else 2 * 2 * d
+    per_row = 2 * d * 2 + rw + (0 if pt or kv_bits == 16 else 16)
     n_bytes = (t * 2 * heads * per_row + t * heads * 2 * 2 * d * 4
                + 2 * (8 * t + 8 * heads))
     bnd, by = bound_ms(n_bytes, t * 2 * heads * d * 8.0, BF16_FLOPS_PER_S)
@@ -1662,7 +1687,7 @@ def check_kv_append_pools(dev, gen, mode, t):
         f"single-pool launches on gathered heads {gathered_ms:.4f}) "
         f"plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) library_ms None "
         f"max_abs_err {err:g}; both pools' bytes"
-        f"{'' if pt else ', planes'} and stats equal")
+        f"{'' if pt or kv_bits == 16 else ', planes'} and stats equal")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None, max_abs_err=err)
 
@@ -1718,13 +1743,15 @@ def check_kv_append_kv16(dev, gen):
 
 # LServe's pool modes of the page-list kernels, rows 10 and 7's ring:
 # label -> (kv bits, per-tensor)
-LIST_MODES = {"kv4": (4, False), "kv8": (8, False), "pt8": (8, True)}
+LIST_MODES = {"kv4": (4, False), "kv8": (8, False), "pt8": (8, True),
+              "kv16": (16, False)}
 
 
 def kv_suffix(kv_bits, per_tensor) -> str:
-    """The launch-name suffix of a kv4 / kv8 pool mode: "" (fine-grained
-    kv4), "_kv8" or "_pt" (per-tensor kv4 or kv8)."""
-    return "_pt" if per_tensor else "_kv8" if kv_bits == 8 else ""
+    """The launch-name suffix of a pool mode: "" (fine-grained kv4),
+    "_kv8", "_pt" (per-tensor kv4 or kv8) or "_kv16"."""
+    return ("_kv16" if kv_bits == 16 else "_pt" if per_tensor
+            else "_kv8" if kv_bits == 8 else "")
 
 
 def dense_prefill_name(suffix) -> str:
@@ -1749,10 +1776,11 @@ def list_mode_pool(gen, dev, layers, n_pages, heads, page, d, mode):
 
 
 def page_bytes(mode, page, d) -> int:
-    """Bytes of one page of one kv head: K+V codes, and the four f32 plane
-    rows of a fine-grained page."""
+    """Bytes of one page of one kv head: K+V codes (kv16: bf16 values),
+    and the four f32 plane rows of a fine-grained kv4 / kv8 page."""
     kv_bits, pt = LIST_MODES[mode]
-    return page * d * kv_bits // 4 + (0 if pt else 16 * page)
+    return page * d * kv_bits // 4 + (0 if pt or kv_bits == 16
+                                      else 16 * page)
 
 
 def wrong_layer(pool, mode):
@@ -1850,27 +1878,35 @@ def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4):
 
 
 def check_decode_ph(dev, gen, b, mode="kv4"):
-    """Row 5 at ``decode_ph_inputs``' shape. kv8 and per-tensor modes
-    (layer 1 of a 2-layer pool) also hold each row within 1e-2 of its norm
-    and refuse the plain version with the other layer's scales or
-    planes."""
+    """Row 5 at ``decode_ph_inputs``' shape (kv16: row 6's per-head mode).
+    kv8 and per-tensor modes (layer 1 of a 2-layer pool) also hold each
+    row within 1e-2 of its norm and refuse the plain version with the
+    other layer's scales or planes; kv16 holds ``KV16_TOL`` and refuses it
+    with the lengths a page short."""
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
     args, kw = decode_ph_inputs(dev, gen, b, mode)
     q, pool, layer, sel_phys, sel_logic, lens = args
     _, hr, n_rep, d = q.shape
     budget, page = sel_logic.shape[-1], kw["page_size"]
-    planted = () if mode == "kv4" else (
-        ("the other layer's scales" if LIST_MODES[mode][1]
-         else "the other layer's planes",
-         lambda: da.page_list_attention_plain(
-             q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
+    kernel, tol = da.paged_mqa_attention_single_pass_ph, 5e-2
+    if mode == "kv16":
+        kernel, tol = da.paged_mqa_attention_ph_kv16, KV16_TOL
+        planted = (("the lengths a page short",
+                    lambda: da.page_list_attention_plain(
+                        *args[:5], lens - page, **kw)),)
+    else:
+        planted = () if mode == "kv4" else (
+            ("the other layer's scales" if LIST_MODES[mode][1]
+             else "the other layer's planes",
+             lambda: da.page_list_attention_plain(
+                 q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
         f"decode per-head lists {mode} B={b} Hr={hr} n_rep={n_rep} budget "
         f"{budget} pages of 257",
-        lambda: da.paged_mqa_attention_single_pass_ph(*args, **kw),
+        lambda: kernel(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hr * budget, b, hr, n_rep, d, page, budget, mode=mode,
+        b * hr * budget, b, hr, n_rep, d, page, budget, tol=tol, mode=mode,
         planted=planted, library=list_library_inputs(
             q, pool, layer, sel_phys, sel_logic, lens, page))
 
@@ -1904,25 +1940,36 @@ def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4):
 
 
 def check_decode_band(dev, gen, b, mode="kv4"):
-    """Row 4's band at ``decode_band_inputs``' shape. kv8 and per-tensor
-    modes as ``check_decode_ph``."""
+    """Row 4's band at ``decode_band_inputs``' shape (kv16: row 6's band
+    mode). kv8 and per-tensor modes as ``check_decode_ph``; kv16 holds
+    ``KV16_TOL`` and refuses the plain version with the band's local
+    window moved by a page."""
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
     args, kw = decode_band_inputs(dev, gen, b, mode)
     q, pool, layer, sel_phys, sel_logic, lens = args
     _, hs, n_rep, d = q.shape
     page = kw["page_size"]
-    planted = () if mode == "kv4" else (
-        ("the other layer's scales" if LIST_MODES[mode][1]
-         else "the other layer's planes",
-         lambda: da.page_list_attention_plain(
-             q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
+    kernel, tol = da.paged_mqa_attention_single_pass, 5e-2
+    if mode == "kv16":
+        kernel, tol = da.paged_mqa_attention_band_kv16, KV16_TOL
+        planted = (("the band's window moved by a page",
+                    lambda: da.page_list_attention_plain(*args, **dict(
+                        kw, band_local_tokens=kw["band_local_tokens"]
+                        - page))),)
+    else:
+        planted = () if mode == "kv4" else (
+            ("the other layer's scales" if LIST_MODES[mode][1]
+             else "the other layer's planes",
+             lambda: da.page_list_attention_plain(
+                 q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
         f"decode band+ring {mode} B={b} Hs={hs} n_rep={n_rep} list 1 sink + "
         f"2 ring pages",
-        lambda: da.paged_mqa_attention_single_pass(*args, **kw),
+        lambda: kernel(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
-        b * hs * 3, b, hs, n_rep, d, page, sel_logic.shape[-1], mode=mode,
+        b * hs * 3, b, hs, n_rep, d, page, sel_logic.shape[-1], tol=tol,
+        mode=mode,
         planted=planted, library=list_library_inputs(
             q, pool, layer, sel_phys, sel_logic, lens, page,
             **{k: v for k, v in kw.items() if k != "sm_scale"
@@ -2723,8 +2770,9 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
     so the selector drops pages of the 9-page prompt), 4 live in the
     streaming ring (1 sink + 2 ring pages, wrapped by every prompt). A
     whole-prompt prefill into both pools and two decode steps (a refresh
-    step, a reuse step), kernels against plain versions; then, at the
-    default w4a8kv4, a 10-step window against the eager loop. Other
+    step, a reuse step), kernels against plain versions (a W16A16 body's
+    decode steps from the plain prefill's pools); then, at w4a8kv4 and
+    w16a16kv16, a 10-step window against the eager loop. Other
     ``PRECISIONS`` (kv8, per-tensor KV with scales calibrated on a dense
     kv16 twin) run the forwards, a W8A8 body at its floor's gate."""
     import numpy as np
@@ -2782,6 +2830,16 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
             lp, _, _, _ = llama.llama_forward(params, rp, sp, pre, spec,
                                               is_prefill=True)
         runs[mode] = dict(prefill=lp, pools=(rp, sp))
+    if spec.weight_bits == 16:
+        # a random W16A16 body carries the prefill's one-ulp attention
+        # differences into the K / V it writes (~0.2 of the K values of
+        # phase 3's dense w16a16kv16 forward differ) and so into the K
+        # stats the selector ranks: the decode steps start from copies of
+        # the plain run's pools, and compare the decode path itself
+        for mode in modes:
+            if mode != "plain":
+                runs[mode]["pools"] = tuple(
+                    p.clone() for p in runs["plain"]["pools"])
     nxt = runs["plain"]["prefill"].argmax(-1)
     positions = torch.tensor(lens, dtype=torch.int32).to(dev)
     per_layer = {k + suffix: v for k, v in LSERVE_LAUNCHES_PER_LAYER.items()}
@@ -2842,7 +2900,7 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
     if used != spec.budget_pages or same < 0.9:
         raise AssertionError("sparse forward: selection did not fill its "
                              "budget or strays from the plain run's")
-    if precision != "w4a8kv4":
+    if precision not in ("w4a8kv4", "w16a16kv16"):
         return
     rp, sp = runs["kernels"]["pools"]
     first = runs["kernels"]["decode1"].argmax(-1)
@@ -3179,6 +3237,8 @@ WRAPPER_FUNCTIONS = (
     ("w4a8_matmul_per_channel", "int8_wgmma_kernel"),
     ("w4a8_matmul_per_group", "int8_wgmma_kernel"),
     ("w8a8_matmul", "int8_wgmma_kernel"),
+    ("decode_attention_ph_kv16", "decode_attn_kv16_kernel"),
+    ("decode_attention_band_kv16", "decode_attn_kv16_kernel"),
     ("decode_attention_", "decode_attn_list_kernel"),
     ("paged_mqa_attention_kv16", "decode_attn_kv16_kernel"),
     ("flash_prefill", "flash_prefill_kernel"),
@@ -3528,7 +3588,8 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
 def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                        short_gen=32, chunk=32000, multi=16,
                        single_pass=False, stats=None, precision="w4a8kv4",
-                       granularity="fine_grained", trace_window=False):
+                       granularity="fine_grained", trace_window=False,
+                       trace=True):
     """``lserve_benchmark.py``'s protocol with the reference's LServe flags
     (``--sparse-context-mode --sparse-decode-mode --static-sparsity 0.5``,
     ctx band 128 + 8,192 tokens, ``chunk_prefill_size`` 32000) at
@@ -3540,7 +3601,8 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     the whole-prompt band path (not run with ``short_len`` None). A
     warmup and a measured round each, then one traced prefill step of each
     and, with ``trace_window``, one traced decode window of (a). With ``single_pass`` (phase 10 (c), the switch on): (a) alone,
-    untraced, its prefill on row 8 over both pools. ``stats`` (a dict)
+    untraced, its prefill on row 8 over both pools; ``trace`` False: no
+    traced steps. ``stats`` (a dict)
     receives (a)'s measured prefill seconds, decode tok/s and peak memory.
     Returns the measured rounds' launches of the prefill kernels and of
     the decode kernels of the pool's mode."""
@@ -3700,7 +3762,7 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                                             torch.cuda.max_memory_allocated))
     engine.add_request = add_request
     log(f"  launches in the measured rounds: {json.dumps(result)}")
-    if single_pass:
+    if single_pass or not trace:
         return result
 
     # where a prefill's time goes: one traced prefill step of each path
@@ -4117,6 +4179,35 @@ def run_lserve_kv_modes(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: LServe over kv16 pools, the default precision
+# ---------------------------------------------------------------------------
+
+LSERVE_KV16_KERNELS = ("decode_attention_ph_kv16", "decode_attention_band_kv16",
+                       "paged_prefill_ring_kv16", "kv_append_decode_kv16")
+
+
+def run_lserve_kv16(dev):
+    """Phase 13: phase 7 (a)'s protocol (``run_lserve_prefill``) at
+    ``--precision w16a16kv16``, the default of both packages, under both
+    LServe flags: 32,768 in / 128 out, 16-step windows, a warmup and a
+    measured round, untraced; every kv16 LServe entry (row 6's per-head and
+    band modes, row 7's kv16 ring, row 10's two-pool kv16 append) must
+    launch. Returns the measured round's launches."""
+    stats = {}
+    launches = run_lserve_prefill(dev, short_len=None,
+                                  precision="w16a16kv16", stats=stats,
+                                  trace=False)
+    idle = [k for k in LSERVE_KV16_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"LServe kv16: entries not launched: {idle}")
+    log(f"  w16a16kv16 measured round on {card_line()}: prefill "
+        f"{stats['prefill_s']:.3f} s, decode {stats['decode_tps']:.2f} "
+        f"tok/s, peak {stats['peak_gib']:.2f} GiB; launches "
+        f"{json.dumps({k: launches[k] for k in LSERVE_KV16_KERNELS})}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the reference's two other headline models at full width
 # ---------------------------------------------------------------------------
 
@@ -4270,6 +4361,19 @@ def main() -> int:
         check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", mode)
     for line in ptxas_report("kv_append.cu"):
         log(f"    ptxas {line}")
+    # LServe over kv16 pools: row 6's per-head lists and band, row 7's kv16
+    # ring and row 10's two-pool entry with K stats, at the shapes above
+    kernels["decode_attention_ph_kv16"] = check_decode_ph(dev, gen, b=1,
+                                                          mode="kv16")
+    check_decode_ph(dev, gen, b=8, mode="kv16")
+    kernels["decode_attention_band_kv16"] = check_decode_band(
+        dev, gen, b=1, mode="kv16")
+    check_decode_band(dev, gen, b=8, mode="kv16")
+    kernels["paged_prefill_ring_kv16"] = check_paged_ring(
+        dev, gen, 32000, 32000, 314, "phase 7's first chunk", "kv16")
+    check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", "kv16")
+    for t in (8, 128):
+        check_kv_append_pools(dev, gen, "kv16", t)
     # GQA groups of 7 beside n_rep 8, and phase 12's GEMM shapes
     kernels.update(check_gqa7(dev, gen))
     kernels.update(check_mha_rows(dev, gen))
@@ -4287,7 +4391,7 @@ def main() -> int:
     check_sparse_forward(dev)
     torch.cuda.empty_cache()
     check_sparse_prefill_forward(dev)
-    for precision in ("w8a8kv8-pt", "w4a8kv8"):
+    for precision in ("w8a8kv8-pt", "w4a8kv8", "w16a16kv16"):
         gc.collect()
         torch.cuda.empty_cache()
         check_sparse_forward(dev, precision)
@@ -4361,6 +4465,12 @@ def main() -> int:
     launches["decode_attention_append_mha"] = qwen["decode_attention_append"]
     launches["flash_prefill_mha"] = qwen["flash_prefill"]
     phase_done("phase 12")
+    log("phase 13: the LServe command at the default precision (w16a16kv16, "
+        "both flags, static sparsity 0.5; 32768 in / 128 out) through "
+        "lserve_benchmark")
+    lserve_kv16 = run_lserve_kv16(dev)
+    launches.update({k: lserve_kv16[k] for k in LSERVE_KV16_KERNELS[:3]})
+    phase_done("phase 13")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -4433,7 +4543,13 @@ def main() -> int:
         **{f"paged_prefill_ring{sfx}": (
             "omniserve_tpu_torch/csrc/paged_prefill.cu",
             "omniserve_tpu/ops/pallas/paged_prefill.py:268")
-           for sfx in ("_kv8", "_pt")},
+           for sfx in ("_kv8", "_pt", "_kv16")},
+        # row 6's per-head and band modes over kv16 pools: phase 2's
+        # entries, phase 13's launches
+        **dict.fromkeys(("decode_attention_ph_kv16",
+                         "decode_attention_band_kv16"), (
+            "omniserve_tpu_torch/csrc/decode_attention.cu",
+            "omniserve_tpu/ops/pallas/paged_attention.py:255")),
         **dict.fromkeys(ROW8_NAMES, (
             "omniserve_tpu_torch/csrc/prefill_single_pass.cu",
             "omniserve_tpu/ops/pallas/prefill_single_pass.py:291")),

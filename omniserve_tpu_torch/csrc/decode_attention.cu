@@ -14,9 +14,13 @@
 // entries 1-3 over kv4 or kv8 pools, fine-grained or per-tensor;
 // and of omniserve_tpu/ops/pallas/paged_attention.py:
 //   4. paged_mqa_attention (:255, kernel _mqa_kernel :58, pallas_call :421),
-//      the two-stage decode, over a kv16 (bf16) pool: one page list per
-//      sequence, read in place, with no gather stage
-//      (launch_decode_attention_kv16, decode_attn_kv16_kernel).
+//      the two-stage decode the JAX package runs over every kv16 (bf16)
+//      pool, read in place, with no gather stage (decode_attn_kv16_kernel):
+//      a dense page list per sequence (launch_decode_attention_kv16), the
+//      selector's per-(sequence, kv head) lists (per_head_sel :116-120,
+//      launch_decode_attention_ph_kv16) and the streaming band with the
+//      ring relabel over one list per sequence (:125-140,
+//      launch_decode_attention_band_kv16).
 //
 // Contract of entry 1 (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
 // paged_decode_attention_fused_plain = append_kv, then
@@ -281,17 +285,28 @@ __device__ __forceinline__ void split_finish(
   }
 }
 
-// Entry 4: decode over one page list per sequence of a kv16 pool.
+// Entry 4: decode over the page lists of a kv16 pool, in three modes
+// (MODE): KV16_DENSE and KV16_BAND take one list per sequence [B, Tp],
+// shared by the heads; KV16_PER_HEAD one per (sequence, kv head) [B, H, Tp].
 //
-// Contract (plain version: attention_ref.paged_decode_attention over a
-// kv16 pool; the wrapper passes the dense list of the block table):
+// Contract (plain version: page_list_attention_plain in
+// omniserve_tpu_torch/ops/cuda/decode_attention.py, the list contract of
+// entries 2 and 3 below over bf16 pages):
 //   - pool layer k/v [P, H, page, D] bf16, token t of a page at row t, the
 //     values as they are;
-//   - entry i of the list names a physical page sel_phys and the logical
+//   - entry i of a list names a physical page sel_phys and the logical
 //     page sel_logic it holds (-1 = dead, skipped); the token in slot t sits
 //     at position sel_logic*page + t and is attended iff pos < len;
+//   - KV16_BAND: the ring relabel and the sink + local band of entry 3
+//     (band_sink >= 0; ring_span > 0 relabels the slots of the page being
+//     written past its write head); a slot outside them gets score -inf
+//     and weight 0, and its V row is read as 0 (a never-written row may
+//     hold anything);
 //   - out = softmax(q.k * sm_scale) . v over those tokens, in f32; a row
 //     with len <= 0, or no live token, outputs zeros.
+// The band's tests compile out of KV16_DENSE, whose code stays the dense
+// body's, and of KV16_PER_HEAD, which differs from it in the list offset
+// alone.
 // Block (split s, kv head h, sequence b) takes list entries [s * per_split,
 // (s + 1) * per_split). A stage holds 32 tokens of one page: K rows padded
 // to KV16_KROW bytes (one bulk copy each), then the V rows (one copy). 32
@@ -303,17 +318,21 @@ constexpr int KV16_KROW = 2 * D + 16;        // a K row in shared memory
 constexpr int KV16_STAGE = KV16_TS * (KV16_KROW + 2 * D);
 constexpr int KV16_SMEM = NSTAGE * KV16_STAGE + 128;   // + alignment slack
 
-template <int NREP>
+enum Kv16Mode { KV16_DENSE = 0, KV16_PER_HEAD = 1, KV16_BAND = 2 };
+
+template <int NREP, int MODE>
 __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, H, n_rep, D]
     const __nv_bfloat16* __restrict__ k_data,  // layer: [P, H, page, D]
     const __nv_bfloat16* __restrict__ v_data,
-    const int* __restrict__ sel_phys,          // [B, Tp]
-    const int* __restrict__ sel_logic,         // [B, Tp]
+    const int* __restrict__ sel_phys,          // [B, Tp]; PER_HEAD [B, H, Tp]
+    const int* __restrict__ sel_logic,         // [B, Tp]; PER_HEAD [B, H, Tp]
     const int* __restrict__ lengths,           // [B]
     __nv_bfloat16* __restrict__ out,           // [B, H, n_rep, D]
     float* __restrict__ ws,                    // S > 1: the partials
-    int H, int n_rep, int page, int Tp, int per_split, float sm_scale) {
+    int H, int n_rep, int page, int Tp, int per_split, float sm_scale,
+    int band_sink, int band_local, int ring_span, int ring_sink_tok) {
+  constexpr bool BAND = MODE == KV16_BAND;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align128(smem_raw);
   __shared__ __align__(16) float sc[NREP][KV16_TS];   // scores
@@ -325,7 +344,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = lengths[b];
-  const size_t list_off = (size_t)b * Tp;
+  const size_t list_off =
+      MODE == KV16_PER_HEAD ? ((size_t)b * H + h) * Tp : (size_t)b * Tp;
   const int i0 = s * per_split, i1 = min(Tp, i0 + per_split);
   if (tid == 0) {
 #pragma unroll
@@ -337,7 +357,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
   }
   __syncthreads();
 
-  const ListMask mask(len, page, -1, 0, 0, 0);
+  const ListMask mask(len, page, BAND ? band_sink : -1, band_local,
+                      ring_span, ring_sink_tok);
   if (warp == COPY_WARP) {
     sm90::Ring rg;
     for (int i = i0; i < i1; ++i) {
@@ -390,7 +411,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
 
   sm90::Ring rg;
   for (int i = i0; i < i1; ++i) {
-    const int ntok = mask.slots(sel_logic[list_off + i]);
+    const int logic = sel_logic[list_off + i];
+    const int ntok = mask.slots(logic);
     if (ntok == 0) continue;
     for (int t0 = 0; t0 < ntok; t0 += KV16_TS) {
       const int ts = min(KV16_TS, ntok - t0);
@@ -414,11 +436,15 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int t = 16 * warp + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
-          if (r < n_rep && t < ts) sc[r][t] = c[e] * sm_scale;
+          if (r < n_rep && t < ts)
+            sc[r][t] = !BAND || mask.live(logic, t0 + t) ? c[e] * sm_scale
+                                                         : -INFINITY;
         }
       }
       consumers_sync();
-      // online softmax, one warp per query row (ts >= 1: m_new is finite)
+      // online softmax, one warp per query row (dense: ts >= 1 live slots,
+      // so m_new is finite; the band's dead slots weigh 0, and a stage with
+      // no live slot leaves the row as it was)
       for (int r = warp; r < n_rep; r += NWARP) {
         float mx = -INFINITY;
         for (int t = lane; t < ts; t += 32) mx = fmaxf(mx, sc[r][t]);
@@ -426,13 +452,15 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
         const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
         float lsum = 0.0f;
         for (int t = lane; t < ts; t += 32) {
-          const float p = expf(sc[r][t] - m_new);
+          const float p = !BAND || mask.live(logic, t0 + t)
+                              ? expf(sc[r][t] - m_new) : 0.0f;
           pw[t][r] = p;
           lsum += p;
         }
         lsum = warp_sum(lsum);
         if (lane == 0) {
-          const float alpha = expf(m_old - m_new);
+          const float alpha =
+              BAND && m_new == -INFINITY ? 1.0f : expf(m_old - m_new);
           m_s[r] = m_new;
           l_s[r] = l_s[r] * alpha + lsum;
           alpha_s[r] = alpha;
@@ -446,8 +474,9 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
         acc[r][1] *= alpha_s[r];
       }
       for (int t = th; t < ts; t += 2) {
-        const float2 v = __bfloat1622float2(
+        float2 v = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(vs + t * D + 2 * dp));
+        if (BAND && !mask.live(logic, t0 + t)) v = make_float2(0.0f, 0.0f);
         float p[NREP];
         load_row<NREP>(p, pw[t]);
 #pragma unroll
@@ -1032,7 +1061,7 @@ using ListKernel = void (*)(const __nv_bfloat16*, const uint8_t*,
 using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                             const __nv_bfloat16*, const int*, const int*,
                             const int*, __nv_bfloat16*, float*, int, int,
-                            int, int, int, float);
+                            int, int, int, float, int, int, int, int);
 
 template <int R, bool BAND, bool APPEND>
 ListKernel list_kernel(int kv_bits, bool pt) {
@@ -1094,6 +1123,48 @@ int launch_list(ListMode mode, const void* q, const void* k_data,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, n_rep,
       page, Tp, per_split, sm_scale, band_sink, band_local, ring_span,
       ring_sink_tok);
+  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
+}
+
+template <int R>
+Kv16Kernel kv16_kernel(Kv16Mode mode) {
+  return mode == KV16_BAND       ? decode_attn_kv16_kernel<R, KV16_BAND>
+         : mode == KV16_PER_HEAD ? decode_attn_kv16_kernel<R, KV16_PER_HEAD>
+                                 : decode_attn_kv16_kernel<R, KV16_DENSE>;
+}
+
+// Entry 4 in each mode: grid (S, H, B), S = the runs of per_split list
+// entries; with S > 1 the combine over the partials in ws.
+int launch_kv16(Kv16Mode mode, const void* q, const void* k_data,
+                const void* v_data, const void* sel_phys,
+                const void* sel_logic, const void* lengths, void* out,
+                void* ws, int B, int H, int n_rep, int page, int Tp,
+                int per_split, float sm_scale, int band_sink, int band_local,
+                int ring_span, int ring_sink_tok, void* stream) {
+  const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
+  if (page <= 0 || page > MAX_PAGE || S <= 0 || (S > 1 && ws == nullptr) ||
+      !aligned16(k_data) || !aligned16(v_data) ||
+      (mode == KV16_BAND && band_sink < 0))
+    return (int)cudaErrorInvalidValue;
+  Kv16Kernel kernel = nullptr;
+  switch (row_capacity(n_rep)) {
+    case 1: kernel = kv16_kernel<1>(mode); break;
+    case 2: kernel = kv16_kernel<2>(mode); break;
+    case 4: kernel = kv16_kernel<4>(mode); break;
+    case 8: kernel = kv16_kernel<8>(mode); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int err = allow_smem(reinterpret_cast<const void*>(kernel), KV16_SMEM);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(S, H, B), SPLIT_NT, KV16_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_data),
+      static_cast<const __nv_bfloat16*>(v_data),
+      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(ws), H, n_rep, page, Tp, per_split, sm_scale,
+      band_sink, band_local, ring_span, ring_sink_tok);
   return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
 }
 
@@ -1164,29 +1235,35 @@ int launch_decode_attention_kv16(
     const void* sel_phys, const void* sel_logic, const void* lengths,
     void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
     int per_split, float sm_scale, void* stream) {
-  const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
-  if (page <= 0 || page > MAX_PAGE || S <= 0 || (S > 1 && ws == nullptr) ||
-      !aligned16(k_data) || !aligned16(v_data))
-    return (int)cudaErrorInvalidValue;
-  Kv16Kernel kernel = nullptr;
-  switch (row_capacity(n_rep)) {
-    case 1: kernel = decode_attn_kv16_kernel<1>; break;
-    case 2: kernel = decode_attn_kv16_kernel<2>; break;
-    case 4: kernel = decode_attn_kv16_kernel<4>; break;
-    case 8: kernel = decode_attn_kv16_kernel<8>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  int err = allow_smem(reinterpret_cast<const void*>(kernel), KV16_SMEM);
-  if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(S, H, B), SPLIT_NT, KV16_SMEM, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_data),
-      static_cast<const __nv_bfloat16*>(v_data),
-      static_cast<const int*>(sel_phys), static_cast<const int*>(sel_logic),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), H, n_rep, page, Tp, per_split, sm_scale);
-  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
+  return launch_kv16(KV16_DENSE, q, k_data, v_data, sel_phys, sel_logic,
+                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
+                     sm_scale, -1, 0, 0, 0, stream);
+}
+
+// The same over per-(sequence, head) page lists [B, H, Tp] (the
+// selector's), split and pooled as launch_decode_attention_kv16's.
+int launch_decode_attention_ph_kv16(
+    const void* q, const void* k_data, const void* v_data,
+    const void* sel_phys, const void* sel_logic, const void* lengths,
+    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
+    int per_split, float sm_scale, void* stream) {
+  return launch_kv16(KV16_PER_HEAD, q, k_data, v_data, sel_phys, sel_logic,
+                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
+                     sm_scale, -1, 0, 0, 0, stream);
+}
+
+// The same over one list [B, Tp] per sequence with the streaming band
+// (band_sink >= 0) and, with ring_span > 0, the ring relabel.
+int launch_decode_attention_band_kv16(
+    const void* q, const void* k_data, const void* v_data,
+    const void* sel_phys, const void* sel_logic, const void* lengths,
+    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
+    int per_split, float sm_scale, int band_sink, int band_local,
+    int ring_span, int ring_sink_tok, void* stream) {
+  return launch_kv16(KV16_BAND, q, k_data, v_data, sel_phys, sel_logic,
+                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
+                     sm_scale, band_sink, band_local, ring_span,
+                     ring_sink_tok, stream);
 }
 
 }  // extern "C"

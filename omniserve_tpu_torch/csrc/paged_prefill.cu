@@ -5,9 +5,10 @@
 //   paged_prefill_attention (:268, kernel _prefill_kernel :39, tile dequant
 //   :150-240): dense heads over a block table (fine-grained kv4 or kv8
 //   pages, per-tensor kv4 or kv8 pages, kv16 pages), and, over the same
-//   kv4 / kv8 pages but kv16, the explicit page-list mode with the
-//   streaming ring's relabel and the per-head sink + local band (LServe's
-//   chunked prefill over the ring pool).
+//   pages, the explicit page-list mode with the streaming ring's relabel
+//   (:104-111) and the per-head sink + local band (:126), LServe's chunked
+//   prefill over the ring pool (kv16 pages: the unpack and scores of
+//   :155, :189, :222).
 //
 // Contract (plain version: omniserve_tpu_torch/ops/attention_ref.py
 // paged_prefill_attention):
@@ -108,7 +109,7 @@ __device__ __forceinline__ uint32_t h2(float lo, float hi) {
 // SPARSE = a page list and/or per-head flags; the dense instantiation is
 // the plain block-table walk, so the bench's chunked prefill pays nothing
 // for the ring mode. KV_BITS = 4, 8 (one byte per value) or 16 (bf16
-// values); PT = per-tensor codes. kv16 is dense only.
+// values); PT = per-tensor codes (kv4 / kv8).
 template <bool SPARSE, int KV_BITS, bool PT>
 __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
@@ -375,8 +376,8 @@ extern "C" {
 // for a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for
 // all dense; ring_span > 0 (pages) relabels the ring's stale rows;
 // kv_bits 4, 8 or 16; k_pt / v_pt: device addresses of the layer's
-// per-tensor scales (kv4 / kv8 without planes), or null. kv4 and kv8,
-// fine-grained or per-tensor, take a page list or flags; kv16 does not.
+// per-tensor scales (kv4 / kv8 without planes), or null. Every mode
+// takes a page list or flags.
 // n_rep 1 to 8 (a block holds BM / n_rep whole tokens, paged_copy.cuh).
 // k_data, v_data and planes 16-byte aligned.
 int launch_paged_prefill(const void* q, const void* k_data,
@@ -394,18 +395,21 @@ int launch_paged_prefill(const void* q, const void* k_data,
       (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
       pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||
-      (sparse && kv_bits == 16) ||
       (!pt && kv_bits != 16 && planes == nullptr) ||
       (reinterpret_cast<uintptr_t>(k_data) |
        reinterpret_cast<uintptr_t>(v_data) |
        reinterpret_cast<uintptr_t>(planes)) % 16)
     return (int)cudaErrorInvalidValue;
-  // the 9 instantiations: dense kv4, kv4 pt, kv8, kv8 pt, kv16; page
-  // list / band kv4, kv4 pt, kv8, kv8 pt
+  // the 10 instantiations: dense kv4, kv4 pt, kv8, kv8 pt, kv16; page
+  // list / band kv4, kv4 pt, kv8, kv8 pt, kv16
   auto kernel = paged_prefill_kernel<false, 4, false>;
   int which = 0;
   size_t smem = Cfg<4>::SMEM;
-  if (sparse) {
+  if (sparse && kv_bits == 16) {
+    kernel = paged_prefill_kernel<true, 16, false>;
+    smem = Cfg<16>::SMEM;
+    which = 9;
+  } else if (sparse) {
     if (kv_bits == 8)
       kernel = pt ? paged_prefill_kernel<true, 8, true>
                   : paged_prefill_kernel<true, 8, false>;
@@ -431,7 +435,7 @@ int launch_paged_prefill(const void* q, const void* k_data,
   if (err != cudaSuccess) return (int)err;
   // each instantiation's shared-memory size is set, and its register
   // budget checked, once per device
-  static bool ready[9][MAX_DEVICES] = {};
+  static bool ready[10][MAX_DEVICES] = {};
   if (dev >= MAX_DEVICES || !ready[which][dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -16,7 +16,8 @@ plain versions):
 (the reference's LServe flags and precision: streaming heads keep a ctx
 sink + local band at prefill, a prompt above ``--chunk-prefill-size``
 prefills in chunks over the streaming ring, and decode is dynamic-sparse;
-kv4 and kv8 pools, fine-grained or per-tensor, serve under them).
+kv4 and kv8 pools, fine-grained or per-tensor, and kv16 pools, the
+default ``--precision w16a16kv16``, serve under them).
 """
 
 import argparse

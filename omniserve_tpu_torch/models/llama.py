@@ -6,9 +6,9 @@ the same per-layer op order. Bodies: W4A8 with per-channel or per-group
 (g128) weights, W8A8, W16A16 (bf16 activations, no quantization), with
 the Qwen2 QKV bias where the model has one; GQA groups of 1 to 8 q heads
 a kv head (Llama-3's 4, Yi-34B's 7, Qwen1.5's MHA); pools:
-fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16 (kv16 on the
-dense path only; the per-tensor scales ride in the pool, where the
-attention calls read them). Per layer:
+fine-grained kv4 or kv8, per-tensor kv4 or kv8, or kv16, on the dense
+path and under LServe's modes alike (the per-tensor scales ride in the
+pool, where the attention calls read them). Per layer:
 
 - fused RMSNorm -> int8 quant (+ act sums for per-channel W4), the qkv
   GEMM (+ the QKV bias in f32), RoPE;
@@ -161,12 +161,6 @@ class LlamaSpec:
             raise NotImplementedError(
                 f"kv{self.kv_bits} pools are outside the precision matrix "
                 "(kv4, kv8, kv16)"
-            )
-        if (self.sparse_decode or self.sparse_prefill) and self.kv_bits == 16:
-            raise NotImplementedError(
-                "kv16 pools under --sparse-decode-mode / --sparse-context-"
-                "mode are ROADMAP.md queue 1 item 8b (LServe serves kv4 and "
-                "kv8 pools, fine-grained or per-tensor)"
             )
         if (self.num_q_heads % self.num_kv_heads
                 or not 1 <= self.n_rep <= MAX_N_REP):

@@ -36,9 +36,11 @@ LAUNCHES = {
     "decode_attention_ph": 0,
     "decode_attention_ph_kv8": 0,
     "decode_attention_ph_pt": 0,
+    "decode_attention_ph_kv16": 0,
     "decode_attention_band": 0,
     "decode_attention_band_kv8": 0,
     "decode_attention_band_pt": 0,
+    "decode_attention_band_kv16": 0,
     "kv_append_decode": 0,
     "kv_append_decode_kv8": 0,
     "kv_append_decode_pt": 0,
@@ -49,6 +51,7 @@ LAUNCHES = {
     "paged_prefill_ring": 0,
     "paged_prefill_ring_kv8": 0,
     "paged_prefill_ring_pt": 0,
+    "paged_prefill_ring_kv16": 0,
     "paged_prefill_kv8": 0,
     "paged_prefill_kv16": 0,
     "paged_prefill_pt": 0,

@@ -1,7 +1,8 @@
 """Paged decode attention (``csrc/decode_attention.cu``): the fused KV
 append over a dense page list, dynamic-sparse decode over per-head page
 lists and the streaming band over a ring pool (each over kv4 or kv8 pools,
-fine-grained or per-tensor), and the dense decode over a kv16 pool.
+fine-grained or per-tensor), and the same three list modes over kv16
+pools (dense, per-head, band).
 
 Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
@@ -21,7 +22,9 @@ And of ``omniserve_tpu/ops/pallas/paged_attention.py``:
 
 - ``paged_mqa_attention`` (:255), the two-stage decode the JAX package
   runs over kv16 pools, as one kernel that reads the listed bf16 pages in
-  place (no gather stage): ``paged_mqa_attention_kv16``.
+  place (no gather stage): over a dense list (``paged_mqa_attention_kv16``),
+  per-head lists (``paged_mqa_attention_ph_kv16``) and the streaming band
+  with the ring relabel (``paged_mqa_attention_band_kv16``).
 
 ``paged_decode_attention`` composes the last two as
 ``omniserve_tpu/ops/pallas/paged_attention.py:paged_decode_attention``
@@ -74,10 +77,12 @@ def _lib():
             [_P] * 9 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P] * 3
         )
         lib.launch_decode_attention_band.restype = _I
-        lib.launch_decode_attention_kv16.argtypes = (
-            [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
-        )
-        lib.launch_decode_attention_kv16.restype = _I
+        for entry, n_band in (("kv16", 0), ("ph_kv16", 0),
+                              ("band_kv16", 4)):
+            fn = getattr(lib, "launch_decode_attention_" + entry)
+            fn.argtypes = ([_P] * 8 + [_I] * 6 + [ctypes.c_float]
+                           + [_I] * n_band + [_P])
+            fn.restype = _I
         lib._typed = True
     return lib
 
@@ -432,21 +437,12 @@ def paged_mqa_attention_single_pass(
     return out
 
 
-def paged_mqa_attention_kv16(
-    q: torch.Tensor,          # [B, H, n_rep, D] bf16
-    pool: KVPool,             # kv16: k/v [L, P, H, page, D] bf16
-    layer: int,
-    sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
-    sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
-    lengths: torch.Tensor,    # [B] int32
-    *,
-    sm_scale: float,
-    page_size: int,
-) -> torch.Tensor:
-    """Kernel: decode over one page list per sequence of a kv16 pool, the
-    pages read in place, split over blocks by ``split_plan`` (and merged by
-    the combine kernel in the same call). Returns [B, H, n_rep, D] bf16.
-    Launches count as ``paged_mqa_attention_kv16``, one a call."""
+def _kv16_launch(entry, name: str, q, pool: KVPool, layer: int, sel_phys,
+                 sel_logic, lengths, page_size: int, sm_scale: float,
+                 list_shape, *band) -> torch.Tensor:
+    """Check and launch one mode of the kv16 kernel (``entry`` of the C
+    library), split over blocks by ``split_plan`` (and merged by the
+    combine kernel in the same call); counts one launch under ``name``."""
     b, hp, n_rep, d = q.shape
     tp = sel_logic.shape[-1]
     if (d != HEAD_DIM or not 1 <= n_rep <= cuda.MAX_N_REP
@@ -464,21 +460,95 @@ def paged_mqa_attention_kv16(
     cuda.check(q, "q", torch.bfloat16)
     cuda.check(pool.k_data, "k_data", torch.bfloat16)
     cuda.check(pool.v_data, "v_data", torch.bfloat16, pool.k_data.shape)
-    cuda.check(sel_phys, "sel_phys", torch.int32, (b, tp))
-    cuda.check(sel_logic, "sel_logic", torch.int32, (b, tp))
+    cuda.check(sel_phys, "sel_phys", torch.int32, list_shape)
+    cuda.check(sel_logic, "sel_logic", torch.int32, list_shape)
     cuda.check(lengths, "lengths", torch.int32, (b,))
     out = torch.empty_like(q)
     per, ws, ws_ptr = _split_launch(q, tp)
-    err = _lib().launch_decode_attention_kv16(
+    err = entry(
         q.data_ptr(), pool.k_data[layer].data_ptr(),
         pool.v_data[layer].data_ptr(), sel_phys.data_ptr(),
         sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws_ptr, b,
-        hp, n_rep, page_size, tp, per, float(sm_scale),
+        hp, n_rep, page_size, tp, per, float(sm_scale), *band,
         cuda.stream_handle(),
     )
-    cuda.raise_on_error(err, "paged_mqa_attention_kv16")
-    cuda.LAUNCHES["paged_mqa_attention_kv16"] += 1
+    cuda.raise_on_error(err, name)
+    cuda.LAUNCHES[name] += 1
     return out
+
+
+def paged_mqa_attention_kv16(
+    q: torch.Tensor,          # [B, H, n_rep, D] bf16
+    pool: KVPool,             # kv16: k/v [L, P, H, page, D] bf16
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
+    sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+) -> torch.Tensor:
+    """Kernel: decode over one page list per sequence of a kv16 pool, the
+    pages read in place. Returns [B, H, n_rep, D] bf16. Launches count as
+    ``paged_mqa_attention_kv16``, one a call."""
+    b, tp = q.shape[0], sel_logic.shape[-1]
+    return _kv16_launch(_lib().launch_decode_attention_kv16,
+                        "paged_mqa_attention_kv16", q, pool, layer, sel_phys,
+                        sel_logic, lengths, page_size, sm_scale, (b, tp))
+
+
+def paged_mqa_attention_ph_kv16(
+    q: torch.Tensor,          # [B, Hr, n_rep, D] bf16
+    pool: KVPool,             # kv16: k/v [L, P, Hr, page, D] bf16
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Hr, Tp] int32 physical page ids
+    sel_logic: torch.Tensor,  # [B, Hr, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+) -> torch.Tensor:
+    """Kernel: dynamic-sparse decode over per-(sequence, head) page lists
+    (in no order; all dead gives zeros) of a kv16 pool, the pages read in
+    place (``paged_mqa_attention``'s ``per_head_sel`` mode). Returns [B,
+    Hr, n_rep, D] bf16. Launches count as ``decode_attention_ph_kv16``,
+    one a call."""
+    b, hp, tp = q.shape[0], q.shape[1], sel_logic.shape[-1]
+    return _kv16_launch(_lib().launch_decode_attention_ph_kv16,
+                        "decode_attention_ph_kv16", q, pool, layer, sel_phys,
+                        sel_logic, lengths, page_size, sm_scale, (b, hp, tp))
+
+
+def paged_mqa_attention_band_kv16(
+    q: torch.Tensor,          # [B, Hs, n_rep, D] bf16
+    pool: KVPool,             # kv16 ring pool
+    layer: int,
+    sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
+    sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
+    lengths: torch.Tensor,    # [B] int32
+    *,
+    sm_scale: float,
+    page_size: int,
+    band_sink_tokens: int = 0,
+    band_local_tokens: int = 0,
+    ring_span_pages: int = 0,
+    ring_sink_tokens: int = 0,
+) -> torch.Tensor:
+    """Kernel: the streaming band over one page list per sequence of a
+    kv16 ring pool (``paged_mqa_attention``'s band mode): only positions
+    ``< band_sink_tokens`` or ``>= length - band_local_tokens`` are
+    attended, and ``ring_span_pages > 0`` relabels the slots past the
+    write head of the page being written. Returns [B, Hs, n_rep, D] bf16.
+    Launches count as ``decode_attention_band_kv16``, one a call."""
+    if band_sink_tokens < 0:
+        raise ValueError("the kv16 band kernel needs band_sink_tokens >= 0")
+    b, tp = q.shape[0], sel_logic.shape[-1]
+    return _kv16_launch(_lib().launch_decode_attention_band_kv16,
+                        "decode_attention_band_kv16", q, pool, layer,
+                        sel_phys, sel_logic, lengths, page_size, sm_scale,
+                        (b, tp), int(band_sink_tokens),
+                        int(band_local_tokens), int(ring_span_pages),
+                        int(ring_sink_tokens))
 
 
 def page_list_kv(
@@ -676,16 +746,17 @@ def paged_decode_attention(
         src_r = pool_head_sources(head_rank, head_is_retrieval, hr, True)
         q_r = q_g[:, src_r].contiguous()
     kw = dict(sm_scale=sm_scale, page_size=page_size)
+    # kv16 pools take the two-stage kernel's modes, as in the JAX package
+    kv16 = pool.k_data.dtype == torch.bfloat16
     if page_idxes is not None:
         lists = selected_page_lists(page_idxes, block_tables, src_r)
-        fn = (paged_mqa_attention_single_pass_ph if on_card
-              else page_list_attention_plain)
+        kernel = (paged_mqa_attention_ph_kv16 if kv16
+                  else paged_mqa_attention_single_pass_ph)
     else:
         lists = dense_page_lists(block_tables, context_lens, page_size)
-        kernel = (paged_mqa_attention_kv16
-                  if pool.k_data.dtype == torch.bfloat16
+        kernel = (paged_mqa_attention_kv16 if kv16
                   else paged_mqa_attention_single_pass)
-        fn = kernel if on_card else page_list_attention_plain
+    fn = kernel if on_card else page_list_attention_plain
     out_r = fn(q_r, pool, layer, *lists, lengths, **kw)
     if pure_dense:
         return out_r.reshape(b, hq, d)
@@ -702,8 +773,10 @@ def paged_decode_attention(
     sel_phys_s, sel_logic_s, ring_local = streaming_page_lists(
         streaming_block_tables, context_lens, sink_blocks, page_size,
         dec_local_tokens)
-    fn = (paged_mqa_attention_single_pass if on_card
-          else page_list_attention_plain)
+    kernel = (paged_mqa_attention_band_kv16
+              if streaming_pool.k_data.dtype == torch.bfloat16
+              else paged_mqa_attention_single_pass)
+    fn = kernel if on_card else page_list_attention_plain
     out_s = fn(
         q_g[:, src_s].contiguous(), streaming_pool, layer, sel_phys_s,
         sel_logic_s, lengths, band_sink_tokens=int(dec_sink_tokens),

@@ -5,12 +5,12 @@ Replaces ``omniserve_tpu/ops/pallas/paged_prefill.py:paged_prefill_attention``
 (launches counted as ``paged_prefill_attention`` over fine-grained kv4
 pages, ``paged_prefill_kv8`` over fine-grained kv8 pages,
 ``paged_prefill_pt`` over per-tensor kv4 or kv8 pages and
-``paged_prefill_kv16`` over bf16 pages), and, over the same kv4 / kv8
-pages but kv16, the explicit page-list mode, with the streaming ring's
-relabel and the per-head sink + local band, that LServe's chunked prefill
-runs over the ring pool (counted as ``paged_prefill_ring`` over
-fine-grained kv4 pages, ``paged_prefill_ring_kv8`` and
-``paged_prefill_ring_pt``). The plain version it is held
+``paged_prefill_kv16`` over bf16 pages), and, over the same pages, the
+explicit page-list mode, with the streaming ring's relabel and the
+per-head sink + local band, that LServe's chunked prefill runs over the
+ring pool (counted as ``paged_prefill_ring`` over fine-grained kv4 pages,
+``paged_prefill_ring_kv8``, ``paged_prefill_ring_pt`` and
+``paged_prefill_ring_kv16``). The plain version it is held
 against is ``paged_prefill_attention_plain`` below: the list turned into a
 per-row position map as ``omniserve_tpu/ops/dispatch.py:214-242`` does, then
 ``ops/attention_ref.paged_prefill_attention``. What bounds the kernel and how
@@ -195,19 +195,15 @@ def paged_prefill_attention(
     ``sel_logic[b, s]`` (-1 dead) and ``ring_span_pages`` > 0 relabels the
     newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
     keep the sink + local band. kv4 / kv8 pages, fine-grained or per-tensor
-    (``kv_zeros=False``, the pool's scales read on the device), take every
-    mode; kv16 pages the dense table only. Returns [B, Tc, Hq, D] bf16."""
+    (``kv_zeros=False``, the pool's scales read on the device), and kv16
+    pages take every mode. Returns [B, Tc, Hq, D] bf16."""
     pt = kv_bits < 16 and not kv_zeros
-    band = head_is_retrieval is not None and bool(sink_size or local_size)
-    if kv_bits == 16 and (sel_logic is not None or band):
-        raise ValueError("paged prefill kernel takes kv16 pages over a "
-                         "dense table only (no page list, no band)")
-    suffix = "_pt" if pt else "_kv8" if kv_bits == 8 else ""
+    suffix = ("_kv16" if kv_bits == 16 else "_pt" if pt
+              else "_kv8" if kv_bits == 8 else "")
     if sel_logic is not None:
         name = "paged_prefill_ring" + suffix
     else:
-        name = ("paged_prefill_kv16" if kv_bits == 16
-                else "paged_prefill" + suffix if suffix
+        name = ("paged_prefill" + suffix if suffix
                 else "paged_prefill_attention")
     return launch(
         _lib().launch_paged_prefill, name, q, pool, layer, block_tables,

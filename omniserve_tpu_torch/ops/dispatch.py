@@ -1,18 +1,17 @@
 """Attention dispatch: Hopper kernels for CUDA tensors, plain versions for
 CPU tensors.
 
-Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves:
-whole-prompt prefill and chunked prefill over the paged pool (dense heads
-over kv4 / kv8 pools, fine-grained or per-tensor, and kv16 pools; LServe's
-streaming heads with their sink + local band, over the ring pool's page
-list in chunked prefill, kv4 / kv8, fine-grained or per-tensor), the dense
-decode step with its KV append fused in (kv4 / kv8, fine-grained or
-per-tensor) or, over a kv16 pool, split as the JAX dispatch splits it
-(``append_kv_decode``, then ``paged_decode_attention``), and the split
-decode step of dynamic-sparse decode (the same two calls over the
-retrieval and streaming pools, kv4 / kv8, fine-grained or per-tensor).
-Every other mode of the JAX dispatch raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Counterpart of ``omniserve_tpu.ops.dispatch`` for what the port serves,
+over kv4 / kv8 pools (fine-grained or per-tensor) and kv16 pools alike:
+whole-prompt prefill and chunked prefill over the paged pool (dense heads;
+LServe's streaming heads with their sink + local band, over the ring
+pool's page list in chunked prefill), the dense decode step with its KV
+append fused in (kv4 / kv8) or, over a kv16 pool, split as the JAX
+dispatch splits it (``append_kv_decode``, then
+``paged_decode_attention``), and the split decode step of dynamic-sparse
+decode (the same two calls over the retrieval and streaming pools).
+Every other mode of the JAX dispatch raises ``NotImplementedError``
+naming its ROADMAP.md item.
 
 Two environment switches, read at call time with the JAX dispatch's names
 and defaults (off), choose the JAX package's alternative kernels for CUDA
@@ -64,19 +63,6 @@ def embed_lookup(table, ids):
 
         return embed_gather.embed_gather(table, ids)
     return table[ids]
-
-
-def _check_lserve_kv(kv_bits: int) -> None:
-    """Raise for pools LServe's modes (sparse decode's split append and
-    attention, the page-list and band modes of paged prefill) do not serve:
-    kv16 (ROADMAP.md queue 1 item 8b). kv4 and kv8, fine-grained or
-    per-tensor, are served."""
-    if kv_bits == 16:
-        raise NotImplementedError(
-            "kv16 pools under LServe's sparse modes are outside the port, "
-            "which serves kv4 and kv8 pools there; see ROADMAP.md queue 1 "
-            "item 8b"
-        )
 
 
 def prefill_attention(q, k, v, segment_ids, positions, sm_scale,
@@ -161,9 +147,8 @@ def append_kv_decode(pool, layer, k, v, page_ids, slots, page_size,
                      kv_bits, kv_zeros, update_stats=False, sub_chunks=4):
     """Decode-step KV append (+ optional K min/max stats), in place. Tokens
     must target distinct pages (the decode invariant); page id -1 marks an
-    inactive token. kv4 / kv8 pools, fine-grained or per-tensor (sparse
-    decode appends apart), and kv16 pools (the dense decode's split
-    path)."""
+    inactive token. kv4 / kv8 pools, fine-grained or per-tensor, and kv16
+    pools."""
     from omniserve_tpu_torch.ops.cuda import kv_append
 
     if cuda.use_kernel(k):
@@ -217,13 +202,10 @@ def paged_decode_attention(
 ):
     """Decode attention WITHOUT the append, over the retrieval pool (dense
     history or the selector's ``page_idxes``) and, for streaming heads, the
-    ring pool's sink + local band. On a card: the page-list kernels. On the
+    ring pool's sink + local band. On a card: the page-list kernels (kv16
+    pools: the two-stage kernel's dense, per-head and band modes). On the
     CPU: ``attention_ref.paged_decode_attention``. kv4 / kv8 pools, fine-
-    grained or per-tensor (sparse decode attends apart from the append),
-    and, over a dense history, kv16 pools (the dense decode's split
-    path)."""
-    if page_idxes is not None or streaming_pool is not None:
-        _check_lserve_kv(kv_bits)
+    grained or per-tensor, and kv16 pools."""
     if cuda.use_kernel(q):
         from omniserve_tpu_torch.ops.cuda import decode_attention
 
@@ -255,8 +237,8 @@ def paged_prefill_attention(
 ):
     """Chunked-prefill attention of q [B, Tc, Hq, D] over the paged pool
     (history + the chunk, appended by the caller): kv4 / kv8 pools, fine-
-    grained or per-tensor, and kv16 pools; a page list or a band (LServe)
-    over kv4 / kv8 pools only.
+    grained or per-tensor, and kv16 pools, each also under a page list or
+    a band (LServe).
 
     ``sel_logic`` [B, W] names the logical page each table slot holds (-1
     dead); with ``ring_span_pages`` the source is the streaming ring, whose
@@ -279,10 +261,6 @@ def paged_prefill_attention(
         fn = (psp.paged_prefill_single_pass if cuda.use_kernel(q)
               else psp.paged_prefill_single_pass_plain)
     else:
-        listed = sel_logic is not None or (
-            head_is_retrieval is not None and bool(sink_size or local_size))
-        if listed:
-            _check_lserve_kv(kv_bits)
         from omniserve_tpu_torch.ops.cuda import paged_prefill
 
         fn = (paged_prefill.paged_prefill_attention if cuda.use_kernel(q)

@@ -229,7 +229,14 @@ def test_append_targets():
 
 def random_pools(rng, kv_bits, kv_zeros, n_pages, h, page, d, layers=2):
     """A JAX pool of random codes (fine-grained planes or per-tensor
-    scales that span N(0, 1) values) and its port twin."""
+    scales that span N(0, 1) values), or of N(0, 1) bf16 values (kv16),
+    and its port twin."""
+    if kv_bits == 16:
+        pool = j_make_kv_pool(layers, n_pages, h, page, d, kv_bits=16)
+        pool = pool._replace(**{n: jnp.asarray(rng.standard_normal(
+            pool.k_data.shape).astype(np.float32), jnp.bfloat16)
+            for n in ("k_data", "v_data")})
+        return pool, pool_from_numpy(pool, "cpu")
     pt = {}
     if not kv_zeros:
         qmax = 7 if kv_bits == 4 else 127
@@ -253,9 +260,10 @@ def test_decode_dispatch_raises_outside_slice():
     (``tests/test_torch_kv16_pertensor.py``); a streaming pool raises
     naming its ROADMAP item at any width. What only sparse decode reaches
     (a page selection or a streaming pool at the split attention, a
-    non-kv16 split append) serves kv8 and per-tensor kv4 / kv8 pools, equal
-    to the JAX package (attention 1e-5, append bytes), and raises for kv16
-    naming item 8b."""
+    non-kv16 split append) serves kv8, per-tensor kv4 / kv8 and kv16 pools,
+    equal to the JAX package (attention 1e-5, append bytes): the
+    selection and the streaming pool over kv16 pools, which raised before
+    LServe served them, run too."""
     q = torch.zeros(1, 2, 8)
     for kv_bits, kv_zeros in ((4, True), (16, True), (8, False), (4, False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -263,14 +271,6 @@ def test_decode_dispatch_raises_outside_slice():
                 q, None, object(), 0, None, None, None, None, sm_scale=1.0,
                 page_size=8, kv_bits=kv_bits, kv_zeros=kv_zeros,
             )
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        dispatch.paged_decode_attention(
-            q, None, 0, None, None, 1.0, 8, 16, True,
-            page_idxes=torch.zeros(1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        dispatch.paged_decode_attention(
-            q, None, 0, None, None, 1.0, 8, 16, True,
-            streaming_pool=object())
 
     rng = np.random.default_rng(9)
     page, h, d, b = 16, 2, 32, 2
@@ -281,7 +281,7 @@ def test_decode_dispatch_raises_outside_slice():
     qn = rng.standard_normal((b, 2 * h, d)).astype(np.float32)
     flags, rank = np.array([True, False]), np.array([0, 0], np.int32)
     sm = d ** -0.5
-    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False)):
+    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False), (16, True)):
         jr, tr = random_pools(rng, kv_bits, kv_zeros, 7, h, page, d)
         js, ts = random_pools(rng, kv_bits, kv_zeros, 7, 1, page, d)
         js = js._replace(k_scale_per_tensor=jr.k_scale_per_tensor,
@@ -320,7 +320,8 @@ def test_decode_dispatch_raises_outside_slice():
         for name in ("k_data", "v_data", "kv_scales"):
             if getattr(jout, name) is not None:
                 np.testing.assert_array_equal(
-                    N(getattr(tr, name)), np.asarray(getattr(jout, name)))
+                    N(getattr(tr, name).float()),
+                    np.asarray(getattr(jout, name), np.float32))
 
 
 # -- paged prefill (chunked prefill attention) ---------------------------
@@ -441,8 +442,10 @@ def test_paged_prefill_dispatch_raises_outside_slice():
     per-tensor (``tests/test_torch_lserve_prefill.py``; kv8 and per-tensor
     below, equal to the JAX dispatch at 1e-5), and kv8, kv16 and
     per-tensor pages over a dense table (``tests/test_torch_precision.py``,
-    ``tests/test_torch_kv16_pertensor.py``); LSE outputs (sequence
-    parallelism), and kv16 under a page list or band raise."""
+    ``tests/test_torch_kv16_pertensor.py``), and kv16 pages under a page
+    list or band (below, equal to the JAX dispatch at 1e-5; they raised
+    before LServe served kv16); LSE outputs (sequence parallelism)
+    raise."""
     q = torch.zeros(1, 2, 2, 8)
     kw = dict(sm_scale=1.0, page_size=8, kv_bits=4, kv_zeros=True)
     with pytest.raises(NotImplementedError, match="item 10"):
@@ -456,12 +459,6 @@ def test_paged_prefill_dispatch_raises_outside_slice():
         t_ref.paged_prefill_attention(q, None, 0, None, None, None, 1.0, 8,
                                       4, True, kv_positions=torch.zeros(1),
                                       return_lse=True)
-    for bad in (dict(kv_bits=16, sel_logic=torch.zeros(1, 1)),
-                dict(kv_bits=16, head_is_retrieval=torch.ones(2),
-                     sink_size=4, local_size=4)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            dispatch.paged_prefill_attention(q, None, 0, None, None, None,
-                                             **dict(kw, **bad))
     rng = np.random.default_rng(11)
     page, hkv, d = 8, 2, 32
     table = np.array([[4, 1, 6, 0, 3]], np.int32)
@@ -470,7 +467,7 @@ def test_paged_prefill_dispatch_raises_outside_slice():
     qn = rng.standard_normal((1, 6, 2 * hkv, d)).astype(np.float32)
     q_pos = np.arange(24, 30, dtype=np.int32)[None]
     flags = np.array([True, True, False, False])
-    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False)):
+    for kv_bits, kv_zeros in ((8, True), (8, False), (4, False), (16, True)):
         jpool, tpool = random_pools(rng, kv_bits, kv_zeros, 7, hkv, page, d,
                                     layers=1)
         for extra in (dict(sel_logic=sel),

@@ -108,16 +108,25 @@ def test_engine_raises_outside_slice(tiny_model_dir, monkeypatch):
     tests/test_torch_kv16_engine.py), and so do kv8 and per-tensor KV under
     LServe's modes: those cases serve greedy requests equal to the JAX
     engine's (compared while every top-2 margin exceeds 2e-3). kv16 under
-    LServe's modes and tensor parallelism stay outside the port and raise
-    naming their ROADMAP item."""
+    LServe's modes builds its engine (bf16 dual pools, K stats on the
+    retrieval pool; served in tests/test_torch_lserve_kv16.py); tensor
+    parallelism stays outside the port and raises naming its ROADMAP
+    item."""
     from tests.test_torch_precision_engine import TrustedPrefix
 
-    for extra in (dict(precision="w16a16kv16", sparse_context_mode=True),
-                  dict(tensor_parallel_size=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LLMEngine.from_engine_args(EngineArgs(
-                device="cpu", **dict(engine_kwargs(tiny_model_dir),
-                                     **extra)))
+    kv16 = LLMEngine.from_engine_args(EngineArgs(
+        device="cpu", **dict(engine_kwargs(tiny_model_dir),
+                             precision="w16a16kv16", sparse_context_mode=True,
+                             sparse_decode_mode=True, static_sparsity=0.5)))
+    runner = kv16.worker.model_runner
+    spec, ce = runner.spec, runner.cache_engine
+    assert spec.kv_bits == 16 and spec.sparse_prefill and spec.sparse_decode
+    assert ce.streaming_pool.k_data.dtype == torch.bfloat16
+    assert ce.retrieval_pool.k_stats.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LLMEngine.from_engine_args(EngineArgs(
+            device="cpu", **dict(engine_kwargs(tiny_model_dir),
+                                 tensor_parallel_size=2)))
     for extra in (dict(precision="w8a8kv8",
                        kv_quant_granularity="per_tensor",
                        sparse_decode_mode=True, static_sparsity=0.5),

@@ -768,7 +768,7 @@ POOL_SRC = ((0, 2), (1, 3))
 
 def _two_pool_case(dev, mode, t, with_stats, page=128, seed=51):
     """Dirty retrieval (with stats) and streaming pools of ``mode`` (kv4,
-    kv8, pt4, pt8), one token per sequence into distinct pages of each
+    kv8, pt4, pt8, kv16), one token per sequence into distinct pages of each
     (every fifth inactive), bf16 K / V rows [t, 4, D] as slices of a fused
     qkv row (tokens 3 * 4 * D apart), and the pools' maps."""
     d, n_sub, hp = 128, 4, 2
@@ -776,6 +776,9 @@ def _two_pool_case(dev, mode, t, with_stats, page=128, seed=51):
     n_pages = 2 * t + 1
     pools = []
     for stats in (with_stats, False):
+        if mode == "kv16":
+            pools.append(_kv16_pool(dev, g, 2, n_pages, hp, page, d, stats))
+            continue
         pool = _codes_pool(dev, g, mode, 2, n_pages, hp, page, d)
         if pool.k_scale_per_tensor is not None:    # layers' scales differ
             pool.k_scale_per_tensor[0] *= 1.3
@@ -810,11 +813,12 @@ def _refused(pools, twins, what):
 
 @pytest.mark.parametrize("t", [1, 8, 128])
 @pytest.mark.parametrize("with_stats", [True, False])
-@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8"])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8", "kv16"])
 def test_kv_append_decode_pools_kernel(dev, mode, with_stats, t):
     """Row 10's two-pool entry, one launch for LServe's retrieval and
     streaming pools, each row reading its kv head through the pool's map
-    out of K / V rows that are views of a fused qkv row: bytes, planes,
+    out of K / V rows that are views of a fused qkv row (kv4 / kv8
+    codes, fine-grained or per-tensor, or kv16 values): bytes, planes,
     stats (retrieval pool only) and scales equal the two plain appends'
     on every page but the trash page, three steps on the same pages. The
     plain versions refuse a token one slot late, the other layer's scales
@@ -822,7 +826,7 @@ def test_kv_append_decode_pools_kernel(dev, mode, with_stats, t):
     from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import kv_append as ka
 
-    kv_bits, fine = PSP_MODES[mode]
+    kv_bits, fine = PSP_MODES.get(mode, (16, True))
     (rpool, spool), (tr, ts), k, v = _two_pool_case(dev, mode, t, with_stats)
     assert k.stride(0) == 3 * 4 * 128     # read in place, no gather
     twins = (rpool.clone(), spool.clone())
@@ -1000,12 +1004,12 @@ def test_sparse_decode_window_graphs_match_eager(dev):
     _sparse_window_case(dev, 4, True)
 
 
-@pytest.mark.parametrize("mode", ["kv8", "pt4", "pt8"])
+@pytest.mark.parametrize("mode", ["kv8", "pt4", "pt8", "kv16"])
 def test_sparse_decode_window_kv_modes_graph_matches_eager(dev, mode):
-    """The same over kv8 and per-tensor pools; per-tensor scales are loaded
-    into both pools AFTER the graphs are captured, so the replayed steps
-    must read them on the device."""
-    kv_bits, fine = PSP_MODES[mode]
+    """The same over kv8, per-tensor and kv16 pools; per-tensor scales are
+    loaded into both pools AFTER the graphs are captured, so the replayed
+    steps must read them on the device."""
+    kv_bits, fine = PSP_MODES.get(mode, (16, True))
     _sparse_window_case(dev, kv_bits, fine)
 
 
@@ -1034,7 +1038,7 @@ def _sparse_window_case(dev, kv_bits, kv_zeros):
     kv = dict(kv_bits=kv_bits, kv_zeros=kv_zeros, device=dev)
     rpool = make_kv_pool(2, 3 * w + 1, 2, page, 128, with_stats=True, **kv)
     spool = make_kv_pool(2, 10, 2, page, 128, **kv)
-    suffix = list_mode(rpool, page)[2]
+    suffix = "_kv16" if kv_bits == 16 else list_mode(rpool, page)[2]
     qmax = 7 if kv_bits == 4 else 127
     scales = (torch.tensor([0.9, 1.1], device=dev) / qmax,
               torch.tensor([1.0, 0.8], device=dev) / qmax)
@@ -1424,6 +1428,163 @@ def test_kv_append_decode_kv16_kernel(dev, dtype):
                                   kv_bits=16)
     torch.cuda.synchronize()
     assert_pools_equal(pool, twin, skip_trash=True)
+
+
+def _kv16_pool(dev, g, layers, n_pages, h, page, d=128, with_stats=False):
+    """A kv16 pool of N(0, 1) bf16 values (recycled pages are dirty), with
+    random K stats when ``with_stats``."""
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+
+    pool = make_kv_pool(layers, n_pages, h, page, d, kv_bits=16,
+                        with_stats=with_stats, device=dev)
+    for x in (pool.k_data, pool.v_data) + ((pool.k_stats,) if with_stats
+                                           else ()):
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+    return pool
+
+
+KV16_LIST_TOL = 1e-2
+
+
+def _gate_refuses(got, want, planted):
+    """``got`` within KV16_LIST_TOL of the plain output ``want``, and each
+    of ``planted`` ((label, the plain output with a fault planted in its
+    inputs)) outside it."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=KV16_LIST_TOL,
+                               atol=KV16_LIST_TOL)
+    for what, bad in planted:
+        assert not torch.allclose(bad.float(), want.float(),
+                                  rtol=KV16_LIST_TOL,
+                                  atol=KV16_LIST_TOL), what
+
+
+@pytest.mark.parametrize("page", [128, 256])
+@pytest.mark.parametrize("n_rep", [4, 7])
+def test_decode_attention_kv16_lists_kernel(dev, n_rep, page):
+    """Row 6's kv16 modes of LServe's decode. Per-head lists in no order
+    with dead entries, a context inside a listed page, an all-dead list and
+    an inactive row; then the ring's band list (wrapped mid page and on a
+    page boundary, inside the sink page, inactive). NaN planted in the
+    never-written rows past each context must stay behind the mask.
+    Launches counted as ``decode_attention_ph_kv16`` /
+    ``decode_attention_band_kv16``; the gate refuses the plain version with
+    the lengths a page short, and with the band's window moved by a
+    page."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    h, d, n_pages = 2, 128, 24
+    g = _gen(dev, 35)
+    pool = _kv16_pool(dev, g, 2, n_pages + 1, h, page)
+    lens = [5 * page + 9, 3 * page, 2 * page + 60, 0]
+    sel_logic = torch.tensor([
+        [[5, 0, 3, -1, 1], [5, 4, -1, 2, 0]],
+        [[2, 1, 0, -1, -1], [2, -1, 0, -1, -1]],
+        [[-1, -1, -1, -1, -1], [2, 1, 0, -1, -1]],
+        [[0, 1, -1, -1, -1], [0, -1, -1, -1, -1]],
+    ], dtype=torch.int32)
+    # logical page p of row r lives in physical page p + 6 r
+    for s, n in enumerate(lens):
+        if n > 0 and n % page:
+            phys = (n - 1) // page + 6 * s
+            pool.k_data[1, phys, :, n % page:] = float("nan")
+            pool.v_data[1, phys, :, n % page:] = float("nan")
+    sel_phys = torch.where(
+        sel_logic >= 0, sel_logic + 6 * torch.arange(4)[:, None, None], 0,
+    ).to(torch.int32)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((4, h, n_rep, d), generator=g, device=dev).bfloat16()
+    lists = (sel_phys.to(dev), sel_logic.to(dev))
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    before = dict(cuda.LAUNCHES)
+    got = da.paged_mqa_attention_ph_kv16(q, pool, 1, *lists, lens_t, **kw)
+    assert cuda.LAUNCHES["decode_attention_ph_kv16"] == \
+        before["decode_attention_ph_kv16"] + 1
+    assert cuda.LAUNCHES["paged_mqa_attention_kv16"] == \
+        before["paged_mqa_attention_kv16"]
+    want = da.page_list_attention_plain(q, pool, 1, *lists, lens_t, **kw)
+    short = da.page_list_attention_plain(q, pool, 1, *lists,
+                                         (lens_t - page).clamp(min=0), **kw)
+    _gate_refuses(got, want, [("lengths a page short", short)])
+    assert float(got[2, 0].abs().max()) == 0.0      # all-dead list
+    assert float(got[3].abs().max()) == 0.0         # inactive row
+    assert float(got[2, 1].abs().max()) > 0.0
+    assert torch.isfinite(got.float()).all()
+
+    # the ring's band: 1 sink + 2 ring pages per sequence
+    b = 4
+    slens = torch.tensor([5 * page + 37, 4 * page, 90, 0],
+                         dtype=torch.int32, device=dev)
+    spool = _kv16_pool(dev, g, 2, 3 * b + 1, h, page)
+    stables = torch.arange(3 * b, dtype=torch.int32, device=dev).view(b, 3)
+    # row 2's sink page past its 90 tokens was never written
+    spool.k_data[1, int(stables[2, 0]), :, 90:] = float("nan")
+    spool.v_data[1, int(stables[2, 0]), :, 90:] = float("nan")
+    sel_phys, sel_logic, span = da.streaming_page_lists(
+        stables, slens, 1, page, 2 * page)
+    q = torch.randn((b, h, n_rep, d), generator=g, device=dev).bfloat16()
+    kw = dict(sm_scale=d ** -0.5, page_size=page, band_sink_tokens=page,
+              band_local_tokens=2 * page, ring_span_pages=span,
+              ring_sink_tokens=page)
+    args = (q, spool, 1, sel_phys, sel_logic, slens)
+    before = cuda.LAUNCHES["decode_attention_band_kv16"]
+    got = da.paged_mqa_attention_band_kv16(*args, **kw)
+    assert cuda.LAUNCHES["decode_attention_band_kv16"] == before + 1
+    want = da.page_list_attention_plain(*args, **kw)
+    _gate_refuses(got, want, [("the band's window moved by a page",
+                               da.page_list_attention_plain(*args, **dict(
+                                   kw, band_local_tokens=page)))])
+    assert float(got[3].abs().max()) == 0.0
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("page,n_rep", [(128, 4), (256, 4), (128, 7),
+                                        (256, 7)])
+def test_paged_prefill_ring_kv16_kernel(dev, page, n_rep):
+    """Row 7's page list with the ring relabel and the band over kv16
+    pages: two sequences wrapped several times, one padded halfway, stale
+    rows past the write head, a retrieval head beside a streaming one;
+    launches counted as ``paged_prefill_ring_kv16``; the gate refuses the
+    plain version with the band's local window moved by a page."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
+
+    lens, chunk, sink_b, local_b = [20 * page + 37, 15 * page + 50], 128, 1, 6
+    b, h, d = len(lens), 2, 128
+    n_slots = sink_b + local_b
+    g = _gen(dev, 36)
+    pool = _kv16_pool(dev, g, 1, b * n_slots + 1, h, page)
+    tables = torch.randperm(b * n_slots, generator=g, device=dev).view(
+        b, n_slots).to(torch.int32)
+    ctx = torch.tensor(lens, dtype=torch.int32)
+    q_pos = torch.stack([n - chunk + torch.arange(chunk, dtype=torch.int32)
+                         for n in lens])
+    q_pos[1] = lens[1] - chunk // 2 + torch.arange(chunk, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    sel = ring_logical_blocks(ctx, n_slots, sink_b, local_b, page)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=16, kv_zeros=True,
+              sel_logic=sel, ring_span_pages=local_b,
+              ring_sink_tokens=sink_b * page,
+              head_is_retrieval=torch.tensor(
+                  [True] * n_rep + [False] * n_rep, device=dev),
+              sink_size=page, local_size=3 * page)
+    before = cuda.LAUNCHES["paged_prefill_ring_kv16"]
+    got = pp.paged_prefill_attention(q, pool, 0, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES["paged_prefill_ring_kv16"] == before + 1
+    want = pp.paged_prefill_attention_plain(q, pool, 0, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+    bad = pp.paged_prefill_attention_plain(q, pool, 0, tables, q_pos, ctx,
+                                           **dict(kw, local_size=2 * page))
+    assert not torch.allclose(bad.float(), want.float(), rtol=2e-2,
+                              atol=2e-2)
 
 
 @pytest.mark.parametrize("mode,n_rep", [("pt4", 1), ("pt4", 4), ("pt8", 4),

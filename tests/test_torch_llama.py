@@ -345,15 +345,19 @@ def test_forward_raises_outside_slice(extra):
     (``tests/test_torch_lserve_llama.check_sparse_forward``: logits 1e-4
     of their scale, pools equal). The QKV bias serves too: a prefill and a
     decode step against the JAX forward's at 1e-4, the bias left out
-    refused (``check_forward``). kv16 under LServe's
-    modes raises naming ROADMAP.md queue 1 item 8b; a GQA group the
-    attention kernels do not take (n_rep past 8, or q heads that do not
-    divide over the kv heads) raises at ``check_supported`` naming the
-    limit."""
+    refused (``check_forward``). kv16 under LServe's modes serves:
+    ``check_supported`` passes (the forwards against the JAX package's are
+    in ``tests/test_torch_lserve_kv16.py``); a GQA group the attention
+    kernels do not take (n_rep past 8, or q heads that do not divide over
+    the kv heads) raises at ``check_supported`` naming the limit."""
     if extra.get("kv_bits") == 16 or "num_q_heads" in extra:
         spec = t_llama.LlamaSpec(**dict(spec_kwargs(8), **extra))
-        match = "item 8b" if extra.get("kv_bits") == 16 else "1 to 8 q heads"
-        with pytest.raises(NotImplementedError, match=match):
+        if extra.get("kv_bits") == 16:
+            spec.check_supported()
+            assert spec.sparse_decode or spec.sparse_prefill
+            assert spec.with_stats == spec.sparse_decode
+            return
+        with pytest.raises(NotImplementedError, match="1 to 8 q heads"):
             spec.check_supported()
         return
     if extra.get("attn_bias"):

@@ -58,10 +58,12 @@ def assert_pools_equal(tpool, jpool, what):
             assert getattr(tpool, name) is None
             continue
         keep = slice(None) if want.ndim == 1 else slice(None, -1)
+        got = getattr(tpool, name)
+        if got.dtype == torch.bfloat16:     # kv16 values, compared exactly
+            got, want = got.float(), np.asarray(want, np.float32)
         np.testing.assert_array_equal(
-            getattr(tpool, name).numpy()[:, keep] if want.ndim > 1 else
-            getattr(tpool, name).numpy(), np.asarray(want)[:, keep]
-            if want.ndim > 1 else np.asarray(want),
+            got.numpy()[:, keep] if want.ndim > 1 else got.numpy(),
+            np.asarray(want)[:, keep] if want.ndim > 1 else np.asarray(want),
             err_msg=f"{what}: {name}")
 
 
@@ -77,8 +79,9 @@ def test_sparse_prefill_then_decode_matches_jax():
 
 def check_sparse_forward(overrides=None, n_steps=6):
     """A whole-prompt prefill, then ``n_steps`` decode steps of both
-    forwards (``spec_kwargs`` with ``overrides``: other KV modes, sparse
-    prefill, no sparse decode) from the same weights and dirty pools:
+    forwards (``spec_kwargs`` with ``overrides``: other KV modes, kv16
+    included, sparse prefill, no sparse decode) from the same weights and
+    dirty pools:
     logits at 1e-4 of their scale, pools equal, selections equal as sets.
     Per-tensor pools carry the same calibrated-range scales in both
     pools. Returns (decode steps that began a page, selector
@@ -129,9 +132,13 @@ def check_sparse_forward(overrides=None, n_steps=6):
                         kv_zeros=kv_zeros, with_stats=sparse, **pt)
     js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, 16, kv_bits=kv_bits,
                         kv_zeros=kv_zeros, **pt) if sparse else None
-    jr = jr._replace(k_data=jnp.asarray(rng.integers(
-        0, 256, jr.k_data.shape, dtype=np.uint8)))
-    if kv_zeros:
+    if kv_bits == 16:       # dirty bf16 values
+        jr = jr._replace(k_data=jnp.asarray(rng.normal(
+            size=jr.k_data.shape).astype(np.float32), jnp.bfloat16))
+    else:
+        jr = jr._replace(k_data=jnp.asarray(rng.integers(
+            0, 256, jr.k_data.shape, dtype=np.uint8)))
+    if jr.kv_scales is not None:
         jr = jr._replace(kv_scales=jnp.asarray(rng.uniform(
             0.1, 1, jr.kv_scales.shape).astype(np.float32)))
     if sparse:
