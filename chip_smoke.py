@@ -30,7 +30,12 @@ Phases (any failure raises and exits nonzero before the last line):
    at Qwen1.5-72B's 64 / 64 heads (n_rep 1) and phase 12's shapes; rows 1
    and 3 at phase 12's GEMM shapes, with their plans; LServe over kv16
    pools: row 6's per-head lists and band, row 7's kv16 ring and row 10's
-   two-pool kv16 append with K stats, at phase 6 / 7's shapes;
+   two-pool kv16 append with K stats, at phase 6 / 7's shapes; head_dim
+   64 at phase 14's shapes: row 6's kv4 / kv8 / per-tensor / kv16 modes
+   (dense list, per-head lists, band; also kv4 at head_dim 128 over
+   64-token pages), rows 7, 9 and 10, and rows 1 and 3 at Llama-3.2-1B's
+   GEMM shapes (the list a page short, the band moved by a page, the
+   nibble halves swapped and a token a slot late refused);
 3. a full-width, depth-cut Llama-3-8B forward (2 layers): whole-prompt
    prefill and one decode step, a chunked prefill of the same prompts, and
    an 8-step decode window replayed from a captured CUDA graph against the
@@ -43,7 +48,10 @@ Phases (any failure raises and exits nonzero before the last line):
    per-tensor KV with calibrated scales included), the sparse forwards
    (and a 10-step window) at w16a16kv16 too, and the whole-prompt,
    decode and chunked forwards at phase 12's models' widths (Yi-34B at
-   n_rep 7; Qwen1.5-72B with its QKV bias, whose effect must show);
+   n_rep 7; Qwen1.5-72B with its QKV bias, whose effect must show); and
+   at Llama-3.2-1B's (head_dim 64): the dense forwards at w4a8kv4 and the
+   sparse decode side at w8a8kv8 per-tensor and w16a16kv16, each decode
+   call held in place against its plain version;
 4. the engine at full Llama-3-8B W4A8KV4 width (32 layers, random weights
    from a seed): 8 requests of 1024 prompt tokens, 32 greedy tokens each,
    through ``LLMEngine.add_request`` / ``step()``, with every kernel's
@@ -98,6 +106,11 @@ Phases (any failure raises and exits nonzero before the last line):
     kv16 ring and row 10's two-pool kv16 append, which phase 2 holds
     against their plain versions and phase 3 runs in 2-layer sparse
     forwards at w16a16kv16;
+14. Llama-3.2-1B (head_dim 64) at full width and depth: (a) phase 5's
+    protocol at w4a8kv4 (a warmup and a measured round) and phase 4's IFB
+    engine (row 9), (b) phase 7's protocol at w8a8kv8 per-tensor (both
+    flags): every decode through row 10's append and row 6, no call
+    reaching rows 4 / 5 or a plain version;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -172,6 +185,20 @@ QWEN15_72B = dict(
     rope_theta=1000000.0, max_position_embeddings=32768,
     rms_norm_eps=1e-6, model_type="qwen2",
 )
+# Llama-3.2-1B (public config.json): 16 layers, hidden 2048, 32 q heads
+# over 8 kv heads of 64 (n_rep 4), vocab 128,256, rope theta 500,000 with
+# llama3 scaling (factor 32, low 1, high 4, original 8,192), tied
+# embeddings (no part with random weights); phase 14's model
+LLAMA32_1B = dict(
+    architectures=["LlamaForCausalLM"], hidden_size=2048,
+    intermediate_size=8192, num_attention_heads=32, num_key_value_heads=8,
+    num_hidden_layers=16, vocab_size=128256, rope_theta=500000.0,
+    max_position_embeddings=131072, rms_norm_eps=1e-5, model_type="llama",
+    tie_word_embeddings=True,
+    rope_scaling=dict(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192,
+                      rope_type="llama3"),
+)
 # phase 12's models: (config, batch, one layer's W4A8 projections (name,
 # K, N), the lm_head's (K, N), the GEMMs' M at a decode step and a
 # prefill step: Yi's chunks of 64 x 128 tokens, Qwen's whole prompts of
@@ -185,6 +212,18 @@ FAMILIES = {
                      ("gate_up", 8192, 49152), ("down", 24576, 8192)],
                     (8192, 152064), (4, 4096)),
 }
+# phase 14's head_dim-64 model, in FAMILIES' layout: the bench's batch
+# 128, decode M 128 and prefill chunks of 8,192 tokens
+D64_FAMILIES = {
+    "Llama-3.2-1B": (LLAMA32_1B, 128, [("qkv", 2048, 3072), ("o", 2048, 2048),
+                                       ("gate_up", 2048, 16384),
+                                       ("down", 8192, 2048)],
+                     (2048, 128256), (128, 8192)),
+}
+
+
+def head_dim_of(config) -> int:
+    return config["hidden_size"] // config["num_attention_heads"]
 
 
 def log(*args):
@@ -842,16 +881,17 @@ def check_narrow_gemms(dev, gen):
             f"max_abs_err {gerr:g}")
 
 
-def check_flash(dev, gen, hq=32, hkv=8, n_seg=8, ptxas=False):
-    """Row 9 on ``n_seg`` x 1,024 tokens at ``hq`` / ``hkv`` heads
+def check_flash(dev, gen, hq=32, hkv=8, n_seg=8, ptxas=False, d=128):
+    """Row 9 on ``n_seg`` x 1,024 tokens at ``hq`` / ``hkv`` heads of ``d``
     (Llama-3-8B's 32 / 8 by default; Yi-34B's 56 / 8, Qwen1.5-72B's 64 /
-    64); ``ptxas``: log ptxas's registers and spills of its source."""
+    64; Llama-3.2-1B's 32 / 8 of 64); ``ptxas``: log ptxas's registers and
+    spills of its source."""
     import torch
     import torch.nn.functional as F
 
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
 
-    seg_len, d = 1024, 128
+    seg_len = 1024
     t = n_seg * seg_len
     q = torch.randn((t, hq, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -993,22 +1033,23 @@ def check_decode(dev, gen, b=8, lens_from=1000, lens_to=1100, kv_bits=4,
 
 
 def decode_kv16_inputs(dev, gen, b=8, lens_from=1000, lens_to=1100,
-                       n_rep=4):
-    """Row 6's kv16 call over the dense list of a bf16 pool (8 kv heads,
-    ``n_rep`` q heads each, pages of 128, lengths drawn from [lens_from,
-    lens_to]): (args, kw, tables)."""
+                       n_rep=4, mode="kv16", d=128, page=128):
+    """Row 6's call over the dense list of a ``LIST_MODES`` pool (kv16 by
+    default; 8 kv heads, ``n_rep`` q heads each, head dim ``d``, pages of
+    ``page`` tokens, lengths drawn from [lens_from, lens_to]): (args, kw,
+    tables)."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    hkv, d, page, layers = 8, 128, 128, 2
+    hkv, layers = 8, 2
     lens = torch.randint(lens_from, lens_to + 1, (b,), generator=gen,
                          device=dev).to(torch.int32)
     w = int((int(lens.max()) + page - 1) // page)
     n_pages = b * w + 1
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
     tables = perm[: b * w].view(b, w).to(torch.int32)
-    pool = random_kv_pool(gen, dev, layers, n_pages, hkv, page, d, 16)
+    pool = list_mode_pool(gen, dev, layers, n_pages, hkv, page, d, mode)
     q = torch.randn((b, hkv, n_rep, d), generator=gen, device=dev).to(
         torch.bfloat16)
     lists = da.dense_page_lists(tables, lens, page)
@@ -1033,33 +1074,64 @@ def split_note(b, heads, tp, ms, n_bytes) -> str:
             f"{100 * rate / HBM_BYTES_PER_S:.1f}% of the bytes bound")
 
 
-def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
-    """Row 6's kv16 mode: decode over the dense list of a bf16 pool, the
-    split path's attention half (its append is ``kv_append_decode_kv16``).
-    The library yardstick is SDPA over K/V gathered BEFOREHAND into [B, H,
-    Tmax, D] bf16 with a length mask (the gather is not in its time)."""
+def swap_nibbles(pool):
+    """A planted fault: a kv4 pool with the two nibbles of every code byte
+    swapped (each page's halves exchanged)."""
+    def swap(x):
+        return ((x & 0x0F) << 4) | (x >> 4)
+
+    return pool._replace(k_data=swap(pool.k_data), v_data=swap(pool.v_data))
+
+
+def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100,
+                      mode="kv16", d=128, page=128):
+    """Row 6 over the dense list (``paged_mqa_attention``): a kv16 pool by
+    default, the split path's attention half (its append is
+    ``kv_append_decode``'s mode); with ``mode`` a kv4 / kv8 / per-tensor
+    pool, the two-stage decode's quantized modes where the JAX package's
+    supports rule sends them (head_dim 64, pages not a multiple of 128).
+    Held at KV16_TOL (kv16) or the decode gate 5e-2, and 1e-2 of each row's
+    norm; the plain version with the lengths one short and the partial
+    last page dropped (kv4 also with the nibble halves swapped) is
+    refused. The library yardstick is SDPA over K/V gathered (dequantized)
+    BEFOREHAND into [B, H, Tmax, D] bf16 with a length mask (the gather is
+    not in its time)."""
     import torch
     import torch.nn.functional as F
 
+    from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    args, kw, tables = decode_kv16_inputs(dev, gen, b, lens_from, lens_to)
+    args, kw, tables = decode_kv16_inputs(dev, gen, b, lens_from, lens_to,
+                                          mode=mode, d=d, page=page)
     q, pool, layer, sel_phys, sel_logic, lens = args
     _, hkv, n_rep, d = q.shape
     page, sm, w = kw["page_size"], kw["sm_scale"], tables.shape[1]
+    kv_bits, pt = LIST_MODES[mode]
 
     def fn():
-        return da.paged_mqa_attention_kv16(*args, **kw)
+        return da.paged_mqa_attention(*args, **kw)
 
-    def plain_fn(n=lens):
+    def plain_fn(n=lens, p=pool):
         return da.page_list_attention_plain(
-            q, pool, layer, *da.dense_page_lists(tables, n, page), n, **kw)
+            q, p, layer, *da.dense_page_lists(tables, n, page), n, **kw)
 
-    err, row = hold(fn(), plain_fn(), KV16_TOL, KV16_TOL, ATTN_ROW_RTOL,
-                    f"kv16 decode B={b}", planted=(
-                        ("lengths one short", plain_fn(lens - 1)),
-                        ("the partial last page dropped",
-                         plain_fn(lens // page * page))))
+    planted = [("lengths one short", plain_fn(lens - 1)),
+               ("the partial last page dropped",
+                plain_fn(lens // page * page))]
+    if kv_bits == 4:
+        planted.append(("the nibble halves swapped",
+                        plain_fn(p=swap_nibbles(pool))))
+    tol = KV16_TOL if kv_bits == 16 else 5e-2
+    name = da.two_stage_name("dense", pool, page, d)
+    before = dict(cuda.LAUNCHES)
+    err, row = hold(fn(), plain_fn(), tol, tol, ATTN_ROW_RTOL,
+                    f"{mode} decode (row 6) B={b} D={d} page={page}",
+                    planted=planted)
+    moved = {k for k, n in cuda.LAUNCHES.items() if n != before[k]}
+    if moved != {name}:
+        raise AssertionError(f"row 6's {mode} call launched {moved}")
+    del planted
     ms = time_graphed_ms(fn, 20)
     call_ms = time_ms(fn, 50)
     plain = time_ms(plain_fn, 3, warmup=1)
@@ -1070,13 +1142,15 @@ def check_decode_kv16(dev, gen, b=8, lens_from=1000, lens_to=1100):
     del k, v
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, kb, vb, attn_mask=mask, scale=sm), 20)
+    del kb, vb
     n_tok = float(lens.sum())
-    n_bytes = (hkv * n_tok * d * 2 * 2               # bf16 K and V
+    tok_bytes = 2 * d * kv_bits // 8 + (16 if kv_bits < 16 and not pt else 0)
+    n_bytes = (hkv * n_tok * tok_bytes               # K and V (+ planes)
                + 2 * b * hkv * n_rep * d * 2         # q in, out
                + 2 * b * w * 4 + 4 * b)              # lists, lengths
     bnd, by = bound_ms(n_bytes, 4.0 * d * n_rep * hkv * n_tok,
                        BF16_FLOPS_PER_S)
-    log(f"  kv16 decode (row 6) B={b} Hkv={hkv} n_rep={n_rep} D={d} "
+    log(f"  {mode} decode (row 6) B={b} Hkv={hkv} n_rep={n_rep} D={d} "
         f"page={page} lens {int(lens.min())}-{int(lens.max())} "
         f"({n_bytes / 1e6:.1f} MB): kernel_ms {ms:.4f} (graph replay; "
         f"{call_ms:.4f} per eager wrapper call) plain_ms {plain:.4f} "
@@ -1154,7 +1228,7 @@ def pools_equal(got, want, what, skip_trash=False) -> float:
 
 
 def dense_chunk_inputs(dev, gen, kv_bits=4, per_tensor=False, b=128,
-                       history=896, tc=128, page=128, n_rep=4):
+                       history=896, tc=128, page=128, n_rep=4, d=128):
     """Chunked prefill's last chunk over a dense table: ``b`` sequences x
     ``tc`` chunk tokens after ``history`` tokens, 8 kv heads of ``n_rep``
     q heads each (Llama-3-8B's 4, Yi-34B's 7), pages
@@ -1165,7 +1239,7 @@ def dense_chunk_inputs(dev, gen, kv_bits=4, per_tensor=False, b=128,
     needs)."""
     import torch
 
-    hkv, d = 8, 128
+    hkv = 8
     ctx_len = history + tc
     w = -(-ctx_len // page)
     pt = None
@@ -1227,12 +1301,14 @@ def dense_sdpa_ms(args, kw, head_mask=None, reps=5):
         torch.cuda.empty_cache()
 
 
-def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
-    """The bench's last chunk (``dense_chunk_inputs``) through row 7."""
+def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128,
+                        d=128):
+    """The bench's last chunk (``dense_chunk_inputs``) through row 7, at
+    head dim ``d``."""
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
 
     args, kw, label, n_bytes, pairs = dense_chunk_inputs(
-        dev, gen, kv_bits, per_tensor, b)
+        dev, gen, kv_bits, per_tensor, b, d=d)
     q, pool, _, tables, q_pos, ctx = args
     got = pp.paged_prefill_attention(*args, **kw)
     want = pp.paged_prefill_attention_plain(*args, **kw)
@@ -1264,7 +1340,7 @@ def check_paged_prefill(dev, gen, kv_bits=4, per_tensor=False, b=128):
         f"max_abs_err {err:.3g}" + ("" if row is None else
                                     f" (row error {row:.3g} of its norm)")
         + f"; {rate_note(ops, ms, bnd)}")
-    if kv_bits == 4 and not per_tensor:
+    if kv_bits == 4 and not per_tensor and d == 128:
         for line in ptxas_report("paged_prefill.cu"):
             log(f"    ptxas {line}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
@@ -1285,7 +1361,7 @@ def band_pairs(q_pos, kv_pos, sink: int, local: int, chunk: int = 2048):
     return n
 
 
-def check_flash_band(dev, gen):
+def check_flash_band(dev, gen, d=128):
     """Whole-prompt prefill of LServe's sparse-context mode at the phase-7
     (b) shape: one 16,384-token prompt, 32/8 heads, 4 of the 8 kv heads
     streaming with 128 sink + 8,192 local tokens. The dense kernel is timed
@@ -1297,7 +1373,7 @@ def check_flash_band(dev, gen):
 
     from omniserve_tpu_torch.ops.cuda import flash_attention as fa
 
-    t, hq, hkv, d, sink, local = 16384, 32, 8, 128, 128, 8192
+    t, hq, hkv, sink, local = 16384, 32, 8, 128, 8192
     n_rep = hq // hkv
     q = torch.randn((t, hq, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -1362,7 +1438,7 @@ def check_flash_band(dev, gen):
     log(f"  flash prefill band: {rate_note(4.0 * d * pairs, ms, bnd)}; the "
         f"dense kernel at the same shape "
         f"{rate_note(dense_ops, dense_ms, dense_ops / BF16_FLOPS_PER_S * 1e3)}")
-    log(f"  flash prefill band T={t} Hq={hq} Hkv={hkv} ({hkv // 2} kv heads "
+    log(f"  flash prefill band T={t} Hq={hq} Hkv={hkv} D={d} ({hkv // 2} kv heads "
         f"streaming, sink {sink}, local {local}): kernel_ms {ms:.4f} (dense "
         f"kernel at the same shape {dense_ms:.4f}) plain_ms {plain:.4f} "
         f"bound_ms {bnd:.4f} ({by}) library_ms "
@@ -1374,7 +1450,7 @@ def check_flash_band(dev, gen):
                 library_ms=lib, max_abs_err=err)
 
 
-def ring_chunk_inputs(dev, gen, context, tc, n_ring, mode="kv4"):
+def ring_chunk_inputs(dev, gen, context, tc, n_ring, mode="kv4", d=128):
     """The streaming heads' call of a chunked sparse prefill: B=1, a chunk
     of ``tc`` queries ending at ``context`` over a 1 + ``n_ring`` slot ring
     (4 streaming kv heads, n_rep 4, pages of 128 tokens, 128 sink + 8,192
@@ -1387,7 +1463,7 @@ def ring_chunk_inputs(dev, gen, context, tc, n_ring, mode="kv4"):
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
     from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
 
-    hs, n_rep, d, page, sink, local = 4, 4, 128, 128, 128, 8192
+    hs, n_rep, page, sink, local = 4, 4, 128, 128, 8192
     n_slots = 1 + n_ring
     layers = 1 if mode == "kv4" else 2
     pool = list_mode_pool(gen, dev, layers, n_slots + 1, hs, page, d, mode)
@@ -1414,7 +1490,7 @@ def ring_chunk_inputs(dev, gen, context, tc, n_ring, mode="kv4"):
     live_slots = int((sel >= 0).sum())
     n_bytes = (live_slots * hs * page_bytes(mode, page, d)  # codes, planes
                + 2 * (2 * tc * hs * n_rep * d) + 4 * tc)
-    note = (f"{mode} context {context} Tc={tc} ring 1+{n_ring} slots "
+    note = (f"{mode} D={d} context {context} Tc={tc} ring 1+{n_ring} slots "
             f"({live_slots} live, {stale} relabelled stale rows) Hs={hs} "
             f"n_rep={n_rep}")
     return (q, pool, layers - 1, table, q_pos, ctx), kw, n_bytes, pairs, note
@@ -1458,7 +1534,8 @@ def ring_sdpa_ms(args, kw, reps=3):
         torch.cuda.empty_cache()
 
 
-def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
+def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4",
+                     d=128):
     """The ring chunk of ``ring_chunk_inputs`` through row 7. kv8 and
     per-tensor modes also hold each row within 1e-2 of its norm and refuse
     the plain version with the other layer's scales or planes; kv16 holds
@@ -1468,7 +1545,7 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
     from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
 
     args, kw, n_bytes, pairs, note = ring_chunk_inputs(dev, gen, context, tc,
-                                                       n_ring, mode)
+                                                       n_ring, mode, d)
     q = args[0]
     got = pp.paged_prefill_attention(*args, **kw)
     want = pp.paged_prefill_attention_plain(*args, **kw)
@@ -1508,7 +1585,7 @@ def check_paged_ring(dev, gen, context, tc, n_ring, label, mode="kv4"):
                 library_ms=lib, max_abs_err=err)
 
 
-def check_kv_append(dev, gen, mode="kv4"):
+def check_kv_append(dev, gen, mode="kv4", d=128, kept_shape=None):
     """The decode append at the LServe path's shapes, through both entries
     of row 10. The single-pool entry at 8 rows (the padded batch) and 128,
     4 pool heads (retrieval, with K stats; streaming, without) and 8; then
@@ -1517,12 +1594,15 @@ def check_kv_append(dev, gen, mode="kv4"):
     the plain version's on every page but the trash page. kv8 and
     per-tensor modes also refuse a plain append that writes each token one
     slot late and, per-tensor, one with the other layer's scales. The row
-    kept for the kernels line is the two-pool entry's at T=8."""
+    kept for the kernels line is the two-pool entry's at T=8, or, given
+    ``kept_shape`` ((T, heads)), that single-pool shape's with stats
+    (without at 8 heads). ``d``: the head dim."""
     import torch
 
     from omniserve_tpu_torch.ops.cuda import kv_append as ka
 
-    page, d, n_sub = 128, 128, 4
+    page, n_sub = 128, 4
+    kept = None
     kv_bits, pt = LIST_MODES[mode]
     for t, heads, with_stats in ((8, 4, True), (8, 4, False), (128, 4, True),
                                  (128, 8, False)):
@@ -1541,17 +1621,16 @@ def check_kv_append(dev, gen, mode="kv4"):
         v = torch.randn((t, heads, d), generator=gen, device=dev).bfloat16()
         args = (1, k, v, pages, slots, page)
         kw = dict(update_stats=with_stats, kv_bits=kv_bits, kv_zeros=not pt)
-        planted = {}
+        planted = {"each token one slot late": (
+            pool_k.clone(), (1, k, v, pages, (slots + 1) % page, page))}
         if mode != "kv4":
-            planted["each token one slot late"] = (
-                pool_k.clone(), (1, k, v, pages, (slots + 1) % page, page))
             if pt:
                 planted["the other layer's scales"] = (
                     wrong_layer(pool_k.clone(), mode), args)
         ka.append_kv_decode(pool_k, *args, update_stats=with_stats)
         ka.append_kv_decode_plain(pool_p, *args, **kw)
         sync(dev)
-        what = f"kv append {mode} T={t} H={heads}"
+        what = f"kv append {mode} D={d} T={t} H={heads}"
         err = pools_equal(pool_k, pool_p, what, skip_trash=True)
         for label, (bad, bad_args) in planted.items():
             ka.append_kv_decode_plain(bad, *bad_args, **kw)
@@ -1580,18 +1659,21 @@ def check_kv_append(dev, gen, mode="kv4"):
                     + (2 * 2 * d * 4 if with_stats else 0))  # min/max rows RMW
         bnd, by = bound_ms(t * heads * per_head + 8 * t,
                            t * heads * d * 8.0, BF16_FLOPS_PER_S)
-        log(f"  kv append {mode} T={t} H={heads} stats={with_stats}: "
+        log(f"  {what} stats={with_stats}: "
             f"kernel_ms {ms:.4f} (graph replay; {call_ms:.4f} per eager "
             f"wrapper call) plain_ms {plain:.4f} bound_ms {bnd:.6f} ({by}) "
             f"library_ms None max_abs_err {err:g}; pool bytes"
             f"{'' if pt else ', planes'}{' and stats' if with_stats else ''} "
             "equal")
-    kept = check_kv_append_pools(dev, gen, mode, 8)
-    check_kv_append_pools(dev, gen, mode, 128)
-    return kept
+        if kept is None and kept_shape == (t, heads):
+            kept = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=None, max_abs_err=err)
+    pools = check_kv_append_pools(dev, gen, mode, 8, d)
+    check_kv_append_pools(dev, gen, mode, 128, d)
+    return pools if kept is None else kept
 
 
-def check_kv_append_pools(dev, gen, mode, t):
+def check_kv_append_pools(dev, gen, mode, t, d=128):
     """Row 10's two-pool entry as the LServe decode step calls it: ``t``
     tokens of Llama-3.1-8B's 8 kv heads, K and V read in place from a
     fused qkv row, rows 0, 2, 4, 6 to the retrieval pool (with K stats)
@@ -1606,7 +1688,7 @@ def check_kv_append_pools(dev, gen, mode, t):
 
     from omniserve_tpu_torch.ops.cuda import kv_append as ka
 
-    page, d, n_sub, heads = 128, 128, 4, 4
+    page, n_sub, heads = 128, 4, 4
     kv_bits, pt = LIST_MODES[mode]
     n_pages = 2 * t + 1
     rpool = list_mode_pool(gen, dev, 2, n_pages, heads, page, d, mode)
@@ -1632,7 +1714,7 @@ def check_kv_append_pools(dev, gen, mode, t):
     ka.append_kv_decode_pools(*got, 1, k, v, tr, ts, page, **kw)
     ka.append_kv_decode_pools_plain(*want, 1, k, v, tr, ts, page, **plain_kw)
     sync(dev)
-    what = f"two-pool kv append {mode} T={t} H=4+4"
+    what = f"two-pool kv append {mode} D={d} T={t} H=4+4"
     err = max(pools_equal(a, b_, what, skip_trash=True)
               for a, b_ in zip(got, want))
     faults = {
@@ -1846,7 +1928,7 @@ def list_library_inputs(q, pool, layer, sel_phys, sel_logic, lengths, page,
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16), valid
 
 
-def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4):
+def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4, d=128):
     """Dynamic-sparse decode at the LServe path's shape: 4 retrieval heads,
     ``n_rep`` q heads each, a budget of 32 pages out of a 32K-token
     context (257 pages, the last one partly filled): the newest page
@@ -1854,7 +1936,7 @@ def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4):
     2-layer pool but under kv4 (layer 1 read). Returns (args, kw)."""
     import torch
 
-    hr, d, page, budget = 4, 128, 128, 32
+    hr, page, budget = 4, 128, 32
     ctx_pages = 257
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
@@ -1877,33 +1959,36 @@ def decode_ph_inputs(dev, gen, b, mode="kv4", n_rep=4):
             dict(sm_scale=d ** -0.5, page_size=page))
 
 
-def check_decode_ph(dev, gen, b, mode="kv4"):
-    """Row 5 at ``decode_ph_inputs``' shape (kv16: row 6's per-head mode).
-    kv8 and per-tensor modes (layer 1 of a 2-layer pool) also hold each
-    row within 1e-2 of its norm and refuse the plain version with the
-    other layer's scales or planes; kv16 holds ``KV16_TOL`` and refuses it
-    with the lengths a page short."""
+def check_decode_ph(dev, gen, b, mode="kv4", d=128):
+    """Row 5 at ``decode_ph_inputs``' shape (kv16, and every mode at head
+    dim 64: row 6's per-head mode, ``paged_mqa_attention_ph``). kv8 and
+    per-tensor modes (layer 1 of a 2-layer pool) also hold each row within
+    1e-2 of its norm and refuse the plain version with the other layer's
+    scales or planes; kv16 holds ``KV16_TOL``; row 6 refuses it with the
+    lengths a page short."""
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    args, kw = decode_ph_inputs(dev, gen, b, mode)
+    args, kw = decode_ph_inputs(dev, gen, b, mode, d=d)
     q, pool, layer, sel_phys, sel_logic, lens = args
     _, hr, n_rep, d = q.shape
     budget, page = sel_logic.shape[-1], kw["page_size"]
-    kernel, tol = da.paged_mqa_attention_single_pass_ph, 5e-2
-    if mode == "kv16":
-        kernel, tol = da.paged_mqa_attention_ph_kv16, KV16_TOL
+    tol = KV16_TOL if mode == "kv16" else 5e-2
+    two_stage = da.uses_two_stage(pool, page, d)
+    if two_stage:
+        kernel = da.paged_mqa_attention_ph
         planted = (("the lengths a page short",
                     lambda: da.page_list_attention_plain(
                         *args[:5], lens - page, **kw)),)
     else:
+        kernel = da.paged_mqa_attention_single_pass_ph
         planted = () if mode == "kv4" else (
             ("the other layer's scales" if LIST_MODES[mode][1]
              else "the other layer's planes",
              lambda: da.page_list_attention_plain(
                  q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
-        f"decode per-head lists {mode} B={b} Hr={hr} n_rep={n_rep} budget "
-        f"{budget} pages of 257",
+        f"decode per-head lists (row {6 if two_stage else 5}) {mode} D={d} "
+        f"B={b} Hr={hr} n_rep={n_rep} budget {budget} pages of 257",
         lambda: kernel(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
         b * hr * budget, b, hr, n_rep, d, page, budget, tol=tol, mode=mode,
@@ -1911,7 +1996,7 @@ def check_decode_ph(dev, gen, b, mode="kv4"):
             q, pool, layer, sel_phys, sel_logic, lens, page))
 
 
-def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4):
+def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4, d=128):
     """The streaming call at the LServe path's shape: 4 streaming heads
     (``n_rep`` q heads each), the
     compact list of 1 sink page + 2 ring pages after the ring has wrapped
@@ -1921,7 +2006,7 @@ def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4):
 
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    hs, d, page = 4, 128, 128
+    hs, page = 4, 128
     lens = (32768 + torch.randint(1, page, (b,), generator=gen, device=dev)
             ).to(torch.int32)
     layers = 1 if mode == "kv4" else 2
@@ -1939,33 +2024,36 @@ def decode_band_inputs(dev, gen, b, mode="kv4", n_rep=4):
                  ring_sink_tokens=page))
 
 
-def check_decode_band(dev, gen, b, mode="kv4"):
-    """Row 4's band at ``decode_band_inputs``' shape (kv16: row 6's band
-    mode). kv8 and per-tensor modes as ``check_decode_ph``; kv16 holds
-    ``KV16_TOL`` and refuses the plain version with the band's local
-    window moved by a page."""
+def check_decode_band(dev, gen, b, mode="kv4", d=128):
+    """Row 4's band at ``decode_band_inputs``' shape (kv16, and every mode
+    at head dim 64: row 6's band mode, ``paged_mqa_attention_band``). kv8
+    and per-tensor modes as ``check_decode_ph``; kv16 holds ``KV16_TOL``;
+    row 6 refuses the plain version with the band's local window moved by
+    a page."""
     from omniserve_tpu_torch.ops.cuda import decode_attention as da
 
-    args, kw = decode_band_inputs(dev, gen, b, mode)
+    args, kw = decode_band_inputs(dev, gen, b, mode, d=d)
     q, pool, layer, sel_phys, sel_logic, lens = args
     _, hs, n_rep, d = q.shape
     page = kw["page_size"]
-    kernel, tol = da.paged_mqa_attention_single_pass, 5e-2
-    if mode == "kv16":
-        kernel, tol = da.paged_mqa_attention_band_kv16, KV16_TOL
+    tol = KV16_TOL if mode == "kv16" else 5e-2
+    two_stage = da.uses_two_stage(pool, page, d)
+    if two_stage:
+        kernel = da.paged_mqa_attention_band
         planted = (("the band's window moved by a page",
                     lambda: da.page_list_attention_plain(*args, **dict(
                         kw, band_local_tokens=kw["band_local_tokens"]
                         - page))),)
     else:
+        kernel = da.paged_mqa_attention_single_pass
         planted = () if mode == "kv4" else (
             ("the other layer's scales" if LIST_MODES[mode][1]
              else "the other layer's planes",
              lambda: da.page_list_attention_plain(
                  q, wrong_layer(pool, mode), layer, *args[3:], **kw)),)
     return _list_kernel_row(
-        f"decode band+ring {mode} B={b} Hs={hs} n_rep={n_rep} list 1 sink + "
-        f"2 ring pages",
+        f"decode band+ring (row {6 if two_stage else 4}) {mode} D={d} B={b} "
+        f"Hs={hs} n_rep={n_rep} list 1 sink + 2 ring pages",
         lambda: kernel(*args, **kw),
         lambda: da.page_list_attention_plain(*args, **kw),
         b * hs * 3, b, hs, n_rep, d, page, sel_logic.shape[-1], tol=tol,
@@ -2117,7 +2205,7 @@ def check_gqa7(dev, gen):
     n_tok = float(lens.sum())
     gqa_row(f"kv16 decode (row 6) B={bb} Hkv={heads} lens "
             f"{int(lens.min())}-{int(lens.max())}",
-            lambda qq: da.paged_mqa_attention_kv16(qq, *args[1:], **kw),
+            lambda qq: da.paged_mqa_attention(qq, *args[1:], **kw),
             lambda qq: da.page_list_attention_plain(qq, *args[1:], **kw),
             q4, heads * n_tok * d * 4 + 2 * bb * heads * 7 * d * 2,
             4.0 * d * 7 * heads * n_tok, KV16_TOL,
@@ -2186,8 +2274,9 @@ def check_mha_rows(dev, gen):
     }
 
 
-def check_family_gemms(dev, gen):
-    """Rows 1 and 3 at the shapes phase 12's models give them (FAMILIES):
+def check_family_gemms(dev, gen, families=FAMILIES):
+    """Rows 1 and 3 at the shapes phase 12's models (or ``families``') give
+    them (FAMILIES):
     each layer projection of the per-channel body at the decode step's M
     (graph replay on weight copies rotated past the 50 MB L2) and the
     prefill step's M, equal to its plain version within 1e-5, with its
@@ -2198,7 +2287,7 @@ def check_family_gemms(dev, gen):
     from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
     from omniserve_tpu_torch.ops.quantization import quantize_activations
 
-    for family, (_, _, gemms, (hk, hn), m_steps) in FAMILIES.items():
+    for family, (_, _, gemms, (hk, hn), m_steps) in families.items():
         for m in m_steps:
             total = bound_total = 0.0
             for name, k, n in gemms:
@@ -2473,7 +2562,7 @@ def precision_spec(precision, num_layers=2, geometry=None):
         num_layers=num_layers, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
         num_q_heads=g["num_attention_heads"],
-        num_kv_heads=g["num_key_value_heads"], head_dim=128,
+        num_kv_heads=g["num_key_value_heads"], head_dim=head_dim_of(g),
         vocab=g["vocab_size"], rope_base=g["rope_theta"],
         rms_eps=g["rms_norm_eps"], page_size=128, lm_head_bits=8,
         weight_bits=wb, act_bits=ab, group_size=gs, kv_bits=kv,
@@ -2532,8 +2621,8 @@ def check_forward(dev, precision="w4a8kv4", with_floor=False, family=None):
 
     from omniserve_tpu_torch.models import llama
 
-    spec = precision_spec(
-        precision, geometry=None if family is None else FAMILIES[family][0])
+    spec = precision_spec(precision, geometry=None if family is None else {
+        **FAMILIES, **D64_FAMILIES}[family][0])
     label = precision if family is None else f"{family} {precision}"
     params = llama.make_random_packed_params(spec, seed=1, device=dev)
     prompts, tables, pre, n_pages = forward_batch(spec, dev)
@@ -2749,9 +2838,10 @@ def sparse_pools(spec, n_pages, n_stream_pages, dev, kv_scales=None):
 
     kv = dict(kv_bits=spec.kv_bits, kv_zeros=spec.kv_zeros, device=dev)
     heads = spec.num_kv_heads // 2
-    pools = (make_kv_pool(2, n_pages, heads, 128, 128, with_stats=True,
-                          **kv),
-             make_kv_pool(2, n_stream_pages, heads, 128, 128, **kv))
+    pools = (make_kv_pool(2, n_pages, heads, 128, spec.head_dim,
+                          with_stats=True, **kv),
+             make_kv_pool(2, n_stream_pages, heads, 128, spec.head_dim,
+                          **kv))
     for pool in pools:
         if kv_scales is not None and pool.k_scale_per_tensor is not None:
             pool.k_scale_per_tensor.copy_(kv_scales[0])
@@ -2764,7 +2854,57 @@ SPARSE_NUDGED = ("prefill_attention", "paged_prefill_attention",
                  "paged_decode_attention")
 
 
-def check_sparse_forward(dev, precision="w4a8kv4"):
+@contextlib.contextmanager
+def held_decode_calls(tol, label):
+    """Within the block, every decode attention call of the dispatch (rows
+    6 / 4 / 5 through ``paged_decode_attention``) is held against its
+    plain version on the same inputs (``tol`` and 1e-2 of each row's
+    norm), and every two-pool append against the plain appends on copies
+    of its pools (bytes, planes and stats equal but the trash page). The
+    dict yielded counts the calls held and the share of attention outputs
+    that differ from the plain version's."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda, dispatch
+
+    attn, append = dispatch.paged_decode_attention, \
+        dispatch.append_kv_decode_pools
+    seen = {"attention": 0, "appends": 0, "moved": 0, "outputs": 0}
+
+    def held_attn(q, pool, layer, *a, **k):
+        out = attn(q, pool, layer, *a, **k)
+        with cuda.plain_versions():
+            want = attn(q, pool, layer, *a, **k)
+        hold(out, want, tol, tol, ATTN_ROW_RTOL,
+             f"{label} decode attention, layer {layer}")
+        seen["attention"] += 1
+        seen["moved"] += int((out != want).sum())
+        seen["outputs"] += out.numel()
+        return out
+
+    def held_append(rp, sp, layer, *a, **k):
+        twins = (rp.clone(), None if sp is None else sp.clone())
+        with cuda.plain_versions():
+            append(*twins, layer, *a, **k)
+        out = append(rp, sp, layer, *a, **k)
+        for got, want in zip((rp, sp), twins):
+            if got is not None:
+                pools_equal(got, want, f"{label} append, layer {layer}",
+                            skip_trash=True)
+        seen["appends"] += 1
+        return out
+
+    dispatch.paged_decode_attention = held_attn
+    dispatch.append_kv_decode_pools = held_append
+    try:
+        yield seen
+    finally:
+        dispatch.paged_decode_attention = attn
+        dispatch.append_kv_decode_pools = append
+
+
+def check_sparse_forward(dev, precision="w4a8kv4", geometry=None,
+                         per_call=False):
     """LServe's decode side at full width, 2 layers: 4 of the 8 kv heads
     keep their history in the retrieval pool (K stats, a budget of 4 pages
     so the selector drops pages of the 9-page prompt), 4 live in the
@@ -2774,19 +2914,27 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
     decode steps from the plain prefill's pools); then, at w4a8kv4 and
     w16a16kv16, a 10-step window against the eager loop. Other
     ``PRECISIONS`` (kv8, per-tensor KV with scales calibrated on a dense
-    kv16 twin) run the forwards, a W8A8 body at its floor's gate."""
+    kv16 twin) run the forwards, a W8A8 body at its floor's gate.
+    ``geometry``: another config's widths (Llama-3-8B's by default).
+    ``per_call``: the decode steps' gate is each decode call's, held in
+    place against its plain version on the same inputs
+    (``held_decode_calls``), and their logits' gap to the plain run is
+    logged (a 2-layer random model at Llama-3.2-1B's widths moves its
+    decode logits by 0.67 of max |logit| when 30% of the decode attention
+    outputs move by one bf16 ulp: PERF.md §7)."""
     import numpy as np
     import torch
 
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops import cuda
 
-    g = LLAMA3_8B
+    g = LLAMA3_8B if geometry is None else geometry
     hkv = g["num_key_value_heads"]
     spec = sparse_precision(llama.LlamaSpec(
         num_layers=2, hidden=g["hidden_size"],
         intermediate=g["intermediate_size"],
-        num_q_heads=g["num_attention_heads"], num_kv_heads=hkv, head_dim=128,
+        num_q_heads=g["num_attention_heads"], num_kv_heads=hkv,
+        head_dim=head_dim_of(g),
         vocab=g["vocab_size"], rope_base=g["rope_theta"], page_size=128,
         lm_head_bits=8, sparse_decode=True, sink_blocks=1, local_blocks=2,
         dec_sink_tokens=128, dec_local_tokens=256, sub_chunks=4,
@@ -2830,19 +2978,23 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
             lp, _, _, _ = llama.llama_forward(params, rp, sp, pre, spec,
                                               is_prefill=True)
         runs[mode] = dict(prefill=lp, pools=(rp, sp))
-    if spec.weight_bits == 16:
+    if spec.weight_bits == 16 or spec.head_dim != 128:
         # a random W16A16 body carries the prefill's one-ulp attention
         # differences into the K / V it writes (~0.2 of the K values of
         # phase 3's dense w16a16kv16 forward differ) and so into the K
         # stats the selector ranks: the decode steps start from copies of
-        # the plain run's pools, and compare the decode path itself
+        # the plain run's pools, and compare the decode path itself. So
+        # does any body at head_dim 64 (Llama-3.2-1B's W8A8 body: its
+        # prefill within the gate, its first decode step 0.14 of max
+        # |logit| off the plain run's from the kernels' own pools, whose
+        # K stats rank other pages)
         for mode in modes:
             if mode != "plain":
                 runs[mode]["pools"] = tuple(
                     p.clone() for p in runs["plain"]["pools"])
     nxt = runs["plain"]["prefill"].argmax(-1)
     positions = torch.tensor(lens, dtype=torch.int32).to(dev)
-    per_layer = {k + suffix: v for k, v in LSERVE_LAUNCHES_PER_LAYER.items()}
+    per_layer = dict.fromkeys(lserve_decode_names(suffix, spec.head_dim), 1)
     for step, refresh in enumerate((True, False)):
         for mode in modes:
             rp, sp = runs[mode]["pools"]
@@ -2860,9 +3012,26 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
                 refresh_selection=refresh, cached_page_idxes=sel,
             )
             before = dict(cuda.LAUNCHES)
-            with _mode_ctx(mode, SPARSE_NUDGED), torch.inference_mode():
+            held = (held_decode_calls(
+                KV16_TOL if spec.kv_bits == 16 else 5e-2,
+                f"sparse forward {precision} D={spec.head_dim} decode{step}")
+                if per_call and mode == "kernels"
+                else contextlib.nullcontext())
+            with _mode_ctx(mode, SPARSE_NUDGED), torch.inference_mode(), \
+                    held as calls:
                 ld, _, _, new_sel = llama.llama_forward(
                     params, rp, sp, dec, spec, is_prefill=False)
+            if calls is not None:
+                if calls["attention"] != spec.num_layers or \
+                        calls["appends"] != spec.num_layers:
+                    raise AssertionError(f"decode step held {calls}")
+                log(f"  sparse forward {precision} D={spec.head_dim} "
+                    f"decode{step}: {calls['attention']} decode attention "
+                    f"calls held against their plain versions (gate "
+                    f"{KV16_TOL if spec.kv_bits == 16 else 5e-2}, rows "
+                    f"{ATTN_ROW_RTOL}), {calls['appends']} two-pool appends "
+                    f"equal; {calls['moved'] / calls['outputs']:.3f} of the "
+                    f"attention outputs differ from the plain version's")
             runs[mode]["sel"] = new_sel
             runs[mode][f"decode{step}"] = ld
             if mode == "kernels":
@@ -2883,11 +3052,14 @@ def check_sparse_forward(dev, precision="w4a8kv4"):
         bound, floor = logits_bound(results, step, scale,
                                     spec.weight_bits == 8)
         note = "" if floor is None else f"; floor {floor:.3g}, bound {bound:.3g}"
-        log(f"  sparse forward 2 layers {precision} {step}: max |logit| "
+        held = per_call and step != "prefill"
+        log(f"  sparse forward 2 layers {precision} D={spec.head_dim} "
+            f"{step}: max |logit| "
             f"{scale:.4g}, max abs diff kernels vs plain {err:.4g} "
             f"({err / scale:.3g} of max{note}), argmax agreement "
-            f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}")
-        if err > bound * scale:
+            f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}"
+            + ("; gated per call above" if held else ""))
+        if err > bound * scale and not held:
             raise AssertionError(f"sparse forward {precision} {step}: logits "
                                  f"differ by {err} > {bound} x {scale}")
     ks, ps = runs["kernels"]["sel"], runs["plain"]["sel"]
@@ -3079,20 +3251,21 @@ FAMILY_FORWARD_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
                           "decode_attention_append")
 
 
-def check_family_forwards(dev):
-    """Phase 12's models at full width, depth 2, w4a8kv4: whole-prompt
-    prefill, a decode step and a chunked prefill, kernels against plain
-    (Qwen1.5-72B with its QKV bias, whose effect must show); each run
-    must launch FAMILY_FORWARD_KERNELS."""
+def check_family_forwards(dev, families=FAMILIES,
+                          kernels=FAMILY_FORWARD_KERNELS):
+    """Phase 12's models (or ``families``) at full width, depth 2, w4a8kv4:
+    whole-prompt prefill, a decode step and a chunked prefill, kernels
+    against plain (Qwen1.5-72B with its QKV bias, whose effect must show);
+    each run must launch ``kernels``."""
     import torch
 
     from omniserve_tpu_torch.ops import cuda
 
-    for family in FAMILIES:
+    for family in families:
         cuda.reset_launch_counts()
         spec, params, prompts, tables, _ = check_forward(dev, family=family)
         check_chunked_forward(dev, spec, params, prompts, tables)
-        idle = [k for k in FAMILY_FORWARD_KERNELS if cuda.LAUNCHES[k] <= 0]
+        idle = [k for k in kernels if cuda.LAUNCHES[k] <= 0]
         if idle:
             raise AssertionError(f"{family} forwards launched no {idle}")
         del spec, params
@@ -3123,7 +3296,12 @@ ENGINE_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul", "flash_prefill",
                   "decode_attention_append")
 
 
-def run_engine(dev):
+def run_engine(dev, model=("llama3-8b", LLAMA3_8B), kernels=ENGINE_KERNELS,
+               profile=True):
+    """The IFB engine, 8 requests x 1,024 prompt tokens, 32 greedy tokens
+    each, whole-prompt prefill (row 9) and eager decode steps, at
+    ``model`` = (directory name, config.json); each of ``kernels`` must
+    launch. ``profile``: then one traced prefill and decode step."""
     import numpy as np
     import torch
 
@@ -3131,10 +3309,12 @@ def run_engine(dev):
     from omniserve_tpu_torch.ops import cuda
 
     n_req, prompt_len, gen_len, page = 8, 1024, 32, 128
+    vocab = model[1]["vocab_size"]
     pages_per_seq = (prompt_len + gen_len + page - 1) // page
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
-        model=write_model_dir(), precision="w4a8kv4", load_format="dummy",
+        model=write_model_dir(*model), precision="w4a8kv4",
+        load_format="dummy",
         lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
         block_size=page, max_num_seqs=n_req,
         max_num_batched_tokens=2 * n_req * prompt_len,
@@ -3149,8 +3329,7 @@ def run_engine(dev):
     for i in range(n_req):
         engine.add_request(
             f"req{i}",
-            prompt_token_ids=rng.integers(0, LLAMA3_8B["vocab_size"],
-                                          prompt_len).tolist(),
+            prompt_token_ids=rng.integers(0, vocab, prompt_len).tolist(),
             sampling_params=SamplingParams(temperature=0.0,
                                            max_tokens=gen_len,
                                            ignore_eos=True),
@@ -3175,9 +3354,9 @@ def run_engine(dev):
         lp = o.outputs[0].cumulative_logprob
         if len(toks) != gen_len or not math.isfinite(lp):
             raise AssertionError(f"{rid}: {len(toks)} tokens, logprob {lp}")
-        if not all(0 <= t < LLAMA3_8B["vocab_size"] for t in toks):
+        if not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"{rid}: token out of vocab")
-    missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the engine: {missing}")
     prefill_s = step_times[0]
@@ -3191,7 +3370,7 @@ def run_engine(dev):
         f"{decode_s / max(n_dec, 1) * 1e3:.2f} ms/step, "
         f"{n_req * n_dec / decode_s:.1f} tok/s (host clock)")
     log(f"  engine launches: {json.dumps(launches)}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and profile:
         profile_engine(engine, rng, n_req, prompt_len)
     return launches
 
@@ -3241,6 +3420,7 @@ WRAPPER_FUNCTIONS = (
     ("decode_attention_band_kv16", "decode_attn_kv16_kernel"),
     ("decode_attention_", "decode_attn_list_kernel"),
     ("paged_mqa_attention_kv16", "decode_attn_kv16_kernel"),
+    ("paged_mqa_attention", "decode_attn_list_kernel"),   # kv4 / kv8 pools
     ("flash_prefill", "flash_prefill_kernel"),
     ("paged_prefill_single_pass", "prefill_single_pass_kernel"),
     ("paged_prefill", "paged_prefill_kernel"),
@@ -3385,7 +3565,8 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         if not all(0 <= t < vocab for g in groups
                    for t in g.get_seqs()[0].data.output_token_ids):
             raise AssertionError(f"round {r + 1}: token out of vocab")
-        n_chunks = sum(launches[k] for k in (
+        n_chunks = sum(launches.get(k, 0) + launches.get(k + "_d64", 0)
+                       for k in (
             "paged_prefill_attention", "paged_prefill_kv8",
             "paged_prefill_kv16", "paged_prefill_pt",
             "paged_prefill_single_pass", "paged_prefill_single_pass_kv8",
@@ -3441,6 +3622,20 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
 LSERVE_LAUNCHES_PER_LAYER = {"kv_append_decode": 1, "decode_attention_ph": 1,
                              "decode_attention_band": 1}
 LSERVE_KERNELS = tuple(LSERVE_LAUNCHES_PER_LAYER)
+
+
+def lserve_decode_names(suffix, head_dim=128):
+    """The launch names of LSERVE_LAUNCHES_PER_LAYER's three calls over a
+    pool mode (``kv_suffix``) at ``head_dim``: rows 5 / 4 where the JAX
+    package's supports rule holds (kv4 / kv8 at head_dim 128), row 6's
+    per-head and band modes elsewhere (kv16, head_dim 64), ``_d64`` at
+    head_dim 64."""
+    stems = LSERVE_KERNELS
+    if head_dim != 128 and suffix != "_kv16":
+        stems = ("kv_append_decode", "paged_mqa_attention_ph",
+                 "paged_mqa_attention_band")
+    d64 = "_d64" if head_dim == 64 else ""
+    return tuple(s + suffix + d64 for s in stems)
 # every round of the protocol must go through these
 LSERVE_ROUND_KERNELS = LSERVE_KERNELS + ("flash_prefill",)
 
@@ -3589,7 +3784,7 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
                        short_gen=32, chunk=32000, multi=16,
                        single_pass=False, stats=None, precision="w4a8kv4",
                        granularity="fine_grained", trace_window=False,
-                       trace=True):
+                       trace=True, model=("llama3.1-8b", LLAMA31_8B)):
     """``lserve_benchmark.py``'s protocol with the reference's LServe flags
     (``--sparse-context-mode --sparse-decode-mode --static-sparsity 0.5``,
     ctx band 128 + 8,192 tokens, ``chunk_prefill_size`` 32000) at
@@ -3605,7 +3800,8 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     traced steps. ``stats`` (a dict)
     receives (a)'s measured prefill seconds, decode tok/s and peak memory.
     Returns the measured rounds' launches of the prefill kernels and of
-    the decode kernels of the pool's mode."""
+    the decode kernels of the pool's mode. ``model``: (directory name,
+    config.json) of another model (Llama-3.1-8B's by default)."""
     import argparse
 
     import torch
@@ -3625,7 +3821,7 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     engine = LLMEngine.from_engine_args(EngineArgs(
-        model=write_model_dir("llama3.1-8b", LLAMA31_8B),
+        model=write_model_dir(*model),
         precision=precision, kv_quant_granularity=granularity,
         load_format="dummy", tokenizer_mode="skip",
         device=str(dev), block_size=sizing.block_size,
@@ -3658,14 +3854,16 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
             and (spec.weight_bits, spec.act_bits, spec.kv_bits,
                  spec.kv_zeros) == (wb, ab, kv_bits, kv_zeros)):
         raise AssertionError("LServe prefill phase: engine is not the "
-                             "sparse-context + sparse-decode Llama-3.1-8B "
+                             f"sparse-context + sparse-decode {model[0]} "
                              f"configuration at {precision} {granularity} "
                              "with a ring that holds the ctx-local window "
                              "and a chunk")
     suffix = kv_suffix(kv_bits, not kv_zeros)
-    dense_name = dense_prefill_name(suffix)
-    ring_name = "paged_prefill_ring" + suffix
-    decode_kernels = tuple(k + suffix for k in LSERVE_KERNELS)
+    d64 = "_d64" if spec.head_dim == 64 else ""
+    dense_name = dense_prefill_name(suffix) + d64
+    ring_name = "paged_prefill_ring" + suffix + d64
+    band_name = "flash_prefill_band" + d64
+    decode_kernels = lserve_decode_names(suffix, spec.head_dim)
     engine.ifb_config.decode_multi_step = multi
     groups = []
     add_request = engine.add_request
@@ -3681,10 +3879,9 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     # whole-prompt path one band-mode flash call per layer
     per_pool = n_chunks * n_layers
     cases = (("a", long_len, long_gen,
-              {dense_name: per_pool, ring_name: per_pool,
-               "flash_prefill_band": 0}),
+              {dense_name: per_pool, ring_name: per_pool, band_name: 0}),
              ("b", short_len, short_gen,
-              {dense_name: 0, ring_name: 0, "flash_prefill_band": n_layers}))
+              {dense_name: 0, ring_name: 0, band_name: n_layers}))
     if short_len is None:
         cases = cases[:1]
     if single_pass:
@@ -3723,7 +3920,7 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
             if (len(groups) != batch
                     or any(len(o) != gen_len for o in outs)
                     or not all(g.is_finished() for g in groups)
-                    or not all(0 <= t < LLAMA3_8B["vocab_size"]
+                    or not all(0 <= t < model[1]["vocab_size"]
                                for o in outs for t in o)):
                 raise AssertionError(
                     f"LServe prefill ({case}) {r}: {len(groups)} requests, "
@@ -4254,6 +4451,202 @@ def run_families(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2 / 3 at head_dim 64 and phase 14: Llama-3.2-1B at full width
+# ---------------------------------------------------------------------------
+
+# the kernels each of phase 14's protocols launches, at head_dim 64: the
+# bench's chunked prefill (row 7) and split decode step (row 10's append,
+# then row 6); the IFB engine's whole prompts (row 9); the LServe command's
+# chunks (row 7 dense and ring), whole prompt (row 9's band) and decode
+# (row 10's two-pool append, row 6's per-head and band modes)
+D64_BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                     "paged_prefill_attention_d64", "kv_append_decode_d64",
+                     "paged_mqa_attention_d64")
+D64_ENGINE_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                      "flash_prefill_d64", "kv_append_decode_d64",
+                      "paged_mqa_attention_d64")
+D64_FORWARD_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
+                       "flash_prefill_d64", "paged_prefill_attention_d64",
+                       "kv_append_decode_d64", "paged_mqa_attention_d64")
+_ROW6 = ("omniserve_tpu_torch/csrc/decode_attention.cu",
+         "omniserve_tpu/ops/pallas/paged_attention.py:255")
+_ROW7 = ("omniserve_tpu_torch/csrc/paged_prefill.cu",
+         "omniserve_tpu/ops/pallas/paged_prefill.py:268")
+_ROW9 = ("omniserve_tpu_torch/csrc/flash_prefill.cu",
+         "omniserve_tpu/ops/pallas/flash_attention.py:150")
+_ROW10 = ("omniserve_tpu_torch/csrc/kv_append.cu",
+          "omniserve_tpu/ops/pallas/kv_append.py:156")
+# the kernels line's head_dim-64 entries (phase 2's rows, phase 14's
+# launches): name -> (source, the TPU kernel it replaces)
+D64_ENTRIES = {
+    "paged_mqa_attention_d64": _ROW6,
+    "paged_mqa_attention_ph_pt_d64": _ROW6,
+    "paged_mqa_attention_band_pt_d64": _ROW6,
+    "paged_prefill_attention_d64": _ROW7,
+    "paged_prefill_pt_d64": _ROW7,
+    "paged_prefill_ring_pt_d64": _ROW7,
+    "flash_prefill_d64": _ROW9,
+    "flash_prefill_band_d64": _ROW9,
+    "kv_append_decode_d64": _ROW10,
+    "kv_append_decode_pt_d64": _ROW10,
+}
+
+
+def check_d64_kernels(dev, gen):
+    """Phase 2 at head_dim 64: each kernel and mode phase 14 runs against
+    its plain version at the shapes phase 14 gives it (the bench's decode
+    at B=128 and its last chunk, Llama-3.2-1B's 32 / 8 heads; the LServe
+    command's shapes), with its time, bound and SDPA yardstick; row 6's
+    other head_dim-64 modes (kv4, kv8 and kv16 lists) and row 6 kv4 at
+    head_dim 128 over 64-token pages (pages the JAX package's supports rule
+    sends to row 6) logged beside them; rows 1 and 3 at Llama-3.2-1B's GEMM
+    shapes with their plans. Returns the kernels-line entries of the
+    head_dim-64 launches phase 14 counts."""
+    rows = {}
+    rows["paged_mqa_attention_d64"] = check_decode_kv16(
+        dev, gen, b=128, lens_from=1024, lens_to=1536, mode="kv4", d=64)
+    check_decode_kv16(dev, gen, b=8, mode="kv4", d=64)
+    check_decode_kv16(dev, gen, b=128, lens_from=1024, lens_to=1536,
+                      mode="kv4", d=128, page=64)
+    for mode in ("kv8", "pt8", "kv16"):
+        check_decode_kv16(dev, gen, b=8, mode=mode, d=64)
+    for mode in ("kv4", "kv8", "pt8", "kv16"):
+        ph = check_decode_ph(dev, gen, b=1, mode=mode, d=64)
+        band = check_decode_band(dev, gen, b=1, mode=mode, d=64)
+        if mode == "pt8":
+            rows["paged_mqa_attention_ph_pt_d64"] = ph
+            rows["paged_mqa_attention_band_pt_d64"] = band
+    rows["kv_append_decode_d64"] = check_kv_append(dev, gen, "kv4", d=64,
+                                                   kept_shape=(128, 8))
+    rows["kv_append_decode_pt_d64"] = check_kv_append(dev, gen, "pt8", d=64)
+    check_kv_append_pools(dev, gen, "kv16", 8, d=64)
+    rows["flash_prefill_d64"] = check_flash(dev, gen, d=64)
+    rows["flash_prefill_band_d64"] = check_flash_band(dev, gen, d=64)
+    rows["paged_prefill_attention_d64"] = check_paged_prefill(dev, gen, d=64)
+    rows["paged_prefill_pt_d64"] = check_paged_prefill(
+        dev, gen, kv_bits=8, per_tensor=True, d=64)
+    check_paged_prefill(dev, gen, kv_bits=16, d=64)
+    rows["paged_prefill_ring_pt_d64"] = check_paged_ring(
+        dev, gen, 32000, 32000, 314, "phase 14 (b)'s first chunk", "pt8",
+        d=64)
+    check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", "pt8", d=64)
+    check_paged_ring(dev, gen, 20000, 2048, 80, "wrapped", "kv4", d=64)
+    check_family_gemms(dev, gen, D64_FAMILIES)
+    return rows
+
+
+def check_d64_forwards(dev):
+    """Phase 3 at head_dim 64: Llama-3.2-1B's widths, 2 layers: the
+    whole-prompt prefill, a decode step (the split path: row 10, then row
+    6) and a chunked prefill at w4a8kv4, kernels against plain, each of
+    D64_FORWARD_KERNELS launched; then LServe's decode side at the
+    reference's LServe precision (w8a8kv8 per-tensor, scales calibrated on
+    a dense kv16 twin) and at w16a16kv16 (a 10-step window of graphs
+    against the eager loop), each decode call held in place against its
+    plain version (``check_sparse_forward``'s ``per_call``)."""
+    check_family_forwards(dev, D64_FAMILIES, D64_FORWARD_KERNELS)
+    for precision in ("w8a8kv8-pt", "w16a16kv16"):
+        gc.collect()
+        check_sparse_forward(dev, precision, geometry=LLAMA32_1B,
+                             per_call=True)
+
+
+# the wrappers of rows 4 and 5 (the single-pass kernels)
+SINGLE_PASS_WRAPPERS = ("paged_decode_attention_fused",
+                        "paged_mqa_attention_single_pass_ph",
+                        "paged_mqa_attention_single_pass")
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """While the block runs, count the dispatch decisions that send a CUDA
+    tensor to a plain version (``cuda.use_kernel`` False on a CUDA tensor)
+    and the calls of rows 4 and 5's wrappers: the dict yielded gets
+    "plain", "kernel" and "rows 4 / 5" counts."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    real = cuda.use_kernel
+    wrapped = {n: getattr(da, n) for n in SINGLE_PASS_WRAPPERS}
+    seen = {"plain": 0, "kernel": 0, "rows 4 / 5": 0}
+
+    def counting(t):
+        use = real(t)
+        if t.is_cuda:
+            seen["kernel" if use else "plain"] += 1
+        return use
+
+    def counted(fn):
+        def call(*args, **kw):
+            seen["rows 4 / 5"] += 1
+            return fn(*args, **kw)
+        return call
+
+    cuda.use_kernel = counting
+    for n, fn in wrapped.items():
+        setattr(da, n, counted(fn))
+    try:
+        yield seen
+    finally:
+        cuda.use_kernel = real
+        for n, fn in wrapped.items():
+            setattr(da, n, fn)
+
+
+def run_llama32(dev):
+    """Phase 14: Llama-3.2-1B (LLAMA32_1B) at full width and depth, random
+    weights from a seed: (a) ``bench.py``'s protocol at w4a8kv4 (batch 128,
+    1,024 in / 512 out, chunks of 8,192, 32-step windows, w8a8 lm_head;
+    warmup and measured round), then the IFB engine's 8 x 1,024 whole
+    prompts (row 9); (b) the LServe command at the reference's LServe
+    precision (w8a8kv8 per-tensor, both flags, static sparsity 0.5; batch
+    1, 32,768 in / 128 out in two chunks, then 16,384 in / 32 out whole
+    prompt; warmup and measured rounds, untraced). Every request finishes
+    with its token count; no head_dim-64 call reaches rows 4 / 5 (their
+    launch counts stay 0) or a plain version (no dispatch decision sends a
+    CUDA tensor to one). Returns (launches, stats)."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+
+    model = ("llama3.2-1b", LLAMA32_1B)
+    launches, stats = {}, {}
+    with plain_routes() as routes:
+        log("  (a) bench.py's protocol at w4a8kv4, batch 128")
+        bench_stats = {}
+        bench = run_bench(dev, kernels=D64_BENCH_KERNELS, trace=False,
+                          stats=bench_stats, model=model)
+        stats["bench"] = bench_stats
+        launches.update(bench)
+        log("  (a) the IFB engine, 8 x 1,024 whole prompts, 32 tokens each")
+        engine = run_engine(dev, model=model, kernels=D64_ENGINE_KERNELS,
+                            profile=False)
+        launches["flash_prefill_d64"] = engine["flash_prefill_d64"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("  (b) the LServe command at w8a8kv8 per-tensor, both flags")
+        lserve_stats = {}
+        lserve = run_lserve_prefill(
+            dev, precision="w8a8kv8", granularity="per_tensor",
+            stats=lserve_stats, trace=False, model=model)
+        stats["lserve"] = lserve_stats
+        for name, n in lserve.items():
+            launches[name] = launches.get(name, 0) + n
+    reached = {n: bench[n] + engine[n] for n in cuda.LAUNCHES
+               if n.startswith("decode_attention_")
+               and bench[n] + engine[n]}
+    log(f"  phase 14 dispatch decisions on CUDA tensors: "
+        f"{routes['kernel']} to kernels, {routes['plain']} to plain "
+        f"versions; calls of rows 4 / 5's wrappers: {routes['rows 4 / 5']}"
+        f"; their launches in (a): {reached or 'none'}")
+    if routes["plain"] or routes["rows 4 / 5"] or reached:
+        raise AssertionError(f"phase 14: {routes['plain']} calls took a "
+                             f"plain version, {routes['rows 4 / 5']} reached "
+                             f"rows 4 / 5 ({reached})")
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -4378,6 +4771,9 @@ def main() -> int:
     kernels.update(check_gqa7(dev, gen))
     kernels.update(check_mha_rows(dev, gen))
     check_family_gemms(dev, gen)
+    # head_dim 64 (Llama-3.2-1B, phase 14): row 6's kv4 / kv8 modes and
+    # rows 6, 7, 9 and 10 at phase 14's shapes, rows 1 and 3 at its GEMMs
+    kernels.update(check_d64_kernels(dev, gen))
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables, _ = check_forward(dev)
@@ -4396,6 +4792,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_sparse_forward(dev, precision)
         check_sparse_prefill_forward(dev, precision)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_d64_forwards(dev)
     phase_done("phase 3")
     log("phase 4: engine, Llama-3-8B W4A8KV4, 32 layers, w8a8 lm_head")
     launches = run_engine(dev)
@@ -4471,6 +4870,13 @@ def main() -> int:
     lserve_kv16 = run_lserve_kv16(dev)
     launches.update({k: lserve_kv16[k] for k in LSERVE_KV16_KERNELS[:3]})
     phase_done("phase 13")
+    log("phase 14: Llama-3.2-1B (head_dim 64) at full width and depth: "
+        "bench.py's protocol at w4a8kv4 and the IFB engine's whole prompts, "
+        "then the LServe command at w8a8kv8 per-tensor (both flags, static "
+        "sparsity 0.5; 32768 in / 128 out, 16384 in / 32 out)")
+    d64_launches, _ = run_llama32(dev)
+    launches.update({k: d64_launches[k] for k in D64_ENTRIES})
+    phase_done("phase 14")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -4571,6 +4977,9 @@ def main() -> int:
         "flash_prefill_mha": (
             "omniserve_tpu_torch/csrc/flash_prefill.cu",
             "omniserve_tpu/ops/pallas/flash_attention.py:150"),
+        # head_dim 64 (Llama-3.2-1B): phase 2's entries, phase 14's
+        # launches
+        **D64_ENTRIES,
     }
     idle = [name for name in meta if launches[name] <= 0]
     if idle:

@@ -33,6 +33,11 @@
 //   a tile live in the 4 threads of one quad, so its max and sum reduce
 //   with two shuffles.
 //
+// Head dim 64 (rows 7 and 9): a row is one 128-byte half, so the Q, K and
+// V tiles have one half each, QK^T takes 4 k steps and O one m64n64
+// accumulator. The helpers below take NH, the halves of a row (2 at head
+// dim 128, 1 at 64); at NH = 1 the second accumulator o1 is never touched.
+//
 // Fragment layout of an m64nN f32 accumulator, for warp w (0-3) of the
 // warpgroup, lane = 4 g + t: element 4 nb + e holds row 16 w + g + 8 (e /
 // 2), column 8 nb + 2 t + e % 2.
@@ -48,7 +53,7 @@
 
 namespace sm90 {
 
-constexpr int D = 128;          // head dim
+constexpr int D = 128;          // head dim (rows 7 and 9 also take 64)
 constexpr int BM = 128;         // query rows per block: two warpgroups
 constexpr int BN = 64;          // keys per K/V tile
 constexpr int HALF = BN * 64 * 2;        // bytes of one [64][64] half tile
@@ -331,15 +336,16 @@ __device__ __forceinline__ int chunk_order(int r, int dh) {
 }
 
 // S = Q K^T for one warpgroup: q_half0/1 point at this warpgroup's 64 rows
-// of the two Q halves, k_half0/1 at the K tile's halves (64 keys).
-template <bool F16>
+// of the two Q halves, k_half0/1 at the K tile's halves (64 keys); NH = 1:
+// the first halves only.
+template <bool F16, int NH = 2>
 __device__ __forceinline__ void qk_tile(float (&s)[32], uint32_t q0,
                                         uint32_t q1, uint32_t k0,
                                         uint32_t k1) {
   fence_regs(s);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < 4 * NH; ++kk) {
     const uint32_t off = (kk & 3) * 32;
     const uint32_t qa = (kk < 4 ? q0 : q1) + off;
     const uint32_t kb = (kk < 4 ? k0 : k1) + off;
@@ -363,29 +369,30 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi, bool f16) {
 // O += P V with P packed: a[kk] is the register A operand of keys 16 kk ..
 // 16 kk + 15 (a[kk][w] holds accumulator elements 8 kk + 2 w, + 1); v0/v1
 // are the V tile's halves (columns 0-63 and 64-127), 64 keys each,
-// token-major.
-template <bool F16>
+// token-major; NH = 1: v0 and o0 only.
+template <bool F16, int NH = 2>
 __device__ __forceinline__ void pv_tile_a(float (&o0)[32], float (&o1)[32],
                                           const uint32_t (&a)[4][4],
                                           uint32_t v0, uint32_t v1) {
   fence_regs(o0);
-  fence_regs(o1);
+  if constexpr (NH == 2) fence_regs(o1);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     // keys 16 kk .. 16 kk + 15: rows 16 kk of the token-major halves
     wgmma_rs_tb<F16>(o0, a[kk], desc_b128(v0 + kk * 2048, HALF, 1024));
-    wgmma_rs_tb<F16>(o1, a[kk], desc_b128(v1 + kk * 2048, HALF, 1024));
+    if constexpr (NH == 2)
+      wgmma_rs_tb<F16>(o1, a[kk], desc_b128(v1 + kk * 2048, HALF, 1024));
   }
   wg_commit();
   wg_wait<0>();
   fence_regs(o0);
-  fence_regs(o1);
+  if constexpr (NH == 2) fence_regs(o1);
 }
 
 // O += P V: p holds the tile's probabilities in the S accumulator layout
 // (rounded here to f16 or bf16).
-template <bool F16>
+template <bool F16, int NH = 2>
 __device__ __forceinline__ void pv_tile(float (&o0)[32], float (&o1)[32],
                                         const float (&p)[32], uint32_t v0,
                                         uint32_t v1) {
@@ -397,14 +404,15 @@ __device__ __forceinline__ void pv_tile(float (&o0)[32], float (&o1)[32],
     a[kk][2] = pack2(p[8 * kk + 4], p[8 * kk + 5], F16);
     a[kk][3] = pack2(p[8 * kk + 6], p[8 * kk + 7], F16);
   }
-  pv_tile_a<F16>(o0, o1, a, v0, v1);
+  pv_tile_a<F16, NH>(o0, o1, a, v0, v1);
 }
 
 // Online softmax of one tile for this thread's two rows (the scores in s
 // already scaled by sm_scale * log2(e), masked entries -inf): updates the
 // running max m (log2 domain) and sum l, rescales O, and leaves the
 // probabilities exp2(s - m) in s (exactly 0 where masked; all 0 for a row
-// with nothing visible yet).
+// with nothing visible yet). NH = 1: o1 is left alone.
+template <int NH = 2>
 __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
                                              float (&l)[2], float (&o0)[32],
                                              float (&o1)[32]) {
@@ -437,7 +445,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
   for (int i = 0; i < 32; ++i) {
     const float al = alpha[(i >> 1) & 1];
     o0[i] *= al;
-    o1[i] *= al;
+    if constexpr (NH == 2) o1[i] *= al;
   }
 }
 
@@ -450,7 +458,9 @@ __device__ __forceinline__ uint32_t sel4(uint32_t a, uint32_t b, uint32_t c,
 // `zero` (padding, or no visible key); stored where `write`. The 4 threads
 // of a quad hold 2 of every 8 columns; 4 shuffle rounds hand each thread
 // whole 8-column blocks, so the row goes out in 16-byte stores. Every
-// lane of the warp calls it (the shuffles span the warp).
+// lane of the warp calls it (the shuffles span the warp). NH = 1: a
+// 64-column row from o0.
+template <int NH = 2>
 __device__ __forceinline__ void store_row(__nv_bfloat16* row,
                                           const float (&o0)[32],
                                           const float (&o1)[32], int hi,
@@ -458,16 +468,17 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* row,
                                           int lane) {
   const int t4 = lane & 3, quad = lane & ~3;
   const float inv = (zero || !(l > 0.0f)) ? 0.0f : 1.0f / l;
-  uint32_t pk[16];   // block b (columns 8 b .. 8 b + 7): columns 2 t4, +1
+  uint32_t pk[8 * NH];   // block b (columns 8 b .. + 7): columns 2 t4, +1
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb) {
     pk[nb] = pack2(o0[4 * nb + 2 * hi] * inv, o0[4 * nb + 2 * hi + 1] * inv,
                    false);
-    pk[8 + nb] = pack2(o1[4 * nb + 2 * hi] * inv,
-                       o1[4 * nb + 2 * hi + 1] * inv, false);
+    if constexpr (NH == 2)
+      pk[8 + nb] = pack2(o1[4 * nb + 2 * hi] * inv,
+                         o1[4 * nb + 2 * hi + 1] * inv, false);
   }
 #pragma unroll
-  for (int grp = 0; grp < 4; ++grp) {
+  for (int grp = 0; grp < 2 * NH; ++grp) {
     // this thread takes block 4 grp + t4: in round k it receives the piece
     // of quad thread (t4 + k) % 4 and sends its own piece of block
     // 4 grp + (t4 - k) % 4 to the thread that takes that block

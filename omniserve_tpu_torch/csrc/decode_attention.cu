@@ -11,16 +11,27 @@
 //   3. paged_mqa_attention_single_pass in its plain mode with the streaming
 //      band over a ring pool: one page list per sequence, shared by the
 //      heads (launch_decode_attention_band, decode_attn_list_kernel);
-// entries 1-3 over kv4 or kv8 pools, fine-grained or per-tensor;
+// entries 1-3 over kv4 or kv8 pools, fine-grained or per-tensor, at head
+// dim 128 (the JAX package runs them only where decode_attention.supports
+// holds: pages and head dim multiples of 128);
 // and of omniserve_tpu/ops/pallas/paged_attention.py:
 //   4. paged_mqa_attention (:255, kernel _mqa_kernel :58, pallas_call :421),
 //      the two-stage decode the JAX package runs over every kv16 (bf16)
-//      pool, read in place, with no gather stage (decode_attn_kv16_kernel):
-//      a dense page list per sequence (launch_decode_attention_kv16), the
-//      selector's per-(sequence, kv head) lists (per_head_sel :116-120,
-//      launch_decode_attention_ph_kv16) and the streaming band with the
-//      ring relabel over one list per sequence (:125-140,
-//      launch_decode_attention_band_kv16).
+//      pool and over every kv4 / kv8 pool that supports refuses (head dim
+//      64, pages not a multiple of 128), read in place, with no gather
+//      stage (launch_paged_mqa_attention): a dense page list per sequence,
+//      the selector's per-(sequence, kv head) lists (per_head_sel
+//      :116-120) and the streaming band with the ring relabel over one
+//      list per sequence (:125-140); kv16 pages on decode_attn_kv16_kernel,
+//      kv4 / kv8 pages (fine-grained or per-tensor) on the list kernel of
+//      entries 2 and 3, which computes _mqa_kernel's quantized-domain
+//      product (:144-245: q.code * k_scale - (k_scale * k_zero) * sum q,
+//      then p * v_scale against the V codes, less sum p * v_scale *
+//      v_zero), at head dim 64 or 128.
+//
+// Head dims: every kernel takes D (64 or 128) as a template parameter; a
+// block holds D consumer threads, one per head-dim lane (4 warps at 128,
+// 2 at 64), and the copy warp.
 //
 // Contract of entry 1 (plain version: omniserve_tpu_torch/ops/cuda/decode_attention.py
 // paged_decode_attention_fused_plain = append_kv, then
@@ -125,11 +136,22 @@ using namespace kv;
 // ---------------------------------------------------------------------------
 
 constexpr int NSTAGE = 3;               // ring stages
-constexpr int SPLIT_NT = NT + 32;       // 4 consumer warps, then the copy warp
-constexpr int COPY_WARP = NWARP;
 constexpr int CONSUMERS = 1;            // named barrier of the consumer warps
 
-__device__ __forceinline__ void consumers_sync() { sm90::wg_sync(CONSUMERS); }
+// A block of the split decode at head dim D (64 or 128): D consumer
+// threads, one per head-dim lane (4 warps at 128, 2 at 64), then the copy
+// warp. Every kernel below takes D as a template parameter.
+#define SPLIT_DIMS(D)                    \
+  constexpr int NT = (D);                \
+  constexpr int NWARP = (D) / 32;        \
+  constexpr int COPY_WARP = NWARP;       \
+  static_assert(head_dim_ok(D), "head dim 64 or 128")
+
+// the named barrier of the NT consumer threads
+template <int NT>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(CONSUMERS), "n"(NT) : "memory");
+}
 
 __device__ __forceinline__ unsigned char* align128(unsigned char* p) {
   return reinterpret_cast<unsigned char*>(
@@ -242,17 +264,17 @@ __device__ __forceinline__ uint32_t nibbles_f16(uint32_t x) {
 
 // The end of a split (entry 4, and entries 1-3 over kv4 pages): consumer
 // thread c holds acc for head-dim lanes
-// 2 (c % 64), +1 over the tokens of parity c / 64; the two halves are
-// summed here. S = 1: out = acc / l (0 where no token was live) in bf16.
+// 2 (c % (D/2)), +1 over the tokens of parity c / (D/2); the two halves
+// are summed here. S = 1: out = acc / l (0 where no token was live) in bf16.
 // S > 1: the f32 partial of split s, acc [S][rows][D] then (m, l)
 // [S][rows][2], rows = B * H * n_rep. Only the n_rep live rows of the
 // NREP the block holds are written.
-template <int NREP>
+template <int NREP, int D>
 __device__ __forceinline__ void split_finish(
     float (&acc)[NREP][2], const float* m_s, const float* l_s, float* red,
     int ctid, size_t row_base, int n_rep, int s, int S, size_t rows,
     __nv_bfloat16* out, float* ws) {
-  const int dp = ctid & 63, th = ctid >> 6;
+  const int dp = ctid % (D / 2), th = ctid / (D / 2);
   if (th == 1) {
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
@@ -260,7 +282,7 @@ __device__ __forceinline__ void split_finish(
       red[r * D + 2 * dp + 1] = acc[r][1];
     }
   }
-  consumers_sync();
+  consumers_sync<D>();
   if (th == 1) return;
 #pragma unroll
   for (int r = 0; r < NREP; ++r) {
@@ -314,14 +336,20 @@ __device__ __forceinline__ void split_finish(
 // H100 that ran 0.91x the time of 64-token stages at B=128 and 0.83x at
 // B=8 (16 tokens in 4 stages: 1.14x; 2 or 4 stages of 32: 1.02x / 0.95x).
 constexpr int KV16_TS = 32;                  // tokens a stage holds
-constexpr int KV16_KROW = 2 * D + 16;        // a K row in shared memory
-constexpr int KV16_STAGE = KV16_TS * (KV16_KROW + 2 * D);
-constexpr int KV16_SMEM = NSTAGE * KV16_STAGE + 128;   // + alignment slack
+// a K row in shared memory: 2 D bytes padded by 16 (an odd number of
+// 16-byte units, so ldmatrix's 8 rows fall in distinct banks)
+__host__ __device__ constexpr int kv16_krow(int d) { return 2 * d + 16; }
+__host__ __device__ constexpr int kv16_stage(int d) {
+  return KV16_TS * (kv16_krow(d) + 2 * d);
+}
+__host__ __device__ constexpr int kv16_smem(int d) {
+  return NSTAGE * kv16_stage(d) + 128;   // + alignment slack
+}
 
 enum Kv16Mode { KV16_DENSE = 0, KV16_PER_HEAD = 1, KV16_BAND = 2 };
 
-template <int NREP, int MODE>
-__global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
+template <int NREP, int MODE, int D>
+__global__ void __launch_bounds__(D + 32) decode_attn_kv16_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, H, n_rep, D]
     const __nv_bfloat16* __restrict__ k_data,  // layer: [P, H, page, D]
     const __nv_bfloat16* __restrict__ v_data,
@@ -332,7 +360,9 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
     float* __restrict__ ws,                    // S > 1: the partials
     int H, int n_rep, int page, int Tp, int per_split, float sm_scale,
     int band_sink, int band_local, int ring_span, int ring_sink_tok) {
+  SPLIT_DIMS(D);
   constexpr bool BAND = MODE == KV16_BAND;
+  constexpr int KV16_KROW = kv16_krow(D), KV16_STAGE = kv16_stage(D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align128(smem_raw);
   __shared__ __align__(16) float sc[NREP][KV16_TS];   // scores
@@ -406,8 +436,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
   float acc[NREP][2];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  const int dp = tid & 63, th = tid >> 6;
-  consumers_sync();
+  const int dp = tid % (D / 2), th = tid / (D / 2);
+  consumers_sync<NT>();
 
   sm90::Ring rg;
   for (int i = i0; i < i1; ++i) {
@@ -422,7 +452,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
       const __nv_bfloat16* vs =
           reinterpret_cast<const __nv_bfloat16*>(ks + KV16_TS * KV16_KROW);
       // scores: warp w's tokens 16 w .. 16 w + 15 are the A operand's rows
-      // (rows past ts hold stale bytes and are never stored)
+      // (rows past ts hold stale bytes and are never stored; the 2 warps
+      // at D = 64 cover the stage's 32 tokens)
       if (16 * warp < ts) {
         float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         const uint32_t a_addr = sm90::smem_u32(
@@ -441,7 +472,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
                                                          : -INFINITY;
         }
       }
-      consumers_sync();
+      consumers_sync<NT>();
       // online softmax, one warp per query row (dense: ts >= 1 live slots,
       // so m_new is finite; the band's dead slots weigh 0, and a stage with
       // no live slot leaves the row as it was)
@@ -466,7 +497,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
           alpha_s[r] = alpha;
         }
       }
-      consumers_sync();
+      consumers_sync<NT>();
       // P.V in f32
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
@@ -489,7 +520,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_kv16_kernel(
       rg.advance<NSTAGE>();
     }
   }
-  split_finish<NREP>(acc, m_s, l_s, red, tid, row_base, n_rep, s,
+  split_finish<NREP, D>(acc, m_s, l_s, red, tid, row_base, n_rep, s,
                      gridDim.x, (size_t)gridDim.z * H * n_rep, out, ws);
 }
 
@@ -539,8 +570,8 @@ __host__ __device__ constexpr int list_stage_slots(int kv_bits, int page) {
   return kv_bits == 8 ? list_stage_rows(8, page) : page;
 }
 __host__ __device__ constexpr int list_stage_bytes(int kv_bits, bool pt,
-                                                   int page) {
-  return (2 * list_stage_rows(kv_bits, page) * D +
+                                                   int page, int d) {
+  return (2 * list_stage_rows(kv_bits, page) * d +
           (pt ? 0 : 16 * list_stage_slots(kv_bits, page)) + 127) / 128 * 128;
 }
 
@@ -570,11 +601,12 @@ __device__ __forceinline__ void list_stage_extent(int ntok, int r0, int rs,
 // comes after the block's only read of that page (the bulk copy has
 // landed); no other block reads it. The consumers then meet, so the
 // scoring reads the patched rows and planes.
-template <bool KV8, bool FINE>
+template <bool KV8, bool FINE, int D>
 __device__ __forceinline__ void append_token(
     unsigned char* kst, int rs, int ts, int t, int half, const TokQuant& kq,
     const TokQuant& vq, uint8_t* k_data, uint8_t* v_data, float* planes,
     int phys, int H, int h, int page, int slot) {
+  constexpr int NT = D;
   const int tid = threadIdx.x;
   unsigned char* vst = kst + rs * D;
   const uint32_t kc = (uint32_t)kq.code, vc = (uint32_t)vq.code;
@@ -601,11 +633,11 @@ __device__ __forceinline__ void append_token(
     planes[(((size_t)phys * 4 + tid) * H + h) * page + slot] = val;
   }
   sm90::fence_proxy_async();   // before the ring's next copy into the stage
-  consumers_sync();
+  consumers_sync<NT>();
 }
 
-template <int NREP, bool BAND, int KV_BITS, bool PT, bool APPEND>
-__global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
+template <int NREP, bool BAND, int KV_BITS, bool PT, bool APPEND, int D>
+__global__ void __launch_bounds__(D + 32) decode_attn_list_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, H, n_rep, D]
     const uint8_t* __restrict__ k_data,       // layer: [P, H, rows, D]
     const uint8_t* __restrict__ v_data,
@@ -621,6 +653,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     float* __restrict__ ws,                   // S > 1: the partials
     int H, int n_rep, int page, int Tp, int per_split, float sm_scale,
     int band_sink, int band_local, int ring_span, int ring_sink_tok) {
+  SPLIT_DIMS(D);
   constexpr bool KV8 = KV_BITS == 8, FINE = !PT;
   constexpr float BIAS = KV8 ? 128.0f : 8.0f;   // per-tensor code bias
   static_assert(!APPEND || BAND, "the append walks a list shared by heads");
@@ -640,7 +673,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
   const int half = page / 2, rows = KV8 ? page : half;
   const int rs = list_stage_rows(KV_BITS, page);
   const int ts = list_stage_slots(KV_BITS, page);
-  const int stage_bytes = list_stage_bytes(KV_BITS, PT, page);
+  const int stage_bytes = list_stage_bytes(KV_BITS, PT, page, D);
   const size_t list_off = BAND ? (size_t)b * Tp : ((size_t)b * H + h) * Tp;
   const ListMask mask(len, page, BAND ? band_sink : -1, band_local,
                       ring_span, ring_sink_tok);
@@ -696,24 +729,27 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.0f;
   }
-  consumers_sync();
+  consumers_sync<NT>();
   for (int r = warp; r < n_rep; r += NWARP) {
-    const float4 v = reinterpret_cast<const float4*>(q_s[r])[lane];
-    const float sum = warp_sum(v.x + v.y + v.z + v.w);
+    float part = 0.0f;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) part += q_s[r][lane * (D / 32) + j];
+    const float sum = warp_sum(part);
     if (lane == 0) qsum[r] = sum;
   }
   const float k_pt = PT ? *kpt : 0.0f, v_pt = PT ? *vpt : 0.0f;
   // q as the f16 B operand of the scores: column n is q row n (zero past
   // n_rep); thread t4's k indices 2 t4, 2 t4 + 1 (b0) and 2 t4 + 8, + 9
-  // (b1) of step kk are head dims 32 t4 + 4 kk + {0, 2} and {1, 3}, the
+  // (b1) of step kk are head dims (D/4) t4 + 4 kk + {0, 2} and {1, 3}, the
   // order in which the A operand's code words unpack
+  constexpr int QB = D / 4;    // a quad thread's bytes of a K row
   const int g = lane >> 2, t4 = lane & 3;
   uint32_t qb[D / 16][2];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     qb[kk][0] = qb[kk][1] = 0u;
     if (g < n_rep) {
-      const float* qr = &q_s[g][32 * t4 + 4 * kk];
+      const float* qr = &q_s[g][QB * t4 + 4 * kk];
       qb[kk][0] = pack_f16(qr[0], qr[2]);
       qb[kk][1] = pack_f16(qr[1], qr[3]);
     }
@@ -729,21 +765,22 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     const float vx = __bfloat162float(v_new[off]);
     constexpr int LEVELS = KV8 ? 255 : 15, QMAX = KV8 ? 127 : 7;
     auto reduce = [&](float v, int op) {
-      return reduce_nt(v, op, red, [] { consumers_sync(); });
+      return reduce_nt<NWARP>(v, op, red, [] { consumers_sync<NT>(); });
     };
     kq = PT ? quant_pt<QMAX>(kx, k_pt) : quant_kv_by<LEVELS>(kx, reduce);
     vq = PT ? quant_pt<QMAX>(vx, v_pt) : quant_kv_by<LEVELS>(vx, reduce);
   }
   // P.V's accumulators: kv8, n-tile j's mma fragment (rows 8-15 unused);
-  // kv4, row r's head-dim lanes 2 (tid % 64), +1 (tokens of parity tid / 64)
+  // kv4, row r's head-dim lanes 2 (tid % (D/2)), +1 (tokens of parity
+  // tid / (D/2))
   constexpr int AR = KV8 ? 4 : NREP, AC = KV8 ? 4 : 2;
   float acc[AR][AC];
 #pragma unroll
   for (int r = 0; r < AR; ++r)
 #pragma unroll
     for (int c = 0; c < AC; ++c) acc[r][c] = 0.0f;
-  const int dp = tid & 63, th = tid >> 6;
-  consumers_sync();
+  const int dp = tid % (D / 2), th = tid / (D / 2);
+  consumers_sync<NT>();
 
   sm90::Ring rg;
   for (int i = i0; i < i1; ++i) {
@@ -761,7 +798,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
       const float* pst = reinterpret_cast<const float*>(kst + 2 * rs * D);
       if (owner && logic == mask.cur_page &&
           (!KV8 || (mask.cur_slot >= r0 && mask.cur_slot < r0 + rs)))
-        append_token<KV8, FINE>(kst, rs, ts, mask.cur_slot - r0, half, kq, vq,
+        append_token<KV8, FINE, D>(kst, rs, ts, mask.cur_slot - r0, half, kq, vq,
                                 const_cast<uint8_t*>(k_data),
                                 const_cast<uint8_t*>(v_data),
                                 const_cast<float*>(planes),
@@ -772,14 +809,15 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
       // their low nibbles, slots rb.., and one of their high nibbles, slots
       // rb + page/2 ..); only live slots' scores are stored or read
       for (int rb = 16 * warp; rb < nrow; rb += 16 * NWARP) {  // warp-uniform
-        uint4 kw[2][2];    // rows rb + g, rb + g + 8: bytes [32 t4, +32)
+        // rows rb + g, rb + g + 8: bytes [QB t4, + QB)
+        uint4 kw[2][QB / 16];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int row = rb + g + 8 * hr;
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < QB / 16; ++i)
             kw[hr][i] = row < nrow ? *reinterpret_cast<const uint4*>(
-                                         kst + row * D + 32 * t4 + 16 * i)
+                                         kst + row * D + QB * t4 + 16 * i)
                                    : make_uint4(0u, 0u, 0u, 0u);
         }
         float clo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -821,7 +859,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
           }
         }
       }
-      consumers_sync();
+      consumers_sync<NT>();
       // online softmax, one warp per query row; a dead slot's weight is 0
       for (int r = warp; r < n_rep; r += NWARP) {
         float mx = -INFINITY;
@@ -850,12 +888,12 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
           c_s[r] = csum;
         }
       }
-      consumers_sync();
+      consumers_sync<NT>();
       if constexpr (!KV8) {
         // kv4: P.V in f32 FMAs (faster here than the tensor cores on an
         // H100; the weights never rounded): thread tid owns head-dim lanes
-        // 2 (tid % 64), +1 of the rows of parity tid / 64, whose bytes hold
-        // slots row and row + page/2
+        // 2 (tid % (D/2)), +1 of the rows of parity tid / (D/2), whose
+        // bytes hold slots row and row + page/2
 #pragma unroll
         for (int r = 0; r < NREP; ++r) {
           acc[r][0] *= alpha_s[r];
@@ -937,7 +975,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
     }
   }
   if constexpr (!KV8) {
-    split_finish<NREP>(acc, m_s, l_s, red2, tid, row_base, n_rep, s,
+    split_finish<NREP, D>(acc, m_s, l_s, red2, tid, row_base, n_rep, s,
                        gridDim.x, (size_t)gridDim.z * H * n_rep, out, ws);
   } else {
     // the end of a split: thread (warp w, g < n_rep, t4) holds row g's
@@ -980,7 +1018,8 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_attn_list_kernel(
 // out = sum_s acc_s e_s / sum_s l_s e_s, e_s = exp(m_s - m*) once per
 // split, over the splits that met a live token (m_s > -inf); 0 where none
 // did. One block per row, one thread per head-dim lane.
-__global__ void __launch_bounds__(NT) decode_split_combine_kernel(
+template <int D>
+__global__ void __launch_bounds__(D) decode_split_combine_kernel(
     const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int rows,
     int S) {
   const size_t row = blockIdx.x;
@@ -1043,12 +1082,17 @@ int split_count(int Tp, int per_split) {
 }
 
 // After a split kernel: with S > 1 the combine over its partials.
-int finish_split(int err, const void* ws, void* out, int rows, int S,
+int finish_split(int err, const void* ws, void* out, int rows, int S, int d,
                  cudaStream_t s) {
   if (err != 0 || S == 1) return err;
-  decode_split_combine_kernel<<<rows, NT, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), rows,
-      S);
+  if (d == 64)
+    decode_split_combine_kernel<64><<<rows, 64, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), rows,
+        S);
+  else
+    decode_split_combine_kernel<128><<<rows, 128, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), rows,
+        S);
   return (int)cudaGetLastError();
 }
 
@@ -1063,20 +1107,39 @@ using Kv16Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                             const int*, __nv_bfloat16*, float*, int, int,
                             int, int, int, float, int, int, int, int);
 
-template <int R, bool BAND, bool APPEND>
+template <int R, bool BAND, bool APPEND, int D>
 ListKernel list_kernel(int kv_bits, bool pt) {
   if (pt)
-    return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, true, APPEND>
-                        : decode_attn_list_kernel<R, BAND, 4, true, APPEND>;
-  return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, false, APPEND>
-                      : decode_attn_list_kernel<R, BAND, 4, false, APPEND>;
+    return kv_bits == 8
+               ? decode_attn_list_kernel<R, BAND, 8, true, APPEND, D>
+               : decode_attn_list_kernel<R, BAND, 4, true, APPEND, D>;
+  return kv_bits == 8 ? decode_attn_list_kernel<R, BAND, 8, false, APPEND, D>
+                      : decode_attn_list_kernel<R, BAND, 4, false, APPEND, D>;
 }
 
+// kPerHead: a list per (sequence, head); kBand: a list per sequence shared
+// by the heads, with the band when band_sink >= 0 (a dense list without);
+// kAppend: the block table as the dense list, with the new token
 enum ListMode { kPerHead = 0, kBand = 1, kAppend = 2 };
 
+// The list kernel for n_rep and a head dim: the append at head_dim 128
+// only (the JAX package sends every head_dim-64 decode through the split
+// path: the append kernel, then row 6's modes)
+template <int R>
+ListKernel pick_list(ListMode mode, int kv_bits, bool pt, int d) {
+  if (d == 64)
+    return mode == kAppend ? nullptr
+           : mode == kBand ? list_kernel<R, true, false, 64>(kv_bits, pt)
+                           : list_kernel<R, false, false, 64>(kv_bits, pt);
+  return mode == kAppend ? list_kernel<R, true, true, 128>(kv_bits, pt)
+         : mode == kBand ? list_kernel<R, true, false, 128>(kv_bits, pt)
+                         : list_kernel<R, false, false, 128>(kv_bits, pt);
+}
+
 // Entries 1 (the dense list of block_tables with the append), 2 (per-head
-// lists) and 3 (the band): grid (S, H, B), S = the runs of per_split list
-// entries; with S > 1 the combine over the partials in ws.
+// lists), 3 (the band) and row 6's kv4 / kv8 modes: grid (S, H, B), S =
+// the runs of per_split list entries; with S > 1 the combine over the
+// partials in ws.
 int launch_list(ListMode mode, const void* q, const void* k_data,
                 const void* v_data, const void* planes, const void* sel_phys,
                 const void* sel_logic, const void* lengths,
@@ -1084,35 +1147,33 @@ int launch_list(ListMode mode, const void* q, const void* k_data,
                 int B, int H, int n_rep, int page, int Tp, int per_split,
                 float sm_scale, int band_sink, int band_local, int ring_span,
                 int ring_sink_tok, int kv_bits, const void* k_pt,
-                const void* v_pt, void* stream) {
+                const void* v_pt, int d, void* stream) {
   const bool pt = k_pt != nullptr;
   const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
   if ((kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
       (!pt && planes == nullptr) || page <= 0 || page > MAX_PAGE ||
       page % 4 != 0 || S <= 0 || (S > 1 && ws == nullptr) ||
-      !aligned16(k_data) || !aligned16(v_data) || !aligned16(planes) ||
+      !head_dim_ok(d) || !aligned16(k_data) || !aligned16(v_data) ||
+      !aligned16(planes) ||
       (mode == kAppend && (k_new == nullptr || v_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   ListKernel kernel = nullptr;
-#define PICK(R)                                                    \
-  kernel = mode == kAppend ? list_kernel<R, true, true>(kv_bits, pt) \
-           : mode == kBand ? list_kernel<R, true, false>(kv_bits, pt)  \
-                           : list_kernel<R, false, false>(kv_bits, pt)
   switch (row_capacity(n_rep)) {
-    case 1: PICK(1); break;
-    case 2: PICK(2); break;
-    case 4: PICK(4); break;
-    case 8: PICK(8); break;
+    case 1: kernel = pick_list<1>(mode, kv_bits, pt, d); break;
+    case 2: kernel = pick_list<2>(mode, kv_bits, pt, d); break;
+    case 4: kernel = pick_list<4>(mode, kv_bits, pt, d); break;
+    case 8: kernel = pick_list<8>(mode, kv_bits, pt, d); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef PICK
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int err = allow_smem(reinterpret_cast<const void*>(kernel),
-                       LIST_NSTAGE * list_stage_bytes(kv_bits, pt, MAX_PAGE) +
+                       LIST_NSTAGE *
+                               list_stage_bytes(kv_bits, pt, MAX_PAGE, d) +
                            128);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(S, H, B), SPLIT_NT,
-           LIST_NSTAGE * list_stage_bytes(kv_bits, pt, page) + 128, s>>>(
+  kernel<<<dim3(S, H, B), d + 32,
+           LIST_NSTAGE * list_stage_bytes(kv_bits, pt, page, d) + 128, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const uint8_t*>(k_data), static_cast<const uint8_t*>(v_data),
       static_cast<const float*>(planes), static_cast<const float*>(k_pt),
@@ -1123,14 +1184,21 @@ int launch_list(ListMode mode, const void* q, const void* k_data,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, n_rep,
       page, Tp, per_split, sm_scale, band_sink, band_local, ring_span,
       ring_sink_tok);
-  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
+  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, d,
+                      s);
+}
+
+template <int R, int D>
+Kv16Kernel kv16_kernel(Kv16Mode mode) {
+  return mode == KV16_BAND ? decode_attn_kv16_kernel<R, KV16_BAND, D>
+         : mode == KV16_PER_HEAD
+             ? decode_attn_kv16_kernel<R, KV16_PER_HEAD, D>
+             : decode_attn_kv16_kernel<R, KV16_DENSE, D>;
 }
 
 template <int R>
-Kv16Kernel kv16_kernel(Kv16Mode mode) {
-  return mode == KV16_BAND       ? decode_attn_kv16_kernel<R, KV16_BAND>
-         : mode == KV16_PER_HEAD ? decode_attn_kv16_kernel<R, KV16_PER_HEAD>
-                                 : decode_attn_kv16_kernel<R, KV16_DENSE>;
+Kv16Kernel pick_kv16(Kv16Mode mode, int d) {
+  return d == 64 ? kv16_kernel<R, 64>(mode) : kv16_kernel<R, 128>(mode);
 }
 
 // Entry 4 in each mode: grid (S, H, B), S = the runs of per_split list
@@ -1140,24 +1208,24 @@ int launch_kv16(Kv16Mode mode, const void* q, const void* k_data,
                 const void* sel_logic, const void* lengths, void* out,
                 void* ws, int B, int H, int n_rep, int page, int Tp,
                 int per_split, float sm_scale, int band_sink, int band_local,
-                int ring_span, int ring_sink_tok, void* stream) {
+                int ring_span, int ring_sink_tok, int d, void* stream) {
   const int S = per_split > 0 ? split_count(Tp, per_split) : 0;
   if (page <= 0 || page > MAX_PAGE || S <= 0 || (S > 1 && ws == nullptr) ||
-      !aligned16(k_data) || !aligned16(v_data) ||
+      !head_dim_ok(d) || !aligned16(k_data) || !aligned16(v_data) ||
       (mode == KV16_BAND && band_sink < 0))
     return (int)cudaErrorInvalidValue;
   Kv16Kernel kernel = nullptr;
   switch (row_capacity(n_rep)) {
-    case 1: kernel = kv16_kernel<1>(mode); break;
-    case 2: kernel = kv16_kernel<2>(mode); break;
-    case 4: kernel = kv16_kernel<4>(mode); break;
-    case 8: kernel = kv16_kernel<8>(mode); break;
+    case 1: kernel = pick_kv16<1>(mode, d); break;
+    case 2: kernel = pick_kv16<2>(mode, d); break;
+    case 4: kernel = pick_kv16<4>(mode, d); break;
+    case 8: kernel = pick_kv16<8>(mode, d); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  int err = allow_smem(reinterpret_cast<const void*>(kernel), KV16_SMEM);
+  int err = allow_smem(reinterpret_cast<const void*>(kernel), kv16_smem(d));
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(S, H, B), SPLIT_NT, KV16_SMEM, s>>>(
+  kernel<<<dim3(S, H, B), d + 32, kv16_smem(d), s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_data),
       static_cast<const __nv_bfloat16*>(v_data),
@@ -1165,7 +1233,8 @@ int launch_kv16(Kv16Mode mode, const void* q, const void* k_data,
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(ws), H, n_rep, page, Tp, per_split, sm_scale,
       band_sink, band_local, ring_span, ring_sink_tok);
-  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, s);
+  return finish_split((int)cudaGetLastError(), ws, out, B * H * n_rep, S, d,
+                      s);
 }
 
 }  // namespace
@@ -1177,9 +1246,9 @@ extern "C" {
 // block table [B, W] (entry i = logical page i, dead past the length), cut
 // into runs of per_split entries (grid (S, H, B)); ws holds the f32
 // partials when S > 1 (S * B*H*n_rep * (D + 2) floats; may be null at
-// S = 1). kv_bits 4 or 8, pages of a multiple of 4 tokens up to 256;
-// per-tensor codes when k_pt / v_pt (device addresses of the layer's
-// scales) are given, and planes may then be null. Returns
+// S = 1). kv_bits 4 or 8, pages of a multiple of 4 tokens up to 256, head
+// dim 128; per-tensor codes when k_pt / v_pt (device addresses of the
+// layer's scales) are given, and planes may then be null. Returns
 // cudaGetLastError() after the launches (0 = launched).
 int launch_decode_attention_append(
     const void* q, const void* k_new, const void* v_new, void* k_data,
@@ -1190,16 +1259,17 @@ int launch_decode_attention_append(
   return launch_list(kAppend, q, k_data, v_data, planes, block_tables,
                      nullptr, context_lens, k_new, v_new, out, ws, B, H,
                      n_rep, page, W, per_split, sm_scale, -1, 0, 0, 0,
-                     kv_bits, k_pt, v_pt, stream);
+                     kv_bits, k_pt, v_pt, 128, stream);
 }
 
 // Dynamic-sparse decode: per-(sequence, head) page lists [B, H, Tp], each
 // cut into runs of per_split entries (grid (S, H, B)); ws holds the f32
 // partials when S > 1 (S * B*H*n_rep * (D + 2) floats; may be null at
 // S = 1). kv_bits 4 or 8 (pages of a multiple of 4 tokens: the plane runs
-// are bulk copies of 16-byte multiples); per-tensor codes when k_pt / v_pt
-// (device addresses of the layer's scales) are given, and planes may then
-// be null. Returns cudaGetLastError() after the launches (0 = launched).
+// are bulk copies of 16-byte multiples), head dim 128; per-tensor codes
+// when k_pt / v_pt (device addresses of the layer's scales) are given,
+// and planes may then be null. Returns cudaGetLastError() after the
+// launches (0 = launched).
 int launch_decode_attention_ph(
     const void* q, const void* k_data, const void* v_data,
     const void* planes, const void* sel_phys, const void* sel_logic,
@@ -1209,7 +1279,7 @@ int launch_decode_attention_ph(
   return launch_list(kPerHead, q, k_data, v_data, planes, sel_phys,
                      sel_logic, lengths, nullptr, nullptr, out, ws, B, H,
                      n_rep, page, Tp, per_split, sm_scale, -1, 0, 0, 0,
-                     kv_bits, k_pt, v_pt, stream);
+                     kv_bits, k_pt, v_pt, 128, stream);
 }
 
 // Plain mode with the streaming band: one page list [B, Tp] per sequence,
@@ -1224,46 +1294,46 @@ int launch_decode_attention_band(
   return launch_list(kBand, q, k_data, v_data, planes, sel_phys, sel_logic,
                      lengths, nullptr, nullptr, out, ws, B, H, n_rep, page,
                      Tp, per_split, sm_scale, band_sink, band_local,
-                     ring_span, ring_sink_tok, kv_bits, k_pt, v_pt, stream);
+                     ring_span, ring_sink_tok, kv_bits, k_pt, v_pt, 128,
+                     stream);
 }
 
-// Two-stage decode's kv16 mode: one page list [B, Tp] per sequence over a
-// bf16 pool, read in place, cut into runs of per_split entries as
-// launch_decode_attention_ph's lists.
-int launch_decode_attention_kv16(
-    const void* q, const void* k_data, const void* v_data,
-    const void* sel_phys, const void* sel_logic, const void* lengths,
-    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
-    int per_split, float sm_scale, void* stream) {
-  return launch_kv16(KV16_DENSE, q, k_data, v_data, sel_phys, sel_logic,
-                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
-                     sm_scale, -1, 0, 0, 0, stream);
-}
-
-// The same over per-(sequence, head) page lists [B, H, Tp] (the
-// selector's), split and pooled as launch_decode_attention_kv16's.
-int launch_decode_attention_ph_kv16(
-    const void* q, const void* k_data, const void* v_data,
-    const void* sel_phys, const void* sel_logic, const void* lengths,
-    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
-    int per_split, float sm_scale, void* stream) {
-  return launch_kv16(KV16_PER_HEAD, q, k_data, v_data, sel_phys, sel_logic,
-                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
-                     sm_scale, -1, 0, 0, 0, stream);
-}
-
-// The same over one list [B, Tp] per sequence with the streaming band
-// (band_sink >= 0) and, with ring_span > 0, the ring relabel.
-int launch_decode_attention_band_kv16(
-    const void* q, const void* k_data, const void* v_data,
-    const void* sel_phys, const void* sel_logic, const void* lengths,
-    void* out, void* ws, int B, int H, int n_rep, int page, int Tp,
-    int per_split, float sm_scale, int band_sink, int band_local,
-    int ring_span, int ring_sink_tok, void* stream) {
-  return launch_kv16(KV16_BAND, q, k_data, v_data, sel_phys, sel_logic,
-                     lengths, out, ws, B, H, n_rep, page, Tp, per_split,
-                     sm_scale, band_sink, band_local, ring_span,
-                     ring_sink_tok, stream);
+// Row 6, the two-stage decode (paged_mqa_attention) in every mode the JAX
+// package runs it: list_mode 0 one page list [B, Tp] per sequence shared
+// by the heads (the dense history), 1 one per (sequence, head) [B, H, Tp]
+// (the selector's), 2 one per sequence with the streaming band (band_sink
+// >= 0) and, with ring_span > 0, the ring relabel; over a kv16 pool
+// (kv_bits 16: decode_attn_kv16_kernel) or a kv4 / kv8 pool, fine-grained
+// (planes) or per-tensor (k_pt / v_pt: device addresses of the layer's
+// scales; planes may then be null), read in the quantized domain by the
+// split list kernel; head_dim 64 or 128, pages of at most 256 tokens (a
+// multiple of 4 for kv4 / kv8). Split and pooled as
+// launch_decode_attention_ph's. Returns cudaGetLastError() after the
+// launches (0 = launched).
+int launch_paged_mqa_attention(
+    int list_mode, int kv_bits, const void* q, const void* k_data,
+    const void* v_data, const void* planes, const void* k_pt,
+    const void* v_pt, const void* sel_phys, const void* sel_logic,
+    const void* lengths, void* out, void* ws, int B, int H, int n_rep,
+    int page, int Tp, int per_split, float sm_scale, int band_sink,
+    int band_local, int ring_span, int ring_sink_tok, int head_dim,
+    void* stream) {
+  if (list_mode < 0 || list_mode > 2 || (list_mode == 2 && band_sink < 0))
+    return (int)cudaErrorInvalidValue;
+  if (list_mode != 2) band_sink = -1;
+  if (kv_bits == 16)
+    return launch_kv16(list_mode == 0   ? KV16_DENSE
+                       : list_mode == 1 ? KV16_PER_HEAD
+                                        : KV16_BAND,
+                       q, k_data, v_data, sel_phys, sel_logic, lengths, out,
+                       ws, B, H, n_rep, page, Tp, per_split, sm_scale,
+                       band_sink, band_local, ring_span, ring_sink_tok,
+                       head_dim, stream);
+  return launch_list(list_mode == 1 ? kPerHead : kBand, q, k_data, v_data,
+                     planes, sel_phys, sel_logic, lengths, nullptr, nullptr,
+                     out, ws, B, H, n_rep, page, Tp, per_split, sm_scale,
+                     band_sink, band_local, ring_span, ring_sink_tok,
+                     kv_bits, k_pt, v_pt, head_dim, stream);
 }
 
 }  // extern "C"

@@ -42,6 +42,9 @@
 // epilogues); one warpgroup's softmax does not overlap its own products
 // (issuing the next S first, as FA3 does, ran slower here: with the
 // stage held, the consumer waits on the producer before its softmax).
+// Head dim 64 or 128 (a template parameter): at 64 a row is one swizzled
+// half, one TMA box per Q / K / V tile, 4 k steps in S and one m64n64 O
+// accumulator.
 
 #include "attn_sm90.cuh"
 
@@ -57,11 +60,20 @@ constexpr int NRANGE = 6;       // ints per q tile from the tile-range kernel
 constexpr int NT = 384;
 constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
 
-constexpr int OFF_KV = 4 * QHALF;                    // after 2 Q tiles
-constexpr int OFF_META = OFF_KV + NSTAGE * 2 * TILE; // K and V per stage
-constexpr int META_BYTES =
-    NSTAGE * BN * 4 * 2 + NSTAGE * 16 + (2 * NSTAGE + 4) * 8;
-constexpr size_t SMEM_BYTES = OFF_META + META_BYTES + 1024;   // + alignment
+// The shared-memory layout at head dim HD (64 or 128): a row of Q, K or V
+// is NH = HD / 64 swizzled 128-byte halves
+template <int HD>
+struct FlashCfg {
+  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  static constexpr int NH = HD / 64;
+  static constexpr int QTILE = NH * QHALF;            // a [128][HD] Q tile
+  static constexpr int KTILE = NH * HALF;             // a [64][HD] K / V tile
+  static constexpr int OFF_KV = 2 * QTILE;            // after 2 Q tiles
+  static constexpr int OFF_META = OFF_KV + NSTAGE * 2 * KTILE;  // K, V
+  static constexpr int META_BYTES =
+      NSTAGE * BN * 4 * 2 + NSTAGE * 16 + (2 * NSTAGE + 4) * 8;
+  static constexpr size_t SMEM = OFF_META + META_BYTES + 1024;  // + align
+};
 
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
@@ -106,7 +118,8 @@ struct Item {
 // Persistent: block b takes items b, b + gridDim.x, ... (one block per
 // SM), so one item's Q load and first K/V tiles overlap the previous
 // item's tail: the ring of K/V stages runs across items, and Q is double
-// buffered.
+// buffered. HD: the head dim, 64 or 128.
+template <int HD>
 __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -115,12 +128,14 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
     const int* __restrict__ ranges, const int* __restrict__ order,
     __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int sink_size,
     int local_size, float scale_log2) {
+  using C = FlashCfg<HD>;
+  constexpr int NH = C::NH, QTILE = C::QTILE, KTILE = C::KTILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* qs = base;            // 2 buffers of [2][128][64] bf16
-  unsigned char* kvs = base + OFF_KV;  // stage: K tile, V tile
-  int* kseg = reinterpret_cast<int*>(base + OFF_META);   // [NSTAGE][BN]
+  unsigned char* qs = base;            // 2 buffers of [NH][128][64] bf16
+  unsigned char* kvs = base + C::OFF_KV;  // stage: K tile, V tile
+  int* kseg = reinterpret_cast<int*>(base + C::OFF_META);  // [NSTAGE][BN]
   int* kpos = kseg + NSTAGE * BN;                        // [NSTAGE][BN]
   int* hdr = kpos + NSTAGE * BN;  // [NSTAGE][4]: j0 (-1 = item end), mask
   uint64_t* full = reinterpret_cast<uint64_t*>(hdr + NSTAGE * 4);
@@ -156,11 +171,13 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
       const Item w(item, Hq, Hkv, flags, ranges, order);
       const int qb = it & 1;
       mbar_wait(&qempty[qb], ((it >> 1) & 1) ^ 1u);
-      unsigned char* qd = qs + qb * 2 * QHALF;
+      unsigned char* qd = qs + qb * QTILE;
       if (lane == 0) {
-        mbar_arrive_tx(&qfull[qb], 2 * QHALF);
-        tma_load_2d(qd, &qmap, &qfull[qb], w.h * D, w.i0);
-        tma_load_2d(qd + QHALF, &qmap, &qfull[qb], w.h * D + 64, w.i0);
+        mbar_arrive_tx(&qfull[qb], QTILE);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          tma_load_2d(qd + hh * QHALF, &qmap, &qfull[qb], w.h * HD + 64 * hh,
+                      w.i0);
       }
       // the valid rows' segment and position ranges, for the whole-tile
       // test of a tile not known whole: read once the first such tile
@@ -214,12 +231,15 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
           // the tile's mask: 1 none, 2 causal (keys of the rows' one
           // segment, dense head), 0 the whole rule
           hdr[4 * st + 1] = whole ? 1 : same ? 2 : 0;
-          mbar_arrive_tx(&full[st], 2 * TILE);
-          unsigned char* kd = kvs + st * 2 * TILE;
-          tma_load_2d(kd, &kmap, &full[st], w.hk * D, j0);
-          tma_load_2d(kd + HALF, &kmap, &full[st], w.hk * D + 64, j0);
-          tma_load_2d(kd + TILE, &vmap, &full[st], w.hk * D, j0);
-          tma_load_2d(kd + TILE + HALF, &vmap, &full[st], w.hk * D + 64, j0);
+          mbar_arrive_tx(&full[st], 2 * KTILE);
+          unsigned char* kd = kvs + st * 2 * KTILE;
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh) {
+            tma_load_2d(kd + hh * HALF, &kmap, &full[st],
+                        w.hk * HD + 64 * hh, j0);
+            tma_load_2d(kd + KTILE + hh * HALF, &vmap, &full[st],
+                        w.hk * HD + 64 * hh, j0);
+          }
         } else {
           mbar_arrive(&full[st]);
         }
@@ -262,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
       for (int i = 0; i < 32; ++i) o0[i] = o1[i] = 0.0f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
       const int qb = it & 1;
-      const uint32_t q0 = smem_u32(qs + qb * 2 * QHALF) + wg * 64 * 128;
+      const uint32_t q0 = smem_u32(qs + qb * QTILE) + wg * 64 * 128;
       const uint32_t q1 = q0 + QHALF;
       mbar_wait(&qfull[qb], (it >> 1) & 1);
       while (true) {
@@ -278,8 +298,8 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
           break;
         }
         const int mask = hdr[4 * st + 1];
-        const uint32_t kb = smem_u32(kvs + st * 2 * TILE);
-        qk_tile<false>(s, q0, q1, kb, kb + HALF);
+        const uint32_t kb = smem_u32(kvs + st * 2 * KTILE);
+        qk_tile<false, NH>(s, q0, q1, kb, kb + HALF);
         if (mask == 1) {
 #pragma unroll
           for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
@@ -318,8 +338,8 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
             }
           }
         }
-        softmax_tile(s, m, l, o0, o1);
-        pv_tile<false>(o0, o1, s, kb + TILE, kb + TILE + HALF);
+        softmax_tile<NH>(s, m, l, o0, o1);
+        pv_tile<false, NH>(o0, o1, s, kb + KTILE, kb + KTILE + HALF);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[st]);
         ring.advance<NSTAGE>();
@@ -327,8 +347,8 @@ __global__ void __launch_bounds__(NT, 1) flash_prefill_kernel(
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int i = w.i0 + r0 + 8 * hi;
-        store_row(out + ((size_t)min(i, T - 1) * Hq + w.h) * D, o0, o1, hi,
-                  l[hi], qseg[hi] < 0, i < T, lane);
+        store_row<NH>(out + ((size_t)min(i, T - 1) * Hq + w.h) * HD, o0, o1,
+                      hi, l[hi], qseg[hi] < 0, i < T, lane);
       }
       w = wn;
 #pragma unroll
@@ -470,18 +490,21 @@ int launch_flash_tile_ranges(const void* segment_ids, const void* positions,
 // or launch included). flags: [Hkv] int32 (1 dense, 0 streaming) or null
 // for all dense; ranges [ceil(T / 128), 6] and order [ceil(T / 128)]
 // int32: scratch the tile-range kernel fills first (its band flag: flags
-// not null). q, k, v 16-byte aligned.
+// not null). q, k, v 16-byte aligned. head_dim: 64 or 128.
 int launch_flash_prefill(const void* q, const void* k, const void* v,
                          const void* segment_ids, const void* positions,
                          const void* flags, void* ranges, void* order,
                          void* out, int T, int Hq, int Hkv, int sink_size,
-                         int local_size, float sm_scale, void* stream) {
+                         int local_size, float sm_scale, int head_dim,
+                         void* stream) {
   if (T <= 0 || Hkv <= 0 || Hq % Hkv ||
+      (head_dim != 64 && head_dim != 128) ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
-  const uint64_t q_cols = (uint64_t)Hq * D, kv_cols = (uint64_t)Hkv * D;
+  const uint64_t q_cols = (uint64_t)Hq * head_dim;
+  const uint64_t kv_cols = (uint64_t)Hkv * head_dim;
   int err = encode_rows(&qmap, q, q_cols, T, q_cols * 2, BM);
   if (err == 0) err = encode_rows(&kmap, k, kv_cols, T, kv_cols * 2, BN);
   if (err == 0) err = encode_rows(&vmap, v, kv_cols, T, kv_cols * 2, BN);
@@ -491,20 +514,25 @@ int launch_flash_prefill(const void* q, const void* k, const void* v,
   if (cerr == cudaSuccess)
     cerr = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (cerr != cudaSuccess) return (int)cerr;
-  // the shared-memory size is set, and the register budget checked, once
-  // per device
-  static bool ready[MAX_DEVICES] = {};
-  if (dev >= MAX_DEVICES || !ready[dev]) {
-    cerr = cudaFuncSetAttribute(flash_prefill_kernel,
+  // each instantiation's shared-memory size is set, and its register
+  // budget checked, once per device
+  const int which = head_dim == 64 ? 0 : 1;
+  auto kernel = head_dim == 64 ? flash_prefill_kernel<64>
+                               : flash_prefill_kernel<128>;
+  const size_t smem =
+      head_dim == 64 ? FlashCfg<64>::SMEM : FlashCfg<128>::SMEM;
+  static bool ready[2][MAX_DEVICES] = {};
+  if (dev >= MAX_DEVICES || !ready[which][dev]) {
+    cerr = cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)SMEM_BYTES);
+                                (int)smem);
     if (cerr != cudaSuccess) return (int)cerr;
     cudaFuncAttributes attr;
-    cerr = cudaFuncGetAttributes(&attr, flash_prefill_kernel);
+    cerr = cudaFuncGetAttributes(&attr, kernel);
     if (cerr != cudaSuccess) return (int)cerr;
     if (!reg_budget_ok(attr.numRegs, 256, REGS_CONSUMER, 128, REGS_PRODUCER))
       return (int)cudaErrorInvalidConfiguration;
-    if (dev < MAX_DEVICES) ready[dev] = true;
+    if (dev < MAX_DEVICES) ready[which][dev] = true;
   }
   err = launch_flash_tile_ranges(segment_ids, positions, T, sink_size,
                                  local_size, flags != nullptr, ranges, order,
@@ -512,8 +540,7 @@ int launch_flash_prefill(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   const int n_items = ((T + BM - 1) / BM) * Hq;
   const int grid = n_items < n_sm ? n_items : n_sm;   // one block per SM
-  flash_prefill_kernel<<<grid, NT, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       qmap, kmap, vmap, static_cast<const int*>(segment_ids),
       static_cast<const int*>(positions), static_cast<const int*>(flags),
       static_cast<const int*>(ranges), static_cast<const int*>(order),

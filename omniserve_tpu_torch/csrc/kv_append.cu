@@ -40,13 +40,17 @@
 // token (D bytes of K and V read-modify-written and 16 bytes of planes
 // under kv4, 2*D bytes written under kv8, 4*D under kv16, 2*D floats of
 // stats). Design: one warp per (token, pool row), every row of both pools
-// at once; a lane holds 4 of the D values (one 8- or 16-byte load of K and
-// of V) and writes them as one word (kv4 / kv8), 8 bytes (kv16) and one
-// float4 of each stats row. The fine-grained quantizer's max and min
+// at once; a lane holds D / 32 of the D values (4 at head_dim 128, 2 at
+// 64: one 8- or 16-byte load of K and of V, 4 or 8 at 64) and writes them
+// as one word or half word of codes (kv4 / kv8), 8 or 4 bytes (kv16) and
+// one float4 or float2 of each stats row; the head dim is a template
+// parameter (64 or 128). The fine-grained quantizer's max and min
 // reduce by warp shuffles alone: no shared memory, no block barrier. Max
 // and min do not depend on the order of the reduction, and the rest of
 // the quantizer is per value (kv_common.cuh), compiled with --fmad=false,
 // so pool bytes, planes and stats equal the plain version's exactly.
+
+#include <type_traits>
 
 #include "kv_common.cuh"
 
@@ -55,7 +59,6 @@ namespace {
 using namespace kv;
 
 constexpr int WARPS = 4;          // (token, pool row) items per block
-constexpr int LANE_VALUES = D / 32;
 
 // One pool's side of an append.
 struct Side {
@@ -71,52 +74,85 @@ struct Side {
   int H, P;
 };
 
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 w = *reinterpret_cast<const float4*>(p);
-  x[0] = w.x;
-  x[1] = w.y;
-  x[2] = w.z;
-  x[3] = w.w;
+// A lane's N = D / 32 consecutive values (4 at D = 128, 2 at D = 64), as
+// one load: 16 / 8 bytes of f32, 8 / 4 of bf16.
+template <int N>
+__device__ __forceinline__ void load_lane(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    x[0] = w.x;
+    x[1] = w.y;
+    x[2] = w.z;
+    x[3] = w.w;
+  } else {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    x[0] = w.x;
+    x[1] = w.y;
+  }
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
-  x[0] = a.x;
-  x[1] = a.y;
-  x[2] = b.x;
-  x[3] = b.y;
+template <int N>
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
+                                          float (&x)[N]) {
+  uint32_t w[N / 2];
+  if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
 }
 
-// The lane's 4 codes, one per byte (value e in byte e), of a row whose
+// N bytes of codes (one word at N = 4, a half word at N = 2) at p
+template <int N>
+struct CodeWord {
+  using T = typename std::conditional<N == 4, uint32_t, uint16_t>::type;
+  static constexpr uint32_t LO = N == 4 ? 0x0F0F0F0Fu : 0x0F0Fu;
+};
+
+// The lane's N codes, one per byte (value e in byte e), of a row whose
 // other values sit in the warp's other lanes; `q` gets the row's scale and
 // zero (fine-grained) or pt and the bias (per tensor).
-template <int KV_BITS, bool PT>
-__device__ __forceinline__ uint32_t quant4(const float (&x)[4], float pt,
-                                           TokQuant& q) {
+template <int KV_BITS, bool PT, int N>
+__device__ __forceinline__ uint32_t quant_lane(const float (&x)[N], float pt,
+                                               TokQuant& q) {
   constexpr int LEVELS = KV_BITS == 8 ? 255 : 15;
   constexpr int QMAX = KV_BITS == 8 ? 127 : 7;
   float mx = 0.0f, mn = 0.0f;
   if constexpr (!PT) {
-    mx = warp_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
-    mn = -warp_max(-fminf(fminf(x[0], x[1]), fminf(x[2], x[3])));
+    float lmx = x[0], lmn = x[0];
+#pragma unroll
+    for (int e = 1; e < N; ++e) {
+      lmx = fmaxf(lmx, x[e]);
+      lmn = fminf(lmn, x[e]);
+    }
+    mx = warp_max(lmx);
+    mn = -warp_max(-lmn);
   }
   uint32_t codes = 0u;
 #pragma unroll
-  for (int e = 0; e < LANE_VALUES; ++e) {
+  for (int e = 0; e < N; ++e) {
     q = PT ? quant_pt<QMAX>(x[e], pt) : quant_kv_range<LEVELS>(x[e], mx, mn);
     codes |= static_cast<uint32_t>(q.code) << (8 * e);
   }
   return codes;
 }
 
-template <typename T, int KV_BITS, bool PT>
+template <typename T, int KV_BITS, bool PT, int D>
 __global__ void __launch_bounds__(32 * WARPS) kv_append_kernel(
     const T* __restrict__ k, const T* __restrict__ v, int k_stride,
     int v_stride, Side a, Side b, int n_tok, int page, int n_sub) {
   constexpr bool KV16 = KV_BITS == 16, KV8 = KV_BITS == 8;
+  constexpr int N = D / 32;          // values a lane holds
+  using W = typename CodeWord<N>::T;
+  constexpr uint32_t LO = CodeWord<N>::LO;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_a = n_tok * a.H;
@@ -130,44 +166,49 @@ __global__ void __launch_bounds__(32 * WARPS) kv_append_kernel(
   if (!active) pg = s.P - 1;
   const int slot = active ? s.slots[t] : 0;
   const int src = s.src != nullptr ? static_cast<int>(s.src[h]) : h;
-  const int d0 = LANE_VALUES * lane;
-  float kx[4], vx[4];
-  load4(k + (size_t)t * k_stride + (size_t)src * D + d0, kx);
-  load4(v + (size_t)t * v_stride + (size_t)src * D + d0, vx);
+  const int d0 = N * lane;
+  float kx[N], vx[N];
+  load_lane<N>(k + (size_t)t * k_stride + (size_t)src * D + d0, kx);
+  load_lane<N>(v + (size_t)t * v_stride + (size_t)src * D + d0, vx);
   const size_t head = (size_t)pg * s.H + h;
   if constexpr (KV16) {
     const size_t off = (head * page + slot) * D + d0;
-    const __nv_bfloat162 k01 = __floats2bfloat162_rn(kx[0], kx[1]);
-    const __nv_bfloat162 k23 = __floats2bfloat162_rn(kx[2], kx[3]);
-    const __nv_bfloat162 v01 = __floats2bfloat162_rn(vx[0], vx[1]);
-    const __nv_bfloat162 v23 = __floats2bfloat162_rn(vx[2], vx[3]);
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(s.k_data) + off) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&k01),
-                   *reinterpret_cast<const uint32_t*>(&k23));
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(s.v_data) + off) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&v01),
-                   *reinterpret_cast<const uint32_t*>(&v23));
+    uint32_t kw[N / 2], vw[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const __nv_bfloat162 kb = __floats2bfloat162_rn(kx[2 * e], kx[2 * e + 1]);
+      const __nv_bfloat162 vb = __floats2bfloat162_rn(vx[2 * e], vx[2 * e + 1]);
+      kw[e] = *reinterpret_cast<const uint32_t*>(&kb);
+      vw[e] = *reinterpret_cast<const uint32_t*>(&vb);
+    }
+    __nv_bfloat16* kd = static_cast<__nv_bfloat16*>(s.k_data) + off;
+    __nv_bfloat16* vd = static_cast<__nv_bfloat16*>(s.v_data) + off;
+    if constexpr (N == 4) {
+      *reinterpret_cast<uint2*>(kd) = make_uint2(kw[0], kw[1]);
+      *reinterpret_cast<uint2*>(vd) = make_uint2(vw[0], vw[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(kd) = kw[0];
+      *reinterpret_cast<uint32_t*>(vd) = vw[0];
+    }
   } else {
     TokQuant kq, vq;
-    const uint32_t kc = quant4<KV_BITS, PT>(kx, PT ? *s.kpt : 0.0f, kq);
-    const uint32_t vc = quant4<KV_BITS, PT>(vx, PT ? *s.vpt : 0.0f, vq);
+    const uint32_t kc = quant_lane<KV_BITS, PT, N>(kx, PT ? *s.kpt : 0.0f, kq);
+    const uint32_t vc = quant_lane<KV_BITS, PT, N>(vx, PT ? *s.vpt : 0.0f, vq);
     const int half = page / 2;
     const int rows = KV8 ? page : half;   // byte rows per page and head
     const int row = KV8 ? slot : slot % half;
     const size_t off = (head * rows + row) * D + d0;
-    uint32_t* kd = reinterpret_cast<uint32_t*>(
-        static_cast<uint8_t*>(s.k_data) + off);
-    uint32_t* vd = reinterpret_cast<uint32_t*>(
-        static_cast<uint8_t*>(s.v_data) + off);
+    W* kd = reinterpret_cast<W*>(static_cast<uint8_t*>(s.k_data) + off);
+    W* vd = reinterpret_cast<W*>(static_cast<uint8_t*>(s.v_data) + off);
     if constexpr (KV8) {
-      *kd = kc;
-      *vd = vc;
+      *kd = static_cast<W>(kc);
+      *vd = static_cast<W>(vc);
     } else if (slot >= half) {      // the high nibbles
-      *kd = (*kd & 0x0F0F0F0Fu) | (kc << 4);
-      *vd = (*vd & 0x0F0F0F0Fu) | (vc << 4);
+      *kd = static_cast<W>((*kd & LO) | (kc << 4));
+      *vd = static_cast<W>((*vd & LO) | (vc << 4));
     } else {
-      *kd = (*kd & 0xF0F0F0F0u) | kc;
-      *vd = (*vd & 0xF0F0F0F0u) | vc;
+      *kd = static_cast<W>((*kd & (LO << 4)) | kc);
+      *vd = static_cast<W>((*vd & (LO << 4)) | vc);
     }
     if (!PT && lane < 4) {
       float val;
@@ -180,15 +221,24 @@ __global__ void __launch_bounds__(32 * WARPS) kv_append_kernel(
   }
   if (s.stats != nullptr) {
     const int sub = slot / (page / n_sub);
-    float4* lo =
-        reinterpret_cast<float4*>(s.stats + (head * 2 * n_sub + 2 * sub) * D +
-                                  d0);
-    float4* hi = reinterpret_cast<float4*>(reinterpret_cast<float*>(lo) + D);
-    const float4 cl = *lo, ch = *hi;
-    *lo = make_float4(fminf(cl.x, kx[0]), fminf(cl.y, kx[1]),
-                      fminf(cl.z, kx[2]), fminf(cl.w, kx[3]));
-    *hi = make_float4(fmaxf(ch.x, kx[0]), fmaxf(ch.y, kx[1]),
-                      fmaxf(ch.z, kx[2]), fmaxf(ch.w, kx[3]));
+    float* lo = s.stats + (head * 2 * n_sub + 2 * sub) * D + d0;
+    float* hi = lo + D;
+    float cl[N], ch[N];
+    load_lane<N>(lo, cl);
+    load_lane<N>(hi, ch);
+    if constexpr (N == 4) {
+      *reinterpret_cast<float4*>(lo) =
+          make_float4(fminf(cl[0], kx[0]), fminf(cl[1], kx[1]),
+                      fminf(cl[2], kx[2]), fminf(cl[3], kx[3]));
+      *reinterpret_cast<float4*>(hi) =
+          make_float4(fmaxf(ch[0], kx[0]), fmaxf(ch[1], kx[1]),
+                      fmaxf(ch[2], kx[2]), fmaxf(ch[3], kx[3]));
+    } else {
+      *reinterpret_cast<float2*>(lo) =
+          make_float2(fminf(cl[0], kx[0]), fminf(cl[1], kx[1]));
+      *reinterpret_cast<float2*>(hi) =
+          make_float2(fmaxf(ch[0], kx[0]), fmaxf(ch[1], kx[1]));
+    }
   }
 }
 
@@ -220,7 +270,7 @@ extern "C" {
 // alone when b_H == 0 (the single-pool entry). src: int64 [H] row -> kv
 // head maps, or null. k / v: bf16 (is_f32 0) or f32 rows, 8- / 16-byte
 // aligned, with k_stride / v_stride elements (a multiple of 4) between
-// tokens.
+// tokens. head_dim: 64 or 128.
 int launch_kv_append_decode(
     const void* k, const void* v, int is_f32, int k_stride, int v_stride,
     int T, int page, int n_sub, int kv_bits,
@@ -229,12 +279,14 @@ int launch_kv_append_decode(
     const void* a_slots, const void* a_src, int a_H, int a_P,
     void* b_k_data, void* b_v_data, void* b_planes, const void* b_k_pt,
     const void* b_v_pt, void* b_stats, const void* b_page_ids,
-    const void* b_slots, const void* b_src, int b_H, int b_P, void* stream) {
+    const void* b_slots, const void* b_src, int b_H, int b_P, int head_dim,
+    void* stream) {
   const bool pt = a_k_pt != nullptr;
   const bool fine = kv_bits != 16 && !pt;
   if ((kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || a_H <= 0 ||
       b_H < 0 || pt != (a_v_pt != nullptr) || (pt && kv_bits == 16) ||
       (fine && a_planes == nullptr) || k_stride % 4 || v_stride % 4 ||
+      !head_dim_ok(head_dim) ||
       page <= 0 || page % 2 || n_sub <= 0 || page % n_sub ||
       (b_H > 0 && (pt != (b_k_pt != nullptr) || pt != (b_v_pt != nullptr) ||
                    (fine && b_planes == nullptr))))
@@ -248,9 +300,16 @@ int launch_kv_append_decode(
   const int blocks = (items + WARPS - 1) / WARPS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(TYPE, BITS, PT)                                              \
-  kv_append_kernel<TYPE, BITS, PT><<<blocks, 32 * WARPS, 0, s>>>(           \
-      static_cast<const TYPE*>(k), static_cast<const TYPE*>(v), k_stride,   \
-      v_stride, a, b, T, page, n_sub)
+  do {                                                                      \
+    if (head_dim == 64)                                                     \
+      kv_append_kernel<TYPE, BITS, PT, 64><<<blocks, 32 * WARPS, 0, s>>>(   \
+          static_cast<const TYPE*>(k), static_cast<const TYPE*>(v),         \
+          k_stride, v_stride, a, b, T, page, n_sub);                        \
+    else                                                                    \
+      kv_append_kernel<TYPE, BITS, PT, 128><<<blocks, 32 * WARPS, 0, s>>>(  \
+          static_cast<const TYPE*>(k), static_cast<const TYPE*>(v),         \
+          k_stride, v_stride, a, b, T, page, n_sub);                        \
+  } while (0)
 #define LAUNCH_MODE(TYPE)                                     \
   if (kv_bits == 16) LAUNCH(TYPE, 16, false);                 \
   else if (kv_bits == 8) {                                    \

@@ -1,6 +1,7 @@
 // Device code shared by the paged-KV kernels (decode_attention.cu,
-// kv_append.cu): warp reductions and reductions over 128 threads (one
-// thread per head-dim lane), the fine-grained quantizer of one [D] vector
+// kv_append.cu): warp reductions and reductions over the D threads of a
+// head (one thread per head-dim lane, D = 64 or 128), the fine-grained
+// quantizer of one [D] vector
 // over 15 levels (kv4) or 255 (kv8), and the per-tensor quantizer of one
 // value by a calibrated scale (codes biased by 8 or 128).
 //
@@ -18,10 +19,13 @@
 
 namespace kv {
 
-constexpr int D = 128;         // head dim (one thread per lane)
-constexpr int NT = D;          // threads per block
-constexpr int NWARP = NT / 32;
 constexpr int MAX_PAGE = 256;  // tokens per page the kernels stage
+
+// head dims the kernels are instantiated for: a head-dim template
+// parameter HD of the decode and append kernels is one of these
+__host__ __device__ constexpr bool head_dim_ok(int d) {
+  return d == 64 || d == 128;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -35,10 +39,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Sum / max / min over NT threads that meet at `sync` (all threads get the
-// result): __syncthreads for a whole block, a named barrier for the
-// consumer threads of a block whose other warps have left.
-template <typename Sync>
+// Sum / max / min over the NWARP warps of threads 0 .. 32 NWARP - 1 that
+// meet at `sync` (all threads get the result): __syncthreads for a whole
+// block, a named barrier for the consumer threads of a block whose other
+// warps have left.
+template <int NWARP, typename Sync>
 __device__ inline float reduce_nt(float v, int op, float* red, Sync sync) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (op == 0) v = warp_sum(v);

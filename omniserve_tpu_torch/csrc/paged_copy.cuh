@@ -85,14 +85,20 @@ __device__ __forceinline__ int warp_max_i(int v) {
   return v;
 }
 
+// The bytes of one pool row (a token's K or V codes of one head) at head
+// dim HD: HD under kv4 / kv8 (one byte a value), 2 HD under kv16.
+__host__ __device__ constexpr int pool_row_bytes(int kv_bits, int hd) {
+  return kv_bits == 16 ? 2 * hd : hd;
+}
+
 // Run by the 32 lanes of one warp. SPARSE: a page list and/or per-head
 // flags; KV_BITS 4 (half-split nibble rows), 8 (byte rows) or 16 (bf16
-// rows); FINE: copy the plane rows.
-template <bool SPARSE, int KV_BITS, bool FINE, int NR>
+// rows); FINE: copy the plane rows; HD: the head dim (64 or 128).
+template <bool SPARSE, int KV_BITS, bool FINE, int NR, int HD = 128>
 __device__ __forceinline__ void paged_copy_warp(const PagedWalk& w,
                                                 const RawRing& rr, int lane) {
   constexpr bool KV4 = KV_BITS == 4;
-  constexpr int ROWB = KV_BITS == 16 ? 256 : 128;   // bytes of a pool row
+  constexpr int ROWB = pool_row_bytes(KV_BITS, HD);   // bytes of a pool row
   constexpr int RAW = 2 * BN * ROWB;
   const int b = w.b, h = w.h, H = w.H, page = w.page, W = w.W;
   const int ctx = w.context_lens[b];

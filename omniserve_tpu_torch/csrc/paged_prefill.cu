@@ -67,6 +67,12 @@
 // prologue (Q staged by the consumers, the rings filling) is not hidden
 // (a persistent version ran the bench's chunks 3-10% faster and the ring
 // 7-19% slower, items of unequal weight taken in a fixed order).
+// Head dim 64 or 128 (a template parameter): at 64 a pool row is 64 bytes
+// (kv4 / kv8) or 128 (kv16), the operand tiles one swizzled half each,
+// each dequant thread converts half a row into chunks 4 dh .. 4 dh + 3,
+// QK^T takes 4 k steps and O one m64n64 accumulator.
+
+#include <type_traits>
 
 #include "paged_copy.cuh"
 
@@ -81,13 +87,18 @@ constexpr int NT = 512;
 constexpr int NK = 2;     // operand (f16 / bf16) ring
 constexpr int REGS_COPY = 40, REGS_DEQUANT = 64, REGS_CONSUMER = 200;
 
-template <int KV_BITS>
+// The shared-memory layout at head dim HD (64 or 128): a row of the Q, K
+// and V operand tiles is NH = HD / 64 swizzled 128-byte halves
+template <int KV_BITS, int HD>
 struct Cfg {
-  static constexpr int ROWB = KV_BITS == 16 ? 256 : 128;  // bytes of a pool row
+  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  static constexpr int NH = HD / 64;
+  static constexpr int ROWB = pool_row_bytes(KV_BITS, HD);  // a pool row
   static constexpr int NR = KV_BITS == 16 ? 2 : 3;        // raw ring
   static constexpr int RAW = 2 * BN * ROWB;    // a tile's K and V rows
-  static constexpr int OFF_KV = 2 * QHALF;
-  static constexpr int OFF_RAW = OFF_KV + NK * 2 * TILE;
+  static constexpr int KTILE = NH * HALF;      // a [64][HD] operand tile
+  static constexpr int OFF_KV = NH * QHALF;
+  static constexpr int OFF_RAW = OFF_KV + NK * 2 * KTILE;
   static constexpr int OFF_META = OFF_RAW + NR * RAW;
   // raw planes [NR][4][BN] f32, raw kp / shift [NR][BN], raw hdr [NR][4],
   // operand kp [NK][BN], operand hdr [NK][4], then the barriers
@@ -109,8 +120,9 @@ __device__ __forceinline__ uint32_t h2(float lo, float hi) {
 // SPARSE = a page list and/or per-head flags; the dense instantiation is
 // the plain block-table walk, so the bench's chunked prefill pays nothing
 // for the ring mode. KV_BITS = 4, 8 (one byte per value) or 16 (bf16
-// values); PT = per-tensor codes (kv4 / kv8).
-template <bool SPARSE, int KV_BITS, bool PT>
+// values); PT = per-tensor codes (kv4 / kv8); HD = the head dim, 64 or
+// 128.
+template <bool SPARSE, int KV_BITS, bool PT, int HD>
 __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_data,
     const uint8_t* __restrict__ v_data, const float* __restrict__ planes,
@@ -120,14 +132,14 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     const int* __restrict__ flags, __nv_bfloat16* __restrict__ out, int Tc,
     int H, int n_rep, int page, int W, int sink_size, int local_size,
     int ring_span, int ring_sink_tok, float scale_log2) {
-  using C = Cfg<KV_BITS>;
+  using C = Cfg<KV_BITS, HD>;
   constexpr bool KV8 = KV_BITS == 8, KV16 = KV_BITS == 16;
   constexpr bool FINE = !PT && !KV16;      // planes in the pool
-  constexpr int NR = C::NR, ROWB = C::ROWB;
+  constexpr int NR = C::NR, ROWB = C::ROWB, NH = C::NH, KTILE = C::KTILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* qs = base;                         // [2][128][64] 16-bit
+  unsigned char* qs = base;                         // [NH][128][64] 16-bit
   unsigned char* kvs = base + C::OFF_KV;            // stage: K tile, V tile
   unsigned char* raws = base + C::OFF_RAW;          // stage: K rows, V rows
   float* raw_pl = reinterpret_cast<float*>(base + C::OFF_META);  // [NR][4][BN]
@@ -172,11 +184,14 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
                          ring_span, ring_sink_tok, dense};
     const RawRing ring{raws, raw_pl, raw_kp, raw_sh, raw_hdr, raw_full,
                        raw_empty};
-    paged_copy_warp<SPARSE, KV_BITS, FINE, NR>(walk, ring, lane);
+    paged_copy_warp<SPARSE, KV_BITS, FINE, NR, HD>(walk, ring, lane);
   } else if (warp >= 8) {
     // ---- dequant warpgroup: raw rows -> swizzled f16 (bf16) tiles ----
     reg_dealloc<REGS_DEQUANT>();
-    const int td = tid - 256, r = td >> 1, dh = td & 1;   // key r, half dh
+    // key r, half dh of its HD values: at HD = 128 operand half dh; at 64
+    // chunks 4 dh .. 4 dh + 3 of the one half
+    const int td = tid - 256, r = td >> 1, dh = td & 1;
+    const int oh = NH == 2 ? dh : 0, oc = NH == 2 ? 0 : 4 * dh;
     float ks_pt = 0.0f, vs_pt = 0.0f;
     if constexpr (PT) {
       ks_pt = *kpt;
@@ -197,20 +212,20 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
         if (dh == 0) kv_kp[rk.stage * BN + r] = kp;
         const unsigned char* sk = raws + rr.stage * C::RAW + r * ROWB;
         const unsigned char* sv = sk + BN * ROWB;
-        unsigned char* dk = kvs + rk.stage * 2 * TILE + dh * HALF;
-        unsigned char* dv = dk + TILE;
+        unsigned char* dk = kvs + rk.stage * 2 * KTILE + oh * HALF;
+        unsigned char* dv = dk + KTILE;
         if constexpr (KV16) {
           const int co = chunk_order(r, dh);
 #pragma unroll
-          for (int s = 0; s < 8; ++s) {
-            const int c = co ^ s;
+          for (int s = 0; s < HD / 16; ++s) {
+            const int c = (co ^ s) & (HD / 16 - 1);
             uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
             if (!dead) {
-              kx = *reinterpret_cast<const uint4*>(sk + dh * 128 + c * 16);
-              vx = *reinterpret_cast<const uint4*>(sv + dh * 128 + c * 16);
+              kx = *reinterpret_cast<const uint4*>(sk + dh * HD + c * 16);
+              vx = *reinterpret_cast<const uint4*>(sv + dh * HD + c * 16);
             }
-            *reinterpret_cast<uint4*>(dk + swz(r, c)) = kx;
-            *reinterpret_cast<uint4*>(dv + swz(r, c)) = vx;
+            *reinterpret_cast<uint4*>(dk + swz(r, oc + c)) = kx;
+            *reinterpret_cast<uint4*>(dv + swz(r, oc + c)) = vx;
           }
         } else {
           float ks, kc, vs, vz;
@@ -230,16 +245,17 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
           const int sh = raw_sh[rr.stage * BN + r];
           constexpr uint32_t mask = KV8 ? 0xFFu : 0xFu;
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            // 16 codes: values dh * 64 + 16 ci .. + 15, chunks 2 ci, 2 ci + 1
-            const int ci = (s + r + 2 * dh) & 3;
+          for (int s = 0; s < HD / 32; ++s) {
+            // 16 codes: values dh * HD/2 + 16 ci .. + 15, chunks oc + 2 ci,
+            // + 1
+            const int ci = (s + r + 2 * dh) & (HD / 32 - 1);
             uint32_t wk[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
             uint32_t wv[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
             if (!dead) {
-              const uint4 kw =
-                  *reinterpret_cast<const uint4*>(sk + dh * 64 + ci * 16);
-              const uint4 vw =
-                  *reinterpret_cast<const uint4*>(sv + dh * 64 + ci * 16);
+              const uint4 kw = *reinterpret_cast<const uint4*>(
+                  sk + dh * (HD / 2) + ci * 16);
+              const uint4 vw = *reinterpret_cast<const uint4*>(
+                  sv + dh * (HD / 2) + ci * 16);
               const uint32_t kws[4] = {kw.x, kw.y, kw.z, kw.w};
               const uint32_t vws[4] = {vw.x, vw.y, vw.z, vw.w};
 #pragma unroll
@@ -256,13 +272,13 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
                 wv[2 * wi + 1] = h2(bv[2], bv[3]);
               }
             }
-            *reinterpret_cast<uint4*>(dk + swz(r, 2 * ci)) =
+            *reinterpret_cast<uint4*>(dk + swz(r, oc + 2 * ci)) =
                 make_uint4(wk[0], wk[1], wk[2], wk[3]);
-            *reinterpret_cast<uint4*>(dk + swz(r, 2 * ci + 1)) =
+            *reinterpret_cast<uint4*>(dk + swz(r, oc + 2 * ci + 1)) =
                 make_uint4(wk[4], wk[5], wk[6], wk[7]);
-            *reinterpret_cast<uint4*>(dv + swz(r, 2 * ci)) =
+            *reinterpret_cast<uint4*>(dv + swz(r, oc + 2 * ci)) =
                 make_uint4(wv[0], wv[1], wv[2], wv[3]);
-            *reinterpret_cast<uint4*>(dv + swz(r, 2 * ci + 1)) =
+            *reinterpret_cast<uint4*>(dv + swz(r, oc + 2 * ci + 1)) =
                 make_uint4(wv[4], wv[5], wv[6], wv[7]);
           }
         }
@@ -280,17 +296,19 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
     const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
     {
       // this warpgroup's 64 rows of Q into the swizzled tile: f16, or
-      // bf16 as it is under kv16
+      // bf16 as it is under kv16; thread (rq, dh) writes half dh of the row
+      // (HD = 64: chunks 4 dh .. 4 dh + 3 of the one half)
       const int tw = tid & 127, rq = 64 * wg + (tw >> 1), dh = tw & 1;
       const int t = row_token(t0, rq, n_rep);
       const __nv_bfloat16* src =
-          q + (((size_t)b * Tc + t) * Hq + h * n_rep + rq % n_rep) * D +
-          dh * 64;
-      unsigned char* dst = qs + dh * QHALF;
+          q + (((size_t)b * Tc + t) * Hq + h * n_rep + rq % n_rep) * HD +
+          dh * (HD / 2);
+      unsigned char* dst = qs + (NH == 2 ? dh : 0) * QHALF;
+      const int qc = NH == 2 ? 0 : 4 * dh;
       const int co = chunk_order(rq, dh);
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int c = co ^ s;
+      for (int s = 0; s < HD / 16; ++s) {
+        const int c = (co ^ s) & (HD / 16 - 1);
         uint4 x = make_uint4(0u, 0u, 0u, 0u);
         if (t < Tc) {
           x = *reinterpret_cast<const uint4*>(src + c * 8);
@@ -306,7 +324,7 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
             x = make_uint4(w[0], w[1], w[2], w[3]);
           }
         }
-        *reinterpret_cast<uint4*>(dst + swz(rq, c)) = x;
+        *reinterpret_cast<uint4*>(dst + swz(rq, qc + c)) = x;
       }
       fence_proxy_async();
       wg_sync(1 + wg);
@@ -329,8 +347,8 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
       mbar_wait(&kv_full[st], ring.phase);
       if (kv_hdr[4 * st] < 0) break;
       const bool whole = kv_hdr[4 * st + 1] != 0;
-      const uint32_t kb = smem_u32(kvs + st * 2 * TILE);
-      qk_tile<!KV16>(s, q0, q1, kb, kb + HALF);
+      const uint32_t kb = smem_u32(kvs + st * 2 * KTILE);
+      qk_tile<!KV16, NH>(s, q0, q1, kb, kb + HALF);
       if (whole) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
@@ -350,8 +368,8 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
           }
         }
       }
-      softmax_tile(s, m, l, o0, o1);
-      pv_tile<!KV16>(o0, o1, s, kb + TILE, kb + TILE + HALF);
+      softmax_tile<NH>(s, m, l, o0, o1);
+      pv_tile<!KV16, NH>(o0, o1, s, kb + KTILE, kb + KTILE + HALF);
       __syncwarp();
       if (lane == 0) mbar_arrive(&kv_empty[st]);
       ring.advance<NK>();
@@ -361,8 +379,8 @@ __global__ void __launch_bounds__(NT, 1) paged_prefill_kernel(
       const int rq = r0 + 8 * hi, t = row_token(t0, rq, n_rep);
       const size_t orow =
           ((size_t)b * Tc + min(t, Tc - 1)) * Hq + h * n_rep + rq % n_rep;
-      store_row(out + orow * D, o0, o1, hi, l[hi], qpos[hi] < 0, t < Tc,
-                lane);
+      store_row<NH>(out + orow * HD, o0, o1, hi, l[hi], qpos[hi] < 0,
+                    t < Tc, lane);
     }
   }
 }
@@ -378,7 +396,8 @@ extern "C" {
 // kv_bits 4, 8 or 16; k_pt / v_pt: device addresses of the layer's
 // per-tensor scales (kv4 / kv8 without planes), or null. Every mode
 // takes a page list or flags.
-// n_rep 1 to 8 (a block holds BM / n_rep whole tokens, paged_copy.cuh).
+// n_rep 1 to 8 (a block holds BM / n_rep whole tokens, paged_copy.cuh);
+// head_dim 64 or 128.
 // k_data, v_data and planes 16-byte aligned.
 int launch_paged_prefill(const void* q, const void* k_data,
                          const void* v_data, const void* planes,
@@ -388,54 +407,67 @@ int launch_paged_prefill(const void* q, const void* k_data,
                          const void* flags, void* out, int B, int Tc, int H,
                          int n_rep, int page, int W, int sink_size,
                          int local_size, int ring_span, int ring_sink_tok,
-                         float sm_scale, int kv_bits, void* stream) {
+                         float sm_scale, int kv_bits, int head_dim,
+                         void* stream) {
   const bool sparse = sel_logic != nullptr || flags != nullptr;
   const bool pt = k_pt != nullptr;
   if (n_rep <= 0 || n_rep > 8 || page <= 0 || page % 2 || W <= 0 ||
       (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) ||
+      (head_dim != 64 && head_dim != 128) ||
       pt != (v_pt != nullptr) || (pt && kv_bits == 16) ||
       (!pt && kv_bits != 16 && planes == nullptr) ||
       (reinterpret_cast<uintptr_t>(k_data) |
        reinterpret_cast<uintptr_t>(v_data) |
        reinterpret_cast<uintptr_t>(planes)) % 16)
     return (int)cudaErrorInvalidValue;
-  // the 10 instantiations: dense kv4, kv4 pt, kv8, kv8 pt, kv16; page
-  // list / band kv4, kv4 pt, kv8, kv8 pt, kv16
-  auto kernel = paged_prefill_kernel<false, 4, false>;
+  // the 10 instantiations a head dim: dense kv4, kv4 pt, kv8, kv8 pt,
+  // kv16; page list / band kv4, kv4 pt, kv8, kv8 pt, kv16
+  using Kernel = decltype(&paged_prefill_kernel<false, 4, false, 128>);
+  Kernel kernel = nullptr;
   int which = 0;
-  size_t smem = Cfg<4>::SMEM;
-  if (sparse && kv_bits == 16) {
-    kernel = paged_prefill_kernel<true, 16, false>;
-    smem = Cfg<16>::SMEM;
-    which = 9;
-  } else if (sparse) {
-    if (kv_bits == 8)
-      kernel = pt ? paged_prefill_kernel<true, 8, true>
-                  : paged_prefill_kernel<true, 8, false>;
-    else
-      kernel = pt ? paged_prefill_kernel<true, 4, true>
-                  : paged_prefill_kernel<true, 4, false>;
-    which = 5 + (kv_bits == 8 ? 2 : 0) + (pt ? 1 : 0);
-  } else if (kv_bits == 16) {
-    kernel = paged_prefill_kernel<false, 16, false>;
-    smem = Cfg<16>::SMEM;
-    which = 4;
-  } else if (kv_bits == 8) {
-    kernel = pt ? paged_prefill_kernel<false, 8, true>
-                : paged_prefill_kernel<false, 8, false>;
-    which = pt ? 3 : 2;
-  } else if (pt) {
-    kernel = paged_prefill_kernel<false, 4, true>;
-    which = 1;
-  }
-  static_assert(Cfg<4>::SMEM == Cfg<8>::SMEM, "kv4 and kv8 share a layout");
+  size_t smem = 0;
+  auto pick = [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    kernel = paged_prefill_kernel<false, 4, false, HD>;
+    smem = Cfg<4, HD>::SMEM;
+    which = 0;
+    if (sparse && kv_bits == 16) {
+      kernel = paged_prefill_kernel<true, 16, false, HD>;
+      smem = Cfg<16, HD>::SMEM;
+      which = 9;
+    } else if (sparse) {
+      if (kv_bits == 8)
+        kernel = pt ? paged_prefill_kernel<true, 8, true, HD>
+                    : paged_prefill_kernel<true, 8, false, HD>;
+      else
+        kernel = pt ? paged_prefill_kernel<true, 4, true, HD>
+                    : paged_prefill_kernel<true, 4, false, HD>;
+      which = 5 + (kv_bits == 8 ? 2 : 0) + (pt ? 1 : 0);
+    } else if (kv_bits == 16) {
+      kernel = paged_prefill_kernel<false, 16, false, HD>;
+      smem = Cfg<16, HD>::SMEM;
+      which = 4;
+    } else if (kv_bits == 8) {
+      kernel = pt ? paged_prefill_kernel<false, 8, true, HD>
+                  : paged_prefill_kernel<false, 8, false, HD>;
+      which = pt ? 3 : 2;
+    } else if (pt) {
+      kernel = paged_prefill_kernel<false, 4, true, HD>;
+      which = 1;
+    }
+    static_assert(Cfg<4, HD>::SMEM == Cfg<8, HD>::SMEM,
+                  "kv4 and kv8 share a layout");
+  };
+  if (head_dim == 64) pick(std::integral_constant<int, 64>());
+  else pick(std::integral_constant<int, 128>());
+  if (head_dim == 64) which += 10;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   // each instantiation's shared-memory size is set, and its register
   // budget checked, once per device
-  static bool ready[10][MAX_DEVICES] = {};
+  static bool ready[20][MAX_DEVICES] = {};
   if (dev >= MAX_DEVICES || !ready[which][dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

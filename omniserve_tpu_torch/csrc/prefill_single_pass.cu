@@ -440,7 +440,8 @@ extern "C" {
 // a dense table; flags: [H] int32 (1 dense, 0 streaming) or null for all
 // dense; ring_span > 0 (pages) relabels the ring's stale rows; kv_bits 4 or
 // 8; k_pt / v_pt: device addresses of the layer's per-tensor scales (no
-// planes), or null (planes given). page % 128 == 0, n_rep 1 to 8; k_data,
+// planes), or null (planes given). page % 128 == 0, n_rep 1 to 8,
+// head_dim 128 (row 7's arguments: other head dims are refused); k_data,
 // v_data and planes 16-byte aligned.
 int launch_prefill_single_pass(
     const void* q, const void* k_data, const void* v_data, const void* planes,
@@ -448,10 +449,10 @@ int launch_prefill_single_pass(
     const void* q_positions, const void* context_lens, const void* sel_logic,
     const void* flags, void* out, int B, int Tc, int H, int n_rep, int page,
     int W, int sink_size, int local_size, int ring_span, int ring_sink_tok,
-    float sm_scale, int kv_bits, void* stream) {
+    float sm_scale, int kv_bits, int head_dim, void* stream) {
   const bool sparse = sel_logic != nullptr || flags != nullptr;
   const bool pt = k_pt != nullptr;
-  if (n_rep <= 0 || n_rep > 8 || page <= 0 || page % 128 ||
+  if (n_rep <= 0 || n_rep > 8 || page <= 0 || page % 128 || head_dim != D ||
       W <= 0 || (ring_span > 0 && sel_logic == nullptr) ||
       (kv_bits != 4 && kv_bits != 8) || pt != (v_pt != nullptr) ||
       (!pt && planes == nullptr) ||

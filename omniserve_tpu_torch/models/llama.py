@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from omniserve_tpu_torch.ops import attention_ref, dispatch
-from omniserve_tpu_torch.ops.cuda import MAX_N_REP
+from omniserve_tpu_torch.ops.cuda import HEAD_DIMS, MAX_N_REP, MAX_PAGE
 from omniserve_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_quant
 from omniserve_tpu_torch.ops.matmul import (
     bf16_matmul,
@@ -148,8 +148,10 @@ class LlamaSpec:
         the activation sums."""
         return self.weight_bits == 4 and self.group_size == -1
 
-    def check_supported(self) -> None:
-        """Raise for configurations the port does not serve yet."""
+    def check_supported(self, device=None) -> None:
+        """Raise for configurations the port does not serve yet. On a CUDA
+        ``device`` also for what no card kernel takes: head_dim other than
+        64 or 128, pages over 256 tokens (the CPU's plain paths take any)."""
         if (self.weight_bits, self.act_bits) not in ((4, 8), (8, 8),
                                                      (16, 16)):
             raise NotImplementedError(
@@ -168,6 +170,21 @@ class LlamaSpec:
                 f"{self.num_q_heads} q heads over {self.num_kv_heads} kv "
                 "heads: the attention kernels serve whole GQA groups of 1 "
                 f"to {MAX_N_REP} q heads a kv head"
+            )
+        if device is None or torch.device(device).type != "cuda":
+            return
+        if self.head_dim not in HEAD_DIMS:
+            raise NotImplementedError(
+                f"head_dim {self.head_dim}: the card's attention, decode and "
+                f"append kernels are built for head_dim "
+                f"{' or '.join(map(str, HEAD_DIMS))}; other head dims are "
+                "ROADMAP.md queue 2 item G"
+            )
+        if self.page_size > MAX_PAGE:
+            raise NotImplementedError(
+                f"{self.page_size}-token pages: the card's decode and append "
+                f"kernels stage pages of at most {MAX_PAGE} tokens; larger "
+                "pages are ROADMAP.md queue 2 item G"
             )
 
     @classmethod
@@ -361,7 +378,7 @@ def make_random_packed_params(
     """Random packed params drawn on ``device`` from a seeded
     ``torch.Generator`` (the numbers differ from the JAX package's draw;
     the shapes, dtypes and magnitudes are the same). Benchmarks only."""
-    spec.check_supported()
+    spec.check_supported(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, D, I = spec.num_layers, spec.hidden, spec.intermediate

@@ -25,6 +25,45 @@ import torch
 # tokens a block). ``LlamaSpec.check_supported`` refuses the rest.
 MAX_N_REP = 8
 
+# head dims the attention, decode and append kernels are built for (rows
+# 6, 7, 9 and 10 take both; rows 4, 5 and 8 only 128, the JAX package's
+# ``supports`` rule), and the tokens a page may hold (the decode kernels
+# stage a page whole). ``LlamaSpec.check_supported`` refuses the rest on a
+# card.
+HEAD_DIMS = (64, 128)
+MAX_PAGE = 256
+
+# the kernels a head_dim-64 call may reach: each counts its head_dim-64
+# launches under its name + "_d64" (``launch_name``)
+D64_KERNELS = (
+    "paged_mqa_attention",
+    "paged_mqa_attention_kv8",
+    "paged_mqa_attention_pt",
+    "paged_mqa_attention_kv16",
+    "paged_mqa_attention_ph",
+    "paged_mqa_attention_ph_kv8",
+    "paged_mqa_attention_ph_pt",
+    "decode_attention_ph_kv16",
+    "paged_mqa_attention_band",
+    "paged_mqa_attention_band_kv8",
+    "paged_mqa_attention_band_pt",
+    "decode_attention_band_kv16",
+    "kv_append_decode",
+    "kv_append_decode_kv8",
+    "kv_append_decode_pt",
+    "kv_append_decode_kv16",
+    "flash_prefill",
+    "flash_prefill_band",
+    "paged_prefill_attention",
+    "paged_prefill_ring",
+    "paged_prefill_ring_kv8",
+    "paged_prefill_ring_pt",
+    "paged_prefill_ring_kv16",
+    "paged_prefill_kv8",
+    "paged_prefill_kv16",
+    "paged_prefill_pt",
+)
+
 LAUNCHES = {
     "w4a8_matmul_per_channel": 0,
     "w4a8_matmul_per_group": 0,
@@ -32,7 +71,16 @@ LAUNCHES = {
     "decode_attention_append": 0,
     "decode_attention_append_kv8": 0,
     "decode_attention_append_pt": 0,
+    "paged_mqa_attention": 0,
+    "paged_mqa_attention_kv8": 0,
+    "paged_mqa_attention_pt": 0,
     "paged_mqa_attention_kv16": 0,
+    "paged_mqa_attention_ph": 0,
+    "paged_mqa_attention_ph_kv8": 0,
+    "paged_mqa_attention_ph_pt": 0,
+    "paged_mqa_attention_band": 0,
+    "paged_mqa_attention_band_kv8": 0,
+    "paged_mqa_attention_band_pt": 0,
     "decode_attention_ph": 0,
     "decode_attention_ph_kv8": 0,
     "decode_attention_ph_pt": 0,
@@ -60,7 +108,22 @@ LAUNCHES = {
     "paged_prefill_single_pass_pt": 0,
     "paged_prefill_single_pass_list": 0,
     "embed_gather": 0,
+    **{name + "_d64": 0 for name in D64_KERNELS},
 }
+
+
+def launch_name(name: str, head_dim: int) -> str:
+    """The ``LAUNCHES`` entry of one launch: ``name``, or ``name + "_d64"``
+    at head_dim 64."""
+    return name + "_d64" if head_dim == 64 else name
+
+
+def check_head_dim(d: int, kernel: str, dims=HEAD_DIMS) -> None:
+    """Raise unless the kernel is built for head dim ``d``."""
+    if d not in dims:
+        raise ValueError(f"{kernel} is built for head_dim "
+                         f"{' or '.join(map(str, dims))}, got {d}")
+
 
 _force_plain = False
 

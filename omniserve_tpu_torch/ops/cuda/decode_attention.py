@@ -1,8 +1,10 @@
 """Paged decode attention (``csrc/decode_attention.cu``): the fused KV
 append over a dense page list, dynamic-sparse decode over per-head page
 lists and the streaming band over a ring pool (each over kv4 or kv8 pools,
-fine-grained or per-tensor), and the same three list modes over kv16
-pools (dense, per-head, band).
+fine-grained or per-tensor, at head_dim 128), and the two-stage decode's
+three list modes (dense, per-head, band) over kv16 pools and over the kv4 /
+kv8 pools the JAX package's ``supports`` rule keeps from the single-pass
+kernels, at head_dim 64 or 128.
 
 Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 
@@ -21,15 +23,22 @@ Replaces, of ``omniserve_tpu/ops/pallas/decode_attention.py``:
 And of ``omniserve_tpu/ops/pallas/paged_attention.py``:
 
 - ``paged_mqa_attention`` (:255), the two-stage decode the JAX package
-  runs over kv16 pools, as one kernel that reads the listed bf16 pages in
-  place (no gather stage): over a dense list (``paged_mqa_attention_kv16``),
-  per-head lists (``paged_mqa_attention_ph_kv16``) and the streaming band
-  with the ring relabel (``paged_mqa_attention_band_kv16``).
+  runs over kv16 pools and, where ``dispatch.supports`` is False (head_dim
+  64, pages not a multiple of 128), over kv4 / kv8 pools, as one C entry
+  that reads the listed pages in place (no gather stage): over a dense list
+  (``paged_mqa_attention``), per-head lists (``paged_mqa_attention_ph``)
+  and the streaming band with the ring relabel
+  (``paged_mqa_attention_band``), any pool kind. Launches count per mode
+  and pool kind (``paged_mqa_attention{,_ph,_band}`` +
+  ``""`` kv4, ``_kv8``, ``_pt``; kv16 under ``paged_mqa_attention_kv16``,
+  ``decode_attention_ph_kv16``, ``decode_attention_band_kv16``), with
+  ``_d64`` at head_dim 64.
 
 ``paged_decode_attention`` composes the last two as
 ``omniserve_tpu/ops/pallas/paged_attention.py:paged_decode_attention``
 (:535) does: route q heads to pool rows, build the page lists, run the
-retrieval and the streaming call, merge by head. The list kernels share
+retrieval and the streaming call (rows 4 / 5 where ``supports`` holds,
+row 6 everywhere else), merge by head. The list kernels share
 one plain version, ``page_list_attention_plain``, which follows the list
 contract; ``attention_ref.paged_decode_attention`` is the plain
 version of the whole composition. What bounds the kernels and how they are
@@ -53,13 +62,14 @@ import torch
 
 from omniserve_tpu_torch.csrc import build
 from omniserve_tpu_torch.ops import attention_ref, cuda
+from omniserve_tpu_torch.ops.dispatch import supports
 from omniserve_tpu_torch.ops.paged_kv import KVPool, append_kv
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "decode_attention.cu"
-HEAD_DIM = 128
-MAX_PAGE = 256
+HEAD_DIM = 128      # rows 4 and 5 (the single-pass kernels' supports rule)
+MAX_PAGE = cuda.MAX_PAGE
 
 
 def _lib():
@@ -77,12 +87,11 @@ def _lib():
             [_P] * 9 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P] * 3
         )
         lib.launch_decode_attention_band.restype = _I
-        for entry, n_band in (("kv16", 0), ("ph_kv16", 0),
-                              ("band_kv16", 4)):
-            fn = getattr(lib, "launch_decode_attention_" + entry)
-            fn.argtypes = ([_P] * 8 + [_I] * 6 + [ctypes.c_float]
-                           + [_I] * n_band + [_P])
-            fn.restype = _I
+        lib.launch_paged_mqa_attention.argtypes = (
+            [_I, _I] + [_P] * 11 + [_I] * 6 + [ctypes.c_float] + [_I] * 5
+            + [_P]
+        )
+        lib.launch_paged_mqa_attention.restype = _I
         lib._typed = True
     return lib
 
@@ -310,19 +319,27 @@ def list_mode(pool: KVPool, page_size: int):
     return kv_bits, pt, "_pt" if pt else "_kv8" if kv_bits == 8 else ""
 
 
+def _check_list_call(q4, pool: KVPool, head_dims) -> None:
+    """Raise unless q4 [B, Hp, n_rep, D] fits a list kernel built for
+    ``head_dims``: n_rep 1 to 8, one q group per pool head."""
+    _, hp, n_rep, d = q4.shape
+    cuda.check_head_dim(d, "decode kernel", head_dims)
+    if not 1 <= n_rep <= cuda.MAX_N_REP or hp != pool.num_heads:
+        raise ValueError(
+            f"decode kernel needs n_rep 1 to {cuda.MAX_N_REP} and one q "
+            f"group per pool head; got q {tuple(q4.shape)} for "
+            f"{pool.num_heads} pool heads"
+        )
+
+
 def _list_call_args(q4, pool: KVPool, layer: int, sel_phys, sel_logic,
-                    lengths, page_size: int, list_shape):
+                    lengths, page_size: int, list_shape,
+                    head_dims=(HEAD_DIM,)):
     """Check a list kernel call; returns (planes, k_pt, v_pt) device
     addresses (null where the mode has none), the kv bits and the launch-
     name suffix."""
-    b, hp, n_rep, d = q4.shape
-    if (d != HEAD_DIM or not 1 <= n_rep <= cuda.MAX_N_REP
-            or hp != pool.num_heads):
-        raise ValueError(
-            f"decode kernel needs head_dim {HEAD_DIM}, n_rep 1 to "
-            f"{cuda.MAX_N_REP} and one q group per pool head; got q "
-            f"{tuple(q4.shape)} for {pool.num_heads} pool heads"
-        )
+    b = q4.shape[0]
+    _check_list_call(q4, pool, head_dims)
     kv_bits, pt, suffix = list_mode(pool, page_size)
     rows = pool.k_data.shape[3]
     if (rows not in (page_size // 2, page_size) or page_size > MAX_PAGE
@@ -437,49 +454,74 @@ def paged_mqa_attention_single_pass(
     return out
 
 
-def _kv16_launch(entry, name: str, q, pool: KVPool, layer: int, sel_phys,
-                 sel_logic, lengths, page_size: int, sm_scale: float,
-                 list_shape, *band) -> torch.Tensor:
-    """Check and launch one mode of the kv16 kernel (``entry`` of the C
-    library), split over blocks by ``split_plan`` (and merged by the
-    combine kernel in the same call); counts one launch under ``name``."""
+# row 6's list modes: the C entry's list_mode and the launch-name stems
+# (kv4 / kv8 pools: + "" / "_kv8" / "_pt"; kv16 pools keep the names they
+# had before the kv4 / kv8 modes)
+TWO_STAGE_MODES = {"dense": 0, "ph": 1, "band": 2}
+_KV16_NAMES = {"dense": "paged_mqa_attention_kv16",
+               "ph": "decode_attention_ph_kv16",
+               "band": "decode_attention_band_kv16"}
+
+
+def two_stage_name(mode: str, pool: KVPool, page_size: int,
+                   head_dim: int) -> str:
+    """The ``LAUNCHES`` entry of one row-6 call: list mode ``mode``
+    ("dense", "ph", "band") over ``pool``, ``_d64`` at head_dim 64."""
+    if pool.k_data.dtype == torch.bfloat16:
+        base = _KV16_NAMES[mode]
+    else:
+        _, _, suffix = list_mode(pool, page_size)
+        base = ("paged_mqa_attention" + {"dense": "", "ph": "_ph",
+                                         "band": "_band"}[mode] + suffix)
+    return cuda.launch_name(base, head_dim)
+
+
+def _two_stage_launch(mode: str, q, pool: KVPool, layer: int, sel_phys,
+                      sel_logic, lengths, page_size: int, sm_scale: float,
+                      band=(0, 0, 0, 0)) -> torch.Tensor:
+    """Check and launch row 6 in list mode ``mode`` over a kv16 pool or a
+    kv4 / kv8 pool (fine-grained or per-tensor), split over blocks by
+    ``split_plan`` (and merged by the combine kernel in the same call);
+    counts one launch under ``two_stage_name``."""
     b, hp, n_rep, d = q.shape
     tp = sel_logic.shape[-1]
-    if (d != HEAD_DIM or not 1 <= n_rep <= cuda.MAX_N_REP
-            or hp != pool.num_heads):
-        raise ValueError(
-            f"decode kernel needs head_dim {HEAD_DIM}, n_rep 1 to "
-            f"{cuda.MAX_N_REP} and one q group per pool head; got q "
-            f"{tuple(q.shape)} for {pool.num_heads} pool heads"
-        )
-    if pool.k_data.shape[3] != page_size or page_size > MAX_PAGE:
-        raise ValueError("kv16 decode kernel needs pages of at most "
-                         f"{MAX_PAGE} tokens, one row each; got "
-                         f"{pool.k_data.shape[3]} rows of a {page_size}-"
-                         "token page")
-    cuda.check(q, "q", torch.bfloat16)
-    cuda.check(pool.k_data, "k_data", torch.bfloat16)
-    cuda.check(pool.v_data, "v_data", torch.bfloat16, pool.k_data.shape)
-    cuda.check(sel_phys, "sel_phys", torch.int32, list_shape)
-    cuda.check(sel_logic, "sel_logic", torch.int32, list_shape)
-    cuda.check(lengths, "lengths", torch.int32, (b,))
+    list_shape = (b, hp, tp) if mode == "ph" else (b, tp)
+    if pool.k_data.dtype == torch.bfloat16:
+        _check_list_call(q, pool, cuda.HEAD_DIMS)
+        if pool.k_data.shape[3] != page_size or page_size > MAX_PAGE:
+            raise ValueError("kv16 decode kernel needs pages of at most "
+                             f"{MAX_PAGE} tokens, one row each; got "
+                             f"{pool.k_data.shape[3]} rows of a {page_size}-"
+                             "token page")
+        cuda.check(q, "q", torch.bfloat16)
+        cuda.check(pool.k_data, "k_data", torch.bfloat16)
+        cuda.check(pool.v_data, "v_data", torch.bfloat16, pool.k_data.shape)
+        cuda.check(sel_phys, "sel_phys", torch.int32, list_shape)
+        cuda.check(sel_logic, "sel_logic", torch.int32, list_shape)
+        cuda.check(lengths, "lengths", torch.int32, (b,))
+        (planes, k_pt, v_pt), kv_bits = (None, None, None), 16
+    else:
+        (planes, k_pt, v_pt), kv_bits, _ = _list_call_args(
+            q, pool, layer, sel_phys, sel_logic, lengths, page_size,
+            list_shape, cuda.HEAD_DIMS)
     out = torch.empty_like(q)
     per, ws, ws_ptr = _split_launch(q, tp)
-    err = entry(
-        q.data_ptr(), pool.k_data[layer].data_ptr(),
-        pool.v_data[layer].data_ptr(), sel_phys.data_ptr(),
-        sel_logic.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws_ptr, b,
-        hp, n_rep, page_size, tp, per, float(sm_scale), *band,
-        cuda.stream_handle(),
+    err = _lib().launch_paged_mqa_attention(
+        TWO_STAGE_MODES[mode], kv_bits, q.data_ptr(),
+        pool.k_data[layer].data_ptr(), pool.v_data[layer].data_ptr(), planes,
+        k_pt, v_pt, sel_phys.data_ptr(), sel_logic.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), ws_ptr, b, hp, n_rep, page_size,
+        tp, per, float(sm_scale), *band, d, cuda.stream_handle(),
     )
+    name = two_stage_name(mode, pool, page_size, d)
     cuda.raise_on_error(err, name)
     cuda.LAUNCHES[name] += 1
     return out
 
 
-def paged_mqa_attention_kv16(
+def paged_mqa_attention(
     q: torch.Tensor,          # [B, H, n_rep, D] bf16
-    pool: KVPool,             # kv16: k/v [L, P, H, page, D] bf16
+    pool: KVPool,
     layer: int,
     sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
     sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
@@ -488,18 +530,17 @@ def paged_mqa_attention_kv16(
     sm_scale: float,
     page_size: int,
 ) -> torch.Tensor:
-    """Kernel: decode over one page list per sequence of a kv16 pool, the
-    pages read in place. Returns [B, H, n_rep, D] bf16. Launches count as
-    ``paged_mqa_attention_kv16``, one a call."""
-    b, tp = q.shape[0], sel_logic.shape[-1]
-    return _kv16_launch(_lib().launch_decode_attention_kv16,
-                        "paged_mqa_attention_kv16", q, pool, layer, sel_phys,
-                        sel_logic, lengths, page_size, sm_scale, (b, tp))
+    """Kernel (row 6): decode over one page list per sequence, the pages
+    read in place, over a kv16 pool or a kv4 / kv8 pool (fine-grained or
+    per-tensor), head_dim 64 or 128. Returns [B, H, n_rep, D] bf16.
+    Launches count under ``two_stage_name("dense", ...)``, one a call."""
+    return _two_stage_launch("dense", q, pool, layer, sel_phys, sel_logic,
+                             lengths, page_size, sm_scale)
 
 
-def paged_mqa_attention_ph_kv16(
+def paged_mqa_attention_ph(
     q: torch.Tensor,          # [B, Hr, n_rep, D] bf16
-    pool: KVPool,             # kv16: k/v [L, P, Hr, page, D] bf16
+    pool: KVPool,
     layer: int,
     sel_phys: torch.Tensor,   # [B, Hr, Tp] int32 physical page ids
     sel_logic: torch.Tensor,  # [B, Hr, Tp] int32 logical page, -1 = dead
@@ -508,20 +549,17 @@ def paged_mqa_attention_ph_kv16(
     sm_scale: float,
     page_size: int,
 ) -> torch.Tensor:
-    """Kernel: dynamic-sparse decode over per-(sequence, head) page lists
-    (in no order; all dead gives zeros) of a kv16 pool, the pages read in
-    place (``paged_mqa_attention``'s ``per_head_sel`` mode). Returns [B,
-    Hr, n_rep, D] bf16. Launches count as ``decode_attention_ph_kv16``,
-    one a call."""
-    b, hp, tp = q.shape[0], q.shape[1], sel_logic.shape[-1]
-    return _kv16_launch(_lib().launch_decode_attention_ph_kv16,
-                        "decode_attention_ph_kv16", q, pool, layer, sel_phys,
-                        sel_logic, lengths, page_size, sm_scale, (b, hp, tp))
+    """Kernel (row 6, ``per_head_sel``): dynamic-sparse decode over
+    per-(sequence, head) page lists (in no order; all dead gives zeros),
+    any pool kind as ``paged_mqa_attention``. Returns [B, Hr, n_rep, D]
+    bf16; one launch under ``two_stage_name("ph", ...)``."""
+    return _two_stage_launch("ph", q, pool, layer, sel_phys, sel_logic,
+                             lengths, page_size, sm_scale)
 
 
-def paged_mqa_attention_band_kv16(
+def paged_mqa_attention_band(
     q: torch.Tensor,          # [B, Hs, n_rep, D] bf16
-    pool: KVPool,             # kv16 ring pool
+    pool: KVPool,             # the ring pool
     layer: int,
     sel_phys: torch.Tensor,   # [B, Tp] int32, one list for all heads
     sel_logic: torch.Tensor,  # [B, Tp] int32 logical page, -1 = dead
@@ -534,21 +572,18 @@ def paged_mqa_attention_band_kv16(
     ring_span_pages: int = 0,
     ring_sink_tokens: int = 0,
 ) -> torch.Tensor:
-    """Kernel: the streaming band over one page list per sequence of a
-    kv16 ring pool (``paged_mqa_attention``'s band mode): only positions
-    ``< band_sink_tokens`` or ``>= length - band_local_tokens`` are
-    attended, and ``ring_span_pages > 0`` relabels the slots past the
-    write head of the page being written. Returns [B, Hs, n_rep, D] bf16.
-    Launches count as ``decode_attention_band_kv16``, one a call."""
+    """Kernel (row 6's band mode): the streaming band over one page list
+    per sequence of a ring pool, any pool kind as ``paged_mqa_attention``:
+    only positions ``< band_sink_tokens`` or ``>= length -
+    band_local_tokens`` are attended, and ``ring_span_pages > 0`` relabels
+    the slots past the write head of the page being written. Returns [B,
+    Hs, n_rep, D] bf16; one launch under ``two_stage_name("band", ...)``."""
     if band_sink_tokens < 0:
-        raise ValueError("the kv16 band kernel needs band_sink_tokens >= 0")
-    b, tp = q.shape[0], sel_logic.shape[-1]
-    return _kv16_launch(_lib().launch_decode_attention_band_kv16,
-                        "decode_attention_band_kv16", q, pool, layer,
-                        sel_phys, sel_logic, lengths, page_size, sm_scale,
-                        (b, tp), int(band_sink_tokens),
-                        int(band_local_tokens), int(ring_span_pages),
-                        int(ring_sink_tokens))
+        raise ValueError("the band kernel needs band_sink_tokens >= 0")
+    return _two_stage_launch(
+        "band", q, pool, layer, sel_phys, sel_logic, lengths, page_size,
+        sm_scale, (int(band_sink_tokens), int(band_local_tokens),
+                   int(ring_span_pages), int(ring_sink_tokens)))
 
 
 def page_list_kv(
@@ -637,6 +672,18 @@ def page_list_attention_plain(
     # product (a zero weight would not silence a NaN)
     v = torch.where(valid[..., None], v, 0.0)
     return torch.einsum("bhrs,bhsd->bhrd", probs, v).to(q.dtype)
+
+
+def uses_two_stage(pool: KVPool, page_size: int, head_dim: int) -> bool:
+    """Whether decode over ``pool`` runs row 6 (the two-stage kernel) and
+    not rows 4 / 5: the JAX package's routing
+    (``omniserve_tpu/ops/pallas/paged_attention.py:584, 616-685,
+    754-780``): a kv16 pool always, a kv4 / kv8 pool wherever
+    ``dispatch.supports`` is False."""
+    if pool.k_data.dtype == torch.bfloat16:
+        return True
+    kv_bits, _, _ = list_mode(pool, page_size)
+    return not supports(kv_bits, page_size, head_dim)
 
 
 def pool_head_sources(head_rank, flags, n_pool_heads: int,
@@ -746,15 +793,17 @@ def paged_decode_attention(
         src_r = pool_head_sources(head_rank, head_is_retrieval, hr, True)
         q_r = q_g[:, src_r].contiguous()
     kw = dict(sm_scale=sm_scale, page_size=page_size)
-    # kv16 pools take the two-stage kernel's modes, as in the JAX package
-    kv16 = pool.k_data.dtype == torch.bfloat16
+    # the single-pass kernels (rows 4, 5) where the JAX package's supports
+    # rule holds, the two-stage kernel's modes (row 6) everywhere else:
+    # every kv16 pool, head_dim 64, pages not a multiple of 128
+    two_stage = uses_two_stage(pool, page_size, d)
     if page_idxes is not None:
         lists = selected_page_lists(page_idxes, block_tables, src_r)
-        kernel = (paged_mqa_attention_ph_kv16 if kv16
+        kernel = (paged_mqa_attention_ph if two_stage
                   else paged_mqa_attention_single_pass_ph)
     else:
         lists = dense_page_lists(block_tables, context_lens, page_size)
-        kernel = (paged_mqa_attention_kv16 if kv16
+        kernel = (paged_mqa_attention if two_stage
                   else paged_mqa_attention_single_pass)
     fn = kernel if on_card else page_list_attention_plain
     out_r = fn(q_r, pool, layer, *lists, lengths, **kw)
@@ -773,8 +822,8 @@ def paged_decode_attention(
     sel_phys_s, sel_logic_s, ring_local = streaming_page_lists(
         streaming_block_tables, context_lens, sink_blocks, page_size,
         dec_local_tokens)
-    kernel = (paged_mqa_attention_band_kv16
-              if streaming_pool.k_data.dtype == torch.bfloat16
+    kernel = (paged_mqa_attention_band
+              if uses_two_stage(streaming_pool, page_size, d)
               else paged_mqa_attention_single_pass)
     fn = kernel if on_card else page_list_attention_plain
     out_s = fn(

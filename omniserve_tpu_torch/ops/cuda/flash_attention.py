@@ -32,7 +32,6 @@ __all__ = ["flash_prefill", "prefill_attention_plain", "live_tile_ranges",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "flash_prefill.cu"
-HEAD_DIM = 128
 BLOCK_Q = 128     # query rows of a block (two consumer warpgroups)
 BLOCK_K = 64      # keys of a K/V tile
 RANGE_COLS = 6    # ints per q tile from the tile-range kernel
@@ -42,7 +41,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_flash_prefill.argtypes = (
-            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]
+            [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]
         )
         lib.launch_flash_prefill.restype = _I
         lib.launch_flash_tile_ranges.argtypes = [_P, _P] + [_I] * 4 + [_P] * 3
@@ -183,12 +182,11 @@ def flash_prefill(
     """Causal attention within segments; streaming heads
     (``head_is_retrieval`` False, when a sink or local size is given) keep
     the sink + local band. A call is counted as ``flash_prefill_band`` only
-    when at least one kv head streams. Returns [T, Hq, D] bf16."""
+    when at least one kv head streams (``_d64`` at head_dim 64). Head dim
+    64 or 128. Returns [T, Hq, D] bf16."""
     t, hq, d = q.shape
     hkv = k.shape[1]
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_prefill is built for head_dim {HEAD_DIM}, "
-                         f"got {d}")
+    cuda.check_head_dim(d, "flash_prefill")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     cuda.check(q, "q", torch.bfloat16)
@@ -223,9 +221,10 @@ def flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
         positions.data_ptr(), None if flags is None else flags.data_ptr(),
         ranges.data_ptr(), order.data_ptr(), out.data_ptr(), t, hq, hkv,
-        int(sink_size), int(local_size), float(sm_scale),
+        int(sink_size), int(local_size), float(sm_scale), d,
         cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "flash_prefill")
-    cuda.LAUNCHES["flash_prefill_band" if band else "flash_prefill"] += 1
+    cuda.LAUNCHES[cuda.launch_name(
+        "flash_prefill_band" if band else "flash_prefill", d)] += 1
     return out

@@ -6,7 +6,8 @@ in its kv4 and kv8 modes, fine-grained or per-tensor (launches counted as
 ``kv_append_decode`` over fine-grained kv4, ``kv_append_decode_kv8`` over
 fine-grained kv8, ``kv_append_decode_pt`` over per-tensor kv4 or kv8),
 and its kv16 mode, the bf16 rows stored as they are
-(``kv_append_decode_kv16``). Two entries launch the one kernel:
+(``kv_append_decode_kv16``), at head_dim 64 or 128 (``_d64`` appended to
+the name at 64). Two entries launch the one kernel:
 ``append_kv_decode`` writes one pool; ``append_kv_decode_pools`` writes
 LServe's retrieval and streaming pools in one launch, each pool row
 reading its kv head's K and V rows through the pool's row -> head map
@@ -37,8 +38,7 @@ from omniserve_tpu_torch.ops.paged_kv import KVPool, append_kv, update_k_stats
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "kv_append.cu"
-HEAD_DIM = 128
-MAX_PAGE = 256
+MAX_PAGE = cuda.MAX_PAGE
 _NO_POOL = (None,) * 9 + (0, 0)
 
 
@@ -46,7 +46,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_kv_append_decode.argtypes = (
-            [_P, _P] + [_I] * 7 + ([_P] * 9 + [_I, _I]) * 2 + [_P]
+            [_P, _P] + [_I] * 7 + ([_P] * 9 + [_I, _I]) * 2 + [_I, _P]
         )
         lib.launch_kv_append_decode.restype = _I
         lib._typed = True
@@ -159,8 +159,7 @@ def _rows(x: torch.Tensor, name: str, dtype) -> Tuple[torch.Tensor, int]:
 def _launch(k, v, page_size: int, sub_chunks: int, kv_bits: int, side_a,
             side_b, name: str) -> None:
     t, _, d = k.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"append kernel needs head_dim {HEAD_DIM}, got {d}")
+    cuda.check_head_dim(d, "append kernel")
     if k.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"k must be bf16 or f32, got {k.dtype}")
     if tuple(v.shape) != tuple(k.shape):
@@ -172,19 +171,21 @@ def _launch(k, v, page_size: int, sub_chunks: int, kv_bits: int, side_a,
     v, v_stride = _rows(v, "v", k.dtype)
     err = _lib().launch_kv_append_decode(
         k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32), k_stride,
-        v_stride, t, page_size, sub_chunks, kv_bits, *side_a, *side_b,
+        v_stride, t, page_size, sub_chunks, kv_bits, *side_a, *side_b, d,
         cuda.stream_handle(),
     )
+    name = cuda.launch_name(name, d)
     cuda.raise_on_error(err, name)
     cuda.LAUNCHES[name] += 1
 
 
-def launch_name(kv_bits: int, pt: bool) -> str:
-    """The ``LAUNCHES`` entry of a pool mode."""
-    return ("kv_append_decode_kv16" if kv_bits == 16
-            else "kv_append_decode_pt" if pt
-            else "kv_append_decode_kv8" if kv_bits == 8
-            else "kv_append_decode")
+def launch_name(kv_bits: int, pt: bool, head_dim: int = 128) -> str:
+    """The ``LAUNCHES`` entry of a pool mode (``_d64`` at head_dim 64)."""
+    return cuda.launch_name(
+        "kv_append_decode_kv16" if kv_bits == 16
+        else "kv_append_decode_pt" if pt
+        else "kv_append_decode_kv8" if kv_bits == 8
+        else "kv_append_decode", head_dim)
 
 
 def append_kv_decode(

@@ -10,7 +10,8 @@ explicit page-list mode, with the streaming ring's relabel and the
 per-head sink + local band, that LServe's chunked prefill runs over the
 ring pool (counted as ``paged_prefill_ring`` over fine-grained kv4 pages,
 ``paged_prefill_ring_kv8``, ``paged_prefill_ring_pt`` and
-``paged_prefill_ring_kv16``). The plain version it is held
+``paged_prefill_ring_kv16``), at head_dim 64 or 128 (each name with
+``_d64`` at 64). The plain version it is held
 against is ``paged_prefill_attention_plain`` below: the list turned into a
 per-row position map as ``omniserve_tpu/ops/dispatch.py:214-242`` does, then
 ``ops/attention_ref.paged_prefill_attention``. What bounds the kernel and how
@@ -31,14 +32,13 @@ from omniserve_tpu_torch.ops.paged_kv import KVPool, ring_token_positions
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SRC = "paged_prefill.cu"
-HEAD_DIM = 128
 
 
 def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_paged_prefill.argtypes = (
-            [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P]
+            [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
         )
         lib.launch_paged_prefill.restype = _I
         lib._typed = True
@@ -90,17 +90,20 @@ def launch(fn, name: str, q, pool: KVPool, layer: int, block_tables,
            head_is_retrieval=None, sink_size: int = 0, local_size: int = 0,
            sel_logic=None, ring_span_pages: int = 0,
            ring_sink_tokens: int = 0, kv_bits: int = 4,
-           kv_zeros: bool = True) -> torch.Tensor:
+           kv_zeros: bool = True, head_dims=cuda.HEAD_DIMS) -> torch.Tensor:
     """Check the tensors of a chunked-prefill kernel call, launch ``fn``
     (this file's kernel or the single-pass one: the two take the same C
-    arguments) and count it under ``name``. Returns [B, Tc, Hq, D] bf16."""
+    arguments; ``head_dims`` those it is built for) and count it under
+    ``name`` (``name + "_d64"`` at head_dim 64). Returns [B, Tc, Hq, D]
+    bf16."""
     b, tc, hq, d = q.shape
     _, _, hkv, rows, _ = pool.k_data.shape
     n_rep = hq // hkv
-    if d != HEAD_DIM or n_rep * hkv != hq or not 1 <= n_rep <= cuda.MAX_N_REP:
+    cuda.check_head_dim(d, "paged prefill kernel", head_dims)
+    if n_rep * hkv != hq or not 1 <= n_rep <= cuda.MAX_N_REP:
         raise ValueError(
-            f"paged prefill kernels need head_dim {HEAD_DIM} and n_rep 1 to "
-            f"{cuda.MAX_N_REP}; got head_dim {d}, {hq} q / {hkv} kv heads"
+            f"paged prefill kernels need n_rep 1 to {cuda.MAX_N_REP}; got "
+            f"{hq} q / {hkv} kv heads"
         )
     want_rows = {4: page_size // 2, 8: page_size, 16: page_size}.get(kv_bits)
     fine = kv_bits < 16 and kv_zeros
@@ -163,8 +166,9 @@ def launch(fn, name: str, q, pool: KVPool, layer: int, block_tables,
         context_lens.data_ptr(), sel_ptr, flags_ptr, out.data_ptr(),
         b, tc, hkv, n_rep, page_size, w, int(sink_size), int(local_size),
         int(ring_span_pages), int(ring_sink_tokens), float(sm_scale),
-        kv_bits, cuda.stream_handle(),
+        kv_bits, d, cuda.stream_handle(),
     )
+    name = cuda.launch_name(name, d)
     cuda.raise_on_error(err, name)
     cuda.LAUNCHES[name] += 1
     return out
@@ -196,7 +200,8 @@ def paged_prefill_attention(
     newest page's stale rows. Streaming heads (``head_is_retrieval`` False)
     keep the sink + local band. kv4 / kv8 pages, fine-grained or per-tensor
     (``kv_zeros=False``, the pool's scales read on the device), and kv16
-    pages take every mode. Returns [B, Tc, Hq, D] bf16."""
+    pages take every mode, at head_dim 64 or 128. Returns [B, Tc, Hq, D]
+    bf16."""
     pt = kv_bits < 16 and not kv_zeros
     suffix = ("_kv16" if kv_bits == 16 else "_pt" if pt
               else "_kv8" if kv_bits == 8 else "")

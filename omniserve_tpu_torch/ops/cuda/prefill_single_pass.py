@@ -42,7 +42,7 @@ def _lib():
     lib = build.lib(_SRC)
     if not getattr(lib, "_typed", False):
         lib.launch_prefill_single_pass.argtypes = (
-            [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P]
+            [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
         )
         lib.launch_prefill_single_pass.restype = _I
         lib._typed = True
@@ -110,4 +110,4 @@ def paged_prefill_single_pass(
         head_is_retrieval=head_is_retrieval, sink_size=sink_size,
         local_size=local_size, sel_logic=sel_logic,
         ring_span_pages=ring_span_pages, ring_sink_tokens=ring_sink_tokens,
-        kv_bits=kv_bits, kv_zeros=kv_zeros)
+        kv_bits=kv_bits, kv_zeros=kv_zeros, head_dims=(128,))

@@ -6,10 +6,12 @@ over kv4 / kv8 pools (fine-grained or per-tensor) and kv16 pools alike:
 whole-prompt prefill and chunked prefill over the paged pool (dense heads;
 LServe's streaming heads with their sink + local band, over the ring
 pool's page list in chunked prefill), the dense decode step with its KV
-append fused in (kv4 / kv8) or, over a kv16 pool, split as the JAX
+append fused in (kv4 / kv8 where ``supports`` holds) or split as the JAX
 dispatch splits it (``append_kv_decode``, then
-``paged_decode_attention``), and the split decode step of dynamic-sparse
-decode (the same two calls over the retrieval and streaming pools).
+``paged_decode_attention``: every kv16 pool, and kv4 / kv8 at head_dim 64
+or pages not a multiple of 128), and the split decode step of
+dynamic-sparse decode (the same two calls over the retrieval and
+streaming pools). Head dim 64 or 128 on a card.
 Every other mode of the JAX dispatch raises ``NotImplementedError``
 naming its ROADMAP.md item.
 
@@ -98,13 +100,15 @@ def paged_decode_attention_fused(
 ):
     """Decode attention WITH the step's KV append, one call.
 
-    ``context_lens`` INCLUDE the new token. On a card: one kernel that
-    attends and writes the new token into the pool (kv4 / kv8, fine-grained
-    or per-tensor); over a kv16 pool the JAX dispatch's split path, which
-    a kv16 pool takes on the TPU too: ``append_kv_decode``, then
-    ``paged_decode_attention`` over the dense list (two kernels). On the
-    CPU: the split path. Returns (out, pool, streaming_pool); the pool is
-    updated in place."""
+    ``context_lens`` INCLUDE the new token. On a card, where ``supports``
+    holds (kv4 / kv8, pages and head_dim multiples of 128): one kernel that
+    attends and writes the new token into the pool (fine-grained or
+    per-tensor); elsewhere the JAX dispatch's split path
+    (``omniserve_tpu/ops/dispatch.py:76-118``), which these pools take on
+    the TPU too: ``append_kv_decode``, then ``paged_decode_attention`` over
+    the dense list (two kernels: rows 10 and 6). On the CPU: the split
+    path. Returns (out, pool, streaming_pool); the pool is updated in
+    place."""
     if streaming_pool is not None:
         raise NotImplementedError(
             "the fused append over a streaming (ring) pool is ROADMAP.md "
@@ -126,7 +130,7 @@ def paged_decode_attention_fused(
             sm_scale=sm_scale, page_size=page_size, kv_bits=kv_bits,
             kv_zeros=kv_zeros,
         )
-    elif kv_bits == 16:
+    elif not supports(kv_bits, page_size, q.shape[-1]):
         pages, slots = decode_attention.append_targets(
             block_tables, context_lens, page_size)
         append_kv_decode(pool, layer, k_new, v_new, pages, slots, page_size,

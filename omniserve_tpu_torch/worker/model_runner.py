@@ -192,7 +192,7 @@ class ModelRunner:
         self.spec = LlamaSpec.from_model_config(
             model_config, sp_attn_config, page_size=cache_config.page_size,
         )
-        self.spec.check_supported()
+        self.spec.check_supported(self.device)
         if load_format != "dummy":
             raise NotImplementedError(
                 "checkpoint loading (models/weight_loader.py) is ROADMAP.md "

@@ -160,7 +160,7 @@ def measure(root: str, rows=ROWS) -> dict:
                    if row in rows]
     if "6" in rows:
         decode += [(f"row6 kv16 B={b}", cs.decode_kv16_inputs, lens,
-                    da.paged_mqa_attention_kv16)
+                    da.paged_mqa_attention)
                    for b, lens in ((8, (8, 1000, 1100)),
                                    (128, (128, 1045, 1536)))]
     for name, inputs, in_args, fn in decode:

@@ -382,7 +382,9 @@ def test_paged_prefill_kernel(dev, history, chunk, n_rep, page, ragged):
 
 def test_decode_window_graph_matches_eager(dev):
     """Eight replays of the captured decode step give the eager loop's
-    tokens and pool bytes, from the same pool and metadata."""
+    tokens and pool bytes, from the same pool and metadata. The 16-token
+    pages fail the JAX package's supports rule, so each layer's step runs
+    the split path: row 10's append, then row 6 (one launch each)."""
     from omniserve_tpu_torch.models import llama
     from omniserve_tpu_torch.ops import cuda
     from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
@@ -423,10 +425,13 @@ def test_decode_window_graph_matches_eager(dev):
                                use_graph=mode == "graph")
             assert bool(win.graphs) == (mode == "graph")
             win.load(first, positions, active, tables)
-            before = cuda.LAUNCHES["decode_attention_append"]
+            before = dict(cuda.LAUNCHES)
             toks[mode] = win.run(8).cpu().numpy()
-            assert (cuda.LAUNCHES["decode_attention_append"] - before
-                    == 8 * spec.num_layers)
+            for name in ("kv_append_decode", "paged_mqa_attention"):
+                assert (cuda.LAUNCHES[name] - before[name]
+                        == 8 * spec.num_layers), name
+            assert (cuda.LAUNCHES["decode_attention_append"]
+                    == before["decode_attention_append"])
     np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
     assert_pools_equal(pool, twin)
 
@@ -766,12 +771,12 @@ def test_kv_append_decode_kv_modes_kernel(dev, mode, with_stats, page):
 POOL_SRC = ((0, 2), (1, 3))
 
 
-def _two_pool_case(dev, mode, t, with_stats, page=128, seed=51):
+def _two_pool_case(dev, mode, t, with_stats, page=128, seed=51, d=128):
     """Dirty retrieval (with stats) and streaming pools of ``mode`` (kv4,
     kv8, pt4, pt8, kv16), one token per sequence into distinct pages of each
     (every fifth inactive), bf16 K / V rows [t, 4, D] as slices of a fused
     qkv row (tokens 3 * 4 * D apart), and the pools' maps."""
-    d, n_sub, hp = 128, 4, 2
+    n_sub, hp = 4, 2
     g = _gen(dev, seed)
     n_pages = 2 * t + 1
     pools = []
@@ -1385,7 +1390,7 @@ def test_paged_mqa_attention_kv16_kernel(dev, n_rep, page):
     lists = da.dense_page_lists(tables.to(dev), lens.to(dev), page)
     kw = dict(sm_scale=0.1, page_size=page)
     before = cuda.LAUNCHES["paged_mqa_attention_kv16"]
-    got = da.paged_mqa_attention_kv16(q, pool, 1, *lists, lens.to(dev), **kw)
+    got = da.paged_mqa_attention(q, pool, 1, *lists, lens.to(dev), **kw)
     assert cuda.LAUNCHES["paged_mqa_attention_kv16"] == before + 1
     want = da.page_list_attention_plain(q, pool, 1, *lists, lens.to(dev),
                                         **kw)
@@ -1497,7 +1502,7 @@ def test_decode_attention_kv16_lists_kernel(dev, n_rep, page):
     lists = (sel_phys.to(dev), sel_logic.to(dev))
     kw = dict(sm_scale=d ** -0.5, page_size=page)
     before = dict(cuda.LAUNCHES)
-    got = da.paged_mqa_attention_ph_kv16(q, pool, 1, *lists, lens_t, **kw)
+    got = da.paged_mqa_attention_ph(q, pool, 1, *lists, lens_t, **kw)
     assert cuda.LAUNCHES["decode_attention_ph_kv16"] == \
         before["decode_attention_ph_kv16"] + 1
     assert cuda.LAUNCHES["paged_mqa_attention_kv16"] == \
@@ -1528,7 +1533,7 @@ def test_decode_attention_kv16_lists_kernel(dev, n_rep, page):
               ring_sink_tokens=page)
     args = (q, spool, 1, sel_phys, sel_logic, slens)
     before = cuda.LAUNCHES["decode_attention_band_kv16"]
-    got = da.paged_mqa_attention_band_kv16(*args, **kw)
+    got = da.paged_mqa_attention_band(*args, **kw)
     assert cuda.LAUNCHES["decode_attention_band_kv16"] == before + 1
     want = da.page_list_attention_plain(*args, **kw)
     _gate_refuses(got, want, [("the band's window moved by a page",
@@ -1686,7 +1691,7 @@ def test_kv16_values_beyond_f16_range(dev):
                                atol=2e-2)
     lists = da.dense_page_lists(tables, ctx, page)
     qd = q[:, 0].reshape(1, h, 1, d)
-    got_d = da.paged_mqa_attention_kv16(qd, pool, 0, *lists, ctx,
+    got_d = da.paged_mqa_attention(qd, pool, 0, *lists, ctx,
                                         sm_scale=0.1, page_size=page)
     want_d = da.page_list_attention_plain(qd, pool, 0, *lists, ctx,
                                           sm_scale=0.1, page_size=page)
@@ -2460,7 +2465,7 @@ def _split_call(mode, q, pool, sel_phys, sel_logic, lens, page, plain=False):
         sel_phys = sel_phys[:, 0].contiguous()
         sel_logic = sel_logic[:, 0].contiguous()
     fn = (da.page_list_attention_plain if plain else
-          da.paged_mqa_attention_kv16 if mode == "kv16"
+          da.paged_mqa_attention if mode == "kv16"
           else da.paged_mqa_attention_single_pass_ph)
     return fn(q, pool, 1, sel_phys, sel_logic, lens, sm_scale=128 ** -0.5,
               page_size=page)
@@ -2860,3 +2865,354 @@ def test_w8a8_and_per_group_narrow_n_take_mma_sync_body(dev):
         got, names = launched(lambda: qm.w4a8_matmul_per_group(*args))
         assert body in names, names
         assert torch.equal(got, qm.w4a8_matmul_per_group_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# Head dim 64 (Llama-3.2-1B, TinyLlama) and row 6's kv4 / kv8 modes
+# ---------------------------------------------------------------------------
+
+TWO_STAGE_POOLS = ("kv4", "kv8", "pt4", "pt8", "kv16")
+DECODE_TOL = 5e-2     # chip_smoke's decode gate
+
+
+def _two_stage_pool(dev, g, mode, layers, n_pages, h, page, d):
+    if mode == "kv16":
+        return _kv16_pool(dev, g, layers, n_pages, h, page, d)
+    return _codes_pool(dev, g, mode, layers, n_pages, h, page, d)
+
+
+def _swap_nibbles(pool):
+    """The pool with the two nibbles of every code byte swapped (a kv4
+    page's halves exchanged)."""
+    swap = lambda x: ((x & 0x0F) << 4) | (x >> 4)    # noqa: E731
+    return pool._replace(k_data=swap(pool.k_data), v_data=swap(pool.v_data))
+
+
+def _decode_gate(got, want, planted):
+    """``got`` within DECODE_TOL of the plain output ``want``; each planted
+    fault's plain output outside it."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=DECODE_TOL,
+                               atol=DECODE_TOL)
+    for what, bad in planted:
+        assert not torch.allclose(bad.float(), want.float(),
+                                  rtol=DECODE_TOL, atol=DECODE_TOL), what
+
+
+@pytest.mark.parametrize("d,page", [(64, 128), (64, 64), (128, 64)])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("mode", TWO_STAGE_POOLS)
+def test_two_stage_decode_kernel(dev, mode, n_rep, d, page):
+    """Row 6 (the two-stage decode's kernel) in each list mode over each
+    pool kind at head_dim 64 and at head_dim 128 with 64-token pages (the
+    pools the JAX package's supports rule keeps from rows 4 / 5): a dense
+    list, per-head lists in no order with dead entries (an all-dead list, an
+    inactive row) and the ring's band, garbage planted past each context.
+    Launches counted under ``two_stage_name`` (``_d64`` at head_dim 64);
+    the gate refuses the plain version with the lengths a page short, the
+    band moved by a page and, over kv4 pools, the nibble halves swapped."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    h, n_pages = 2, 24
+    g = _gen(dev, 61)
+    pool = _two_stage_pool(dev, g, mode, 2, n_pages + 1, h, page, d)
+    lens = [5 * page + 9, 3 * page, 2 * page + 30, 0]
+    if mode == "kv16":
+        for s, n in enumerate(lens):
+            if n > 0 and n % page:
+                phys = (n - 1) // page + 6 * s
+                pool.k_data[1, phys, :, n % page:] = float("nan")
+                pool.v_data[1, phys, :, n % page:] = float("nan")
+    else:
+        _plant_dead_garbage(pool, 1, page, lens, lambda s, p: p + 6 * s)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(sm_scale=d ** -0.5, page_size=page)
+    faults = []
+
+    def check(call, list_mode, args, kw, extra=()):
+        name = da.two_stage_name(list_mode, args[1], page, d)
+        assert name.endswith("_d64") == (d == 64)
+        before = dict(cuda.LAUNCHES)
+        got = call(*args, **kw)
+        assert cuda.LAUNCHES[name] == before[name] + 1
+        assert sum(cuda.LAUNCHES.values()) == sum(before.values()) + 1
+        want = da.page_list_attention_plain(*args, **kw)
+        planted = list(extra)
+        if mode in ("kv4", "pt4"):
+            planted.append(("the nibble halves swapped",
+                            da.page_list_attention_plain(
+                                args[0], _swap_nibbles(args[1]), *args[2:],
+                                **kw)))
+        _decode_gate(got, want, planted)
+        assert torch.isfinite(got.float()).all()
+        return got
+
+    # the dense list of a block table (logical page p of row s at p + 6 s)
+    tables = (torch.arange(6)[None, :] + 6 * torch.arange(4)[:, None]).to(
+        torch.int32).to(dev)
+    q = torch.randn((4, h, n_rep, d), generator=g, device=dev).bfloat16()
+    lists = da.dense_page_lists(tables, lens_t, page)
+    args = (q, pool, 1, *lists, lens_t)
+    got = check(da.paged_mqa_attention, "dense", args, kw, [
+        ("the list a page short", da.page_list_attention_plain(
+            q, pool, 1, *lists, (lens_t - page).clamp(min=0), **kw))])
+    assert float(got[3].abs().max()) == 0.0
+    # per-head lists
+    sel_logic = torch.tensor([
+        [[5, 0, 3, -1, 1], [5, 4, -1, 2, 0]],
+        [[2, 1, 0, -1, -1], [2, -1, 0, -1, -1]],
+        [[-1, -1, -1, -1, -1], [2, 1, 0, -1, -1]],
+        [[0, 1, -1, -1, -1], [0, -1, -1, -1, -1]],
+    ], dtype=torch.int32)
+    sel_phys = torch.where(
+        sel_logic >= 0, sel_logic + 6 * torch.arange(4)[:, None, None], 0,
+    ).to(torch.int32)
+    args = (q, pool, 1, sel_phys.to(dev), sel_logic.to(dev), lens_t)
+    got = check(da.paged_mqa_attention_ph, "ph", args, kw, [
+        ("the lists a page short", da.page_list_attention_plain(
+            *args[:5], (lens_t - page).clamp(min=0), **kw))])
+    assert float(got[2, 0].abs().max()) == 0.0      # all-dead list
+    assert float(got[3].abs().max()) == 0.0         # inactive row
+    # the ring's band: 1 sink + 2 ring pages per sequence
+    b = 4
+    slens = torch.tensor([5 * page + 37, 4 * page, 40, 0],
+                         dtype=torch.int32, device=dev)
+    spool = _two_stage_pool(dev, g, mode, 2, 3 * b + 1, h, page, d)
+    stables = torch.arange(3 * b, dtype=torch.int32, device=dev).view(b, 3)
+    sel_phys, sel_logic, span = da.streaming_page_lists(
+        stables, slens, 1, page, 2 * page)
+    kwb = dict(kw, band_sink_tokens=page, band_local_tokens=2 * page,
+               ring_span_pages=span, ring_sink_tokens=page)
+    args = (q, spool, 1, sel_phys, sel_logic, slens)
+    got = check(da.paged_mqa_attention_band, "band", args, kwb, [
+        ("the band moved by a page", da.page_list_attention_plain(
+            *args, **dict(kwb, band_local_tokens=page)))])
+    assert float(got[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d,page", [(64, 128), (64, 64), (128, 64)])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt8", "kv16"])
+def test_decode_route_two_stage_kernel(dev, mode, d, page):
+    """The fused decode's route (``dispatch.paged_decode_attention_fused``)
+    where the JAX package's supports rule is False: row 10's append, then
+    row 6, equal to the split plain path's output and pool bytes; rows 4
+    and 5 launch no time."""
+    from omniserve_tpu_torch.ops import cuda, dispatch
+    from omniserve_tpu_torch.ops.cuda import decode_attention as da
+
+    h, n_rep, b = 2, 4, 3
+    g = _gen(dev, 62)
+    kv_bits, fine = PSP_MODES.get(mode, (16, True))
+    pool = _two_stage_pool(dev, g, mode, 2, 4 * b + 1, h, page, d)
+    twin = pool.clone()
+    tables = torch.randperm(4 * b, generator=g, device=dev).view(b, 4).to(
+        torch.int32)
+    lens = torch.tensor([3 * page + 5, page, 1], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn((b, h * n_rep, d), generator=g, device=dev).bfloat16()
+    k_new, v_new = (torch.randn((b, h, d), generator=g,
+                                device=dev).bfloat16() for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=fine)
+    before = dict(cuda.LAUNCHES)
+    out, _, _ = dispatch.paged_decode_attention_fused(
+        q, pool, None, 1, tables, lens, k_new, v_new, **kw)
+    moved = {k for k in cuda.LAUNCHES if cuda.LAUNCHES[k] != before[k]}
+    assert moved == {da.two_stage_name("dense", pool, page, d),
+                     cuda.launch_name("kv_append_decode" + (
+                         {"kv8": "_kv8", "pt8": "_pt", "kv16": "_kv16"}
+                         .get(mode, "")), d)}, moved
+    want = da.paged_decode_attention_fused_plain(
+        q, twin, 1, tables, lens, k_new, v_new, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=DECODE_TOL,
+                               atol=DECODE_TOL)
+    assert_pools_equal(pool, twin)
+
+
+@pytest.mark.parametrize("with_stats", [True, False])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8", "kv16"])
+def test_kv_append_decode_d64_kernel(dev, mode, with_stats):
+    """Row 10 at head_dim 64, both entries: one pool (the split decode's
+    append) and the two-pool LServe step; bytes, planes, stats and scales
+    equal the plain versions' on every page but the trash page; the plain
+    version with each token one slot late is refused."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import kv_append as ka
+
+    kv_bits, fine = PSP_MODES.get(mode, (16, True))
+    t, page = 8, 128
+    (rpool, spool), (tr, ts), k, v = _two_pool_case(dev, mode, t, with_stats,
+                                                    seed=63, d=64)
+    start = (rpool.clone(), spool.clone())
+    twins = (rpool.clone(), spool.clone())
+    name = ka.launch_name(kv_bits, not fine, 64)
+    assert name.endswith("_d64")
+    kw = dict(update_stats=with_stats, sub_chunks=4)
+    plain_kw = dict(kv_bits=kv_bits, kv_zeros=fine, **kw)
+    before = cuda.LAUNCHES[name]
+    ka.append_kv_decode_pools(rpool, spool, 1, k, v, tr, ts, page, **kw)
+    ka.append_kv_decode(rpool, 0, k[:, tr[2]].contiguous(),
+                        v[:, tr[2]].contiguous(), tr[0], tr[1], page, **kw)
+    assert cuda.LAUNCHES[name] == before + 2
+    ka.append_kv_decode_pools_plain(*twins, 1, k, v, tr, ts, page,
+                                    **plain_kw)
+    ka.append_kv_decode_plain(twins[0], 0, k[:, tr[2]], v[:, tr[2]], tr[0],
+                              tr[1], page, **plain_kw)
+    torch.cuda.synchronize()
+    for got, want in zip((rpool, spool), twins):
+        assert_pools_equal(got, want, skip_trash=True)
+    got = tuple(p.clone() for p in start)
+    ka.append_kv_decode_pools(*got, 1, k, v, tr, ts, page, **kw)
+    late = tuple(p.clone() for p in start)
+    ka.append_kv_decode_pools_plain(
+        *late, 1, k, v, (tr[0], (tr[1] + 1) % page, tr[2]),
+        (ts[0], (ts[1] + 1) % page, ts[2]), page, **plain_kw)
+    _refused(got, late, "each token one slot late")
+
+
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("lens,hq,hkv", [([700], 32, 8), ([300, 450, 9], 4, 4),
+                                         ([500, 77], 32, 4)])
+def test_flash_prefill_d64_kernel(dev, lens, hq, hkv, band):
+    """Row 9 at head_dim 64 (Llama-3.2-1B's 32 / 8 heads, TinyLlama's 32 /
+    4), dense and with the sink + local band, packed prompts with a ragged
+    tail; launches counted as ``flash_prefill_d64`` /
+    ``flash_prefill_band_d64``."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import flash_attention as fa
+
+    t, d = sum(lens) + 5, 64
+    g = _gen(dev, 64)
+    q = torch.randn((t, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((t, hkv, d), generator=g, device=dev).bfloat16()
+    seg = torch.full((t,), -1, dtype=torch.int32)
+    pos = torch.zeros(t, dtype=torch.int32)
+    o = 0
+    for i, n in enumerate(lens):
+        seg[o:o + n] = i
+        pos[o:o + n] = torch.arange(n)
+        o += n
+    seg, pos = seg.to(dev), pos.to(dev)
+    kw = {}
+    if band:
+        flags = torch.tensor([i % 2 == 0 for i in range(hkv)],
+                             device=dev).repeat_interleave(hq // hkv)
+        kw = dict(head_is_retrieval=flags, sink_size=32, local_size=200)
+    name = "flash_prefill_band_d64" if band else "flash_prefill_d64"
+    before = cuda.LAUNCHES[name]
+    got = fa.flash_prefill(q, k, v, seg, pos, d ** -0.5, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if band:
+        dense = fa.prefill_attention_plain(q, k, v, seg, pos, d ** -0.5)
+        assert not torch.allclose(got[:, ~flags].float(),
+                                  dense[:, ~flags].float(), atol=2e-2)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("page", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["kv4", "kv8", "pt4", "pt8", "kv16"])
+def test_paged_prefill_d64_kernel(dev, mode, page, n_rep):
+    """Row 7 at head_dim 64 over a dense table in every kv mode (a 64-byte
+    kv4 / kv8 row, a 128-byte kv16 row), the second row padded halfway,
+    garbage past each context; then its page list with the ring relabel
+    and the band. Launches counted under the mode's ``_d64`` names."""
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import paged_prefill as pp
+    from omniserve_tpu_torch.ops.paged_kv import ring_logical_blocks
+
+    b, h, d, chunk = 2, 2, 64, 150
+    history = 2 * page + 37
+    total = history + chunk
+    w = -(-total // page) + 1
+    g = _gen(dev, 65)
+    pool = _two_stage_pool(dev, g, mode, 2, b * w + 1, h, page, d)
+    kv_bits, fine = PSP_MODES.get(mode, (16, True))
+    tables = torch.randperm(b * w, generator=g, device=dev).view(b, w).to(
+        torch.int32)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    q_pos = (history + torch.arange(chunk, dtype=torch.int32)).repeat(b, 1)
+    ctx = torch.full((b,), total, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    ctx[1] = history + chunk // 2
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    clean = pool.clone()
+    _plant_past_context(pool, 1, page, ctx, tables, kv_bits, fine)
+    sfx = {"kv8": "_kv8", "pt4": "_pt", "pt8": "_pt", "kv16": "_kv16"}.get(
+        mode, "")
+    name = ("paged_prefill" + sfx if sfx else "paged_prefill_attention") + \
+        "_d64"
+    kw = dict(sm_scale=d ** -0.5, page_size=page, kv_bits=kv_bits,
+              kv_zeros=fine)
+    before = cuda.LAUNCHES[name]
+    got = pp.paged_prefill_attention(q, pool, 1, tables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = pp.paged_prefill_attention_plain(q, clean, 1, tables, q_pos, ctx,
+                                            **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+    # the ring: two sequences wrapped several times, one padded halfway
+    lens, chunk, sink_b, local_b = [20 * page + 37, 15 * page + 50], 128, 1, 6
+    n_slots = sink_b + local_b
+    rpool = _two_stage_pool(dev, g, mode, 1, b * n_slots + 1, h, page, d)
+    rtables = torch.randperm(b * n_slots, generator=g, device=dev).view(
+        b, n_slots).to(torch.int32)
+    ctx = torch.tensor(lens, dtype=torch.int32)
+    q_pos = torch.stack([n - chunk + torch.arange(chunk, dtype=torch.int32)
+                         for n in lens])
+    q_pos[1] = lens[1] - chunk // 2 + torch.arange(chunk, dtype=torch.int32)
+    q_pos[1, chunk // 2:] = -1
+    q_pos, ctx = q_pos.to(dev), ctx.to(dev)
+    sel = ring_logical_blocks(ctx, n_slots, sink_b, local_b, page)
+    q = torch.randn((b, chunk, h * n_rep, d), generator=g,
+                    device=dev).bfloat16()
+    kw = dict(kw, sel_logic=sel, ring_span_pages=local_b,
+              ring_sink_tokens=sink_b * page,
+              head_is_retrieval=torch.tensor(
+                  [True] * n_rep + [False] * n_rep, device=dev),
+              sink_size=page, local_size=3 * page)
+    name = "paged_prefill_ring" + sfx + "_d64"
+    before = cuda.LAUNCHES[name]
+    got = pp.paged_prefill_attention(q, rpool, 0, rtables, q_pos, ctx, **kw)
+    assert cuda.LAUNCHES[name] == before + 1
+    want = pp.paged_prefill_attention_plain(q, rpool, 0, rtables, q_pos,
+                                            ctx, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float(got[1, chunk // 2:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("extra", [dict(head_dim=96), dict(page=512)])
+def test_engine_refuses_what_no_card_kernel_takes(dev, tmp_path, extra):
+    """F4: an engine on a card at head_dim 96 (a 768-wide, 8-head model),
+    or with 512-token pages, raises at build time naming the limit and
+    ROADMAP.md queue 2 item G; the same engine builds on the CPU."""
+    import json
+
+    from omniserve_tpu_torch import EngineArgs, LLMEngine
+
+    heads = 8
+    cfg = dict(
+        architectures=["LlamaForCausalLM"], model_type="llama",
+        hidden_size=heads * extra.get("head_dim", 64), intermediate_size=256,
+        num_attention_heads=heads, num_key_value_heads=2,
+        num_hidden_layers=1, vocab_size=256, max_position_embeddings=4096,
+        rms_norm_eps=1e-5, rope_theta=500000.0)
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    kw = dict(model=str(tmp_path), precision="w4a8kv4", load_format="dummy",
+              lm_head_precision="w8a8", tokenizer_mode="skip",
+              block_size=extra.get("page", 64), max_num_seqs=2,
+              max_num_batched_tokens=1024, num_retrieval_blocks=16, seed=0)
+    what = "head_dim 96" if "head_dim" in extra else "512-token pages"
+    with pytest.raises(NotImplementedError, match=what) as err:
+        LLMEngine.from_engine_args(EngineArgs(device="cuda", **kw))
+    assert "queue 2 item G" in str(err.value)
+    LLMEngine.from_engine_args(EngineArgs(device="cpu", **kw))

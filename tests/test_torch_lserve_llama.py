@@ -20,6 +20,7 @@ from omniserve_tpu.models import llama as j_llama
 from omniserve_tpu.ops.paged_kv import make_kv_pool as j_make_kv_pool
 from omniserve_tpu_torch.models import llama as t_llama
 from omniserve_tpu_torch.models.convert import params_from_numpy, pool_from_numpy
+from tests.test_torch_llama import codes_moved, recorded_gemms
 
 PAGE = 16
 LOGIT_RTOL = 1e-4
@@ -67,9 +68,45 @@ def assert_pools_equal(tpool, jpool, what):
             err_msg=f"{what}: {name}")
 
 
-def assert_logits_close(got, want):
+def assert_logits_close(got, want, rtol=LOGIT_RTOL):
     scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_RTOL * scale)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+def assert_pools_near(tpool, jpool, what, gates, moved=False):
+    """``assert_pools_equal`` under ``gates`` (``check_sparse_forward``'s
+    ``flip_gates``): fewer than gates["codes"] of the kv4 / kv8 codes
+    different, each at most one step apart unless a GEMM read other
+    activation codes (``moved``), float fields (planes, K stats, kv16
+    values) within gates["planes"] of their scale, every page but the
+    trash page."""
+    for name in FIELDS:
+        want = getattr(jpool, name)
+        if want is None:
+            assert getattr(tpool, name) is None
+            continue
+        got = getattr(tpool, name)
+        if got.dtype == torch.bfloat16:
+            got = got.float()
+        a = got.numpy()
+        b = np.asarray(want, np.float32 if a.dtype != np.uint8 else None)
+        if b.ndim > 1:
+            a, b = a[:, :-1], b[:, :-1]
+        if a.dtype == np.uint8:
+            ai, bi = a.astype(int), b.astype(int)
+            nibbles = a.shape[3] * 2 == PAGE      # kv4: two codes a byte
+            for shift, mask in ((0, 15), (4, 15)) if nibbles else ((0, 255),):
+                assert moved or np.abs(((ai >> shift) & mask)
+                                       - ((bi >> shift) & mask)).max() <= 1, \
+                    (what, name)
+            assert (ai != bi).mean() < gates["codes"], (what, name)
+            continue
+        finite = np.isfinite(b)
+        assert (np.isfinite(a) == finite).all(), (what, name)
+        scale = max(float(np.abs(b[finite]).max()), 1e-30)
+        np.testing.assert_allclose(a[finite], b[finite], rtol=0,
+                                   atol=gates["planes"] * scale,
+                                   err_msg=f"{what}: {name}")
 
 
 def test_sparse_prefill_then_decode_matches_jax():
@@ -77,15 +114,20 @@ def test_sparse_prefill_then_decode_matches_jax():
     assert crossed == 1 and refreshed == 2
 
 
-def check_sparse_forward(overrides=None, n_steps=6):
+def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None):
     """A whole-prompt prefill, then ``n_steps`` decode steps of both
     forwards (``spec_kwargs`` with ``overrides``: other KV modes, kv16
     included, sparse prefill, no sparse decode) from the same weights and
     dirty pools:
     logits at 1e-4 of their scale, pools equal, selections equal as sets.
     Per-tensor pools carry the same calibrated-range scales in both
-    pools. Returns (decode steps that began a page, selector
-    refreshes)."""
+    pools. ``flip_gates`` (for widths where an XLA-vs-torch last-ulp
+    difference moves a K / V value or an activation code, as
+    ``tests/test_torch_llama.check_forward``'s): logits at 1e-4 until a
+    GEMM reads other activation codes in the two packages, then at
+    flip_gates["logits"]; pools per ``assert_pools_near``; selections as
+    sets until a step whose pools or codes moved. Returns (decode steps
+    that began a page, selector refreshes)."""
     kw = dict(spec_kwargs(), **(overrides or {}))
     j_spec = j_llama.LlamaSpec(**kw)
     t_spec = t_llama.LlamaSpec(**kw)
@@ -109,7 +151,8 @@ def check_sparse_forward(overrides=None, n_steps=6):
     lens = [5 * PAGE - 3, PAGE + 9]
     tables = np.array([[4, 1, 7, 9, 3, 6], [2, 8, 0, 0, 0, 0]], np.int32)
     stables = np.array([[3, 0, 5], [1, 4, 2]], np.int32)
-    tokens = np.concatenate([rng.integers(0, 128, n) for n in lens]).astype(
+    tokens = np.concatenate([rng.integers(0, kw["vocab"], n)
+                             for n in lens]).astype(
         np.int32)
     pos = np.concatenate([np.arange(n) for n in lens]).astype(np.int32)
     seg = np.concatenate([np.full(n, i) for i, n in enumerate(lens)]).astype(
@@ -128,9 +171,10 @@ def check_sparse_forward(overrides=None, n_steps=6):
                   v_scale_per_tensor=jnp.asarray([1.4 / qmax, 1.6 / qmax],
                                                  jnp.float32))
     heads = 1 if sparse else HKV
-    jr = j_make_kv_pool(N_LAYERS, 11, heads, PAGE, 16, kv_bits=kv_bits,
+    jr = j_make_kv_pool(N_LAYERS, 11, heads, PAGE, kw["head_dim"],
+                        kv_bits=kv_bits,
                         kv_zeros=kv_zeros, with_stats=sparse, **pt)
-    js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, 16, kv_bits=kv_bits,
+    js = j_make_kv_pool(N_LAYERS, 7, 1, PAGE, kw["head_dim"], kv_bits=kv_bits,
                         kv_zeros=kv_zeros, **pt) if sparse else None
     if kv_bits == 16:       # dirty bf16 values
         jr = jr._replace(k_data=jnp.asarray(rng.normal(
@@ -165,16 +209,40 @@ def check_sparse_forward(overrides=None, n_steps=6):
         streaming_block_tables=torch.from_numpy(stables) if sparse else None,
         new_page_ids=torch.from_numpy(new_pages),
     )
-    with jax.disable_jit():
-        j_logits, jr, js, _ = j_llama.llama_forward(
-            jparams, jr, js, j_batch, j_spec, is_prefill=True)
-    t_logits, _, _, sel = t_llama.llama_forward(
-        tparams, tr, ts, t_batch, t_spec, is_prefill=True)
+    flipped = False
+
+    def compare(t_logits, j_logits, pools, what):
+        """Logits, then each (port pool, JAX pool, label) of ``pools``;
+        returns whether every pool was equal."""
+        nonlocal flipped
+        if flip_gates is None:
+            assert_logits_close(t_logits, j_logits)
+            for tp, jp, name in pools:
+                assert_pools_equal(tp, jp, f"{what} {name}")
+            return True
+        flipped |= codes_moved(seen) > 0
+        assert_logits_close(t_logits, j_logits,
+                            flip_gates["logits"] if flipped else LOGIT_RTOL)
+        equal = True
+        for tp, jp, name in pools:
+            try:
+                assert_pools_equal(tp, jp, f"{what} {name}")
+            except AssertionError:
+                equal = False
+                assert_pools_near(tp, jp, f"{what} {name}", flip_gates,
+                                  flipped)
+        return equal
+
+    with recorded_gemms() as seen:
+        with jax.disable_jit():
+            j_logits, jr, js, _ = j_llama.llama_forward(
+                jparams, jr, js, j_batch, j_spec, is_prefill=True)
+        t_logits, _, _, sel = t_llama.llama_forward(
+            tparams, tr, ts, t_batch, t_spec, is_prefill=True)
     assert sel is None
-    assert_logits_close(t_logits.numpy(), np.asarray(j_logits))
-    assert_pools_equal(tr, jr, "prefill retrieval")
-    if sparse:
-        assert_pools_equal(ts, js, "prefill streaming")
+    same = compare(t_logits.numpy(), np.asarray(j_logits),
+                   [(tr, jr, "retrieval")]
+                   + ([(ts, js, "streaming")] if sparse else []), "prefill")
 
     # six decode steps, rows (seq 0, seq 1, inactive)
     nxt = np.append(np.asarray(j_logits).argmax(-1), 0).astype(np.int32)
@@ -210,23 +278,26 @@ def check_sparse_forward(overrides=None, n_steps=6):
             new_page_ids=torch.from_numpy(npg),
             refresh_selection=refresh, cached_page_idxes=t_cache,
         )
-        with jax.disable_jit():
-            j_logits, jr, js, j_cache = j_llama.llama_forward(
-                jparams, jr, js, j_dec, j_spec, is_prefill=False)
-        t_logits, _, _, t_cache = t_llama.llama_forward(
-            tparams, tr, ts, t_dec, t_spec, is_prefill=False)
-        assert_logits_close(t_logits.numpy()[:2], np.asarray(j_logits)[:2])
-        assert_pools_equal(tr, jr, f"decode step {step} retrieval")
+        with recorded_gemms() as seen:
+            with jax.disable_jit():
+                j_logits, jr, js, j_cache = j_llama.llama_forward(
+                    jparams, jr, js, j_dec, j_spec, is_prefill=False)
+            t_logits, _, _, t_cache = t_llama.llama_forward(
+                tparams, tr, ts, t_dec, t_spec, is_prefill=False)
+        same = compare(t_logits.numpy()[:2], np.asarray(j_logits)[:2],
+                       [(tr, jr, "retrieval")]
+                       + ([(ts, js, "streaming")] if sparse else []),
+                       f"decode step {step}") and same and not flipped
         nxt = np.append(np.asarray(j_logits)[:2].argmax(-1), 0).astype(
             np.int32)
         dpos = dpos + np.array([1, 1, 0], np.int32)
         if not sparse:
             continue
-        assert_pools_equal(ts, js, f"decode step {step} streaming")
         jsel, tsel = np.asarray(j_cache), t_cache.numpy()
         assert tsel.shape == jsel.shape
         for idx in np.ndindex(jsel.shape[:3]):
-            assert set(tsel[idx]) == set(jsel[idx]), (step, idx)
+            if same:
+                assert set(tsel[idx]) == set(jsel[idx]), (step, idx)
         # seq 0 has 5-6 pages against a budget of 3: pages are dropped, and
         # the retrieval head's first pick is the newest page
         if refresh:
