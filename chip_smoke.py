@@ -111,6 +111,15 @@ Phases (any failure raises and exits nonzero before the last line):
     engine (row 9), (b) phase 7's protocol at w8a8kv8 per-tensor (both
     flags): every decode through row 10's append and row 6, no call
     reaching rows 4 / 5 or a plain version;
+15. Llama-3.2-1B served from files (no kernel of its own): (a) a seeded
+    draw written as an HF checkpoint (bf16 safetensors in two shards, tied
+    embeddings) and served through ``load_format="auto"`` at w4a8kv4, full
+    width and depth, its packed layers 0 and 15 and lm_head equal to the
+    CPU quantization of the draw byte for byte and its greedy tokens those
+    of the same weights quantized in memory; (b) the draw's first
+    ``PACKED_LAYERS`` layers through the port's fake-quant dump (g128,
+    per-tensor KV) and converter, served at w4a8kv8 per-tensor with the
+    file's KV scales; load seconds, peak host RSS and device memory;
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -4647,6 +4656,395 @@ def run_llama32(dev):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 15: checkpoints through the weight loader and the converter
+# ---------------------------------------------------------------------------
+
+_ST_DTYPE_NAMES = {"torch.float32": "F32", "torch.float16": "F16",
+                   "torch.bfloat16": "BF16"}
+
+
+def write_safetensors(path: str, tensors) -> int:
+    """Write ``tensors`` (name -> CPU torch tensor, F32 / F16 / BF16) as one
+    safetensors file, in the format the ``safetensors`` package writes: an
+    8-byte little-endian header length, the JSON header (each tensor's
+    ``dtype``, ``shape`` and ``data_offsets`` from the first byte after the
+    header, plus ``__metadata__``) padded with spaces to 8 bytes, then the
+    bytes in header order. Returns the bytes of tensor data."""
+    import struct
+
+    import torch
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE_NAMES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+    return offset
+
+
+def write_hf_checkpoint(path: str, config: dict, tensors,
+                        n_shards: int = 1) -> None:
+    """An HF checkpoint directory: ``config.json`` and ``tensors`` in
+    ``n_shards`` safetensors files (``model-0000k-of-0000n.safetensors``
+    with ``model.safetensors.index.json`` when more than one)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    names = list(tensors)
+    if n_shards == 1:
+        write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+        return
+    per = -(-len(names) // n_shards)
+    weight_map, total = {}, 0
+    for k in range(n_shards):
+        fname = f"model-{k + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = {n: tensors[n] for n in names[k * per:(k + 1) * per]}
+        total += write_safetensors(os.path.join(path, fname), part)
+        weight_map.update(dict.fromkeys(part, fname))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+
+
+def draw_hf_llama(config: dict, dev, seed: int = 0, std: float = 0.02,
+                  n_layers=None):
+    """Seeded fp weights of an HF Llama of ``config`` (its first
+    ``n_layers``), drawn on ``dev`` from an explicit generator and kept as
+    bf16 CPU tensors under HF's names: projections and the embedding
+    ``std * N(0, 1)``, norm weights ``1 + std * N(0, 1)``; no
+    ``lm_head.weight`` (tied embeddings)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, inter = config["hidden_size"], config["intermediate_size"]
+    hd = head_dim_of(config)
+    q, kv = (config["num_attention_heads"] * hd,
+             config["num_key_value_heads"] * hd)
+
+    def normal(*shape, mean=0.0):
+        t = torch.randn(shape, generator=gen, device=dev) * std + mean
+        return t.to(torch.bfloat16).cpu()
+
+    out = {"model.embed_tokens.weight": normal(config["vocab_size"], d)}
+    shapes = (("self_attn.q_proj", (q, d)), ("self_attn.k_proj", (kv, d)),
+              ("self_attn.v_proj", (kv, d)), ("self_attn.o_proj", (d, q)),
+              ("mlp.gate_proj", (inter, d)), ("mlp.up_proj", (inter, d)),
+              ("mlp.down_proj", (d, inter)))
+    for i in range(n_layers or config["num_hidden_layers"]):
+        base = f"model.layers.{i}"
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{base}.{ln}.weight"] = normal(d, mean=1.0)
+        for name, shape in shapes:
+            out[f"{base}.{name}.weight"] = normal(*shape)
+    out["model.norm.weight"] = normal(d, mean=1.0)
+    return out
+
+
+def in_memory_params(draw, spec, dev):
+    """The port's parameter tree of ``draw`` quantized in memory (the
+    loader's fusion and quantizers, without its files): what an engine
+    served through ``load_params`` reads."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+
+    L = spec.num_layers
+
+    def stack(part):
+        return np.stack([draw[f"model.layers.{i}.{part}.weight"].float()
+                         .numpy() for i in range(L)])
+
+    fp_layers = {
+        "attn_ln": stack("input_layernorm"),
+        "mlp_ln": stack("post_attention_layernorm"),
+        "qkv": llama.fuse_qkv_rank_major(stack("self_attn.q_proj"),
+                                         stack("self_attn.k_proj"),
+                                         stack("self_attn.v_proj")),
+        "o": stack("self_attn.o_proj"),
+        "gate_up": llama.fuse_gate_up_rank_major(stack("mlp.gate_proj"),
+                                                 stack("mlp.up_proj")),
+        "down": stack("mlp.down_proj"),
+    }
+    embed = draw["model.embed_tokens.weight"].to(dev)
+    params = {
+        "embed": embed,
+        "final_ln": draw["model.norm.weight"].float().to(dev),
+        "lm_head": embed.t().contiguous(),
+        "layers": llama.quantize_layer_weights(fp_layers, spec, device=dev),
+        "attn_meta": llama.make_attn_meta(spec, device=dev),
+    }
+    if spec.lm_head_bits == 8:
+        params["lm_head"], params["lm_head_scale"] = llama._quantize_lm_head(
+            params["lm_head"])
+    return params
+
+
+def cpu_layer_equal(draw, spec, params, layer: int) -> int:
+    """Every packed tensor of ``layer`` in ``params`` (on the card) against
+    the port's CPU quantization of the same draw, byte for byte; returns
+    the bytes compared."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+
+    def w(part):
+        return draw[f"model.layers.{layer}.{part}.weight"].float()
+
+    fused = {
+        "qkv": torch.cat([w("self_attn.q_proj"), w("self_attn.k_proj"),
+                          w("self_attn.v_proj")]),
+        "o": w("self_attn.o_proj"),
+        "gate_up": torch.cat([w("mlp.gate_proj"), w("mlp.up_proj")]),
+        "down": w("mlp.down_proj"),
+    }
+    n = 0
+    for name, fp in fused.items():
+        want = llama._quantize_linear(fp, spec)
+        got = params["layers"][name]
+        for field, a in zip(want._fields, want):
+            b = getattr(got, field)[layer].cpu()
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"phase 15: layer {layer} {name}."
+                                     f"{field} differs from the CPU "
+                                     "quantization")
+            n += a.numel() * a.element_size()
+    return n
+
+
+@contextlib.contextmanager
+def host_rss_peak(period_s: float = 0.02):
+    """While the block runs, sample this process's resident set size
+    (``VmRSS`` of ``/proc/self/status``, read only) every ``period_s``;
+    the dict yielded gets the largest sample in GiB under "gib"."""
+    import threading
+
+    out = {"gib": 0.0}
+    stop = threading.Event()
+
+    def rss_gib():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+        return float("nan")
+
+    def sample():
+        while not stop.is_set():
+            out["gib"] = max(out["gib"], rss_gib())
+            stop.wait(period_s)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+        out["gib"] = max(out["gib"], rss_gib())
+
+
+@contextlib.contextmanager
+def load_meter(dev, label: str, stats: dict):
+    """Wall seconds, peak host RSS and peak device memory of the block,
+    logged and kept in ``stats[label]``."""
+    import torch
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = device_gib(dev, lambda: torch.cuda.memory_allocated(dev))
+    t0 = time.time()
+    with host_rss_peak() as rss:
+        yield
+        sync(dev)
+    stats[label] = dict(s=time.time() - t0, host_gib=rss["gib"],
+                        device_gib=device_gib(
+                            dev, lambda: torch.cuda.max_memory_allocated(dev)))
+    log(f"  {label}: {stats[label]['s']:.2f} s, peak host RSS "
+        f"{stats[label]['host_gib']:.2f} GiB, peak device memory "
+        f"{stats[label]['device_gib']:.2f} GiB ({held:.2f} GiB held "
+        "before)")
+
+
+def checkpoint_engine(dev, model_dir, prompts, gen_len,
+                      load_format="auto", **extra):
+    """An IFB engine on ``model_dir`` sized for ``prompts`` (whole-prompt
+    prefill, w8a8 lm_head)."""
+    from omniserve_tpu_torch import EngineArgs, LLMEngine
+
+    page = 128
+    pages_per_seq = (max(map(len, prompts)) + gen_len + page - 1) // page
+    return LLMEngine.from_engine_args(EngineArgs(
+        model=model_dir, load_format=load_format, lm_head_precision="w8a8",
+        tokenizer_mode="skip", device=str(dev), block_size=page,
+        max_num_seqs=len(prompts),
+        max_num_batched_tokens=2 * sum(map(len, prompts)),
+        num_retrieval_blocks=len(prompts) * pages_per_seq + 8,
+        disable_log_stats=True, seed=0, **extra))
+
+
+def serve_greedy(engine, prompts, gen_len):
+    """{request: tokens} of ``prompts`` served greedily, once every request
+    finished with ``gen_len`` tokens."""
+    from omniserve_tpu_torch import SamplingParams
+
+    for i, p in enumerate(prompts):
+        engine.add_request(f"req{i}", prompt_token_ids=list(p),
+                           sampling_params=SamplingParams(
+                               temperature=0.0, max_tokens=gen_len,
+                               ignore_eos=True))
+    finished, steps = {}, 0
+    while engine.has_unfinished_requests():
+        for o in engine.step():
+            if o.finished:
+                finished[o.request_id] = list(o.outputs[0].token_ids)
+        steps += 1
+        if steps > 4 * gen_len:
+            raise AssertionError("phase 15: the engine did not finish")
+    bad = {r: len(t) for r, t in finished.items() if len(t) != gen_len}
+    if len(finished) != len(prompts) or bad:
+        raise AssertionError(f"phase 15: finished {sorted(finished)}, "
+                             f"short {bad}")
+    return finished
+
+
+PACKED_LAYERS = 4   # phase 15 (b)'s depth cut (its time)
+
+
+def run_checkpoints(dev):
+    """Phase 15: Llama-3.2-1B (LLAMA32_1B) served from files.
+
+    (a) A seeded draw (std 0.02) written as an HF checkpoint in bf16
+    safetensors (two shards with their index, config.json, no
+    ``lm_head.weight``), served through ``LLMEngine`` (``load_format=
+    "auto"``, w4a8kv4, w8a8 lm_head) at full width and depth: every packed
+    tensor of layers 0 and 15 and the lm_head equal to the port's CPU
+    quantization of the draw byte for byte, and 8 requests of 1,024 in /
+    32 out (greedy) the tokens of an engine served the in-memory
+    quantization through ``load_params``.
+    (b) The same draw's first ``PACKED_LAYERS`` layers as a QoQ fake-quant
+    dump at g128 with per-tensor KV calibration (``make_fake_quant_dump``),
+    converted (``ckpt_converter.convert``) and served at w4a8kv8
+    ``--group-size 128 --kv-quant-granularity per_tensor``: the pools carry
+    the file's per-tensor scales, and the requests finish.
+    Logs the load seconds, peak host RSS and peak device memory of each,
+    and the dump's and converter's seconds. The files go at the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.ckpt_converter import convert as conv
+    from omniserve_tpu_torch.ckpt_converter import make_fake_quant_dump
+    from omniserve_tpu_torch.models import llama
+
+    stats = {}
+    root = os.path.join(ROOT, "build", "chip_smoke", "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    vocab = LLAMA32_1B["vocab_size"]
+    prompts = [rng.integers(0, vocab, 1024).tolist() for _ in range(8)]
+    try:
+        t0 = time.time()
+        draw = draw_hf_llama(LLAMA32_1B, dev)
+        hf_dir = os.path.join(root, "hf")
+        write_hf_checkpoint(hf_dir, LLAMA32_1B, draw, n_shards=2)
+        log(f"  (a) drew {sum(t.numel() for t in draw.values()) / 1e9:.3f} "
+            f"B bf16 weights (seed 0) and wrote them as 2 safetensors "
+            f"shards in {time.time() - t0:.1f} s")
+        with load_meter(dev, "(a) HF load", stats):
+            engine = checkpoint_engine(dev, hf_dir, prompts, 32,
+                                       precision="w4a8kv4")
+        got = serve_greedy(engine, prompts, 32)
+        runner = engine.worker.model_runner
+        last = LLAMA32_1B["num_hidden_layers"] - 1
+        n = sum(cpu_layer_equal(draw, runner.spec, runner.params, layer)
+                for layer in (0, last))
+        want_q, want_s = llama._quantize_lm_head(
+            draw["model.embed_tokens.weight"].t().contiguous())
+        if not (torch.equal(runner.params["lm_head"].cpu(), want_q)
+                and torch.equal(runner.params["lm_head_scale"].cpu(),
+                                want_s)):
+            raise AssertionError("phase 15: the lm_head differs from the "
+                                 "CPU quantization of the tied embedding")
+        log(f"  (a) layers 0 and {last} ({n / 2**20:.1f} MiB of packed "
+            f"tensors) and the w8 lm_head equal the CPU quantization of "
+            f"the draw byte for byte")
+        spec = runner.spec
+        del engine, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = checkpoint_engine(dev, hf_dir, prompts, 32,
+                                   load_format="dummy", precision="w4a8kv4")
+        engine.worker.model_runner.load_params(
+            in_memory_params(draw, spec, dev))
+        want = serve_greedy(engine, prompts, 32)
+        del engine
+        same = sum(got[r] == want[r] for r in want)
+        log(f"  (a) 8 x 1,024 in / 32 out, greedy: {same} of 8 requests "
+            f"give the in-memory engine's tokens")
+        if same != len(want):
+            raise AssertionError("phase 15: the HF checkpoint's engine and "
+                                 "the in-memory engine part")
+        shutil.rmtree(hf_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cut = dict(LLAMA32_1B, num_hidden_layers=PACKED_LAYERS)
+        small = {k: t for k, t in draw.items()
+                 if not k.startswith("model.layers.")
+                 or int(k.split(".")[2]) < PACKED_LAYERS}
+        del draw
+        b_dir = os.path.join(root, "llama3.2-1b")
+        write_hf_checkpoint(b_dir, cut, small)
+        del small
+        dump_dir = os.path.join(root, "dump")
+        t0 = time.time()
+        make_fake_quant_dump.make_dump(b_dir, dump_dir, group_size=128,
+                                       kv_per_tensor=True)
+        stats["(b) dump s"] = time.time() - t0
+        t0 = time.time()
+        packed = conv.convert(b_dir, dump_dir, 4, 128, True,
+                              os.path.join(root, "packed"), device=str(dev))
+        sync(dev)
+        stats["(b) convert s"] = time.time() - t0
+        log(f"  (b) fake-quant dump (g128, per-tensor KV) of the draw's "
+            f"first {PACKED_LAYERS} layers {stats['(b) dump s']:.2f} s, "
+            f"conversion {stats['(b) convert s']:.2f} s")
+        with load_meter(dev, "(b) packed load", stats):
+            engine = checkpoint_engine(
+                dev, packed, prompts, 32, precision="w4a8kv8",
+                group_size=128, kv_quant_granularity="per_tensor")
+        serve_greedy(engine, prompts, 32)
+        with np.load(os.path.join(packed, "packed.npz")) as z:
+            pt = z["kv_pt_scales"]
+        pool = engine.worker.model_runner.cache_engine.retrieval_pool
+        k_got = pool.k_scale_per_tensor.cpu().numpy()
+        v_got = pool.v_scale_per_tensor.cpu().numpy()
+        if not (np.array_equal(k_got, pt[:, 0])
+                and np.array_equal(v_got, pt[:, 1])) or (k_got == 1).all():
+            raise AssertionError(f"phase 15: the pool's per-tensor scales "
+                                 f"{k_got}, {v_got} are not the file's {pt}")
+        log(f"  (b) served {PACKED_LAYERS} layers at w4a8kv8 g128 "
+            f"per-tensor: 8 x 1,024 in / 32 out finished; pool K / V "
+            f"scales {k_got[0]:.6g} / {v_got[0]:.6g} (the file's, not 1)")
+        del engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -4877,6 +5275,13 @@ def main() -> int:
     d64_launches, _ = run_llama32(dev)
     launches.update({k: d64_launches[k] for k in D64_ENTRIES})
     phase_done("phase 14")
+    log("phase 15: Llama-3.2-1B from files: (a) an HF checkpoint (bf16 "
+        "safetensors, two shards, tied embeddings) through load_format="
+        "'auto' at w4a8kv4, full width and depth; (b) its QoQ fake-quant "
+        f"dump (g128, per-tensor KV) converted to packed.npz and served at "
+        f"w4a8kv8 per-tensor ({PACKED_LAYERS} layers)")
+    run_checkpoints(dev)
+    phase_done("phase 15")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {

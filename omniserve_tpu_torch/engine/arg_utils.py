@@ -161,7 +161,8 @@ class EngineArgs:
                             choices=["awq", "gptq", "squeezellm"],
                             help="reference weight-quant methods; the "
                                  "runtime serves QoQ checkpoints — convert "
-                                 "with scripts/ckpt_converter first")
+                                 "with omniserve_tpu_torch.ckpt_converter "
+                                 "first")
         parser.add_argument("--disable-log-stats", action="store_true",
                             help="disable periodic engine stats logging")
         parser.add_argument("--disable-log-requests", action="store_true")
@@ -302,8 +303,9 @@ class EngineArgs:
         if self.quantization is not None:
             raise ValueError(
                 f"--quantization {self.quantization} checkpoints are not "
-                "served directly; convert to a QoQ dump with "
-                "scripts/ckpt_converter and pass --quant-path"
+                "served directly; pack a QoQ dump with python -m "
+                "omniserve_tpu_torch.ckpt_converter.convert and pass "
+                "--quant-path"
             )
         model_config = ModelConfig(
             model=self.model,

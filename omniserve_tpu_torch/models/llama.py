@@ -68,6 +68,9 @@ from omniserve_tpu_torch.ops.quantization import (
     QuantizedWeightW8,
     ieee_div,
     quantize_activations,
+    quantize_weight_per_channel,
+    quantize_weight_per_group,
+    quantize_weight_w8,
 )
 from omniserve_tpu_torch.ops.rope import apply_rope, rope_freqs
 
@@ -291,6 +294,87 @@ class DecodeBatch(NamedTuple):
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------
+
+
+def _quantize_linear(w_fp: torch.Tensor, spec: LlamaSpec,
+                     k_shards: int = 1):
+    """[N_out, K_in] fp -> the weight container of ``spec``'s body (W16A16:
+    the bf16 [K, N] matrix)."""
+    if spec.weight_bits == 4 and spec.group_size == -1:
+        return quantize_weight_per_channel(w_fp, k_shards=k_shards)
+    if spec.weight_bits == 4:
+        return quantize_weight_per_group(
+            w_fp, group_size=spec.group_size, k_shards=k_shards
+        )
+    if spec.weight_bits == 8:
+        return quantize_weight_w8(w_fp)
+    return w_fp.t().to(torch.bfloat16).contiguous()
+
+
+# Row-parallel layers shard their input channels over tp ranks, so their
+# int4 packing is per shard (the JAX package's ``_ROW_PARALLEL``).
+_ROW_PARALLEL = ("o", "down")
+_COL_PARALLEL = ("qkv", "gate_up")
+
+
+def quantize_layer_weights(fp_layers: Dict[str, Any], spec: LlamaSpec,
+                           tp_size: int = 1, device="cuda:0"
+                           ) -> Dict[str, Any]:
+    """Per-layer fp dict (each [L, N, K] stacked, host numpy or tensors) ->
+    quantized stacked tensors on ``device``.
+
+    One layer at a time goes to ``device`` and is quantized there, into
+    stacks allocated after the first layer, so the fp32 stacks never sit
+    on the device whole. Other entries (norm weights, the QKV bias) go to
+    ``device`` as they are."""
+    out: Dict[str, Any] = {}
+    for name, w in fp_layers.items():
+        if name in _ROW_PARALLEL:
+            shards = tp_size
+        elif name in _COL_PARALLEL:
+            shards = 1
+        else:
+            out[name] = torch.as_tensor(w).to(device)
+            continue
+        stacked = None
+        for layer in range(len(w)):
+            q = _quantize_linear(torch.as_tensor(w[layer]).to(device), spec,
+                                 k_shards=shards)
+            fields = (q,) if isinstance(q, torch.Tensor) else tuple(q)
+            if stacked is None:
+                stacked = [torch.empty((len(w),) + f.shape, dtype=f.dtype,
+                                       device=device) for f in fields]
+            for dst, src in zip(stacked, fields):
+                dst[layer] = src
+        out[name] = (stacked[0] if isinstance(q, torch.Tensor)
+                     else type(q)(*stacked))
+    return out
+
+
+def fuse_qkv_rank_major(q, k, v, tp_size: int = 1) -> np.ndarray:
+    """Fuse per-layer q / k / v [L, N_*, K] into [L, N_qkv, K] with output
+    channels ordered [q_0|k_0|v_0|q_1|k_1|v_1|...], so a tp shard of the
+    fused output axis is one rank's (q, k, v) slice. Host numpy."""
+    if tp_size == 1:
+        return np.concatenate([q, k, v], axis=1)
+    parts = []
+    for qs, ks, vs in zip(np.split(q, tp_size, axis=1),
+                          np.split(k, tp_size, axis=1),
+                          np.split(v, tp_size, axis=1)):
+        parts.extend([qs, ks, vs])
+    return np.concatenate(parts, axis=1)
+
+
+def fuse_gate_up_rank_major(gate, up, tp_size: int = 1) -> np.ndarray:
+    """Fuse gate / up [L, I, K] into [L, 2I, K], rank-major like
+    ``fuse_qkv_rank_major``."""
+    if tp_size == 1:
+        return np.concatenate([gate, up], axis=1)
+    parts = []
+    for gs, us in zip(np.split(gate, tp_size, axis=1),
+                      np.split(up, tp_size, axis=1)):
+        parts.extend([gs, us])
+    return np.concatenate(parts, axis=1)
 
 
 def _random_packed_stack(gen, spec: LlamaSpec, n_layers, n_out, k_in,

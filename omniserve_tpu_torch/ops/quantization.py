@@ -159,13 +159,20 @@ def quantize_weight_per_group(
     w_u4 = torch.clamp(w_u4, 0, INT4_LEVELS).to(torch.uint8)
     w_u4 = w_u4.reshape(n_out, k_in)
     qweight = pack_int4(w_u4.t(), dim=0, shards=k_shards)
-    # layout [K/group, N]: the kernel indexes groups along the K axis
+    # layout [K/group, N]: the kernel indexes groups along the K axis. The
+    # casts to int8 saturate, as XLA's convert does: a caller's calibrated
+    # s2 / zeros can pass the int8 range (the derived ones cannot)
     return QuantizedWeightPerGroup(
         qweight=qweight.contiguous(),
         s1_scales=s1_scales.float(),
-        s2_scales=s2_scales.t().to(torch.int8).contiguous(),
-        s2_zeros=(-zeros * s2_scales).t().to(torch.int8).contiguous(),
+        s2_scales=_to_int8(s2_scales).t().contiguous(),
+        s2_zeros=_to_int8(-zeros * s2_scales).t().contiguous(),
     )
+
+
+def _to_int8(x: torch.Tensor) -> torch.Tensor:
+    """float -> int8, saturating at the ends of the range."""
+    return torch.clamp(x, -128, 127).to(torch.int8)
 
 
 def dequantize_per_group(q: QuantizedWeightPerGroup,

@@ -20,6 +20,10 @@ Single-device subset of ``omniserve_tpu.worker.model_runner``:
   long prompt prefills in chunks clamped to what the widened ring holds
   beside the ctx-local window, each chunk carrying its streaming table.
 
+Weights: ``load_format="dummy"`` draws random packed weights; any other
+format loads the model directory's HF checkpoint or ``packed.npz``
+(``models/weight_loader.py``), with its per-tensor KV scales.
+
 Everything outside the slice raises ``NotImplementedError`` naming its
 ROADMAP.md item: TP/PP/SP/DP, Mixtral.
 """
@@ -192,21 +196,29 @@ class ModelRunner:
         self.spec = LlamaSpec.from_model_config(
             model_config, sp_attn_config, page_size=cache_config.page_size,
         )
+        # before any weight is read: a model the device cannot serve fails
+        # here, not after minutes of loading
         self.spec.check_supported(self.device)
-        if load_format != "dummy":
-            raise NotImplementedError(
-                "checkpoint loading (models/weight_loader.py) is ROADMAP.md "
-                "queue 1 item 7; serve load_format='dummy' or pass weights "
-                "with load_params()"
-            )
         retrieval_flags = head_rank = None
         if sp_attn_config is not None and sp_attn_config.enable_streaming:
             retrieval_flags = sp_attn_config.retrieval_head_flags
             head_rank = sp_attn_config.head_rank_table
-        self.params: Dict[str, Any] = llama.make_random_packed_params(
-            self.spec, seed=model_config.seed, device=self.device,
-            retrieval_flags=retrieval_flags, head_rank=head_rank,
-        )
+        kv_scales = None
+        if load_format == "dummy":
+            self.params: Dict[str, Any] = llama.make_random_packed_params(
+                self.spec, seed=model_config.seed, device=self.device,
+                retrieval_flags=retrieval_flags, head_rank=head_rank,
+            )
+        else:
+            # an HF checkpoint or a packed.npz directory
+            from omniserve_tpu_torch.models.weight_loader import (
+                load_llama_params,
+            )
+
+            self.params, kv_scales = load_llama_params(
+                model_config, self.spec, retrieval_flags=retrieval_flags,
+                head_rank=head_rank, device=self.device,
+            )
         self.cache_engine = CacheEngine(
             model_config, cache_config,
             num_layers=self.spec.num_layers,
@@ -215,6 +227,8 @@ class ModelRunner:
             sp_attn_config=sp_attn_config,
             device=self.device,
         )
+        if kv_scales is not None:     # the checkpoint's calibrated scales
+            self.cache_engine.load_kv_scales(kv_scales)
         # persistent decode slots
         self._slots: Dict[int, int] = {}
         self._free_slots: List[int] = []

@@ -9,8 +9,11 @@ to; the port itself never imports it):
 ``chunk-gap``: both engines serve ``tests/test_torch_head_dim64_engine``'s
 LServe requests (both flags, w4a8kv4, 48-token chunks) at hidden 512 and
 each head dim of ``--head-dims``; for each forward it prints the port's
-logits' largest difference to the JAX engine's, as a share of max |logit|,
-whether the argmaxes agree and the port's smallest top-2 margin.
+logits' largest difference to the JAX engine's (a decode step's active
+rows only), as a share of max |logit|, whether the argmaxes agree and the
+port's smallest top-2 margin. ``tests/test_torch_lserve_chunks.py``
+replays the same chunks from the JAX engine's pools: where the two part,
+an int8 activation code flipped (ROADMAP.md F5).
 
 ``nudge``: ``chip_smoke.check_sparse_forward`` at Llama-3.2-1B's widths on
 the CPU, with the "kernels" run replaced by the plain run whose decode
@@ -66,7 +69,10 @@ def chunk_gap(head_dims, hidden):
         for mod, key in ((j_llama, "jax"), (t_llama, "torch")):
             def rec(*a, _real=mod.llama_forward, _out=seen[key], **k):
                 out = _real(*a, **k)
-                _out.append(np.asarray(out[0], np.float32))
+                logits = np.asarray(out[0], np.float32)
+                active = getattr(a[3], "active", None)   # decode steps
+                _out.append(logits if active is None
+                            else logits[np.asarray(active)])
                 return out
             mp.setattr(mod, "llama_forward", rec)
         jeng = JLLMEngine.from_engine_args(JEngineArgs(**kw))

@@ -183,8 +183,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import omniserve_tpu_torch.worker.decode_window\n"
         "import omniserve_tpu_torch.worker.model_runner\n"
         "import omniserve_tpu_torch.qserve_benchmark\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'omniserve_tpu' or m.startswith('omniserve_tpu.')]\n"
+        "import omniserve_tpu_torch.models.weight_loader\n"
+        "import omniserve_tpu_torch.ckpt_converter.convert\n"
+        "import omniserve_tpu_torch.ckpt_converter.make_fake_quant_dump\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ("
+        "'jax', 'omniserve_tpu', 'safetensors', 'transformers')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ)

@@ -3216,3 +3216,39 @@ def test_engine_refuses_what_no_card_kernel_takes(dev, tmp_path, extra):
         LLMEngine.from_engine_args(EngineArgs(device="cuda", **kw))
     assert "queue 2 item G" in str(err.value)
     LLMEngine.from_engine_args(EngineArgs(device="cpu", **kw))
+
+
+# -- the weight loader's quantization on the card (no kernel of its own) ------
+
+
+@pytest.mark.parametrize("precision,group", [("w4a8", -1), ("w4a8", 128),
+                                             ("w8a8", -1), ("w16a16", -1)])
+def test_quantize_layer_weights_on_card_equals_cpu(dev, precision, group):
+    """``quantize_layer_weights`` on the card against the same call on the
+    CPU at Llama-3.2-1B's layer shapes (qkv 3,072 x 2,048, o 2,048 x
+    2,048, gate_up 16,384 x 2,048, down 2,048 x 8,192; two layers), byte
+    for byte: the quantizers divide by tensors (``ieee_div``), never by a
+    Python scalar, which CUDA turns into a multiply by the reciprocal."""
+    from omniserve_tpu_torch.models import llama
+
+    w_bits = int(precision[1:precision.index("a")])
+    spec = llama.LlamaSpec(
+        num_layers=2, hidden=2048, intermediate=8192, num_q_heads=32,
+        num_kv_heads=8, head_dim=64, vocab=128256,
+        weight_bits=w_bits, act_bits=16 if w_bits == 16 else 8,
+        group_size=group)
+    rng = np.random.default_rng(0)
+    shapes = {"qkv": (3072, 2048), "o": (2048, 2048),
+              "gate_up": (16384, 2048), "down": (2048, 8192)}
+    fp = {n: (rng.standard_normal((2,) + s, dtype=np.float32) * 0.02)
+          for n, s in shapes.items()}
+    fp["attn_ln"] = np.ones((2, 2048), np.float32)
+    got = llama.quantize_layer_weights(fp, spec, device=dev)
+    want = llama.quantize_layer_weights(fp, spec, device="cpu")
+    for name in shapes:
+        g, w = got[name], want[name]
+        pairs = ([(g, w)] if isinstance(w, torch.Tensor)
+                 else list(zip(g, w)))
+        for a, b in pairs:
+            assert a.is_cuda and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b), name
