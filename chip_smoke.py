@@ -65,8 +65,8 @@ Phases (any failure raises and exits nonzero before the last line):
    ``omniserve_tpu_torch.lserve_benchmark``: batch 1, a 32,768-token
    prompt, 128 greedy tokens, ``--sparse-decode-mode --static-sparsity
    0.5`` at Llama-3.1-8B's published config (128K context, llama3 rope
-   scaling), a warmup and a measured round in single decode steps, then
-   the same two rounds in 16-step decode windows;
+   scaling), a warmup and a measured round in 16-step decode windows,
+   then a measured round in single decode steps;
 7. the same protocol with ``--sparse-context-mode --sparse-decode-mode
    --static-sparsity 0.5`` (LServe's prefill side) in 16-step windows: a
    32,768-token prompt (two chunks over the ring) and a 16,384-token
@@ -120,6 +120,20 @@ Phases (any failure raises and exits nonzero before the last line):
     ``PACKED_LAYERS`` layers through the port's fake-quant dump (g128,
     per-tensor KV) and converter, served at w4a8kv8 per-tensor with the
     file's KV scales; load seconds, peak host RSS and device memory;
+16. Mixtral-8x7B (8 experts, top-2; ``models/mixtral.py``) at full width,
+    random weights from a seed, the bf16 lm_head: (a) phase 5's protocol
+    at w4a8kv4, full depth (a warmup round cut to 32 output tokens, the
+    measured round, a traced decode window and a traced prefill of two
+    8,192-token chunks, split into expert GEMMs, attention GEMMs,
+    attention kernels and the MoE torch ops), with the weights' GiB, peak memory, the expert GEMMs' launches
+    and the decode step's bytes bound; (b) 2-layer forwards at w4a8kv4,
+    g128 and w8a8kv8 per-tensor, kernels against plain (logits gated on
+    rows that routed alike; under 1% of layer 0's routing choices may
+    differ) and an 8-step window replayed against the eager loop; (c)
+    phase 7 (a)'s LServe command at w4a8kv4, 32,736 in / 32 out (the
+    model's whole context), full depth.
+    Phase 2 holds rows 1-3 at its expert GEMMs (M = 64, 4,096, 8,192;
+    stack indices 0 and 255 of a 256-matrix stack);
 then a ``{"kernels": [...]}`` line, the card line, and
 ``{"ok": true, "device": ...}`` as the last line.
 
@@ -3446,7 +3460,8 @@ def kernel_function(name: str) -> str:
 def trace_steps(engine, label, n_steps):
     """``n_steps`` engine steps under ``torch.profiler``: prints the wall
     time, the device's busy time (sum of kernel and copy durations on the
-    card) and idle share, and the kernels that take the most device time."""
+    card) and idle share, and the kernels that take the most device time.
+    Returns (the device events in start order, wall ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3460,9 +3475,10 @@ def trace_steps(engine, label, n_steps):
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    device_events = sorted((e for e in prof.events()
+                            if e.device_type == DeviceType.CUDA),
+                           key=lambda e: e.time_range.start)
+    for e in device_events:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(t for t, _ in by_name.values())
@@ -3476,6 +3492,7 @@ def trace_steps(engine, label, n_steps):
                           if any(k in kv[0] for k in PORT_KERNEL_FUNCTIONS)]
     for name, (t, n) in shown:
         log(f"    {t:9.3f} ms {n:6d}x  {name[:110]}")
+    return device_events, wall_ms
 
 
 # ---------------------------------------------------------------------------
@@ -3484,12 +3501,24 @@ def trace_steps(engine, label, n_steps):
 
 BENCH_KERNELS = ("w4a8_matmul_per_channel", "w8a8_matmul",
                  "paged_prefill_attention", "decode_attention_append")
+# the body's GEMM weights (Llama's projections, Mixtral's expert stacks)
+BODY_WEIGHTS = ("qkv", "o", "gate_up", "down", "w13", "w2")
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
               multi=32, precision="w4a8kv4", group_size=-1,
               kernels=BENCH_KERNELS, trace=True, granularity="fine_grained",
-              stats=None, model=("llama3-8b", LLAMA3_8B), warmup_gen=None):
+              stats=None, model=("llama3-8b", LLAMA3_8B), warmup_gen=None,
+              lm_head="w8a8", trace_prefill_batch=None):
     """``bench.py``'s engine protocol on the port: static batch 128, 1024
     prompt tokens, 512 greedy tokens, ``chunk_prefill_size`` 8192,
     ``decode_multi_step`` 32, w8a8 lm_head, benchmarking mode, each round
@@ -3503,7 +3532,12 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
     ms, decode tok/s, graphs captured and the peak device memory.
     ``model`` = (directory name, config.json) of the model (Llama-3-8B
     unless given); ``warmup_gen`` cuts the warmup round's output to that
-    many tokens."""
+    many tokens; ``lm_head`` is the lm_head precision. With ``trace`` and
+    ``stats``, stats["traces"] receives the two traced windows' (device
+    events, wall ms) by "prefill" / "decode". ``trace_prefill_batch``: the
+    traced prefill is that many requests' after the window instead (at
+    1,024-token prompts and batch 16: two [16, 512] chunks of 8,192
+    tokens)."""
     import torch
 
     from omniserve_tpu_torch import EngineArgs, LLMEngine, SamplingParams
@@ -3519,7 +3553,7 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         model=write_model_dir(*model), precision=precision,
         group_size=group_size,
         kv_quant_granularity=granularity, load_format="dummy",
-        lm_head_precision="w8a8", tokenizer_mode="skip", device=str(dev),
+        lm_head_precision=lm_head, tokenizer_mode="skip", device=str(dev),
         block_size=128, ifb_mode=False, benchmarking_mode=True,
         disable_log_stats=True, chunk_prefill_size=8192,
         decode_multi_step=multi, max_num_seqs=batch,
@@ -3538,6 +3572,11 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
         f"{pool_gib:.2f} GiB")
     runner = engine.worker.model_runner
     n_layers = runner.spec.num_layers
+    if stats is not None:
+        stats.update(weight_gib=tree_bytes(runner.params) / 2**30,
+                     body_bytes=tree_bytes(
+                         {k: v for k, v in runner.params["layers"].items()
+                          if k in BODY_WEIGHTS}))
 
     # time each step and keep the round's groups to check their outputs
     step_s, groups = [], []
@@ -3614,11 +3653,29 @@ def run_bench(dev, rounds=2, batch=128, prompt_len=1024, gen_len=512,
             f"prof{i}", profiling_config=ProfilingConfig(prompt_len,
                                                          multi + 1),
             sampling_params=SamplingParams(temperature=0.0))
-    trace_steps(engine, f"chunked prefill ({batch} x {prompt_len})", 1)
-    trace_steps(engine, f"decode window ({multi} steps, batch {batch})",
-                multi)
+    traces = {}
+    if trace_prefill_batch:
+        engine.step()
+    else:
+        traces["prefill"] = trace_steps(
+            engine, f"chunked prefill ({batch} x {prompt_len})", 1)
+    traces["decode"] = trace_steps(
+        engine, f"decode window ({multi} steps, batch {batch})", multi)
     if engine.has_unfinished_requests():
         raise AssertionError("profiled window left requests unfinished")
+    if trace_prefill_batch:
+        for i in range(trace_prefill_batch):
+            engine.add_request(
+                f"prof-prefill{i}",
+                profiling_config=ProfilingConfig(prompt_len, multi + 1),
+                sampling_params=SamplingParams(temperature=0.0))
+        traces["prefill"] = trace_steps(
+            engine, f"chunked prefill ({trace_prefill_batch} x "
+            f"{prompt_len})", 1)
+        while engine.has_unfinished_requests():
+            engine.step()
+    if stats is not None:
+        stats["traces"] = traces
     return launches
 
 
@@ -3655,9 +3712,11 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
     with half of the kv heads streaming (defaults: 128 sink + 256 local
     tokens, a 4096-token page budget, selector refresh every 4 steps), each
     round through ``lserve_benchmark.process_requests_split_stage``. A
-    warmup and a measured round in single decode steps (the script's
-    defaults), then the same in ``multi``-step decode windows. The launch
-    counts are read from the measured single-step round alone."""
+    warmup and a measured round in ``multi``-step decode windows, then a
+    measured round in single decode steps (the script's defaults; the
+    windows' rounds warm it, which keeps chip_smoke inside its time
+    limit). The launch counts are read from the measured single-step
+    round alone."""
     import argparse
 
     import torch
@@ -3715,9 +3774,11 @@ def run_lserve(dev, prompt_len=32768, gen_len=128, multi=16):
 
     engine.add_request = recording_add
     result = {}
-    for mode, steps_per_call in (("single steps", 1), ("windows", multi)):
+    for mode, steps_per_call, rounds in (
+            ("windows", multi, ("warmup", "measured")),
+            ("single steps", 1, ("measured",))):
         engine.ifb_config.decode_multi_step = steps_per_call
-        for r in ("warmup", "measured"):
+        for r in rounds:
             groups.clear()
             cuda.reset_launch_counts()
             refreshes_before = runner.selector_refreshes
@@ -3822,7 +3883,6 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
     from omniserve_tpu_torch.worker.cache_engine import pool_bytes
 
     batch = 1
-    n_chunks = -(-long_len // chunk)
     sizing = argparse.Namespace(max_num_seqs=batch, max_num_batched_tokens=0,
                                 num_retrieval_blocks=None, block_size=128)
     lb.size_pool(sizing, batch, long_len, long_gen)
@@ -3855,11 +3915,18 @@ def run_lserve_prefill(dev, long_len=32768, long_gen=128, short_len=16384,
         f"{spec.ctx_sink}+{spec.ctx_local} tokens; retrieval pool "
         f"{ce.retrieval_pool.num_pages} pages")
     ring_tok = spec.local_blocks * spec.page_size
+    # the runner clamps a chunk to what the ring holds beside the ctx-local
+    # window (a model with a shorter context sizes a shorter ring)
+    page = spec.page_size
+    tc = min(chunk // page * page, (ring_tok - spec.ctx_local) // page * page)
+    n_chunks = -(-long_len // tc)
     wb, ab, _, kv_bits, kv_zeros = PRECISIONS[precision + (
         "-pt" if granularity == "per_tensor" else "")]
+    llama3_rope = (model[1].get("rope_scaling") or {}).get(
+        "rope_type") == "llama3"
     if not (spec.sparse_prefill and spec.sparse_decode
-            and spec.rope_llama3 is not None
-            and ring_tok >= spec.ctx_local + min(chunk, long_len)
+            and (spec.rope_llama3 is not None) == llama3_rope
+            and tc >= page
             and (spec.weight_bits, spec.act_bits, spec.kv_bits,
                  spec.kv_zeros) == (wb, ab, kv_bits, kv_zeros)):
         raise AssertionError("LServe prefill phase: engine is not the "
@@ -5045,6 +5112,546 @@ def run_checkpoints(dev):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 2 / 3 at Mixtral's expert GEMMs and phase 16: Mixtral-8x7B
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B (public config.json, mistralai/Mixtral-8x7B-v0.1): 32
+# layers, hidden 4,096, 8 experts of intermediate 14,336 with top-2
+# routing, 32 q heads over 8 kv heads of 128, vocab 32,000, rope theta
+# 1e6, a 32,768-token context, no sliding window
+MIXTRAL_8X7B = dict(
+    architectures=["MixtralForCausalLM"], model_type="mixtral",
+    hidden_size=4096, intermediate_size=14336, num_attention_heads=32,
+    num_key_value_heads=8, num_hidden_layers=32, vocab_size=32000,
+    num_local_experts=8, num_experts_per_tok=2, rope_theta=1000000.0,
+    rms_norm_eps=1e-5, max_position_embeddings=32768, sliding_window=None,
+    tie_word_embeddings=False,
+)
+# its expert GEMMs (name, K, N); the [L*E, ...] stack of each kind the
+# served path indexes; an expert's M (its capacity): at decode batch 128,
+# at an 8,192-token chunk and at the bench's [128, 128] chunks
+MOE_GEMMS = [("w13", 4096, 28672), ("w2", 14336, 4096)]
+MOE_STACK = 32 * 8
+MOE_M = (64, 4096, 8192)
+# the kernels-line entries of the expert GEMMs, by body
+MOE_ENTRIES = {
+    "channel": "w4a8_matmul_per_channel_moe",
+    "group": "w4a8_matmul_per_group_moe",
+    "w8": "w8a8_matmul_moe",
+}
+
+
+def moe_stack(dev, gen, mode, k, n, idx):
+    """A [MOE_STACK, ...] expert stack of ``mode``'s container (per channel,
+    g128, W8) with the matrices ``idx`` drawn; the others stay unwritten
+    (a kernel sees only the pointer of the matrix it is given)."""
+    import torch
+
+    from omniserve_tpu_torch.ops.quantization import (
+        QuantizedWeightPerChannel,
+        QuantizedWeightPerGroup,
+        QuantizedWeightW8,
+    )
+
+    w8 = mode == "w8"
+    rows = k if w8 else k // 2
+    qw = torch.empty((MOE_STACK, rows, n), device=dev,
+                     dtype=torch.int8 if w8 else torch.uint8)
+    s1 = torch.zeros((MOE_STACK, n), device=dev)
+    s2 = s2z = None
+    if mode == "group":
+        s2 = torch.zeros((MOE_STACK, k // 128, n), dtype=torch.int8,
+                         device=dev)
+        s2z = torch.zeros_like(s2)
+    for i in idx:
+        qw[i] = torch.randint(-127 if w8 else 0, 128 if w8 else 256,
+                              (rows, n), generator=gen, dtype=qw.dtype,
+                              device=dev)
+        s1[i].uniform_(*((0.0003, 0.0006) if w8 else (0.003, 0.006)),
+                       generator=gen)
+        if s2 is not None:
+            s2[i] = torch.randint(1, 18, (k // 128, n), generator=gen,
+                                  dtype=torch.int8, device=dev)
+            s2z[i] = torch.randint(-128, 128, (k // 128, n), generator=gen,
+                                   dtype=torch.int8, device=dev)
+    if mode == "channel":
+        return QuantizedWeightPerChannel(qw, s1, 8.0 * s1)
+    if w8:
+        return QuantizedWeightW8(qw, s1)
+    return QuantizedWeightPerGroup(qw, s1, s2, s2z)
+
+
+def check_moe_gemms(dev, gen):
+    """Rows 1-3 at Mixtral-8x7B's expert GEMMs as the served path calls
+    them (``llama._apply_linear`` on index ``layer * E + e`` of a [L*E,
+    ...] stack, inside ``cuda.expert_launches``): per channel, g128 and
+    W8 bodies, both expert shapes (MOE_GEMMS) at each M of MOE_M, the
+    experts at stack index 0 and L*E - 1 = 255 each equal to the plain
+    version within 1e-5 and counted under its ``_moe`` entry; timed (M =
+    64 by graph replay over matrices of the stack rotated past L2, as a
+    decode step finds them cold), beside the plain version, the bound and
+    ``torch._int_mm`` + epilogue. Returns the kernels-line entries: one
+    expert's two GEMMs at M = 64, the error the largest of all."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.cuda import quant_matmul as qm
+    from omniserve_tpu_torch.ops.matmul import dequant_per_group
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    entries = {}
+    for mode, entry in MOE_ENTRIES.items():
+        rows, worst = [], 0.0
+        for name, k, n in MOE_GEMMS:
+            w_bytes = (k if mode == "w8" else k // 2) * n + (
+                2 * (k // 128) * n if mode == "group" else 0)
+            n_rot = max(1, math.ceil(120e6 / w_bytes))
+            idx = sorted(set(range(n_rot)) | {MOE_STACK - 1})
+            w = moe_stack(dev, gen, mode, k, n, idx)
+            spec = llama.LlamaSpec(
+                num_layers=1, hidden=k, intermediate=n, num_q_heads=1,
+                num_kv_heads=1, head_dim=128, vocab=8,
+                weight_bits=8 if mode == "w8" else 4,
+                group_size=128 if mode == "group" else -1)
+            if mode == "channel":
+                w_i8 = torch.cat([w.qweight[0] & 0xF,
+                                  w.qweight[0] >> 4]).to(torch.int8)
+            elif mode == "group":
+                w_i8 = dequant_per_group(w.qweight[0], w.s2_scales[0],
+                                         w.s2_zeros[0], 128)
+            else:
+                w_i8 = w.qweight[0]
+            for m in MOE_M:
+                a_i8, a_scale, a_sum = quantize_activations(
+                    torch.randn((m, k), generator=gen, device=dev),
+                    fuse_sum=mode == "channel")
+
+                def call(i):
+                    with cuda.expert_launches():
+                        return llama._apply_linear(w, spec, a_i8, a_scale,
+                                                   a_sum, i)
+
+                for i in (0, MOE_STACK - 1):
+                    before = cuda.LAUNCHES[entry]
+                    got = call(i)
+                    if cuda.LAUNCHES[entry] != before + 1:
+                        raise AssertionError(f"{entry}: the launch was not "
+                                             "counted as an expert GEMM")
+                    with cuda.plain_versions():
+                        want = call(i)
+                    worst = max(worst, allclose_err(
+                        got, want, 1e-5, 1e-5,
+                        f"{entry} {name} M={m} stack index {i}"))
+                    del got, want
+                ms = time_gemm_ms(call, idx[:n_rot], m)
+                with cuda.plain_versions():
+                    plain = time_ms(lambda: call(0), 3, warmup=1)
+                s1 = (w.scales if mode == "w8" else w.s1_scales)[0]
+                a_s = a_scale
+                if mode == "channel":
+                    sz = w.s1_szeros[0]
+
+                    def epi(p, mm):
+                        return (p.float() * s1[None] * a_s[:mm, None]
+                                - sz[None] * a_sum[:mm, None]).to(
+                                    torch.bfloat16)
+                else:
+                    def epi(p, mm):
+                        return (p.float() * s1[None] * a_s[:mm, None]).to(
+                            torch.bfloat16)
+                lib = int_mm_ms(a_i8, w_i8, epi, 50 if m <= 128 else 10)
+                n_bytes = m * k + w_bytes + 8 * n + 8 * m + 2 * m * n
+                ops = 2.0 * m * n * k
+                bnd, by = bound_ms(n_bytes, ops, INT8_OPS_PER_S)
+                plan = qm.gemm_plan(mode, m, n, k, cuda.sm_count(dev))
+                rows.append(dict(m=m, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                 bound_by=by, library_ms=lib,
+                                 max_abs_err=worst))
+                log(f"  {entry} {name} M={m:5d} K={k:5d} N={n:5d} (stack "
+                    f"of {MOE_STACK}, indices 0 and {MOE_STACK - 1} held): "
+                    f"kernel_ms {ms:.4f}{' (graph replay)' if m <= 128 else ''}"
+                    f" plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
+                    f"library_ms {lib:.4f} max_abs_err {worst:.3g}; "
+                    f"{plan_note(plan)}; {100 * bnd / ms:.1f}% of the bound")
+            del w, w_i8
+            gc.collect()
+            torch.cuda.empty_cache()
+        for m in MOE_M:
+            r = layer_row(rows, m)
+            log(f"  {entry} one expert's w13 + w2 at M={m}: kernel_ms "
+                f"{r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+                f"({r['bound_by']}) = {100 * r['bound_ms'] / r['ms']:.1f}% "
+                f"of the bound; 16 such GEMMs a layer")
+        entries[entry] = layer_row(rows, MOE_M[0])
+    return entries
+
+
+def mixtral_spec(precision, num_layers=2):
+    """Mixtral-8x7B's widths at ``num_layers`` layers and one precision of
+    ``PRECISIONS``, the bf16 lm_head (the only one the JAX package's
+    Mixtral has)."""
+    from omniserve_tpu_torch.models import mixtral
+
+    g = MIXTRAL_8X7B
+    wb, ab, gs, kv, zeros = PRECISIONS[precision]
+    return mixtral.MixtralSpec(
+        num_layers=num_layers, hidden=g["hidden_size"],
+        intermediate=g["intermediate_size"],
+        num_q_heads=g["num_attention_heads"],
+        num_kv_heads=g["num_key_value_heads"], head_dim=head_dim_of(g),
+        vocab=g["vocab_size"], rope_base=g["rope_theta"],
+        rms_eps=g["rms_norm_eps"], page_size=128, lm_head_bits=16,
+        weight_bits=wb, act_bits=ab, group_size=gs, kv_bits=kv,
+        kv_zeros=zeros, num_experts=g["num_local_experts"],
+        top_k=g["num_experts_per_tok"])
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Within the block, each MoE block's routing records (its tokens' top-k
+    expert sets [T, k] in index order, the valid rows [T], the router
+    logits [T, E]) in call order."""
+    import torch
+
+    from omniserve_tpu_torch.ops import moe as moe_ops
+
+    seen = []
+    real = moe_ops.route_topk
+
+    def rec(logits, top_k, capacity, valid=None):
+        sets = torch.sort(torch.topk(logits, top_k, dim=-1).indices,
+                          dim=-1).values
+        seen.append((sets, torch.ones(logits.shape[0], dtype=torch.bool,
+                                      device=logits.device)
+                     if valid is None else valid, logits.clone()))
+        return real(logits, top_k, capacity, valid=valid)
+
+    moe_ops.route_topk = rec
+    try:
+        yield seen
+    finally:
+        moe_ops.route_topk = real
+
+
+def routing_agreement(a, b, k):
+    """Two runs' routing records (``recorded_routing``, layer by layer):
+    (tokens whose top-k sets agree in every layer [T], the differing
+    (token, layer) choices by layer, the valid ones by layer, a note on
+    the flipped choices: the largest margin between b's k-th and (k+1)-th
+    router logit among them, beside the median margin of all valid
+    tokens, and by layer the largest router-logit move of the tokens that
+    routed alike in every layer so far)."""
+    import torch
+
+    differ = torch.stack([(x != y).any(-1) & v
+                          for (x, v, _), (y, _, _) in zip(a, b)])
+    alike = torch.cumprod((~differ).int(), dim=0).bool()
+    flipped_margin, margins, drift = 0.0, [], []
+    for layer, ((_, v, la), (_, _, lb)) in enumerate(zip(a, b)):
+        top = torch.topk(lb.float(), k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
+        margins.append(margin[v])
+        if bool(differ[layer].any()):
+            flipped_margin = max(flipped_margin,
+                                 float(margin[differ[layer]].max()))
+        still = v & alike[layer]
+        drift.append(float((la.float() - lb.float())[still].abs().max())
+                     if bool(still.any()) else 0.0)
+    note = (f"largest margin of a flipped choice {flipped_margin:.3g}, "
+            f"median margin {float(torch.cat(margins).median()):.3g}; "
+            f"router logits of the tokens that routed alike moved by up to "
+            + " / ".join(f"{x:.3g}" for x in drift) + " by layer")
+    return (~differ.any(0), [int(d.sum()) for d in differ],
+            [int(v.sum()) for _, v, _ in a], note)
+
+
+MIXTRAL_FORWARD_PRECISIONS = ("w4a8kv4", "w4a8kv4-g128", "w8a8kv8-pt")
+
+
+def check_mixtral_forwards(dev):
+    """Phase 16 (b): 2-layer Mixtral-8x7B forwards at full width, w4a8kv4,
+    g128 and w8a8kv8 per-tensor (unit scales; its gate max(5e-2, 3 x the
+    one-ulp floor) as the dense W8A8 forwards'): a prefill chunk ([4, 512],
+    prompts of 512, 300, 512 and 450 tokens: padding rows in the chunk) and
+    a decode step, kernels against plain versions, and the plain versions
+    with one-ulp attention nudges (the routing's own sensitivity). Each
+    run records every token's top-2 expert set in every layer: fewer than
+    1% of layer 0's (token, layer) choices may differ kernels vs plain
+    (layer 1 inherits layer 0's flips through the K / V its neighbours
+    read; every layer's share is printed), and the logits of the rows
+    whose token routed alike in every layer hold the gate. Then, at
+    w4a8kv4, an 8-step window replayed from a captured graph against the
+    eager loop. Returns the launches of the g128 and W8 expert entries."""
+    import torch
+
+    from omniserve_tpu_torch.models import llama, mixtral
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.worker.model_runner import chunked_prefill_batches
+
+    lens = [512, 300, 512, 450]
+    pages = 5                          # 513 tokens after the decode step
+    tables = torch.arange(len(lens) * pages,
+                          dtype=torch.int32).view(len(lens), pages)
+    rng = torch.Generator(device="cpu").manual_seed(3)
+    launches, failures = {}, []
+    for precision in MIXTRAL_FORWARD_PRECISIONS:
+        spec = mixtral_spec(precision)
+        with_floor = spec.weight_bits == 8
+        cuda.reset_launch_counts()
+        params = mixtral.make_random_packed_params(spec, seed=1, device=dev)
+        prompts = [torch.randint(0, spec.vocab, (n,), generator=rng).tolist()
+                   for n in lens]
+        seqs = [(p, tables[i].tolist()) for i, p in enumerate(prompts)]
+        (batch, ends), = list(chunked_prefill_batches(seqs, 2048, 128, dev))
+        # the floor run (the plain versions with one-ulp attention nudges)
+        # shows how far this random model's routing moves under rounding
+        modes = ("kernels", "plain", "floor")
+        res = {}
+        for mode in modes:
+            pool = forward_pool(spec, tables.numel() + 1, dev)
+            with _mode_ctx(mode), torch.inference_mode(), \
+                    recorded_routing() as routes:
+                lp, _, _, _ = mixtral.mixtral_forward(params, pool, None,
+                                                      batch, spec,
+                                                      is_prefill=True)
+                res[mode] = dict(prefill=lp[: len(lens)], pool=pool,
+                                 routes_pre=list(routes))
+        dec = llama.DecodeBatch(
+            token_ids=res["plain"]["prefill"].argmax(-1),
+            positions=torch.tensor(lens, dtype=torch.int32, device=dev),
+            block_tables=tables.to(dev),
+            active=torch.ones(len(lens), dtype=torch.bool, device=dev))
+        for mode in modes:
+            with _mode_ctx(mode), torch.inference_mode(), \
+                    recorded_routing() as routes:
+                ld, _, _, _ = mixtral.mixtral_forward(
+                    params, res[mode]["pool"], None, dec, spec,
+                    is_prefill=False)
+                res[mode].update(decode=ld, routes_dec=list(routes))
+        k = spec.top_k
+        ok_tok, p_diff, p_valid, p_note = routing_agreement(
+            res["kernels"]["routes_pre"], res["plain"]["routes_pre"], k)
+        ok_dec, d_diff, d_valid, d_note = routing_agreement(
+            res["kernels"]["routes_dec"], res["plain"]["routes_dec"], k)
+        n_diff = sum(p_diff) + sum(d_diff)
+        n_valid = sum(p_valid) + sum(d_valid)
+        share = n_diff / n_valid
+        _, f_pre, _, _ = routing_agreement(
+            res["floor"]["routes_pre"], res["plain"]["routes_pre"], k)
+        _, f_dec, _, _ = routing_agreement(
+            res["floor"]["routes_dec"], res["plain"]["routes_dec"], k)
+        floor_share = (sum(f_pre) + sum(f_dec)) / n_valid
+        # a row's logits are its last token's: gated where that token
+        # routed alike in every layer
+        last_ok = ok_tok[batch.last_token_idx.long()]
+        log(f"  mixtral {precision} 2 layers: {n_diff} of {n_valid} (token, "
+            f"layer) top-2 choices differ kernels vs plain ({share:.3g}); "
+            f"by layer: prefill {p_diff} of {p_valid} ({p_note}), decode "
+            f"{d_diff} of {d_valid} ({d_note}); one-ulp attention nudges "
+            f"of the plain run move {floor_share:.3g} (prefill {f_pre}, "
+            f"decode {f_dec}); rows whose token routed alike in every "
+            f"layer: prefill {int(last_ok.sum())} / {len(lens)}, decode "
+            f"{int(ok_dec.sum())} / {len(lens)}")
+        # layer 0 reads the same residual stream in both runs but for the
+        # attention kernels' rounding; later layers inherit its flips (a
+        # token routed elsewhere has other K / V, which its neighbours'
+        # attention reads), so the 1% gate holds layer 0's choices
+        share0 = (p_diff[0] + d_diff[0]) / (p_valid[0] + d_valid[0])
+        log(f"  mixtral {precision}: layer 0's choices differ in {share0:.3g}"
+            f" (gate 1%), every layer's in {share:.3g}")
+        if share0 >= 0.01:
+            failures.append(f"mixtral {precision}: {share0:.4g} of layer "
+                            "0's routing choices differ (gate 1%)")
+        for step, rows in (("prefill", last_ok), ("decode", ok_dec)):
+            a, b_ = res["kernels"][step], res["plain"][step]
+            if not bool(torch.isfinite(a).all()) or a.shape != (
+                    len(lens), spec.vocab):
+                raise AssertionError(f"mixtral {precision} {step}: bad "
+                                     f"logits {tuple(a.shape)}")
+            if not bool(rows.any()):
+                failures.append(f"mixtral {precision} {step}: no row "
+                                "routed alike in both runs")
+                continue
+            scale = float(b_.abs().max())
+            err = float((a - b_)[rows].abs().max())
+            by = {m: {step: res[m][step]} for m in ("plain", "floor")}
+            rtol, floor = logits_bound(by, step, scale, with_floor)
+            log(f"  mixtral {precision} 2 layers {step}: max |logit| "
+                f"{scale:.4g}, max abs diff kernels vs plain over "
+                f"{int(rows.sum())} rows {err:.4g} ({err / scale:.3g} of "
+                f"max), argmax agreement "
+                f"{float((a.argmax(-1) == b_.argmax(-1)).float().mean()):.2f}"
+                + ("" if floor is None else
+                   f"; floor {floor:.3g} of max, bound {rtol:.3g}"))
+            if err > rtol * scale:
+                failures.append(f"mixtral {precision} {step}: logits "
+                                f"differ by {err} > {rtol} x {scale}")
+        entry = MOE_ENTRIES[{4: "group" if spec.group_size > 0 else "channel",
+                             8: "w8"}[spec.weight_bits]]
+        if cuda.LAUNCHES[entry] <= 0:
+            raise AssertionError(f"mixtral {precision}: no {entry} launch")
+        if entry != MOE_ENTRIES["channel"]:     # (a) reports that one's
+            launches[entry] = cuda.LAUNCHES[entry]
+        log(f"  mixtral {precision}: {entry} launches in the kernels runs "
+            f"{cuda.LAUNCHES[entry]} (16 a layer a forward)")
+        if precision == "w4a8kv4":
+            first = res["kernels"]["prefill"].argmax(-1)
+            check_window(dev, spec, params, res["kernels"]["pool"], tables,
+                         lens, first, n_steps=8)
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+MOE_CATEGORIES = (
+    "expert GEMMs (row 1, _moe)", "attention GEMMs (qkv, o)",
+    "attention kernels (rows 4-10)",
+    "MoE route / dispatch (norm, router, top-2, quantize, scatter)",
+    "MoE stack + SwiGLU quant", "MoE stack + combine (+ next layer's norm)",
+    "other (embedding, rope, KV writes, lm_head, sampling)",
+)
+
+
+def moe_breakdown(events, label, n_units, unit):
+    """Split a traced Mixtral window's device time. A layer launches its
+    int8 GEMMs as qkv, o, then a run of E ``w13`` expert GEMMs and a run of
+    E ``w2`` ones with nothing between them: a run of two or more GEMMs is
+    expert GEMMs, a lone one an attention GEMM (``o`` when an expert run
+    follows it, else ``qkv``), and each other kernel is named by the GEMM
+    before it (after ``o``: the router's side; after ``w13``: the
+    SwiGLU's; after ``w2``: the combine's). Robust to an event the
+    profiler drops. Prints the split per ``unit`` (the window holds
+    ``n_units``)."""
+    cats = dict.fromkeys(MOE_CATEGORIES, 0.0)
+    attn_fns = [f for f in PORT_KERNEL_FUNCTIONS
+                if f not in ("int8_wgmma_kernel", "quant_gemm_kernel")]
+    is_gemm = ["int8_wgmma_kernel" in e.name for e in events]
+    runs = []            # [first, last] event index of each GEMM run
+    for i, g in enumerate(is_gemm):
+        if g and runs and runs[-1][1] == i - 1:
+            runs[-1][1] = i
+        elif g:
+            runs.append([i, i])
+    kind = {}            # run index -> "qkv" / "o" / "w13" / "w2"
+    for r, (a, b) in enumerate(runs):
+        nxt_expert = r + 1 < len(runs) and runs[r + 1][1] > runs[r + 1][0]
+        if b > a:
+            kind[r] = "w13" if nxt_expert else "w2"
+        else:
+            kind[r] = "o" if nxt_expert else "qkv"
+    after = {"o": 3, "w13": 4, "w2": 5}
+    r = -1
+    for i, e in enumerate(events):
+        t = e.time_range.elapsed_us() / 1e3
+        if is_gemm[i]:
+            if r + 1 < len(runs) and runs[r + 1][0] == i:
+                r += 1
+            cats[MOE_CATEGORIES[0 if kind[r] in ("w13", "w2") else 1]] += t
+        elif any(f in e.name for f in attn_fns):
+            cats[MOE_CATEGORIES[2]] += t
+        elif r >= 0 and kind[r] in after and r + 1 < len(runs):
+            cats[MOE_CATEGORIES[after[kind[r]]]] += t
+        else:
+            cats[MOE_CATEGORIES[6]] += t
+    busy = sum(cats.values())
+    n_expert = sum(b - a + 1 for q, (a, b) in enumerate(runs)
+                   if kind[q] in ("w13", "w2"))
+    log(f"  {label}: {n_expert} expert and {sum(is_gemm) - n_expert} "
+        f"attention GEMM launches; device busy {busy / n_units:.2f} ms a "
+        f"{unit}, split (ms a {unit}): " + "; ".join(
+            f"{k} {v / n_units:.3f} ({100 * v / max(busy, 1e-9):.1f}%)"
+            for k, v in cats.items()))
+    return {k: v / n_units for k, v in cats.items()}
+
+
+MIXTRAL_BENCH_KERNELS = ("w4a8_matmul_per_channel",
+                         "w4a8_matmul_per_channel_moe",
+                         "paged_prefill_attention", "decode_attention_append")
+
+
+def run_mixtral(dev):
+    """Phase 16: Mixtral-8x7B (MIXTRAL_8X7B), random weights from a seed,
+    the bf16 lm_head. (a) ``bench.py``'s protocol at full width and depth,
+    w4a8kv4 per channel (batch 128, 1,024 in / 512 out, chunks of 8,192,
+    32-step windows; a warmup round of 32 output tokens, then the measured
+    round; a traced decode window and a traced prefill of 16 requests,
+    two 8,192-token chunks, split by ``moe_breakdown``), with the
+    weights' GiB, peak memory, the expert
+    GEMMs' launches and the decode step's bytes bound; (b) 2-layer
+    forwards kernels against plain (``check_mixtral_forwards``); (c) the
+    reference's LServe command (both flags, static sparsity 0.5) at
+    w4a8kv4, 32,736 in / 32 out (the model's whole context), full width
+    and depth. Every request
+    finishes with its token count. Returns the launches of the kernels-
+    line entries it reaches."""
+    import torch
+
+    from omniserve_tpu_torch.ops import cuda
+
+    model = ("mixtral-8x7b", MIXTRAL_8X7B)
+    launches = {}
+    log("  (a) bench.py's protocol at w4a8kv4, batch 128, bf16 lm_head")
+    stats = {}
+    bench = run_bench(dev, kernels=MIXTRAL_BENCH_KERNELS, stats=stats,
+                      model=model, warmup_gen=32, lm_head="fp16",
+                      trace_prefill_batch=16)
+    launches["w4a8_matmul_per_channel_moe"] = bench[
+        "w4a8_matmul_per_channel_moe"]
+    batch, multi = 128, 32
+    step_ms = batch / stats["decode_tps"] * 1e3
+    bound = stats["body_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"  (a) measured round: prefill step {stats['prefill_ms']:.1f} ms, "
+        f"decode {stats['decode_tps']:.1f} tok/s ({step_ms:.2f} ms a step "
+        f"at batch {batch}, host clock), weights "
+        f"{stats['weight_gib']:.2f} GiB (the body's GEMM weights "
+        f"{stats['body_bytes'] / 1e9:.2f} GB), peak device memory "
+        f"{stats['peak_gib']:.2f} GiB, graphs {stats['graphs']}; expert "
+        f"GEMM launches {bench['w4a8_matmul_per_channel_moe']} "
+        f"(attention GEMMs {bench['w4a8_matmul_per_channel']}); a decode "
+        f"step's bytes bound (every expert read once) {bound:.3f} ms = "
+        f"{100 * bound / step_ms:.1f}% of the step")
+    # the traced prefill: 16 x 1,024 tokens in two [16, 512] chunks of
+    # 8,192 tokens (an expert's M 4,096)
+    for window, n_units, unit in (("prefill", 2, "chunk"),
+                                  ("decode", multi, "decode step")):
+        events, wall = stats["traces"][window]
+        if not events:
+            log(f"  (a) traced {window}: the profiler recorded no device "
+                "events")
+            continue
+        moe_breakdown(events, f"(a) traced {window} ({n_units} {unit}s, "
+                      f"wall {wall / n_units:.2f} ms a {unit})", n_units,
+                      unit)
+    del stats, bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) 2-layer forwards at full width, kernels vs plain")
+    launches.update(check_mixtral_forwards(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Mixtral-8x7B's context is 32,768 tokens: the prompt and its 32 output
+    # tokens fill it (a longer request is refused by the scheduler)
+    long_len = MIXTRAL_8X7B["max_position_embeddings"] - 32
+    log(f"  (c) the LServe command at w4a8kv4, both flags, {long_len:,} in "
+        "/ 32 out (the model's whole context)")
+    lserve_stats = {}
+    run_lserve_prefill(dev, long_len=long_len, long_gen=32, short_len=None,
+                       trace=False, stats=lserve_stats, model=model)
+    moe = cuda.LAUNCHES["w4a8_matmul_per_channel_moe"]
+    log(f"  (c) measured round: prefill {lserve_stats['prefill_s']:.3f} s, "
+        f"decode {lserve_stats['decode_tps']:.2f} tok/s, peak device memory "
+        f"{lserve_stats['peak_gib']:.2f} GiB; expert GEMM launches {moe}")
+    if moe <= 0:
+        raise AssertionError("(c): no expert GEMM launched")
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -5172,6 +5779,8 @@ def main() -> int:
     # head_dim 64 (Llama-3.2-1B, phase 14): row 6's kv4 / kv8 modes and
     # rows 6, 7, 9 and 10 at phase 14's shapes, rows 1 and 3 at its GEMMs
     kernels.update(check_d64_kernels(dev, gen))
+    # Mixtral-8x7B's expert GEMMs (phase 16) on rows 1-3 by stack index
+    kernels.update(check_moe_gemms(dev, gen))
     phase_done("phase 2")
     log("phase 3: 2-layer full-width forward, kernels vs plain")
     spec, params, prompts, tables, _ = check_forward(dev)
@@ -5282,6 +5891,13 @@ def main() -> int:
         f"w4a8kv8 per-tensor ({PACKED_LAYERS} layers)")
     run_checkpoints(dev)
     phase_done("phase 15")
+    log("phase 16: Mixtral-8x7B (8 experts, top-2) at full width and depth: "
+        "(a) bench.py's protocol at w4a8kv4 (bf16 lm_head), (b) 2-layer "
+        "forwards at w4a8kv4, g128 and w8a8kv8 per-tensor, kernels vs "
+        "plain, (c) the LServe command at w4a8kv4 (both flags, static "
+        "sparsity 0.5; 32736 in / 32 out)")
+    launches.update(run_mixtral(dev))
+    phase_done("phase 16")
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -5385,6 +6001,13 @@ def main() -> int:
         # head_dim 64 (Llama-3.2-1B): phase 2's entries, phase 14's
         # launches
         **D64_ENTRIES,
+        # Mixtral-8x7B's expert GEMMs: phase 2's entries; the per-channel
+        # launches of phase 16 (a)'s measured round, the g128 and W8 ones
+        # of (b)'s forwards
+        **{MOE_ENTRIES[mode]: (
+            "omniserve_tpu_torch/csrc/quant_gemm.cu",
+            f"omniserve_tpu/ops/pallas/quant_matmul.py:{line}")
+           for mode, line in (("channel", 151), ("group", 281), ("w8", 406))},
     }
     idle = [name for name in meta if launches[name] <= 0]
     if idle:

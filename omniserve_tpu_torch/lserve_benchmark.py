@@ -17,7 +17,9 @@ plain versions):
 sink + local band at prefill, a prompt above ``--chunk-prefill-size``
 prefills in chunks over the streaming ring, and decode is dynamic-sparse;
 kv4 and kv8 pools, fine-grained or per-tensor, and kv16 pools, the
-default ``--precision w16a16kv16``, serve under them).
+default ``--precision w16a16kv16``, serve under them). A Mixtral config
+directory serves the same way, with the bf16 lm_head (the default
+``--lm-head-precision fp16``).
 """
 
 import argparse

@@ -648,8 +648,10 @@ def _run_selector(q, retrieval_pool: KVPool, layer: int, batch: DecodeBatch,
     )
 
 
-def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
-    """The Llama SwiGLU MLP (pre-norm, quantized, residual)."""
+def _dense_mlp(h, lp, spec: LlamaSpec, layer: int, valid=None):
+    """The Llama SwiGLU MLP (pre-norm, quantized, residual). ``valid`` (the
+    row mask) is unused here: a MoE MLP (``mlp_fn``) keeps padding and
+    inactive rows out of its experts' capacity with it."""
     x_q, x_scale, x_sum = _norm_quant(h, lp["mlp_ln"][layer], spec)
     gate_up = _apply_linear(lp["gate_up"], spec, x_q, x_scale, x_sum, layer)
     if spec.quantized_acts:
@@ -663,10 +665,12 @@ def _dense_mlp(h, lp, spec: LlamaSpec, layer: int):
 
 
 def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
-                spec: LlamaSpec, is_prefill: bool, batch, page_io, ring=None):
+                spec: LlamaSpec, is_prefill: bool, batch, page_io, ring=None,
+                mlp_fn=_dense_mlp):
     """One transformer layer. h: [T, D] bf16 residual stream; ``pools`` =
     (retrieval pool, streaming pool or None), updated in place; ``ring`` is
-    the chunk's ``_ring_lists``. Returns (h, this layer's page selection or
+    the chunk's ``_ring_lists``; ``mlp_fn`` the MLP block (dense SwiGLU, or
+    Mixtral's MoE block). Returns (h, this layer's page selection or
     None)."""
     t = h.shape[0]
     pool, streaming_pool = pools
@@ -764,7 +768,10 @@ def _layer_step(h, pools, layer: int, lp, meta_l, inv_freq,
     a_q, a_scale, a_sum = _act_quant(attn, spec)
     o_out = _apply_linear(lp["o"], spec, a_q, a_scale, a_sum, layer)
     h = h + o_out.to(h.dtype)
-    return _dense_mlp(h, lp, spec, layer), page_idxes_l
+    # the MLP block; padding (prefill) and inactive (decode) rows are not
+    # valid, so they take no expert capacity in a MoE block
+    valid_rows = batch.segment_ids >= 0 if is_prefill else batch.active
+    return mlp_fn(h, lp, spec, layer, valid=valid_rows), page_idxes_l
 
 
 def _ring_lists(batch: PrefillBatch, spec: LlamaSpec, n_heads: int):
@@ -835,6 +842,7 @@ def llama_forward(
     batch,
     spec: LlamaSpec,
     is_prefill: bool,
+    mlp_fn=_dense_mlp,
 ) -> Tuple[torch.Tensor, KVPool, Optional[KVPool], Optional[torch.Tensor]]:
     """Returns (last-token logits [B, V] f32, pools..., new_page_idxes).
 
@@ -842,7 +850,8 @@ def llama_forward(
     the port serves; the pools are updated in place. ``new_page_idxes``
     ([L, B, Hkv, budget] int32) is the page selection of a sparse decode
     step: freshly computed when ``batch.refresh_selection``, else the
-    cached tensor itself; None otherwise."""
+    cached tensor itself; None otherwise. ``mlp_fn`` is each layer's MLP
+    block (``models/mixtral.moe_mlp`` for Mixtral), as in JAX."""
     if streaming_pool is not None and not spec.sparse_decode:
         raise NotImplementedError(
             "a streaming (ring) pool under dense decode needs the fused "
@@ -876,7 +885,7 @@ def llama_forward(
         }
         h, page_idxes_l = _layer_step(h, pools, layer, layers_p, meta_l,
                                       inv_freq, spec, is_prefill, batch,
-                                      page_io, ring)
+                                      page_io, ring, mlp_fn=mlp_fn)
         selections.append(page_idxes_l)
     new_page_idxes = None
     if (not is_prefill) and spec.sparse_decode:

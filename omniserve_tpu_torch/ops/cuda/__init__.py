@@ -64,6 +64,11 @@ D64_KERNELS = (
     "paged_prefill_pt",
 )
 
+# the GEMM kernels a MoE layer's expert GEMMs reach: inside
+# ``expert_launches()`` each counts under its name + "_moe"
+MOE_KERNELS = ("w4a8_matmul_per_channel", "w4a8_matmul_per_group",
+               "w8a8_matmul")
+
 LAUNCHES = {
     "w4a8_matmul_per_channel": 0,
     "w4a8_matmul_per_group": 0,
@@ -109,6 +114,7 @@ LAUNCHES = {
     "paged_prefill_single_pass_list": 0,
     "embed_gather": 0,
     **{name + "_d64": 0 for name in D64_KERNELS},
+    **{name + "_moe": 0 for name in MOE_KERNELS},
 }
 
 
@@ -126,6 +132,7 @@ def check_head_dim(d: int, kernel: str, dims=HEAD_DIMS) -> None:
 
 
 _force_plain = False
+_gemm_suffix = ""
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +149,23 @@ def plain_versions():
         yield
     finally:
         _force_plain = prev
+
+
+@contextlib.contextmanager
+def expert_launches():
+    """Within the block, the GEMM wrappers count their launches under
+    name + "_moe" (``gemm_launch_name``): a MoE layer's expert GEMMs."""
+    global _gemm_suffix
+    prev, _gemm_suffix = _gemm_suffix, "_moe"
+    try:
+        yield
+    finally:
+        _gemm_suffix = prev
+
+
+def gemm_launch_name(name: str) -> str:
+    """The ``LAUNCHES`` entry of one GEMM launch (``expert_launches``)."""
+    return name + _gemm_suffix
 
 
 def use_kernel(t: torch.Tensor) -> bool:

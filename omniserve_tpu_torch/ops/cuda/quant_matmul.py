@@ -248,7 +248,7 @@ def w4a8_matmul_per_channel(a_i8, qweight, s1_scales, s1_szeros, a_scale,
         *_plan_args(plan), cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "w4a8_matmul_per_channel")
-    cuda.LAUNCHES["w4a8_matmul_per_channel"] += 1
+    cuda.LAUNCHES[cuda.gemm_launch_name("w4a8_matmul_per_channel")] += 1
     return out
 
 
@@ -283,7 +283,7 @@ def w4a8_matmul_per_group(a_i8, qweight, s1_scales, s2_scales, s2_zeros,
         *_plan_args(plan), cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "w4a8_matmul_per_group")
-    cuda.LAUNCHES["w4a8_matmul_per_group"] += 1
+    cuda.LAUNCHES[cuda.gemm_launch_name("w4a8_matmul_per_group")] += 1
     return out
 
 
@@ -305,5 +305,5 @@ def w8a8_matmul(a_i8, qweight, w_scales, a_scale, out_dtype=torch.bfloat16):
         m, n, k, *_plan_args(plan), cuda.stream_handle(),
     )
     cuda.raise_on_error(err, "w8a8_matmul")
-    cuda.LAUNCHES["w8a8_matmul"] += 1
+    cuda.LAUNCHES[cuda.gemm_launch_name("w8a8_matmul")] += 1
     return out

@@ -29,13 +29,20 @@ from omniserve_tpu_torch.ops import cuda
 
 
 def _int8_matmul(a_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
-    """[M,K] x [K,N] int8 contraction with an exact int32 result.
+    """[..., M, K] x [..., K, N] int8 contraction with an exact int32
+    result (batched over the leading dims).
 
     On the CPU an int32 product; on a card (which has no int32 GEMM) a
     float64 product, exact for every int8 contraction shorter than 2^38."""
     if a_i8.is_cuda:
         return (a_i8.double() @ w_i8.double()).to(torch.int32)
     return a_i8.to(torch.int32) @ w_i8.to(torch.int32)
+
+
+def _unpack_halves(qweight: torch.Tensor):
+    """Half-split packed [..., K/2, N] uint8 -> (low, high) int8 halves in
+    [0, 15]."""
+    return (qweight & 0xF).to(torch.int8), (qweight >> 4).to(torch.int8)
 
 
 def w4a8_matmul_per_channel_ref(
@@ -48,8 +55,7 @@ def w4a8_matmul_per_channel_ref(
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     k2 = qweight.shape[0]
-    w_lo = (qweight & 0xF).to(torch.int8)
-    w_hi = (qweight >> 4).to(torch.int8)
+    w_lo, w_hi = _unpack_halves(qweight)
     psum = _int8_matmul(a_i8[:, :k2], w_lo) + _int8_matmul(a_i8[:, k2:], w_hi)
     out = (
         psum.float() * s1_scales[None, :] * a_scale[:, None]
@@ -59,16 +65,17 @@ def w4a8_matmul_per_channel_ref(
 
 
 def dequant_per_group(qweight, s2_scales, s2_zeros, group_size):
-    """Half-split packed [K/2, N] uint4 with per-group s2 / zeros [K/G, N]
-    -> the [K, N] int8 weights: wrap_int8(w_u4 * s2 + zero) per group."""
-    k2, n = qweight.shape
+    """Half-split packed [..., K/2, N] uint4 with per-group s2 / zeros
+    [..., K/G, N] -> the [..., K, N] int8 weights: wrap_int8(w_u4 * s2 +
+    zero) per group."""
+    *lead, k2, n = qweight.shape
     k = 2 * k2
-    w_u4 = torch.cat([qweight & 0xF, qweight >> 4]).to(torch.int32)
-    w = (w_u4.reshape(k // group_size, group_size, n)
-         * s2_scales.to(torch.int32)[:, None, :]
-         + s2_zeros.to(torch.int32)[:, None, :])
+    w_u4 = torch.cat([qweight & 0xF, qweight >> 4], dim=-2).to(torch.int32)
+    w = (w_u4.reshape(*lead, k // group_size, group_size, n)
+         * s2_scales.to(torch.int32)[..., None, :]
+         + s2_zeros.to(torch.int32)[..., None, :])
     # two's-complement wrap to int8, as JAX's int16 -> int8 astype
-    return (((w + 128) & 0xFF) - 128).to(torch.int8).reshape(k, n)
+    return (((w + 128) & 0xFF) - 128).to(torch.int8).reshape(*lead, k, n)
 
 
 def w4a8_matmul_per_group_ref(

@@ -12,6 +12,10 @@ versions):
         --model <path> --precision w4a8kv4 --load-format dummy \\
         --tokenizer-mode skip --chunk-prefill-size 8192 \\
         --decode-multi-step 32 --lm-head-precision w8a8
+
+A Mixtral config directory (``MixtralForCausalLM``) serves the same way
+with ``--lm-head-precision fp16``: the JAX package's Mixtral has no W8A8
+lm_head, and the engine refuses that pairing at build.
 """
 
 import argparse

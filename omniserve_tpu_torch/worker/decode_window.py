@@ -29,8 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from omniserve_tpu_torch.models import llama
 from omniserve_tpu_torch.models.llama import DecodeBatch, LlamaSpec
+from omniserve_tpu_torch.models.mixtral import model_forward
 from omniserve_tpu_torch.ops import cuda
 from omniserve_tpu_torch.ops.paged_kv import KVPool
 
@@ -39,7 +39,8 @@ class DecodeWindow:
     """Greedy decode over ``b_pad`` slots with ``w``-wide block tables.
 
     ``page_idxes`` is the runner's selection buffer [L, b_pad, Hkv, budget]
-    (sparse decode): refresh steps write it, the others read it."""
+    (sparse decode): refresh steps write it, the others read it. The step
+    runs the forward of ``spec``'s model (``mixtral.model_forward``)."""
 
     def __init__(self, params, pool: KVPool, spec: LlamaSpec, b_pad: int,
                  w: int, device, use_graph: Optional[bool] = None,
@@ -98,7 +99,7 @@ class DecodeWindow:
                                     else None),
             new_page_ids=new_pages, refresh_selection=refresh,
             cached_page_idxes=self.page_idxes)
-        logits, _, _, new_sel = llama.llama_forward(
+        logits, _, _, new_sel = model_forward(
             self.params, self.pool, self.streaming_pool, batch, self.spec,
             is_prefill=False)
         if refresh:

@@ -20,12 +20,17 @@ Single-device subset of ``omniserve_tpu.worker.model_runner``:
   long prompt prefills in chunks clamped to what the widened ring holds
   beside the ctx-local window, each chunk carrying its streaming table.
 
+Models: the Llama family (``LlamaForCausalLM`` and its kin, Qwen2) and
+Mixtral (``MixtralForCausalLM``: ``models/mixtral.py``, the same trunk
+with a MoE MLP block), as the JAX runner dispatches them.
+
 Weights: ``load_format="dummy"`` draws random packed weights; any other
-format loads the model directory's HF checkpoint or ``packed.npz``
-(``models/weight_loader.py``), with its per-tensor KV scales.
+format loads the model directory's HF checkpoint (or, for the Llama
+family, ``packed.npz``; ``models/weight_loader.py``), with its per-tensor
+KV scales.
 
 Everything outside the slice raises ``NotImplementedError`` naming its
-ROADMAP.md item: TP/PP/SP/DP, Mixtral.
+ROADMAP.md item: TP/PP/SP/DP/EP.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from omniserve_tpu_torch.config import (
     ParallelConfig,
     SchedulerConfig,
 )
-from omniserve_tpu_torch.models import llama
+from omniserve_tpu_torch.models import llama, mixtral
 from omniserve_tpu_torch.models.llama import DecodeBatch, LlamaSpec, PrefillBatch
 from omniserve_tpu_torch.ops.sampler import sample
 from omniserve_tpu_torch.sequence import (
@@ -187,13 +192,13 @@ class ModelRunner:
             )
         arch = (getattr(model_config.hf_config, "architectures", None)
                 or ["LlamaForCausalLM"])[0]
-        if arch == "MixtralForCausalLM":
-            raise NotImplementedError(
-                "Mixtral MoE is ROADMAP.md queue 1 item 9"
-            )
-        if arch not in _DENSE_ARCHS:
+        is_moe = arch == "MixtralForCausalLM"
+        if not is_moe and arch not in _DENSE_ARCHS:
             raise NotImplementedError(f"architecture {arch} not supported yet")
-        self.spec = LlamaSpec.from_model_config(
+        # the model's module: its random draw (and, below, its loader)
+        model = mixtral if is_moe else llama
+        spec_cls = mixtral.MixtralSpec if is_moe else LlamaSpec
+        self.spec = spec_cls.from_model_config(
             model_config, sp_attn_config, page_size=cache_config.page_size,
         )
         # before any weight is read: a model the device cannot serve fails
@@ -205,17 +210,18 @@ class ModelRunner:
             head_rank = sp_attn_config.head_rank_table
         kv_scales = None
         if load_format == "dummy":
-            self.params: Dict[str, Any] = llama.make_random_packed_params(
+            self.params: Dict[str, Any] = model.make_random_packed_params(
                 self.spec, seed=model_config.seed, device=self.device,
                 retrieval_flags=retrieval_flags, head_rank=head_rank,
             )
         else:
-            # an HF checkpoint or a packed.npz directory
+            # an HF checkpoint (or a Llama packed.npz directory)
             from omniserve_tpu_torch.models.weight_loader import (
                 load_llama_params,
             )
 
-            self.params, kv_scales = load_llama_params(
+            load = mixtral.load_mixtral_params if is_moe else load_llama_params
+            self.params, kv_scales = load(
                 model_config, self.spec, retrieval_flags=retrieval_flags,
                 head_rank=head_rank, device=self.device,
             )
@@ -556,7 +562,7 @@ class ModelRunner:
             with_stats=self.spec.with_stats, streaming_tables=stables,
             ring=ring,
         ):
-            logits, _, _, _ = llama.llama_forward(
+            logits, _, _, _ = mixtral.model_forward(
                 self.params, self.cache_engine.retrieval_pool,
                 self.cache_engine.streaming_pool, batch, self.spec,
                 is_prefill=True,
@@ -625,14 +631,14 @@ class ModelRunner:
                 )
             else:
                 batch, seq_ids, n_seqs = self._prepare_prefill(metadata)
-                logits, _, _, _ = llama.llama_forward(
+                logits, _, _, _ = mixtral.model_forward(
                     self.params, pool, spool, batch, self.spec,
                     is_prefill=True,
                 )
             rows = list(range(n_seqs))
         else:
             batch, seq_ids, rows, _ = self._prepare_decode(metadata)
-            logits, _, _, new_sel = llama.llama_forward(
+            logits, _, _, new_sel = mixtral.model_forward(
                 self.params, pool, spool, batch, self.spec, is_prefill=False,
             )
             if batch.refresh_selection:

@@ -3252,3 +3252,159 @@ def test_quantize_layer_weights_on_card_equals_cpu(dev, precision, group):
         for a, b in pairs:
             assert a.is_cuda and a.dtype == b.dtype
             assert torch.equal(a.cpu(), b), name
+
+
+# -- Mixtral: the expert GEMMs on rows 1-3 and the MoE block -----------------
+
+
+@pytest.mark.parametrize("m", [64, 4096])
+@pytest.mark.parametrize("name,k,n", [("w13", 4096, 28672),
+                                      ("w2", 14336, 4096)])
+@pytest.mark.parametrize("mode", ["channel", "group", "w8"])
+def test_expert_gemms_at_mixtral_shapes(dev, mode, name, k, n, m):
+    """Rows 1-3 at Mixtral-8x7B's expert shapes, called as the served path
+    calls them (``llama._apply_linear`` on index ``layer * E + e`` of a
+    [L*E, ...] = [256, ...] stack, inside ``cuda.expert_launches``): the
+    experts at stack indices 0 and 255 equal to their plain versions
+    within 1e-5 at an expert's capacity at decode batch 128 (M = 64) and
+    at an 8,192-token chunk (4,096), each launch counted under the
+    ``_moe`` entry and not under the body GEMM's."""
+    from chip_smoke import MOE_ENTRIES, MOE_STACK, moe_stack
+    from omniserve_tpu_torch.models import llama
+    from omniserve_tpu_torch.ops import cuda
+    from omniserve_tpu_torch.ops.quantization import quantize_activations
+
+    g = _gen(dev, 7)
+    w = moe_stack(dev, g, mode, k, n, (0, MOE_STACK - 1))
+    spec = llama.LlamaSpec(num_layers=1, hidden=k, intermediate=n,
+                           num_q_heads=1, num_kv_heads=1, head_dim=128,
+                           vocab=8, weight_bits=8 if mode == "w8" else 4,
+                           group_size=128 if mode == "group" else -1)
+    a, s, asum = quantize_activations(
+        torch.randn((m, k), generator=g, device=dev),
+        fuse_sum=mode == "channel")
+    entry = MOE_ENTRIES[mode]
+    for i in (0, MOE_STACK - 1):
+        before = dict(cuda.LAUNCHES)
+        with cuda.expert_launches():
+            got = llama._apply_linear(w, spec, a, s, asum, i)
+        assert cuda.LAUNCHES[entry] == before[entry] + 1
+        base = entry[: -len("_moe")]
+        assert cuda.LAUNCHES[base] == before[base]
+        with cuda.plain_versions():
+            want = llama._apply_linear(w, spec, a, s, asum, i)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-5,
+                                   atol=1e-5)
+    del w
+    torch.cuda.empty_cache()
+
+
+def _moe_spec(**extra):
+    from omniserve_tpu_torch.models import mixtral
+
+    kw = dict(num_layers=2, hidden=512, intermediate=768, num_q_heads=4,
+              num_kv_heads=2, head_dim=128, vocab=512, page_size=128,
+              lm_head_bits=16, num_experts=8, top_k=2)
+    kw.update(extra)
+    return mixtral.MixtralSpec(**kw)
+
+
+@pytest.mark.parametrize("body", [dict(), dict(group_size=128),
+                                  dict(weight_bits=8)])
+def test_moe_mlp_graph_replay_matches_eager(dev, body):
+    """Mixtral's MoE block (router, top-2, capacity dispatch, 16 expert
+    GEMMs on rows 1-3, SwiGLU, combine) captured once in a CUDA graph and
+    replayed on new rows and a new valid mask copied into its static
+    inputs: bit for bit the eager block's output, finite (empty capacity
+    rows carry zero scales), and the plain versions' within 1e-5 of its
+    scale."""
+    from omniserve_tpu_torch.models import mixtral
+    from omniserve_tpu_torch.ops import cuda
+
+    spec = _moe_spec(**body)
+    lp = mixtral.make_random_packed_params(spec, seed=4,
+                                           device=dev)["layers"]
+    t, d = 96, spec.hidden
+    g = _gen(dev, 8)
+    h_in = torch.zeros((t, d), dtype=torch.bfloat16, device=dev)
+    valid_in = torch.zeros(t, dtype=torch.bool, device=dev)
+
+    def block():
+        return mixtral.moe_mlp(h_in, lp, spec, layer=1, valid=valid_in)
+
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            block()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        entry = "w4a8_matmul_per_group_moe" if body.get("group_size") else (
+            "w8a8_matmul_moe" if body.get("weight_bits") == 8
+            else "w4a8_matmul_per_channel_moe")
+        before = cuda.LAUNCHES[entry]
+        with torch.cuda.graph(graph):
+            out = block()
+        assert cuda.LAUNCHES[entry] == before + 16
+        for trial in range(3):
+            h = (torch.randn((t, d), generator=g, device=dev) * 2).bfloat16()
+            valid = torch.rand(t, generator=g, device=dev) > 0.25 * trial
+            h_in.copy_(h)
+            valid_in.copy_(valid)
+            graph.replay()
+            eager = mixtral.moe_mlp(h, lp, spec, layer=1, valid=valid)
+            assert torch.equal(out, eager)
+            with cuda.plain_versions():
+                plain = mixtral.moe_mlp(h, lp, spec, layer=1, valid=valid)
+            scale = float(plain.float().abs().max())
+            torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                                       atol=1e-5 * scale)
+            assert torch.isfinite(out.float()).all()
+
+
+def test_mixtral_decode_window_graph_matches_eager(dev):
+    """Eight replays of a captured Mixtral decode step (``DecodeWindow``
+    over a ``MixtralSpec`` runs ``mixtral_forward``: row 4's fused append,
+    row 1's expert GEMMs) give the eager loop's tokens and pool bytes."""
+    from omniserve_tpu_torch.models import llama, mixtral
+    from omniserve_tpu_torch.ops.paged_kv import make_kv_pool
+    from omniserve_tpu_torch.worker.decode_window import DecodeWindow
+
+    spec = _moe_spec()
+    params = mixtral.make_random_packed_params(spec, seed=3, device=dev)
+    lens, b_pad, w = [300, 5, 200], 8, 4
+    tables = np.zeros((b_pad, w), np.int32)
+    tables[:3] = np.arange(3 * w).reshape(3, w)
+    pool = make_kv_pool(2, 3 * w + 1, 2, 128, 128, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.vocab, n) for n in lens]
+    batch = llama.PrefillBatch(
+        token_ids=torch.from_numpy(np.concatenate(prompts)).to(dev),
+        positions=torch.from_numpy(np.concatenate(
+            [np.arange(n) for n in lens]).astype(np.int32)).to(dev),
+        segment_ids=torch.from_numpy(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(lens)]).astype(
+                np.int32)).to(dev),
+        block_tables=torch.from_numpy(tables[:3]).to(dev),
+        last_token_idx=torch.tensor(np.cumsum(lens) - 1, device=dev),
+    )
+    with torch.inference_mode():
+        logits, _, _, _ = mixtral.mixtral_forward(params, pool, None, batch,
+                                                  spec, is_prefill=True)
+        first = np.zeros(b_pad, np.int32)
+        first[:3] = logits.argmax(-1).cpu().numpy()
+        positions = np.zeros(b_pad, np.int32)
+        positions[:3] = lens
+        active = np.arange(b_pad) < 3
+        twin = pool.clone()
+        toks = {}
+        for mode, p in (("graph", pool), ("eager", twin)):
+            win = DecodeWindow(params, p, spec, b_pad, w, dev,
+                               use_graph=mode == "graph")
+            win.load(first, positions, active, tables)
+            toks[mode] = win.run(8).cpu().numpy()
+            if mode == "graph":
+                assert win.launches_per_step[False][
+                    "w4a8_matmul_per_channel_moe"] == 16 * spec.num_layers
+    np.testing.assert_array_equal(toks["graph"][:, :3], toks["eager"][:, :3])
+    assert_pools_equal(pool, twin, skip_trash=True)

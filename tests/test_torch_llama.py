@@ -137,7 +137,8 @@ def both_models(kw, seed=3):
     return j_spec, t_spec, jparams, tparams
 
 
-def check_forward(kw, flip_gates=None, jit=False, models=None):
+def check_forward(kw, flip_gates=None, jit=False, models=None,
+                  forwards=None):
     """A padded prefill of two prompts (13 and 20 tokens), then one decode
     step (and an inactive slot) from the same next tokens, through both
     packages' ``llama_forward`` with the same packed weights of spec
@@ -150,12 +151,16 @@ def check_forward(kw, flip_gates=None, jit=False, models=None):
     (None: no flip allowed). ``jit``: also within LOGIT_RTOL_JIT of the
     compiled JAX forward. A biased spec's qkv after the bias is equal bit
     for bit wherever both qkv GEMMs agree (over half of it), and that
-    check refuses its forward without the bias. Returns the port's
-    parameters."""
+    check refuses its forward without the bias. ``forwards`` is the
+    (JAX, port) forward pair, the packages' ``llama_forward`` if None (a
+    Mixtral test passes ``mixtral_forward``'s with its ``models``).
+    Returns the port's parameters."""
     gates = flip_gates or dict(logits=LOGIT_RTOL, planes=PLANE_RTOL,
                                codes=1e-3)
     page = kw["page_size"]
     j_spec, t_spec, jparams, tparams = models or both_models(kw)
+    j_forward, t_forward = forwards or (j_llama.llama_forward,
+                                        t_llama.llama_forward)
     rng = np.random.default_rng(4)
     lens = [13, 20]
     t_pad, w = 48, 3
@@ -215,14 +220,14 @@ def check_forward(kw, flip_gates=None, jit=False, models=None):
             nxt = np.append(j_logits.argmax(-1), 0).astype(np.int32)
             j_batch, t_batch = decode_batches(nxt)
         if jit:
-            jit_logits, _, _, _ = j_llama.llama_forward(
+            jit_logits, _, _, _ = j_forward(
                 jparams, jpool, None, j_batch, j_spec, is_prefill=is_prefill)
         with recorded_gemms() as seen:
             with jax.disable_jit():
-                j_logits, jpool, _, _ = j_llama.llama_forward(
+                j_logits, jpool, _, _ = j_forward(
                     jparams, jpool, None, j_batch, j_spec,
                     is_prefill=is_prefill)
-            t_logits, tpool, _, _ = t_llama.llama_forward(
+            t_logits, tpool, _, _ = t_forward(
                 tparams, tpool, None, t_batch, t_spec, is_prefill=is_prefill)
         if t_spec.attn_bias:
             assert biased_qkv_checked(seen) > 0.5

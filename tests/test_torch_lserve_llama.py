@@ -114,7 +114,8 @@ def test_sparse_prefill_then_decode_matches_jax():
     assert crossed == 1 and refreshed == 2
 
 
-def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None):
+def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None,
+                         family=None):
     """A whole-prompt prefill, then ``n_steps`` decode steps of both
     forwards (``spec_kwargs`` with ``overrides``: other KV modes, kv16
     included, sparse prefill, no sparse decode) from the same weights and
@@ -126,18 +127,24 @@ def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None):
     ``tests/test_torch_llama.check_forward``'s): logits at 1e-4 until a
     GEMM reads other activation codes in the two packages, then at
     flip_gates["logits"]; pools per ``assert_pools_near``; selections as
-    sets until a step whose pools or codes moved. Returns (decode steps
-    that began a page, selector refreshes)."""
+    sets until a step whose pools or codes moved. ``family`` (None: the
+    Llama family) is a model family's (spec classes (JAX, port), the JAX
+    random draw, forwards (JAX, port)), as ``tests/test_torch_mixtral.
+    MIXTRAL``. Returns (decode steps that began a page, selector
+    refreshes)."""
     kw = dict(spec_kwargs(), **(overrides or {}))
-    j_spec = j_llama.LlamaSpec(**kw)
-    t_spec = t_llama.LlamaSpec(**kw)
+    (j_cls, t_cls), j_draw, (j_forward, t_forward) = family or (
+        (j_llama.LlamaSpec, t_llama.LlamaSpec),
+        j_llama.make_random_packed_params,
+        (j_llama.llama_forward, t_llama.llama_forward))
+    j_spec = j_cls(**kw)
+    t_spec = t_cls(**kw)
     t_spec.check_supported()
     sparse = t_spec.sparse_decode
     # without sparse decode every kv head is a retrieval head, as the
     # engines build it (no streaming pool)
     flags = FLAGS if sparse else np.ones_like(FLAGS)
-    jparams = j_llama.make_random_packed_params(
-        j_spec, seed=11, retrieval_flags=flags)
+    jparams = j_draw(j_spec, seed=11, retrieval_flags=flags)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     assert tparams["attn_meta"]["retrieval_flags"].dtype == torch.bool
     tmeta = t_llama.make_attn_meta(t_spec, flags, device="cpu")
@@ -235,9 +242,9 @@ def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None):
 
     with recorded_gemms() as seen:
         with jax.disable_jit():
-            j_logits, jr, js, _ = j_llama.llama_forward(
+            j_logits, jr, js, _ = j_forward(
                 jparams, jr, js, j_batch, j_spec, is_prefill=True)
-        t_logits, _, _, sel = t_llama.llama_forward(
+        t_logits, _, _, sel = t_forward(
             tparams, tr, ts, t_batch, t_spec, is_prefill=True)
     assert sel is None
     same = compare(t_logits.numpy(), np.asarray(j_logits),
@@ -280,9 +287,9 @@ def check_sparse_forward(overrides=None, n_steps=6, flip_gates=None):
         )
         with recorded_gemms() as seen:
             with jax.disable_jit():
-                j_logits, jr, js, j_cache = j_llama.llama_forward(
+                j_logits, jr, js, j_cache = j_forward(
                     jparams, jr, js, j_dec, j_spec, is_prefill=False)
-            t_logits, _, _, t_cache = t_llama.llama_forward(
+            t_logits, _, _, t_cache = t_forward(
                 tparams, tr, ts, t_dec, t_spec, is_prefill=False)
         same = compare(t_logits.numpy()[:2], np.asarray(j_logits)[:2],
                        [(tr, jr, "retrieval")]

@@ -89,8 +89,8 @@ class TrustedPrefix:
         self.groups, self.cut, self.chunked = groups, None, 0
         real = t_llama.llama_forward
 
-        def forward(params, pool, spool, batch, spec, is_prefill):
-            out = real(params, pool, spool, batch, spec, is_prefill)
+        def forward(params, pool, spool, batch, spec, is_prefill, **kw):
+            out = real(params, pool, spool, batch, spec, is_prefill, **kw)
             logits = out[0]
             if not is_prefill:
                 rows = batch.active
