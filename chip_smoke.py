@@ -4989,7 +4989,7 @@ def serve_greedy(engine, prompts, gen_len):
 PACKED_LAYERS = 4   # phase 15 (b)'s depth cut (its time)
 
 
-def run_checkpoints(dev):
+def run_checkpoints(dev, hf_dir: str):
     """Phase 15: Llama-3.2-1B (LLAMA32_1B) served from files.
 
     (a) A seeded draw (std 0.02) written as an HF checkpoint in bf16
@@ -5006,7 +5006,8 @@ def run_checkpoints(dev):
     ``--group-size 128 --kv-quant-granularity per_tensor``: the pools carry
     the file's per-tensor scales, and the requests finish.
     Logs the load seconds, peak host RSS and peak device memory of each,
-    and the dump's and converter's seconds. The files go at the end."""
+    and the dump's and converter's seconds. (a)'s files stay in ``hf_dir``
+    for phase 17; the rest go at the end."""
     import shutil
 
     import numpy as np
@@ -5025,7 +5026,7 @@ def run_checkpoints(dev):
     try:
         t0 = time.time()
         draw = draw_hf_llama(LLAMA32_1B, dev)
-        hf_dir = os.path.join(root, "hf")
+        shutil.rmtree(hf_dir, ignore_errors=True)
         write_hf_checkpoint(hf_dir, LLAMA32_1B, draw, n_shards=2)
         log(f"  (a) drew {sum(t.numel() for t in draw.values()) / 1e9:.3f} "
             f"B bf16 weights (seed 0) and wrote them as 2 safetensors "
@@ -5064,7 +5065,6 @@ def run_checkpoints(dev):
         if same != len(want):
             raise AssertionError("phase 15: the HF checkpoint's engine and "
                                  "the in-memory engine part")
-        shutil.rmtree(hf_dir)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5652,6 +5652,246 @@ def run_mixtral(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the port's evals and host prep on the card
+# ---------------------------------------------------------------------------
+
+PPL_WINDOWS, PPL_SEQLEN = 4, 2048
+# the chunked NLL against a full-logits log_softmax over the same hidden
+# states, per token: both are f32 over the same bf16 operands, so they
+# part only where cuBLAS sums a column's products in another order
+NLL_RTOL = 1e-5
+# the kernels each eval's path must launch: the whole-window prefill at
+# head_dim 64 (row 9, and row 1 in a W4A8 body); the agreement run's
+# whole 8,192-token prompts (row 9 dense and band), dense decode (row 4's
+# fused append) and sparse decode (row 10's two-pool append, row 5's
+# per-head lists)
+PPL_KERNELS = {"w4a8kv4": ("w4a8_matmul_per_channel", "flash_prefill_d64"),
+               "w16a16kv16": ("flash_prefill_d64",)}
+AGREEMENT_KERNELS = ("w4a8_matmul_per_channel", "flash_prefill",
+                     "flash_prefill_band", "decode_attention_append",
+                     "kv_append_decode", "decode_attention_ph")
+AGREEMENT_PATTERN = os.path.join(ROOT, "attn_patterns",
+                                 "Llama-3-8B-Instruct-Gradient-1048k")
+
+
+def nll_gate_error(h, lm_head, targets, vocab, planted=None) -> float:
+    """The largest per-token relative gap between ``eval.ppl``'s chunked
+    NLL and the NLL of a full-logits ``log_softmax`` over the same hidden
+    states (the padded columns cut off). ``planted`` feeds the chunked
+    NLL a fault: "late" the targets a position late, "unmasked" its padded
+    columns left in."""
+    import torch
+
+    from omniserve_tpu_torch.eval import ppl
+
+    got = ppl.chunked_nll(
+        h, lm_head, torch.roll(targets, -1) if planted == "late" else targets,
+        lm_head.shape[1] if planted == "unmasked" else vocab)
+    logits = h.to(torch.bfloat16).float() @ lm_head[:, :vocab].float()
+    want = -torch.log_softmax(logits, dim=-1).gather(
+        1, targets.long()[:, None])[:, 0]
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def run_ppl(dev, hf_dir: str, work: str):
+    """(a) ``eval.ppl`` on Llama-3.2-1B at full width and depth, read from
+    phase 15's HF checkpoint through the weight loader (what
+    ``load_format="auto"`` runs): four seqlen-2,048 windows of seeded ids
+    from a ``.npy``, at w4a8kv4 and w16a16kv16. Gate: on each precision's
+    first window the chunked NLL equals a full-logits log_softmax's within
+    NLL_RTOL per token, and both planted faults (targets a position late,
+    the padded columns left unmasked) exceed it. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.eval import ppl
+    from omniserve_tpu_torch.ops import cuda
+
+    vocab = LLAMA32_1B["vocab_size"]
+    ids_path = os.path.join(work, "ppl_ids.npy")
+    np.save(ids_path, np.random.default_rng(17).integers(
+        0, vocab, PPL_WINDOWS * PPL_SEQLEN + 1))
+    launches = {}
+    for precision in PPL_KERNELS:
+        args = ppl.parse_args([
+            "--model", hf_dir, "--precision", precision, "--text", ids_path,
+            "--seqlen", str(PPL_SEQLEN), "--max-windows", str(PPL_WINDOWS)])
+        windows = ppl.token_windows(args.text, None, args.seqlen,
+                                    args.max_windows)
+        t0 = time.time()
+        params, spec, pool = ppl.load_model(args, str(dev))
+        sync(dev)
+        load_s = time.time() - t0
+        cuda.reset_launch_counts()
+        with torch.no_grad():
+            res = ppl.evaluate(params, spec, pool, windows, args.page_size,
+                               dev, verbose=False)
+        sync(dev)
+        got = {k: n for k, n in cuda.LAUNCHES.items() if n}
+        idle = [k for k in PPL_KERNELS[precision] if got.get(k, 0) <= 0]
+        if idle:
+            raise AssertionError(f"phase 17 (a) {precision}: {idle} never "
+                                 f"launched ({got})")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        secs = res["window_seconds"]
+        log(f"  (a) {precision}: ppl {res['ppl']:.4f} over {res['tokens']} "
+            f"tokens; seconds a window {', '.join(f'{s:.3f}' for s in secs)}"
+            f" (the first includes warmup); load {load_s:.2f} s; launches "
+            f"{got}")
+        if not math.isfinite(res["ppl"]):
+            raise AssertionError(f"phase 17 (a) {precision}: ppl "
+                                 f"{res['ppl']}")
+        w = windows[0]
+        tokens = torch.tensor(w[:-1], device=dev)
+        targets = torch.tensor(w[1:], device=dev)
+        with torch.no_grad():
+            h, _ = ppl.window_hidden(params, pool, spec, tokens,
+                                     args.page_size)
+            lm = params["lm_head"]
+            err, late, unmasked = (
+                nll_gate_error(h, lm, targets, vocab, planted)
+                for planted in (None, "late", "unmasked"))
+        log(f"  (a) {precision} gate: chunked NLL vs full log_softmax, "
+            f"largest per-token relative gap {err:.3g} (tolerance "
+            f"{NLL_RTOL:g}); planted: targets a position late {late:.3g}, "
+            f"padded columns unmasked {unmasked:.3g}")
+        if not err <= NLL_RTOL:
+            raise AssertionError(f"phase 17 (a) {precision}: chunked NLL "
+                                 f"off the full log_softmax by {err:.3g}")
+        if not (late > NLL_RTOL and unmasked > NLL_RTOL):
+            raise AssertionError("phase 17 (a): a planted fault passes the "
+                                 f"gate ({late:.3g}, {unmasked:.3g})")
+        del params, pool, h, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_agreement(dev, ctx: int = 8192, gen: int = 32):
+    """(b) ``eval.sparse_agreement`` at Llama-3-8B's geometry (LLAMA31_8B's
+    config: Llama-3-8B's widths and a context past 8,192), full width and
+    depth, seeded dummy weights, w4a8kv4: one context of 8,192 seeded
+    prompt ids, 32 greedy tokens through the dense engine twice, the
+    sparse-decode engine (budget 4,096, interval 4) and the engine of both
+    LServe flags (static sparsity 0.5, the in-repo Llama-3-8B pattern).
+    Gates: the two dense runs agree 1.0; every run finishes its 32 tokens.
+    The harness's dense noise-floor control (``--control-precision``) is
+    not run here: under dummy weights its W8 body is another random draw
+    than the W4 one, so its agreement measures nothing until the run reads
+    a checkpoint. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from omniserve_tpu_torch.eval import sparse_agreement as sa
+    from omniserve_tpu_torch.ops import cuda
+
+    model_dir = write_model_dir("llama3.1-8b", LLAMA31_8B)
+    prompts = {(ctx, 50.0): np.random.default_rng(18).integers(
+        0, LLAMA31_8B["vocab_size"], ctx).tolist()}
+    flags = ["--model", model_dir, "--precision", "w4a8kv4", "--contexts",
+             str(ctx), "--depths", "50", "--gen-len", str(gen)]
+    kw = dict(load_format="dummy", tokenizer_mode="skip", device=str(dev),
+              seed=0)
+    runs = [("dense", False, []), ("dense again", False, []),
+            ("sparse decode", True, []),
+            ("both flags + pattern", True,
+             ["--attn-pattern-path", AGREEMENT_PATTERN])]
+    cuda.reset_launch_counts()
+    out = {}
+    for name, sparse, extra in runs:
+        args = sa.parse_args(flags + extra)
+        t0 = time.time()
+        out[name] = sa.run_mode(args, sparse, prompts, mode=name, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        toks = out[name][(ctx, 50.0)]["tokens"]
+        log(f"  (b) {name}: {len(toks)} tokens, {time.time() - t0:.1f} s "
+            "with the engine's build")
+        if len(toks) != gen:
+            raise AssertionError(f"phase 17 (b) {name}: {len(toks)} of "
+                                 f"{gen} tokens")
+    got = {k: n for k, n in cuda.LAUNCHES.items() if n}
+    idle = [k for k in AGREEMENT_KERNELS if got.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"phase 17 (b): {idle} never launched ({got})")
+    args = sa.parse_args(flags)
+    for name in ("dense again", "sparse decode", "both flags + pattern"):
+        res = sa.agreement_result(args, out["dense"], out[name])
+        log(f"  (b) dense vs {name}: agreement {res['mean_agreement']} "
+            f"(keys {sorted(res)})")
+        if name == "dense again" and res["mean_agreement"] != 1.0:
+            raise AssertionError("phase 17 (b): the dense engine gave other "
+                                 "tokens on its second run")
+    log(f"  (b) launches {got}")
+    return got
+
+
+def time_host_prep():
+    """(c) The host-prep library: built with g++ and loaded; one batch-128
+    decode batch assembly (12-page tables, 6-page streaming tables)
+    through it and through the numpy version, equal byte for byte, with
+    the median host seconds of 200 calls each."""
+    import statistics
+
+    import numpy as np
+
+    from omniserve_tpu_torch import csrc
+    from omniserve_tpu_torch.csrc import build
+
+    t0 = time.time()
+    lib = csrc.get_lib()
+    path = build._target(csrc.HOST_PREP)
+    if lib._name != path:
+        raise AssertionError(f"phase 17 (c): loaded {lib._name}, built "
+                             f"{path}")
+    log(f"  (c) host-prep library {os.path.relpath(path, ROOT)} built and "
+        f"loaded in {time.time() - t0:.3f} s")
+    rng = np.random.default_rng(19)
+    entries = [(s, int(rng.integers(0, 128256)), int(rng.integers(1024, 1536)),
+                rng.integers(0, 4096, 12).tolist(),
+                rng.integers(0, 4096, 6).tolist()) for s in range(128)]
+    args = dict(page_size=128, b_pad=128, w=12, sw=6, max_new_pages=128)
+    a = csrc.build_decode_batch(entries, **args)
+    b = csrc.build_decode_batch_plain(entries, **args)
+    if not all((x.tobytes() == y.tobytes()) if isinstance(x, np.ndarray)
+               else x == y for x, y in zip(a, b)):
+        raise AssertionError("phase 17 (c): the library and the numpy "
+                             "version assemble other batches")
+    secs = {}
+    for name, fn in (("library", csrc.build_decode_batch),
+                     ("numpy", csrc.build_decode_batch_plain)):
+        ts = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn(entries, **args)
+            ts.append(time.perf_counter() - t0)
+        secs[name] = statistics.median(ts)
+    log(f"  (c) batch-128 decode batch assembly, median of 200: library "
+        f"{secs['library'] * 1e3:.4f} ms, numpy {secs['numpy'] * 1e3:.4f} ms "
+        f"(host clock; equal bytes)")
+    return secs
+
+
+def run_evals(dev, hf_dir: str):
+    """Phase 17: (a) perplexity, (b) sparse-vs-dense agreement, (c) host
+    prep. Returns the launches of (a) and (b) by kernel name."""
+    import shutil
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        launches = run_ppl(dev, hf_dir, work)
+        for k, n in run_agreement(dev).items():
+            launches[k] = launches.get(k, 0) + n
+        time_host_prep()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5889,15 +6129,32 @@ def main() -> int:
         "'auto' at w4a8kv4, full width and depth; (b) its QoQ fake-quant "
         f"dump (g128, per-tensor KV) converted to packed.npz and served at "
         f"w4a8kv8 per-tensor ({PACKED_LAYERS} layers)")
-    run_checkpoints(dev)
-    phase_done("phase 15")
-    log("phase 16: Mixtral-8x7B (8 experts, top-2) at full width and depth: "
-        "(a) bench.py's protocol at w4a8kv4 (bf16 lm_head), (b) 2-layer "
-        "forwards at w4a8kv4, g128 and w8a8kv8 per-tensor, kernels vs "
-        "plain, (c) the LServe command at w4a8kv4 (both flags, static "
-        "sparsity 0.5; 32736 in / 32 out)")
-    launches.update(run_mixtral(dev))
-    phase_done("phase 16")
+    import shutil
+
+    # (a)'s checkpoint serves phase 17 too; it goes when the script ends
+    llama32_dir = os.path.join(ROOT, "build", "chip_smoke", "llama3.2-1b-hf")
+    try:
+        run_checkpoints(dev, llama32_dir)
+        phase_done("phase 15")
+        log("phase 16: Mixtral-8x7B (8 experts, top-2) at full width and "
+            "depth: (a) bench.py's protocol at w4a8kv4 (bf16 lm_head), (b) "
+            "2-layer forwards at w4a8kv4, g128 and w8a8kv8 per-tensor, "
+            "kernels vs plain, (c) the LServe command at w4a8kv4 (both "
+            "flags, static sparsity 0.5; 32736 in / 32 out)")
+        launches.update(run_mixtral(dev))
+        phase_done("phase 16")
+        log("phase 17: the port's evals and host prep: (a) eval.ppl on "
+            "phase 15's Llama-3.2-1B checkpoint (full width and depth, 4 x "
+            "2,048-token windows of seeded ids) at w4a8kv4 and w16a16kv16, "
+            "the chunked NLL against a full log_softmax; (b) eval."
+            "sparse_agreement at Llama-3-8B's geometry (full width and "
+            "depth, w4a8kv4, 8,192 seeded prompt ids, 32 greedy tokens): "
+            "dense twice, sparse decode, both LServe flags with the in-repo "
+            "pattern; (c) the g++ host-prep library")
+        evals = run_evals(dev, llama32_dir)
+        phase_done("phase 17")
+    finally:
+        shutil.rmtree(llama32_dir, ignore_errors=True)
     log(f"phase wall times (s): {json.dumps(phase_s)}")
 
     meta = {
@@ -6012,10 +6269,17 @@ def main() -> int:
     idle = [name for name in meta if launches[name] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the path: {idle}")
+    # phase 17's own counts stand beside each entry's (``launches`` stays
+    # the count of the path that entry names); run_ppl / run_agreement
+    # gate their kernels themselves
+    unlisted = sorted(set(evals) - set(meta))
+    if unlisted:
+        raise AssertionError(f"phase 17 launched kernels the kernels line "
+                             f"does not list: {unlisted}")
     line = [
         {"name": name, "function": kernel_function(name), "route": "cuda",
          "source": src, "replaces": rep, "launches": launches[name],
-         **kernels[name]}
+         "launches_phase17": evals.get(name, 0), **kernels[name]}
         for name, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": line}), flush=True)

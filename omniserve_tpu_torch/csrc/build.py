@@ -1,12 +1,16 @@
-"""Build the port's CUDA kernels on first use and bind them with ctypes.
+"""Build the port's native libraries on first use and bind them with ctypes.
 
 Each ``*.cu`` source in this directory is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds). Libraries land in ``_build/``
-next to the sources (listed in ``.gitignore``), keyed by a hash of the
-source, the shared ``*.cuh`` headers and the flags, so an edited source
-rebuilds. ``build_all()`` starts one
-``nvcc`` per source at once and waits for all of them.
+PyTorch headers, so a build takes seconds); ``host_prep.cc``, the host-side
+batch preparation, is compiled by the host ``g++``. Libraries land in
+``_build/`` next to the sources (listed in ``.gitignore``), keyed by a hash
+of the source, the shared ``*.cuh`` headers and the flags, so an edited
+source rebuilds. ``build_all()`` starts one compiler per source at once and
+waits for all of them. Each process compiles to a temporary file of its
+own and ``os.replace``s it into place, so concurrent processes (the test
+workers) never load a half-written library. A failed build raises with
+the compiler's output.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine has no ``nvcc``.
@@ -25,7 +29,7 @@ from typing import Dict, List, Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 
-# source -> extra nvcc flags. The decode, append and GEMM files must
+# source -> extra compiler flags. The decode, append and GEMM files must
 # reproduce the plain versions' f32 op order exactly (quant codes,
 # epilogues), so they forbid FMA contraction.
 SOURCES: Dict[str, List[str]] = {
@@ -36,11 +40,13 @@ SOURCES: Dict[str, List[str]] = {
     "paged_prefill.cu": [],
     "prefill_single_pass.cu": [],
     "embed_gather.cu": [],
+    "host_prep.cc": [],
 }
-COMMON_FLAGS = [
+NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
@@ -56,10 +62,21 @@ def _nvcc() -> str:
     )
 
 
+def _command(src: str) -> List[str]:
+    """The compiler and its flags for ``src``, output path to follow."""
+    if src.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS, *SOURCES[src]]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {src} builds with the host g++")
+    return [gxx, *GXX_FLAGS, *SOURCES[src]]
+
+
 def _target(src: str) -> str:
-    flags = COMMON_FLAGS + SOURCES[src]
+    flags = (NVCC_FLAGS if src.endswith(".cu") else GXX_FLAGS) + SOURCES[src]
     h = hashlib.sha256()
-    headers = sorted(n for n in os.listdir(_DIR) if n.endswith(".cuh"))
+    headers = sorted(n for n in os.listdir(_DIR)
+                     if n.endswith(".cuh")) if src.endswith(".cu") else []
     for name in [src, *headers]:
         with open(os.path.join(_DIR, name), "rb") as f:
             h.update(f.read())
@@ -81,8 +98,7 @@ def build_all(sources: Optional[List[str]] = None) -> float:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *COMMON_FLAGS, *SOURCES[src],
-               os.path.join(_DIR, src), "-o", tmp]
+        cmd = [*_command(src), os.path.join(_DIR, src), "-o", tmp]
         procs[src] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
@@ -92,11 +108,14 @@ def build_all(sources: Optional[List[str]] = None) -> float:
         log, _ = proc.communicate()
         build_log[src] = log
         if proc.returncode != 0:
-            failed.append(f"--- {src} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {src} ({os.path.basename(proc.args[0])} "
+                          f"exit {proc.returncode})\n{log}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return time.time() - t0
 
 

@@ -843,8 +843,14 @@ def llama_forward(
     spec: LlamaSpec,
     is_prefill: bool,
     mlp_fn=_dense_mlp,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, KVPool, Optional[KVPool], Optional[torch.Tensor]]:
     """Returns (last-token logits [B, V] f32, pools..., new_page_idxes).
+
+    ``return_hidden=True`` returns the final-norm hidden states of every
+    token ([T, D] bf16) in place of the logits, and None for the selection,
+    as the JAX forward does: teacher-forced evaluation
+    (``eval/ppl.py``) applies the lm_head in vocab chunks itself.
 
     Same signature and results as the JAX ``llama_forward`` for the subset
     the port serves; the pools are updated in place. ``new_page_idxes``
@@ -893,6 +899,8 @@ def llama_forward(
                           else batch.cached_page_idxes)
 
     h = rms_norm(h, params["final_ln"], spec.rms_eps)
+    if return_hidden:
+        return h, retrieval_pool, streaming_pool, None
     h_last = h[batch.last_token_idx.long()] if is_prefill else h
     if spec.lm_head_bits == 8:
         h_i8, h_scale, _ = quantize_activations(h_last.float())

@@ -118,16 +118,15 @@ def chunked_prefill_batches(
         tc = min(tc, max(page_size, (local_blocks * page_size - ctx_local)
                          // page_size * page_size))
         sw = max(1, sink_blocks + local_blocks)
-        st = np.zeros((b_pad, sw), np.int32)
-        for i, stbl in enumerate(streaming_tables):
-            st[i, : min(len(stbl), sw)] = stbl[:sw]
+        st = csrc.pad_block_tables(
+            [*streaming_tables, *[[]] * (b_pad - len(streaming_tables))], sw)
     n_chunks = -(-max(len(ids) - s for (ids, _), s in zip(seqs, starts))
                  // tc)
     w = next_pow2(max(len(tbl) for _, tbl in seqs), minimum=4)
-    bt = np.zeros((b_pad, w), np.int32)
+    bt = csrc.pad_block_tables(
+        [tbl for _, tbl in seqs] + [[]] * (b_pad - len(seqs)), w)
     full_lens = np.zeros(b_pad, np.int32)
-    for i, (ids, tbl) in enumerate(seqs):
-        bt[i, : len(tbl)] = tbl
+    for i, (ids, _) in enumerate(seqs):
         full_lens[i] = len(ids)
 
     def dev(a):
@@ -321,19 +320,14 @@ class ModelRunner:
                 new_pages.extend(group.block_tables[seq_id])
                 new_pages.extend(
                     group.streaming_block_tables.get(seq_id, []))
-        w = max(len(t) for t in tables)
-        bt = np.zeros((len(tables), w), np.int32)
-        for i, tbl in enumerate(tables):
-            bt[i, : len(tbl)] = tbl
+        bt = csrc.pad_block_tables(tables, max(len(t) for t in tables))
         sparse = {}
         if self.spec.sparse_decode:
             sw = max(self.spec.sink_blocks + self.spec.local_blocks,
                      max(len(s) for s in stables))
-            st = np.zeros((len(tables), sw), np.int32)
-            for i, tbl in enumerate(stables):
-                st[i, : len(tbl)] = tbl
             sparse = dict(
-                streaming_block_tables=self._tensor(st),
+                streaming_block_tables=self._tensor(
+                    csrc.pad_block_tables(stables, sw)),
                 new_page_ids=self._tensor(np.asarray(new_pages, np.int32)),
             )
         batch = PrefillBatch(
@@ -356,8 +350,6 @@ class ModelRunner:
         entries = []  # (slot, token, position, table, streaming table)
         seq_ids: List[int] = []
         any_new_slot = False
-        new_pages: List[int] = []
-        page = self.spec.page_size
         for group in metadata:
             for seq_id, data in group.seq_data.items():
                 slot, is_new = self._slot_for(seq_id)
@@ -370,9 +362,6 @@ class ModelRunner:
                         f"sequence {seq_id}: block table of {len(table)} "
                         f"pages does not hold position {pos}"
                     )
-                if pos % page == 0:
-                    # a page is fresh if this token starts it
-                    new_pages.append(table[pos // page])
                 entries.append((
                     slot, data.get_last_token_id(), pos, table,
                     group.streaming_block_tables.get(seq_id, [0]),
@@ -382,8 +371,13 @@ class ModelRunner:
         w = table_width([e[3] for e in entries])
         sparse = self.spec.sparse_decode
         sw = self.spec.sink_blocks + self.spec.local_blocks if sparse else 1
-        token_ids, positions, active, bt, st = csrc.build_decode_batch(
-            entries, b=b_pad, w=w, sw=sw,
+        # one C pass (csrc/host_prep.cc); a page is fresh if this step's
+        # token starts it
+        token_ids, positions, active, bt, st, new_pages, n_new = (
+            csrc.build_decode_batch(
+                entries, page_size=self.spec.page_size, b_pad=b_pad, w=w,
+                sw=sw, max_new_pages=len(entries),
+            )
         )
         slots = [e[0] for e in entries]
         refresh = False
@@ -409,8 +403,7 @@ class ModelRunner:
                     "active": active, "bt": bt, "st": st, "w": w,
                     "refresh": refresh}
             return host, seq_ids, slots, b_pad
-        npg = np.full(max(1, len(new_pages)), -1, np.int32)
-        npg[: len(new_pages)] = new_pages
+        npg = new_pages[: max(1, n_new)]
         batch = DecodeBatch(
             token_ids=self._tensor(token_ids.astype(np.int64)),
             positions=self._tensor(positions),

@@ -186,9 +186,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import omniserve_tpu_torch.models.weight_loader\n"
         "import omniserve_tpu_torch.ckpt_converter.convert\n"
         "import omniserve_tpu_torch.ckpt_converter.make_fake_quant_dump\n"
+        "import omniserve_tpu_torch.conversation\n"
+        "import omniserve_tpu_torch.csrc\n"
+        "import omniserve_tpu_torch.eval.ppl\n"
+        "import omniserve_tpu_torch.eval.needle\n"
+        "import omniserve_tpu_torch.eval.sparse_agreement\n"
+        "import omniserve_tpu_torch.eval.longbench.pred\n"
+        "import omniserve_tpu_torch.eval.longbench.eval\n"
+        "import omniserve_tpu_torch.eval.longbench.metrics\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ("
-        "'jax', 'omniserve_tpu', 'safetensors', 'transformers')]\n"
+        "'jax', 'omniserve_tpu', 'safetensors', 'transformers', "
+        "'tokenizers', 'rouge_score')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ)

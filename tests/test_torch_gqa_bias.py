@@ -16,19 +16,12 @@ at small width (head_dim 128, 2 kv heads, 2 layers):
 - chunked prefill at n_rep 7, dense and over a wrapped ring (1e-5 of the
   JAX reference, 2e-2 of the Pallas kernel in interpret mode,
   ``tests/test_paged_prefill.py``'s tolerance);
-- 2-layer forwards (a Yi-shaped spec, 14 / 2 heads, and Qwen2-shaped ones
-  with the bias, 14 / 2 and MHA): whole-prompt prefill and a decode step
-  against the op-by-op JAX forward (``tests/test_torch_llama.
-  check_forward``): logits within 1e-4 of their scale and pools equal
-  while every GEMM reads the same activation codes in both packages, else
-  within ``FLIP_GATES`` (which says why); the biased qkv equal bit
-  for bit wherever the qkv GEMMs agree; the bias left out refused;
-- the bias's dummy draw and its carry through ``params_from_numpy``.
+- ``FLIP_GATES``: the gates of the 2-layer forwards at these groups and
+  with the bias (``tests/test_torch_gqa_bias_forward.py``), and why.
 
 Both engines at a Qwen2 shape are in ``tests/test_torch_gqa_bias_engine.py``.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,11 +34,9 @@ from omniserve_tpu.ops.pallas import decode_attention as j_sp
 from omniserve_tpu.ops.pallas.paged_prefill import (
     paged_prefill_attention as j_paged_prefill,
 )
-from omniserve_tpu_torch.models import llama as t_llama
-from omniserve_tpu_torch.models.convert import params_from_numpy, pool_from_numpy
+from omniserve_tpu_torch.models.convert import pool_from_numpy
 from omniserve_tpu_torch.ops import dispatch
 from omniserve_tpu_torch.ops.cuda import decode_attention as t_dec
-from tests.test_torch_llama import both_models, check_forward
 from tests.test_torch_lserve_ops import (
     FLAGS, LENS, LOCAL_B, RANK, SINK_B, build_dual_pools, decode_kwargs,
 )
@@ -271,14 +262,8 @@ def test_paged_prefill_ring_matches_jax_and_pallas():
     check_ring_prefill(61, 4, True, pallas_tol=PALLAS_PREFILL, n_rep=7)
 
 
-# -- the model --------------------------------------------------------------
-
-SHAPES = {   # (q heads, kv heads, QKV bias)
-    "yi": (14, 2, False),
-    "qwen2": (14, 2, True),
-    "qwen2-mha": (2, 2, True),
-}
-# Where an activation code flips. Both forwards run the same integer GEMMs
+# The gates of the model's forwards (``tests/test_torch_gqa_bias_forward.py``)
+# where an activation code flips. Both forwards run the same integer GEMMs
 # in the same f32 op order, but XLA and torch round an f32 product,
 # reduction or cos / sin a last ulp apart here and there (the GEMM
 # epilogue, the norms' sums, ``tests/test_torch_ops.py::test_rope``); at
@@ -292,50 +277,3 @@ SHAPES = {   # (q heads, kv heads, QKV bias)
 # held at 1e-4 and pools equal, and the bias's f32 order is checked
 # element by element (``tests/test_torch_llama.check_forward``).
 FLIP_GATES = dict(logits=4e-2, planes=2e-2, codes=1e-2)
-
-
-def spec_kwargs(shape):
-    hq, hkv, bias = SHAPES[shape]
-    return dict(
-        num_layers=2, hidden=256, intermediate=512, num_q_heads=hq,
-        num_kv_heads=hkv, head_dim=D, vocab=128, page_size=16,
-        rope_base=1e6, rms_eps=1e-6, weight_bits=4, act_bits=8, kv_bits=4,
-        kv_zeros=True, lm_head_bits=8, attn_bias=bias,
-    )
-
-
-@pytest.fixture(scope="module")
-def models():
-    """``both_models`` of each shape, drawn once for the module."""
-    return {shape: both_models(spec_kwargs(shape)) for shape in SHAPES}
-
-
-def test_random_params_draw_the_bias(models):
-    """The dummy draw of a biased spec: f32 [L, qkv_out], 0.02 * N(0, 1),
-    as the JAX package draws it (the numbers differ)."""
-    _, spec, jparams, _ = models["qwen2"]
-    bias = t_llama.make_random_packed_params(
-        spec, seed=3, device="cpu")["layers"]["qkv_bias"]
-    jbias = np.asarray(jparams["layers"]["qkv_bias"])
-    assert tuple(bias.shape) == jbias.shape == (2, spec.qkv_out)
-    assert bias.dtype == torch.float32 and jbias.dtype == np.float32
-    assert 0.015 < float(bias.std()) < 0.025
-    assert "qkv_bias" not in t_llama.make_random_packed_params(
-        models["yi"][1], seed=0, device="cpu")["layers"]
-
-
-def test_params_from_numpy_carries_the_bias(models):
-    jparams = jax.tree.map(np.asarray, models["qwen2"][2])
-    got = params_from_numpy(jparams, "cpu")["layers"]["qkv_bias"]
-    assert got.dtype == torch.float32
-    np.testing.assert_array_equal(N(got), jparams["layers"]["qkv_bias"])
-
-
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_forward_matches_jax(shape, models):
-    """Whole-prompt prefill and a decode step against the op-by-op JAX
-    forward (``tests/test_torch_llama.check_forward``): 1e-4 of the
-    logits' scale and pools equal while no activation code flips, else
-    FLIP_GATES; the biased qkv equal bit for bit wherever the qkv GEMMs
-    agree, the bias left out refused."""
-    check_forward(spec_kwargs(shape), FLIP_GATES, models=models[shape])

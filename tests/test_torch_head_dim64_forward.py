@@ -3,16 +3,12 @@
 A narrow Llama-3.2-1B (n_rep 4, head_dim 64, the llama3 rope remap of its
 config.json): whole-prompt prefill and a decode step at w4a8kv4
 (``tests/test_torch_llama.check_forward``: logits 1e-4 of their scale,
-pools equal), and LServe's both flags at w8a8kv8 per-tensor and
-w16a16kv16 (``tests/test_torch_lserve_llama.check_sparse_forward``), the
-same numpy inputs and packed weights through the JAX forward op by op and
-the port's.
+pools equal), the same numpy inputs and packed weights through the JAX
+forward op by op and the port's. LServe's both flags at this head_dim are
+in ``tests/test_torch_head_dim64_sparse.py``.
 """
 
-import pytest
-
 from tests.test_torch_llama import check_forward
-from tests.test_torch_lserve_llama import check_sparse_forward
 
 PAGE = 16
 
@@ -20,7 +16,7 @@ PAGE = 16
 # or an activation code now and then (one bf16 or int8 step): exact at
 # 1e-4 until such a move, the sparse forwards then take the gates
 # ``check_forward`` takes at Yi's and Qwen2's widths
-# (``tests/test_torch_gqa_bias.py:294``)
+# (``tests/test_torch_gqa_bias.py:279``)
 FLIP_GATES = dict(logits=4e-2, planes=2e-2, codes=1e-2)
 
 # Llama-3.2-1B's rope (config.json: theta 500,000, llama3 scaling factor
@@ -37,24 +33,3 @@ def test_forward_d64_w4a8kv4_matches_jax():
               weight_bits=4, act_bits=8, kv_bits=4, kv_zeros=True,
               lm_head_bits=8, **LLAMA32_ROPE)
     check_forward(kw)
-
-
-@pytest.mark.parametrize("overrides", [
-    dict(weight_bits=8, kv_bits=8, kv_zeros=False),
-    dict(weight_bits=16, act_bits=16, kv_bits=16),
-], ids=["w8a8kv8-pt", "w16a16kv16"])
-def test_sparse_forward_d64_matches_jax(overrides):
-    """LServe's both flags at head_dim 64, 8 q over 2 kv heads (one
-    retrieval, one streaming): a whole-prompt prefill (the band) and four
-    decode steps (the selector's per-head lists, the ring's band) at the
-    reference's LServe precision and at the default w16a16kv16
-    (``check_sparse_forward``: logits 1e-4 of their scale, pools and K
-    stats equal, until a last-ulp difference moves a value: then
-    ``FLIP_GATES``)."""
-    crossed, refreshed = check_sparse_forward(dict(
-        hidden=512, num_q_heads=8, head_dim=64, sparse_prefill=True,
-        ctx_sink=PAGE, ctx_local=2 * PAGE, **LLAMA32_ROPE, **overrides),
-        n_steps=4, flip_gates=FLIP_GATES)
-    assert crossed == 1 and refreshed == 1
-
-

@@ -232,6 +232,8 @@ def test_kv8_fused_decode_plain_matches_jax():
     tables[3] = 0
     jpool = kv8_pool(rng, page, h, d, lengths_old[:3], tables[:3])
     tpool = pool_from_numpy(jpool, "cpu")
+    # what the first call reads (it appends into ``tpool`` in place)
+    pool_in = [t.clone() for t in tpool if t is not None]
 
     def bf16_exact(shape):
         x = rng.standard_normal(shape).astype(np.float32)
@@ -278,10 +280,16 @@ def test_kv8_fused_decode_plain_matches_jax():
         rtol=5e-2, atol=5e-2)
     # the kernel wrapper's plain version is the same function
     tpool2 = pool_from_numpy(jpool, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        pool_in, [t for t in tpool2 if t is not None])), (
+        "the JAX calls changed the pool the second call reads")
     plain = t_dec.paged_decode_attention_fused_plain(
         T(q), tpool2, 1, T(tables), T(lens), T(k_new), T(v_new), sm_scale=sm,
         page_size=page, kv_bits=8)
-    np.testing.assert_array_equal(N(plain), N(got))
+    # ROADMAP.md queue 3 F6: the threads this call ran under, if it differs
+    np.testing.assert_array_equal(
+        N(plain), N(got), err_msg=f"torch threads {torch.get_num_threads()}; "
+        f"{torch.__config__.parallel_info()}")
 
 
 @pytest.mark.parametrize("history,chunk", [(0, 24), (40, 24)])
